@@ -1,0 +1,715 @@
+"""KV-cache autoregressive decoding (mirrors `skypilot_tpu/models/decode.py`).
+
+Plain functions over a `Transformer` (models/transformer.py) and cache
+dicts of tensors, with the reference's names and cache layouts:
+
+- dense cache {'k', 'v': [L, b, h_kv, max_len, d], 'index': int};
+- paged pool {'k', 'v': [L, n_pages, h_kv, ps, d] (or int8
+  {'q', 'scale'} leaves), 'block_tables': [B, P] int32,
+  'lengths': [B] int32}; page 0 is the reserved null page.
+
+Mutation: where the reference returns updated copies of donated
+buffers, the port writes in place (slice assignment / index_put_ into
+the cache and pool tensors, whose dicts are returned for symmetry).
+Per-slot engine state is small and is rebuilt functionally each tick,
+so the one-tick-behind host read of the previous state stays valid
+while the next tick runs.
+
+Attention: chunk 0 of a prefill runs the flash kernel
+(ops/attention.py), every paged tick the paged kernel
+(ops/paged_attention.py, native or int8 pools); prefill chunks at
+index > 0 and dense decode use the masked grouped einsum, as the
+reference does.
+
+Row buckets: on the GPU the residual stream of a forward is carried
+as one [rows, d] tensor whose rows are padded with zeros to a multiple
+of 64 (`_pad_rows` at the start and before the last-position head;
+each layer writes its attention output into a zeroed buffer of the
+same rows).  cuBLAS and PyTorch's reductions pick their kernel, and so
+their summation order, from the row count; on an H100 without the
+buckets, greedy output differed with speculation on and off.  Within
+one bucket a token's numbers do not depend on how many rows share the
+call, so while B * S <= 64 (8 slots at k = 4) a speculative verify
+tick computes the same logits for a token as a plain tick (B rows),
+and greedy output stays token-identical with speculation on or off.
+
+Sampling keys are the port's own counter-based stream: a key is an
+int64 pair (seed, counter); a split returns (seed, counter + 1) as the
+carry and (seed, counter) as the draw key, and Gumbel noise comes from
+an integer hash of (seed, counter, vocab index) in plain torch integer
+ops, so the CPU and the GPU draw identical bits.  (The reference's
+threefry bits are not reproduced; tests compare greedy output across
+frameworks and seeded output within the port.)
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from skypilot_tpu_torch.models import heads
+from skypilot_tpu_torch.models.configs import ModelConfig
+from skypilot_tpu_torch.models.transformer import _rope
+from skypilot_tpu_torch.ops import paged_attention as paged_attention_ops
+from skypilot_tpu_torch.ops.attention import NEG_INF
+from skypilot_tpu_torch.ops.attention import flash_attention
+
+class _PagedView(NamedTuple):
+    """What attention receives on the paged path: the raw pool leaf of
+    one layer + block tables + lengths; the kernel reads pages by table
+    index (the gathered view never materialises on the GPU)."""
+    leaf: Any
+    tables: torch.Tensor
+    lengths: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingConfig:
+    temperature: float = 0.0   # 0 = greedy
+    top_k: int = 0             # 0 = no top-k filtering
+    seed: int = 0
+
+
+# ------------------------------------------------------------ model math
+
+_ROW_BUCKET = 64
+
+
+def _pad_rows(x2d: torch.Tensor) -> torch.Tensor:
+    """A CUDA [m, k] tensor with zero rows appended up to a multiple of
+    _ROW_BUCKET (module docstring: row buckets); CPU tensors as they
+    are."""
+    pad = (-x2d.shape[0]) % _ROW_BUCKET if x2d.is_cuda else 0
+    if pad:
+        x2d = torch.cat([x2d, x2d.new_zeros((pad, x2d.shape[1]))])
+    return x2d
+
+
+def _norm(x, scale, eps, plus_one: bool = False):
+    if plus_one:  # Gemma: weights parameterize (1 + w)
+        scale = 1.0 + scale
+    x32 = x.to(torch.float32)
+    normed = x32 * torch.rsqrt(
+        torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    return (normed * scale).to(x.dtype)
+
+
+def _attn_proj(x, proj, shape):
+    """Residual rows [M, d_model] x Dense[d_model -> (heads, hd)] ->
+    [b, heads, s, hd] for the first b * s rows (`shape` = (b, s)), plus
+    the [heads, hd] bias when the config has one."""
+    b, s = shape
+    out = (x @ proj.matrix().to(x.dtype))[:b * s]
+    out = out.reshape(b, s, *proj.out_shape).permute(0, 2, 1, 3)
+    if proj.bias is not None:
+        out = out + proj.bias.to(x.dtype)[None, :, None, :]
+    return out
+
+
+def _mlp(x, mlp, cfg: ModelConfig):
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            'MoE MLPs (models/moe.py) come with a later slice of the port')
+    x2 = x.reshape(-1, x.shape[-1])
+    gate = x2 @ mlp.gate_proj.matrix().to(x.dtype)
+    up = x2 @ mlp.up_proj.matrix().to(x.dtype)
+    if cfg.mlp_act == 'silu':
+        act = F.silu(gate)
+    elif cfg.mlp_act == 'gelu':
+        # jax.nn.gelu defaults to the tanh approximation.
+        act = F.gelu(gate, approximate='tanh')
+    else:
+        raise ValueError(f'Unknown mlp_act {cfg.mlp_act!r}')
+    return (act * up @ mlp.down_proj.matrix().to(x.dtype)).reshape(x.shape)
+
+
+def _masked_attention(q, k_cache, v_cache, positions, cfg: ModelConfig):
+    """Grouped einsums against a dense cache [b, h_kv, len, d] with a
+    per-query-position causal mask (positions [s] or [b, s])."""
+    b, h, qs, d = q.shape
+    rep = cfg.n_heads // cfg.n_kv_heads
+    qg = q.reshape(b, cfg.n_kv_heads, rep, qs, d).to(torch.float32)
+    s = torch.einsum('bgrqd,bgkd->bgrqk', qg,
+                     k_cache.to(torch.float32)) * (cfg.head_dim ** -0.5)
+    kpos = torch.arange(k_cache.shape[2], device=q.device)
+    pos = positions if positions.dim() == 2 else positions[None]
+    mask = kpos[None, None, None, None, :] <= pos[:, None, None, :, None]
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum('bgrqk,bgkd->bgrqd', p, v_cache.to(torch.float32))
+    return out.reshape(b, h, qs, d)
+
+
+def _layer_forward(x, layer, cfg: ModelConfig, positions, k_cache, v_cache,
+                   *, use_flash: bool, shape):
+    """One decoder layer against an explicit KV cache slice that already
+    holds this call's k/v.  `x` is the residual stream as rows [M, d]:
+    the b * s tokens of `shape` = (b, s), then any bucket padding.
+    Returns the layer output in the same layout."""
+    h = _norm(x, layer.attn_norm.scale, cfg.norm_eps,
+              cfg.norm_scale_plus_one)
+    q = _rope(_attn_proj(h, layer.attn.q_proj, shape), positions, cfg)
+    if isinstance(k_cache, _PagedView):
+        # Paged kernel: query token j of slot b sits at lengths[b] + j.
+        out = paged_attention_ops.paged_attention(
+            q.contiguous(), k_cache.leaf, v_cache.leaf, k_cache.tables,
+            k_cache.lengths, sm_scale=cfg.head_dim ** -0.5)
+    elif use_flash:
+        # Prefill from index 0: the valid cache region is [0, s).
+        s = q.shape[2]
+        out = flash_attention(q.contiguous(),
+                              k_cache[:, :, :s].contiguous(),
+                              v_cache[:, :, :s].contiguous(), causal=True)
+    else:
+        out = _masked_attention(q, k_cache, v_cache, positions, cfg)
+    b, hq, s, hd = out.shape
+    rows = x.new_zeros((x.shape[0], hq * hd))
+    rows[:b * s] = out.permute(0, 2, 1, 3).reshape(b * s, hq * hd)
+    x = x + rows @ layer.attn.o_proj.matrix().to(x.dtype)
+    h = _norm(x, layer.mlp_norm.scale, cfg.norm_eps,
+              cfg.norm_scale_plus_one)
+    return x + _mlp(h, layer.mlp, cfg)
+
+
+def _embed(cfg: ModelConfig, model, tokens):
+    x = model.embed.embedding[tokens.long()].to(cfg.dtype)
+    if cfg.scale_embeddings:  # Gemma
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def _layer_leaf(leaf, i: int):
+    if isinstance(leaf, dict):
+        return {'q': leaf['q'][i], 'scale': leaf['scale'][i]}
+    return leaf[i]
+
+
+def _scan_layers_and_unembed(cfg: ModelConfig, model, x, positions,
+                             cache_k, cache_v, write_fn, *,
+                             use_flash: bool, view_fn=None,
+                             all_positions: bool = False):
+    """The shared per-layer loop: project + rope k/v, write them into the
+    cache with `write_fn(layer_leaf, new)` (in place), run the layer,
+    then final-norm + unembed the last position ([b, V]) or, with
+    `all_positions`, every position ([b, s, V]).  Returns (logits,
+    cache_k, cache_v), the caches being the (mutated) inputs."""
+    if view_fn is None:
+        view_fn = lambda c: c  # noqa: E731
+    b, s, d = x.shape
+    x = _pad_rows(x.reshape(b * s, d))
+    for i, layer in enumerate(model.layers):
+        k_leaf = _layer_leaf(cache_k, i)
+        v_leaf = _layer_leaf(cache_v, i)
+        h = _norm(x, layer.attn_norm.scale, cfg.norm_eps,
+                  cfg.norm_scale_plus_one)
+        k = _rope(_attn_proj(h, layer.attn.k_proj, (b, s)), positions, cfg)
+        v = _attn_proj(h, layer.attn.v_proj, (b, s))
+        write_fn(k_leaf, k)
+        write_fn(v_leaf, v)
+        x = _layer_forward(x, layer, cfg, positions, view_fn(k_leaf),
+                           view_fn(v_leaf), use_flash=use_flash,
+                           shape=(b, s))
+    if all_positions:
+        x = _norm(x, model.final_norm.scale, cfg.norm_eps,
+                  cfg.norm_scale_plus_one)
+        logits = heads.unembed(x, model, cfg)[:b * s]
+        return logits.reshape(b, s, -1), cache_k, cache_v
+    x = _pad_rows(x[:b * s].reshape(b, s, d)[:, -1])
+    x = _norm(x, model.final_norm.scale, cfg.norm_eps,
+              cfg.norm_scale_plus_one)
+    return heads.unembed(x, model, cfg)[:b], cache_k, cache_v
+
+
+# ----------------------------------------------------------- dense cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: Any = 'cuda') -> Dict[str, Any]:
+    """Zeroed KV cache (per-layer stacked)."""
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
+    return {'k': torch.zeros(shape, dtype=cfg.dtype, device=device),
+            'v': torch.zeros(shape, dtype=cfg.dtype, device=device),
+            'index': 0}
+
+
+def _forward_with_cache(cfg: ModelConfig, model, tokens, cache, *,
+                        use_flash: bool):
+    """Embed tokens at cache['index'], write every layer's k/v there,
+    return (last-token logits [b, V], cache advanced by s)."""
+    s = tokens.shape[1]
+    start = int(cache['index'])
+    if start + s > cache['k'].shape[3]:
+        raise ValueError(f'cache overflow: index {start} + {s} tokens > '
+                         f'max_len {cache["k"].shape[3]}')
+    positions = start + torch.arange(s, device=tokens.device)
+
+    def write(c, new):
+        c[:, :, start:start + s] = new.to(c.dtype)
+
+    with torch.no_grad():
+        logits, k, v = _scan_layers_and_unembed(
+            cfg, model, _embed(cfg, model, tokens), positions,
+            cache['k'], cache['v'], write, use_flash=use_flash)
+    return logits, {'k': k, 'v': v, 'index': start + s}
+
+
+def prefill(cfg: ModelConfig, model, tokens, *, max_len: int):
+    """Process the prompt [b, s] into a FRESH cache; returns
+    (last-token logits [b, V], cache).  Flash-kernel attention (exact
+    only from index 0, hence the fresh cache)."""
+    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
+    return _forward_with_cache(cfg, model, tokens, cache, use_flash=True)
+
+
+def decode_step(cfg: ModelConfig, model, token, cache):
+    """One token [b, 1] -> (logits [b, V], cache)."""
+    return _forward_with_cache(cfg, model, token, cache, use_flash=False)
+
+
+def prefill_chunk(cfg: ModelConfig, model, tokens, cache):
+    """Continue a prefill at cache['index'] with a chunk [b, c] (masked
+    per-position causal path, exact at any index)."""
+    return _forward_with_cache(cfg, model, tokens, cache, use_flash=False)
+
+
+def forward(cfg: ModelConfig, model, tokens):
+    """tokens [b, s] -> logits [b, s, V] f32 at every position (flash
+    attention over the prompt; the reference Transformer's __call__)."""
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, s, device=tokens.device)
+    positions = torch.arange(s, device=tokens.device)
+
+    def write(c, new):
+        c[:, :, :s] = new.to(c.dtype)
+
+    with torch.no_grad():
+        return _scan_layers_and_unembed(
+            cfg, model, _embed(cfg, model, tokens), positions, cache['k'],
+            cache['v'], write, use_flash=True, all_positions=True)[0]
+
+
+# -------------------------------------------------------------- sampling
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """32-bit integer finalizer on int64 tensors holding values in
+    [0, 2^32).  Multipliers stay below 2^31 so no product leaves int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x5BD1E995) & _M32
+    return x ^ (x >> 16)
+
+
+def _key_hash(keys: torch.Tensor) -> torch.Tensor:
+    """[N, 2] int64 (seed, counter) -> [N, 1] 32-bit row hash."""
+    seed, ctr = keys[:, 0:1], keys[:, 1:2]
+    h = _mix32(seed & _M32)
+    h = _mix32(h ^ ((seed >> 32) & _M32))
+    h = _mix32(h ^ (ctr & _M32))
+    return _mix32(h ^ ((ctr >> 32) & _M32))
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new seed derived from (seed, data) (per-row streams)."""
+    keys = torch.tensor([[seed, data]], dtype=torch.int64)
+    return int(_key_hash(keys)[0, 0])
+
+
+def split_keys(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """keys [..., 2] -> (carry, draw): the draw key is the current
+    (seed, counter); the carry advances the counter by one."""
+    bump = torch.zeros_like(keys)
+    bump[..., 1] = 1
+    return keys + bump, keys
+
+
+def _gumbel(keys: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Gumbel noise [N, vocab] f32 from per-row keys [N, 2]."""
+    idx = torch.arange(vocab, dtype=torch.int64, device=keys.device)
+    h = _mix32(_key_hash(keys) ^ _mix32(idx)[None, :])
+    u = ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def _sample(logits, keys, temperature: float, *, greedy: bool,
+            top_k: int):
+    """logits [b, V], keys [b, 2] -> token ids [b]."""
+    if greedy:
+        return torch.argmax(logits, dim=-1)
+    logits = logits / temperature
+    if top_k > 0:
+        top = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < top, NEG_INF)
+    return torch.argmax(logits + _gumbel(keys, logits.shape[-1]), dim=-1)
+
+
+def generate(cfg: ModelConfig, model, prompt, *, max_new_tokens: int,
+             max_len: Optional[int] = None,
+             sampling: Optional[SamplingConfig] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy/temperature generation on a dense cache.  prompt [b, s] ->
+    (tokens [b, s + max_new_tokens], new tokens [b, max_new_tokens]).
+    Row i samples from its own stream fold_in(seed, i)."""
+    sampling = sampling or SamplingConfig()
+    b, prompt_len = prompt.shape
+    max_len = max_len or (prompt_len + max_new_tokens)
+    if max_len < prompt_len + max_new_tokens:
+        raise ValueError(f'max_len {max_len} < prompt {prompt_len} + '
+                         f'new {max_new_tokens}')
+    greedy = sampling.temperature <= 0.0
+    temperature = max(sampling.temperature, 1e-6)
+    seeds = torch.tensor([fold_in(sampling.seed, i) for i in range(b)],
+                         dtype=torch.int64, device=prompt.device)
+
+    def keys(t: int) -> torch.Tensor:
+        return torch.stack([seeds, torch.full_like(seeds, t)], dim=1)
+
+    logits, cache = prefill(cfg, model, prompt, max_len=max_len)
+    token = _sample(logits, keys(0), temperature, greedy=greedy,
+                    top_k=sampling.top_k)
+    out = [token]
+    for t in range(1, max_new_tokens):
+        logits, cache = decode_step(cfg, model, token[:, None], cache)
+        token = _sample(logits, keys(t), temperature, greedy=greedy,
+                        top_k=sampling.top_k)
+        out.append(token)
+    new = torch.stack(out, dim=1).to(prompt.dtype)
+    return torch.cat([prompt, new], dim=1), new
+
+
+def batched_sample(logits, keys, temperature, top_k, *,
+                   max_top_k: int = 64):
+    """Per-slot token selection on the device: logits [B, V], keys
+    [B, 2], temperature [B] (<= 0: greedy), top_k [B] (0: no filter).
+    The top `max_top_k` values are computed once and each slot reads
+    its own k-th threshold from that table."""
+    greedy_tok = torch.argmax(logits, dim=-1)
+    temp = torch.clamp(temperature, min=1e-6)[:, None]
+    scaled = logits / temp
+    kk = min(max(int(max_top_k), 1), logits.shape[-1])
+    topvals = torch.topk(scaled, kk, dim=-1).values          # [B, kk]
+    idx = torch.clamp(top_k.long() - 1, 0, kk - 1)[:, None]
+    kth = torch.gather(topvals, 1, idx)                      # [B, 1]
+    scaled = scaled.masked_fill((top_k[:, None] > 0) & (scaled < kth),
+                                NEG_INF)
+    sampled = torch.argmax(scaled + _gumbel(keys, logits.shape[-1]),
+                           dim=-1)
+    return torch.where(temperature <= 0.0, greedy_tok, sampled)
+
+
+def init_engine_state(slots: int, max_stop_ids: int = 16,
+                      device: Any = 'cuda') -> Dict[str, Any]:
+    """Device-resident per-slot decode state:
+
+    tokens      [B]    next input token (tick t+1 input IS tick t output)
+    active      [B]    slot is decoding (flips off ON DEVICE at stop)
+    remaining   [B]    max_new_tokens countdown
+    stop_ids    [B,S]  per-slot stop set, -1 padded
+    keys        [B,2]  per-slot (seed, counter), split once per token
+    temperature [B]    <= 0 -> greedy
+    top_k       [B]    0 -> no filtering
+    """
+    kw = dict(device=device)
+    return {
+        'tokens': torch.zeros((slots,), dtype=torch.int32, **kw),
+        'active': torch.zeros((slots,), dtype=torch.bool, **kw),
+        'remaining': torch.zeros((slots,), dtype=torch.int32, **kw),
+        'stop_ids': torch.full((slots, max_stop_ids), -1,
+                               dtype=torch.int32, **kw),
+        'keys': torch.zeros((slots, 2), dtype=torch.int64, **kw),
+        'temperature': torch.zeros((slots,), dtype=torch.float32, **kw),
+        'top_k': torch.zeros((slots,), dtype=torch.int32, **kw),
+    }
+
+
+def _select_and_bookkeep(state, logits, new_cache, *, max_top_k: int):
+    """Shared tick tail: on-device token selection + stop/countdown
+    bookkeeping.  Returns (new_state, new_cache, finished [B])."""
+    active = state['active']
+    carry, draw = split_keys(state['keys'])
+    nxt = batched_sample(logits, draw, state['temperature'],
+                         state['top_k'], max_top_k=max_top_k)
+    nxt = torch.where(active, nxt.to(torch.int32), state['tokens'])
+    stopped = torch.any(nxt[:, None] == state['stop_ids'], dim=1)
+    remaining = state['remaining'] - active.to(torch.int32)
+    finished = active & (stopped | (remaining <= 0))
+    new_state = dict(state, tokens=nxt, active=active & ~finished,
+                     remaining=remaining, keys=carry)
+    return new_state, new_cache, finished
+
+
+def admit_slot_state(state, slot: int, token: int, max_new_tokens: int,
+                     stop_row, key, temperature: float, top_k: int
+                     ) -> Dict[str, Any]:
+    """One slot's admission written into a NEW state dict (the previous
+    tick's state may still await its one-tick-behind host read)."""
+    new = {name: t.clone() for name, t in state.items()}
+    new['tokens'][slot] = int(token)
+    new['active'][slot] = True
+    new['remaining'][slot] = int(max_new_tokens)
+    new['stop_ids'][slot] = torch.as_tensor(stop_row, dtype=torch.int32)
+    new['keys'][slot] = torch.as_tensor(key, dtype=torch.int64)
+    new['temperature'][slot] = float(temperature)
+    new['top_k'][slot] = int(top_k)
+    return new
+
+
+# ------------------------------------------------------------ paged cache
+
+
+def _page_size_of(paged: Dict[str, Any]) -> int:
+    leaf = paged['k']['q'] if isinstance(paged['k'], dict) else paged['k']
+    return leaf.shape[3]
+
+
+def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
+                     slots: int, max_pages_per_slot: int,
+                     quantize_kv: bool = False,
+                     device: Any = 'cuda') -> Dict[str, Any]:
+    """Zeroed page pool: k/v [L, n_pages, h_kv, ps, d] (int8 {'q',
+    'scale'} leaves when quantize_kv); block_tables [B, P] (0 = null
+    page); lengths [B]."""
+    kv_shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, page_size,
+                cfg.head_dim)
+
+    def kv_leaf():
+        if quantize_kv:
+            return {'q': torch.zeros(kv_shape, dtype=torch.int8,
+                                     device=device),
+                    'scale': torch.ones(kv_shape[:-1], dtype=torch.float32,
+                                        device=device)}
+        return torch.zeros(kv_shape, dtype=cfg.dtype, device=device)
+
+    return {
+        'k': kv_leaf(),
+        'v': kv_leaf(),
+        'block_tables': torch.zeros((slots, max_pages_per_slot),
+                                    dtype=torch.int32, device=device),
+        'lengths': torch.zeros((slots,), dtype=torch.int32, device=device),
+    }
+
+
+def _quant_kv(x):
+    """Symmetric absmax int8 over the last (head_dim) axis -> (int8
+    values, f32 scales without the last axis); round half to even, like
+    the reference, so the pools match byte for byte."""
+    x32 = x.to(torch.float32)
+    absmax = torch.amax(torch.abs(x32), dim=-1)
+    scale = torch.where(absmax > 0, absmax / 127.0,
+                        torch.ones_like(absmax))
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127,
+                    127).to(torch.int8)
+    return q, scale.to(torch.float32)
+
+
+def _dequant_kv(leaf_slice, dtype):
+    if isinstance(leaf_slice, dict):
+        return (leaf_slice['q'].to(dtype) *
+                leaf_slice['scale'].to(dtype)[..., None])
+    return leaf_slice.to(dtype)
+
+
+def _paged_forward(cfg: ModelConfig, model, tokens, paged, *,
+                   all_positions: bool = False):
+    """Write-then-attend body of a paged tick: tokens [B, S] land at
+    positions lengths..lengths+S-1 (scattered in place into the pool),
+    then every query attends through the paged kernel.  Lengths are NOT
+    advanced (callers own that).  Positions past the slot's table go to
+    the null page 0, never clipped onto its last valid page."""
+    lengths = paged['lengths']
+    tables = paged['block_tables']
+    ps = _page_size_of(paged)
+    n_rows = tables.shape[1]
+    b, s_q = tokens.shape
+    positions = (lengths.long()[:, None] +
+                 torch.arange(s_q, device=tokens.device)[None, :])
+    rows_raw = positions // ps
+    in_range = rows_raw < n_rows
+    rows = torch.clamp(rows_raw, 0, n_rows - 1)
+    pages = torch.where(in_range, torch.gather(tables, 1, rows).long(),
+                        torch.zeros_like(rows))
+    flat_pages = pages.reshape(-1)
+    flat_off = (positions % ps).reshape(-1)
+
+    def write(c, new):
+        # new [B, h_kv, S, d] -> one (page, offset) write per (slot, token).
+        tok = new.permute(0, 2, 1, 3).reshape(b * s_q, new.shape[1],
+                                              new.shape[3])
+        if isinstance(c, dict):
+            q, scale = _quant_kv(tok)
+            c['q'][flat_pages, :, flat_off] = q
+            c['scale'][flat_pages, :, flat_off] = scale
+        else:
+            c[flat_pages, :, flat_off] = tok.to(c.dtype)
+
+    def view(c):
+        return _PagedView(c, tables, lengths)
+
+    with torch.no_grad():
+        return _scan_layers_and_unembed(
+            cfg, model, _embed(cfg, model, tokens), positions, paged['k'],
+            paged['v'], write, use_flash=False, view_fn=view,
+            all_positions=all_positions)
+
+
+def paged_batched_step(cfg: ModelConfig, model, tokens, paged,
+                       active=None):
+    """One decode step across all slots against the page pool; returns
+    (logits [B, V], paged with lengths advanced for active slots)."""
+    logits, new_k, new_v = _paged_forward(cfg, model, tokens, paged)
+    lengths = paged['lengths']
+    advance = (torch.ones_like(lengths) if active is None
+               else active.to(lengths.dtype))
+    return logits, dict(paged, k=new_k, v=new_v, lengths=lengths + advance)
+
+
+def paged_engine_step(cfg: ModelConfig, model, state, paged, *,
+                      max_top_k: int = 64):
+    """A serving tick against the page pool: decode every active slot,
+    select its next token, update the stop bookkeeping.  Returns
+    (new_state, new_paged, finished [B])."""
+    return _select_and_bookkeep(state, *paged_batched_step(
+        cfg, model, state['tokens'][:, None], paged, state['active']),
+        max_top_k=max_top_k)
+
+
+def paged_spec_engine_step(cfg: ModelConfig, model, state, paged, drafts,
+                           *, max_top_k: int = 64):
+    """Self-speculative verify tick: one forward over [t0, d1..dk] per
+    slot (the paged kernel with S = k + 1), then the longest exactly
+    matching draft prefix plus the bonus token is emitted.  Token
+    selection replays the slot's key stream ONE SPLIT PER EMITTED
+    TOKEN, so output equals plain ticking for greedy and seeded
+    sampling alike.  Returns (new_state, new_paged, finished [B],
+    toks [B, k+1], counts [B])."""
+    active = state['active']
+    b = drafts.shape[0]
+    s_q = drafts.shape[1] + 1
+    drafts = drafts.to(torch.int32)
+    tokens = torch.cat([state['tokens'][:, None], drafts], dim=1)
+    logits, new_k, new_v = _paged_forward(cfg, model, tokens, paged,
+                                          all_positions=True)
+    # Position j draws with the key a plain tick would use at that
+    # step (counter + j); carries[j] is the state after j + 1 splits.
+    step = torch.zeros((s_q, 2), dtype=torch.int64, device=tokens.device)
+    step[:, 1] = torch.arange(s_q, device=tokens.device)
+    draw_keys = state['keys'][:, None, :] + step[None]          # [B, S, 2]
+    carries, _ = split_keys(draw_keys)
+    vocab = logits.shape[-1]
+    toks = batched_sample(
+        logits.reshape(b * s_q, vocab), draw_keys.reshape(b * s_q, 2),
+        state['temperature'].repeat_interleave(s_q),
+        state['top_k'].repeat_interleave(s_q),
+        max_top_k=max_top_k).reshape(b, s_q).to(torch.int32)
+
+    match = drafts == toks[:, :-1]
+    accepted = torch.cumprod(match.to(torch.int32), dim=1)
+    num_accepted = accepted.sum(dim=1)                          # [B]
+    is_stop = torch.any(toks[:, :, None] == state['stop_ids'][:, None, :],
+                        dim=2)
+    stop_i = is_stop.to(torch.int32)
+    stops_before = torch.cumsum(stop_i, dim=1) - stop_i
+    idx = torch.arange(s_q, device=tokens.device)[None, :]
+    emit = ((idx <= num_accepted[:, None]) & (stops_before == 0) &
+            (idx < state['remaining'][:, None]) & active[:, None])
+    counts = emit.sum(dim=1).to(torch.int32)                    # [B]
+
+    last = torch.clamp(counts.long() - 1, 0, s_q - 1)[:, None]
+    nxt = torch.gather(toks, 1, last)[:, 0]
+    nxt = torch.where(active, nxt, state['tokens'])
+    picked = torch.gather(carries, 1, last[:, :, None].expand(b, 1, 2))
+    new_keys = torch.where(active[:, None], picked[:, 0], carries[:, 0])
+    remaining = state['remaining'] - counts
+    emitted_stop = torch.any(is_stop & emit, dim=1)
+    finished = active & (emitted_stop | (remaining <= 0))
+    new_state = dict(state, tokens=nxt, active=active & ~finished,
+                     remaining=remaining, keys=new_keys)
+    new_paged = dict(paged, k=new_k, v=new_v,
+                     lengths=paged['lengths'] + counts)
+    return new_state, new_paged, finished, toks, counts
+
+
+def paged_admit_slot(paged, slot: int, pages_row, length: int):
+    """Point `slot` at its pages and depth (in place)."""
+    paged['block_tables'][slot] = torch.as_tensor(pages_row,
+                                                  dtype=torch.int32)
+    paged['lengths'][slot] = int(length)
+    return paged
+
+
+def paged_release_slot(paged, slot: int):
+    """Park a freed slot's table on the null page BEFORE its pages are
+    recycled (in place): a tick already queued may still write at the
+    slot's frozen length, and that write must land in garbage."""
+    paged['block_tables'][slot] = 0
+    paged['lengths'][slot] = 0
+    return paged
+
+
+def _private_as_pages(private_leaf, ps: int):
+    """[L, 1, h_kv, T, d] private prefill cache -> [L, T/ps, h_kv, ps, d]
+    page-major layout (T a multiple of ps)."""
+    l, _, h, t, d = private_leaf.shape
+    return private_leaf.reshape(l, h, t // ps, ps, d).permute(0, 2, 1, 3,
+                                                              4)
+
+
+def insert_prefill_pages(paged, private_cache, pages_row, *,
+                         first_page: int):
+    """Scatter a completed private prefill cache's pages [first_page,
+    first_page + len(pages_row)) into pool pages `pages_row` (in
+    place; quantizing for int8 pools).  The first_page prefix-cache
+    hits already hold identical content and are not rewritten."""
+    ps = _page_size_of(paged)
+    n = len(pages_row)
+    if n == 0:
+        return paged
+    ids = torch.as_tensor(pages_row, dtype=torch.long,
+                          device=private_cache['k'].device)
+
+    def leaf(pool_leaf, private_leaf):
+        piece = _private_as_pages(private_leaf, ps)[
+            :, first_page:first_page + n]      # [L, n, h_kv, ps, d]
+        if isinstance(pool_leaf, dict):
+            q, scale = _quant_kv(piece)
+            pool_leaf['q'][:, ids] = q
+            pool_leaf['scale'][:, ids] = scale
+        else:
+            pool_leaf[:, ids] = piece.to(pool_leaf.dtype)
+
+    leaf(paged['k'], private_cache['k'])
+    leaf(paged['v'], private_cache['v'])
+    return paged
+
+
+def paged_seed_private(cfg: ModelConfig, paged, pages_row, *,
+                       priv_len: int):
+    """A private prefill cache whose leading positions are the
+    (dequantized) contents of cached pages `pages_row`: the prefix-hit
+    admission path continues the prefill from index
+    len(pages_row) * page_size.  The pool is only read."""
+    ps = _page_size_of(paged)
+    r = len(pages_row)
+    pool_k = paged['k']['q'] if isinstance(paged['k'], dict) else paged['k']
+    ids = torch.as_tensor(pages_row, dtype=torch.long, device=pool_k.device)
+
+    def leaf(pool_leaf):
+        if isinstance(pool_leaf, dict):
+            arr = _dequant_kv({'q': pool_leaf['q'][:, ids],
+                               'scale': pool_leaf['scale'][:, ids]},
+                              cfg.dtype)
+        else:
+            arr = pool_leaf[:, ids]            # [L, r, h_kv, ps, d]
+        l, _, h, _, d = arr.shape
+        dense = arr.permute(0, 2, 1, 3, 4).reshape(l, 1, h, r * ps, d)
+        out = torch.zeros((l, 1, h, priv_len, d), dtype=cfg.dtype,
+                          device=arr.device)
+        out[:, :, :, :r * ps] = dense.to(cfg.dtype)
+        return out
+
+    return {'k': leaf(paged['k']), 'v': leaf(paged['v']), 'index': r * ps}

@@ -1,0 +1,242 @@
+"""Llama-style decoder-only transformer as torch `nn.Module`s.
+
+Mirrors `skypilot_tpu/models/transformer.py`: the same rotary
+embedding (`_rope_freqs` / `_rope`, interleaved lanes), and modules
+whose parameter names and shapes are the flax tree's, so a reader (and
+`models/convert.py`) maps one onto the other by name:
+
+    embed.embedding                     [V, d]
+    layers.{i}.attn_norm.scale          [d]
+    layers.{i}.attn.{q,k,v}_proj.kernel [d, h, hd]   (+ .bias [h, hd])
+    layers.{i}.attn.o_proj.kernel       [h, hd, d]
+    layers.{i}.mlp_norm.scale           [d]
+    layers.{i}.mlp.{gate,up}_proj.kernel [d, f]
+    layers.{i}.mlp.down_proj.kernel     [f, d]
+    final_norm.scale                    [d]
+    lm_head.kernel                      [d, V]       (absent when tied)
+
+The model is inference-only: parameters do not require grad.  Matmul
+weights are stored in `cfg.dtype` (the cast the reference makes on
+every call with `maybe_dequant(kernel, x.dtype)`, done once); norm
+scales stay f32, and so does the lm_head (and a tied embedding) when
+`cfg.logits_in_f32`.  The math lives in `models/decode.py` as plain
+functions over these modules.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence, Union
+
+import torch
+from torch import nn
+
+from skypilot_tpu_torch.device import resolve_device
+from skypilot_tpu_torch.models.configs import ModelConfig
+
+# flax's lecun_normal: variance_scaling(1, 'fan_in', truncated_normal),
+# whose stddev is divided by the std of a unit normal truncated at +-2.
+_TRUNC_STD = 0.87962566103423978
+
+
+def _rope_freqs(d: int, cfg: ModelConfig, device=None) -> torch.Tensor:
+    """Per-pair rotary frequencies [d/2] (f32), with the config's
+    long-context scaling applied."""
+    freqs = 1.0 / (cfg.rope_theta ** (
+        torch.arange(0, d, 2, dtype=torch.float32, device=device) / d))
+    st = cfg.rope_scaling_type
+    if st is None:
+        return freqs
+    factor = cfg.rope_scaling_factor
+    if st == 'linear':
+        return freqs / factor
+    if st == 'llama3':
+        orig = float(cfg.rope_original_max_len)
+        low_wl = orig / cfg.rope_low_freq_factor
+        high_wl = orig / cfg.rope_high_freq_factor
+        wavelen = 2.0 * math.pi / freqs
+        smooth = ((orig / wavelen - cfg.rope_low_freq_factor) /
+                  (cfg.rope_high_freq_factor - cfg.rope_low_freq_factor))
+        mid = (1.0 - smooth) * freqs / factor + smooth * freqs
+        return torch.where(wavelen > low_wl, freqs / factor,
+                           torch.where(wavelen < high_wl, freqs, mid))
+    raise ValueError(f'Unknown rope_scaling_type {st!r}; '
+                     "have None, 'linear', 'llama3'.")
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor,
+          cfg: ModelConfig) -> torch.Tensor:
+    """Rotary embeddings on [b, h, s, d]; positions [s] (shared) or
+    [b, s] (per sequence).  Pairs INTERLEAVED lanes (x[..., ::2],
+    x[..., 1::2]) like the reference, not HF's rotate-half."""
+    d = x.shape[-1]
+    freqs = _rope_freqs(d, cfg, device=x.device)
+    angles = positions[..., :, None].to(torch.float32) * freqs
+    if angles.dim() == 2:
+        cos = torch.cos(angles)[None, None]   # [1,1,s,d/2]
+        sin = torch.sin(angles)[None, None]
+    else:
+        cos = torch.cos(angles)[:, None]      # [b,1,s,d/2]
+        sin = torch.sin(angles)[:, None]
+    x32 = x.to(torch.float32)
+    x1, x2 = x32[..., ::2], x32[..., 1::2]
+    y1 = x1 * cos - x2 * sin
+    y2 = x1 * sin + x2 * cos
+    return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(tuple(shape), dtype=dtype,
+                                    device=device), requires_grad=False)
+
+
+class RMSNorm(nn.Module):
+
+    def __init__(self, dim: int, *, device) -> None:
+        super().__init__()
+        self.scale = _param((dim,), torch.float32, device)
+
+
+class Dense(nn.Module):
+    """flax DenseGeneral's parameters: kernel [*in_shape, *out_shape],
+    optional bias [*out_shape]."""
+
+    def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
+                 *, dtype, device, bias: bool = False) -> None:
+        super().__init__()
+        self.in_shape = tuple(in_shape)
+        self.out_shape = tuple(out_shape)
+        self.fan_in = math.prod(self.in_shape)
+        self.kernel = _param(self.in_shape + self.out_shape, dtype, device)
+        self.bias = (_param(self.out_shape, dtype, device) if bias
+                     else None)
+
+    def matrix(self) -> torch.Tensor:
+        """The kernel as a [fan_in, fan_out] matrix (a view)."""
+        return self.kernel.reshape(self.fan_in, -1)
+
+
+class Attention(nn.Module):
+
+    def __init__(self, cfg: ModelConfig, *, device) -> None:
+        super().__init__()
+        d, hd = cfg.d_model, cfg.head_dim
+        kw = dict(dtype=cfg.dtype, device=device, bias=cfg.qkv_bias)
+        self.q_proj = Dense((d,), (cfg.n_heads, hd), **kw)
+        self.k_proj = Dense((d,), (cfg.n_kv_heads, hd), **kw)
+        self.v_proj = Dense((d,), (cfg.n_kv_heads, hd), **kw)
+        self.o_proj = Dense((cfg.n_heads, hd), (d,), dtype=cfg.dtype,
+                            device=device)
+
+
+class MLP(nn.Module):
+
+    def __init__(self, cfg: ModelConfig, *, device) -> None:
+        super().__init__()
+        kw = dict(dtype=cfg.dtype, device=device)
+        self.gate_proj = Dense((cfg.d_model,), (cfg.d_ff,), **kw)
+        self.up_proj = Dense((cfg.d_model,), (cfg.d_ff,), **kw)
+        self.down_proj = Dense((cfg.d_ff,), (cfg.d_model,), **kw)
+
+
+class DecoderLayer(nn.Module):
+
+    def __init__(self, cfg: ModelConfig, *, device) -> None:
+        super().__init__()
+        if cfg.n_experts > 0:
+            raise NotImplementedError(
+                'MoE decoders (models/moe.py) come with a later slice of '
+                'the port')
+        self.attn_norm = RMSNorm(cfg.d_model, device=device)
+        self.attn = Attention(cfg, device=device)
+        self.mlp_norm = RMSNorm(cfg.d_model, device=device)
+        self.mlp = MLP(cfg, device=device)
+
+
+class Embed(nn.Module):
+
+    def __init__(self, vocab: int, dim: int, *, dtype, device) -> None:
+        super().__init__()
+        self.embedding = _param((vocab, dim), dtype, device)
+
+
+class LMHead(nn.Module):
+
+    def __init__(self, cfg: ModelConfig, *, dtype, device) -> None:
+        super().__init__()
+        self.kernel = _param((cfg.d_model, cfg.vocab_size), dtype, device)
+        self.fan_in = cfg.d_model
+
+
+class Transformer(nn.Module):
+    """Parameters of the whole decoder.  Construction allocates them
+    UNINITIALISED on `device`; `init_params` fills them from a seed and
+    `convert.from_jax_params` from a reference tree."""
+
+    def __init__(self, cfg: ModelConfig, *, device) -> None:
+        super().__init__()
+        self.cfg = cfg
+        head_f32 = cfg.logits_in_f32
+        embed_dtype = (torch.float32 if cfg.tie_embeddings and head_f32
+                       else cfg.dtype)
+        self.embed = Embed(cfg.vocab_size, cfg.d_model, dtype=embed_dtype,
+                           device=device)
+        self.layers = nn.ModuleList(
+            DecoderLayer(cfg, device=device) for _ in range(cfg.n_layers))
+        self.final_norm = RMSNorm(cfg.d_model, device=device)
+        self.lm_head = (None if cfg.tie_embeddings else LMHead(
+            cfg, dtype=torch.float32 if head_f32 else cfg.dtype,
+            device=device))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.embedding.device
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [b, s] -> logits [b, s, V] f32 (flash-attention
+        prefill over every position)."""
+        from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
+        return decode.forward(self.cfg, self, tokens)
+
+
+def _fill_(name: str, module: nn.Module, p: torch.Tensor, cfg: ModelConfig,
+           gen: torch.Generator) -> None:
+    """Seeded flax-style init of one parameter, drawn in f32 on the
+    parameter's device and cast into it (one tensor at a time, so the
+    f32 tree never exists as a whole)."""
+    leaf = name.rsplit('.', 1)[-1]
+    if leaf == 'scale':
+        # Gemma's (1 + w) norms start at w = 0; both are identity scale.
+        p.fill_(0.0 if cfg.norm_scale_plus_one else 1.0)
+        return
+    if leaf == 'bias':
+        p.zero_()
+        return
+    tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+    if leaf == 'embedding':
+        tmp.normal_(0.0, 0.02, generator=gen)
+    else:
+        std = math.sqrt(1.0 / module.fan_in) / _TRUNC_STD
+        torch.nn.init.trunc_normal_(tmp, 0.0, std, -2.0 * std, 2.0 * std,
+                                    generator=gen)
+    p.copy_(tmp)
+    del tmp
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0,
+                device: Union[str, torch.device] = 'cuda'
+                ) -> Transformer:
+    """Seeded random weights on `device`: normal(0.02) for the
+    embedding, lecun-normal (truncated, variance 1/fan_in) for every
+    kernel, identity norm scales, zero biases.  The port's own
+    generator: values differ from the reference's jax.random init (the
+    tests carry reference weights over with convert.from_jax_params)."""
+    dev = resolve_device(device)
+    model = Transformer(cfg, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    modules = dict(model.named_modules())
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            owner = modules[name.rsplit('.', 1)[0]]
+            _fill_(name, owner, p, cfg, gen)
+    return model.eval()

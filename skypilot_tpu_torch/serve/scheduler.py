@@ -1,0 +1,290 @@
+"""Request lifecycle + bounded admission queue for the batching engine
+(mirrors `skypilot_tpu/serve/scheduler.py`, single QoS class, counters
+kept on the objects instead of a metrics registry).
+
+- `Request`: the handle submit() returns (token stream, result(),
+  stream(), cancel(); the first finish wins).
+- `AdmissionQueue`: bounded FIFO with TTL.  `max_queue` rejects new
+  submits (`QueueFull` -> HTTP 429 + Retry-After) and `queue_ttl`
+  expires stale waiters (`QueueExpired` -> 503).
+- `Slot` / `PendingPrefill`: per-slot host bookkeeping.
+"""
+from __future__ import annotations
+
+import collections
+import queue
+import threading
+import time
+import uuid
+from typing import Any, Callable, Deque, Dict, List, Optional
+
+# Queue-wait histogram bucket upper bounds (seconds); the last bucket
+# is open-ended.
+WAIT_BUCKETS = (0.01, 0.05, 0.1, 0.5, 1.0, 5.0)
+
+
+class QueueFull(RuntimeError):
+    """submit() rejected: the queue is at max_queue, or the page pool
+    cannot cover the request while a backlog waits (HTTP 429)."""
+
+    def __init__(self, message: str, retry_after: float = 1.0) -> None:
+        super().__init__(message)
+        self.retry_after = max(1.0, retry_after)
+
+
+class QueueExpired(RuntimeError):
+    """The request sat queued past queue_ttl (HTTP 503)."""
+
+    def __init__(self, message: str, retry_after: float = 1.0) -> None:
+        super().__init__(message)
+        self.retry_after = max(1.0, retry_after)
+
+
+class DeadlineExceeded(RuntimeError):
+    """The request's deadline passed before it finished (HTTP 504)."""
+
+
+class Request:
+
+    def __init__(self, prompt_ids: List[int], max_new_tokens: int,
+                 stop_token, temperature: float = 0.0, top_k: int = 0,
+                 seed: int = 0, request_id: Optional[str] = None,
+                 deadline_ms: Optional[float] = None) -> None:
+        self.prompt_ids = list(prompt_ids)
+        self.max_new_tokens = max_new_tokens
+        self.request_id = request_id or uuid.uuid4().hex[:16]
+        if stop_token is None:
+            self.stop_ids = frozenset()
+        elif isinstance(stop_token, int):
+            self.stop_ids = frozenset({stop_token})
+        else:
+            self.stop_ids = frozenset(int(t) for t in stop_token)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.seed = int(seed)
+        self.submit_time = time.monotonic()
+        self.deadline: Optional[float] = (
+            self.submit_time + float(deadline_ms) / 1e3
+            if deadline_ms is not None else None)
+        self.admit_time: Optional[float] = None
+        self.first_token_time: Optional[float] = None
+        self.finish_time: Optional[float] = None
+        self.prefix_hit_pages = 0
+        self.done = threading.Event()
+        self.tokens: List[int] = []
+        self.error: Optional[Exception] = None
+        self.cancelled = False
+        self._live: 'queue.Queue[Optional[int]]' = queue.Queue()
+        self._state_lock = threading.Lock()
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        """Submit-to-first-token seconds (None before the first token)."""
+        if self.first_token_time is None:
+            return None
+        return self.first_token_time - self.submit_time
+
+    def _push(self, token: int) -> None:
+        with self._state_lock:
+            if self.done.is_set():
+                return
+            if self.first_token_time is None:
+                self.first_token_time = time.monotonic()
+            self.tokens.append(token)
+            self._live.put(token)
+
+    def _finish(self, error: Optional[Exception] = None) -> None:
+        with self._state_lock:
+            if self.done.is_set():
+                return
+            self.error = error
+            self.finish_time = time.monotonic()
+            self.done.set()
+            self._live.put(None)
+
+    def result(self, timeout: Optional[float] = None) -> List[int]:
+        if not self.done.wait(timeout):
+            raise TimeoutError('generation timed out')
+        if self.error is not None:
+            raise self.error
+        return self.tokens
+
+    def stream(self, timeout: Optional[float] = None):
+        """Yield tokens as the engine produces them."""
+        while True:
+            token = self._live.get(timeout=timeout)
+            if token is None:
+                if self.error is not None:
+                    raise self.error
+                return
+            yield token
+
+    def cancel(self) -> None:
+        """Stop generating (the engine frees the slot on its next tick)."""
+        self.cancelled = True
+
+    def deadline_exceeded(self, now: Optional[float] = None) -> bool:
+        return (self.deadline is not None and
+                (time.monotonic() if now is None else now) > self.deadline)
+
+
+class Slot:
+
+    def __init__(self) -> None:
+        self.request: Optional[Request] = None
+        self.drafter = None          # NgramDrafter when spec decoding
+
+    @property
+    def active(self) -> bool:
+        return self.request is not None
+
+
+class PendingPrefill:
+    """A prompt mid-chunked-prefill: the slot is reserved but joins
+    decode ticks only once every chunk has run."""
+
+    def __init__(self, slot_id: int, request: Request,
+                 n_target: int) -> None:
+        self.slot_id = slot_id
+        self.request = request
+        self.n_target = n_target     # tokens to prefill (n - 1)
+        self.consumed = 0
+        self.cache: Optional[Dict[str, Any]] = None  # private [*, 1, ..]
+        self.plan: Optional[Any] = None   # cache_manager.AdmissionPlan
+
+
+class AdmissionQueue:
+    """Bounded, TTL'd FIFO between submit() threads and the worker."""
+
+    def __init__(self, max_queue: int = 0,
+                 queue_ttl: Optional[float] = None,
+                 drain_estimate: Callable[[], float] = lambda: 1.0
+                 ) -> None:
+        self.max_queue = int(max_queue)      # 0 = unbounded
+        self.queue_ttl = queue_ttl           # None = no expiry
+        self._drain_estimate = drain_estimate
+        self._queue: Deque[Request] = collections.deque()
+        self.cond = threading.Condition()
+        self._metrics_lock = threading.Lock()
+        self.queue_full_rejections = 0
+        self.queue_ttl_expiries = 0
+        self.admitted = 0
+        self.wait_hist = [0] * (len(WAIT_BUCKETS) + 1)
+
+    def __len__(self) -> int:
+        with self.cond:
+            return len(self._queue)
+
+    def submit(self, request: Request) -> None:
+        """Append (FIFO) or reject with QueueFull at the bound."""
+        with self.cond:
+            if self.max_queue and len(self._queue) >= self.max_queue:
+                with self._metrics_lock:
+                    self.queue_full_rejections += 1
+                raise QueueFull(
+                    f'admission queue full ({self.max_queue} waiting); '
+                    'retry later', retry_after=self._drain_estimate())
+            self._queue.append(request)
+            self.cond.notify()
+
+    def reject(self, message: str) -> QueueFull:
+        """Count a non-queue-bound rejection (page-pool exhaustion) and
+        build the QueueFull to raise."""
+        with self._metrics_lock:
+            self.queue_full_rejections += 1
+        return QueueFull(message, retry_after=self._drain_estimate())
+
+    def requeue_front(self, request: Request) -> None:
+        """Put a popped-but-not-admitted request back at the head."""
+        with self.cond:
+            self._queue.appendleft(request)
+
+    def pop(self) -> Optional[Request]:
+        """Pop the next live request, finishing cancelled, deadlined and
+        expired ones on the way."""
+        while True:
+            with self.cond:
+                if not self._queue:
+                    return None
+                request = self._queue.popleft()
+            if request.cancelled:
+                request._finish()  # pylint: disable=protected-access
+                continue
+            if request.deadline_exceeded():
+                request._finish(DeadlineExceeded(  # pylint: disable=protected-access
+                    'request deadline passed while queued'))
+                continue
+            if (self.queue_ttl is not None and
+                    time.monotonic() - request.submit_time > self.queue_ttl):
+                self._record_expiry(1)
+                request._finish(QueueExpired(  # pylint: disable=protected-access
+                    f'request expired after {self.queue_ttl}s queued',
+                    retry_after=self._drain_estimate()))
+                continue
+            return request
+
+    def record_admission(self, request: Request) -> None:
+        request.admit_time = time.monotonic()
+        wait = request.admit_time - request.submit_time
+        with self._metrics_lock:
+            self.admitted += 1
+            for i, bound in enumerate(WAIT_BUCKETS):
+                if wait < bound:
+                    self.wait_hist[i] += 1
+                    return
+            self.wait_hist[-1] += 1
+
+    def _record_expiry(self, n: int) -> None:
+        with self._metrics_lock:
+            self.queue_ttl_expiries += n
+
+    def expire_stale(self) -> None:
+        """Fail queued requests past queue_ttl or their own deadline."""
+        now = time.monotonic()
+        expired, deadlined = [], []
+        with self.cond:
+            if not self._queue:
+                return
+            keep: Deque[Request] = collections.deque()
+            for request in self._queue:
+                if request.deadline_exceeded(now):
+                    deadlined.append(request)
+                elif (self.queue_ttl is not None and
+                      now - request.submit_time > self.queue_ttl):
+                    expired.append(request)
+                else:
+                    keep.append(request)
+            self._queue = keep
+        if expired:
+            self._record_expiry(len(expired))
+        for request in expired:
+            request._finish(QueueExpired(  # pylint: disable=protected-access
+                f'request expired after {self.queue_ttl}s queued',
+                retry_after=self._drain_estimate()))
+        for request in deadlined:
+            request._finish(DeadlineExceeded(  # pylint: disable=protected-access
+                'request deadline passed while queued'))
+
+    def drain(self, error_factory: Callable[[], Exception]) -> None:
+        """Fail everything still queued (shutdown/engine failure)."""
+        while True:
+            with self.cond:
+                if not self._queue:
+                    return
+                request = self._queue.popleft()
+            request._finish(error_factory())  # pylint: disable=protected-access
+
+    def stats(self) -> Dict[str, Any]:
+        hist = {}
+        with self._metrics_lock:
+            for i, bound in enumerate(WAIT_BUCKETS):
+                hist[f'<{bound}s'] = self.wait_hist[i]
+            hist[f'>={WAIT_BUCKETS[-1]}s'] = self.wait_hist[-1]
+            return {
+                'queued_requests': len(self._queue),
+                'admitted_requests': self.admitted,
+                'queue_full_rejections': self.queue_full_rejections,
+                'queue_ttl_expiries': self.queue_ttl_expiries,
+                'queue_wait_hist': hist,
+                'max_queue': self.max_queue,
+            }

@@ -1,0 +1,144 @@
+"""Package rules of the PyTorch port (skypilot_tpu_torch/).
+
+- An AST walk: neither the port nor chip_smoke.py imports jax, flax,
+  optax, orbax, or the JAX package `skypilot_tpu` (exact-prefix rule,
+  so the port's own name does not match).
+- Every entry point defaults to CUDA and raises without it unless the
+  caller passes device='cpu'.
+- Kernels are built at first launch, never at import.
+"""
+from __future__ import annotations
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / 'skypilot_tpu_torch'
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'skypilot_tpu')
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + '.') for f in FORBIDDEN)
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                yield node.lineno, node.module
+        elif (isinstance(node, ast.Call) and
+              getattr(node.func, 'id', getattr(node.func, 'attr', None))
+              in ('__import__', 'import_module') and node.args and
+              isinstance(node.args[0], ast.Constant)):
+            yield node.lineno, str(node.args[0].value)
+
+
+def _port_files():
+    files = sorted(PORT.rglob('*.py'))
+    assert files, 'port package not found'
+    return files + [REPO / 'chip_smoke.py']
+
+
+def test_exact_prefix_rule():
+    assert _forbidden('skypilot_tpu')
+    assert _forbidden('skypilot_tpu.models.decode')
+    assert _forbidden('jax.numpy')
+    assert not _forbidden('skypilot_tpu_torch')
+    assert not _forbidden('skypilot_tpu_torch.models')
+    assert not _forbidden('jaxtyping')
+
+
+@pytest.mark.parametrize('path', _port_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_imports(path):
+    bad = [(line, name) for line, name in _imports(path)
+           if _forbidden(name)]
+    assert not bad, f'{path.relative_to(REPO)} imports {bad}'
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+
+
+def test_resolve_device_raises_without_cuda(no_cuda):
+    from skypilot_tpu_torch.device import resolve_device
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        resolve_device()
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        resolve_device('cuda')
+    assert resolve_device('cpu') == torch.device('cpu')
+    with pytest.raises(ValueError):
+        resolve_device('meta')
+
+
+def test_entry_points_default_to_cuda(no_cuda):
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.models.transformer import init_params
+    from skypilot_tpu_torch.serve import batching_engine
+    from skypilot_tpu_torch.serve import model_server
+    cfg = configs.get_config('tiny')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        init_params(cfg, seed=0)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        convert.from_jax_params(cfg, {})
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        model_server.ModelServer('tiny')
+    model = init_params(cfg, seed=0, device='cpu')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        batching_engine.ContinuousBatchingEngine(cfg, model, kv_pages=8,
+                                                 max_len=32, page_size=8)
+
+
+def test_engine_dense_mode_names_later_slice():
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models.transformer import init_params
+    from skypilot_tpu_torch.serve import batching_engine
+    cfg = configs.get_config('tiny')
+    model = init_params(cfg, seed=0, device='cpu')
+    with pytest.raises(NotImplementedError, match='later slice'):
+        batching_engine.ContinuousBatchingEngine(cfg, model, device='cpu')
+
+
+def test_ops_refuse_other_devices():
+    from skypilot_tpu_torch.ops import attention
+    from skypilot_tpu_torch.ops import paged_attention
+    q = torch.zeros((1, 2, 1, 64), device='meta')
+    with pytest.raises(ValueError, match='unsupported device'):
+        attention.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match='unsupported device'):
+        paged_attention.paged_attention(
+            q, q, q, torch.zeros((1, 1), dtype=torch.int32, device='meta'),
+            torch.zeros((1,), dtype=torch.int32, device='meta'))
+
+
+def test_kernels_not_built_at_import(monkeypatch, tmp_path):
+    code = ('import skypilot_tpu_torch.serve.model_server\n'
+            'from skypilot_tpu_torch.ops import _build\n'
+            'assert _build._libs == {}, _build._libs\n')
+    subprocess.run([sys.executable, '-c', code], check=True, cwd=REPO)
+    from skypilot_tpu_torch.ops import _build
+    monkeypatch.setenv('SKYTPU_TORCH_BUILD_DIR', str(tmp_path))
+    assert _build.build_dir() == str(tmp_path)
+    # The source list names every kernel file shipped in csrc/.
+    shipped = sorted(p.stem for p in (PORT / 'csrc').glob('*.cu'))
+    assert shipped == sorted(_build.SOURCES)
+
+
+def test_build_dir_is_gitignored():
+    from skypilot_tpu_torch.ops import _build
+    rel = os.path.relpath(_build.build_dir(), REPO)
+    ignored = (REPO / '.gitignore').read_text().split()
+    top = rel.split(os.sep)[0]
+    assert f'/{top}/' in ignored or f'{top}/' in ignored

@@ -1,0 +1,152 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test needs an NVIDIA GPU and skips without one; this file
+imports no JAX, so it runs on a GPU host as it is:
+
+    python -m pytest tests/test_torch_kernels_gpu.py -q
+
+Tolerances: f32 outputs within 1e-4 and bf16 within 2e-2 (compared as
+f32; both sides accumulate in f32, in different orders); the LSE
+within 1e-3; greedy tokens equal.
+"""
+from __future__ import annotations
+
+import pytest
+import torch
+
+from skypilot_tpu_torch.models import configs
+from skypilot_tpu_torch.models import convert
+from skypilot_tpu_torch.models import decode
+from skypilot_tpu_torch.models.transformer import init_params
+from skypilot_tpu_torch.ops import attention
+from skypilot_tpu_torch.ops import paged_attention
+from skypilot_tpu_torch.serve import batching_engine
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU: the CUDA kernels have no CPU mode')
+    return torch.device('cuda', 0)
+
+
+def _tol(dtype):
+    return 1e-4 if dtype == torch.float32 else 2e-2
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('h,h_kv,d,q_len,k_len,causal', [
+    (32, 8, 128, 1, 1, True), (32, 8, 128, 100, 100, True),
+    (32, 8, 128, 64, 200, True), (32, 8, 128, 130, 130, False),
+    (8, 1, 256, 70, 70, True), (4, 2, 64, 33, 90, True)])
+def test_flash_kernel_matches_plain(cuda, dtype, h, h_kv, d, q_len, k_len,
+                                    causal):
+    gen = torch.Generator(device=cuda).manual_seed(q_len * 7 + d)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((2, h, q_len, d), (2, h_kv, k_len, d),
+                             (2, h_kv, k_len, d)))
+    before = attention.LAUNCHES['flash_fwd']
+    out, lse = attention.flash_attention_with_lse(q, k, v, causal=causal)
+    assert attention.LAUNCHES['flash_fwd'] == before + 1
+    ref, ref_lse = attention._blockwise_attention(  # pylint: disable=protected-access
+        q, k, v, causal=causal, sm_scale=d ** -0.5, return_lse=True)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+
+
+def _pool(gen, n_pages, h_kv, ps, d, dtype, quantized, dev):
+    k = torch.randn((n_pages, h_kv, ps, d), generator=gen, device=dev)
+    v = torch.randn((n_pages, h_kv, ps, d), generator=gen, device=dev)
+    if not quantized:
+        return k.to(dtype), v.to(dtype)
+    (kq, ks), (vq, vs) = decode._quant_kv(k), decode._quant_kv(v)  # pylint: disable=protected-access
+    return {'q': kq, 'scale': ks}, {'q': vq, 'scale': vs}
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('quantized', [False, True], ids=['native', 'int8'])
+@pytest.mark.parametrize('s_q', [1, 5])
+@pytest.mark.parametrize('h_q,h_kv,d', [(32, 8, 128), (8, 1, 256),
+                                        (16, 8, 64)])
+def test_paged_kernel_matches_plain(cuda, dtype, quantized, s_q, h_q, h_kv,
+                                    d):
+    gen = torch.Generator(device=cuda).manual_seed(s_q + d)
+    b, ps, rows = 5, 16, 16
+    k, v = _pool(gen, 1 + b * rows, h_kv, ps, d, dtype, quantized, cuda)
+    q = torch.randn((b, h_q, s_q, d), generator=gen, device=cuda).to(dtype)
+    lengths = torch.tensor([1, 15, 16, 17, 200], dtype=torch.int32,
+                           device=cuda)
+    tables = torch.zeros((b, rows), dtype=torch.int32)
+    perm = torch.randperm(b * rows, generator=torch.Generator()
+                          .manual_seed(d)) + 1
+    for i, n in enumerate(lengths.tolist()):
+        need = -(-(n + s_q) // ps)
+        tables[i, :need] = perm[i * rows:i * rows + need].to(torch.int32)
+    tables[0, 0] = 0                     # the null page as a live row
+    tables = tables.to(cuda)
+    name = 'paged_attention_int8' if quantized else 'paged_attention'
+    before = paged_attention.LAUNCHES[name]
+    out = paged_attention.paged_attention(q, k, v, tables, lengths)
+    assert paged_attention.LAUNCHES[name] == before + 1
+    ref = paged_attention._paged_attention_reference(  # pylint: disable=protected-access
+        q, k, v, tables, lengths, sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
+def test_wrappers_raise_instead_of_falling_back(cuda):
+    q = torch.randn((1, 4, 8, 128), device=cuda)
+    k = torch.randn((1, 2, 8, 128), device=cuda)
+    with pytest.raises(ValueError, match='contiguous'):
+        attention.flash_attention(
+            torch.randn((1, 8, 4, 128), device=cuda).transpose(1, 2), k, k)
+    with pytest.raises(ValueError, match='head_dim'):
+        attention.flash_attention(q[..., :96].contiguous(),
+                                  k[..., :96].contiguous(),
+                                  k[..., :96].contiguous())
+    with pytest.raises(ValueError, match='dtype'):
+        attention.flash_attention(q, k.bfloat16(), k)
+    pool = torch.zeros((4, 2, 16, 128), device=cuda)
+    tables = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    lengths = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match='int32'):
+        paged_attention.paged_attention(q[:, :, :1].contiguous(), pool,
+                                        pool, tables.long(), lengths)
+    with pytest.raises(ValueError, match='dtype'):
+        paged_attention.paged_attention(q[:, :, :1].contiguous(),
+                                        pool.bfloat16(), pool.bfloat16(),
+                                        tables, lengths)
+
+
+SMALL = configs.ModelConfig(vocab_size=512, d_model=256, n_layers=2,
+                            n_heads=4, n_kv_heads=2, d_ff=512,
+                            max_seq_len=256, dtype=torch.float32)
+PROMPTS = ([3, 1, 4, 1, 5, 9, 2, 6], [7], list(range(5, 40)))
+
+
+@pytest.mark.parametrize('quantize_kv,spec_tokens', [
+    (False, 0), (True, 0), (True, 3)], ids=['paged', 'int8', 'int8-spec'])
+def test_engine_gpu_matches_cpu(cuda, quantize_kv, spec_tokens):
+    gpu_model = init_params(SMALL, seed=2, device=cuda)
+    cpu_model = convert.from_jax_params(
+        SMALL, convert.to_jax_params(gpu_model), device='cpu')
+    out = {}
+    for model in (gpu_model, cpu_model):
+        engine = batching_engine.ContinuousBatchingEngine(
+            SMALL, model, max_len=64, slots=2, prefill_chunk=16,
+            kv_pages=24, page_size=16, quantize_kv=quantize_kv,
+            spec_tokens=spec_tokens if model is gpu_model else 0,
+            device=model.device)
+        try:
+            out[model.device.type] = [engine.generate(p, 10)
+                                      for p in PROMPTS]
+        finally:
+            engine.stop()
+    assert out['cuda'] == out['cpu']
