@@ -13,32 +13,65 @@ Phases (each one that fails makes the script exit non-zero):
    d 128, bf16, page size 16): B1 paged decode and B2 int8 paged decode
    with ragged lengths (1, 15, 16, 17, 1000), S = 1 and S = 5, tables
    that include the null page; B3 flash forward at q_len 1, 100, 512
-   and q_len < k_len; one f32 case each.  Each kernel is held against
-   its plain PyTorch version on the same inputs: bf16 outputs within
-   atol/rtol 2e-2 (compared as f32; both accumulate in f32, in
-   different orders), f32 within 1e-4, the LSE within 1e-3.  Times
-   come from CUDA events, kernel and plain version alike (20 launches
-   after 3 warm-up launches); bounds from this run's bytes and FLOPs
-   against 3.35 TB/s and 989 TFLOP/s (H100 SXM data sheet), labelled
-   by whichever of the two is larger.
-4. The main path: ModelServer('llama3-8b') with seeded random weights
-   at full width and depth, paged continuous batching, answering
-   concurrent POST /generate requests over HTTP (greedy, one seeded
-   sampled request, then prefix-cache hits); then an int8-KV engine
-   with speculative decoding (k = 4) on the same weights, whose greedy
-   tokens must equal the same int8 engine's with speculation off.
-   Launch counts are zeroed just before and read just after: every
-   kernel must have run on the main path.
+   and q_len < k_len, at the training shape (b 2 x 2048) and at
+   `small`'s (16/8, d 64, b 8 x 512); one f32 case each.  B4 (dQ) and
+   B5 (dK/dV) flash
+   backward with a random output cotangent and a non-zero LSE
+   cotangent: the training shape (b 2, 2048), ragged 100 and 1000,
+   q 100 < k 612, Qwen2's group (28/4, rep 7), Gemma's (8/1, d 256),
+   d 64 (`small`), one f32 and one non-causal case; two launches must
+   give the same bits.  Each kernel is held against its plain PyTorch
+   version on the same inputs: bf16 outputs within atol/rtol 2e-2
+   (compared as f32; both accumulate in f32, in different orders), f32
+   within 1e-4, the LSE within 1e-3; backward gradients within the same
+   2e-2 / 1e-4 of the plain version's largest |value|.  Times come from
+   CUDA events, kernel and plain version alike (20 launches after 3
+   warm-up launches); bounds from this run's bytes and FLOPs against
+   3.35 TB/s and 989 TFLOP/s (H100 SXM data sheet), labelled by
+   whichever of the two is larger.  B4/B5 are timed at the training
+   shape; their plain version computes dQ, dK and dV together, and so
+   does their yardstick, SDPA's backward (fwd + bwd minus fwd).
+4. The serving path: ModelServer('llama3-8b') with seeded random
+   weights at full width and depth, paged continuous batching,
+   answering concurrent POST /generate requests over HTTP (greedy, one
+   seeded sampled request, then prefix-cache hits); then an int8-KV
+   engine with speculative decoding (k = 4) on the same weights, whose
+   greedy tokens must equal the same int8 engine's with speculation
+   off.  Launch counts are zeroed just before and read just after:
+   every serving kernel must have run on it.
 5. A reference check: a depth-2, f32 cut of llama3-8b served on the
    GPU (CUDA kernels) and on the CPU (the plain versions) from the same
    weights must give the same greedy tokens.
+6. The training path: llama3-8b at full width cut to 4 layers, seeded
+   random trainable weights (f32 master copy, bf16 compute), batch
+   2 x 2048, TrainConfig() defaults, 2 warm-up and 5 timed
+   `train_step`s on one repeated batch: step ms, tokens/s, peak memory,
+   the loss per step (finite and falling), one profiled step (its wall
+   time, device busy time and idle share, all from the one trace).
+   Launch counts are zeroed just before and read
+   just after: B3 must run 2L times a step (forward and its remat
+   recompute), B4 and B5 L times.  Then 2 steps with fused CE and
+   accum_steps = 2 from the same initial weights, whose step-1 loss and
+   grad_norm must equal the unfused run's within 1e-3 relative; then
+   the CLI, `train_llama --model small` (d 64 kernels) for 3 steps.
+7. A training reference check: depth-1 f32 llama3-8b, one 256-token
+   sequence, loss.backward() on the GPU (kernels) and on the CPU (the
+   plain versions) from the same weights: the loss and every gradient
+   within 1e-3 of the CPU's largest |value| for that leaf.
 
-The line before the last is the `kernels` JSON; the last line is
+The line before the last is the `kernels` JSON: each kernel's
+`launches` is its count on the path `path` names (serving for B1/B2,
+training for B3/B4/B5), and `launches_by_path` holds every driven
+path's own count (serving, training, `train_llama small`), each path
+zeroed just before it and read just after.  The last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
+import statistics
 import subprocess
 import sys
 import threading
@@ -81,6 +114,18 @@ def check_close(name, out, ref, tol) -> float:
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol,
                                msg=lambda m: f'{name}: {m}')
     return err
+
+
+def zero_counts(counters) -> None:
+    """Set every kernel's launch count to 0 (just before a path runs)."""
+    for table in counters.values():
+        for key in table:
+            table[key] = 0
+
+
+def read_counts(counters) -> dict:
+    """{kernel: launches since the last zero_counts}."""
+    return {name: table[name] for name, table in counters.items()}
 
 
 # ------------------------------------------------------------ phase 3
@@ -168,35 +213,49 @@ def check_paged(dev, quantized):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+# (dtype, b, h, h_kv, d, q_len, k_len) of B3 against its plain version:
+# 8B serving prefill chunks (ragged, q_len < k_len, one f32), the
+# training shape (b 2 x 2048) and `train_llama --model small`'s (16/8,
+# d 64, b 8 x 512).  The 512-token chunk is the one timed.
+FLASH_CASES = [
+    ('bf16', 1, 32, 8, 128, 1, 1),
+    ('bf16', 1, 32, 8, 128, 100, 100),
+    ('bf16', 1, 32, 8, 128, 512, 512),
+    ('bf16', 1, 32, 8, 128, 100, 612),
+    ('f32', 1, 32, 8, 128, 100, 100),
+    ('bf16', 2, 32, 8, 128, 2048, 2048),
+    ('bf16', 8, 16, 8, 64, 512, 512),
+]
+
+
 def check_flash(dev):
     import torch
     import torch.nn.functional as F
     from skypilot_tpu_torch.ops import attention
+    dtypes = {'bf16': torch.bfloat16, 'f32': torch.float32}
     errs = []
-    h, h_kv, d = 32, 8, 128
-    cases = [(torch.bfloat16, 1, 1), (torch.bfloat16, 100, 100),
-             (torch.bfloat16, 512, 512), (torch.bfloat16, 100, 612),
-             (torch.float32, 100, 100)]
     timed = None
-    for dtype, q_len, k_len in cases:
+    for dt, b, h, h_kv, d, q_len, k_len in FLASH_CASES:
+        dtype = dtypes[dt]
         gen = torch.Generator(device=dev).manual_seed(q_len + k_len)
-        q = torch.randn((1, h, q_len, d), generator=gen, device=dev)
-        k = torch.randn((1, h_kv, k_len, d), generator=gen, device=dev)
-        v = torch.randn((1, h_kv, k_len, d), generator=gen, device=dev)
+        q = torch.randn((b, h, q_len, d), generator=gen, device=dev)
+        k = torch.randn((b, h_kv, k_len, d), generator=gen, device=dev)
+        v = torch.randn((b, h_kv, k_len, d), generator=gen, device=dev)
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
         out, lse = attention.flash_attention_with_lse(q, k, v)
         ref, ref_lse = attention._blockwise_attention(  # pylint: disable=protected-access
             q, k, v, causal=True, sm_scale=d ** -0.5, return_lse=True)
         torch.cuda.synchronize()
         tol = 1e-4 if dtype == torch.float32 else 2e-2
-        name = f'flash {dtype} q_len={q_len} k_len={k_len}'
+        name = (f'flash {dt} b={b} h={h}/{h_kv} d={d} q_len={q_len} '
+                f'k_len={k_len}')
         errs.append(check_close(name, out, ref, tol))
         check_close(name + ' lse', lse, ref_lse, 1e-3)
         log(f'  {name}: max_abs_err {errs[-1]:.3g} (tol {tol})')
-        if dtype == torch.bfloat16 and q_len == k_len == 512:
+        if (dt, b, d, q_len, k_len) == ('bf16', 1, 128, 512, 512):
             timed = (q, k, v)
     q, k, v = timed
-    b, _, n, _ = q.shape
+    b, h, n, d = q.shape
     ms = time_ms(lambda: attention.flash_attention(q, k, v))
     plain = time_ms(lambda: attention._blockwise_attention(  # pylint: disable=protected-access
         q, k, v, causal=True, sm_scale=d ** -0.5))
@@ -207,6 +266,125 @@ def check_flash(dev):
     bound_ms, bound_by = bound(io, flops, BF16_FLOPS)
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library)
+
+
+# (dtype, b, h, h_kv, d, q_len, k_len, causal); the first is the
+# training shape and is the one timed.
+BWD_CASES = [
+    ('bf16', 2, 32, 8, 128, 2048, 2048, True),
+    ('bf16', 1, 32, 8, 128, 100, 100, True),
+    ('bf16', 1, 32, 8, 128, 1000, 1000, True),
+    ('bf16', 1, 32, 8, 128, 100, 612, True),
+    ('bf16', 1, 28, 4, 128, 300, 300, True),      # Qwen2's group, rep 7
+    ('bf16', 1, 8, 1, 256, 300, 300, True),       # Gemma's, rep 8, d 256
+    ('bf16', 2, 16, 8, 64, 512, 512, True),       # small, d 64
+    ('f32', 1, 32, 8, 128, 100, 100, True),
+    ('bf16', 1, 32, 8, 128, 300, 300, False),
+]
+
+
+def bwd_inputs(dev, dtype, b, h, h_kv, d, q_len, k_len, causal, seed):
+    """q, k, v, the forward's out and lse, a random output cotangent g
+    and a non-zero LSE cotangent."""
+    import torch
+    from skypilot_tpu_torch.ops import attention
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                  for shape in ((b, h, q_len, d), (b, h_kv, k_len, d),
+                                (b, h_kv, k_len, d), (b, h, q_len, d)))
+    g_lse = torch.randn((b, h, q_len), generator=gen, device=dev)
+    out, lse = attention.flash_attention_with_lse(q, k, v, causal=causal)
+    return q, k, v, out, lse, g, g_lse
+
+
+def visible_entries(b, h, q_len, k_len, causal) -> int:
+    """Score entries the mask keeps: b * h * sum over query rows of the
+    keys each sees."""
+    if not causal:
+        return b * h * q_len * k_len
+    off = k_len - q_len
+    return b * h * (q_len * off + q_len * (q_len + 1) // 2)
+
+
+def bwd_bound(q, k, n_products, out_numel):
+    """Bound of a backward kernel: n_products products of 2 d FLOPs per
+    visible score entry; bytes of q, dO, k, v, lse and delta read once
+    and out_numel gradient elements written once."""
+    b, h, q_len, d = q.shape
+    entries = visible_entries(b, h, q_len, k.shape[2], True)
+    n_bytes = ((2 * q.numel() + 2 * k.numel() + out_numel) *
+               q.element_size() + 2 * b * h * q_len * 4)
+    peak = F32_FLOPS if q.dtype.itemsize == 4 else BF16_FLOPS
+    return bound(n_bytes, n_products * 2 * d * entries, peak)
+
+
+def check_flash_bwd(dev):
+    """B4 and B5 against _flash_bwd_reference; -> ({name: result},
+    B3 and SDPA forward times at the training shape)."""
+    import torch
+    import torch.nn.functional as F
+    from skypilot_tpu_torch.ops import attention
+    dtypes = {'bf16': torch.bfloat16, 'f32': torch.float32}
+    errs = {'flash_bwd_dq': [], 'flash_bwd_dkv': []}
+    timed = None
+    for i, (dt, b, h, h_kv, d, q_len, k_len, causal) in enumerate(BWD_CASES):
+        dtype = dtypes[dt]
+        args = bwd_inputs(dev, dtype, b, h, h_kv, d, q_len, k_len, causal,
+                          seed=100 + i)
+        kw = dict(causal=causal, sm_scale=d ** -0.5)
+        got = attention._flash_bwd_cuda(*args, **kw)  # pylint: disable=protected-access
+        again = attention._flash_bwd_cuda(*args, **kw)  # pylint: disable=protected-access
+        ref = attention._flash_bwd_reference(*args, **kw)  # pylint: disable=protected-access
+        torch.cuda.synchronize()
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        name = (f'flash_bwd {dt} b={b} h={h}/{h_kv} d={d} q_len={q_len} '
+                f'k_len={k_len}{"" if causal else " non-causal"}')
+        rels = []
+        for grad, a, a2, r in zip(('dq', 'dk', 'dv'), got, again, ref):
+            if not torch.equal(a, a2):
+                raise AssertionError(f'{name} {grad}: two launches differ')
+            if not torch.isfinite(a.float()).all():
+                raise AssertionError(f'{name} {grad}: non-finite output')
+            err = max_err(a, r)
+            rel = err / max(float(r.float().abs().max()), 1e-30)
+            if rel > tol:
+                raise AssertionError(f'{name} {grad}: max err {err:.3g} is '
+                                     f'{rel:.3g} of max |ref| (tol {tol})')
+            errs['flash_bwd_dq' if grad == 'dq' else
+                 'flash_bwd_dkv'].append(err)
+            rels.append(rel)
+        log(f'  {name}: rel err dq/dk/dv '
+            f'{" ".join(f"{x:.2g}" for x in rels)} (tol {tol}); two '
+            f'launches bit-equal')
+        if i == 0:
+            timed = args
+    q, k, v, out, lse, g, g_lse = timed
+    kw = dict(causal=True, sm_scale=q.shape[-1] ** -0.5)
+    delta = attention._delta(out, g, g_lse).contiguous()  # pylint: disable=protected-access
+    dq_ms = time_ms(lambda: attention._flash_bwd_dq_cuda(  # pylint: disable=protected-access
+        q, k, v, g, lse, delta, **kw))
+    dkv_ms = time_ms(lambda: attention._flash_bwd_dkv_cuda(  # pylint: disable=protected-access
+        q, k, v, g, lse, delta, **kw))
+    plain = time_ms(lambda: attention._flash_bwd_reference(  # pylint: disable=protected-access
+        q, k, v, out, lse, g, g_lse, **kw))
+    b3_ms = time_ms(lambda: attention.flash_attention(q, k, v))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                              enable_gqa=True)
+    sdpa_fwd = time_ms(sdpa)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(sdpa(), leaves, g)) - \
+        sdpa_fwd
+    results = {}
+    for name, ms, n_products, out_numel in (
+            ('flash_bwd_dq', dq_ms, 3, q.numel()),
+            ('flash_bwd_dkv', dkv_ms, 4, 2 * k.numel())):
+        bound_ms, bound_by = bwd_bound(q, k, n_products, out_numel)
+        results[name] = dict(max_abs_err=max(errs[name]), ms=ms,
+                             plain_ms=plain, bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=sdpa_bwd)
+    return results, {'b3_ms': b3_ms, 'sdpa_fwd_ms': sdpa_fwd}
 
 
 # ------------------------------------------------------------ phase 4
@@ -331,6 +509,232 @@ def reference_check(dev):
     return err
 
 
+# ------------------------------------------------------------ phase 6
+
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 2048
+WARMUP_STEPS, TIMED_STEPS = 2, 5
+TRAIN_KERNELS = ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')
+
+
+def run_steps(dev, cfg, tcfg, batch, n_steps, state=None):
+    """n_steps train_steps (a fresh seed-0 state unless given), each
+    synchronised; -> (state, [(loss, grad_norm, ms)])."""
+    import torch
+    from skypilot_tpu_torch.models import train
+    if state is None:
+        state, _ = train.create_train_state(cfg, tcfg, device=dev, seed=0)
+    out = []
+    for _ in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train.train_step(state, batch, tcfg)
+        loss, norm = float(m['loss']), float(m['grad_norm'])
+        torch.cuda.synchronize()
+        out.append((loss, norm, (time.perf_counter() - t0) * 1e3))
+    return state, out
+
+
+def profile_step(state, batch, tcfg):
+    """One profiled train_step, its wall time and its device time both
+    from the one trace: -> dict of device kernel ms, the step's wall ms
+    (its range, closed by a synchronize), the device's busy ms inside it
+    (the union of its kernels' intervals), the idle share, the kernel
+    count, ms by kernel group and the top kernels."""
+    import torch
+    from skypilot_tpu_torch.models import train
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function('chip_smoke_train_step'):
+            train.train_step(state, batch, tcfg)
+            torch.cuda.synchronize()
+
+    def is_kernel(e):
+        # A user annotation (the optimizer's step range) spans kernels
+        # that are counted on their own.
+        return (e.device_type == cuda and
+                not getattr(e, 'is_user_annotation', False))
+
+    def dev_us(e):
+        return float(getattr(e, 'self_device_time_total', 0.0) or 0.0)
+    step = [e for e in prof.events() if e.name == 'chip_smoke_train_step'
+            and e.device_type != cuda]
+    if len(step) != 1:
+        raise AssertionError(f'train profile: {len(step)} step ranges')
+    wall_us = step[0].time_range.end - step[0].time_range.start
+    busy_us, until = 0.0, -math.inf
+    for start, end in sorted((e.time_range.start, e.time_range.end)
+                             for e in prof.events() if is_kernel(e)):
+        busy_us += max(0.0, end - max(start, until))
+        until = max(until, end)
+    idle = 1 - busy_us / wall_us
+    if not 0 <= idle <= 1:
+        raise AssertionError(f'train profile: device busy {busy_us} us '
+                             f'against a {wall_us} us step')
+    events = [e for e in prof.key_averages() if is_kernel(e)]
+    top = sorted(events, key=dev_us, reverse=True)[:16]
+    groups = {}
+    for e in events:
+        group = kernel_group(e.key)
+        groups[group] = groups.get(group, 0.0) + dev_us(e) / 1e3
+    return dict(device_ms=sum(dev_us(e) for e in events) / 1e3,
+                wall_ms=wall_us / 1e3, busy_ms=busy_us / 1e3, idle=idle,
+                n_kernels=sum(e.count for e in events),
+                groups={k: round(v, 3) for k, v in sorted(groups.items())},
+                top=[(e.key[:60], e.count, round(dev_us(e) / 1e3, 3))
+                     for e in top])
+
+
+def kernel_group(name: str) -> str:
+    """A CUDA kernel's group in the step breakdown, from its name."""
+    low = name.lower()
+    if 'flash_' in low:
+        return 'attention B3/B4/B5'
+    if any(tag in low for tag in ('gemm', 'nvjet', 'xmma', 'cutlass')):
+        if 'f32f32' in low or 'sgemm' in low:
+            return 'f32 GEMM (lm_head)'
+        return 'bf16 GEMM'
+    if 'multi_tensor_apply' in low:
+        return 'optimizer (foreach)'
+    return 'other (elementwise, reductions, copies)'
+
+
+def free_cuda():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_main_path(dev, counters):
+    """llama3-8b at 4 layers: the unfused run (launch counts read around
+    it), a profiled step, then fused CE + accum_steps=2 from the same
+    initial weights.  -> launches of the run."""
+    import torch
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import train
+    cfg = configs.get_config('llama3-8b', n_layers=TRAIN_LAYERS)
+    tcfg = train.TrainConfig()
+    gen = torch.Generator().manual_seed(0)
+    batch = {'tokens': torch.randint(0, cfg.vocab_size,
+                                     (TRAIN_BATCH, TRAIN_SEQ + 1),
+                                     generator=gen).to(dev)}
+    free_cuda()
+    log(f'train: llama3-8b n_layers={TRAIN_LAYERS}, batch {TRAIN_BATCH} x '
+        f'{TRAIN_SEQ}, {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB '
+        'allocated before')
+    torch.cuda.reset_peak_memory_stats(dev)
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+    zero_counts(counters)
+    state, steps = run_steps(dev, cfg, tcfg, batch, n_steps)
+    counts = read_counts(counters)
+    launches = {name: counts[name] for name in TRAIN_KERNELS}
+    peak = train.peak_memory_bytes(dev)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    losses = [x[0] for x in steps]
+    step_ms = statistics.median(x[2] for x in steps[WARMUP_STEPS:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log(f'train: {n_params / 1e9:.3f} B parameters; losses '
+        f'{" ".join(f"{x:.4f}" for x in losses)}; grad_norms '
+        f'{" ".join(f"{x[1]:.3f}" for x in steps)}')
+    log(f'train: step ms {" ".join(f"{x[2]:.1f}" for x in steps)}; median '
+        f'of the {TIMED_STEPS} timed {step_ms:.1f} ms = '
+        f'{tokens / step_ms * 1e3:.0f} tokens/s; peak memory '
+        f'{peak / 2**30:.2f} GiB; launches {launches}')
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f'train: non-finite loss {losses}')
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f'train: loss did not fall: {losses}')
+    want = {'flash_fwd': 2 * TRAIN_LAYERS * n_steps,
+            'flash_bwd_dq': TRAIN_LAYERS * n_steps,
+            'flash_bwd_dkv': TRAIN_LAYERS * n_steps}
+    if launches != want:
+        raise AssertionError(f'train: launches {launches}, expected {want} '
+                             f'(2L / L / L per step)')
+    prof = profile_step(state, batch, tcfg)
+    log(f'train profile: one profiled step of {prof["wall_ms"]:.1f} ms '
+        f'wall, device busy {prof["busy_ms"]:.1f} ms of it (idle share '
+        f'{prof["idle"]:.4f}), {prof["device_ms"]:.1f} ms of device '
+        f'kernels ({prof["n_kernels"]} kernels); by group '
+        f'{json.dumps(prof["groups"])}; top {json.dumps(prof["top"])}')
+    del state
+    free_cuda()
+
+    fused = train.TrainConfig(fused_ce=True, accum_steps=2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, fsteps = run_steps(dev, cfg, fused, batch, 2)
+    log(f'train fused_ce + accum_steps=2: losses '
+        f'{" ".join(f"{x[0]:.4f}" for x in fsteps)}, grad_norms '
+        f'{" ".join(f"{x[1]:.3f}" for x in fsteps)}, step ms '
+        f'{" ".join(f"{x[2]:.1f}" for x in fsteps)}, peak memory '
+        f'{train.peak_memory_bytes(dev) / 2**30:.2f} GiB')
+    for i, what in ((0, 'loss'), (1, 'grad_norm')):
+        a, b = fsteps[0][i], steps[0][i]
+        if not abs(a - b) <= 1e-3 * abs(b):
+            raise AssertionError(f'train: fused+accum step-1 {what} {a} vs '
+                                 f'unfused {b}')
+    del state
+    free_cuda()
+    return counts
+
+
+def cli_check(counters):
+    """`train_llama --model small`: -> launches of the run."""
+    from skypilot_tpu_torch import train_llama
+    zero_counts(counters)
+    history = train_llama.main(['--model', 'small', '--steps', '3',
+                                '--batch-size', '8', '--seq-len', '512'])
+    counts = read_counts(counters)
+    launches = {name: counts[name] for name in TRAIN_KERNELS}
+    losses = [h['loss'] for h in history]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f'train_llama small: non-finite loss {losses}')
+    if min(launches.values()) <= 0:
+        raise AssertionError(f'train_llama small: launches {launches}')
+    log(f'train_llama --model small: losses '
+        f'{" ".join(f"{x:.4f}" for x in losses)}; launches {launches}')
+    free_cuda()
+    return counts
+
+
+# ------------------------------------------------------------ phase 7
+
+
+def train_reference_check(dev):
+    """Depth-1 f32 llama3-8b: loss and gradients, GPU vs CPU."""
+    import torch
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.models import train
+    from skypilot_tpu_torch.models.transformer import init_params
+    cfg = configs.get_config('llama3-8b', n_layers=1, dtype=torch.float32)
+    gpu_model = init_params(cfg, seed=1, device=dev, trainable=True)
+    cpu_model = convert.from_jax_params(
+        cfg, convert.to_jax_params(gpu_model), device='cpu', trainable=True)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 257),
+                           generator=torch.Generator().manual_seed(3))
+    loss = {}
+    for model in (gpu_model, cpu_model):
+        t = tokens.to(model.device)
+        out = train.loss_fn(model(t[:, :-1]), t[:, 1:])
+        out.backward()
+        loss[model.device.type] = float(out.detach())
+    if not abs(loss['cuda'] - loss['cpu']) <= 1e-3 * abs(loss['cpu']):
+        raise AssertionError(f'train reference: loss GPU {loss["cuda"]} vs '
+                             f'CPU {loss["cpu"]}')
+    worst = (0.0, '')
+    for (name, pg), (_, pc) in zip(gpu_model.named_parameters(),
+                                   cpu_model.named_parameters()):
+        ref = pc.grad
+        rel = (float((pg.grad.cpu() - ref).abs().max()) /
+               max(float(ref.abs().max()), 1e-30))
+        if rel > 1e-3:
+            raise AssertionError(f'train reference: {name} gradient GPU vs '
+                                 f'CPU {rel:.3g} of max |CPU|')
+        worst = max(worst, (rel, name))
+    return loss, worst
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -364,19 +768,30 @@ def main() -> int:
         'paged_attention_int8': check_paged(dev, quantized=True),
         'flash_fwd': check_flash(dev),
     }
+    bwd_results, train_shape = check_flash_bwd(dev)
+    results.update(bwd_results)
     for name, r in results.items():
         log(f'  {name}: {r["ms"]:.4f} ms (plain {r["plain_ms"]:.4f}, '
             f'bound {r["bound_ms"]:.4f} by {r["bound_by"]}, library '
             f'{r["library_ms"]})')
+    q_shape = (TRAIN_BATCH, 32, TRAIN_SEQ, 128)
+    fwd_entries = visible_entries(TRAIN_BATCH, 32, TRAIN_SEQ, TRAIN_SEQ,
+                                  True)
+    fwd_bytes = 2 * (2 * math.prod(q_shape) + math.prod(q_shape) // 2) + \
+        math.prod(q_shape[:3]) * 4
+    b3_bound, b3_by = bound(fwd_bytes, 4 * 128 * fwd_entries, BF16_FLOPS)
+    log(f'  flash_fwd at the training shape (b 2, 32/8, d 128, 2048): '
+        f'{train_shape["b3_ms"]:.4f} ms (bound {b3_bound:.4f} by {b3_by}, '
+        f'SDPA forward {train_shape["sdpa_fwd_ms"]:.4f})')
     counters = {'paged_attention': paged_attention.LAUNCHES,
                 'paged_attention_int8': paged_attention.LAUNCHES,
-                'flash_fwd': attention.LAUNCHES}
+                'flash_fwd': attention.LAUNCHES,
+                'flash_bwd_dq': attention.LAUNCHES,
+                'flash_bwd_dkv': attention.LAUNCHES}
 
     from skypilot_tpu_torch.serve import model_server
     new_tokens = 32
-    for table in (paged_attention.LAUNCHES, attention.LAUNCHES):
-        for key in table:
-            table[key] = 0
+    zero_counts(counters)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     server = model_server.ModelServer(
@@ -402,29 +817,52 @@ def main() -> int:
             f'{spec_stats["spec_accept_len_mean"]}')
     finally:
         server.close()
-    launches = {name: table[name] for name, table in counters.items()}
+    paths = {'serving': read_counts(counters)}
+    serving = ('paged_attention', 'paged_attention_int8', 'flash_fwd')
+    launches = {name: paths['serving'][name] for name in serving}
     log(f'peak memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}'
-        f' GiB; main-path launches {launches}')
+        f' GiB; serving-path launches {launches}')
     missing = [name for name, n in launches.items() if n <= 0]
     if missing:
-        raise AssertionError(f'kernels not launched on the main path: '
+        raise AssertionError(f'kernels not launched on the serving path: '
                              f'{missing}')
     del server
-    torch.cuda.empty_cache()
+    free_cuda()
     err = reference_check(dev)
     log(f'reference: depth-2 f32 llama3-8b GPU == CPU greedy tokens; '
         f'prefill logits max_abs_err {err:.3g}')
 
+    paths['training'] = train_main_path(dev, counters)
+    paths['train_llama small'] = cli_check(counters)
+    loss, (rel, name) = train_reference_check(dev)
+    log(f'train reference: depth-1 f32 llama3-8b loss GPU '
+        f'{loss["cuda"]:.6f} CPU {loss["cpu"]:.6f}; largest gradient '
+        f'difference {rel:.3g} of max |CPU| ({name})')
+
     sources = {'paged_attention': 'skypilot_tpu_torch/csrc/paged_attention.cu',
                'paged_attention_int8':
                    'skypilot_tpu_torch/csrc/paged_attention.cu',
-               'flash_fwd': 'skypilot_tpu_torch/csrc/flash_fwd.cu'}
+               'flash_fwd': 'skypilot_tpu_torch/csrc/flash_fwd.cu',
+               'flash_bwd_dq': 'skypilot_tpu_torch/csrc/flash_bwd.cu',
+               'flash_bwd_dkv': 'skypilot_tpu_torch/csrc/flash_bwd.cu'}
     replaces = {'paged_attention': 'skypilot_tpu/ops/paged_attention.py:104',
                 'paged_attention_int8':
                     'skypilot_tpu/ops/paged_attention.py:138',
-                'flash_fwd': 'skypilot_tpu/ops/attention.py:138'}
+                'flash_fwd': 'skypilot_tpu/ops/attention.py:138',
+                'flash_bwd_dq': 'skypilot_tpu/ops/attention.py:257',
+                'flash_bwd_dkv': 'skypilot_tpu/ops/attention.py:306'}
+    # `launches` counts the run of the path named by `path`: serving
+    # for the decode kernels, training (this port's newest main path,
+    # 2L / L / L a step) for the flash kernels.  `launches_by_path`
+    # gives each driven path's own count; no two runs are added.
+    main_path = {'paged_attention': 'serving',
+                 'paged_attention_int8': 'serving', 'flash_fwd': 'training',
+                 'flash_bwd_dq': 'training', 'flash_bwd_dkv': 'training'}
     kernels = [dict(name=name, route='cuda', source=sources[name],
-                    replaces=replaces[name], launches=launches[name],
+                    replaces=replaces[name],
+                    launches=paths[main_path[name]][name],
+                    path=main_path[name],
+                    launches_by_path={p: c[name] for p, c in paths.items()},
                     **results[name]) for name in results]
     print(json.dumps({'kernels': kernels}), flush=True)
     print(json.dumps({'ok': True, 'device': {

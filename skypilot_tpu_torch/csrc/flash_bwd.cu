@@ -1,0 +1,430 @@
+// Flash-attention backward with GQA, for Hopper (sm_90a): dQ and fused
+// dK/dV, recompute-style (the probabilities are rebuilt from the saved
+// per-row LSE, never read from device memory).
+//
+// Replaces the Pallas kernels skypilot_tpu/ops/attention.py:
+// _flash_bwd_dq_kernel (skyt_flash_bwd_dq) and _flash_bwd_dkv_kernel
+// (skyt_flash_bwd_dkv), launched by _flash_bwd_pallas.  Same function,
+// for q/dO [b, h, q_len, d] against k/v [b, h_kv, k_len, d] (q-head hh
+// reads kv-head hh / (h / h_kv)), lse and delta [b, h, q_len] f32:
+//
+//   p  = exp(scale * q k^T - lse)  (0 where masked)
+//   dp = dO v^T,  ds = p * (dp - delta)
+//   dQ = scale * ds k,  dV = p^T dO,  dK = scale * ds^T q
+//
+// with the causal diagonal at pos_offset = k_len - q_len, keys masked at
+// kpos < k_len and query rows at or past q_len skipped (the reference
+// pads them with LSE_PAD instead).  delta = rowsum(dO * O) - g_lse comes
+// in precomputed, as in the reference.
+//
+// What bounds it on an H100: FLOPs.  Over the causal triangle (n(n+1)/2
+// score entries per head for q_len = k_len = n) dQ does 3 products of
+// 2 d FLOPs per entry (s, dp, ds k) and dK/dV 4 (s, dp, p^T dO, ds^T q);
+// at the training shape (b 2, 32/8 heads, d 128, n 2048) that is 103
+// and 137 GFLOP, about 0.10 and 0.14 ms at 989 TFLOP/s of bf16 tensor
+// cores, against ~0.035 ms for the bytes (~118 and ~101 MB at 3.35
+// TB/s).  This first version does its
+// products with scalar f32 FMAs out of padded shared tiles, like the
+// forward in flash_fwd.cu, so it reaches a small fraction of that bound;
+// what the design does about the bound is keep the work at the minimum:
+// causal tiles past the diagonal are skipped in both kernels, every
+// K/V (dQ) or Q/dO (dK/dV) tile read from device memory is shared by a
+// whole block, and no score or probability leaves the SM.
+// Tensor-core products (mma.sync / wgmma) with TMA-fed tiles come next.
+//
+// Translation from the TPU kernels.  dQ: the Pallas grid walks k-blocks
+// in order on one core; here one thread block owns one (b*h, q-tile)
+// and loops over the k-tiles itself, its dQ rows in registers (quads
+// of threads own one query row, as in the forward).  dK/dV: the Pallas
+// kernel runs once per q-head and leaves rep f32-sized partials per
+// kv-head that XLA then sums over the GQA group; here one block owns
+// one (b*h_kv, k-tile) and loops over the rep q-heads of its group and
+// their q-tiles, so dK and dV accumulate in f32 registers across the
+// whole group.  No partial buffers, no extra summation pass and no
+// atomics: every launch gives the same bits.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+
+// dQ: query rows and keys per tile (4 threads per query row).
+constexpr int kDqBQ = 64;
+constexpr int kDqBK = 32;
+
+// dK/dV: keys per block (threads per key row = kThreads / BK) and query
+// rows per streamed tile.  d 256 halves the key tile to stay within
+// the 227 KB of shared memory a block can have and 255 registers.
+template <int D>
+struct DkvTile {
+  static constexpr int BK = D <= 128 ? 64 : 32;
+  static constexpr int BQ = 64;
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// The +1 paddings keep the row-strided shared reads free of bank
+// conflicts (an odd row stride puts neighbouring rows in other banks).
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  // sQ, sdO [BQ][D+1]; sK, sV [BK][D+1]; sDS [BQ][BK+1]
+  return sizeof(float) * (2 * kDqBQ * (D + 1) + 2 * kDqBK * (D + 1) +
+                          kDqBQ * (kDqBK + 1));
+}
+
+template <int D>
+constexpr size_t dkv_smem_bytes() {
+  // sK, sV [BK][D+1]; sQ, sdO [BQ][D+1]; sP, sDS [BK][BQ+1]; sL, sDl [BQ]
+  constexpr int BK = DkvTile<D>::BK, BQ = DkvTile<D>::BQ;
+  return sizeof(float) * (2 * BK * (D + 1) + 2 * BQ * (D + 1) +
+                          2 * BK * (BQ + 1) + 2 * BQ);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, T* __restrict__ dq,
+                        int h, int h_kv, int q_len, int k_len,
+                        float sm_scale, int causal) {
+  constexpr int DS = D + 1;
+  constexpr int SS = kDqBK + 1;
+  constexpr int CPT = kDqBK / 4;  // score columns per thread
+  constexpr int DPT = D / 4;      // dQ lanes per thread
+  extern __shared__ float smem[];
+  float* sQ = smem;
+  float* sdO = sQ + kDqBQ * DS;
+  float* sK = sdO + kDqBQ * DS;
+  float* sV = sK + kDqBK * DS;
+  float* sDS = sV + kDqBK * DS;
+
+  const int bh = blockIdx.x;
+  const int qb = blockIdx.y;
+  const int b = bh / h;
+  const int kvh = (bh - b * h) / (h / h_kv);
+  const int tid = threadIdx.x;
+  const int row = tid >> 2;
+  const int quad = tid & 3;
+  const int q0 = qb * kDqBQ;
+  const int pos_offset = k_len - q_len;
+  const size_t qoff = (size_t)bh * q_len * D;
+  const T* kp = k + ((size_t)b * h_kv + kvh) * k_len * D;
+  const T* vp = v + ((size_t)b * h_kv + kvh) * k_len * D;
+
+  for (int i = tid; i < kDqBQ * D; i += kThreads) {
+    const int r = i / D, c = i - r * D;
+    const int qi = q0 + r;
+    const bool ok = qi < q_len;
+    sQ[r * DS + c] = ok ? to_f(q[qoff + (size_t)qi * D + c]) : 0.f;
+    sdO[r * DS + c] = ok ? to_f(dout[qoff + (size_t)qi * D + c]) : 0.f;
+  }
+  const int qi = q0 + row;
+  const bool row_ok = qi < q_len;
+  const float row_lse = row_ok ? lse[(size_t)bh * q_len + qi] : 0.f;
+  const float row_delta = row_ok ? delta[(size_t)bh * q_len + qi] : 0.f;
+  const int qpos = pos_offset + qi;
+
+  float acc[DPT];
+#pragma unroll
+  for (int j = 0; j < DPT; ++j) acc[j] = 0.f;
+
+  int n_kb = (k_len + kDqBK - 1) / kDqBK;
+  if (causal) {
+    // Skip k-tiles strictly above the diagonal for this q-tile.
+    n_kb = min(n_kb, (pos_offset + (qb + 1) * kDqBQ + kDqBK - 1) / kDqBK);
+  }
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int k0 = kb * kDqBK;
+    __syncthreads();  // every thread is done with the previous tiles
+    for (int i = tid; i < kDqBK * D; i += kThreads) {
+      const int r = i / D, c = i - r * D;
+      const int ki = k0 + r;
+      const bool ok = ki < k_len;
+      sK[r * DS + c] = ok ? to_f(kp[(size_t)ki * D + c]) : 0.f;
+      sV[r * DS + c] = ok ? to_f(vp[(size_t)ki * D + c]) : 0.f;
+    }
+    __syncthreads();
+
+    float s[CPT], dp[CPT];
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) s[j] = dp[j] = 0.f;
+    const float* qrow = sQ + row * DS;
+    const float* dorow = sdO + row * DS;
+#pragma unroll 4
+    for (int dd = 0; dd < D; ++dd) {
+      const float qv = qrow[dd];
+      const float ov = dorow[dd];
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        s[j] = fmaf(qv, sK[(quad + 4 * j) * DS + dd], s[j]);
+        dp[j] = fmaf(ov, sV[(quad + 4 * j) * DS + dd], dp[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int kpos = k0 + quad + 4 * j;
+      const bool ok = row_ok && kpos < k_len && (!causal || kpos <= qpos);
+      const float p = ok ? expf(s[j] * sm_scale - row_lse) : 0.f;
+      sDS[row * SS + quad + 4 * j] = p * (dp[j] - row_delta);
+    }
+    __syncwarp();  // the quad's sDS row is complete (one warp)
+    const float* dsrow = sDS + row * SS;
+    for (int c = 0; c < kDqBK; ++c) {
+      const float ds = dsrow[c];
+      const float* krow = sK + c * DS;
+#pragma unroll
+      for (int j = 0; j < DPT; ++j)
+        acc[j] = fmaf(ds, krow[quad + 4 * j], acc[j]);
+    }
+  }
+
+  if (row_ok) {
+    T* out = dq + qoff + (size_t)qi * D;
+#pragma unroll
+    for (int j = 0; j < DPT; ++j)
+      out[quad + 4 * j] = from_f<T>(acc[j] * sm_scale);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v,
+                         const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         T* __restrict__ dk, T* __restrict__ dv, int h,
+                         int h_kv, int q_len, int k_len, float sm_scale,
+                         int causal) {
+  constexpr int BK = DkvTile<D>::BK;
+  constexpr int BQ = DkvTile<D>::BQ;
+  constexpr int TPR = kThreads / BK;  // threads per key row
+  constexpr int CPT = BQ / TPR;       // score columns (query rows) per thread
+  constexpr int LPT = D / TPR;        // dK/dV lanes per thread
+  constexpr int DS = D + 1;
+  constexpr int PS = BQ + 1;
+  extern __shared__ float smem[];
+  float* sK = smem;
+  float* sV = sK + BK * DS;
+  float* sQ = sV + BK * DS;
+  float* sdO = sQ + BQ * DS;
+  float* sP = sdO + BQ * DS;
+  float* sDS = sP + BK * PS;
+  float* sL = sDS + BK * PS;
+  float* sDl = sL + BQ;
+
+  const int bkv = blockIdx.x;
+  const int kb = blockIdx.y;
+  const int b = bkv / h_kv;
+  const int kvh = bkv - b * h_kv;
+  const int rep = h / h_kv;
+  const int tid = threadIdx.x;
+  const int kr = tid / TPR;
+  const int part = tid - kr * TPR;
+  const int k0 = kb * BK;
+  const int pos_offset = k_len - q_len;
+  const size_t kvoff = (size_t)bkv * k_len * D;
+
+  for (int i = tid; i < BK * D; i += kThreads) {
+    const int r = i / D, c = i - r * D;
+    const int ki = k0 + r;
+    const bool ok = ki < k_len;
+    sK[r * DS + c] = ok ? to_f(k[kvoff + (size_t)ki * D + c]) : 0.f;
+    sV[r * DS + c] = ok ? to_f(v[kvoff + (size_t)ki * D + c]) : 0.f;
+  }
+  const int kpos = k0 + kr;
+  const bool key_ok = kpos < k_len;
+
+  float dk_acc[LPT], dv_acc[LPT];
+#pragma unroll
+  for (int j = 0; j < LPT; ++j) dk_acc[j] = dv_acc[j] = 0.f;
+
+  const int n_qb = (q_len + BQ - 1) / BQ;
+  // First q-tile whose last row can see this k-tile: qpos >= k0.
+  const int first = causal ? max(0, (k0 - pos_offset) / BQ) : 0;
+  for (int r = 0; r < rep; ++r) {
+    const int bh = b * h + kvh * rep + r;
+    const size_t qoff = (size_t)bh * q_len * D;
+    const float* lp = lse + (size_t)bh * q_len;
+    const float* dlp = delta + (size_t)bh * q_len;
+    for (int qb = first; qb < n_qb; ++qb) {
+      const int q0 = qb * BQ;
+      __syncthreads();  // every thread is done with the previous tiles
+      for (int i = tid; i < BQ * D; i += kThreads) {
+        const int rr = i / D, c = i - rr * D;
+        const int qi = q0 + rr;
+        const bool ok = qi < q_len;
+        sQ[rr * DS + c] = ok ? to_f(q[qoff + (size_t)qi * D + c]) : 0.f;
+        sdO[rr * DS + c] = ok ? to_f(dout[qoff + (size_t)qi * D + c]) : 0.f;
+      }
+      for (int i = tid; i < BQ; i += kThreads) {
+        const bool ok = q0 + i < q_len;
+        sL[i] = ok ? lp[q0 + i] : 0.f;
+        sDl[i] = ok ? dlp[q0 + i] : 0.f;
+      }
+      __syncthreads();
+
+      float s[CPT], dp[CPT];
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) s[j] = dp[j] = 0.f;
+      const float* krow = sK + kr * DS;
+      const float* vrow = sV + kr * DS;
+#pragma unroll 4
+      for (int dd = 0; dd < D; ++dd) {
+        const float kv = krow[dd];
+        const float vv = vrow[dd];
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          const int col = part + TPR * j;
+          s[j] = fmaf(kv, sQ[col * DS + dd], s[j]);
+          dp[j] = fmaf(vv, sdO[col * DS + dd], dp[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        const int col = part + TPR * j;
+        const int qi = q0 + col;
+        const bool ok = key_ok && qi < q_len &&
+                        (!causal || kpos <= pos_offset + qi);
+        const float p = ok ? expf(s[j] * sm_scale - sL[col]) : 0.f;
+        sP[kr * PS + col] = p;
+        sDS[kr * PS + col] = p * (dp[j] - sDl[col]);
+      }
+      __syncwarp();  // the key row's sP / sDS are complete (one warp)
+      const float* prow = sP + kr * PS;
+      const float* dsrow = sDS + kr * PS;
+      for (int c = 0; c < BQ; ++c) {
+        const float p = prow[c];
+        const float ds = dsrow[c];
+        const float* dorow = sdO + c * DS;
+        const float* qrow = sQ + c * DS;
+#pragma unroll
+        for (int j = 0; j < LPT; ++j) {
+          dv_acc[j] = fmaf(p, dorow[part + TPR * j], dv_acc[j]);
+          dk_acc[j] = fmaf(ds, qrow[part + TPR * j], dk_acc[j]);
+        }
+      }
+    }
+  }
+
+  if (key_ok) {
+    T* dkp = dk + kvoff + (size_t)kpos * D;
+    T* dvp = dv + kvoff + (size_t)kpos * D;
+#pragma unroll
+    for (int j = 0; j < LPT; ++j) {
+      dkp[part + TPR * j] = from_f<T>(dk_acc[j] * sm_scale);
+      dvp[part + TPR * j] = from_f<T>(dv_acc[j]);
+    }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  void *out0, *out1;
+  int b, h, h_kv, q_len, k_len;
+  float sm_scale;
+  int causal;
+  cudaStream_t stream;
+};
+
+template <typename T, int D>
+int launch_dq(const Args& a) {
+  const size_t smem = dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.b * a.h, (a.q_len + kDqBQ - 1) / kDqBQ);
+  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<T*>(a.out0), a.h, a.h_kv, a.q_len, a.k_len, a.sm_scale,
+      a.causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_dkv(const Args& a) {
+  const size_t smem = dkv_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<T, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  constexpr int BK = DkvTile<D>::BK;
+  const dim3 grid(a.b * a.h_kv, (a.k_len + BK - 1) / BK);
+  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.h, a.h_kv,
+      a.q_len, a.k_len, a.sm_scale, a.causal);
+  return (int)cudaGetLastError();
+}
+
+// kind: 0 = dQ, 1 = dK/dV.
+template <typename T>
+int dispatch_d(int kind, int d, const Args& a) {
+  switch (d) {
+    case 64:
+      return kind == 0 ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
+    case 128:
+      return kind == 0 ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
+    case 256:
+      return kind == 0 ? launch_dq<T, 256>(a) : launch_dkv<T, 256>(a);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+int dispatch(int kind, int dtype, int d, const Args& a) {
+  if (a.b <= 0 || a.h <= 0 || a.h_kv <= 0 || a.h % a.h_kv ||
+      a.q_len <= 0 || a.k_len < a.q_len)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return dispatch_d<float>(kind, d, a);
+  if (dtype == 1) return dispatch_d<__nv_bfloat16>(kind, d, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the gradients
+// share it); lse and delta are f32.  Each returns a cudaError_t (0 on
+// success).
+extern "C" int skyt_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, void* dq, int dtype,
+                                 int b, int h, int h_kv, int q_len,
+                                 int k_len, int d, float sm_scale,
+                                 int causal, void* stream) {
+  const Args a{q,     k,    v,     dout,  lse,      delta,
+               dq,    nullptr, b,  h,     h_kv,     q_len,
+               k_len, sm_scale, causal, static_cast<cudaStream_t>(stream)};
+  return dispatch(0, dtype, d, a);
+}
+
+extern "C" int skyt_flash_bwd_dkv(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* lse, const void* delta,
+                                  void* dk, void* dv, int dtype, int b,
+                                  int h, int h_kv, int q_len, int k_len,
+                                  int d, float sm_scale, int causal,
+                                  void* stream) {
+  const Args a{q,     k,  v,     dout,  lse,      delta,
+               dk,    dv, b,     h,     h_kv,     q_len,
+               k_len, sm_scale, causal, static_cast<cudaStream_t>(stream)};
+  return dispatch(1, dtype, d, a);
+}

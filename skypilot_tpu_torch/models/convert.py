@@ -7,7 +7,8 @@ the reference: scan-stacked `params['layers']['layer']` with a leading
 [L] axis, and unstacked `params['layer_{i}']`.  The kernel layouts are
 the flax ones on both sides (q/k/v [d, h, hd], o_proj [h, hd, d], MLP
 [d, f] / [f, d], lm_head [d, V]), so leaves copy across unchanged, cast
-to the port's storage dtype (see models/transformer.py).
+to the port's storage dtype (see models/transformer.py: the serving
+layout, or cfg.param_dtype when trainable).
 
 `to_jax_params` is the inverse (numpy f32 leaves), for round trips.
 """
@@ -56,10 +57,13 @@ def _copy(dst: torch.Tensor, src: Any, where: str) -> None:
 
 
 def from_jax_params(cfg: ModelConfig, tree: Dict[str, Any],
-                    device: Union[str, torch.device] = 'cuda'
-                    ) -> Transformer:
+                    device: Union[str, torch.device] = 'cuda',
+                    trainable: bool = False) -> Transformer:
+    """The reference tree as a `Transformer` on `device`; `trainable`
+    keeps every leaf in cfg.param_dtype with grad (training), else the
+    serving layout (models/transformer.py)."""
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev)
+    model = Transformer(cfg, device=dev, trainable=trainable)
     with torch.no_grad():
         _copy(model.embed.embedding, tree['embed']['embedding'],
               'embed.embedding')

@@ -164,9 +164,21 @@ def _layer_forward(x, layer, cfg: ModelConfig, positions, k_cache, v_cache,
                               v_cache[:, :, :s].contiguous(), causal=True)
     else:
         out = _masked_attention(q, k_cache, v_cache, positions, cfg)
+    return _attn_out_and_mlp(x, out, layer, cfg)
+
+
+def _attn_out_and_mlp(x, out, layer, cfg: ModelConfig):
+    """The tail of a layer, shared with the training forward
+    (`DecoderLayer.forward`): o_proj of the attention output
+    [b, h, s, hd] into the residual rows x [M, d] (rows past b * s are
+    bucket padding and get zeros), then the MLP block."""
     b, hq, s, hd = out.shape
-    rows = x.new_zeros((x.shape[0], hq * hd))
-    rows[:b * s] = out.permute(0, 2, 1, 3).reshape(b * s, hq * hd)
+    # The masked path's attention output is f32: cast to x's dtype.
+    rows = out.permute(0, 2, 1, 3).reshape(b * s, hq * hd).to(x.dtype)
+    if x.shape[0] != b * s:
+        padded = x.new_zeros((x.shape[0], hq * hd))
+        padded[:b * s] = rows
+        rows = padded
     x = x + rows @ layer.attn.o_proj.matrix().to(x.dtype)
     h = _norm(x, layer.mlp_norm.scale, cfg.norm_eps,
               cfg.norm_scale_plus_one)
@@ -272,22 +284,6 @@ def prefill_chunk(cfg: ModelConfig, model, tokens, cache):
     """Continue a prefill at cache['index'] with a chunk [b, c] (masked
     per-position causal path, exact at any index)."""
     return _forward_with_cache(cfg, model, tokens, cache, use_flash=False)
-
-
-def forward(cfg: ModelConfig, model, tokens):
-    """tokens [b, s] -> logits [b, s, V] f32 at every position (flash
-    attention over the prompt; the reference Transformer's __call__)."""
-    b, s = tokens.shape
-    cache = init_cache(cfg, b, s, device=tokens.device)
-    positions = torch.arange(s, device=tokens.device)
-
-    def write(c, new):
-        c[:, :, :s] = new.to(c.dtype)
-
-    with torch.no_grad():
-        return _scan_layers_and_unembed(
-            cfg, model, _embed(cfg, model, tokens), positions, cache['k'],
-            cache['v'], write, use_flash=True, all_positions=True)[0]
 
 
 # -------------------------------------------------------------- sampling

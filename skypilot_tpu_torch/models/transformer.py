@@ -15,23 +15,36 @@ whose parameter names and shapes are the flax tree's, so a reader (and
     final_norm.scale                    [d]
     lm_head.kernel                      [d, V]       (absent when tied)
 
-The model is inference-only: parameters do not require grad.  Matmul
-weights are stored in `cfg.dtype` (the cast the reference makes on
-every call with `maybe_dequant(kernel, x.dtype)`, done once); norm
-scales stay f32, and so does the lm_head (and a tied embedding) when
-`cfg.logits_in_f32`.  The math lives in `models/decode.py` as plain
-functions over these modules.
+Two storage layouts:
+- serving (the default): parameters do not require grad; matmul
+  weights are stored in `cfg.dtype` (the cast the reference makes on
+  every call with `maybe_dequant(kernel, x.dtype)`, done once); norm
+  scales stay f32, and so does the lm_head (and a tied embedding) when
+  `cfg.logits_in_f32`.
+- `trainable=True`: every leaf in `cfg.param_dtype` (f32) with
+  requires_grad, as flax keeps `param_dtype` and casts to `cfg.dtype`
+  for compute; the math casts with `.to(x.dtype)`, which autograd
+  carries back to the f32 leaf.
+
+`Transformer.forward` is the reference's `Transformer.__call__`: the
+differentiable forward over every position (flash attention, remat per
+`cfg.remat` / `cfg.remat_policy`) that training runs.  The serving
+paths (KV caches, paged pools) live in `models/decode.py` as plain
+functions over these modules; both share its layer math.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Sequence, Union
+from typing import NamedTuple, Sequence, Union
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models.configs import ModelConfig
+from skypilot_tpu_torch.ops.attention import flash_attention
 
 # flax's lecun_normal: variance_scaling(1, 'fan_in', truncated_normal),
 # whose stddev is divided by the std of a unit normal truncated at +-2.
@@ -89,11 +102,27 @@ def _param(shape, dtype, device) -> nn.Parameter:
                                     device=device), requires_grad=False)
 
 
+class _Storage(NamedTuple):
+    """Storage dtype of each kind of parameter (module docstring)."""
+    matmul: torch.dtype     # q/k/v/o and MLP kernels, q/k/v biases
+    norm: torch.dtype
+    embed: torch.dtype
+    head: torch.dtype
+
+
+def _storage(cfg: ModelConfig, trainable: bool) -> _Storage:
+    if trainable:
+        return _Storage(*[cfg.param_dtype] * 4)
+    head = torch.float32 if cfg.logits_in_f32 else cfg.dtype
+    embed = head if cfg.tie_embeddings else cfg.dtype
+    return _Storage(cfg.dtype, torch.float32, embed, head)
+
+
 class RMSNorm(nn.Module):
 
-    def __init__(self, dim: int, *, device) -> None:
+    def __init__(self, dim: int, *, dtype, device) -> None:
         super().__init__()
-        self.scale = _param((dim,), torch.float32, device)
+        self.scale = _param((dim,), dtype, device)
 
 
 class Dense(nn.Module):
@@ -117,22 +146,22 @@ class Dense(nn.Module):
 
 class Attention(nn.Module):
 
-    def __init__(self, cfg: ModelConfig, *, device) -> None:
+    def __init__(self, cfg: ModelConfig, *, dtype, device) -> None:
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim
-        kw = dict(dtype=cfg.dtype, device=device, bias=cfg.qkv_bias)
+        kw = dict(dtype=dtype, device=device, bias=cfg.qkv_bias)
         self.q_proj = Dense((d,), (cfg.n_heads, hd), **kw)
         self.k_proj = Dense((d,), (cfg.n_kv_heads, hd), **kw)
         self.v_proj = Dense((d,), (cfg.n_kv_heads, hd), **kw)
-        self.o_proj = Dense((cfg.n_heads, hd), (d,), dtype=cfg.dtype,
+        self.o_proj = Dense((cfg.n_heads, hd), (d,), dtype=dtype,
                             device=device)
 
 
 class MLP(nn.Module):
 
-    def __init__(self, cfg: ModelConfig, *, device) -> None:
+    def __init__(self, cfg: ModelConfig, *, dtype, device) -> None:
         super().__init__()
-        kw = dict(dtype=cfg.dtype, device=device)
+        kw = dict(dtype=dtype, device=device)
         self.gate_proj = Dense((cfg.d_model,), (cfg.d_ff,), **kw)
         self.up_proj = Dense((cfg.d_model,), (cfg.d_ff,), **kw)
         self.down_proj = Dense((cfg.d_ff,), (cfg.d_model,), **kw)
@@ -140,16 +169,38 @@ class MLP(nn.Module):
 
 class DecoderLayer(nn.Module):
 
-    def __init__(self, cfg: ModelConfig, *, device) -> None:
+    def __init__(self, cfg: ModelConfig, *, storage: _Storage,
+                 device) -> None:
         super().__init__()
         if cfg.n_experts > 0:
             raise NotImplementedError(
                 'MoE decoders (models/moe.py) come with a later slice of '
                 'the port')
-        self.attn_norm = RMSNorm(cfg.d_model, device=device)
-        self.attn = Attention(cfg, device=device)
-        self.mlp_norm = RMSNorm(cfg.d_model, device=device)
-        self.mlp = MLP(cfg, device=device)
+        self.cfg = cfg
+        self.attn_norm = RMSNorm(cfg.d_model, dtype=storage.norm,
+                                 device=device)
+        self.attn = Attention(cfg, dtype=storage.matmul, device=device)
+        self.mlp_norm = RMSNorm(cfg.d_model, dtype=storage.norm,
+                                device=device)
+        self.mlp = MLP(cfg, dtype=storage.matmul, device=device)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                shape) -> torch.Tensor:
+        """The training forward of one layer: residual rows x [b * s, d]
+        (`shape` = (b, s)) -> the same, attention through the
+        differentiable `flash_attention` on the whole sequence."""
+        from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
+        cfg = self.cfg
+        h = decode._norm(x, self.attn_norm.scale, cfg.norm_eps,  # pylint: disable=protected-access
+                         cfg.norm_scale_plus_one)
+        q = _rope(decode._attn_proj(h, self.attn.q_proj, shape),  # pylint: disable=protected-access
+                  positions, cfg)
+        k = _rope(decode._attn_proj(h, self.attn.k_proj, shape),  # pylint: disable=protected-access
+                  positions, cfg)
+        v = decode._attn_proj(h, self.attn.v_proj, shape)  # pylint: disable=protected-access
+        out = flash_attention(q.contiguous(), k.contiguous(),
+                              v.contiguous(), causal=True)
+        return decode._attn_out_and_mlp(x, out, self, cfg)  # pylint: disable=protected-access
 
 
 class Embed(nn.Module):
@@ -170,32 +221,77 @@ class LMHead(nn.Module):
 class Transformer(nn.Module):
     """Parameters of the whole decoder.  Construction allocates them
     UNINITIALISED on `device`; `init_params` fills them from a seed and
-    `convert.from_jax_params` from a reference tree."""
+    `convert.from_jax_params` from a reference tree.  `trainable`
+    picks the storage layout (module docstring)."""
 
-    def __init__(self, cfg: ModelConfig, *, device) -> None:
+    def __init__(self, cfg: ModelConfig, *, device,
+                 trainable: bool = False) -> None:
         super().__init__()
         self.cfg = cfg
-        head_f32 = cfg.logits_in_f32
-        embed_dtype = (torch.float32 if cfg.tie_embeddings and head_f32
-                       else cfg.dtype)
-        self.embed = Embed(cfg.vocab_size, cfg.d_model, dtype=embed_dtype,
+        storage = _storage(cfg, trainable)
+        self.embed = Embed(cfg.vocab_size, cfg.d_model, dtype=storage.embed,
                            device=device)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device=device) for _ in range(cfg.n_layers))
-        self.final_norm = RMSNorm(cfg.d_model, device=device)
+            DecoderLayer(cfg, storage=storage, device=device)
+            for _ in range(cfg.n_layers))
+        self.final_norm = RMSNorm(cfg.d_model, dtype=storage.norm,
+                                  device=device)
         self.lm_head = (None if cfg.tie_embeddings else LMHead(
-            cfg, dtype=torch.float32 if head_f32 else cfg.dtype,
-            device=device))
+            cfg, dtype=storage.head, device=device))
+        self.requires_grad_(trainable)
 
     @property
     def device(self) -> torch.device:
         return self.embed.embedding.device
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [b, s] -> logits [b, s, V] f32 (flash-attention
-        prefill over every position)."""
+    def forward(self, tokens: torch.Tensor, return_hidden: bool = False):
+        """tokens [b, s] -> logits [b, s, V] f32; with return_hidden,
+        -> (final hidden [b, s, d] in cfg.dtype, lm-head kernel [d, V]
+        in the logits matmul dtype) for the fused linear + CE loss
+        (models/losses.py), so the [b, s, V] tensor is never built."""
         from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
-        return decode.forward(self.cfg, self, tokens)
+        from skypilot_tpu_torch.models import heads  # pylint: disable=import-outside-toplevel
+        cfg = self.cfg
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device)
+        x = decode._embed(cfg, self, tokens).reshape(b * s, cfg.d_model)  # pylint: disable=protected-access
+        context_fn = _remat_context(cfg) if cfg.remat else None
+        for layer in self.layers:
+            if context_fn is None:
+                x = layer(x, positions, (b, s))
+            else:
+                x = torch_checkpoint.checkpoint(
+                    layer, x, positions, (b, s), use_reentrant=False,
+                    context_fn=context_fn)
+        x = decode._norm(x, self.final_norm.scale, cfg.norm_eps,  # pylint: disable=protected-access
+                         cfg.norm_scale_plus_one).reshape(b, s, -1)
+        if return_hidden:
+            return x, heads.head_kernel(self, cfg)
+        return heads.unembed(x, self, cfg)
+
+
+# Ops whose outputs remat_policy='dots' keeps: the matmuls without batch
+# dims (every projection is a 2-D mm), as jax's
+# dots_with_no_batch_dims_saveable keeps the dot_generals without them.
+_DOTS = (torch.ops.aten.mm.default,)
+
+
+def _save_dots(ctx, op, *args, **kwargs):  # pylint: disable=unused-argument
+    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(cfg: ModelConfig):
+    """cfg.remat_policy -> the checkpoint's context_fn ('full' saves
+    nothing but the layer input and recomputes the rest)."""
+    if cfg.remat_policy == 'full':
+        return torch_checkpoint.noop_context_fn
+    if cfg.remat_policy == 'dots':
+        return functools.partial(
+            torch_checkpoint.create_selective_checkpoint_contexts,
+            _save_dots)
+    raise ValueError(f'Unknown remat_policy {cfg.remat_policy!r}; '
+                     "have 'full', 'dots'.")
 
 
 def _fill_(name: str, module: nn.Module, p: torch.Tensor, cfg: ModelConfig,
@@ -223,15 +319,16 @@ def _fill_(name: str, module: nn.Module, p: torch.Tensor, cfg: ModelConfig,
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
-                device: Union[str, torch.device] = 'cuda'
-                ) -> Transformer:
+                device: Union[str, torch.device] = 'cuda',
+                trainable: bool = False) -> Transformer:
     """Seeded random weights on `device`: normal(0.02) for the
     embedding, lecun-normal (truncated, variance 1/fan_in) for every
     kernel, identity norm scales, zero biases.  The port's own
     generator: values differ from the reference's jax.random init (the
-    tests carry reference weights over with convert.from_jax_params)."""
+    tests carry reference weights over with convert.from_jax_params).
+    `trainable` stores every leaf in cfg.param_dtype with grad."""
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev)
+    model = Transformer(cfg, device=dev, trainable=trainable)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
     modules = dict(model.named_modules())

@@ -1,7 +1,8 @@
 """Build and bind the port's CUDA kernels.
 
-Each `csrc/<name>.cu` is compiled by nvcc for Hopper (`sm_90a`) into
-its own shared library with a plain C interface, loaded with ctypes:
+Each `csrc/<name>.cu` (SOURCES: paged decode attention, flash forward,
+flash backward) is compiled by nvcc for Hopper (`sm_90a`) into its own
+shared library with a plain C interface, loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o <build>/<name>-<hash>.so csrc/<name>.cu
@@ -29,7 +30,7 @@ from typing import Dict, List, Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
-SOURCES = ('paged_attention', 'flash_fwd')
+SOURCES = ('paged_attention', 'flash_fwd', 'flash_bwd')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-lineinfo')
 

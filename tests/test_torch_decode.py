@@ -172,6 +172,20 @@ def test_prefill_chunk_decode_step_logits(pallas, name):
     assert tc['index'] == int(jc['index']) == 13
 
 
+def test_bf16_chunked_prefill_and_forward_run():
+    """bf16 activations through the masked (f32 attention) path and the
+    flash path: every layer's attention output joins the bf16 residual
+    stream in its dtype."""
+    cfg = configs.get_config('tiny', dtype=torch.bfloat16)
+    model = init_params(cfg, seed=0, device='cpu')
+    toks = torch.tensor(_tokens(4, (2, 12)))
+    logits, cache = decode.prefill(cfg, model, toks[:, :8], max_len=16)
+    logits2, _ = decode.prefill_chunk(cfg, model, toks[:, 8:], cache)
+    full = model(toks)
+    for out in (logits, logits2, full):
+        assert out.dtype == torch.float32 and torch.isfinite(out).all()
+
+
 @pytest.mark.parametrize('name', PRESETS)
 def test_greedy_generate_tokens_equal(name):
     jcfg, params, tcfg, model, _ = _setup(name)

@@ -6,7 +6,8 @@ imports no JAX, so it runs on a GPU host as it is:
 
 Tolerances: f32 outputs within 1e-4 and bf16 within 2e-2 (compared as
 f32; both sides accumulate in f32, in different orders); the LSE
-within 1e-3; greedy tokens equal.
+within 1e-3; flash-backward gradients within the same 1e-4 / 2e-2 of
+the plain version's largest |value|; greedy tokens equal.
 """
 from __future__ import annotations
 
@@ -40,7 +41,8 @@ def _tol(dtype):
 @pytest.mark.parametrize('h,h_kv,d,q_len,k_len,causal', [
     (32, 8, 128, 1, 1, True), (32, 8, 128, 100, 100, True),
     (32, 8, 128, 64, 200, True), (32, 8, 128, 130, 130, False),
-    (8, 1, 256, 70, 70, True), (4, 2, 64, 33, 90, True)])
+    (8, 1, 256, 70, 70, True), (4, 2, 64, 33, 90, True),
+    (32, 8, 128, 2048, 2048, True), (16, 8, 64, 512, 512, True)])
 def test_flash_kernel_matches_plain(cuda, dtype, h, h_kv, d, q_len, k_len,
                                     causal):
     gen = torch.Generator(device=cuda).manual_seed(q_len * 7 + d)
@@ -57,6 +59,75 @@ def test_flash_kernel_matches_plain(cuda, dtype, h, h_kv, d, q_len, k_len,
     torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
                                rtol=_tol(dtype))
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+
+
+def _bwd_inputs(dev, dtype, h, h_kv, d, q_len, k_len, causal, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                  for shape in ((2, h, q_len, d), (2, h_kv, k_len, d),
+                                (2, h_kv, k_len, d), (2, h, q_len, d)))
+    g_lse = torch.randn((2, h, q_len), generator=gen, device=dev)
+    out, lse = attention.flash_attention_with_lse(q, k, v, causal=causal)
+    return q, k, v, out, lse, g, g_lse
+
+
+def _assert_rel_close(got, ref, tol, what):
+    scale = ref.float().abs().max().clamp(min=1e-30)
+    err = (got.float() - ref.float()).abs().max() / scale
+    assert torch.isfinite(got.float()).all(), what
+    assert err <= tol, f'{what}: max err {float(err):.3g} of max |ref|'
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('h,h_kv,d,q_len,k_len,causal', [
+    (32, 8, 128, 2048, 2048, True),
+    (32, 8, 128, 100, 100, True), (32, 8, 128, 1000, 1000, True),
+    (32, 8, 128, 100, 612, True), (32, 8, 128, 130, 130, False),
+    (28, 4, 128, 130, 130, True), (8, 1, 256, 70, 70, True),
+    (4, 2, 64, 33, 90, True)])
+def test_flash_bwd_kernels_match_plain(cuda, dtype, h, h_kv, d, q_len,
+                                       k_len, causal):
+    """B4 (dQ) and B5 (dK/dV) against _flash_bwd_reference on the same
+    inputs, with a non-zero LSE cotangent; two launches give the same
+    bits (no atomics)."""
+    args = _bwd_inputs(cuda, dtype, h, h_kv, d, q_len, k_len, causal,
+                       seed=q_len + d + h)
+    before = dict(attention.LAUNCHES)
+    got = attention._flash_bwd_cuda(*args, causal=causal,  # pylint: disable=protected-access
+                                    sm_scale=d ** -0.5)
+    again = attention._flash_bwd_cuda(*args, causal=causal,  # pylint: disable=protected-access
+                                      sm_scale=d ** -0.5)
+    for name in ('flash_bwd_dq', 'flash_bwd_dkv'):
+        assert attention.LAUNCHES[name] == before[name] + 2
+    ref = attention._flash_bwd_reference(*args, causal=causal,  # pylint: disable=protected-access
+                                         sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    for name, a, b, r in zip(('dq', 'dk', 'dv'), got, again, ref):
+        assert a.dtype == dtype and a.shape == r.shape
+        assert torch.equal(a, b), f'{name}: launches differ'
+        _assert_rel_close(a, r, _tol(dtype), name)
+
+
+def test_flash_autograd_matches_autograd_of_plain(cuda):
+    """_FlashLSE on CUDA (B3 forward, B4/B5 backward) against autograd
+    through the plain forward, through both outputs."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    shapes = ((2, 8, 77, 64), (2, 2, 77, 64), (2, 2, 77, 64))
+    leaves = [torch.randn(s, generator=gen, device=cuda) for s in shapes]
+    g = torch.randn(shapes[0], generator=gen, device=cuda)
+    g_lse = torch.randn(shapes[0][:3], generator=gen, device=cuda)
+    grads = []
+    for fn in (attention.flash_attention_with_lse,
+               lambda q, k, v: attention._blockwise_attention(  # pylint: disable=protected-access
+                   q, k, v, causal=True, sm_scale=64 ** -0.5,
+                   return_lse=True)):
+        q, k, v = (t.clone().requires_grad_() for t in leaves)
+        out, lse = fn(q, k, v)
+        ((out * g).sum() + (lse * g_lse).sum()).backward()
+        grads.append((q.grad, k.grad, v.grad))
+    for name, a, r in zip(('dq', 'dk', 'dv'), *grads):
+        _assert_rel_close(a, r, 1e-4, name)
 
 
 def _pool(gen, n_pages, h_kv, ps, d, dtype, quantized, dev):
@@ -113,6 +184,14 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
                                   k[..., :96].contiguous())
     with pytest.raises(ValueError, match='dtype'):
         attention.flash_attention(q, k.bfloat16(), k)
+    out, lse = attention.flash_attention_with_lse(q, k, k)
+    with pytest.raises(ValueError, match='lse'):
+        attention._flash_bwd_cuda(q, k, k, out, lse.double(), out, None,  # pylint: disable=protected-access
+                                  causal=True, sm_scale=1.0)
+    with pytest.raises(ValueError, match='contiguous'):
+        attention._flash_bwd_cuda(  # pylint: disable=protected-access
+            q, k, k, out, lse, out.transpose(2, 3).contiguous()
+            .transpose(2, 3), None, causal=True, sm_scale=1.0)
     pool = torch.zeros((4, 2, 16, 128), device=cuda)
     tables = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
     lengths = torch.zeros((1,), dtype=torch.int32, device=cuda)

@@ -2,15 +2,17 @@
 
 On the CPU each op runs its plain PyTorch version; the JAX side runs
 the Pallas kernels in interpret mode (SKYTPU_PALLAS_INTERPRET=1, read
-at call time).  Inputs come from numpy with a seed.  Tolerance: 1e-5
-absolute and relative, f32 on both sides (the two accumulate in
-different orders).
+at call time), the backward included (`jax.grad` through
+`flash_attention_with_lse` reaches `_flash_bwd_pallas`).  Inputs and
+cotangents come from numpy with a seed.  Tolerance: 1e-5 absolute and
+relative, f32 on both sides (the two accumulate in different orders).
 
 The CUDA kernels are held against these plain versions on the card by
 tests/test_torch_kernels_gpu.py.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -71,6 +73,72 @@ def test_flash_default_scale_and_out_only():
                                       jnp.asarray(v), causal=True)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
                                rtol=RTOL)
+
+
+def _jax_grads(q, k, v, g, g_lse, causal, sm_scale):
+    """jax.grad of <out, g> + <lse, g_lse> through the reference op
+    (Pallas forward and backward kernels in interpret mode)."""
+    def f(q, k, v):
+        out, lse = jax_attention.flash_attention_with_lse(
+            q, k, v, causal=causal, sm_scale=sm_scale, block_q=32,
+            block_k=32)
+        total = jnp.sum(out * g) if g is not None else 0.0
+        return total + jnp.sum(lse * g_lse)
+    return jax.grad(f, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+
+
+def _torch_grads(q, k, v, g, g_lse, causal, sm_scale):
+    """Gradients through the port's differentiable op (_FlashLSE)."""
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    out, lse = attention.flash_attention_with_lse(tq, tk, tv, causal=causal,
+                                                  sm_scale=sm_scale)
+    total = (lse * torch.tensor(g_lse)).sum()
+    if g is not None:
+        total = total + (out * torch.tensor(g)).sum()
+    total.backward()
+    return tq.grad, tk.grad, tv.grad
+
+
+# FLASH_CASES at GQA rep 2, a few at rep 3 (h 6 over 2 kv-heads), all
+# with a non-zero LSE cotangent.
+BWD_CASES = ([case + (4,) for case in FLASH_CASES] +
+             [(7, 7, True, 6), (33, 70, True, 6), (12, 12, False, 6)])
+
+
+@pytest.mark.parametrize('q_len,k_len,causal,h', BWD_CASES)
+def test_flash_bwd_matches_pallas(interpret, q_len, k_len, causal, h):
+    rng = np.random.default_rng(q_len * 10 + k_len + h)
+    q, k, v = _qkv(rng, 2, h, 2, q_len, k_len, 16)
+    g = rng.standard_normal(q.shape).astype(np.float32)
+    g_lse = rng.standard_normal(q.shape[:3]).astype(np.float32)
+    sm_scale = 16 ** -0.5
+    ref = _jax_grads(q, k, v, g, g_lse, causal, sm_scale)
+    tq, tk, tv = (torch.tensor(x) for x in (q, k, v))
+    out, lse = attention.flash_attention_with_lse(tq, tk, tv, causal=causal,
+                                                  sm_scale=sm_scale)
+    plain = attention._flash_bwd_reference(  # pylint: disable=protected-access
+        tq, tk, tv, out, lse, torch.tensor(g), torch.tensor(g_lse),
+        causal=causal, sm_scale=sm_scale)
+    auto = _torch_grads(q, k, v, g, g_lse, causal, sm_scale)
+    for name, p, a, r in zip('qkv', plain, auto, ref):
+        np.testing.assert_allclose(p.numpy(), np.asarray(r), atol=ATOL,
+                                   rtol=RTOL, err_msg=f'd{name} plain')
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=ATOL,
+                                   rtol=RTOL, err_msg=f'd{name} autograd')
+
+
+def test_flash_bwd_lse_only_cotangent(interpret):
+    """Only the LSE feeds the loss: autograd hands the out cotangent in
+    as None, which counts as zero."""
+    rng = np.random.default_rng(11)
+    q, k, v = _qkv(rng, 1, 4, 2, 9, 9, 16)
+    g_lse = rng.standard_normal(q.shape[:3]).astype(np.float32)
+    ref = _jax_grads(q, k, v, None, g_lse, True, 0.25)
+    got = _torch_grads(q, k, v, None, g_lse, True, 0.25)
+    for t, r in zip(got, ref):
+        np.testing.assert_allclose(t.numpy(), np.asarray(r), atol=ATOL,
+                                   rtol=RTOL)
 
 
 def _pool(rng, n_pages, h_kv, ps, d, quantized):
