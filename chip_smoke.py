@@ -8,7 +8,10 @@ Phases (each one that fails makes the script exit non-zero):
 1. The device: CUDA must be present; prints the card's name and power
    limit as `nvidia-smi --query-gpu=name,power.limit` gives them.
 2. Builds every CUDA kernel of the port from csrc/ (one nvcc per
-   source, in parallel) and prints the build seconds.
+   source, in parallel) and prints the build seconds; then, for every
+   flash kernel instantiation, ptxas's registers, stack and spills
+   and the HGMMA / HMMA / FFMA counts of `cuobjdump -sass` (a wgmma
+   kernel without HGMMA fails the run).
 3. Kernel parity on the card at the Llama-3-8B shapes (h_q 32, h_kv 8,
    d 128, bf16, page size 16): B1 paged decode and B2 int8 paged decode
    with ragged lengths (1, 15, 16, 17, 1000), S = 1 and S = 5, tables
@@ -24,13 +27,19 @@ Phases (each one that fails makes the script exit non-zero):
    version on the same inputs: bf16 outputs within atol/rtol 2e-2
    (compared as f32; both accumulate in f32, in different orders), f32
    within 1e-4, the LSE within 1e-3; backward gradients within the same
-   2e-2 / 1e-4 of the plain version's largest |value|.  Times come from
-   CUDA events, kernel and plain version alike (20 launches after 3
-   warm-up launches); bounds from this run's bytes and FLOPs against
+   2e-2 / 1e-4 of the plain version's largest |value|.  A kernel's
+   `ms` and the `library_ms` of its PyTorch yardstick are device time:
+   the summed durations of the kernels 20 calls launch, after 3
+   warm-up calls, in a torch.profiler trace, over 20; `ms_with_host`
+   (CUDA events around the same 20 calls) keeps the host's launch work,
+   and the plain version is timed that way.  B3 is timed at the
+   training shape and the 512-token chunk.  Bounds from this run's
+   bytes and FLOPs against
    3.35 TB/s and 989 TFLOP/s (H100 SXM data sheet), labelled by
    whichever of the two is larger.  B4/B5 are timed at the training
    shape; their plain version computes dQ, dK and dV together, and so
-   does their yardstick, SDPA's backward (fwd + bwd minus fwd).
+   does their yardstick, SDPA's backward (the device time of fwd + bwd
+   minus fwd's).
 4. The serving path: ModelServer('llama3-8b') with seeded random
    weights at full width and depth, paged continuous batching,
    answering concurrent POST /generate requests over HTTP (greedy, one
@@ -71,6 +80,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -102,8 +112,52 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def is_device_event(e) -> bool:
+    """A profiler event that ran on the card (a kernel, memcpy or
+    memset); a user annotation spans kernels that are counted alone."""
+    import torch
+    return (e.device_type == torch.autograd.DeviceType.CUDA and
+            not getattr(e, 'is_user_annotation', False))
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call: the summed durations of every kernel that
+    `iters` calls launch (torch.profiler, CUDA activity), over `iters`,
+    after `warmup` calls.  Unlike `time_ms` it holds no host time."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if is_device_event(e))
+    if us <= 0:
+        raise AssertionError('device_ms: the profiler saw no device time')
+    return us / 1e3 / iters
+
+
+def timed_call(fn) -> dict:
+    """{'ms': device time per call, 'ms_with_host': CUDA-event time per
+    call, the host's launch work included}."""
+    return {'ms': device_ms(fn), 'ms_with_host': time_ms(fn)}
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def kernel_summary(r) -> str:
+    """One kernel's times: device ms with its roofline share, the
+    CUDA-event ms with the host, plain and library ms, bound."""
+    return (f'{r["ms"]:.4f} ms device ({100 * r["bound_ms"] / r["ms"]:.1f}% '
+            f'of the bound), {r["ms_with_host"]:.4f} ms per call with host; '
+            f'plain {r["plain_ms"]:.4f}, bound {r["bound_ms"]:.4f} by '
+            f'{r["bound_by"]}, library {r["library_ms"]}')
 
 
 def check_close(name, out, ref, tol) -> float:
@@ -126,6 +180,65 @@ def zero_counts(counters) -> None:
 def read_counts(counters) -> dict:
     """{kernel: launches since the last zero_counts}."""
     return {name: table[name] for name, table in counters.items()}
+
+
+# ------------------------------------------------------------ phase 2
+
+
+def kernel_label(mangled: str) -> str:
+    """`flash_fwd_wgmma_kernel<bf16, d 128>` from a mangled name."""
+    name = re.search(r'\d+(flash_[a-z_]*kernel)', mangled)
+    d = re.search(r'Li(\d+)E', mangled)
+    if not name or not d:
+        return mangled
+    # wgmma kernels are bf16 only and the scalar forward f32 only; the
+    # scalar backward kernels carry their type.
+    dtype = ('bf16' if 'wgmma' in mangled or '__nv_bfloat16Li' in mangled
+             else 'f32')
+    return f'{name.group(1)}<{dtype}, d {d.group(1)}>'
+
+
+def compiled_report(build) -> None:
+    """What nvcc made of the flash kernels: per kernel instantiation,
+    ptxas's registers, stack and spills (from the build log) and the
+    tensor-core (HGMMA, HMMA) and scalar FMA (FFMA) instructions in
+    `cuobjdump -sass`.  Fails if a wgmma kernel has no HGMMA."""
+    import os
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), 'cuobjdump')
+    for source in ('flash_fwd', 'flash_bwd'):
+        ptxas, fn = {}, None
+        for line in build.build_log(source).splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = m.group(1)
+                continue
+            m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill '
+                          r'stores, (\d+) bytes spill loads', line)
+            if m and fn:
+                ptxas[fn] = dict(stack=int(m.group(1)),
+                                 spills=int(m.group(2)) + int(m.group(3)))
+            m = re.search(r'Used (\d+) registers', line)
+            if m and fn:
+                ptxas.setdefault(fn, {})['registers'] = int(m.group(1))
+                fn = None
+        sass = subprocess.run([cuobjdump, '-sass', build.library_path(source)],
+                              check=True, capture_output=True,
+                              text=True).stdout
+        ops, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r'Function : (\S+)', line)
+            if m:
+                fn = m.group(1)
+                ops[fn] = dict(HGMMA=0, HMMA=0, FFMA=0)
+            elif fn:
+                for op in ops[fn]:
+                    ops[fn][op] += bool(re.search(rf'\b{op}\b', line))
+        for fn in sorted(ops, key=kernel_label):
+            log(f'  {source}: {kernel_label(fn)}: ptxas {ptxas.get(fn)}; '
+                f'sass {ops[fn]}')
+            if 'wgmma' in fn and ops[fn]['HGMMA'] == 0:
+                raise AssertionError(f'{kernel_label(fn)}: no HGMMA in its '
+                                     'SASS')
 
 
 # ------------------------------------------------------------ phase 3
@@ -205,18 +318,20 @@ def check_paged(dev, quantized):
         if dtype == torch.bfloat16 and s_q == (5 if quantized else 1):
             timed = (q, kl, vl, tables, lengths, scale)
     q, kl, vl, tables, lengths, scale = timed
-    ms = time_ms(lambda: pa.paged_attention(q, kl, vl, tables, lengths))
+    kernel = timed_call(lambda: pa.paged_attention(q, kl, vl, tables,
+                                                   lengths))
     plain = time_ms(lambda: pa._paged_attention_reference(  # pylint: disable=protected-access
         q, kl, vl, tables, lengths, sm_scale=scale))
     bound_ms, bound_by = paged_bound(q, kl, tables, lengths, quantized)
-    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain,
+    return dict(max_abs_err=max(errs), **kernel, plain_ms=plain,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
 # (dtype, b, h, h_kv, d, q_len, k_len) of B3 against its plain version:
 # 8B serving prefill chunks (ragged, q_len < k_len, one f32), the
 # training shape (b 2 x 2048) and `train_llama --model small`'s (16/8,
-# d 64, b 8 x 512).  The 512-token chunk is the one timed.
+# d 64, b 8 x 512).  The 512-token chunk and the training shape are
+# the ones timed.
 FLASH_CASES = [
     ('bf16', 1, 32, 8, 128, 1, 1),
     ('bf16', 1, 32, 8, 128, 100, 100),
@@ -234,7 +349,7 @@ def check_flash(dev):
     from skypilot_tpu_torch.ops import attention
     dtypes = {'bf16': torch.bfloat16, 'f32': torch.float32}
     errs = []
-    timed = None
+    cases = {}
     for dt, b, h, h_kv, d, q_len, k_len in FLASH_CASES:
         dtype = dtypes[dt]
         gen = torch.Generator(device=dev).manual_seed(q_len + k_len)
@@ -252,20 +367,28 @@ def check_flash(dev):
         errs.append(check_close(name, out, ref, tol))
         check_close(name + ' lse', lse, ref_lse, 1e-3)
         log(f'  {name}: max_abs_err {errs[-1]:.3g} (tol {tol})')
-        if (dt, b, d, q_len, k_len) == ('bf16', 1, 128, 512, 512):
-            timed = (q, k, v)
-    q, k, v = timed
-    b, h, n, d = q.shape
-    ms = time_ms(lambda: attention.flash_attention(q, k, v))
-    plain = time_ms(lambda: attention._blockwise_attention(  # pylint: disable=protected-access
-        q, k, v, causal=True, sm_scale=d ** -0.5))
-    library = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    flops = 4 * b * h * d * (n * (n + 1) // 2)
-    io = (2 * q.numel() + 2 * k.numel()) * q.element_size() + b * h * n * 4
-    bound_ms, bound_by = bound(io, flops, BF16_FLOPS)
-    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library)
+        if dt == 'bf16' and d == 128 and q_len == k_len and \
+                (b, q_len) in ((1, 512), (TRAIN_BATCH, TRAIN_SEQ)):
+            cases[q_len] = (q, k, v)
+    # The 512-token serving chunk and the training shape; the kernels
+    # line carries the training shape (B3's launches are the training
+    # path's), the chunk rides along under `serving_chunk`.
+    shapes = {}
+    for n, (q, k, v) in cases.items():
+        b, h, _, d = q.shape
+        kernel = timed_call(lambda: attention.flash_attention(q, k, v))
+        plain = time_ms(lambda: attention._blockwise_attention(  # pylint: disable=protected-access
+            q, k, v, causal=True, sm_scale=d ** -0.5))
+        library = device_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+        flops = 4 * d * visible_entries(b, h, n, n, True)
+        io = ((2 * q.numel() + 2 * k.numel()) * q.element_size() +
+              b * h * n * 4)
+        bound_ms, bound_by = bound(io, flops, BF16_FLOPS)
+        shapes[n] = dict(max_abs_err=max(errs), **kernel, plain_ms=plain,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=library)
+    return dict(shapes[TRAIN_SEQ], serving_chunk=shapes[512])
 
 
 # (dtype, b, h, h_kv, d, q_len, k_len, causal); the first is the
@@ -319,8 +442,8 @@ def bwd_bound(q, k, n_products, out_numel):
 
 
 def check_flash_bwd(dev):
-    """B4 and B5 against _flash_bwd_reference; -> ({name: result},
-    B3 and SDPA forward times at the training shape)."""
+    """B4 and B5 against _flash_bwd_reference; -> {name: result}, timed
+    at the training shape."""
     import torch
     import torch.nn.functional as F
     from skypilot_tpu_torch.ops import attention
@@ -361,30 +484,30 @@ def check_flash_bwd(dev):
     q, k, v, out, lse, g, g_lse = timed
     kw = dict(causal=True, sm_scale=q.shape[-1] ** -0.5)
     delta = attention._delta(out, g, g_lse).contiguous()  # pylint: disable=protected-access
-    dq_ms = time_ms(lambda: attention._flash_bwd_dq_cuda(  # pylint: disable=protected-access
+    dq = timed_call(lambda: attention._flash_bwd_dq_cuda(  # pylint: disable=protected-access
         q, k, v, g, lse, delta, **kw))
-    dkv_ms = time_ms(lambda: attention._flash_bwd_dkv_cuda(  # pylint: disable=protected-access
+    dkv = timed_call(lambda: attention._flash_bwd_dkv_cuda(  # pylint: disable=protected-access
         q, k, v, g, lse, delta, **kw))
     plain = time_ms(lambda: attention._flash_bwd_reference(  # pylint: disable=protected-access
         q, k, v, out, lse, g, g_lse, **kw))
-    b3_ms = time_ms(lambda: attention.flash_attention(q, k, v))
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
 
     def sdpa():
         return F.scaled_dot_product_attention(*leaves, is_causal=True,
                                               enable_gqa=True)
-    sdpa_fwd = time_ms(sdpa)
-    sdpa_bwd = time_ms(lambda: torch.autograd.grad(sdpa(), leaves, g)) - \
-        sdpa_fwd
+    # SDPA's backward: the device time of forward + backward less the
+    # forward's.
+    sdpa_bwd = (device_ms(lambda: torch.autograd.grad(sdpa(), leaves, g)) -
+                device_ms(sdpa))
     results = {}
-    for name, ms, n_products, out_numel in (
-            ('flash_bwd_dq', dq_ms, 3, q.numel()),
-            ('flash_bwd_dkv', dkv_ms, 4, 2 * k.numel())):
+    for name, kernel, n_products, out_numel in (
+            ('flash_bwd_dq', dq, 3, q.numel()),
+            ('flash_bwd_dkv', dkv, 4, 2 * k.numel())):
         bound_ms, bound_by = bwd_bound(q, k, n_products, out_numel)
-        results[name] = dict(max_abs_err=max(errs[name]), ms=ms,
+        results[name] = dict(max_abs_err=max(errs[name]), **kernel,
                              plain_ms=plain, bound_ms=bound_ms,
                              bound_by=bound_by, library_ms=sdpa_bwd)
-    return results, {'b3_ms': b3_ms, 'sdpa_fwd_ms': sdpa_fwd}
+    return results
 
 
 # ------------------------------------------------------------ phase 4
@@ -550,12 +673,6 @@ def profile_step(state, batch, tcfg):
             train.train_step(state, batch, tcfg)
             torch.cuda.synchronize()
 
-    def is_kernel(e):
-        # A user annotation (the optimizer's step range) spans kernels
-        # that are counted on their own.
-        return (e.device_type == cuda and
-                not getattr(e, 'is_user_annotation', False))
-
     def dev_us(e):
         return float(getattr(e, 'self_device_time_total', 0.0) or 0.0)
     step = [e for e in prof.events() if e.name == 'chip_smoke_train_step'
@@ -565,14 +682,14 @@ def profile_step(state, batch, tcfg):
     wall_us = step[0].time_range.end - step[0].time_range.start
     busy_us, until = 0.0, -math.inf
     for start, end in sorted((e.time_range.start, e.time_range.end)
-                             for e in prof.events() if is_kernel(e)):
+                             for e in prof.events() if is_device_event(e)):
         busy_us += max(0.0, end - max(start, until))
         until = max(until, end)
     idle = 1 - busy_us / wall_us
     if not 0 <= idle <= 1:
         raise AssertionError(f'train profile: device busy {busy_us} us '
                              f'against a {wall_us} us step')
-    events = [e for e in prof.key_averages() if is_kernel(e)]
+    events = [e for e in prof.key_averages() if is_device_event(e)]
     top = sorted(events, key=dev_us, reverse=True)[:16]
     groups = {}
     for e in events:
@@ -761,6 +878,7 @@ def main() -> int:
     built = _build.build_all()
     log(f'build: {time.perf_counter() - t0:.1f}s '
         f'({", ".join(f"{k} {v:.1f}s" for k, v in built.items())})')
+    compiled_report(_build)
 
     log('kernel parity (8B shapes):')
     results = {
@@ -768,21 +886,11 @@ def main() -> int:
         'paged_attention_int8': check_paged(dev, quantized=True),
         'flash_fwd': check_flash(dev),
     }
-    bwd_results, train_shape = check_flash_bwd(dev)
-    results.update(bwd_results)
+    results.update(check_flash_bwd(dev))
     for name, r in results.items():
-        log(f'  {name}: {r["ms"]:.4f} ms (plain {r["plain_ms"]:.4f}, '
-            f'bound {r["bound_ms"]:.4f} by {r["bound_by"]}, library '
-            f'{r["library_ms"]})')
-    q_shape = (TRAIN_BATCH, 32, TRAIN_SEQ, 128)
-    fwd_entries = visible_entries(TRAIN_BATCH, 32, TRAIN_SEQ, TRAIN_SEQ,
-                                  True)
-    fwd_bytes = 2 * (2 * math.prod(q_shape) + math.prod(q_shape) // 2) + \
-        math.prod(q_shape[:3]) * 4
-    b3_bound, b3_by = bound(fwd_bytes, 4 * 128 * fwd_entries, BF16_FLOPS)
-    log(f'  flash_fwd at the training shape (b 2, 32/8, d 128, 2048): '
-        f'{train_shape["b3_ms"]:.4f} ms (bound {b3_bound:.4f} by {b3_by}, '
-        f'SDPA forward {train_shape["sdpa_fwd_ms"]:.4f})')
+        log(f'  {name}: {kernel_summary(r)}')
+    log(f'  flash_fwd at the 512-token serving chunk: '
+        f'{kernel_summary(results["flash_fwd"]["serving_chunk"])}')
     counters = {'paged_attention': paged_attention.LAUNCHES,
                 'paged_attention_int8': paged_attention.LAUNCHES,
                 'flash_fwd': attention.LAUNCHES,

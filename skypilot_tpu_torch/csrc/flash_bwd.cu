@@ -23,14 +23,30 @@
 // at the training shape (b 2, 32/8 heads, d 128, n 2048) that is 103
 // and 137 GFLOP, about 0.10 and 0.14 ms at 989 TFLOP/s of bf16 tensor
 // cores, against ~0.035 ms for the bytes (~118 and ~101 MB at 3.35
-// TB/s).  This first version does its
-// products with scalar f32 FMAs out of padded shared tiles, like the
-// forward in flash_fwd.cu, so it reaches a small fraction of that bound;
-// what the design does about the bound is keep the work at the minimum:
-// causal tiles past the diagonal are skipped in both kernels, every
-// K/V (dQ) or Q/dO (dK/dV) tile read from device memory is shared by a
-// whole block, and no score or probability leaves the SM.
-// Tensor-core products (mma.sync / wgmma) with TMA-fed tiles come next.
+// TB/s).  Both kernels keep the work at the minimum: causal tiles past
+// the diagonal are skipped, every K/V (dQ) or Q/dO (dK/dV) tile read
+// from device memory is shared by a whole block, and no score or
+// probability leaves the SM.
+//
+// Bodies by (kernel, dtype, d); each dtype has one, none is a fallback:
+// - dK/dV, bf16, d 64 and 128: tensor cores (flash_bwd_dkv_wgmma_kernel
+//   below).  One 128-thread warpgroup owns 64 keys; K and V stay in
+//   shared memory for the whole block, and the Q/dO tiles of 64 query
+//   rows arrive by TMA in a 2-stage ring of 128-byte-swizzled tiles
+//   (hopper_mma.cuh), the next tile's copy in flight while this one is
+//   multiplied.  S^T = K Q^T and dP^T = V dO^T are wgmmas with both
+//   operands K-major; P^T and dS^T are formed in f32 registers on the
+//   accumulator fragments, rounded to bf16 and fed back as the A
+//   operand of dV += P^T dO and dK += dS^T Q, whose B (dO or Q) is
+//   MN-major.  Those two bf16 roundings are the only ones the
+//   reference does not have.
+// - dK/dV, bf16, d 256 (Gemma): the scalar body.  dK and dV for 64 keys
+//   x 256 lanes would take 256 f32 registers a thread in one
+//   warpgroup; splitting d across two warpgroups is still to do.
+// - dQ, every dtype and d: the scalar body (its redesign is next).
+// - f32, both kernels: the scalar body, the parity path (GPU-vs-CPU
+//   checks at 1e-4); tensor cores would make it TF32.
+// The scalar bodies do f32 FMAs out of padded f32 shared tiles.
 //
 // Translation from the TPU kernels.  dQ: the Pallas grid walks k-blocks
 // in order on one core; here one thread block owns one (b*h, q-tile)
@@ -44,6 +60,10 @@
 // atomics: every launch gives the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
@@ -331,6 +351,228 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------ dK/dV, bf16: wgmma + TMA
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kWgBK = 64;  // keys per block (one warpgroup)
+constexpr int kWgBQ = 64;  // query rows per streamed tile
+constexpr int kWgThreads = 128;
+constexpr int kStages = 2;
+
+template <int D>
+struct DkvWgTiles {
+  static constexpr int kKBytes = kWgBK * D * 2;  // K or V
+  static constexpr int kQBytes = kWgBQ * D * 2;  // one Q or dO tile
+  // K, V, Q[stage], dO[stage], then the f32 lse*log2(e) and delta
+  // slices [stage][BQ] and the barriers; 1024 bytes of slack for
+  // aligning the base to the swizzle atom.
+  static constexpr size_t kSmem = 1024 + 2 * kKBytes +
+                                  2 * kStages * kQBytes +
+                                  2 * kStages * kWgBQ * 4 + 64;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                               const __grid_constant__ CUtensorMap tm_do,
+                               const __grid_constant__ CUtensorMap tm_k,
+                               const __grid_constant__ CUtensorMap tm_v,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, int h,
+                               int h_kv, int q_len, int k_len,
+                               float sm_scale, int causal) {
+  using T = DkvWgTiles<D>;
+  constexpr int NC = D / 64;  // 64-wide chunks of dK/dV (panels of a tile)
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = hopper::align1024(smem_raw);
+  uint8_t* sV = sK + T::kKBytes;
+  uint8_t* sQ = sV + T::kKBytes;
+  uint8_t* sdO = sQ + kStages * T::kQBytes;
+  float* sL = reinterpret_cast<float*>(sdO + kStages * T::kQBytes);
+  float* sDl = sL + kStages * kWgBQ;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sDl + kStages * kWgBQ);
+  uint64_t* kv_bar = bars;
+  uint64_t* full = bars + 1;
+
+  const int bkv = blockIdx.x;
+  const int kb = blockIdx.y;
+  const int b = bkv / h_kv;
+  const int kvh = bkv - b * h_kv;
+  const int rep = h / h_kv;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int k0 = kb * kWgBK;
+  const int pos_offset = k_len - q_len;
+  const int n_qb = (q_len + kWgBQ - 1) / kWgBQ;
+  // First q-tile whose last row can see this k-tile: qpos >= k0.
+  const int first = causal ? max(0, (k0 - pos_offset) / kWgBQ) : 0;
+  const int per = n_qb - first;  // q-tiles per q-head (>= 1)
+  const int tiles = rep * per;   // the group's q-heads, one after another
+
+  // Tile t: q-head r = t / per of the group, q-tile first + t % per.
+  auto head_of = [&](int t) { return b * h + kvh * rep + t / per; };
+  auto row_of = [&](int t) { return (first + t % per) * kWgBQ; };
+  auto load_tile = [&](int t, int stage) {
+    hopper::mbar_expect(&full[stage], 2 * T::kQBytes);
+    hopper::tma_load_tile<D, kWgBQ>(sQ + stage * T::kQBytes, &tm_q,
+                                    &full[stage], row_of(t), head_of(t));
+    hopper::tma_load_tile<D, kWgBQ>(sdO + stage * T::kQBytes, &tm_do,
+                                    &full[stage], row_of(t), head_of(t));
+  };
+  // lse (in log2 units) and delta of tile t's rows, 0 past q_len.
+  auto load_rows = [&](int t, int stage) {
+    if (tid < kWgBQ) {
+      const int qi = row_of(t) + tid;
+      const size_t at = (size_t)head_of(t) * q_len + qi;
+      sL[stage * kWgBQ + tid] = qi < q_len ? lse[at] * kLog2e : 0.f;
+      sDl[stage * kWgBQ + tid] = qi < q_len ? delta[at] : 0.f;
+    }
+  };
+
+  if (tid == 0) {
+    hopper::mbar_init(kv_bar, 1);
+    for (int s = 0; s < kStages; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hopper::mbar_expect(kv_bar, 2 * T::kKBytes);
+    hopper::tma_load_tile<D, kWgBK>(sK, &tm_k, kv_bar, k0, bkv);
+    hopper::tma_load_tile<D, kWgBK>(sV, &tm_v, kv_bar, k0, bkv);
+    for (int s = 0; s < kStages && s < tiles; ++s) load_tile(s, s);
+  }
+  load_rows(0, 0);
+  __syncthreads();
+
+  // This thread's key rows r0 and r0 + 8, query columns c0 + 8j, +1.
+  const int r0 = 16 * warp + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  const int kpos0 = k0 + r0, kpos1 = kpos0 + 8;
+  const float scale_log2 = sm_scale * kLog2e;
+
+  float dk_acc[NC][32], dv_acc[NC][32];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[c][i] = dv_acc[c][i] = 0.f;
+
+  hopper::mbar_wait(kv_bar, 0);
+  for (int t = 0; t < tiles; ++t) {
+    const int stage = t % kStages;
+    const int q0 = row_of(t);
+    const uint8_t* qt = sQ + stage * T::kQBytes;
+    const uint8_t* dot = sdO + stage * T::kQBytes;
+    const float* lt = sL + stage * kWgBQ;
+    const float* dlt = sDl + stage * kWgBQ;
+    hopper::mbar_wait(&full[stage], (t / kStages) & 1);
+
+    float s[32], dp[32];
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+      hopper::mma_ss<0>(s, hopper::desc_k(sK + off), hopper::desc_k(qt + off),
+                        kk > 0);
+    }
+    hopper::wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+      hopper::mma_ss<0>(dp, hopper::desc_k(sV + off),
+                        hopper::desc_k(dot + off), kk > 0);
+    }
+    hopper::wg_commit();
+    hopper::wg_wait<1>();
+    hopper::fence_regs(s);
+
+    // P^T = exp(scale * S^T - lse[col]), 0 where masked.
+    const bool edge = k0 + kWgBK > k_len || q0 + kWgBQ > q_len ||
+                      (causal && k0 + kWgBK - 1 > pos_offset + q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c0 + 8 * j + e;
+        const float l2 = lt[col];
+        float p0 = exp2f(s[4 * j + e] * scale_log2 - l2);
+        float p1 = exp2f(s[4 * j + 2 + e] * scale_log2 - l2);
+        if (edge) {
+          const int qi = q0 + col;
+          const bool row_ok = qi < q_len;
+          const int lim = causal ? pos_offset + qi : k_len;
+          p0 = row_ok && kpos0 < k_len && kpos0 <= lim ? p0 : 0.f;
+          p1 = row_ok && kpos1 < k_len && kpos1 <= lim ? p1 : 0.f;
+        }
+        s[4 * j + e] = p0;
+        s[4 * j + 2 + e] = p1;
+      }
+    }
+    hopper::wg_wait<0>();
+    hopper::fence_regs(dp);
+    // dS^T = P^T * (dP^T - delta[col]).
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float dl = dlt[c0 + 8 * j + e];
+        dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - dl);
+        dp[4 * j + 2 + e] = s[4 * j + 2 + e] * (dp[4 * j + 2 + e] - dl);
+      }
+    }
+    uint32_t pa[kWgBQ / 16][4], da[kWgBQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kWgBQ / 16; ++kk) {
+      hopper::pack_a(s, kk, pa[kk]);
+      hopper::pack_a(dp, kk, da[kk]);
+    }
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgBQ / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int off = c * kWgBQ * 128 + kk * 2048;
+        hopper::mma_rs<1>(dv_acc[c], pa[kk], hopper::desc_mn(dot + off));
+        hopper::mma_rs<1>(dk_acc[c], da[kk], hopper::desc_mn(qt + off));
+      }
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      hopper::fence_regs(dv_acc[c]);
+      hopper::fence_regs(dk_acc[c]);
+    }
+
+    if (t + 1 < tiles) load_rows(t + 1, (t + 1) % kStages);
+    __syncthreads();  // this stage is free; the next rows are visible
+    if (tid == 0 && t + kStages < tiles) load_tile(t + kStages, stage);
+  }
+
+  const size_t kvoff = (size_t)bkv * k_len * D;
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * c + 8 * j + c0;
+      if (kpos0 < k_len) {
+        const size_t at = kvoff + (size_t)kpos0 * D + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(
+            dk_acc[c][4 * j] * sm_scale, dk_acc[c][4 * j + 1] * sm_scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(dv_acc[c][4 * j], dv_acc[c][4 * j + 1]);
+      }
+      if (kpos1 < k_len) {
+        const size_t at = kvoff + (size_t)kpos1 * D + col;
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(dk_acc[c][4 * j + 2] * sm_scale,
+                                  dk_acc[c][4 * j + 3] * sm_scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(
+            dv_acc[c][4 * j + 2], dv_acc[c][4 * j + 3]);
+      }
+    }
+}
+
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *out0, *out1;
@@ -343,10 +585,10 @@ struct Args {
 template <typename T, int D>
 int launch_dq(const Args& a) {
   const size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
+  static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(a.b * a.h, (a.q_len + kDqBQ - 1) / kDqBQ);
   flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
@@ -357,13 +599,38 @@ int launch_dq(const Args& a) {
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_dkv_wgmma(const Args& a) {
+  constexpr size_t smem = DkvWgTiles<D>::kSmem;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap tq, tdo, tk, tv;
+  int err = hopper::make_map(&tq, a.q, a.b * a.h, a.q_len, D, kWgBQ);
+  if (!err) err = hopper::make_map(&tdo, a.dout, a.b * a.h, a.q_len, D,
+                                   kWgBQ);
+  if (!err) err = hopper::make_map(&tk, a.k, a.b * a.h_kv, a.k_len, D,
+                                   kWgBK);
+  if (!err) err = hopper::make_map(&tv, a.v, a.b * a.h_kv, a.k_len, D,
+                                   kWgBK);
+  if (err) return err;
+  const dim3 grid(a.b * a.h_kv, (a.k_len + kWgBK - 1) / kWgBK);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, kWgThreads, smem, a.stream>>>(
+      tq, tdo, tk, tv, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(a.out0),
+      static_cast<__nv_bfloat16*>(a.out1), a.h, a.h_kv, a.q_len, a.k_len,
+      a.sm_scale, a.causal);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch_dkv(const Args& a) {
   const size_t smem = dkv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
+  static const cudaError_t attr = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<T, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (attr != cudaSuccess) return (int)attr;
   constexpr int BK = DkvTile<D>::BK;
   const dim3 grid(a.b * a.h_kv, (a.k_len + BK - 1) / BK);
   flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
@@ -375,16 +642,26 @@ int launch_dkv(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// kind: 0 = dQ, 1 = dK/dV.
+// kind: 0 = dQ, 1 = dK/dV.  bf16 dK/dV at d 64 and 128 runs on the
+// tensor cores (see the top); no scalar bf16 body exists for them.
+template <typename T, int D>
+int launch_kind(int kind, const Args& a) {
+  if (kind == 0) return launch_dq<T, D>(a);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && D <= 128)
+    return launch_dkv_wgmma<D>(a);
+  else
+    return launch_dkv<T, D>(a);
+}
+
 template <typename T>
 int dispatch_d(int kind, int d, const Args& a) {
   switch (d) {
     case 64:
-      return kind == 0 ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
+      return launch_kind<T, 64>(kind, a);
     case 128:
-      return kind == 0 ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
+      return launch_kind<T, 128>(kind, a);
     case 256:
-      return kind == 0 ? launch_dq<T, 256>(a) : launch_dkv<T, 256>(a);
+      return launch_kind<T, 256>(kind, a);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -7,8 +7,12 @@ shared library with a plain C interface, loaded with ctypes:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o <build>/<name>-<hash>.so csrc/<name>.cu
 
-The library name carries a hash of the source, so an edited kernel is
-rebuilt and an unchanged one is reused.  The build directory is
+The library name carries a hash of the source and of every shared
+header `csrc/*.cuh` (which any source may include), so an edited kernel
+or header is rebuilt and an unchanged one is reused.  nvcc runs with
+`-Xptxas=-v`; its output (registers, spills and shared memory of every
+kernel instantiation) is kept beside the library as `<name>-<hash>.log`
+and read back by `build_log(name)`.  The build directory is
 `build/kernels/` beside the package (listed in .gitignore), or
 $SKYTPU_TORCH_BUILD_DIR.  `build_all()` starts one nvcc per source, all
 at once, and waits for them; `library(name)` builds on first use.
@@ -32,7 +36,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
 SOURCES = ('paged_attention', 'flash_fwd', 'flash_bwd')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-lineinfo')
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-lineinfo',
+              '-Xptxas=-v')
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -56,10 +61,26 @@ def nvcc_path() -> str:
                        'CUDA kernels are built from csrc/ at first use')
 
 
-def _target(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, f'{name}.cu'), 'rb') as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(build_dir(), f'{name}-{digest}.so')
+def library_path(name: str) -> str:
+    """<build>/<name>-<hash>.so, the hash over csrc/<name>.cu and every
+    csrc/*.cuh (sorted by name)."""
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith('.cuh'))
+    for fname in [f'{name}.cu', *headers]:
+        with open(os.path.join(CSRC_DIR, fname), 'rb') as f:
+            digest.update(fname.encode() + b'\0' + f.read())
+    return os.path.join(build_dir(),
+                        f'{name}-{digest.hexdigest()[:16]}.so')
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (ptxas -v) from building csrc/<name>.cu, or '' if
+    this build directory did not build it."""
+    path = library_path(name)[:-len('.so')] + '.log'
+    if not os.path.exists(path):
+        return ''
+    with open(path, encoding='utf-8') as f:
+        return f.read()
 
 
 def _command(name: str, out: str) -> List[str]:
@@ -75,7 +96,7 @@ def build_all(names=SOURCES) -> Dict[str, float]:
     procs = {}
     t0 = time.perf_counter()
     for name in names:
-        target = _target(name)
+        target = library_path(name)
         if os.path.exists(target):
             continue
         tmp = f'{target}.{os.getpid()}.tmp'
@@ -93,6 +114,9 @@ def build_all(names=SOURCES) -> Dict[str, float]:
             errors.append(f'nvcc failed for {name}.cu '
                           f'(rc {proc.returncode}):\n{text}')
             continue
+        with open(target[:-len('.so')] + '.log', 'w',
+                  encoding='utf-8') as f:
+            f.write(text)
         os.replace(tmp, target)
     if errors:
         raise RuntimeError('\n'.join(errors))
@@ -107,7 +131,7 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            target = _target(name)
+            target = library_path(name)
             if not os.path.exists(target):
                 build_all((name,))
             lib = ctypes.CDLL(target)

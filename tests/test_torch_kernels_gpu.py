@@ -61,6 +61,28 @@ def test_flash_kernel_matches_plain(cuda, dtype, h, h_kv, d, q_len, k_len,
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
 
 
+def test_flash_rows_do_not_depend_on_q_len_or_batch(cuda):
+    """The bf16 tensor-core forward gives a query row the same bits in a
+    512-token chunk, as one of the last 100 rows against the same keys
+    (another q-tile, another place in it) and without the other batch
+    row: the k-tile width and order are fixed, and a fully masked k-tile
+    adds exact zeros."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               .to(torch.bfloat16)
+               for shape in ((2, 32, 512, 128), (2, 8, 512, 128),
+                             (2, 8, 512, 128)))
+    out, lse = attention.flash_attention_with_lse(q, k, v)
+    tail, tail_lse = attention.flash_attention_with_lse(
+        q[:, :, 412:].contiguous(), k, v)
+    one, one_lse = attention.flash_attention_with_lse(
+        q[1:].contiguous(), k[1:].contiguous(), v[1:].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, :, 412:], tail)
+    assert torch.equal(lse[:, :, 412:], tail_lse)
+    assert torch.equal(out[1:], one) and torch.equal(lse[1:], one_lse)
+
+
 def _bwd_inputs(dev, dtype, h, h_kv, d, q_len, k_len, causal, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)

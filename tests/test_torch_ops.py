@@ -8,9 +8,14 @@ cotangents come from numpy with a seed.  Tolerance: 1e-5 absolute and
 relative, f32 on both sides (the two accumulate in different orders).
 
 The CUDA kernels are held against these plain versions on the card by
-tests/test_torch_kernels_gpu.py.
+tests/test_torch_kernels_gpu.py.  Also here: a plain model of the bf16
+roundings the tensor-core kernels add (held to the card's tolerances),
+and the build's hashing of sources and shared headers.
 """
 from __future__ import annotations
+
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +27,7 @@ from skypilot_tpu.models import decode as jax_decode
 from skypilot_tpu.ops import attention as jax_attention
 from skypilot_tpu.ops import paged_attention as jax_paged
 from skypilot_tpu_torch.models import decode as torch_decode
+from skypilot_tpu_torch.ops import _build
 from skypilot_tpu_torch.ops import attention
 from skypilot_tpu_torch.ops import paged_attention
 
@@ -189,3 +195,152 @@ def test_quant_kv_bytes_exact():
     assert tq.dtype == torch.int8 and ts.dtype == torch.float32
     np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
     assert ts.numpy().tobytes() == np.asarray(js).tobytes()
+
+
+# ---------------------------------------------------------------------
+# The tensor-core kernels' roundings, modelled in plain PyTorch.
+#
+# The bf16 B3 (csrc/flash_fwd.cu) rounds P to bf16 before P·V; the bf16
+# B5 (csrc/flash_bwd.cu) rounds P^T and dS^T to bf16 before dV += P^T dO
+# and dK += dS^T Q.  Everything else accumulates in f32, as the plain
+# versions do.  These models show, without a GPU, that the tolerances
+# the card holds the kernels to (2e-2; 2e-2 of the largest |value| for
+# gradients; 1e-3 for the LSE) are reachable by design.
+
+def _fwd_model(q, k, v, *, causal, sm_scale, block_k=64):
+    """_blockwise_attention with P rounded to bf16 before P·V."""
+    k, v = attention._repeat_kv(q, k, v)  # pylint: disable=protected-access
+    b, h, q_len, d = q.shape
+    k_len = k.shape[2]
+    q32 = q.float()
+    qpos = torch.arange(q_len) + (k_len - q_len)
+    o = torch.zeros((b, h, q_len, d))
+    m = torch.full((b, h, q_len), attention.NEG_INF)
+    l = torch.zeros((b, h, q_len))
+    for start in range(0, k_len, block_k):
+        k_blk = k[:, :, start:start + block_k].float()
+        v_blk = v[:, :, start:start + block_k].float()
+        s = torch.einsum('bhqd,bhkd->bhqk', q32, k_blk) * sm_scale
+        kpos = start + torch.arange(k_blk.shape[2])
+        if causal:
+            s = s.masked_fill(kpos[None, :] > qpos[:, None],
+                              attention.NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(dim=-1)
+        p16 = p.to(torch.bfloat16).float()
+        o = o * corr[..., None] + torch.einsum('bhqk,bhkd->bhqd', p16, v_blk)
+        m = m_new
+    l_safe = torch.clamp(l, min=1e-30)
+    return (o / l_safe[..., None]).to(q.dtype), m + torch.log(l_safe)
+
+
+def _dkv_model(q, k, v, out, lse, g, g_lse, *, causal, sm_scale):
+    """dK, dV of _flash_bwd_reference with P^T and dS^T rounded to bf16
+    before their products."""
+    b, h, q_len, d = q.shape
+    h_kv, k_len = k.shape[1], k.shape[2]
+    delta = attention._delta(out, g, g_lse)  # pylint: disable=protected-access
+    k_rep, v_rep = attention._repeat_kv(q, k, v)  # pylint: disable=protected-access
+    q32, do32 = q.float(), g.float()
+    s = torch.einsum('bhqd,bhkd->bhqk', q32, k_rep.float()) * sm_scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        qpos = torch.arange(q_len) + (k_len - q_len)
+        p = p.masked_fill(torch.arange(k_len)[None, :] > qpos[:, None], 0.0)
+    dp = torch.einsum('bhqd,bhkd->bhqk', do32, v_rep.float())
+    ds = p * (dp - delta[..., None])
+    p16 = p.to(torch.bfloat16).float()
+    ds16 = ds.to(torch.bfloat16).float()
+    dv = torch.einsum('bhqk,bhqd->bhkd', p16, do32)
+    dk = torch.einsum('bhqk,bhqd->bhkd', ds16, q32)
+    group = (b, h_kv, h // h_kv, k_len, d)
+    return ((dk.reshape(group).sum(dim=2) * sm_scale).to(k.dtype),
+            dv.reshape(group).sum(dim=2).to(v.dtype))
+
+
+# (q_len, k_len, causal) at b 1, 8/2 heads, d 64, bf16 inputs.
+BF16_MODEL_CASES = [(192, 192, True), (100, 250, True), (130, 130, False)]
+
+
+def _bf16_inputs(q_len, k_len, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.tensor(x).to(torch.bfloat16)
+               for x in _qkv(rng, 1, 8, 2, q_len, k_len, 64))
+    g = torch.tensor(rng.standard_normal(q.shape).astype(np.float32)
+                     ).to(torch.bfloat16)
+    g_lse = torch.tensor(rng.standard_normal(q.shape[:3]).astype(np.float32))
+    return q, k, v, g, g_lse
+
+
+@pytest.mark.parametrize('q_len,k_len,causal', BF16_MODEL_CASES)
+def test_bf16_p_rounding_within_forward_tolerance(q_len, k_len, causal):
+    q, k, v, _, _ = _bf16_inputs(q_len, k_len, seed=q_len + k_len)
+    sm_scale = 64 ** -0.5
+    out, lse = _fwd_model(q, k, v, causal=causal, sm_scale=sm_scale)
+    ref, ref_lse = attention._blockwise_attention(  # pylint: disable=protected-access
+        q, k, v, causal=causal, sm_scale=sm_scale, return_lse=True)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    # The rounding is visible: the model is not the plain version.
+    assert not torch.equal(out, ref)
+
+
+@pytest.mark.parametrize('q_len,k_len,causal', BF16_MODEL_CASES)
+def test_bf16_pds_rounding_within_backward_tolerance(q_len, k_len, causal):
+    q, k, v, g, g_lse = _bf16_inputs(q_len, k_len, seed=7 + q_len + k_len)
+    sm_scale = 64 ** -0.5
+    out, lse = attention._blockwise_attention(  # pylint: disable=protected-access
+        q, k, v, causal=causal, sm_scale=sm_scale, return_lse=True)
+    kw = dict(causal=causal, sm_scale=sm_scale)
+    _, dk_ref, dv_ref = attention._flash_bwd_reference(  # pylint: disable=protected-access
+        q, k, v, out, lse, g, g_lse, **kw)
+    dk, dv = _dkv_model(q, k, v, out, lse, g, g_lse, **kw)
+    for name, got, ref in (('dk', dk, dk_ref), ('dv', dv, dv_ref)):
+        rel = float((got.float() - ref.float()).abs().max() /
+                    ref.float().abs().max())
+        assert rel <= 2e-2, f'{name}: {rel:.3g} of max |ref|'
+
+
+# ---------------------------------------------------------------------
+# The build: a library's name hashes its source and the shared headers.
+
+def _fake_csrc(tmp_path, monkeypatch):
+    csrc = tmp_path / 'csrc'
+    csrc.mkdir()
+    (csrc / 'kern.cu').write_text('#include "shared.cuh"\n')
+    (csrc / 'shared.cuh').write_text('// v1\n')
+    monkeypatch.setattr(_build, 'CSRC_DIR', str(csrc))
+    monkeypatch.setenv('SKYTPU_TORCH_BUILD_DIR', str(tmp_path / 'build'))
+    return csrc
+
+
+@pytest.mark.parametrize('edit', ['header', 'source', 'new_header'])
+def test_library_name_follows_sources_and_headers(tmp_path, monkeypatch,
+                                                  edit):
+    csrc = _fake_csrc(tmp_path, monkeypatch)
+    before = _build.library_path('kern')
+    assert before == _build.library_path('kern')     # stable
+    assert before.startswith(str(tmp_path / 'build' / 'kern-'))
+    if edit == 'header':
+        (csrc / 'shared.cuh').write_text('// v2\n')
+    elif edit == 'source':
+        (csrc / 'kern.cu').write_text('#include "shared.cuh"\n// edit\n')
+    else:
+        (csrc / 'more.cuh').write_text('// another header\n')
+    assert _build.library_path('kern') != before
+    assert _build.build_log('kern') == ''            # nothing built here
+
+
+def test_every_quoted_include_is_a_hashed_header():
+    """A kernel source includes only csrc/*.cuh by quotes, so the hash
+    of `library_path` covers everything it is built from."""
+    for name in _build.SOURCES:
+        with open(os.path.join(_build.CSRC_DIR, f'{name}.cu'),
+                  encoding='utf-8') as f:
+            for inc in re.findall(r'#include "([^"]+)"', f.read()):
+                assert inc.endswith('.cuh'), (name, inc)
+                assert os.path.exists(os.path.join(_build.CSRC_DIR, inc))
