@@ -9,13 +9,15 @@ Phases (each one that fails makes the script exit non-zero):
    limit as `nvidia-smi --query-gpu=name,power.limit` gives them.
 2. Builds every CUDA kernel of the port from csrc/ (one nvcc per
    source, in parallel) and prints the build seconds; then, for every
-   flash kernel instantiation, ptxas's registers, stack and spills
-   and the HGMMA / HMMA / FFMA counts of `cuobjdump -sass` (a wgmma
-   kernel without HGMMA fails the run).
+   kernel instantiation (flash and paged), ptxas's registers, stack
+   and spills and the HGMMA / HMMA / FFMA counts of `cuobjdump -sass`
+   (a wgmma kernel without HGMMA, or with spills, fails the run).
 3. Kernel parity on the card at the Llama-3-8B shapes (h_q 32, h_kv 8,
    d 128, bf16, page size 16): B1 paged decode and B2 int8 paged decode
-   with ragged lengths (1, 15, 16, 17, 1000), S = 1 and S = 5, tables
-   that include the null page; B3 flash forward at q_len 1, 100, 512
+   (split-context: splits of `split_pages` pages merged in order) with
+   ragged lengths (1, 15, 16, 17, 1000), S = 1 and S = 5, tables that
+   include the null page, and a full batch of 8 slots at 1000 (two
+   launches bit-equal); B3 flash forward at q_len 1, 100, 512
    and q_len < k_len, at the training shape (b 2 x 2048) and at
    `small`'s (16/8, d 64, b 8 x 512); one f32 case each.  B4 (dQ) and
    B5 (dK/dV) flash
@@ -33,10 +35,10 @@ Phases (each one that fails makes the script exit non-zero):
    warm-up calls, in a torch.profiler trace, over 20; `ms_with_host`
    (CUDA events around the same 20 calls) keeps the host's launch work,
    and the plain version is timed that way.  B3 is timed at the
-   training shape and the 512-token chunk.  Bounds from this run's
-   bytes and FLOPs against
-   3.35 TB/s and 989 TFLOP/s (H100 SXM data sheet), labelled by
-   whichever of the two is larger.  B4/B5 are timed at the training
+   training shape and the 512-token chunk, B1 (S = 1) and B2 (S = 5)
+   at the ragged lengths and the full batch.  Bounds from this run's
+   bytes and FLOPs against 3.35 TB/s and 989 TFLOP/s (H100 SXM data
+   sheet), labelled by whichever of the two is larger.  B4/B5 are timed at the training
    shape; their plain version computes dQ, dK and dV together, and so
    does their yardstick, SDPA's backward (the device time of fwd + bwd
    minus fwd's).
@@ -72,8 +74,10 @@ The line before the last is the `kernels` JSON: each kernel's
 `launches` is its count on the path `path` names (serving for B1/B2,
 training for B3/B4/B5), and `launches_by_path` holds every driven
 path's own count (serving, training, `train_llama small`), each path
-zeroed just before it and read just after.  The last line is
-{"ok": true, "device": {...}}.
+zeroed just before it and read just after.  B3's entry carries the
+512-token chunk under `serving_chunk`, B1's and B2's the full batch
+under `full_batch`, and B2's its split span in pages, `split_pages`.
+The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -187,25 +191,25 @@ def read_counts(counters) -> dict:
 
 def kernel_label(mangled: str) -> str:
     """`flash_fwd_wgmma_kernel<bf16, d 128>` from a mangled name."""
-    name = re.search(r'\d+(flash_[a-z_]*kernel)', mangled)
+    name = re.search(r'\d+((?:flash|paged)_[a-z0-9_]*kernel)', mangled)
     d = re.search(r'Li(\d+)E', mangled)
     if not name or not d:
         return mangled
     # wgmma kernels are bf16 only and the scalar forward f32 only; the
-    # scalar backward kernels carry their type.
-    dtype = ('bf16' if 'wgmma' in mangled or '__nv_bfloat16Li' in mangled
-             else 'f32')
+    # scalar backward and the paged kernels carry their (query) type.
+    dtype = ('bf16' if 'wgmma' in mangled or '__nv_bfloat16' in
+             mangled.split('Li')[0] else 'f32')
     return f'{name.group(1)}<{dtype}, d {d.group(1)}>'
 
 
 def compiled_report(build) -> None:
-    """What nvcc made of the flash kernels: per kernel instantiation,
-    ptxas's registers, stack and spills (from the build log) and the
-    tensor-core (HGMMA, HMMA) and scalar FMA (FFMA) instructions in
-    `cuobjdump -sass`.  Fails if a wgmma kernel has no HGMMA."""
+    """What nvcc made of every kernel: per kernel instantiation, ptxas's
+    registers, stack and spills (from the build log) and the tensor-core
+    (HGMMA, HMMA) and scalar FMA (FFMA) instructions in `cuobjdump
+    -sass`.  Fails if a wgmma kernel has no HGMMA or spills."""
     import os
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), 'cuobjdump')
-    for source in ('flash_fwd', 'flash_bwd'):
+    for source in ('flash_fwd', 'flash_bwd', 'paged_attention'):
         ptxas, fn = {}, None
         for line in build.build_log(source).splitlines():
             m = re.search(r"Function properties for (\S+)", line)
@@ -239,18 +243,26 @@ def compiled_report(build) -> None:
             if 'wgmma' in fn and ops[fn]['HGMMA'] == 0:
                 raise AssertionError(f'{kernel_label(fn)}: no HGMMA in its '
                                      'SASS')
+            if 'wgmma' in fn and (ptxas.get(fn) or {}).get('spills'):
+                raise AssertionError(f'{kernel_label(fn)}: spills '
+                                     f'{ptxas[fn]}')
 
 
 # ------------------------------------------------------------ phase 3
 
 
-def paged_case(dev, dtype, quantized, s_q, seed):
+# Slot lengths of the paged cases: ragged (the timed tick) and a full
+# batch of 8 slots at 1000 positions, as the 1024-token server holds it.
+PAGED_RAGGED = [1, 15, 16, 17, 1000]
+PAGED_FULL = [1000] * 8
+
+
+def paged_case(dev, dtype, quantized, s_q, seed, lengths=PAGED_RAGGED):
     """Pool, q, tables, lengths at the 8B decode shapes."""
     import torch
     from skypilot_tpu_torch.models import decode
     gen = torch.Generator(device=dev).manual_seed(seed)
-    b, h_q, h_kv, d, ps, rows = 5, 32, 8, 128, 16, 64
-    lengths = [1, 15, 16, 17, 1000]
+    b, h_q, h_kv, d, ps, rows = len(lengths), 32, 8, 128, 16, 64
     n_pages = 1 + b * rows
     kshape = (n_pages, h_kv, ps, d)
     k = torch.randn(kshape, generator=gen, device=dev)
@@ -297,34 +309,54 @@ def paged_bound(q, k_leaf, tables, lengths, quantized):
 
 
 def check_paged(dev, quantized):
+    """B1 or B2 against its plain version (bf16 S = 1 and 5, f32 S = 5 on
+    the ragged lengths, the timed dtype and S on the full batch); two
+    launches must give the same bits.  Timed at the main path's tick (S
+    = 1 native, S = 5 (spec) int8) on the ragged lengths, with the full
+    batch under `full_batch`; B2 records its split span."""
     import torch
     from skypilot_tpu_torch.ops import paged_attention as pa
     errs = []
-    timed = None
-    cases = [(torch.bfloat16, 1), (torch.bfloat16, 5), (torch.float32, 5)]
-    for dtype, s_q in cases:
+    timed = {}
+    s_main = 5 if quantized else 1
+    cases = [(torch.bfloat16, 1, PAGED_RAGGED), (torch.bfloat16, 5,
+                                                 PAGED_RAGGED),
+             (torch.float32, 5, PAGED_RAGGED),
+             (torch.bfloat16, s_main, PAGED_FULL)]
+    for dtype, s_q, lens in cases:
         q, kl, vl, tables, lengths = paged_case(dev, dtype, quantized, s_q,
-                                                seed=s_q)
+                                                seed=s_q, lengths=lens)
         scale = q.shape[-1] ** -0.5
         out = pa.paged_attention(q, kl, vl, tables, lengths)
+        again = pa.paged_attention(q, kl, vl, tables, lengths)
         ref = pa._paged_attention_reference(  # pylint: disable=protected-access
             q, kl, vl, tables, lengths, sm_scale=scale)
         torch.cuda.synchronize()
         tol = 1e-4 if dtype == torch.float32 else 2e-2
-        name = f'paged{"_int8" if quantized else ""} {dtype} S={s_q}'
+        shape = ('full batch 8 x 1000' if lens is PAGED_FULL else
+                 f'lengths {lens}')
+        name = f'paged{"_int8" if quantized else ""} {dtype} S={s_q} {shape}'
+        if not torch.equal(out, again):
+            raise AssertionError(f'{name}: two launches differ')
         errs.append(check_close(name, out, ref, tol))
-        log(f'  {name}: max_abs_err {errs[-1]:.3g} (tol {tol})')
-        # Timed at the main path's tick: S = 1 native, S = 5 (spec) int8.
-        if dtype == torch.bfloat16 and s_q == (5 if quantized else 1):
-            timed = (q, kl, vl, tables, lengths, scale)
-    q, kl, vl, tables, lengths, scale = timed
-    kernel = timed_call(lambda: pa.paged_attention(q, kl, vl, tables,
-                                                   lengths))
-    plain = time_ms(lambda: pa._paged_attention_reference(  # pylint: disable=protected-access
-        q, kl, vl, tables, lengths, sm_scale=scale))
-    bound_ms, bound_by = paged_bound(q, kl, tables, lengths, quantized)
-    return dict(max_abs_err=max(errs), **kernel, plain_ms=plain,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        log(f'  {name}: max_abs_err {errs[-1]:.3g} (tol {tol}); two '
+            'launches bit-equal')
+        if dtype == torch.bfloat16 and s_q == s_main:
+            timed[lens is PAGED_FULL] = (q, kl, vl, tables, lengths, scale)
+    shapes = {}
+    for full, (q, kl, vl, tables, lengths, scale) in timed.items():
+        kernel = timed_call(lambda: pa.paged_attention(q, kl, vl, tables,
+                                                       lengths))
+        plain = time_ms(lambda: pa._paged_attention_reference(  # pylint: disable=protected-access
+            q, kl, vl, tables, lengths, sm_scale=scale))
+        bound_ms, bound_by = paged_bound(q, kl, tables, lengths, quantized)
+        shapes[full] = dict(max_abs_err=max(errs), **kernel, plain_ms=plain,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=None)
+    result = dict(shapes[False], full_batch=shapes[True])
+    if quantized:
+        result['split_pages'] = pa.SPLIT_PAGES
+    return result
 
 
 # (dtype, b, h, h_kv, d, q_len, k_len) of B3 against its plain version:
@@ -891,6 +923,9 @@ def main() -> int:
         log(f'  {name}: {kernel_summary(r)}')
     log(f'  flash_fwd at the 512-token serving chunk: '
         f'{kernel_summary(results["flash_fwd"]["serving_chunk"])}')
+    for name in ('paged_attention', 'paged_attention_int8'):
+        log(f'  {name} at the full batch (8 slots x 1000): '
+            f'{kernel_summary(results[name]["full_batch"])}')
     counters = {'paged_attention': paged_attention.LAUNCHES,
                 'paged_attention_int8': paged_attention.LAUNCHES,
                 'flash_fwd': attention.LAUNCHES,

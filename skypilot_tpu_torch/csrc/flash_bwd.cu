@@ -29,6 +29,19 @@
 // probability leaves the SM.
 //
 // Bodies by (kernel, dtype, d); each dtype has one, none is a fallback:
+// - dQ, bf16, d 64, 128 and 256: tensor cores (flash_bwd_dq_wgmma_kernel
+//   below).  One 128-thread warpgroup owns 64 query rows of one (b*h);
+//   Q and dO arrive once by TMA and stay in shared memory, the rows'
+//   lse (times log2 e) and delta sit in registers, and the kv-head's
+//   K/V tiles of 64 keys stream through a 2-stage TMA ring.  Per k-tile
+//   S = Q K^T and dP = dO V^T are wgmmas with both operands K-major;
+//   P and dS = P * (dP - delta) are formed in f32 on the accumulator
+//   fragments, dS is rounded to bf16 as the register A of dQ += dS K,
+//   whose B (the K tile) is MN-major.  That rounding is the only one
+//   the reference does not have.  dQ (d/64 x 32 f32 a thread, 128 at
+//   d 256) stays in registers across the k-loop; the causal loop stops
+//   at the diagonal and q-tiles launch heaviest first.  Each block owns
+//   its dQ rows: no atomics, and every launch gives the same bits.
 // - dK/dV, bf16, d 64 and 128: tensor cores (flash_bwd_dkv_wgmma_kernel
 //   below).  One 128-thread warpgroup owns 64 keys; K and V stay in
 //   shared memory for the whole block, and the Q/dO tiles of 64 query
@@ -43,15 +56,15 @@
 // - dK/dV, bf16, d 256 (Gemma): the scalar body.  dK and dV for 64 keys
 //   x 256 lanes would take 256 f32 registers a thread in one
 //   warpgroup; splitting d across two warpgroups is still to do.
-// - dQ, every dtype and d: the scalar body (its redesign is next).
 // - f32, both kernels: the scalar body, the parity path (GPU-vs-CPU
 //   checks at 1e-4); tensor cores would make it TF32.
 // The scalar bodies do f32 FMAs out of padded f32 shared tiles.
 //
 // Translation from the TPU kernels.  dQ: the Pallas grid walks k-blocks
 // in order on one core; here one thread block owns one (b*h, q-tile)
-// and loops over the k-tiles itself, its dQ rows in registers (quads
-// of threads own one query row, as in the forward).  dK/dV: the Pallas
+// and loops over the k-tiles itself, its dQ rows in registers (the
+// wgmma accumulator fragment; in the scalar body quads of threads own
+// one query row).  dK/dV: the Pallas
 // kernel runs once per q-head and leaves rep f32-sized partials per
 // kv-head that XLA then sums over the GQA group; here one block owns
 // one (b*h_kv, k-tile) and loops over the rep q-heads of its group and
@@ -351,13 +364,196 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------ dK/dV, bf16: wgmma + TMA
+// ------------------------------------------- dQ, bf16: wgmma + TMA
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kWgBK = 64;  // keys per block (one warpgroup)
-constexpr int kWgBQ = 64;  // query rows per streamed tile
+constexpr int kWgBK = 64;  // keys per tile (dK/dV: per block)
+constexpr int kWgBQ = 64;  // query rows per tile (dQ: per block)
 constexpr int kWgThreads = 128;
 constexpr int kStages = 2;
+
+template <int D>
+struct DqWgTiles {
+  static constexpr int kQBytes = kWgBQ * D * 2;   // Q or dO
+  static constexpr int kKVBytes = kWgBK * D * 2;  // one K or V tile
+  // Q, dO, then K[stage], V[stage], then the barriers; 1024 bytes of
+  // slack for aligning the base to the swizzle atom.
+  static constexpr size_t kSmem =
+      1024 + 2 * kQBytes + 2 * kStages * kKVBytes + 64;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_do,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              __nv_bfloat16* __restrict__ dq, int h,
+                              int h_kv, int q_len, int k_len,
+                              float sm_scale, int causal) {
+  using T = DqWgTiles<D>;
+  constexpr int NC = D / 64;  // 64-wide chunks of dQ (panels of a tile)
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = hopper::align1024(smem_raw);
+  uint8_t* sdO = sQ + T::kQBytes;
+  uint8_t* sK = sdO + T::kQBytes;
+  uint8_t* sV = sK + kStages * T::kKVBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + kStages * T::kKVBytes);
+
+  const int bh = blockIdx.x;
+  const int qb = gridDim.y - 1 - blockIdx.y;  // heaviest q-tiles first
+  const int b = bh / h;
+  const int bkv = b * h_kv + (bh - b * h) / (h / h_kv);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int q0 = qb * kWgBQ;
+  const int pos_offset = k_len - q_len;
+  int n_kb = (k_len + kWgBK - 1) / kWgBK;
+  if (causal) {
+    // Skip k-tiles strictly above the diagonal for this q-tile.
+    n_kb = min(n_kb, (pos_offset + q0 + kWgBQ + kWgBK - 1) / kWgBK);
+  }
+  auto load_kv = [&](int kb, int stage) {
+    hopper::tma_load_tile<D, kWgBK>(sK + stage * T::kKVBytes, &tm_k,
+                                    &full[stage], kb * kWgBK, bkv);
+    hopper::tma_load_tile<D, kWgBK>(sV + stage * T::kKVBytes, &tm_v,
+                                    &full[stage], kb * kWgBK, bkv);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) hopper::mbar_init(&full[s], 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    // Q and dO stay resident; they ride on stage 0's barrier.
+    hopper::mbar_expect(&full[0], 2 * T::kQBytes + 2 * T::kKVBytes);
+    hopper::tma_load_tile<D, kWgBQ>(sQ, &tm_q, &full[0], q0, bh);
+    hopper::tma_load_tile<D, kWgBQ>(sdO, &tm_do, &full[0], q0, bh);
+    for (int s = 0; s < kStages && s < n_kb; ++s) {
+      if (s > 0) hopper::mbar_expect(&full[s], 2 * T::kKVBytes);
+      load_kv(s, s);
+    }
+  }
+
+  // This thread's query rows r0 and r0 + 8, key columns c0 + 8j, +1;
+  // their lse (log2 units) and delta in registers, 0 past q_len.
+  const int r0 = 16 * warp + (lane >> 2);
+  const int c0 = 2 * (lane & 3);
+  const int qi0 = q0 + r0, qi1 = qi0 + 8;
+  const bool ok0 = qi0 < q_len, ok1 = qi1 < q_len;
+  const size_t row0 = (size_t)bh * q_len + qi0;
+  const float l2_0 = ok0 ? lse[row0] * kLog2e : 0.f;
+  const float l2_1 = ok1 ? lse[row0 + 8] * kLog2e : 0.f;
+  const float dl0 = ok0 ? delta[row0] : 0.f;
+  const float dl1 = ok1 ? delta[row0 + 8] : 0.f;
+  const int qpos0 = pos_offset + qi0, qpos1 = qpos0 + 8;
+  const float scale_log2 = sm_scale * kLog2e;
+
+  float acc[NC][32];
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int stage = kb % kStages;
+    const int k0 = kb * kWgBK;
+    const uint8_t* kt = sK + stage * T::kKVBytes;
+    const uint8_t* vt = sV + stage * T::kKVBytes;
+    hopper::mbar_wait(&full[stage], (kb / kStages) & 1);
+
+    // S = Q K^T and dP = dO V^T, both operands K-major.
+    float s[32], dp[32];
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+      hopper::mma_ss<0>(s, hopper::desc_k(sQ + off), hopper::desc_k(kt + off),
+                        kk > 0);
+    }
+    hopper::wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int off = (kk / 4) * 64 * 128 + (kk % 4) * 32;
+      hopper::mma_ss<0>(dp, hopper::desc_k(sdO + off),
+                        hopper::desc_k(vt + off), kk > 0);
+    }
+    hopper::wg_commit();
+    hopper::wg_wait<1>();
+    hopper::fence_regs(s);
+
+    // P = exp(scale * S - lse), 0 where masked.
+    const bool edge = k0 + kWgBK > k_len || q0 + kWgBQ > q_len ||
+                      (causal && k0 + kWgBK - 1 > pos_offset + q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p0 = exp2f(s[4 * j + e] * scale_log2 - l2_0);
+        float p1 = exp2f(s[4 * j + 2 + e] * scale_log2 - l2_1);
+        if (edge) {
+          const int kpos = k0 + c0 + 8 * j + e;
+          const bool in = kpos < k_len;
+          p0 = ok0 && in && (!causal || kpos <= qpos0) ? p0 : 0.f;
+          p1 = ok1 && in && (!causal || kpos <= qpos1) ? p1 : 0.f;
+        }
+        s[4 * j + e] = p0;
+        s[4 * j + 2 + e] = p1;
+      }
+    }
+    hopper::wg_wait<0>();
+    hopper::fence_regs(dp);
+    // dS = P * (dP - delta), then bf16 as the register A of dQ += dS K.
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - dl0);
+        dp[4 * j + 2 + e] = s[4 * j + 2 + e] * (dp[4 * j + 2 + e] - dl1);
+      }
+    }
+    uint32_t da[kWgBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kWgBK / 16; ++kk) hopper::pack_a(dp, kk, da[kk]);
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWgBK / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        hopper::mma_rs<1>(acc[c], da[kk],
+                          hopper::desc_mn(kt + c * kWgBK * 128 + kk * 2048));
+    hopper::wg_commit();
+    hopper::wg_wait<0>();
+#pragma unroll
+    for (int c = 0; c < NC; ++c) hopper::fence_regs(acc[c]);
+
+    __syncthreads();  // every warp is done with this stage's K and V
+    if (tid == 0 && kb + kStages < n_kb) {
+      hopper::mbar_expect(&full[stage], 2 * T::kKVBytes);
+      load_kv(kb + kStages, stage);
+    }
+  }
+
+#pragma unroll
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * c + 8 * j + c0;
+      if (ok0)
+        *reinterpret_cast<__nv_bfloat162*>(dq + row0 * D + col) =
+            __floats2bfloat162_rn(acc[c][4 * j] * sm_scale,
+                                  acc[c][4 * j + 1] * sm_scale);
+      if (ok1)
+        *reinterpret_cast<__nv_bfloat162*>(dq + (row0 + 8) * D + col) =
+            __floats2bfloat162_rn(acc[c][4 * j + 2] * sm_scale,
+                                  acc[c][4 * j + 3] * sm_scale);
+    }
+}
+
+// ------------------------------------------ dK/dV, bf16: wgmma + TMA
 
 template <int D>
 struct DkvWgTiles {
@@ -600,6 +796,30 @@ int launch_dq(const Args& a) {
 }
 
 template <int D>
+int launch_dq_wgmma(const Args& a) {
+  constexpr size_t smem = DqWgTiles<D>::kSmem;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap tq, tdo, tk, tv;
+  int err = hopper::make_map(&tq, a.q, a.b * a.h, a.q_len, D, kWgBQ);
+  if (!err) err = hopper::make_map(&tdo, a.dout, a.b * a.h, a.q_len, D,
+                                   kWgBQ);
+  if (!err) err = hopper::make_map(&tk, a.k, a.b * a.h_kv, a.k_len, D,
+                                   kWgBK);
+  if (!err) err = hopper::make_map(&tv, a.v, a.b * a.h_kv, a.k_len, D,
+                                   kWgBK);
+  if (err) return err;
+  const dim3 grid(a.b * a.h, (a.q_len + kWgBQ - 1) / kWgBQ);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, kWgThreads, smem, a.stream>>>(
+      tq, tdo, tk, tv, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<__nv_bfloat16*>(a.out0),
+      a.h, a.h_kv, a.q_len, a.k_len, a.sm_scale, a.causal);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
 int launch_dkv_wgmma(const Args& a) {
   constexpr size_t smem = DkvWgTiles<D>::kSmem;
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -642,12 +862,19 @@ int launch_dkv(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// kind: 0 = dQ, 1 = dK/dV.  bf16 dK/dV at d 64 and 128 runs on the
-// tensor cores (see the top); no scalar bf16 body exists for them.
+// kind: 0 = dQ, 1 = dK/dV.  bf16 dQ and bf16 dK/dV at d 64 and 128
+// run on the tensor cores (see the top); no scalar bf16 body is
+// instantiated for them.
 template <typename T, int D>
 int launch_kind(int kind, const Args& a) {
-  if (kind == 0) return launch_dq<T, D>(a);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value && D <= 128)
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  if (kind == 0) {
+    if constexpr (bf16)
+      return launch_dq_wgmma<D>(a);
+    else
+      return launch_dq<T, D>(a);
+  }
+  if constexpr (bf16 && D <= 128)
     return launch_dkv_wgmma<D>(a);
   else
     return launch_dkv<T, D>(a);

@@ -11,7 +11,11 @@ tables [B, P] int32; lengths [B] int32 (pre-write depths).  Returns
 - On CUDA tensors, `paged_attention` launches `csrc/paged_attention.cu`
   (skyt_paged_attention for native pools, skyt_paged_attention_int8
   for int8 pools; they replace the Pallas `_paged_decode_kernel` and
-  `_paged_decode_kernel_int8`) or raises; there is no fallback.
+  `_paged_decode_kernel_int8`) or raises; there is no fallback.  The
+  int8 kernel splits each slot's page walk into spans of SPLIT_PAGES
+  pages, one block each, and merges them in split order; the wrapper
+  allocates its f32 workspace and keeps its ticket counters (zero
+  between launches, reset by the kernel).
 - On CPU tensors it runs `_paged_attention_reference`: gather the pool
   rows each table names, dequantize in f32, masked softmax.
 """
@@ -30,6 +34,14 @@ from skypilot_tpu_torch.ops.attention import NEG_INF
 LAUNCHES = {'paged_attention': 0, 'paged_attention_int8': 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# Pages per split of the int8 kernel (kSplitPages in the source; the
+# binding checks that the two agree).
+SPLIT_PAGES = 4
+
+# The int8 kernel's ticket counters by device: int32, zero between
+# launches (the last block of a slot's splits resets its counter).
+_TICKETS = {}
 
 
 def _paged_attention_reference(q, k_leaf: Any, v_leaf: Any, tables,
@@ -70,7 +82,13 @@ def _bind(int8: bool):
     lib = _build.library('paged_attention')
     if int8:
         fn = lib.skyt_paged_attention_int8
-        n_ptrs = 8
+        n_ptrs = 10
+        if fn.argtypes is None and (lib.skyt_paged_int8_split_pages() !=
+                                    SPLIT_PAGES):
+            raise RuntimeError(
+                'paged_attention_int8: the library splits every '
+                f'{lib.skyt_paged_int8_split_pages()} pages, the wrapper '
+                f'sizes its workspace for {SPLIT_PAGES}')
     else:
         fn = lib.skyt_paged_attention
         n_ptrs = 6
@@ -93,6 +111,16 @@ def _require(t: torch.Tensor, name: str, device, dtype, shape) -> None:
                          f'{tuple(t.shape)}, expected {tuple(shape)}')
     if not t.is_contiguous():
         raise ValueError(f'paged_attention: {name} must be contiguous')
+
+
+def _tickets(dev, n: int) -> torch.Tensor:
+    """At least n zeroed int32 ticket counters on `dev`, kept across
+    launches."""
+    tickets = _TICKETS.get(dev)
+    if tickets is None or tickets.numel() < n:
+        tickets = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
+        _TICKETS[dev] = tickets
+    return tickets
 
 
 def _paged_attention_cuda(q, k_leaf, v_leaf, tables, lengths, *,
@@ -137,9 +165,17 @@ def _paged_attention_cuda(q, k_leaf, v_leaf, tables, lengths, *,
     # q [B, h_q, S, d] is [B, h_kv, rep * S, d] in memory: row r of
     # group g is q-head g * rep + r // S at token r % S.
     if quantized:
+        for name, t in (('q', q), ('k.q', k_leaf['q']), ('v.q', v_leaf['q'])):
+            if t.data_ptr() % 16:
+                raise ValueError(f'paged_attention: {name} must be 16-byte '
+                                 'aligned')
+        splits = -(-tables.shape[1] // SPLIT_PAGES)
+        work = torch.empty(b * h_kv * splits * rep * s_q * (d + 2),
+                           dtype=torch.float32, device=dev)
         rc = _bind(True)(q.data_ptr(), k_leaf['q'].data_ptr(),
                          k_leaf['scale'].data_ptr(), v_leaf['q'].data_ptr(),
                          v_leaf['scale'].data_ptr(), out.data_ptr(),
+                         work.data_ptr(), _tickets(dev, b * h_kv).data_ptr(),
                          tables.data_ptr(), lengths.data_ptr(),
                          _DTYPE_CODES[q.dtype], *args)
         _build.check(rc, 'paged_attention_int8')

@@ -161,37 +161,103 @@ def _pool(gen, n_pages, h_kv, ps, d, dtype, quantized, dev):
     return {'q': kq, 'scale': ks}, {'q': vq, 'scale': vs}
 
 
+def _paged_tables(lengths, s_q, ps, rows, seed):
+    """Tables naming distinct pages for each slot (unused entries the
+    null page 0), and the lengths as int32 (both on the CPU)."""
+    tables = torch.zeros((len(lengths), rows), dtype=torch.int32)
+    perm = torch.randperm(len(lengths) * rows,
+                          generator=torch.Generator().manual_seed(seed)) + 1
+    for i, n in enumerate(lengths):
+        need = -(-(n + s_q) // ps)
+        tables[i, :need] = perm[i * rows:i * rows + need].to(torch.int32)
+    return tables, torch.tensor(lengths, dtype=torch.int32)
+
+
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
                          ids=['f32', 'bf16'])
 @pytest.mark.parametrize('quantized', [False, True], ids=['native', 'int8'])
 @pytest.mark.parametrize('s_q', [1, 5])
 @pytest.mark.parametrize('h_q,h_kv,d', [(32, 8, 128), (8, 1, 256),
                                         (16, 8, 64)])
+@pytest.mark.parametrize('lengths', [[1, 15, 16, 17, 200],
+                                     [1000, 999, 63, 64]],
+                         ids=['ragged', 'long'])
 def test_paged_kernel_matches_plain(cuda, dtype, quantized, s_q, h_q, h_kv,
-                                    d):
+                                    d, lengths):
+    """Ragged lengths and long contexts (at 1000 positions B2 spreads a
+    slot over 16 splits of 4 pages, merged by the last block; B1 walks
+    63 pages); two launches give the same bits."""
     gen = torch.Generator(device=cuda).manual_seed(s_q + d)
-    b, ps, rows = 5, 16, 16
+    b, ps = len(lengths), 16
+    rows = max(16, -(-(max(lengths) + s_q) // ps))
     k, v = _pool(gen, 1 + b * rows, h_kv, ps, d, dtype, quantized, cuda)
     q = torch.randn((b, h_q, s_q, d), generator=gen, device=cuda).to(dtype)
-    lengths = torch.tensor([1, 15, 16, 17, 200], dtype=torch.int32,
-                           device=cuda)
-    tables = torch.zeros((b, rows), dtype=torch.int32)
-    perm = torch.randperm(b * rows, generator=torch.Generator()
-                          .manual_seed(d)) + 1
-    for i, n in enumerate(lengths.tolist()):
-        need = -(-(n + s_q) // ps)
-        tables[i, :need] = perm[i * rows:i * rows + need].to(torch.int32)
+    tables, lengths = _paged_tables(lengths, s_q, ps, rows, d)
     tables[0, 0] = 0                     # the null page as a live row
-    tables = tables.to(cuda)
+    tables, lengths = tables.to(cuda), lengths.to(cuda)
     name = 'paged_attention_int8' if quantized else 'paged_attention'
     before = paged_attention.LAUNCHES[name]
     out = paged_attention.paged_attention(q, k, v, tables, lengths)
-    assert paged_attention.LAUNCHES[name] == before + 1
+    again = paged_attention.paged_attention(q, k, v, tables, lengths)
+    assert paged_attention.LAUNCHES[name] == before + 2
     ref = paged_attention._paged_attention_reference(  # pylint: disable=protected-access
         q, k, v, tables, lengths, sm_scale=d ** -0.5)
     torch.cuda.synchronize()
+    assert torch.equal(out, again)
     torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
                                rtol=_tol(dtype))
+
+
+@pytest.mark.parametrize('quantized', [False, True], ids=['native', 'int8'])
+def test_paged_rows_do_not_depend_on_s_or_batch(cuda, quantized):
+    """A query row's bits do not depend on S, R, B or the other slots:
+    the row at qpos of an S = 5 call with lengths qpos - j equals the
+    S = 1 call with lengths qpos (for B2 the S = 5 call may reach a split
+    that is wholly masked for the row: 255 + 5 crosses the 256-position
+    boundary of 4 pages of 16), and a slot alone equals the same slot
+    among five."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    h_q, h_kv, d, ps, rows = 32, 8, 128, 16, 64
+    qpos = [1000, 17, 63, 255, 300]
+    b = len(qpos)
+    k, v = _pool(gen, 1 + b * rows, h_kv, ps, d, torch.bfloat16, quantized,
+                 cuda)
+    tables, _ = _paged_tables(qpos, 5, ps, rows, 4)
+    tables = tables.to(cuda)
+    q1 = torch.randn((b, h_q, 1, d), generator=gen,
+                     device=cuda).to(torch.bfloat16)
+    lengths = torch.tensor(qpos, dtype=torch.int32, device=cuda)
+    one = paged_attention.paged_attention(q1, k, v, tables, lengths)
+    q5 = q1.expand(-1, -1, 5, -1).contiguous()
+    for j in range(5):
+        five = paged_attention.paged_attention(q5, k, v, tables, lengths - j)
+        assert torch.equal(five[:, :, j], one[:, :, 0]), j
+    for i in range(b):
+        alone = paged_attention.paged_attention(
+            q1[i:i + 1].contiguous(), k, v, tables[i:i + 1].contiguous(),
+            lengths[i:i + 1].contiguous())
+        assert torch.equal(alone[0], one[i]), i
+
+
+@pytest.mark.parametrize('h,h_kv,d', [(16, 8, 64), (32, 8, 128),
+                                      (8, 1, 256)])
+def test_flash_bwd_dq_wgmma_is_deterministic(cuda, h, h_kv, d):
+    """The bf16 dQ kernel (B4) at each head_dim, q 100 < k 612 (the
+    diagonal at pos_offset 512, a ragged last q-tile and k-tile): two
+    launches give the same bits, within 2e-2 of the plain dQ's largest
+    |value|."""
+    q, k, v, out, lse, g, g_lse = _bwd_inputs(
+        cuda, torch.bfloat16, h, h_kv, d, 100, 612, True, seed=d)
+    delta = attention._delta(out, g, g_lse).contiguous()  # pylint: disable=protected-access
+    kw = dict(causal=True, sm_scale=d ** -0.5)
+    before = attention.LAUNCHES['flash_bwd_dq']
+    dq = attention._flash_bwd_dq_cuda(q, k, v, g, lse, delta, **kw)  # pylint: disable=protected-access
+    again = attention._flash_bwd_dq_cuda(q, k, v, g, lse, delta, **kw)  # pylint: disable=protected-access
+    assert attention.LAUNCHES['flash_bwd_dq'] == before + 2
+    ref = attention._flash_bwd_reference(q, k, v, out, lse, g, g_lse, **kw)  # pylint: disable=protected-access
+    torch.cuda.synchronize()
+    assert torch.equal(dq, again)
+    _assert_rel_close(dq, ref[0], 2e-2, 'dq')
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):

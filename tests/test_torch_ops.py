@@ -10,7 +10,9 @@ relative, f32 on both sides (the two accumulate in different orders).
 The CUDA kernels are held against these plain versions on the card by
 tests/test_torch_kernels_gpu.py.  Also here: a plain model of the bf16
 roundings the tensor-core kernels add (held to the card's tolerances),
-and the build's hashing of sources and shared headers.
+a plain model of the int8 paged kernel's split-and-merge order (held to
+both references, and bit-equal across S and batch), and the build's
+hashing of sources and shared headers.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 from skypilot_tpu.models import decode as jax_decode
 from skypilot_tpu.ops import attention as jax_attention
 from skypilot_tpu.ops import paged_attention as jax_paged
+from skypilot_tpu_torch import profile_paged
 from skypilot_tpu_torch.models import decode as torch_decode
 from skypilot_tpu_torch.ops import _build
 from skypilot_tpu_torch.ops import attention
@@ -305,6 +308,159 @@ def test_bf16_pds_rounding_within_backward_tolerance(q_len, k_len, causal):
         assert rel <= 2e-2, f'{name}: {rel:.3g} of max |ref|'
 
 
+def _dq_model(q, k, v, out, lse, g, g_lse, *, causal, sm_scale):
+    """dQ of _flash_bwd_reference with dS rounded to bf16 before dS·K
+    (the bf16 B4 kernel's one added rounding)."""
+    q_len, k_len = q.shape[2], k.shape[2]
+    delta = attention._delta(out, g, g_lse)  # pylint: disable=protected-access
+    k_rep, v_rep = attention._repeat_kv(q, k, v)  # pylint: disable=protected-access
+    k32 = k_rep.float()
+    s = torch.einsum('bhqd,bhkd->bhqk', q.float(), k32) * sm_scale
+    p = torch.exp(s - lse[..., None])
+    if causal:
+        qpos = torch.arange(q_len) + (k_len - q_len)
+        p = p.masked_fill(torch.arange(k_len)[None, :] > qpos[:, None], 0.0)
+    dp = torch.einsum('bhqd,bhkd->bhqk', g.float(), v_rep.float())
+    ds16 = (p * (dp - delta[..., None])).to(torch.bfloat16).float()
+    dq = torch.einsum('bhqk,bhkd->bhqd', ds16, k32) * sm_scale
+    return dq.to(q.dtype)
+
+
+@pytest.mark.parametrize('q_len,k_len,causal', BF16_MODEL_CASES)
+def test_bf16_ds_rounding_within_dq_tolerance(q_len, k_len, causal):
+    q, k, v, g, g_lse = _bf16_inputs(q_len, k_len, seed=11 + q_len + k_len)
+    sm_scale = 64 ** -0.5
+    out, lse = attention._blockwise_attention(  # pylint: disable=protected-access
+        q, k, v, causal=causal, sm_scale=sm_scale, return_lse=True)
+    kw = dict(causal=causal, sm_scale=sm_scale)
+    dq_ref, _, _ = attention._flash_bwd_reference(  # pylint: disable=protected-access
+        q, k, v, out, lse, g, g_lse, **kw)
+    dq = _dq_model(q, k, v, out, lse, g, g_lse, **kw)
+    assert dq.dtype == torch.bfloat16
+    rel = float((dq.float() - dq_ref.float()).abs().max() /
+                dq_ref.float().abs().max())
+    assert rel <= 2e-2, f'dq: {rel:.3g} of max |ref|'
+    # The rounding is visible: the model is not the plain version.
+    assert not torch.equal(dq, dq_ref)
+
+
+# ---------------------------------------------------------------------
+# B2's split-context design (csrc/paged_attention.cu), modelled in plain
+# PyTorch: each slot's pages in splits of SPLIT_PAGES, every split its
+# own (m, l, acc) over a fixed span of C * ps positions (unloaded and
+# masked positions p = 0), merged in split order; a slot that fits in
+# one split is divided directly.  Every product has a shape fixed by
+# (C, ps, d), as the kernel's lane mapping is fixed, so a row's bits can
+# be compared across calls.
+
+def _split_model(q, k_leaf, v_leaf, tables, lengths, *, sm_scale):
+    b, h_q, s_q, d = q.shape
+    h_kv, ps = k_leaf['q'].shape[1], k_leaf['q'].shape[2]
+    c = paged_attention.SPLIT_PAGES
+    n_rows, span = h_q // h_kv * s_q, c * ps
+    qg = q.reshape(b, h_kv, n_rows, d).float() * sm_scale
+    out = torch.empty_like(qg)
+    for bi in range(b):
+        length = int(lengths[bi])
+        n_pages = min(tables.shape[1], -(-(length + s_q) // ps))
+        n_split = -(-n_pages // c)
+        for g in range(h_kv):
+            parts = []
+            for sp in range(n_split):
+                pages = tables[bi, sp * c:min((sp + 1) * c, n_pages)].long()
+                kv = []
+                for leaf in (k_leaf, v_leaf):
+                    x = torch.zeros((span, d))
+                    vals = leaf['q'][pages, g].float() * \
+                        leaf['scale'][pages, g][..., None]
+                    x[:vals.shape[0] * ps] = vals.reshape(-1, d)
+                    kv.append(x)
+                loaded = torch.arange(span) < len(pages) * ps
+                kpos = sp * span + torch.arange(span)
+                row_parts = []
+                for r in range(n_rows):
+                    ok = loaded & (kpos <= length + r % s_q)
+                    s = kv[0] @ qg[bi, g, r]
+                    m = (s[ok].max() if bool(ok.any())
+                         else torch.tensor(attention.NEG_INF))
+                    p = torch.where(ok, torch.exp(s - m), torch.zeros(()))
+                    row_parts.append((m, p.sum(), p @ kv[1]))
+                parts.append(row_parts)
+            for r in range(n_rows):
+                if n_split == 1:
+                    _, l, acc = parts[0][r]
+                    out[bi, g, r] = acc / torch.clamp(l, min=1e-30)
+                    continue
+                big = max(parts[sp][r][0] for sp in range(n_split))
+                l_sum, o = torch.zeros(()), torch.zeros(d)
+                for sp in range(n_split):
+                    m, l, acc = parts[sp][r]
+                    w = torch.exp(m - big)
+                    l_sum = l_sum + l * w
+                    o = o + acc * w
+                out[bi, g, r] = o / torch.clamp(l_sum, min=1e-30)
+    return out.reshape(b, h_q, s_q, d).to(q.dtype)
+
+
+def _split_case(rng, s_q, lengths):
+    """An int8 pool (JAX and torch leaves) with tables for `lengths`:
+    ps 4, so a split spans 16 positions; every slot's rows of the
+    table name distinct pages, unused entries the null page."""
+    b, h_q, h_kv, d, ps, rows = len(lengths), 4, 2, 16, 4, 12
+    n_pages = 1 + b * rows
+    (jk, jv), (tk, tv) = _pool(rng, n_pages, h_kv, ps, d, True)
+    tables = np.zeros((b, rows), np.int32)
+    perm = rng.permutation(n_pages - 1) + 1
+    for i, n in enumerate(lengths):
+        need = min(rows, -(-(n + s_q) // ps))
+        tables[i, :need] = perm[i * rows:i * rows + need]
+    q = rng.standard_normal((b, h_q, s_q, d)).astype(np.float32)
+    return (jk, jv), (tk, tv), q, tables, np.array(lengths, np.int32)
+
+
+@pytest.mark.parametrize('s_q', [1, 5])
+def test_split_model_matches_references(s_q):
+    """Splits of 16 positions against the port's and the JAX package's
+    plain versions; lengths cross 0, 1, 2 and 3 split boundaries."""
+    rng = np.random.default_rng(31 + s_q)
+    (jk, jv), (tk, tv), q, tables, lengths = _split_case(
+        rng, s_q, [1, 15, 16, 40])
+    got = _split_model(torch.tensor(q), tk, tv, torch.tensor(tables),
+                       torch.tensor(lengths), sm_scale=0.3)
+    plain = paged_attention._paged_attention_reference(  # pylint: disable=protected-access
+        torch.tensor(q), tk, tv, torch.tensor(tables), torch.tensor(lengths),
+        sm_scale=0.3)
+    ref = jax_paged._paged_attention_reference(  # pylint: disable=protected-access
+        jnp.asarray(q), jk, jv, jnp.asarray(tables), jnp.asarray(lengths),
+        sm_scale=0.3)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=RTOL)
+
+
+def test_split_model_rows_do_not_depend_on_s_or_batch():
+    """The row at qpos of an S = 5 call with lengths qpos - j equals, bit
+    for bit, the S = 1 call at lengths qpos (the S = 5 call may reach one
+    split further, wholly masked for that row); a slot alone equals the
+    same slot among four."""
+    rng = np.random.default_rng(5)
+    qpos = [15, 16, 31, 44]          # 31: S = 5 reaches a third split
+    _, (tk, tv), q1, tables, _ = _split_case(rng, 5, qpos)
+    q1 = torch.tensor(q1[:, :, :1])
+    tables = torch.tensor(tables)
+    one = _split_model(q1, tk, tv, tables, torch.tensor(qpos), sm_scale=0.3)
+    q5 = q1.expand(-1, -1, 5, -1).contiguous()
+    for j in range(5):
+        five = _split_model(q5, tk, tv, tables,
+                            torch.tensor(qpos) - j, sm_scale=0.3)
+        assert torch.equal(five[:, :, j], one[:, :, 0]), j
+    for i in range(len(qpos)):
+        alone = _split_model(q1[i:i + 1], tk, tv, tables[i:i + 1],
+                             torch.tensor(qpos[i:i + 1]), sm_scale=0.3)
+        assert torch.equal(alone[0], one[i])
+
+
 # ---------------------------------------------------------------------
 # The build: a library's name hashes its source and the shared headers.
 
@@ -333,6 +489,20 @@ def test_library_name_follows_sources_and_headers(tmp_path, monkeypatch,
         (csrc / 'more.cuh').write_text('// another header\n')
     assert _build.library_path('kern') != before
     assert _build.build_log('kern') == ''            # nothing built here
+
+
+def test_profile_paged_anchors_each_phase_once():
+    """`python -m skypilot_tpu_torch.profile_paged` cuts the B2 kernel
+    after each phase at anchors in its source: each must occur once, and
+    the full variant is the source itself."""
+    with open(os.path.join(_build.CSRC_DIR, 'paged_attention.cu'),
+              encoding='utf-8') as f:
+        source = f.read()
+    variants = profile_paged.variant_sources(source)
+    assert list(variants) == [p[0] for p in profile_paged.PHASES] + ['full']
+    assert variants['full'] == source
+    for name, text in variants.items():
+        assert text.count(profile_paged._EXIT) == (name != 'full'), name  # pylint: disable=protected-access
 
 
 def test_every_quoted_include_is_a_hashed_header():
