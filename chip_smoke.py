@@ -11,10 +11,12 @@ Phases (each one that fails makes the script exit non-zero):
    source, in parallel) and prints the build seconds; then, for every
    kernel instantiation (flash and paged), ptxas's registers, stack
    and spills and the HGMMA / HMMA / FFMA counts of `cuobjdump -sass`
-   (a wgmma kernel without HGMMA, or with spills, fails the run).
+   (a wgmma kernel without HGMMA, or a wgmma or paged kernel with
+   spills, fails the run).
 3. Kernel parity on the card at the Llama-3-8B shapes (h_q 32, h_kv 8,
    d 128, bf16, page size 16): B1 paged decode and B2 int8 paged decode
-   (split-context: splits of `split_pages` pages merged in order) with
+   (one split-context kernel: splits of `split_pages` pages merged in
+   order) with
    ragged lengths (1, 15, 16, 17, 1000), S = 1 and S = 5, tables that
    include the null page, and a full batch of 8 slots at 1000 (two
    launches bit-equal); B3 flash forward at q_len 1, 100, 512
@@ -76,7 +78,8 @@ training for B3/B4/B5), and `launches_by_path` holds every driven
 path's own count (serving, training, `train_llama small`), each path
 zeroed just before it and read just after.  B3's entry carries the
 512-token chunk under `serving_chunk`, B1's and B2's the full batch
-under `full_batch`, and B2's its split span in pages, `split_pages`.
+under `full_batch`, and B1's and B2's their split span in pages,
+`split_pages`.
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -190,16 +193,20 @@ def read_counts(counters) -> dict:
 
 
 def kernel_label(mangled: str) -> str:
-    """`flash_fwd_wgmma_kernel<bf16, d 128>` from a mangled name."""
+    """`flash_fwd_wgmma_kernel<bf16, d 128>` from a mangled name;
+    `paged_decode_split_kernel<bf16, int8 pool, d 128>` for B2."""
     name = re.search(r'\d+((?:flash|paged)_[a-z0-9_]*kernel)', mangled)
     d = re.search(r'Li(\d+)E', mangled)
     if not name or not d:
         return mangled
     # wgmma kernels are bf16 only and the scalar forward f32 only; the
-    # scalar backward and the paged kernels carry their (query) type.
-    dtype = ('bf16' if 'wgmma' in mangled or '__nv_bfloat16' in
-             mangled.split('Li')[0] else 'f32')
-    return f'{name.group(1)}<{dtype}, d {d.group(1)}>'
+    # scalar backward and the paged kernels carry their (query) type,
+    # the paged kernel then its pool's (int8_t mangles as 'a').
+    types = mangled.split('Li')[0]
+    dtype = ('bf16' if 'wgmma' in mangled or '__nv_bfloat16' in types
+             else 'f32')
+    pool = 'int8 pool, ' if types.endswith('a') else ''
+    return f'{name.group(1)}<{dtype}, {pool}d {d.group(1)}>'
 
 
 def compiled_report(build) -> None:
@@ -243,7 +250,8 @@ def compiled_report(build) -> None:
             if 'wgmma' in fn and ops[fn]['HGMMA'] == 0:
                 raise AssertionError(f'{kernel_label(fn)}: no HGMMA in its '
                                      'SASS')
-            if 'wgmma' in fn and (ptxas.get(fn) or {}).get('spills'):
+            if (('wgmma' in fn or 'paged' in fn) and
+                    (ptxas.get(fn) or {}).get('spills')):
                 raise AssertionError(f'{kernel_label(fn)}: spills '
                                      f'{ptxas[fn]}')
 
@@ -313,7 +321,7 @@ def check_paged(dev, quantized):
     the ragged lengths, the timed dtype and S on the full batch); two
     launches must give the same bits.  Timed at the main path's tick (S
     = 1 native, S = 5 (spec) int8) on the ragged lengths, with the full
-    batch under `full_batch`; B2 records its split span."""
+    batch under `full_batch`; both record their split span."""
     import torch
     from skypilot_tpu_torch.ops import paged_attention as pa
     errs = []
@@ -353,10 +361,8 @@ def check_paged(dev, quantized):
         shapes[full] = dict(max_abs_err=max(errs), **kernel, plain_ms=plain,
                             bound_ms=bound_ms, bound_by=bound_by,
                             library_ms=None)
-    result = dict(shapes[False], full_batch=shapes[True])
-    if quantized:
-        result['split_pages'] = pa.SPLIT_PAGES
-    return result
+    return dict(shapes[False], full_batch=shapes[True],
+                split_pages=pa.SPLIT_PAGES)
 
 
 # (dtype, b, h, h_kv, d, q_len, k_len) of B3 against its plain version:

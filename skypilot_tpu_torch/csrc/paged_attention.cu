@@ -1,5 +1,6 @@
 // Paged decode attention over one layer's KV page pool, for Hopper
-// (sm_90a): a native-dtype kernel (B1) and an int8 kernel (B2).
+// (sm_90a): one split-context kernel, for native-dtype pools (B1) and
+// int8 pools (B2).
 //
 // Replaces the Pallas kernels skypilot_tpu/ops/paged_attention.py:
 // _paged_decode_kernel and _paged_decode_kernel_int8 (launched by
@@ -10,44 +11,49 @@
 // concatenation of the pool pages its block-table row names, with the
 // mask kpos <= qpos; pages past position lengths[b] + S - 1 are never
 // read.  One kernel serves S = 1 decode and the S = k + 1 speculative
-// verify.  The int8 kernel multiplies each value by its token's f32
-// scale (dequant in f32, as the reference does).
+// verify.  Arithmetic is in f32: q is scaled by sm_scale in f32, bf16
+// K and V widen to f32 exactly, and the int8 kernel multiplies each
+// value by its token's f32 scale (dequant in f32, as the reference
+// does).
 //
 // What bounds it on an H100: bytes.  Every live K and V page is read
-// once per (slot, kv-head) - ps * d elements of 2 bytes (bf16) or 1
-// byte plus a 4-byte scale per token (int8) - against 3.35 TB/s, while
-// the arithmetic is ~4 * R FLOPs per element read.  Both kernels let
-// the GQA group's R query rows share each page load, so a page crosses
-// device memory once per kv-head and not once per q-head, and read the
-// block table in-kernel, so the gathered dense view the CPU reference
-// builds never exists.  At serving sizes the bytes are a few MB, so
-// what sets the time is how much of the card the page walk keeps busy.
+// once per (slot, kv-head) - ps * d elements of 2 or 4 bytes (native)
+// or 1 byte plus a 4-byte scale per token (int8) - against 3.35 TB/s,
+// while the arithmetic is ~4 * R FLOPs per element read.  The GQA
+// group's R query rows share each page load, so a page crosses device
+// memory once per kv-head and not once per q-head, and each block reads
+// the block table in-kernel, so the gathered dense view the CPU
+// reference builds never exists.  At serving sizes the bytes are a few
+// MB, so what sets the time is how much of the card the page walk keeps
+// busy and how long one block's chain of latencies is.
 //
-// B1 (paged_decode_kernel): one block per (slot, kv-head) walks the
-// slot's pages in order, one page per round of barriers, the running
-// (m, l, acc) in shared memory.  A tick's time is its longest slot's
-// walk; B1's redesign on B2's split design is next.
-//
-// B2 (paged_decode_int8_split_kernel): split-context flash-decoding.
-// Each slot's page walk is cut into splits of a fixed kSplitPages (C)
-// pages, one block per (slot, kv-head, split), so a long context
-// spreads over many SMs.  A block brings its C pages into shared memory
-// at once, one barrier for the whole split: int8 K and its scales by
-// 16-byte cp.async, V by 16-byte loads dequantized once into f32 (P·V
-// reads each value once per row block).  It computes the R x C*ps
-// scores with a fixed group of 8 lanes per dot product (each lane a
-// fixed slice of d; 4 rows x 2 tokens a lane, so q is read once for
-// two tokens; the 8 partials meet in a transposed xor-shuffle tree),
-// the split's own softmax (one warp a row), and P·V with each thread
-// owning 4 output lanes of its rows.  It leaves its partial (m, l,
-// acc[R][d]) in f32 in a workspace the wrapper allocates.  The last block of a (slot, kv-head) to finish -
-// found with a ticket counter that it resets to 0 - merges the splits
-// in split order: w_s = exp(m_s - max m), out = sum w_s acc_s / sum w_s
+// Split-context flash-decoding (paged_decode_split_kernel, templated
+// over the pool's element type TKV: TQ for B1, int8_t for B2).  Each
+// slot's page walk is cut into splits of a fixed kSplitPages (C) pages,
+// one block per (slot, kv-head, split), so a long context spreads over
+// many SMs.  A block brings its C pages into shared memory at once:
+// - native pools: K and V go straight into shared memory in their own
+//   dtype by 16-byte cp.async, nothing staged in registers, in two
+//   commit groups; the scores wait for K's only, so V's bytes land
+//   while the scores and the softmax run.  bf16 widens to f32 where it
+//   is read, exactly, by a 16-bit shift.
+// - int8 pools: K and its scales by 16-byte cp.async, V by 16-byte
+//   loads dequantized once into f32 (P·V reads each value once per row
+//   block).  int8 values become floats by a byte permute into the
+//   mantissa of 2^23 (exact; I2F runs at a quarter of the rate).
+// It computes the R x C*ps scores with a fixed group of 8 lanes per dot
+// product (each lane a fixed slice of d; 4 rows x 2 tokens a lane, so q
+// is read once for two tokens; the 8 partials meet in a transposed
+// xor-shuffle tree), the split's own softmax (one warp a row), and P·V
+// with each thread owning 4 output lanes of its rows.  It leaves its
+// partial (m, l, acc[R][d]) in f32 in a workspace the wrapper
+// allocates.  The last block of a (slot, kv-head) to finish - found
+// with a ticket counter that it resets to 0 - merges the splits in
+// split order: w_s = exp(m_s - max m), out = sum w_s acc_s / sum w_s
 // l_s, reading the partials from L2.  One launch, no second merge
 // kernel (the decode tick is bound by the host's ~2800 launches).  A
 // slot that fits in one split writes its output directly, with the
-// same arithmetic.  int8 values become floats by a byte permute into
-// the mantissa of 2^23 (exact; I2F runs at a quarter of the rate).
+// same arithmetic.
 //
 // Row invariance (a query row's bits do not depend on R, S, B or the
 // other slots; the speculative verify tick must reproduce a plain
@@ -57,16 +63,19 @@
 // loaded pages, gets p = 0 exactly, and a split wholly past it keeps
 // m = NEG_INF, l = 0 and acc = 0, so its combine weight exp(NEG_INF -
 // M) is 0 and it adds exact zeros.  Tensor cores are not used: they
-// would round the dequantized K to bf16, which the reference does not.
+// would round P (and the dequantized K) to bf16, which the reference
+// does not.
 //
 // Translation from the TPU kernels: their grid walks table rows in
 // order on one core, carrying (m, l, acc) in VMEM scratch between
-// pages.  Here B1's walk is a loop inside one block; B2 gives each
-// split its own block and merges the partials in a fixed order.  Each
-// block loads its own table row and length (the TPU's scalar prefetch).
+// pages.  Here each split has its own block and the partials are
+// merged in a fixed order.  Each block loads its own table row and
+// length (the TPU's scalar prefetch).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -75,10 +84,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr size_t kMaxSmem = 232448;  // H100: 227 KB per block
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T>
 __device__ __forceinline__ T from_f(float x);
 template <>
@@ -88,156 +93,14 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// ------------------------------------------------------------------ B1
-
-size_t smem_floats(int R, int ps, int D) {
-  // sQ [R][D+1], sK [ps][D+1], sV [ps][D], sS [R][ps+1], sAcc [R][D],
-  // sM/sL/sCorr [R].
-  return (size_t)R * (D + 1) + (size_t)ps * (D + 1) + (size_t)ps * D +
-         (size_t)R * (ps + 1) + (size_t)R * D + 3 * (size_t)R;
-}
-
-// TQ: query/output type.  TKV: pool element type (TQ; B1 passes null
-// scales).  The scale path is dead since B2's split kernel but stays:
-// without it nvcc compiles the native body differently (32 registers
-// instead of 48) and B1 took a third longer at the timed ragged tick on
-// an H100 80GB HBM3 (0.2285 against 0.1712 ms, PERF.md); B1's redesign
-// replaces this body.
-template <typename TQ, typename TKV, int D>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
-    const TQ* __restrict__ q, const TKV* __restrict__ kpool,
-    const TKV* __restrict__ vpool, const float* __restrict__ kscale,
-    const float* __restrict__ vscale, TQ* __restrict__ out,
-    const int* __restrict__ tables, const int* __restrict__ lengths,
-    int h_kv, int R, int S, int P, int ps, float sm_scale) {
-  constexpr int DS = D + 1;
-  const int SS = ps + 1;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + R * DS;
-  float* sV = sK + ps * DS;
-  float* sS = sV + ps * D;
-  float* sAcc = sS + R * SS;
-  float* sM = sAcc + R * D;
-  float* sL = sM + R;
-  float* sCorr = sL + R;
-
-  const int bg = blockIdx.x;  // slot * h_kv + kv-head
-  const int b = bg / h_kv;
-  const int g = bg - b * h_kv;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int length = lengths[b];
-  const int* table = tables + (size_t)b * P;
-
-  const TQ* qp = q + (size_t)bg * R * D;
-  for (int i = tid; i < R * D; i += kThreads) {
-    const int r = i / D, c = i - r * D;
-    sQ[r * DS + c] = to_f(qp[i]) * sm_scale;
-    sAcc[i] = 0.f;
-  }
-  for (int r = tid; r < R; r += kThreads) {
-    sM[r] = kNegInf;
-    sL[r] = 0.f;
-  }
-
-  // Pages holding positions [0, length + S): ceil((length + S) / ps).
-  const int n_pages = min(P, (length + S + ps - 1) / ps);
-  for (int i = 0; i < n_pages; ++i) {
-    const size_t base = ((size_t)table[i] * h_kv + g) * ps;
-    __syncthreads();  // previous page fully consumed (and init done)
-    for (int e = tid; e < ps * D; e += kThreads) {
-      const int t = e / D, c = e - t * D;
-      float kv = to_f(kpool[base * D + e]);
-      float vv = to_f(vpool[base * D + e]);
-      if (kscale != nullptr) {
-        kv *= kscale[base + t];
-        vv *= vscale[base + t];
-      }
-      sK[t * DS + c] = kv;
-      sV[e] = vv;
-    }
-    __syncthreads();
-    for (int e = tid; e < R * ps; e += kThreads) {
-      const int r = e / ps, t = e - r * ps;
-      const float* qrow = sQ + r * DS;
-      const float* krow = sK + t * DS;
-      float s = 0.f;
-#pragma unroll 8
-      for (int dd = 0; dd < D; ++dd) s = fmaf(qrow[dd], krow[dd], s);
-      const int kpos = i * ps + t;
-      const int qpos = length + r % S;
-      sS[r * SS + t] = kpos <= qpos ? s : kNegInf;
-    }
-    __syncthreads();
-    // Online-softmax update, one warp per row.
-    for (int r = warp; r < R; r += kWarps) {
-      float* srow = sS + r * SS;
-      float mx = kNegInf;
-      for (int t = lane; t < ps; t += 32) mx = fmaxf(mx, srow[t]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float psum = 0.f;
-      for (int t = lane; t < ps; t += 32) {
-        const float p = expf(srow[t] - m_new);
-        srow[t] = p;
-        psum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        sCorr[r] = corr;
-        sL[r] = sL[r] * corr + psum;
-        sM[r] = m_new;
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < R * D; e += kThreads) {
-      const int r = e / D, c = e - r * D;
-      const float* prow = sS + r * SS;
-      float a = sAcc[e] * sCorr[r];
-      for (int t = 0; t < ps; ++t) a = fmaf(prow[t], sV[t * D + c], a);
-      sAcc[e] = a;
-    }
-  }
-  __syncthreads();
-  TQ* op = out + (size_t)bg * R * D;
-  for (int e = tid; e < R * D; e += kThreads) {
-    const int r = e / D;
-    op[e] = from_f<TQ>(sAcc[e] / fmaxf(sL[r], 1e-30f));
-  }
-}
-
-template <typename TQ, int D>
-int launch_native(const void* q, const void* k, const void* v, void* out,
-                  const int* tables, const int* lengths, int B, int h_kv,
-                  int R, int S, int P, int ps, float sm_scale,
-                  cudaStream_t stream) {
-  const size_t smem = smem_floats(R, ps, D) * sizeof(float);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      paged_decode_kernel<TQ, TQ, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
-  if (attr != cudaSuccess) return (int)attr;
-  paged_decode_kernel<TQ, TQ, D><<<B * h_kv, kThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TQ*>(k),
-      static_cast<const TQ*>(v), nullptr, nullptr, static_cast<TQ*>(out),
-      tables, lengths, h_kv, R, S, P, ps, sm_scale);
-  return (int)cudaGetLastError();
-}
-
-// ------------------------------------------------------------------ B2
-
-// Pages per split (C).  Fixed: a split's span of positions - and so
-// every row's arithmetic - depends on nothing but the page size, never
-// on B, R, S or how many slots are live.  At ps 16 a split is 64
-// tokens, and a 1000-token slot spreads over 16 blocks.
+// Pages per split (C), of B1 and B2 alike.  Fixed: a split's span of
+// positions - and so every row's arithmetic - depends on nothing but the
+// page size, never on B, R, S or how many slots are live.  At ps 16 a
+// split is 64 tokens, and a 1000-token slot spreads over 16 blocks.  On
+// an H100 B1 was slower at the ragged serving tick with 2 or 8 pages
+// (PERF.md, `profile_paged --split-pages`); 8 pages were faster at a
+// full batch, but 8 pages of f32 K and V at d 256 (256 KB) do not fit
+// in shared memory.
 constexpr int kSplitPages = 4;
 constexpr int kGroup = 8;        // lanes per score dot product
 constexpr int kScoreRows = 4;    // a lane's kGroup partial scores:
@@ -248,22 +111,34 @@ constexpr int kRowsPerPass = 4;  // P·V rows a thread holds in registers
 constexpr int kBatch = 4;        // global loads a thread keeps in flight
 constexpr int kMergeBatch = 16;  // splits' partials in flight in the merge
 
+// What B1's and B2's pools differ in.  TV is V's type in shared memory:
+// int8 V is dequantized into f32 as it is stored, native V stays as it
+// is in the pool.
+template <typename TKV>
+struct Pool {
+  static constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
+  using TV = typename std::conditional<kInt8, float, TKV>::type;
+};
+
 // Shared memory of a split block (T = C * ps tokens, a multiple of 4):
 // f32 sQ [R][D], sP [p] (the scores, then p; the merge's m/weights and
-// l [2][splits][R]), sKs [T], sL/sM [R], the ticket's verdict (one
-// int); then f32 sV [T][D] (dequantized) and int8 sK [T][D].  No static
-// shared memory, so the whole 227 KB stays dynamic.
+// l [2][splits][R]), sKs [T] (int8 pools only), sL/sM [R], the ticket's
+// verdict (one int); then sV [T][D] as TV and sK [T][D] as TKV.  No
+// static shared memory, so the whole 227 KB stays dynamic.
+template <typename TKV>
 struct SplitLayout {
   int p;       // floats of sP, a multiple of 4
+  int ks;      // floats of sKs
   size_t f32;  // floats before sV, a multiple of 4
   __host__ __device__ SplitLayout(int R, int T, int D, int max_splits) {
     const int n = R * T > 2 * max_splits * R ? R * T : 2 * max_splits * R;
     p = (n + 3) & ~3;
-    f32 = ((size_t)R * D + p + (size_t)T + 2 * (size_t)R + 1 + 3) &
-          ~(size_t)3;
+    ks = Pool<TKV>::kInt8 ? T : 0;
+    f32 = ((size_t)R * D + p + ks + 2 * (size_t)R + 1 + 3) & ~(size_t)3;
   }
   size_t bytes(int T, int D) const {
-    return (f32 + (size_t)T * D) * 4 + (size_t)T * D;
+    return f32 * 4 +
+           (size_t)T * D * (sizeof(typename Pool<TKV>::TV) + sizeof(TKV));
   }
 };
 
@@ -279,6 +154,14 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                "l"(src)
                : "memory");
 }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's commit groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
@@ -293,14 +176,14 @@ __device__ __forceinline__ float s8(uint32_t w, int k) {
          8388736.f;
 }
 
-// The 16 bytes u as QV = 16 / sizeof(TQ) floats (bf16 widens exactly).
-template <typename TQ>
+// The 16 bytes u as 16 / sizeof(T) floats (bf16 widens exactly).
+template <typename T>
 __device__ __forceinline__ void unpack16(const uint4& u,
-                                         float (&f)[16 / sizeof(TQ)]) {
+                                         float (&f)[16 / sizeof(T)]) {
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    if constexpr (sizeof(TQ) == 4) {
+    if constexpr (sizeof(T) == 4) {
       f[i] = __uint_as_float(w[i]);
     } else {
       f[2 * i] = __uint_as_float(w[i] << 16);
@@ -309,35 +192,52 @@ __device__ __forceinline__ void unpack16(const uint4& u,
   }
 }
 
-// grid (B * h_kv, ceil(P / C)); blockIdx.y is the split.  work holds
-// acc [B*h_kv][splits][R][D], then m, l [B*h_kv][splits][2][R];
-// tickets [B*h_kv] are 0 between launches.
-template <typename TQ, int D>
-__global__ void __launch_bounds__(kThreads) paged_decode_int8_split_kernel(
-    const TQ* __restrict__ q, const int8_t* __restrict__ kpool,
-    const int8_t* __restrict__ vpool, const float* __restrict__ kscale,
+// Four consecutive values of shared memory as floats (bf16 exactly).
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// grid (B * h_kv, ceil(P / C)); blockIdx.y is the split.  TQ: q and out;
+// TKV: the pools (TQ, or int8_t with f32 scales; the native kernel gets
+// null scales).  work holds acc [B*h_kv][splits][R][D], then m, l
+// [B*h_kv][splits][2][R]; tickets [B*h_kv] are 0 between launches.
+template <typename TQ, typename TKV, int D>
+__global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(
+    const TQ* __restrict__ q, const TKV* __restrict__ kpool,
+    const TKV* __restrict__ vpool, const float* __restrict__ kscale,
     const float* __restrict__ vscale, TQ* __restrict__ out,
     float* __restrict__ work, int* __restrict__ tickets,
     const int* __restrict__ tables, const int* __restrict__ lengths,
     int h_kv, int R, int S, int P, int ps, float sm_scale) {
-  // A lane's slice of d: W-byte chunks at d = W*j + 8W*ch (j its lane
-  // in the group), ch < NCH.
-  constexpr int W = D / kGroup < 16 ? D / kGroup : 16;
+  using TV = typename Pool<TKV>::TV;
+  constexpr bool kInt8 = Pool<TKV>::kInt8;
+  // A lane's slice of d: chunks of W elements (at most 16 bytes of the
+  // pool) at d = W*j + 8W*ch (j its lane in the group), ch < NCH.
+  constexpr int KW = 16 / sizeof(TKV);  // pool elements in 16 bytes
+  constexpr int W = D / kGroup < KW ? D / kGroup : KW;
   constexpr int NCH = D / (kGroup * W);
+  static_assert(kInt8 || W == KW, "a native lane chunk is 16 bytes");
   constexpr int Q4 = D / 4;          // 4-lane column quads of a row
   constexpr int RS = kThreads / Q4;  // P·V row stride between threads
   const int T = kSplitPages * ps;
   const int max_splits = gridDim.y;
-  const SplitLayout lay(R, T, D, max_splits);
+  const SplitLayout<TKV> lay(R, T, D, max_splits);
   extern __shared__ __align__(16) float split_smem[];
   float* sQ = split_smem;
   float* sP = sQ + R * D;
   float* sKs = sP + lay.p;
-  float* sL = sKs + T;
+  float* sL = sKs + lay.ks;
   float* sM = sL + R;
   int& last = *reinterpret_cast<int*>(sM + R);
-  float* sV = split_smem + lay.f32;
-  int8_t* sK = reinterpret_cast<int8_t*>(sV + T * D);
+  TV* sV = reinterpret_cast<TV*>(split_smem + lay.f32);
+  TKV* sK = reinterpret_cast<TKV*>(sV + T * D);
 
   const int bg = blockIdx.x;  // slot * h_kv + kv-head
   const int split = blockIdx.y;
@@ -365,54 +265,66 @@ __global__ void __launch_bounds__(kThreads) paged_decode_int8_split_kernel(
     const int e = (tid + x * kThreads) * QV;
     if (e < R * D) qraw[x] = *reinterpret_cast<const uint4*>(qp + e);
   }
-  // K's pages and scales by cp.async, all in flight at once.
-  const int page_chunks = ps * D / 16;  // 16-byte chunks of a page
-  const int n_chunks = n_tok * D / 16;
+  // K's pages by cp.async, all in flight at once.
+  const int page_chunks = ps * D / KW;  // 16-byte chunks of a page
+  const int n_chunks = n_tok * D / KW;
   for (int e = tid; e < n_chunks; e += kThreads) {
     const int i = e / page_chunks;
-    cp_async16(sK + e * 16, kpool + ((size_t)table[i] * h_kv + g) * ps * D +
-                                (size_t)(e - i * page_chunks) * 16);
+    cp_async16(sK + e * KW, kpool + ((size_t)table[i] * h_kv + g) * ps * D +
+                                (size_t)(e - i * page_chunks) * KW);
   }
-  // Scales 16 bytes at a time where a page's run of ps floats allows.
-  const int sc =
-      ps % 4 == 0 && reinterpret_cast<uintptr_t>(kscale) % 16 == 0 ? 4 : 1;
-  for (int t = tid * sc; t < n_tok; t += kThreads * sc) {
-    const int i = t / ps;
-    const float* src = kscale + ((size_t)table[i] * h_kv + g) * ps +
-                       (t - i * ps);
-    if (sc == 4)
-      cp_async16(sKs + t, src);
-    else
-      cp_async4(sKs + t, src);
-  }
-  // V dequantized once (value x its token's scale, in f32), so that
-  // P·V, which reads every value once per row block, reads floats.
-  for (int e0 = tid; e0 < n_chunks; e0 += kThreads * kBatch) {
-    uint4 u[kBatch];
-    float vs[kBatch];
+  if constexpr (kInt8) {
+    // Scales 16 bytes at a time where a page's run of ps floats allows.
+    const int sc =
+        ps % 4 == 0 && reinterpret_cast<uintptr_t>(kscale) % 16 == 0 ? 4 : 1;
+    for (int t = tid * sc; t < n_tok; t += kThreads * sc) {
+      const int i = t / ps;
+      const float* src = kscale + ((size_t)table[i] * h_kv + g) * ps +
+                         (t - i * ps);
+      if (sc == 4)
+        cp_async16(sKs + t, src);
+      else
+        cp_async4(sKs + t, src);
+    }
+    // V dequantized once (value x its token's scale, in f32), so that
+    // P·V, which reads every value once per row block, reads floats.
+    for (int e0 = tid; e0 < n_chunks; e0 += kThreads * kBatch) {
+      uint4 u[kBatch];
+      float vs[kBatch];
 #pragma unroll
-    for (int x = 0; x < kBatch; ++x) {
-      const int e = e0 + x * kThreads;
-      if (e < n_chunks) {
-        const int i = e / page_chunks, t = e * 16 / D;
-        const size_t page = (size_t)table[i] * h_kv + g;
-        u[x] = __ldg(reinterpret_cast<const uint4*>(
-            vpool + page * ps * D + (size_t)(e - i * page_chunks) * 16));
-        vs[x] = __ldg(vscale + page * ps + (t - i * ps));
+      for (int x = 0; x < kBatch; ++x) {
+        const int e = e0 + x * kThreads;
+        if (e < n_chunks) {
+          const int i = e / page_chunks, t = e * 16 / D;
+          const size_t page = (size_t)table[i] * h_kv + g;
+          u[x] = __ldg(reinterpret_cast<const uint4*>(
+              vpool + page * ps * D + (size_t)(e - i * page_chunks) * 16));
+          vs[x] = __ldg(vscale + page * ps + (t - i * ps));
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < kBatch; ++x) {
+        const int e = e0 + x * kThreads;
+        if (e < n_chunks) {
+          float4* dst = reinterpret_cast<float4*>(sV + e * 16);
+          const uint32_t w[4] = {u[x].x, u[x].y, u[x].z, u[x].w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            dst[k] = make_float4(s8(w[k], 0) * vs[x], s8(w[k], 1) * vs[x],
+                                 s8(w[k], 2) * vs[x], s8(w[k], 3) * vs[x]);
+        }
       }
     }
-#pragma unroll
-    for (int x = 0; x < kBatch; ++x) {
-      const int e = e0 + x * kThreads;
-      if (e < n_chunks) {
-        float4* dst = reinterpret_cast<float4*>(sV + e * 16);
-        const uint32_t w[4] = {u[x].x, u[x].y, u[x].z, u[x].w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          dst[k] = make_float4(s8(w[k], 0) * vs[x], s8(w[k], 1) * vs[x],
-                               s8(w[k], 2) * vs[x], s8(w[k], 3) * vs[x]);
-      }
+  } else {
+    // V's pages as they are, in a commit group after K's: the scores
+    // wait for K's group alone.
+    cp_async_commit();
+    for (int e = tid; e < n_chunks; e += kThreads) {
+      const int i = e / page_chunks;
+      cp_async16(sV + e * KW, vpool + ((size_t)table[i] * h_kv + g) * ps * D +
+                                  (size_t)(e - i * page_chunks) * KW);
     }
+    cp_async_commit();
   }
   // q pre-scaled in f32, stored so that the group's 8 lanes read
   // neighbouring float4s: d = W*j + 8W*ch + 4*k4 + x sits at
@@ -442,7 +354,12 @@ __global__ void __launch_bounds__(kThreads) paged_decode_int8_split_kernel(
       }
     }
   }
-  cp_async_wait_all();
+  // K in place (int8 pools: with its scales, while this thread's own
+  // stores wrote V); native V may still be landing.
+  if constexpr (kInt8)
+    cp_async_wait_all();
+  else
+    cp_async_wait<1>();
   __syncthreads();
 
   // Scores: group grp takes tokens grp + 64i and grp + 32 + 64i; its 8
@@ -465,21 +382,33 @@ __global__ void __launch_bounds__(kThreads) paged_decode_int8_split_kernel(
 #pragma unroll
       for (int u = 0; u < kScoreToks; ++u) {
         const int t = min(t0 + u * TPG, n_tok - 1);
-        const float ks = sKs[t];
+        if constexpr (kInt8) {
+          const float ks = sKs[t];
 #pragma unroll
-        for (int ch = 0; ch < NCH; ++ch) {
-          const int8_t* src = sK + t * D + W * j + 8 * W * ch;
-          uint32_t w4[W / 4];
-          if constexpr (W == 16) {
-            const uint4 v = *reinterpret_cast<const uint4*>(src);
-            w4[0] = v.x, w4[1] = v.y, w4[2] = v.z, w4[3] = v.w;
-          } else {
-            const uint2 v = *reinterpret_cast<const uint2*>(src);
-            w4[0] = v.x, w4[1] = v.y;
+          for (int ch = 0; ch < NCH; ++ch) {
+            const int8_t* src = sK + t * D + W * j + 8 * W * ch;
+            uint32_t w4[W / 4];
+            if constexpr (W == 16) {
+              const uint4 v = *reinterpret_cast<const uint4*>(src);
+              w4[0] = v.x, w4[1] = v.y, w4[2] = v.z, w4[3] = v.w;
+            } else {
+              const uint2 v = *reinterpret_cast<const uint2*>(src);
+              w4[0] = v.x, w4[1] = v.y;
+            }
+#pragma unroll
+            for (int x = 0; x < W; ++x)
+              kf[u][ch * W + x] = s8(w4[x / 4], x % 4) * ks;
           }
+        } else {
 #pragma unroll
-          for (int x = 0; x < W; ++x)
-            kf[u][ch * W + x] = s8(w4[x / 4], x % 4) * ks;
+          for (int ch = 0; ch < NCH; ++ch) {
+            float f[KW];
+            unpack16<TKV>(*reinterpret_cast<const uint4*>(
+                              sK + t * D + W * j + 8 * W * ch),
+                          f);
+#pragma unroll
+            for (int x = 0; x < W; ++x) kf[u][ch * W + x] = f[x];
+          }
         }
       }
       for (int r0 = 0; r0 < R; r0 += kScoreRows) {
@@ -551,6 +480,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_int8_split_kernel(
       sL[r] = l;
     }
   }
+  // Native V's commit group in place too.
+  if constexpr (!kInt8) cp_async_wait<0>();
   __syncthreads();
 
   // P·V: this thread's column quad cq of rows rb, rb + RS, ..., summed
@@ -566,7 +497,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_int8_split_kernel(
     // float4), then the rest one by one.
     static_assert(kRowsPerPass == 4, "p below is a float4 per row");
     auto step = [&](int t, const float (&p)[kRowsPerPass]) {
-      const float4 v = *reinterpret_cast<const float4*>(sV + t * D + 4 * cq);
+      const float4 v = load4(sV + t * D + 4 * cq);
 #pragma unroll
       for (int i = 0; i < kRowsPerPass; ++i) {
         if (r0 + RS * i < R) {
@@ -704,54 +635,70 @@ __global__ void __launch_bounds__(kThreads) paged_decode_int8_split_kernel(
   if (tid == 0) tickets[bg] = 0;
 }
 
-template <typename TQ, int D>
-int launch_int8(const void* q, const void* k, const void* ks, const void* v,
-                const void* vs, void* out, void* work, void* tickets,
-                const int* tables, const int* lengths, int B, int h_kv,
-                int R, int S, int P, int ps, float sm_scale,
-                cudaStream_t stream) {
+template <typename TQ, typename TKV, int D>
+int launch_split(const void* q, const void* k, const void* ks, const void* v,
+                 const void* vs, void* out, void* work, void* tickets,
+                 const int* tables, const int* lengths, int B, int h_kv,
+                 int R, int S, int P, int ps, float sm_scale,
+                 cudaStream_t stream) {
   const int splits = (P + kSplitPages - 1) / kSplitPages;
   const int T = kSplitPages * ps;
-  const size_t smem = SplitLayout(R, T, D, splits).bytes(T, D);
-  if (smem > kMaxSmem || splits > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = SplitLayout<TKV>(R, T, D, splits).bytes(T, D);
+  if (smem > kMaxSmem || splits > 65535 || T % 4)
+    return (int)cudaErrorInvalidValue;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      paged_decode_int8_split_kernel<TQ, D>,
+      paged_decode_split_kernel<TQ, TKV, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
-  paged_decode_int8_split_kernel<TQ, D>
+  paged_decode_split_kernel<TQ, TKV, D>
       <<<dim3(B * h_kv, splits), kThreads, smem, stream>>>(
-          static_cast<const TQ*>(q), static_cast<const int8_t*>(k),
-          static_cast<const int8_t*>(v), static_cast<const float*>(ks),
+          static_cast<const TQ*>(q), static_cast<const TKV*>(k),
+          static_cast<const TKV*>(v), static_cast<const float*>(ks),
           static_cast<const float*>(vs), static_cast<TQ*>(out),
           static_cast<float*>(work), static_cast<int*>(tickets), tables,
           lengths, h_kv, R, S, P, ps, sm_scale);
   return (int)cudaGetLastError();
 }
 
-int check_shape(int B, int h_kv, int R, int S, int P, int ps) {
+// 0 if the shape and the buffers are ones the kernel takes: work and
+// tickets given, q and the pools 16-byte aligned (cp.async and 16-byte
+// loads).
+int check_args(int B, int h_kv, int R, int S, int P, int ps, const void* q,
+               const void* k, const void* v, const void* work,
+               const void* tickets) {
   if (B <= 0 || h_kv <= 0 || R <= 0 || S <= 0 || R % S || P <= 0 ||
-      ps <= 0)
+      ps <= 0 || work == nullptr || tickets == nullptr ||
+      reinterpret_cast<uintptr_t>(q) % 16 ||
+      reinterpret_cast<uintptr_t>(k) % 16 ||
+      reinterpret_cast<uintptr_t>(v) % 16)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
 }  // namespace
 
+// Pages per split, so the wrapper can size the workspace.
+extern "C" int skyt_paged_split_pages() { return kSplitPages; }
+
 // B1.  q/out [B, h_kv, R, d] in `dtype` (0 = float32, 1 = bfloat16); the
 // pools [n_pages, h_kv, ps, d] in the same dtype; tables [B, P] and
-// lengths [B] int32.  Returns a cudaError_t (0 on success).
+// lengths [B] int32.  work: B * h_kv * ceil(P / split_pages) * R *
+// (d + 2) f32, uninitialised; tickets: B * h_kv int32, 0 before the
+// launch and 0 after it.  q and the pools must be 16-byte aligned.
+// Returns a cudaError_t (0 on success).
 extern "C" int skyt_paged_attention(const void* q, const void* k,
-                                    const void* v, void* out,
-                                    const int* tables, const int* lengths,
-                                    int dtype, int B, int h_kv, int R, int S,
-                                    int P, int ps, int d, float sm_scale,
-                                    void* stream) {
-  int rc = check_shape(B, h_kv, R, S, P, ps);
+                                    const void* v, void* out, void* work,
+                                    void* tickets, const int* tables,
+                                    const int* lengths, int dtype, int B,
+                                    int h_kv, int R, int S, int P, int ps,
+                                    int d, float sm_scale, void* stream) {
+  int rc = check_args(B, h_kv, R, S, P, ps, q, k, v, work, tickets);
   if (rc) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SKYT_NATIVE(TQ, D)                                                  \
-  launch_native<TQ, D>(q, k, v, out, tables, lengths, B, h_kv, R, S, P, ps, \
-                       sm_scale, s)
+#define SKYT_NATIVE(TQ, D)                                                 \
+  launch_split<TQ, TQ, D>(q, k, nullptr, v, nullptr, out, work, tickets,   \
+                          tables, lengths, B, h_kv, R, S, P, ps, sm_scale, \
+                          s)
   if (dtype == 0 && d == 64) return SKYT_NATIVE(float, 64);
   if (dtype == 0 && d == 128) return SKYT_NATIVE(float, 128);
   if (dtype == 0 && d == 256) return SKYT_NATIVE(float, 256);
@@ -762,30 +709,22 @@ extern "C" int skyt_paged_attention(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
-// B2's pages per split, so the wrapper can size the workspace.
-extern "C" int skyt_paged_int8_split_pages() { return kSplitPages; }
-
 // B2.  As B1 with int8 pools and f32 scales [n_pages, h_kv, ps]; q/out
-// in `dtype` (0 = float32, 1 = bfloat16).  work: B * h_kv *
-// ceil(P / split_pages) * R * (d + 2) f32, uninitialised; tickets:
-// B * h_kv int32, 0 before the launch and 0 after it.  q and the int8
-// pools must be 16-byte aligned.
+// in `dtype` (0 = float32, 1 = bfloat16).
 extern "C" int skyt_paged_attention_int8(
     const void* q, const void* k, const void* k_scale, const void* v,
     const void* v_scale, void* out, void* work, void* tickets,
     const int* tables, const int* lengths, int dtype, int B, int h_kv,
     int R, int S, int P, int ps, int d, float sm_scale, void* stream) {
-  int rc = check_shape(B, h_kv, R, S, P, ps);
+  int rc = check_args(B, h_kv, R, S, P, ps, q, k, v, work, tickets);
   if (rc) return rc;
-  if (k_scale == nullptr || v_scale == nullptr || work == nullptr ||
-      tickets == nullptr || reinterpret_cast<uintptr_t>(q) % 16 ||
-      reinterpret_cast<uintptr_t>(k) % 16 ||
-      reinterpret_cast<uintptr_t>(v) % 16)
+  if (k_scale == nullptr || v_scale == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SKYT_INT8(TQ, D)                                                 \
-  launch_int8<TQ, D>(q, k, k_scale, v, v_scale, out, work, tickets,      \
-                     tables, lengths, B, h_kv, R, S, P, ps, sm_scale, s)
+#define SKYT_INT8(TQ, D)                                                   \
+  launch_split<TQ, int8_t, D>(q, k, k_scale, v, v_scale, out, work,        \
+                              tickets, tables, lengths, B, h_kv, R, S, P,  \
+                              ps, sm_scale, s)
   if (dtype == 0 && d == 64) return SKYT_INT8(float, 64);
   if (dtype == 0 && d == 128) return SKYT_INT8(float, 128);
   if (dtype == 0 && d == 256) return SKYT_INT8(float, 256);

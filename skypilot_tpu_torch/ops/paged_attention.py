@@ -11,11 +11,11 @@ tables [B, P] int32; lengths [B] int32 (pre-write depths).  Returns
 - On CUDA tensors, `paged_attention` launches `csrc/paged_attention.cu`
   (skyt_paged_attention for native pools, skyt_paged_attention_int8
   for int8 pools; they replace the Pallas `_paged_decode_kernel` and
-  `_paged_decode_kernel_int8`) or raises; there is no fallback.  The
-  int8 kernel splits each slot's page walk into spans of SPLIT_PAGES
-  pages, one block each, and merges them in split order; the wrapper
-  allocates its f32 workspace and keeps its ticket counters (zero
-  between launches, reset by the kernel).
+  `_paged_decode_kernel_int8`) or raises; there is no fallback.  Both
+  are one split-context kernel: each slot's page walk is cut into spans
+  of SPLIT_PAGES pages, one block each, merged in split order; the
+  wrapper allocates its f32 workspace and keeps its ticket counters
+  (zero between launches, reset by the kernel).
 - On CPU tensors it runs `_paged_attention_reference`: gather the pool
   rows each table names, dequantize in f32, masked softmax.
 """
@@ -35,12 +35,13 @@ LAUNCHES = {'paged_attention': 0, 'paged_attention_int8': 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-# Pages per split of the int8 kernel (kSplitPages in the source; the
+# Pages per split of both kernels (kSplitPages in the source; the
 # binding checks that the two agree).
 SPLIT_PAGES = 4
 
-# The int8 kernel's ticket counters by device: int32, zero between
-# launches (the last block of a slot's splits resets its counter).
+# The kernels' ticket counters by device, shared by both: int32, zero
+# between launches (the last block of a slot's splits resets its
+# counter).
 _TICKETS = {}
 
 
@@ -80,19 +81,14 @@ def _paged_attention_reference(q, k_leaf: Any, v_leaf: Any, tables,
 
 def _bind(int8: bool):
     lib = _build.library('paged_attention')
-    if int8:
-        fn = lib.skyt_paged_attention_int8
-        n_ptrs = 10
-        if fn.argtypes is None and (lib.skyt_paged_int8_split_pages() !=
-                                    SPLIT_PAGES):
-            raise RuntimeError(
-                'paged_attention_int8: the library splits every '
-                f'{lib.skyt_paged_int8_split_pages()} pages, the wrapper '
-                f'sizes its workspace for {SPLIT_PAGES}')
-    else:
-        fn = lib.skyt_paged_attention
-        n_ptrs = 6
+    fn = lib.skyt_paged_attention_int8 if int8 else lib.skyt_paged_attention
     if fn.argtypes is None:
+        if lib.skyt_paged_split_pages() != SPLIT_PAGES:
+            raise RuntimeError(
+                'paged_attention: the library splits every '
+                f'{lib.skyt_paged_split_pages()} pages, the wrapper sizes '
+                f'its workspace for {SPLIT_PAGES}')
+        n_ptrs = 10 if int8 else 8
         fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 8 +
                        [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -164,18 +160,20 @@ def _paged_attention_cuda(q, k_leaf, v_leaf, tables, lengths, *,
             float(sm_scale), stream)
     # q [B, h_q, S, d] is [B, h_kv, rep * S, d] in memory: row r of
     # group g is q-head g * rep + r // S at token r % S.
+    pools = ((k_leaf['q'], v_leaf['q']) if quantized else (k_leaf, v_leaf))
+    for name, t in (('q', q), ('k', pools[0]), ('v', pools[1])):
+        if t.data_ptr() % 16:
+            raise ValueError(f'paged_attention: {name} must be 16-byte '
+                             'aligned')
+    splits = -(-tables.shape[1] // SPLIT_PAGES)
+    work = torch.empty(b * h_kv * splits * rep * s_q * (d + 2),
+                       dtype=torch.float32, device=dev)
+    tickets = _tickets(dev, b * h_kv)
     if quantized:
-        for name, t in (('q', q), ('k.q', k_leaf['q']), ('v.q', v_leaf['q'])):
-            if t.data_ptr() % 16:
-                raise ValueError(f'paged_attention: {name} must be 16-byte '
-                                 'aligned')
-        splits = -(-tables.shape[1] // SPLIT_PAGES)
-        work = torch.empty(b * h_kv * splits * rep * s_q * (d + 2),
-                           dtype=torch.float32, device=dev)
         rc = _bind(True)(q.data_ptr(), k_leaf['q'].data_ptr(),
                          k_leaf['scale'].data_ptr(), v_leaf['q'].data_ptr(),
                          v_leaf['scale'].data_ptr(), out.data_ptr(),
-                         work.data_ptr(), _tickets(dev, b * h_kv).data_ptr(),
+                         work.data_ptr(), tickets.data_ptr(),
                          tables.data_ptr(), lengths.data_ptr(),
                          _DTYPE_CODES[q.dtype], *args)
         _build.check(rc, 'paged_attention_int8')
@@ -183,6 +181,7 @@ def _paged_attention_cuda(q, k_leaf, v_leaf, tables, lengths, *,
     else:
         rc = _bind(False)(q.data_ptr(), k_leaf.data_ptr(),
                           v_leaf.data_ptr(), out.data_ptr(),
+                          work.data_ptr(), tickets.data_ptr(),
                           tables.data_ptr(), lengths.data_ptr(),
                           _DTYPE_CODES[q.dtype], *args)
         _build.check(rc, 'paged_attention')

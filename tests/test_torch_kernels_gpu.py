@@ -184,9 +184,9 @@ def _paged_tables(lengths, s_q, ps, rows, seed):
                          ids=['ragged', 'long'])
 def test_paged_kernel_matches_plain(cuda, dtype, quantized, s_q, h_q, h_kv,
                                     d, lengths):
-    """Ragged lengths and long contexts (at 1000 positions B2 spreads a
-    slot over 16 splits of 4 pages, merged by the last block; B1 walks
-    63 pages); two launches give the same bits."""
+    """Ragged lengths and long contexts (at 1000 positions B1 and B2
+    spread a slot over 16 splits of 4 pages, merged by the last block);
+    two launches give the same bits."""
     gen = torch.Generator(device=cuda).manual_seed(s_q + d)
     b, ps = len(lengths), 16
     rows = max(16, -(-(max(lengths) + s_q) // ps))
@@ -212,8 +212,8 @@ def test_paged_kernel_matches_plain(cuda, dtype, quantized, s_q, h_q, h_kv,
 def test_paged_rows_do_not_depend_on_s_or_batch(cuda, quantized):
     """A query row's bits do not depend on S, R, B or the other slots:
     the row at qpos of an S = 5 call with lengths qpos - j equals the
-    S = 1 call with lengths qpos (for B2 the S = 5 call may reach a split
-    that is wholly masked for the row: 255 + 5 crosses the 256-position
+    S = 1 call with lengths qpos (the S = 5 call may reach a split that
+    is wholly masked for the row: 255 + 5 crosses the 256-position
     boundary of 4 pages of 16), and a slot alone equals the same slot
     among five."""
     gen = torch.Generator(device=cuda).manual_seed(23)
@@ -237,6 +237,35 @@ def test_paged_rows_do_not_depend_on_s_or_batch(cuda, quantized):
             q1[i:i + 1].contiguous(), k, v, tables[i:i + 1].contiguous(),
             lengths[i:i + 1].contiguous())
         assert torch.equal(alone[0], one[i]), i
+
+
+def test_paged_tickets_stay_zero_across_kernels_and_batches(cuda):
+    """B1 and B2 share the wrapper's ticket counters.  Launched in turn
+    on one stream at 2 and 8 slots (a B1 launch after a larger B2 launch
+    and before one), every launch leaves every counter at 0, and each B1
+    output equals, bit for bit, a fresh B1 launch's on the same inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    h_q, h_kv, d, ps, rows = 32, 8, 128, 16, 64
+    cases = {}
+    for b in (2, 8):
+        lengths = [1000 - 37 * i for i in range(b)]
+        for quantized, s_q in ((False, 1), (True, 5)):
+            k, v = _pool(gen, 1 + b * rows, h_kv, ps, d, torch.bfloat16,
+                         quantized, cuda)
+            q = torch.randn((b, h_q, s_q, d), generator=gen,
+                            device=cuda).to(torch.bfloat16)
+            tables, lens = _paged_tables(lengths, s_q, ps, rows, b)
+            cases[b, quantized] = (q, k, v, tables.to(cuda), lens.to(cuda))
+    fresh = {b: paged_attention.paged_attention(*cases[b, False])
+             for b in (2, 8)}
+    for b, quantized in ((8, True), (2, False), (2, True), (8, False),
+                         (8, True), (2, False), (8, False)):
+        out = paged_attention.paged_attention(*cases[b, quantized])
+        torch.cuda.synchronize()
+        tickets = paged_attention._TICKETS[cuda]  # pylint: disable=protected-access
+        assert int(tickets.count_nonzero()) == 0, (b, quantized)
+        if not quantized:
+            assert torch.equal(out, fresh[b]), b
 
 
 @pytest.mark.parametrize('h,h_kv,d', [(16, 8, 64), (32, 8, 128),

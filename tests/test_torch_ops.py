@@ -10,9 +10,10 @@ relative, f32 on both sides (the two accumulate in different orders).
 The CUDA kernels are held against these plain versions on the card by
 tests/test_torch_kernels_gpu.py.  Also here: a plain model of the bf16
 roundings the tensor-core kernels add (held to the card's tolerances),
-a plain model of the int8 paged kernel's split-and-merge order (held to
-both references, and bit-equal across S and batch), and the build's
-hashing of sources and shared headers.
+a plain model of the paged kernels' split-and-merge order, for native
+(f32, bf16) and int8 pools (held to both references, and bit-equal
+across S and batch), and the build's hashing of sources and shared
+headers.
 """
 from __future__ import annotations
 
@@ -345,17 +346,19 @@ def test_bf16_ds_rounding_within_dq_tolerance(q_len, k_len, causal):
 
 
 # ---------------------------------------------------------------------
-# B2's split-context design (csrc/paged_attention.cu), modelled in plain
-# PyTorch: each slot's pages in splits of SPLIT_PAGES, every split its
-# own (m, l, acc) over a fixed span of C * ps positions (unloaded and
-# masked positions p = 0), merged in split order; a slot that fits in
-# one split is divided directly.  Every product has a shape fixed by
-# (C, ps, d), as the kernel's lane mapping is fixed, so a row's bits can
-# be compared across calls.
+# The split-context design of B1 and B2 (csrc/paged_attention.cu, one
+# templated kernel), modelled in plain PyTorch: each slot's pages in
+# splits of SPLIT_PAGES, every split its own (m, l, acc) over a fixed
+# span of C * ps positions (unloaded and masked positions p = 0), merged
+# in split order; a slot that fits in one split is divided directly.
+# Native pages widen to f32 exactly, int8 pages are dequantized in f32.
+# Every product has a shape fixed by (C, ps, d), as the kernel's lane
+# mapping is fixed, so a row's bits can be compared across calls.
 
 def _split_model(q, k_leaf, v_leaf, tables, lengths, *, sm_scale):
     b, h_q, s_q, d = q.shape
-    h_kv, ps = k_leaf['q'].shape[1], k_leaf['q'].shape[2]
+    quantized = isinstance(k_leaf, dict)
+    h_kv, ps = (k_leaf['q'] if quantized else k_leaf).shape[1:3]
     c = paged_attention.SPLIT_PAGES
     n_rows, span = h_q // h_kv * s_q, c * ps
     qg = q.reshape(b, h_kv, n_rows, d).float() * sm_scale
@@ -371,8 +374,11 @@ def _split_model(q, k_leaf, v_leaf, tables, lengths, *, sm_scale):
                 kv = []
                 for leaf in (k_leaf, v_leaf):
                     x = torch.zeros((span, d))
-                    vals = leaf['q'][pages, g].float() * \
-                        leaf['scale'][pages, g][..., None]
+                    if quantized:
+                        vals = leaf['q'][pages, g].float() * \
+                            leaf['scale'][pages, g][..., None]
+                    else:
+                        vals = leaf[pages, g].float()
                     x[:vals.shape[0] * ps] = vals.reshape(-1, d)
                     kv.append(x)
                 loaded = torch.arange(span) < len(pages) * ps
@@ -402,13 +408,17 @@ def _split_model(q, k_leaf, v_leaf, tables, lengths, *, sm_scale):
     return out.reshape(b, h_q, s_q, d).to(q.dtype)
 
 
-def _split_case(rng, s_q, lengths):
-    """An int8 pool (JAX and torch leaves) with tables for `lengths`:
-    ps 4, so a split spans 16 positions; every slot's rows of the
-    table name distinct pages, unused entries the null page."""
+def _split_case(rng, s_q, lengths, pool):
+    """A pool (JAX and torch leaves; `pool` 'f32', 'bf16' or 'int8')
+    with tables for `lengths`: ps 4, so a split of 4 pages spans 16
+    positions; every slot's rows of the table name distinct pages,
+    unused entries the null page."""
     b, h_q, h_kv, d, ps, rows = len(lengths), 4, 2, 16, 4, 12
     n_pages = 1 + b * rows
-    (jk, jv), (tk, tv) = _pool(rng, n_pages, h_kv, ps, d, True)
+    (jk, jv), (tk, tv) = _pool(rng, n_pages, h_kv, ps, d, pool == 'int8')
+    if pool == 'bf16':
+        jk, jv = jk.astype(jnp.bfloat16), jv.astype(jnp.bfloat16)
+        tk, tv = tk.to(torch.bfloat16), tv.to(torch.bfloat16)
     tables = np.zeros((b, rows), np.int32)
     perm = rng.permutation(n_pages - 1) + 1
     for i, n in enumerate(lengths):
@@ -418,13 +428,20 @@ def _split_case(rng, s_q, lengths):
     return (jk, jv), (tk, tv), q, tables, np.array(lengths, np.int32)
 
 
+# Native pools in f32 and in bf16 (q in f32: the model and both
+# references widen the pool exactly), and int8 pools.
+SPLIT_POOLS = ['f32', 'bf16', 'int8']
+SPLIT_POOL_IDS = ['native-f32', 'native-bf16', 'int8']
+
+
+@pytest.mark.parametrize('pool', SPLIT_POOLS, ids=SPLIT_POOL_IDS)
 @pytest.mark.parametrize('s_q', [1, 5])
-def test_split_model_matches_references(s_q):
+def test_split_model_matches_references(s_q, pool):
     """Splits of 16 positions against the port's and the JAX package's
     plain versions; lengths cross 0, 1, 2 and 3 split boundaries."""
     rng = np.random.default_rng(31 + s_q)
     (jk, jv), (tk, tv), q, tables, lengths = _split_case(
-        rng, s_q, [1, 15, 16, 40])
+        rng, s_q, [1, 15, 16, 40], pool)
     got = _split_model(torch.tensor(q), tk, tv, torch.tensor(tables),
                        torch.tensor(lengths), sm_scale=0.3)
     plain = paged_attention._paged_attention_reference(  # pylint: disable=protected-access
@@ -439,14 +456,15 @@ def test_split_model_matches_references(s_q):
                                rtol=RTOL)
 
 
-def test_split_model_rows_do_not_depend_on_s_or_batch():
+@pytest.mark.parametrize('pool', SPLIT_POOLS, ids=SPLIT_POOL_IDS)
+def test_split_model_rows_do_not_depend_on_s_or_batch(pool):
     """The row at qpos of an S = 5 call with lengths qpos - j equals, bit
     for bit, the S = 1 call at lengths qpos (the S = 5 call may reach one
     split further, wholly masked for that row); a slot alone equals the
     same slot among four."""
     rng = np.random.default_rng(5)
     qpos = [15, 16, 31, 44]          # 31: S = 5 reaches a third split
-    _, (tk, tv), q1, tables, _ = _split_case(rng, 5, qpos)
+    _, (tk, tv), q1, tables, _ = _split_case(rng, 5, qpos, pool)
     q1 = torch.tensor(q1[:, :, :1])
     tables = torch.tensor(tables)
     one = _split_model(q1, tk, tv, tables, torch.tensor(qpos), sm_scale=0.3)
@@ -492,9 +510,11 @@ def test_library_name_follows_sources_and_headers(tmp_path, monkeypatch,
 
 
 def test_profile_paged_anchors_each_phase_once():
-    """`python -m skypilot_tpu_torch.profile_paged` cuts the B2 kernel
-    after each phase at anchors in its source: each must occur once, and
-    the full variant is the source itself."""
+    """`python -m skypilot_tpu_torch.profile_paged` cuts the split
+    kernel, one templated body for B1 and B2, after each phase at anchors
+    in its source: each must occur once (a second body would double
+    them), and the full variant is the source itself; the split span
+    can be set for the sweep."""
     with open(os.path.join(_build.CSRC_DIR, 'paged_attention.cu'),
               encoding='utf-8') as f:
         source = f.read()
@@ -503,6 +523,10 @@ def test_profile_paged_anchors_each_phase_once():
     assert variants['full'] == source
     for name, text in variants.items():
         assert text.count(profile_paged._EXIT) == (name != 'full'), name  # pylint: disable=protected-access
+    swept = profile_paged.split_source(source, 8)
+    assert 'constexpr int kSplitPages = 8;' in swept
+    assert profile_paged.split_source(
+        swept, paged_attention.SPLIT_PAGES) == source
 
 
 def test_every_quoted_include_is_a_hashed_header():
