@@ -52,10 +52,43 @@ Phases (each one that fails makes the script exit non-zero):
    greedy tokens must equal the same int8 engine's with speculation
    off.  Launch counts are zeroed just before and read just after:
    every serving kernel must have run on it.
-5. A reference check: a depth-2, f32 cut of llama3-8b served on the
+5. More serving paths on the same 8B weights, each with its own launch
+   counts, zeroed just before it and read just after:
+   - "spec beyond one bucket": the int8 + spec engine at 16 slots,
+     k = 4 (an 80-row verify tick, two 64-row blocks), counted alone;
+     greedy tokens must equal those of spec-off, run after the read.  Then one verify tick timed in its blocks
+     and as one 128-row call (what the blocks cost).
+   - "dense serving": ModelServer in the reference's default mode
+     (continuous batching, no --kv-pages: the dense slot cache) over
+     HTTP: 6 concurrent /generate requests (tokens/s), TTFT of a
+     100-token prompt, /generate_stream (equal to /generate) and
+     /generate_text (streamed text equal to the whole).  B3 must run,
+     B1 and B2 must not.
+   - "legacy": the un-pipelined loop (pipelined=False) on the same
+     prompts.
+   - "handoff": a prefill engine (paged bf16) exports a 100-token
+     prompt through the binary frame (B3 must run there, and no paged
+     kernel); a decode engine (paged bf16, then an int8 pool) imports
+     it and generates (B1, then B2, must run there).
+   Each window holds the engine work only: the reference paths and the
+   checks run after its counts are read.  Then, outside the windows:
+   each decode engine serves the prompt again while a single engine of
+   its pool type serves it at the same time, each engine on its own
+   CUDA stream (the two streams' paged launches overlap): the decode
+   engine's tokens must equal its own from the window, and every
+   ticket counter must read 0 after.  Every generated token is held
+   at its own context (teacher forcing): under the logits of one flash
+   forward of prompt + tokens, each token is the argmax at its
+   position or within twice the largest logit difference between that
+   forward and the masked einsum path on the same tokens (for an int8
+   pool, that path's k/v go through the pool's quantizer).  The
+   reference path's tokens (dense: decode.generate; legacy: the dense
+   pipelined engine; handoff: the single engine) say where the two
+   part.
+6. A reference check: a depth-2, f32 cut of llama3-8b served on the
    GPU (CUDA kernels) and on the CPU (the plain versions) from the same
-   weights must give the same greedy tokens.
-6. The training path: llama3-8b at full width cut to 4 layers, seeded
+   weights must give the same greedy tokens, paged and dense engines.
+7. The training path: llama3-8b at full width cut to 4 layers, seeded
    random trainable weights (f32 master copy, bf16 compute), batch
    2 x 2048, TrainConfig() defaults, 2 warm-up and 5 timed
    `train_step`s on one repeated batch: step ms, tokens/s, peak memory,
@@ -67,7 +100,7 @@ Phases (each one that fails makes the script exit non-zero):
    accum_steps = 2 from the same initial weights, whose step-1 loss and
    grad_norm must equal the unfused run's within 1e-3 relative; then
    the CLI, `train_llama --model small` (d 64 kernels) for 3 steps.
-7. A training reference check: depth-1 f32 llama3-8b, one 256-token
+8. A training reference check: depth-1 f32 llama3-8b, one 256-token
    sequence, loss.backward() on the GPU (kernels) and on the CPU (the
    plain versions) from the same weights: the loss and every gradient
    within 1e-3 of the CPU's largest |value| for that leaf.
@@ -75,8 +108,9 @@ Phases (each one that fails makes the script exit non-zero):
 The line before the last is the `kernels` JSON: each kernel's
 `launches` is its count on the path `path` names (serving for B1/B2,
 training for B3/B4/B5), and `launches_by_path` holds every driven
-path's own count (serving, training, `train_llama small`), each path
-zeroed just before it and read just after.  B3's entry carries the
+path's own count (serving, the four paths of phase 5, training,
+`train_llama small`), each path zeroed just before it and read just
+after.  B3's entry carries the
 512-token chunk under `serving_chunk`, B1's and B2's the full batch
 under `full_batch`, and B1's and B2's their split span in pages,
 `split_pages`.
@@ -650,17 +684,20 @@ def reference_check(dev):
     prompts = [prompt(200, 12, cfg.vocab_size),
                prompt(201, 40, cfg.vocab_size)]
     toks = {}
-    for device, model in (('gpu', gpu_model), ('cpu', cpu_model)):
-        engine = batching_engine.ContinuousBatchingEngine(
-            cfg, model, max_len=128, slots=2, kv_pages=32, page_size=16,
-            device=model.device)
-        try:
-            toks[device] = [engine.generate(p, 12) for p in prompts]
-        finally:
-            engine.stop()
-    if toks['gpu'] != toks['cpu']:
-        raise AssertionError(f'GPU vs CPU greedy tokens differ:\n'
-                             f'{toks["gpu"]}\n{toks["cpu"]}')
+    for mode, kv_pages in (('paged', 32), ('dense', None)):
+        for device, model in (('gpu', gpu_model), ('cpu', cpu_model)):
+            engine = batching_engine.ContinuousBatchingEngine(
+                cfg, model, max_len=128, slots=2, kv_pages=kv_pages,
+                page_size=16, device=model.device)
+            try:
+                toks[mode, device] = [engine.generate(p, 12)
+                                      for p in prompts]
+            finally:
+                engine.stop()
+        if toks[mode, 'gpu'] != toks[mode, 'cpu']:
+            raise AssertionError(f'{mode}: GPU vs CPU greedy tokens '
+                                 f'differ:\n{toks[mode, "gpu"]}\n'
+                                 f'{toks[mode, "cpu"]}')
     p = torch.tensor([prompts[1]])
     gl, _ = decode.prefill(cfg, gpu_model, p.to(dev), max_len=64)
     cl, _ = decode.prefill(cfg, cpu_model, p, max_len=64)
@@ -670,7 +707,349 @@ def reference_check(dev):
     return err
 
 
-# ------------------------------------------------------------ phase 6
+# ------------------------------------------------- phase 5: more serving
+
+
+def post_raw(port, path, body):
+    """POST a JSON body; (status, raw response body)."""
+    req = urllib.request.Request(
+        f'http://127.0.0.1:{port}{path}', data=json.dumps(body).encode(),
+        method='POST', headers={'Content-Type': 'application/json'})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return resp.status, resp.read()
+
+
+def sse_events(raw: bytes) -> list:
+    return [line[len(b'data: '):].decode() for line in raw.split(b'\n')
+            if line.startswith(b'data: ')]
+
+
+def path_logits(cfg, model, ids, use_flash, quantize=False):
+    """Logits [len(ids), V] of one forward of `ids` from position 0,
+    attention by the flash kernel (`use_flash`) or the masked grouped
+    einsum; with `quantize`, every k/v goes through the int8 pool's
+    quantizer and back before attention reads it."""
+    import torch
+    from skypilot_tpu_torch.models import decode
+    s = len(ids)
+    tokens = torch.tensor([ids], device=model.device)
+    cache = decode.init_cache(cfg, 1, s, device=model.device)
+
+    def write(c, new):
+        if quantize:
+            q, scale = decode._quant_kv(new)  # pylint: disable=protected-access
+            new = q.float() * scale[..., None]
+        c[:, :, :s] = new.to(c.dtype)
+
+    with torch.no_grad():
+        logits, _, _ = decode._scan_layers_and_unembed(  # pylint: disable=protected-access
+            cfg, model, decode._embed(cfg, model, tokens),  # pylint: disable=protected-access
+            torch.arange(s, device=tokens.device), cache['k'], cache['v'],
+            write, use_flash=use_flash, all_positions=True)
+    return logits[0].float()
+
+
+def hold_tokens(what, cfg, model, prompt_ids, got, ref, quantized=False):
+    """Greedy tokens `got`, each held at its own context (teacher
+    forcing): under the logits A of one flash forward of prompt + got,
+    every got[j] is A's argmax at its position or within 2 delta of it,
+    delta being the largest |A - B| over the generated positions and the
+    vocabulary, B the same forward's logits through the masked einsum
+    (two exact paths of one function: either path's bf16 rounding moves
+    a logit by about delta).  With `quantized` (an int8 pool) B's k/v go
+    through the pool's quantizer, so delta holds its effect too.  `ref`,
+    the reference path's tokens, says where the two part.  Returns
+    (first j where got and ref part or None, tokens that are not A's
+    argmax, the largest gap, delta)."""
+    import torch
+    if len(got) != len(ref):
+        raise AssertionError(f'{what}: {len(got)} tokens, reference '
+                             f'{len(ref)}')
+    n = len(prompt_ids)
+    ids = list(prompt_ids) + list(got[:-1])
+    a = path_logits(cfg, model, ids, use_flash=True)[n - 1:]
+    b = path_logits(cfg, model, ids, use_flash=False,
+                    quantize=quantized)[n - 1:]
+    delta = float((a - b).abs().max())
+    picked = a.gather(1, torch.tensor(got, device=a.device)[:, None])[:, 0]
+    gaps = a.max(dim=1).values - picked
+    worst = float(gaps.max())
+    if worst > 2 * delta:
+        j = int(gaps.argmax())
+        raise AssertionError(
+            f'{what}: token {j} is {got[j]}, {worst:.4f} below the best '
+            f'logit ({int(a[j].argmax())}) > 2 x path difference '
+            f'{delta:.3g}')
+    parted = next((j for j, (x, y) in enumerate(zip(got, ref)) if x != y),
+                  None)
+    return parted, int((gaps > 0).sum()), worst, delta
+
+
+def hold_summary(holds) -> str:
+    equal = sum(1 for h in holds if h[0] is None)
+    parted = [h[0] for h in holds if h[0] is not None]
+    return (f'{equal}/{len(holds)} equal to the reference path'
+            + (f' (others part at tokens {parted})' if parted else '')
+            + f'; all {len(holds)} held token by '
+            f'token: {sum(h[1] for h in holds)} not the flash argmax, '
+            f'largest gap {max(h[2] for h in holds):.3g} (2 delta >= '
+            f'{2 * min(h[3] for h in holds):.3g})')
+
+
+def dense_serving(cfg, model, dev, new_tokens):
+    """ModelServer in the reference's default mode (continuous batching,
+    no --kv-pages) over HTTP: 6 concurrent /generate requests,
+    /generate_stream and /generate_text.  Engine work only: the greedy
+    tokens are held after the window (`hold_dense`)."""
+    from skypilot_tpu_torch.serve import http_protocol
+    from skypilot_tpu_torch.serve import model_server
+    server = model_server.ModelServer(
+        'llama3-8b', continuous_batching=True, max_len=1024, max_batch=8,
+        params=model, device=dev)
+    vocab = cfg.vocab_size
+    prompts = [prompt(500 + i, n, vocab)
+               for i, n in enumerate([5, 37, 64, 100, 250, 700])]
+    port, stop = model_server.start_background(server)
+    try:
+        if server.engine.stats()['decode_kernel'] != 'dense':
+            raise AssertionError('the server is not in dense mode')
+        results = [None] * len(prompts)
+
+        def run(i):
+            results[i] = post(port, {'prompt_ids': [prompts[i]],
+                                     'max_new_tokens': new_tokens})
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        req = server.engine.submit(prompt(9, 100, vocab), new_tokens)
+        req.result(timeout=600)
+        ttft_ms = req.ttft_s * 1e3
+        code, raw = post_raw(port, http_protocol.GENERATE_STREAM, {
+            'prompt_ids': [prompts[1]], 'max_new_tokens': new_tokens})
+        events = sse_events(raw)
+        streamed = [json.loads(e)['token'] for e in events[:-1]]
+        if code != 200 or events[-1] != '[DONE]':
+            raise AssertionError(f'/generate_stream {code}: {events[-3:]}')
+        text = {}
+        for stream in (False, True):
+            code, raw = post_raw(port, http_protocol.GENERATE_TEXT, {
+                'prompt': 'The quick brown fox jumps over the lazy dog',
+                'max_new_tokens': 16, 'stream': stream})
+            if code != 200:
+                raise AssertionError(f'/generate_text {code}: {raw[:200]}')
+            text[stream] = (''.join(json.loads(e)['text']
+                                    for e in sse_events(raw)[:-1])
+                            if stream else json.loads(raw)['completion'])
+        stats = server.engine.stats()
+    finally:
+        stop()
+        server.close()
+    tokens = []
+    for (code, out), p in zip(results, prompts):
+        if code != 200 or len(out['tokens'][0]) != new_tokens:
+            raise AssertionError(f'/generate {code}: {out}')
+        tokens.append(out['tokens'][0])
+    if streamed != tokens[1]:
+        raise AssertionError(f'/generate_stream {streamed} != /generate '
+                             f'{tokens[1]}')
+    if text[True] != text[False]:
+        raise AssertionError(f'/generate_text stream {text[True]!r} != '
+                             f'{text[False]!r}')
+    return {'tokens_per_s': new_tokens * len(prompts) / wall, 'wall': wall,
+            'ttft_ms': ttft_ms, 'ticks': stats['ticks'], 'prompts': prompts,
+            'tokens': tokens}
+
+
+def hold_dense(cfg, model, dense, new_tokens):
+    """The dense engine's greedy tokens, held with decode.generate's as
+    the reference path."""
+    import torch
+    from skypilot_tpu_torch.models import decode
+    holds = []
+    for p, got in zip(dense['prompts'], dense['tokens']):
+        _, ref = decode.generate(cfg, model,
+                                 torch.tensor([p], device=model.device),
+                                 max_new_tokens=new_tokens, max_len=1024)
+        holds.append(hold_tokens('dense engine vs decode.generate', cfg,
+                                 model, p, got, ref[0].tolist()))
+    return holds
+
+
+def legacy_serving(cfg, model, dev, new_tokens, dense):
+    """pipelined=False on the same model and prompts.  Engine work only:
+    the tokens are held after the window, with the dense pipelined
+    engine's as the reference path."""
+    from skypilot_tpu_torch.serve import batching_engine
+    engine = batching_engine.ContinuousBatchingEngine(
+        cfg, model, max_len=1024, slots=8, pipelined=False, device=dev)
+    try:
+        t0 = time.perf_counter()
+        reqs = [engine.submit(p, new_tokens) for p in dense['prompts']]
+        got = [r.result(timeout=600) for r in reqs]
+        wall = time.perf_counter() - t0
+    finally:
+        engine.stop()
+    return {'tokens_per_s': new_tokens * len(got) / wall, 'tokens': got}
+
+
+def spec_past_one_bucket(cfg, model, dev, new_tokens, counters):
+    """int8 + spec at 16 slots, k = 4: the verify tick has 80 rows, past
+    one 64-row bucket.  Greedy tokens must equal spec-off's.  Returns
+    (the launch counts of the spec-on run alone, its stats)."""
+    from skypilot_tpu_torch.serve import batching_engine
+    prompts = [prompt(600 + i, 12 + 21 * i, cfg.vocab_size)
+               for i in range(16)]
+    out, stats = {}, {}
+    zero_counts(counters)
+    for spec in (4, 0):
+        engine = batching_engine.ContinuousBatchingEngine(
+            cfg, model, max_len=1024, slots=16, kv_pages=1024,
+            page_size=16, quantize_kv=True, spec_tokens=spec, device=dev)
+        try:
+            reqs = [engine.submit(p, new_tokens) for p in prompts]
+            out[spec] = [r.result(timeout=600) for r in reqs]
+            stats[spec] = engine.stats()
+        finally:
+            engine.stop()
+        if spec:
+            counts = read_counts(counters)
+    if out[0] != out[4]:
+        bad = [i for i, (a, b) in enumerate(zip(out[0], out[4])) if a != b]
+        raise AssertionError(f'16 slots, k = 4: greedy spec-on != spec-off '
+                             f'for prompts {bad}')
+    return counts, stats[4]
+
+
+def verify_tick_cost(cfg, model, dev):
+    """Device and host ms of one int8 verify tick at 16 slots, k = 4
+    (80 rows, two 64-row blocks), and of the same tick run as one call
+    on the 128 padded rows (the blocks switched off for this timing):
+    what the row blocks cost."""
+    import torch
+    from skypilot_tpu_torch.models import decode
+    slots, k, ps, rows = 16, 4, 16, 64
+    pool = decode.init_paged_cache(cfg, 1 + slots * rows, ps, slots, rows,
+                                   quantize_kv=True, device=dev)
+    for slot in range(slots):
+        decode.paged_admit_slot(
+            pool, slot, list(range(1 + slot * rows, 1 + (slot + 1) * rows)),
+            5 + 45 * slot)
+    state = decode.init_engine_state(slots, device=dev)
+    for slot in range(slots):
+        state = decode.admit_slot_state(state, slot, 1 + slot, 10 ** 6,
+                                        [-1] * 16, [slot, 0], 0.0, 0)
+    drafts = torch.randint(0, cfg.vocab_size, (slots, k), device=dev,
+                           dtype=torch.int32)
+
+    def tick():
+        decode.paged_spec_engine_step(cfg, model, state, pool, drafts)
+
+    with torch.no_grad():
+        blocked = timed_call(tick)
+        by_blocks = decode._by_blocks  # pylint: disable=protected-access
+        decode._by_blocks = lambda fn, x, blocked: fn(x)  # pylint: disable=protected-access
+        try:
+            one_call = timed_call(tick)
+        finally:
+            decode._by_blocks = by_blocks  # pylint: disable=protected-access
+    return blocked, one_call
+
+
+def tickets_at_zero(engines):
+    """Every ticket counter reads 0, and the engines' streams each had
+    their own."""
+    import torch
+    from skypilot_tpu_torch.ops import paged_attention
+    torch.cuda.synchronize()
+    tickets = paged_attention._TICKETS  # pylint: disable=protected-access
+    for key, counters in tickets.items():
+        if int(counters.count_nonzero()):
+            raise AssertionError(f'ticket counters {key} not at 0')
+    keys = {(e.stream.device, e.stream.cuda_stream) for e in engines}
+    if len(keys) != len(engines) or not keys <= set(tickets):
+        raise AssertionError('the engines did not count in a ticket array '
+                             'of their own stream each')
+
+
+def handoff(cfg, model, dev, new_tokens, counters):
+    """Prefill/decode disaggregation on one card: a prefill engine (paged
+    bf16) exports a 100-token prompt through the binary frame; a decode
+    engine (paged bf16, then an int8 pool) imports it and generates.
+    Returns (the launch counts of that window, results).  Then, outside
+    the window, each decode engine serves the prompt again while a
+    single engine of its pool type serves it at once, each engine on its
+    own CUDA stream: the decode engine's tokens must equal its window's,
+    and every ticket counter must read 0 after."""
+    from skypilot_tpu_torch.serve import batching_engine
+    from skypilot_tpu_torch.serve import handoff as handoff_lib
+    kw = dict(max_len=1024, slots=8, kv_pages=1024, page_size=16,
+              device=dev)
+    pools = {'bf16': False, 'int8': True}
+    p = prompt(700, 100, cfg.vocab_size)
+    engines = []
+
+    def engine(**extra):
+        engines.append(batching_engine.ContinuousBatchingEngine(
+            cfg, model, **kw, **extra))
+        return engines[-1]
+
+    try:
+        prefill_engine = engine()
+        decode_engines = {pool: engine(quantize_kv=q)
+                          for pool, q in pools.items()}
+        singles = {'bf16': prefill_engine, 'int8': engine(quantize_kv=True)}
+        out = {}
+        zero_counts(counters)
+        for pool, decode_engine in decode_engines.items():
+            before = read_counts(counters)
+            t0 = time.perf_counter()
+            frame = prefill_engine.export_prefill(p, binary=True)
+            export_ms = (time.perf_counter() - t0) * 1e3
+            exported = read_counts(counters)
+            decoded = handoff_lib.decode_binary(frame)
+            t0 = time.perf_counter()
+            got = decode_engine.import_pages(
+                decoded['hashes'], decoded['page_size'], decoded['k'],
+                decoded['v'])
+            import_ms = (time.perf_counter() - t0) * 1e3
+            if got != (6, 0):
+                raise AssertionError(f'import: {got}, expected (6, 0)')
+            via = decode_engine.generate(p, new_tokens)
+            if decode_engine.stats()['prefix_cache_hits'] < 6:
+                raise AssertionError('the import was not adopted')
+            after = read_counts(counters)
+            out[pool] = dict(
+                via=via, frame_bytes=len(frame), export_ms=export_ms,
+                import_ms=import_ms,
+                export_launches={k: exported[k] - before[k]
+                                 for k in before},
+                import_launches={k: after[k] - exported[k] for k in before})
+        counts = read_counts(counters)
+        for pool, decode_engine in decode_engines.items():
+            # One round of two engines' ticks on two streams at once.
+            reqs = [decode_engine.submit(p, new_tokens),
+                    singles[pool].submit(p, new_tokens)]
+            again, ref = [r.result(timeout=600) for r in reqs]
+            tickets_at_zero([decode_engine, singles[pool]])
+            if again != out[pool]['via']:
+                raise AssertionError(f'handoff ({pool} pool): the decode '
+                                     'engine beside a second stream gave '
+                                     'other tokens than alone')
+            out[pool]['hold'] = hold_tokens(
+                f'handoff ({pool} pool) vs one engine', cfg, model, p,
+                out[pool]['via'], ref, quantized=pools[pool])
+    finally:
+        for e in engines:
+            e.stop()
+    return counts, out
+
+
+# ------------------------------------------------------------ phase 7
 
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 2048
 WARMUP_STEPS, TIMED_STEPS = 2, 5
@@ -852,7 +1231,7 @@ def cli_check(counters):
     return counts
 
 
-# ------------------------------------------------------------ phase 7
+# ------------------------------------------------------------ phase 8
 
 
 def train_reference_check(dev):
@@ -888,6 +1267,81 @@ def train_reference_check(dev):
                                  f'CPU {rel:.3g} of max |CPU|')
         worst = max(worst, (rel, name))
     return loss, worst
+
+
+def expect_launches(path, counts, launched, idle=()):
+    """Fail unless every kernel in `launched` ran on the path and none
+    in `idle` did."""
+    missing = [n for n in launched if counts[n] <= 0]
+    stray = [n for n in idle if counts[n] > 0]
+    if missing or stray:
+        raise AssertionError(f'{path}: kernels not launched {missing}, '
+                             f'launched but not on this path {stray}')
+
+
+def more_serving(cfg, model, dev, counters, new_tokens):
+    """The paths each zeroed just before and read just after, around
+    the engine work alone (the reference paths and the holds run after
+    the read): 16-slot speculation, dense serving over HTTP, the legacy
+    loop, the KV handoff.  Returns {path: launch counts}."""
+    paths = {}
+    paths['spec beyond one bucket'], spec = spec_past_one_bucket(
+        cfg, model, dev, new_tokens, counters)
+    expect_launches('spec beyond one bucket',
+                    paths['spec beyond one bucket'],
+                    ('paged_attention_int8', 'flash_fwd'))
+    blocked, one_call = verify_tick_cost(cfg, model, dev)
+    log(f'int8 + spec(4) at 16 slots (80 rows): greedy equal to spec-off; '
+        f'accept len {spec["spec_accept_len_mean"]}; verify tick in two '
+        f'64-row blocks {blocked["ms"]:.3f} ms device '
+        f'({blocked["ms_with_host"]:.3f} with host), as one 128-row call '
+        f'{one_call["ms"]:.3f} ({one_call["ms_with_host"]:.3f})')
+
+    zero_counts(counters)
+    dense = dense_serving(cfg, model, dev, new_tokens)
+    paths['dense serving'] = read_counts(counters)
+    expect_launches('dense serving', paths['dense serving'], ('flash_fwd',),
+                    ('paged_attention', 'paged_attention_int8'))
+    holds = hold_dense(cfg, model, dense, new_tokens)
+    log(f'dense http: {dense["tokens_per_s"]:.1f} tokens/s over 6 '
+        f'concurrent requests ({dense["wall"]:.2f}s); TTFT (100-token '
+        f'prompt, idle engine) {dense["ttft_ms"]:.1f} ms; ticks '
+        f'{dense["ticks"]}; /generate_stream == /generate, '
+        f'/generate_text streamed == whole; vs decode.generate: '
+        f'{hold_summary(holds)}')
+
+    zero_counts(counters)
+    legacy = legacy_serving(cfg, model, dev, new_tokens, dense)
+    paths['legacy'] = read_counts(counters)
+    expect_launches('legacy', paths['legacy'], ('flash_fwd',),
+                    ('paged_attention', 'paged_attention_int8'))
+    holds = [hold_tokens('legacy vs pipelined', cfg, model, p, g, ref)
+             for p, g, ref in zip(dense['prompts'], legacy['tokens'],
+                                  dense['tokens'])]
+    log(f'legacy (pipelined=False): {legacy["tokens_per_s"]:.1f} tokens/s; '
+        f'vs the dense pipelined engine: {hold_summary(holds)}')
+
+    paths['handoff'], moved = handoff(cfg, model, dev, new_tokens, counters)
+    expect_launches('handoff', paths['handoff'],
+                    ('flash_fwd', 'paged_attention', 'paged_attention_int8'))
+    kernel = {'bf16': 'paged_attention', 'int8': 'paged_attention_int8'}
+    for pool, r in moved.items():
+        expect_launches(f'handoff export ({pool})', r['export_launches'],
+                        ('flash_fwd',),
+                        ('paged_attention', 'paged_attention_int8'))
+        expect_launches(f'handoff import ({pool} pool)',
+                        r['import_launches'], (kernel[pool],))
+        exported = r['export_launches']['flash_fwd']
+        imported = r['import_launches'][kernel[pool]]
+        log(f'handoff into a {pool} pool: {r["frame_bytes"]} frame bytes, '
+            f'export {r["export_ms"]:.1f} ms ({exported} B3), import '
+            f'{r["import_ms"]:.1f} ms, then {imported} {kernel[pool]} '
+            f'launches;'
+            f' beside a second engine on another stream the same tokens, '
+            f'every ticket counter at 0; vs one engine: '
+            f'{hold_summary([r["hold"]])}')
+    log(f'launches: {json.dumps(paths)}')
+    return paths
 
 
 def main() -> int:
@@ -975,11 +1429,15 @@ def main() -> int:
     if missing:
         raise AssertionError(f'kernels not launched on the serving path: '
                              f'{missing}')
+    cfg, model = server.cfg, server.params
     del server
     free_cuda()
+    paths.update(more_serving(cfg, model, dev, counters, new_tokens))
+    del model
+    free_cuda()
     err = reference_check(dev)
-    log(f'reference: depth-2 f32 llama3-8b GPU == CPU greedy tokens; '
-        f'prefill logits max_abs_err {err:.3g}')
+    log(f'reference: depth-2 f32 llama3-8b GPU == CPU greedy tokens '
+        f'(paged and dense engines); prefill logits max_abs_err {err:.3g}')
 
     paths['training'] = train_main_path(dev, counters)
     paths['train_llama small'] = cli_check(counters)

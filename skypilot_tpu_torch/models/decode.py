@@ -4,6 +4,9 @@ Plain functions over a `Transformer` (models/transformer.py) and cache
 dicts of tensors, with the reference's names and cache layouts:
 
 - dense cache {'k', 'v': [L, b, h_kv, max_len, d], 'index': int};
+- slot cache {'k', 'v': [L, slots, h_kv, max_len, d], 'lengths':
+  [slots] int32} (the serving engine's dense mode: every slot at its
+  own depth);
 - paged pool {'k', 'v': [L, n_pages, h_kv, ps, d] (or int8
   {'q', 'scale'} leaves), 'block_tables': [B, P] int32,
   'lengths': [B] int32}; page 0 is the reserved null page.
@@ -18,8 +21,8 @@ while the next tick runs.
 Attention: chunk 0 of a prefill runs the flash kernel
 (ops/attention.py), every paged tick the paged kernel
 (ops/paged_attention.py, native or int8 pools); prefill chunks at
-index > 0 and dense decode use the masked grouped einsum, as the
-reference does.
+index > 0, dense decode and the slot cache's ticks use the masked
+grouped einsum, as the reference does.
 
 Row buckets: on the GPU the residual stream of a forward is carried
 as one [rows, d] tensor whose rows are padded with zeros to a multiple
@@ -29,9 +32,15 @@ same rows).  cuBLAS and PyTorch's reductions pick their kernel, and so
 their summation order, from the row count; on an H100 without the
 buckets, greedy output differed with speculation on and off.  Within
 one bucket a token's numbers do not depend on how many rows share the
-call, so while B * S <= 64 (8 slots at k = 4) a speculative verify
-tick computes the same logits for a token as a plain tick (B rows),
-and greedy output stays token-identical with speculation on or off.
+call.  A decode tick whose padded rows exceed one bucket (a verify
+tick at slots * (k + 1) > 64, say 16 slots at k = 4) runs every op
+whose kernel follows the row count (the RMSNorms, each projection
+GEMM, the MLP and the lm_head) once per 64-row block (`_by_blocks`),
+so each call has the [64, K] x [K, N] shape of a one-bucket tick, and
+a token's bits do not depend on how many rows share its tick at any
+slots and k.  (CPU ticks run the same blocks, unpadded.)  Ticks of at most 64 rows make one call per op as
+before; prefill chunks keep one call per op on their padded rows
+(spec-on and spec-off engines prefill alike).
 
 Sampling keys are the port's own counter-based stream: a key is an
 int64 pair (seed, counter); a split returns (seed, counter + 1) as the
@@ -79,12 +88,20 @@ _ROW_BUCKET = 64
 
 def _pad_rows(x2d: torch.Tensor) -> torch.Tensor:
     """A CUDA [m, k] tensor with zero rows appended up to a multiple of
-    _ROW_BUCKET (module docstring: row buckets); CPU tensors as they
-    are."""
+    _ROW_BUCKET; CPU tensors as they are."""
     pad = (-x2d.shape[0]) % _ROW_BUCKET if x2d.is_cuda else 0
     if pad:
         x2d = torch.cat([x2d, x2d.new_zeros((pad, x2d.shape[1]))])
     return x2d
+
+
+def _by_blocks(fn, x: torch.Tensor, blocked: bool) -> torch.Tensor:
+    """fn(x) over rows x [M, k]; with `blocked` (a decode tick) and more
+    than _ROW_BUCKET rows, fn once per _ROW_BUCKET-row block,
+    concatenated (module docstring: row buckets)."""
+    if blocked and x.shape[0] > _ROW_BUCKET:
+        return torch.cat([fn(rows) for rows in x.split(_ROW_BUCKET)])
+    return fn(x)
 
 
 def _norm(x, scale, eps, plus_one: bool = False):
@@ -96,12 +113,13 @@ def _norm(x, scale, eps, plus_one: bool = False):
     return (normed * scale).to(x.dtype)
 
 
-def _attn_proj(x, proj, shape):
+def _attn_proj(x, proj, shape, blocked: bool = False):
     """Residual rows [M, d_model] x Dense[d_model -> (heads, hd)] ->
     [b, heads, s, hd] for the first b * s rows (`shape` = (b, s)), plus
     the [heads, hd] bias when the config has one."""
     b, s = shape
-    out = (x @ proj.matrix().to(x.dtype))[:b * s]
+    w = proj.matrix().to(x.dtype)
+    out = _by_blocks(lambda rows: rows @ w, x, blocked)[:b * s]
     out = out.reshape(b, s, *proj.out_shape).permute(0, 2, 1, 3)
     if proj.bias is not None:
         out = out + proj.bias.to(x.dtype)[None, :, None, :]
@@ -142,15 +160,23 @@ def _masked_attention(q, k_cache, v_cache, positions, cfg: ModelConfig):
     return out.reshape(b, h, qs, d)
 
 
+def _attn_norm(x, layer, cfg: ModelConfig, blocked: bool):
+    return _by_blocks(lambda rows: _norm(rows, layer.attn_norm.scale,
+                                         cfg.norm_eps,
+                                         cfg.norm_scale_plus_one),
+                      x, blocked)
+
+
 def _layer_forward(x, layer, cfg: ModelConfig, positions, k_cache, v_cache,
-                   *, use_flash: bool, shape):
+                   *, use_flash: bool, shape, blocked: bool = False):
     """One decoder layer against an explicit KV cache slice that already
     holds this call's k/v.  `x` is the residual stream as rows [M, d]:
     the b * s tokens of `shape` = (b, s), then any bucket padding.
-    Returns the layer output in the same layout."""
-    h = _norm(x, layer.attn_norm.scale, cfg.norm_eps,
-              cfg.norm_scale_plus_one)
-    q = _rope(_attn_proj(h, layer.attn.q_proj, shape), positions, cfg)
+    `blocked`: a decode tick (`_by_blocks`).  Returns the layer output
+    in the same layout."""
+    h = _attn_norm(x, layer, cfg, blocked)
+    q = _rope(_attn_proj(h, layer.attn.q_proj, shape, blocked), positions,
+              cfg)
     if isinstance(k_cache, _PagedView):
         # Paged kernel: query token j of slot b sits at lengths[b] + j.
         out = paged_attention_ops.paged_attention(
@@ -164,14 +190,16 @@ def _layer_forward(x, layer, cfg: ModelConfig, positions, k_cache, v_cache,
                               v_cache[:, :, :s].contiguous(), causal=True)
     else:
         out = _masked_attention(q, k_cache, v_cache, positions, cfg)
-    return _attn_out_and_mlp(x, out, layer, cfg)
+    return _attn_out_and_mlp(x, out, layer, cfg, blocked)
 
 
-def _attn_out_and_mlp(x, out, layer, cfg: ModelConfig):
+def _attn_out_and_mlp(x, out, layer, cfg: ModelConfig,
+                      blocked: bool = False):
     """The tail of a layer, shared with the training forward
     (`DecoderLayer.forward`): o_proj of the attention output
     [b, h, s, hd] into the residual rows x [M, d] (rows past b * s are
-    bucket padding and get zeros), then the MLP block."""
+    bucket padding and get zeros), then the MLP block; `blocked` for a
+    decode tick (`_by_blocks`)."""
     b, hq, s, hd = out.shape
     # The masked path's attention output is f32: cast to x's dtype.
     rows = out.permute(0, 2, 1, 3).reshape(b * s, hq * hd).to(x.dtype)
@@ -179,10 +207,12 @@ def _attn_out_and_mlp(x, out, layer, cfg: ModelConfig):
         padded = x.new_zeros((x.shape[0], hq * hd))
         padded[:b * s] = rows
         rows = padded
-    x = x + rows @ layer.attn.o_proj.matrix().to(x.dtype)
-    h = _norm(x, layer.mlp_norm.scale, cfg.norm_eps,
-              cfg.norm_scale_plus_one)
-    return x + _mlp(h, layer.mlp, cfg)
+    w = layer.attn.o_proj.matrix().to(x.dtype)
+    x = x + _by_blocks(lambda r: r @ w, rows, blocked)
+    return x + _by_blocks(
+        lambda r: _mlp(_norm(r, layer.mlp_norm.scale, cfg.norm_eps,
+                             cfg.norm_scale_plus_one), layer.mlp, cfg),
+        x, blocked)
 
 
 def _embed(cfg: ModelConfig, model, tokens):
@@ -201,12 +231,15 @@ def _layer_leaf(leaf, i: int):
 def _scan_layers_and_unembed(cfg: ModelConfig, model, x, positions,
                              cache_k, cache_v, write_fn, *,
                              use_flash: bool, view_fn=None,
-                             all_positions: bool = False):
+                             all_positions: bool = False,
+                             blocked: bool = False):
     """The shared per-layer loop: project + rope k/v, write them into the
     cache with `write_fn(layer_leaf, new)` (in place), run the layer,
     then final-norm + unembed the last position ([b, V]) or, with
-    `all_positions`, every position ([b, s, V]).  Returns (logits,
-    cache_k, cache_v), the caches being the (mutated) inputs."""
+    `all_positions`, every position ([b, s, V]).  `blocked`: a decode
+    tick, whose row-count-following ops run per 64-row block past one
+    bucket (`_by_blocks`).  Returns (logits, cache_k, cache_v), the
+    caches being the (mutated) inputs."""
     if view_fn is None:
         view_fn = lambda c: c  # noqa: E731
     b, s, d = x.shape
@@ -214,24 +247,26 @@ def _scan_layers_and_unembed(cfg: ModelConfig, model, x, positions,
     for i, layer in enumerate(model.layers):
         k_leaf = _layer_leaf(cache_k, i)
         v_leaf = _layer_leaf(cache_v, i)
-        h = _norm(x, layer.attn_norm.scale, cfg.norm_eps,
-                  cfg.norm_scale_plus_one)
-        k = _rope(_attn_proj(h, layer.attn.k_proj, (b, s)), positions, cfg)
-        v = _attn_proj(h, layer.attn.v_proj, (b, s))
+        h = _attn_norm(x, layer, cfg, blocked)
+        k = _rope(_attn_proj(h, layer.attn.k_proj, (b, s), blocked),
+                  positions, cfg)
+        v = _attn_proj(h, layer.attn.v_proj, (b, s), blocked)
         write_fn(k_leaf, k)
         write_fn(v_leaf, v)
         x = _layer_forward(x, layer, cfg, positions, view_fn(k_leaf),
                            view_fn(v_leaf), use_flash=use_flash,
-                           shape=(b, s))
+                           shape=(b, s), blocked=blocked)
+
+    def head(rows):
+        rows = _norm(rows, model.final_norm.scale, cfg.norm_eps,
+                     cfg.norm_scale_plus_one)
+        return heads.unembed(rows, model, cfg)
+
     if all_positions:
-        x = _norm(x, model.final_norm.scale, cfg.norm_eps,
-                  cfg.norm_scale_plus_one)
-        logits = heads.unembed(x, model, cfg)[:b * s]
+        logits = _by_blocks(head, x, blocked)[:b * s]
         return logits.reshape(b, s, -1), cache_k, cache_v
     x = _pad_rows(x[:b * s].reshape(b, s, d)[:, -1])
-    x = _norm(x, model.final_norm.scale, cfg.norm_eps,
-              cfg.norm_scale_plus_one)
-    return heads.unembed(x, model, cfg)[:b], cache_k, cache_v
+    return _by_blocks(head, x, blocked)[:b], cache_k, cache_v
 
 
 # ----------------------------------------------------------- dense cache
@@ -284,6 +319,71 @@ def prefill_chunk(cfg: ModelConfig, model, tokens, cache):
     """Continue a prefill at cache['index'] with a chunk [b, c] (masked
     per-position causal path, exact at any index)."""
     return _forward_with_cache(cfg, model, tokens, cache, use_flash=False)
+
+
+# ---------------------------------------------------- slot-batched decoding
+# The serving engine's dense mode: a fixed pool of slots, each at its
+# own depth, decoded together in one step.
+
+
+def init_slot_cache(cfg: ModelConfig, slots: int, max_len: int,
+                    device: Any = 'cuda') -> Dict[str, Any]:
+    """Zeroed slot cache: like init_cache, with per-slot lengths."""
+    shape = (cfg.n_layers, slots, cfg.n_kv_heads, max_len, cfg.head_dim)
+    return {'k': torch.zeros(shape, dtype=cfg.dtype, device=device),
+            'v': torch.zeros(shape, dtype=cfg.dtype, device=device),
+            'lengths': torch.zeros((slots,), dtype=torch.int32,
+                                   device=device)}
+
+
+def insert_prefill(slot_cache: Dict[str, Any], slot: int,
+                   prefill_cache: Dict[str, Any], length) -> Dict[str, Any]:
+    """Adopt a single-sequence prefill cache ([L, 1, h_kv, max_len, d])
+    into slot `slot` at depth `length` (in place)."""
+    for name in ('k', 'v'):
+        slot_cache[name][:, slot] = prefill_cache[name][:, 0].to(
+            slot_cache[name].dtype)
+    slot_cache['lengths'][slot] = int(length)
+    return slot_cache
+
+
+def batched_step(cfg: ModelConfig, model, tokens, slot_cache, active=None):
+    """One decode step across ALL slots, each attending its own depth.
+    tokens [B, 1]; returns (logits [B, V], slot_cache with new lengths).
+    Without `active` every length advances by 1; with `active` [B] bool
+    only active slots advance, and inactive slots' writes land at their
+    frozen length (garbage the next admission overwrites).  A write at
+    a length of max_len or more lands at max_len - 1 of the slot's own
+    row, where the reference's dynamic_update_slice clamps it."""
+    lengths = slot_cache['lengths']
+    positions = lengths.long()[:, None]                       # [B, 1]
+    at = torch.clamp(positions[:, 0], max=slot_cache['k'].shape[3] - 1)
+    slots = torch.arange(tokens.shape[0], device=tokens.device)
+
+    def write(c, new):
+        # c [B, h_kv, max_len, d], new [B, h_kv, 1, d]: one indexed
+        # write puts every slot's token at that slot's own depth.
+        c[slots, :, at] = new[:, :, 0].to(c.dtype)
+
+    with torch.no_grad():
+        logits, k, v = _scan_layers_and_unembed(
+            cfg, model, _embed(cfg, model, tokens), positions,
+            slot_cache['k'], slot_cache['v'], write, use_flash=False,
+            blocked=True)
+    advance = (torch.ones_like(lengths) if active is None
+               else active.to(lengths.dtype))
+    return logits, {'k': k, 'v': v, 'lengths': lengths + advance}
+
+
+def engine_step(cfg: ModelConfig, model, state, slot_cache, *,
+                max_top_k: int = 64):
+    """A serving tick against the slot cache: decode every active slot,
+    select its next token, update the stop bookkeeping.  Inactive slots
+    freeze (token, remaining and length unchanged).  Returns
+    (new_state, new_cache, finished [B])."""
+    return _select_and_bookkeep(state, *batched_step(
+        cfg, model, state['tokens'][:, None], slot_cache,
+        state['active']), max_top_k=max_top_k)
 
 
 # -------------------------------------------------------------- sampling
@@ -550,7 +650,7 @@ def _paged_forward(cfg: ModelConfig, model, tokens, paged, *,
         return _scan_layers_and_unembed(
             cfg, model, _embed(cfg, model, tokens), positions, paged['k'],
             paged['v'], write, use_flash=False, view_fn=view,
-            all_positions=all_positions)
+            all_positions=all_positions, blocked=True)
 
 
 def paged_batched_step(cfg: ModelConfig, model, tokens, paged,
@@ -709,3 +809,54 @@ def paged_seed_private(cfg: ModelConfig, paged, pages_row, *,
         return out
 
     return {'k': leaf(paged['k']), 'v': leaf(paged['v']), 'index': r * ps}
+
+
+def write_pages(paged, k_pages, v_pages, pages_row):
+    """Adopt IMPORTED page contents (KV handoff) into pool pages
+    `pages_row` (in place).  k_pages / v_pages are float
+    [L, n, h_kv, ps, d] (the wire's f32); an int8 pool quantizes them
+    with `_quant_kv`, which is round-trip stable, so a quantize ->
+    dequantize -> requantize chain reproduces a local prefill's bytes."""
+    pool = paged['k']['q'] if isinstance(paged['k'], dict) else paged['k']
+    ids = torch.as_tensor(pages_row, dtype=torch.long, device=pool.device)
+
+    def leaf(pool_leaf, piece):
+        piece = piece.to(pool.device)
+        if isinstance(pool_leaf, dict):
+            q, scale = _quant_kv(piece)
+            pool_leaf['q'][:, ids] = q
+            pool_leaf['scale'][:, ids] = scale
+        else:
+            pool_leaf[:, ids] = piece.to(pool_leaf.dtype)
+
+    leaf(paged['k'], k_pages)
+    leaf(paged['v'], v_pages)
+    return paged
+
+
+def write_pages_quantized(paged, k_q, v_q, k_scale, v_scale, pages_row):
+    """Adopt ALREADY-QUANTIZED pages into an int8 pool (in place): the
+    wire's int8 values and f32 scales land verbatim."""
+    ids = torch.as_tensor(pages_row, dtype=torch.long,
+                          device=paged['k']['q'].device)
+    for name, q, scale in (('k', k_q, k_scale), ('v', v_q, v_scale)):
+        paged[name]['q'][:, ids] = q.to(ids.device)
+        paged[name]['scale'][:, ids] = scale.to(ids.device)
+    return paged
+
+
+def export_private_pages(private_cache, n_pages: int, page_size: int,
+                         quantize: bool = False):
+    """A private prefill cache's first `n_pages` FULL pages in the
+    wire's page-major layout: (k, v) as f32 [L, n_pages, h_kv, ps, d]
+    (exact from bf16), or with `quantize` (k, v, k_scale, v_scale) as
+    int8 values and f32 scales from `_quant_kv`, the int8 pool's own
+    quantizer."""
+    span = n_pages * page_size
+    k, v = (_private_as_pages(private_cache[name][:, :, :, :span],
+                              page_size) for name in ('k', 'v'))
+    if quantize:
+        kq, ks = _quant_kv(k)
+        vq, vs = _quant_kv(v)
+        return kq, vq, ks, vs
+    return k.to(torch.float32), v.to(torch.float32)

@@ -16,6 +16,15 @@ tables [B, P] int32; lengths [B] int32 (pre-write depths).  Returns
   of SPLIT_PAGES pages, one block each, merged in split order; the
   wrapper allocates its f32 workspace and keeps its ticket counters
   (zero between launches, reset by the kernel).
+- Ticket counters are kept per (device, stream): launches that overlap
+  on two streams of one device (two engines, a capture stream) each
+  count in their own int32 array.  A stream's array grows when a
+  launch needs more counters than it holds (b * h_kv), and only after
+  that stream has synchronised: until then a launch in flight on it
+  may still hold the array, and no other stream ever uses it.  Growing
+  after a sync was chosen over one array sized up front because the
+  wrapper cannot know the largest batch a stream will see; an engine's
+  slot count fixes it, so a stream grows at most once in practice.
 - On CPU tensors it runs `_paged_attention_reference`: gather the pool
   rows each table names, dequantize in f32, masked softmax.
 """
@@ -39,9 +48,9 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # binding checks that the two agree).
 SPLIT_PAGES = 4
 
-# The kernels' ticket counters by device, shared by both: int32, zero
-# between launches (the last block of a slot's splits resets its
-# counter).
+# The kernels' ticket counters by (device, stream handle), shared by
+# both kernels: int32, zero between launches (the last block of a
+# slot's splits resets its counter).
 _TICKETS = {}
 
 
@@ -109,13 +118,18 @@ def _require(t: torch.Tensor, name: str, device, dtype, shape) -> None:
         raise ValueError(f'paged_attention: {name} must be contiguous')
 
 
-def _tickets(dev, n: int) -> torch.Tensor:
-    """At least n zeroed int32 ticket counters on `dev`, kept across
-    launches."""
-    tickets = _TICKETS.get(dev)
+def _tickets(dev, stream: int, n: int, synchronize) -> torch.Tensor:
+    """At least n zeroed int32 ticket counters for launches on `stream`
+    of `dev`, kept across launches.  A larger array replaces the
+    stream's old one only after `synchronize()` (that stream's sync):
+    no launch in flight still counts in the old array."""
+    key = (dev, stream)
+    tickets = _TICKETS.get(key)
     if tickets is None or tickets.numel() < n:
+        if tickets is not None:
+            synchronize()
         tickets = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
-        _TICKETS[dev] = tickets
+        _TICKETS[key] = tickets
     return tickets
 
 
@@ -155,7 +169,8 @@ def _paged_attention_cuda(q, k_leaf, v_leaf, tables, lengths, *,
     _require(lengths, 'lengths', dev, torch.int32, (b,))
     rep = h_q // h_kv
     out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    current = torch.cuda.current_stream(dev)
+    stream = current.cuda_stream
     args = (b, h_kv, rep * s_q, s_q, tables.shape[1], ps, d,
             float(sm_scale), stream)
     # q [B, h_q, S, d] is [B, h_kv, rep * S, d] in memory: row r of
@@ -168,7 +183,7 @@ def _paged_attention_cuda(q, k_leaf, v_leaf, tables, lengths, *,
     splits = -(-tables.shape[1] // SPLIT_PAGES)
     work = torch.empty(b * h_kv * splits * rep * s_q * (d + 2),
                        dtype=torch.float32, device=dev)
-    tickets = _tickets(dev, b * h_kv)
+    tickets = _tickets(dev, stream, b * h_kv, current.synchronize)
     if quantized:
         rc = _bind(True)(q.data_ptr(), k_leaf['q'].data_ptr(),
                          k_leaf['scale'].data_ptr(), v_leaf['q'].data_ptr(),

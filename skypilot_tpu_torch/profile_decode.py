@@ -1,11 +1,13 @@
 """Where a decode tick's time goes: host clock vs device kernels.
 
     python -m skypilot_tpu_torch.profile_decode [--model llama3-8b]
-        [--slots 8] [--ticks 20] [--quantize-kv] [--out PATH]
+        [--slots 8] [--ticks 20] [--quantize-kv | --dense] [--out PATH]
 
 Builds the model with seeded random weights on the GPU, a paged pool
 with `slots` live slots at ragged depths (5 .. 700 tokens), and runs
-`decode.paged_engine_step` the way the engine does.  Reports:
+`decode.paged_engine_step` the way the engine does; with `--dense` the
+same slots in a dense slot cache (max_len 1024) and
+`decode.engine_step`, the engine's default mode.  Reports:
 
 - tick_ms: host wall time per tick, each tick synchronised;
 - device_ms_per_tick: summed CUDA kernel time per tick from
@@ -39,15 +41,20 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _build_state(cfg, slots: int, quantize_kv: bool, dev):
+def _build_state(cfg, slots: int, quantize_kv: bool, dense: bool, dev):
     ps, max_len = 16, 1024
     rows = max_len // ps
-    pool = decode.init_paged_cache(cfg, 1 + slots * rows, ps, slots, rows,
-                                   quantize_kv=quantize_kv, device=dev)
     lengths = [int(5 + i * 695 / max(1, slots - 1)) for i in range(slots)]
-    for slot, length in enumerate(lengths):
-        row = list(range(1 + slot * rows, 1 + (slot + 1) * rows))
-        decode.paged_admit_slot(pool, slot, row, length)
+    if dense:
+        pool = decode.init_slot_cache(cfg, slots, max_len, device=dev)
+        pool['lengths'][:] = torch.tensor(lengths, dtype=torch.int32)
+    else:
+        pool = decode.init_paged_cache(cfg, 1 + slots * rows, ps, slots,
+                                       rows, quantize_kv=quantize_kv,
+                                       device=dev)
+        for slot, length in enumerate(lengths):
+            row = list(range(1 + slot * rows, 1 + (slot + 1) * rows))
+            decode.paged_admit_slot(pool, slot, row, length)
     state = decode.init_engine_state(slots, device=dev)
     for slot in range(slots):
         state = decode.admit_slot_state(state, slot, 1 + slot, 10 ** 6,
@@ -61,18 +68,23 @@ def main(argv=None) -> dict:
     parser.add_argument('--slots', type=int, default=8)
     parser.add_argument('--ticks', type=int, default=20)
     parser.add_argument('--quantize-kv', action='store_true')
+    parser.add_argument('--dense', action='store_true',
+                        help='Dense slot cache and decode.engine_step.')
     parser.add_argument('--out', default=None,
                         help='Also write the JSON to this file.')
     args = parser.parse_args(argv)
     dev = resolve_device('cuda')
     cfg = configs.get_config(args.model)
     model = init_params(cfg, seed=0, device=dev)
+    if args.dense and args.quantize_kv:
+        parser.error('--quantize-kv is a paged pool option')
     pool, state, lengths = _build_state(cfg, args.slots, args.quantize_kv,
-                                        dev)
+                                        args.dense, dev)
+    step = decode.engine_step if args.dense else decode.paged_engine_step
 
     def tick():
         nonlocal state, pool
-        state, pool, _ = decode.paged_engine_step(cfg, model, state, pool)
+        state, pool, _ = step(cfg, model, state, pool)
         state['tokens'].tolist()      # the engine's one host read
 
     with torch.no_grad():
@@ -113,7 +125,7 @@ def main(argv=None) -> dict:
     result = {
         'device': torch.cuda.get_device_name(0),
         'model': args.model, 'slots': args.slots, 'lengths': lengths,
-        'quantize_kv': args.quantize_kv,
+        'quantize_kv': args.quantize_kv, 'dense': args.dense,
         'tick_ms': tick_ms,
         'device_ms_per_tick': device_ms,
         'device_idle_share': max(0.0, 1.0 - device_ms / tick_ms),

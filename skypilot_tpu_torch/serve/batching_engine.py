@@ -1,40 +1,64 @@
-"""Continuous batching engine over the paged KV pool (mirrors
-`skypilot_tpu/serve/batching_engine.py`, paged mode).
+"""Continuous batching engine (mirrors
+`skypilot_tpu/serve/batching_engine.py`).
 
 A fixed pool of slots is the batch dimension.  Requests join a running
-batch the moment a slot frees, and one `decode.paged_engine_step` per
-tick advances every active slot by a token.  submit() may be called
-from any thread; one worker thread owns the device state (the page
-pool, the block tables, the per-slot state) and is the only thread
-that touches it.
+batch the moment a slot frees, and one engine step per tick advances
+every active slot by a token.  submit() may be called from any thread;
+one worker thread owns the device state (the KV cache, the per-slot
+state) and is the only thread that touches it.
 
-- Paged KV: a pool of N pages [L, N, h_kv, page_size, d] with per-slot
-  block tables.  Admission allocates ceil((prompt + max_new - 1) /
-  page_size) pages and BACKPRESSURES on exhaustion (QueueFull -> 429 +
-  Retry-After) instead of failing.  `quantize_kv` stores int8 pages
+KV cache modes:
+- Dense (the default, `kv_pages=None`): one slot cache
+  [L, slots, h_kv, max_len, d]; each tick is `decode.engine_step`
+  (masked grouped attention, every slot at its own depth).
+- Paged (`kv_pages=N`): a pool of N pages [L, N, h_kv, page_size, d]
+  with per-slot block tables; each tick is `decode.paged_engine_step`
+  (the paged kernel).  Admission allocates ceil((prompt + max_new - 1)
+  / page_size) pages and BACKPRESSURES on exhaustion (QueueFull -> 429
+  + Retry-After) instead of failing.  `quantize_kv` stores int8 pages
   with per-token scales; `prefix_caching` lets prompts that share full
   pages adopt them instead of prefilling them again.
-- Pipelined ticks: token selection and stop bookkeeping run on the
-  device inside the tick, so tick t+1's input is tick t's output.  The
-  worker dispatches tick t+1 before it reads tick t's tokens
+
+Loops:
+- Pipelined (the default): token selection and stop bookkeeping run on
+  the device inside the tick, so tick t+1's input is tick t's output.
+  The worker dispatches tick t+1 before it reads tick t's tokens
   (`.tolist()` is the only host sync of a plain tick), one tick behind.
-- Chunked prefill: the prompt's first n-1 tokens are prefilled in
-  chunks between ticks (at most one chunk per tick).  Chunk 0 runs the
-  flash kernel on the prompt padded to a power-of-two bucket, later
-  chunks the masked path at index > 0; the slot then joins at length
-  n-1 with the LAST prompt token as its first tick input, which
-  overwrites the first pad position, so logits match unpadded decode.
-  A prefix-cache hit seeds the private cache from the pool instead of
-  running chunk 0.
-- Speculative ticks (`spec_tokens` = k > 0): a host n-gram drafter
-  proposes k tokens per slot, one verify tick checks them through the
-  paged kernel with S = k + 1, and each slot emits its longest exact
-  prefix plus the bonus token; spec ticks run synchronously.
+  The prompt's first n-1 tokens are prefilled in chunks between ticks
+  (at most one chunk per tick): chunk 0 runs the flash kernel on the
+  prompt padded to a power-of-two bucket, later chunks the masked path
+  at index > 0; the slot then joins at length n-1 with the LAST prompt
+  token as its first tick input, which overwrites the first pad
+  position, so logits match unpadded decode.  A prefix-cache hit seeds
+  the private cache from the pool instead of running chunk 0.
+- Legacy (`pipelined=False`, dense cache only): the whole prompt
+  prefills inline at admission, every tick is `decode.batched_step`
+  with one host sync per token, greedy only.  It is the un-pipelined
+  A/B baseline.
+- Speculative ticks (`spec_tokens` = k > 0, paged only): a host n-gram
+  drafter proposes k tokens per slot, one verify tick checks them
+  through the paged kernel with S = k + 1, and each slot emits its
+  longest exact prefix plus the bonus token; spec ticks run
+  synchronously.
 - Deadlines: a live request past its deadline is reaped (slot and pages
   freed, DeadlineExceeded -> 504); queued ones expire at pop.
 
-The dense (non-paged) cache mode, the legacy un-pipelined loop, live
-weight swaps and KV handoff come with later slices of the port.
+Host ops: KV imports, prefix exports and weight swaps touch state only
+the worker owns, so callers queue a closure (`_on_worker`) that the
+worker runs between ticks, in both loops; stop or failure errors out
+the ones still queued.
+- KV handoff: `export_prefill` prefills a prompt into a private cache
+  (never the slot pool) and returns its full pages in the
+  `serve/handoff.py` wire format; `import_pages` adopts such pages into
+  the pool and publishes them in the prefix cache, so the request that
+  follows lands as a prefix hit; `export_prefix_pages` ships the
+  hottest cached pages (no prefill).
+- `swap_params` replaces the served weights between ticks without
+  dropping the KV or an in-flight request, and bumps `weight_epoch`.
+
+`stream`: on CUDA, the engine's own stream; its ticks, host ops and
+exports all run there, so two engines of one process run their ticks
+at once.  None on the CPU.
 """
 from __future__ import annotations
 
@@ -44,11 +68,13 @@ import threading
 import time
 from typing import Any, Deque, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import decode
 from skypilot_tpu_torch.serve import cache_manager
+from skypilot_tpu_torch.serve import handoff as handoff_lib
 from skypilot_tpu_torch.serve import sampler as sampler_lib
 from skypilot_tpu_torch.serve import scheduler
 
@@ -56,6 +82,8 @@ QueueFull = scheduler.QueueFull
 QueueExpired = scheduler.QueueExpired
 DeadlineExceeded = scheduler.DeadlineExceeded
 PagesExhausted = cache_manager.PagesExhausted
+HandoffError = handoff_lib.HandoffError
+HandoffRejected = handoff_lib.HandoffRejected
 
 _PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
@@ -70,15 +98,12 @@ class ContinuousBatchingEngine:
                  max_queue: int = 0,
                  queue_ttl: Optional[float] = None,
                  max_top_k: int = 64, max_stop_ids: int = 16,
+                 pipelined: bool = True,
                  kv_pages: Optional[int] = None, page_size: int = 16,
                  quantize_kv: bool = False,
                  prefix_caching: bool = True,
                  spec_tokens: int = 0,
                  device: Union[str, torch.device] = 'cuda') -> None:
-        if kv_pages is None:
-            raise NotImplementedError(
-                'the dense KV cache mode (kv_pages=None) comes with a '
-                'later slice of the port; pass kv_pages')
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f'model on {model.device}, engine on '
@@ -86,20 +111,17 @@ class ContinuousBatchingEngine:
         if cfg.n_experts > 0:
             raise NotImplementedError(
                 'MoE serving comes with a later slice of the port')
-        if max_len % page_size:
-            raise ValueError(
-                f'max_len {max_len} must be a multiple of page_size '
-                f'{page_size} (private prefill caches scatter whole '
-                'pages into the pool)')
         self.spec_tokens = int(spec_tokens)
         if self.spec_tokens < 0:
             raise ValueError(f'spec_tokens must be >= 0, got {spec_tokens}')
         self.cfg = cfg
         self.model = model
+        self._weight_epoch = 0
         self.max_len = max_len
         self.prefill_chunk = max(1, int(prefill_chunk))
         self.max_top_k = int(max_top_k)
         self.max_stop_ids = int(max_stop_ids)
+        self.pipelined = bool(pipelined)
         self.quantize_kv = bool(quantize_kv)
         self._slots = [scheduler.Slot() for _ in range(slots)]
         self._queue = scheduler.AdmissionQueue(
@@ -109,14 +131,48 @@ class ContinuousBatchingEngine:
         self._stop = threading.Event()
         self._sampler = sampler_lib.SlotSampler(self.max_top_k,
                                                 self.max_stop_ids)
-        self._kv = cache_manager.PagedKVManager(
-            int(kv_pages), int(page_size), prefix_caching=prefix_caching)
-        self._cache = decode.init_paged_cache(
-            cfg, int(kv_pages), int(page_size), slots,
-            max_len // int(page_size), quantize_kv=quantize_kv,
-            device=self.device)
+        # Closures the worker runs between ticks (`_on_worker`).
+        self._host_ops: Deque[Any] = collections.deque()
+        self._host_ops_lock = threading.Lock()
+        # Each export holds a private prefill cache: at most two at once.
+        self._export_sem = threading.BoundedSemaphore(2)
+        self._kv: Optional[cache_manager.PagedKVManager] = None
+        if kv_pages is not None:
+            if not self.pipelined:
+                raise ValueError('kv_pages (paged KV cache) requires the '
+                                 'pipelined engine')
+            if max_len % page_size:
+                raise ValueError(
+                    f'max_len {max_len} must be a multiple of page_size '
+                    f'{page_size} (private prefill caches scatter whole '
+                    'pages into the pool)')
+            self._kv = cache_manager.PagedKVManager(
+                int(kv_pages), int(page_size),
+                prefix_caching=prefix_caching)
+            self._cache = decode.init_paged_cache(
+                cfg, int(kv_pages), int(page_size), slots,
+                max_len // int(page_size), quantize_kv=quantize_kv,
+                device=self.device)
+            self._step = decode.paged_engine_step
+        else:
+            if self.spec_tokens:
+                raise ValueError(
+                    'spec_tokens (speculative decoding) requires the '
+                    'paged KV engine (kv_pages): rejected drafts roll '
+                    "back through the pool's reserved null page")
+            self._cache = decode.init_slot_cache(cfg, slots, max_len,
+                                                 device=self.device)
+            self._step = decode.engine_step
+        self.decode_kernel = 'paged' if self._kv is not None else 'dense'
         self._state = decode.init_engine_state(slots, max_stop_ids,
                                                device=self.device)
+        self._tokens = torch.zeros((slots, 1), dtype=torch.int32,
+                                   device=self.device)   # legacy loop
+        self.stream = None
+        if self.device.type == 'cuda':
+            self.stream = torch.cuda.Stream(self.device)
+            # Its first launch waits for the state made here.
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
         self._failed: Optional[Exception] = None
 
         self._metrics_lock = threading.Lock()
@@ -153,29 +209,25 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f'prompt {len(prompt_ids)} + new {max_new_tokens} '
                 f'exceeds max_len {self.max_len}')
-        vocab = self.cfg.vocab_size
-        if any(not 0 <= int(t) < vocab for t in prompt_ids):
-            raise ValueError(f'prompt ids must lie in [0, {vocab})')
+        self._check_ids(prompt_ids)
         temperature, top_k, seed = sampler_lib.validate_sampling(
-            sampling, max_top_k=self.max_top_k)
+            sampling, max_top_k=self.max_top_k, pipelined=self.pipelined)
         request = scheduler.Request(prompt_ids, max_new_tokens, stop_token,
                                     temperature=temperature, top_k=top_k,
                                     seed=seed, request_id=request_id,
                                     deadline_ms=deadline_ms)
         sampler_lib.validate_stop_ids(request.stop_ids, self.max_stop_ids)
-        if self._stop.is_set() or self._failed is not None:
-            raise RuntimeError('batching engine is stopped'
-                               if self._failed is None else
-                               f'batching engine failed: {self._failed}')
-        need = self._kv.pages_needed(len(prompt_ids), max_new_tokens)
-        if need > self._kv.pool.capacity:
-            raise ValueError(
-                f'request needs {need} KV pages > pool capacity '
-                f'{self._kv.pool.capacity}')
-        if len(self._queue) > 0 and not self._kv.can_admit(need):
-            raise self._queue.reject(
-                f'KV page pool exhausted ({need} page(s) needed, '
-                f'{self._kv.pool.free_count} free); retry later')
+        self._check_running()
+        if self._kv is not None:
+            need = self._kv.pages_needed(len(prompt_ids), max_new_tokens)
+            if need > self._kv.pool.capacity:
+                raise ValueError(
+                    f'request needs {need} KV pages > pool capacity '
+                    f'{self._kv.pool.capacity}')
+            if len(self._queue) > 0 and not self._kv.can_admit(need):
+                raise self._queue.reject(
+                    f'KV page pool exhausted ({need} page(s) needed, '
+                    f'{self._kv.pool.free_count} free); retry later')
         self._queue.submit(request)
         if self._stop.is_set() and not request.done.is_set():
             request._finish(RuntimeError('batching engine stopped'))  # pylint: disable=protected-access
@@ -186,6 +238,243 @@ class ContinuousBatchingEngine:
                  timeout: float = 600.0) -> List[int]:
         return self.submit(prompt_ids, max_new_tokens, stop_token,
                            sampling=sampling).result(timeout)
+
+    def _check_ids(self, prompt_ids: List[int]) -> None:
+        vocab = self.cfg.vocab_size
+        if any(not 0 <= int(t) < vocab for t in prompt_ids):
+            raise ValueError(f'prompt ids must lie in [0, {vocab})')
+
+    def _check_running(self) -> None:
+        if self._stop.is_set() or self._failed is not None:
+            raise RuntimeError('batching engine is stopped'
+                               if self._failed is None else
+                               f'batching engine failed: {self._failed}')
+
+    # ------------------------------------------------------- host ops
+
+    def _on_worker(self, fn, timeout_error: Exception) -> Any:
+        """Run fn() on the worker thread between ticks; return its result
+        or raise its error (`timeout_error` when the worker does not get
+        to it within 60 s)."""
+        self._check_running()
+        holder: Dict[str, Any] = {}
+        done = threading.Event()
+
+        def op() -> None:
+            try:
+                if self._stop.is_set():
+                    raise RuntimeError('batching engine stopped')
+                holder['result'] = fn()
+            except BaseException as e:  # pylint: disable=broad-except
+                holder['error'] = e
+            finally:
+                done.set()
+
+        with self._host_ops_lock:
+            self._host_ops.append(op)
+        with self._cond:
+            self._cond.notify_all()
+        if not done.wait(timeout=60):
+            raise timeout_error
+        if 'error' in holder:
+            raise holder['error']
+        return holder['result']
+
+    def _drain_host_ops(self) -> int:
+        ran = 0
+        while True:
+            with self._host_ops_lock:
+                if not self._host_ops:
+                    return ran
+                op = self._host_ops.popleft()
+            op()   # no-raise by construction
+            ran += 1
+
+    def swap_params(self, new_model) -> int:
+        """Serve `new_model` (a Transformer of this engine's config, on
+        its device) from the next tick on, without dropping the KV or an
+        in-flight request; returns the new weight epoch.  The assignment
+        runs on the worker between ticks, so no tick sees half a swap.
+        Unlike the reference, the prefix cache forgets its entries (pages
+        a live slot holds stay with it) and prefills begun before the
+        swap publish none: a later request must not adopt KV the old
+        weights computed."""
+        if new_model.cfg != self.cfg:
+            raise ValueError('swap_params: the new model has another '
+                             'config than the engine')
+        if new_model.device != self.device:
+            raise ValueError(f'swap_params: model on {new_model.device}, '
+                             f'engine on {self.device}')
+
+        if self.stream is not None:
+            # The new weights are written before the worker reads them.
+            torch.cuda.current_stream(self.device).synchronize()
+
+        def swap() -> int:
+            if self.stream is not None:
+                # The tick in flight still reads the old weights.
+                self.stream.synchronize()
+            self.model = new_model
+            self._weight_epoch += 1
+            if self._kv is not None:
+                self._kv.prefix.clear()
+            return self._weight_epoch
+
+        return self._on_worker(swap, RuntimeError(
+            'weight swap timed out waiting for the engine worker'))
+
+    @property
+    def weight_epoch(self) -> int:
+        return self._weight_epoch
+
+    # ------------------------------------------------------- KV handoff
+
+    def export_prefill(self, prompt_ids: List[int],
+                       page_size: Optional[int] = None,
+                       binary: bool = False) -> Any:
+        """Prefill a prompt into a private cache (never this engine's slot
+        pool or page pool) and return its FULL pages, the prefilled
+        region [0, n-1), as the handoff wire payload: the JSON/base64
+        dict, or with `binary` the octet-stream frame.  int8 pages and
+        scales when this engine quantizes KV, f32 otherwise.  The
+        sub-page tail is the importer's to prefill."""
+        self._check_running()
+        ps = int(page_size) if page_size else (
+            self._kv.page_size if self._kv is not None else 16)
+        n = len(prompt_ids)
+        if n < 2:
+            raise HandoffError('prompt too short to export')
+        if n > self.max_len:
+            raise HandoffError(f"prompt {n} exceeds this replica's max_len "
+                               f'{self.max_len}')
+        self._check_ids(prompt_ids)
+        full = (n - 1) // ps
+        if full < 1:
+            raise HandoffError(
+                f'prompt {n} holds no full {ps}-token page to export')
+        hashes = cache_manager.chunk_hashes(prompt_ids[:n - 1], ps)
+        encode = (handoff_lib.encode_binary if binary
+                  else handoff_lib.encode_payload)
+        with self._export_sem:
+            with torch.cuda.stream(self.stream), torch.no_grad():
+                cache = self._prefill_private(prompt_ids, n - 1)
+                pages = decode.export_private_pages(
+                    cache, full, ps, quantize=self.quantize_kv)
+                arrays = [t.cpu().numpy() for t in pages]
+        return encode(hashes[:full], ps, *arrays)
+
+    def _prefill_private(self, prompt_ids: List[int],
+                         n_target: int) -> Dict[str, Any]:
+        """Prefill tokens [0, n_target) into a fresh private cache
+        ([L, 1, h_kv, max_len, d]): the admission path's chunks."""
+        cache, consumed = None, 0
+        while consumed < n_target:
+            cache, consumed = self._prefill_piece(prompt_ids, cache,
+                                                  consumed, n_target)
+        return cache
+
+    def import_pages(self, hashes: List[int], page_size: int, k_pages,
+                     v_pages, k_scale=None,
+                     v_scale=None) -> Tuple[int, int]:
+        """Adopt exported pages (numpy [L, n, h_kv, ps, d], f32 or int8
+        with f32 scales [L, n, h_kv, ps]) into the pool and publish them
+        in the prefix cache under `hashes`, so the request that follows
+        adopts them as a prefix hit.  Returns (pages_imported,
+        pages_already_cached).  Pool exhaustion raises QueueFull (429 +
+        Retry-After); a structural mismatch raises HandoffError."""
+        if self._kv is None:
+            raise HandoffError('KV import needs a paged engine '
+                               '(--kv-pages)')
+        if not self._kv.prefix_caching:
+            raise HandoffError('KV import needs the prefix cache '
+                               '(imports publish pages through it)')
+        if int(page_size) != self._kv.page_size:
+            raise HandoffError(f'page_size mismatch: payload {page_size}, '
+                               f'pool {self._kv.page_size}')
+        if len(hashes) > self._kv.pool.capacity:
+            raise HandoffError(f'{len(hashes)} pages exceed pool capacity '
+                               f'{self._kv.pool.capacity}')
+        quantized = str(getattr(k_pages, 'dtype', '')) == 'int8'
+        if quantized and (k_scale is None or v_scale is None):
+            raise HandoffError('int8 pages need their scales')
+        cfg = self.cfg
+        geometry = (cfg.n_layers, len(hashes), cfg.n_kv_heads,
+                    self._kv.page_size, cfg.head_dim)
+        for name, arr in (('k', k_pages), ('v', v_pages)):
+            if tuple(arr.shape) != geometry:
+                raise HandoffError(f'{name} pages {tuple(arr.shape)} do '
+                                   f'not fit this pool: {geometry}')
+
+        def tensor(arr, cached: int) -> torch.Tensor:
+            return torch.from_numpy(np.array(arr[:, cached:]))
+
+        def adopt() -> Tuple[int, int]:
+            cached = self._kv.import_prefix_depth(hashes)
+            fresh_hashes = list(hashes[cached:])
+            if not fresh_hashes:
+                return 0, cached
+            fresh = self._kv.alloc_pages(len(fresh_hashes))
+            try:
+                k, v = tensor(k_pages, cached), tensor(v_pages, cached)
+                if quantized and self.quantize_kv:
+                    # int8 wire -> int8 pool: the bytes land verbatim.
+                    decode.write_pages_quantized(
+                        self._cache, k, v, tensor(k_scale, cached),
+                        tensor(v_scale, cached), fresh)
+                else:
+                    if quantized:   # int8 wire -> float pool
+                        k = k.float() * tensor(k_scale, cached)[..., None]
+                        v = v.float() * tensor(v_scale, cached)[..., None]
+                    decode.write_pages(self._cache, k, v, fresh)
+                self._kv.prefix.register(fresh_hashes, fresh)
+            finally:
+                # register() pinned the published pages; dropping the
+                # import's own ref leaves them pin-held (or frees them if
+                # anything above raised).
+                self._kv.pool.decref(fresh)
+            return len(fresh_hashes), cached
+
+        try:
+            return self._on_worker(adopt, HandoffError(
+                'KV import timed out waiting for the engine worker'))
+        except PagesExhausted:
+            raise self._queue.reject(
+                f'KV page pool exhausted for handoff import '
+                f'({len(hashes)} page(s) needed); retry later') from None
+
+    def export_prefix_pages(self, max_pages: int = 64,
+                            binary: bool = True) -> Any:
+        """The hottest prefix-cache pages as a handoff payload (the
+        drain-time handoff to a sibling replica): pool pages, no
+        prefill.  Raises HandoffError when there is nothing to export."""
+        if self._kv is None:
+            raise HandoffError('prefix export needs a paged engine '
+                               '(--kv-pages)')
+        if not self._kv.prefix_caching:
+            raise HandoffError('prefix export needs the prefix cache')
+
+        def gather():
+            entries = self._kv.prefix.hot_entries(int(max_pages))
+            if not entries:
+                raise HandoffError('no cached prefixes to export')
+            ids = torch.tensor([p for _, p in entries], dtype=torch.long,
+                               device=self.device)
+            k, v = self._cache['k'], self._cache['v']
+            if self.quantize_kv:
+                arrays = (k['q'][:, ids], v['q'][:, ids],
+                          k['scale'][:, ids], v['scale'][:, ids])
+            else:
+                arrays = (k[:, ids].float(), v[:, ids].float())
+            return [h for h, _ in entries], [a.cpu().numpy()
+                                             for a in arrays]
+
+        hashes, arrays = self._on_worker(gather, HandoffError(
+            'prefix export timed out waiting for the engine worker'))
+        encode = (handoff_lib.encode_binary if binary
+                  else handoff_lib.encode_payload)
+        return encode(hashes, self._kv.page_size, *arrays)
+
+    # ------------------------------------------------------------ metrics
 
     def _drain_estimate(self) -> float:
         """Rough seconds until one queue position frees (Retry-After)."""
@@ -204,7 +493,7 @@ class ContinuousBatchingEngine:
         return total / max(span, 1e-3)
 
     def stats(self) -> Dict[str, Any]:
-        """Scheduling, page-pool and decode counters (plain numbers)."""
+        """Scheduling, cache and decode counters (plain numbers)."""
         busy = sum(1 for s in self._slots if s.active)
         with self._metrics_lock:
             stats = {
@@ -215,11 +504,13 @@ class ContinuousBatchingEngine:
                 'ticks': self._ticks,
                 'prefill_chunks': self._prefill_chunks,
                 'prefill_chunk': self.prefill_chunk,
-                'paged': True,
+                'pipelined': self.pipelined,
+                'paged': self._kv is not None,
+                'decode_kernel': self.decode_kernel,
                 'quantize_kv': self.quantize_kv,
                 'spec_tokens': self.spec_tokens,
+                'weight_epoch': self._weight_epoch,
                 'deadline_reaped': self._deadline_reaped,
-                'pages_exhausted_deferrals': self._page_deferrals,
                 'device': str(self.device),
             }
             if self.spec_tokens:
@@ -230,8 +521,11 @@ class ContinuousBatchingEngine:
                     round((self._spec_accepted + self._spec_slot_ticks) /
                           self._spec_slot_ticks, 3)
                     if self._spec_slot_ticks else None)
+            if self._kv is not None:
+                stats['pages_exhausted_deferrals'] = self._page_deferrals
         stats.update(self._queue.stats())
-        stats.update(self._kv.stats())
+        if self._kv is not None:
+            stats.update(self._kv.stats())
         stats['decode_tokens_per_s'] = round(self._decode_rate(), 3)
         return stats
 
@@ -247,9 +541,9 @@ class ContinuousBatchingEngine:
                     RuntimeError('batching engine stopped'))
                 slot.request = None
             slot.drafter = None
-        self._kv.release_all()
-
-    # ------------------------------------------------------------ metrics
+        if self._kv is not None:
+            self._kv.release_all()
+        self._drain_host_ops()   # stop is set: queued ops error out
 
     def _record_tokens(self, n: int) -> None:
         now = time.monotonic()
@@ -277,6 +571,11 @@ class ContinuousBatchingEngine:
         return list(row) + [0] * (self.max_len // self._kv.page_size -
                                   len(row))
 
+    def _set_length(self, slot_id: int, length: int) -> None:
+        """Dense cache: the slot's depth (stale keys past it are masked
+        and overwritten by its own steps)."""
+        self._cache['lengths'][slot_id] = int(length)
+
     def _start_admission(self, slot_id: int, request: scheduler.Request
                          ) -> Optional[scheduler.PendingPrefill]:
         """Begin admitting `request` into `slot_id`: a PendingPrefill
@@ -285,23 +584,56 @@ class ContinuousBatchingEngine:
         slot = self._slots[slot_id]
         prompt = request.prompt_ids
         n = len(prompt)
-        plan = self._kv.plan_admission(prompt, request.max_new_tokens)
-        request.prefix_hit_pages = plan.prefix_hit_pages
-        self._kv.commit(slot_id, plan)
+        plan = None
+        if self._kv is not None:
+            plan = self._kv.plan_admission(prompt, request.max_new_tokens)
+            request.prefix_hit_pages = plan.prefix_hit_pages
+            self._kv.commit(slot_id, plan)
         self._queue.record_admission(request)
-        if n <= 1 or plan.n_reuse_tokens >= n - 1:
+        if n <= 1 or (plan is not None and plan.n_reuse_tokens >= n - 1):
             # Nothing to prefill: a one-token prompt, or a full prefix
             # hit (the prefilled region [0, n-1) is entirely cached).
             length = 0 if n <= 1 else n - 1
-            decode.paged_admit_slot(self._cache, slot_id,
-                                    self._pad_row(plan.row), length)
+            if plan is not None:
+                decode.paged_admit_slot(self._cache, slot_id,
+                                        self._pad_row(plan.row), length)
+            else:
+                self._set_length(slot_id, length)
             slot.request = request
             self._activate(slot_id, request, int(prompt[-1]))
             return None
         slot.request = request
         pending = scheduler.PendingPrefill(slot_id, request, n - 1)
         pending.plan = plan
+        pending.weight_epoch = self._weight_epoch
         return pending
+
+    def _prefill_piece(self, prompt_ids: List[int],
+                       cache: Optional[Dict[str, Any]], consumed: int,
+                       n_target: int) -> Tuple[Dict[str, Any], int]:
+        """Prefill the next chunk of tokens [consumed, n_target) into a
+        private cache; returns (cache, new consumed)."""
+        chunk = self.prefill_chunk
+        if cache is None:
+            # Chunk 0: flash prefill of the bucket-padded first piece.
+            take = min(n_target, chunk)
+            bucket = min(self._bucket(take), self.max_len)
+            _, cache = decode.prefill(
+                self.cfg, self.model,
+                self._tokens_tensor(prompt_ids[:take], bucket),
+                max_len=self.max_len)
+        else:
+            # Chunk i > 0: masked continuation at index = consumed.  The
+            # width (power-of-two bucket, capped at the chunk and at
+            # max_len - consumed) keeps every write inside the cache.
+            take = min(n_target - consumed, chunk)
+            width = min(self._bucket(take), chunk, self.max_len - consumed)
+            _, cache = decode.prefill_chunk(
+                self.cfg, self.model,
+                self._tokens_tensor(prompt_ids[consumed:consumed + take],
+                                    width), cache)
+        cache['index'] = consumed + take
+        return cache, consumed + take
 
     def _advance_prefill(self, pending: scheduler.PendingPrefill) -> bool:
         """Run ONE chunk of a pending prefill; True when it completed
@@ -318,62 +650,47 @@ class ContinuousBatchingEngine:
             self._slots[pending.slot_id].request = None
             self._release_slot_pages(pending.slot_id)
             return True
-        n_target = pending.n_target
-        chunk = self.prefill_chunk
         plan = pending.plan
-        if pending.cache is None and plan.n_reuse_tokens > 0:
+        if (pending.cache is None and plan is not None and
+                plan.n_reuse_tokens > 0):
             # Prefix hit: positions [0, reuse) come from the pool.
             pending.cache = decode.paged_seed_private(
                 self.cfg, self._cache, plan.reuse_pages,
                 priv_len=self.max_len)
             pending.consumed = plan.n_reuse_tokens
             return False
-        if pending.cache is None:
-            # Chunk 0: flash prefill of the bucket-padded first piece.
-            take = min(n_target, chunk)
-            bucket = min(self._bucket(take), self.max_len)
-            _, pending.cache = decode.prefill(
-                self.cfg, self.model,
-                self._tokens_tensor(request.prompt_ids[:take], bucket),
-                max_len=self.max_len)
-            pending.cache['index'] = take
-            pending.consumed = take
-        else:
-            # Chunk i > 0: masked continuation at index = consumed.  The
-            # width (power-of-two bucket, capped at the chunk and at
-            # max_len - start) keeps every write inside the cache.
-            start = pending.consumed
-            take = min(n_target - start, chunk)
-            width = min(self._bucket(take), chunk, self.max_len - start)
-            _, pending.cache = decode.prefill_chunk(
-                self.cfg, self.model,
-                self._tokens_tensor(
-                    request.prompt_ids[start:start + take], width),
-                pending.cache)
-            pending.cache['index'] = start + take
-            pending.consumed = start + take
+        pending.cache, pending.consumed = self._prefill_piece(
+            request.prompt_ids, pending.cache, pending.consumed,
+            pending.n_target)
         with self._metrics_lock:
             self._prefill_chunks += 1
-        if pending.consumed < n_target:
+        if pending.consumed < pending.n_target:
             return False
         return self._finish_prefill(pending)
 
     def _finish_prefill(self, pending: scheduler.PendingPrefill) -> bool:
-        """Scatter the fresh prompt pages into the pool, point the block
-        table at the full row, publish the pages for prefix reuse, and
-        join the next tick at length n-1."""
+        """Adopt the private cache (paged: scatter the fresh prompt
+        pages, point the block table at the full row, publish the pages
+        for prefix reuse; dense: copy it into the slot) and join the
+        next tick at length n-1."""
         request = pending.request
         plan = pending.plan
-        ps = self._kv.page_size
-        r = len(plan.reuse_pages)
-        n_prompt_pages = -(-pending.n_target // ps)
-        decode.insert_prefill_pages(self._cache, pending.cache,
-                                    plan.row[r:n_prompt_pages],
-                                    first_page=r)
+        if plan is not None:
+            ps = self._kv.page_size
+            r = len(plan.reuse_pages)
+            n_prompt_pages = -(-pending.n_target // ps)
+            decode.insert_prefill_pages(self._cache, pending.cache,
+                                        plan.row[r:n_prompt_pages],
+                                        first_page=r)
+            decode.paged_admit_slot(self._cache, pending.slot_id,
+                                    self._pad_row(plan.row),
+                                    pending.n_target)
+            if pending.weight_epoch == self._weight_epoch:
+                self._kv.register_prefix(plan)
+        else:
+            decode.insert_prefill(self._cache, pending.slot_id,
+                                  pending.cache, pending.n_target)
         pending.cache = None
-        decode.paged_admit_slot(self._cache, pending.slot_id,
-                                self._pad_row(plan.row), pending.n_target)
-        self._kv.register_prefix(plan)
         self._activate(pending.slot_id, request,
                        int(request.prompt_ids[-1]))
         return True
@@ -394,7 +711,10 @@ class ContinuousBatchingEngine:
         self._state = dict(self._state, active=active)
 
     def _release_slot_pages(self, slot_id: int) -> None:
-        """Park the slot's table on the null page, THEN free its pages."""
+        """Paged: park the slot's table on the null page, THEN free its
+        pages."""
+        if self._kv is None:
+            return
         decode.paged_release_slot(self._cache, slot_id)
         self._kv.release(slot_id)
 
@@ -450,13 +770,25 @@ class ContinuousBatchingEngine:
         try:
             if self.device.type == 'cuda':
                 torch.cuda.set_device(self.device)
-            with torch.no_grad():
-                self._run_pipelined()
+            with torch.cuda.stream(self.stream), torch.no_grad():
+                if self.pipelined:
+                    self._run_pipelined()
+                else:
+                    self._run_legacy()
         except Exception as e:  # pylint: disable=broad-except
-            # The pool may be half-written: fail everything in flight,
+            # The cache may be half-written: fail everything in flight,
             # refuse new submits, and exit the worker.
             logger.exception('batching engine tick failed')
             self._fail_everything(e)
+
+    def _idle_wait(self) -> None:
+        """Sleep until a submit, a host op or stop (at most 50 ms)."""
+        with self._cond:
+            with self._host_ops_lock:
+                ops_waiting = bool(self._host_ops)
+            if (not len(self._queue) and not ops_waiting and
+                    not self._stop.is_set()):
+                self._cond.wait(timeout=0.05)
 
     def _run_pipelined(self) -> None:
         # One in-flight tick: (state, finished, [(slot, request)]),
@@ -467,6 +799,7 @@ class ContinuousBatchingEngine:
         live: Dict[int, scheduler.Request] = {}
         while not self._stop.is_set():
             self._queue.expire_stale()
+            self._drain_host_ops()
             # Cancelled or deadline-expired live requests: freeze their
             # slots on device before the next dispatch, free their pages.
             now = time.monotonic()
@@ -516,10 +849,9 @@ class ContinuousBatchingEngine:
             if live and self.spec_tokens:
                 self._spec_tick(live)   # synchronous: nothing in flight
             elif live:
-                self._state, self._cache, finished = (
-                    decode.paged_engine_step(
-                        self.cfg, self.model, self._state, self._cache,
-                        max_top_k=self.max_top_k))
+                self._state, self._cache, finished = self._step(
+                    self.cfg, self.model, self._state, self._cache,
+                    max_top_k=self.max_top_k)
                 dispatched = (self._state, finished, list(live.items()))
             if inflight is not None:
                 state_t, finished_t, snapshot = inflight
@@ -543,9 +875,100 @@ class ContinuousBatchingEngine:
                 if deferred:
                     time.sleep(0.005)
                 else:
-                    with self._cond:
-                        if not len(self._queue) and not self._stop.is_set():
-                            self._cond.wait(timeout=0.05)
+                    self._idle_wait()
+
+    # --------------------------------------------------- legacy worker
+
+    def _admit_legacy(self, slot_id: int,
+                      request: scheduler.Request) -> None:
+        """Un-pipelined admission: the WHOLE prompt prefills inline (one
+        stall for every running request).  Dense cache only."""
+        if request.cancelled:
+            request._finish()  # pylint: disable=protected-access
+            return
+        slot = self._slots[slot_id]
+        prompt = request.prompt_ids
+        n = len(prompt)
+        if n > 1:
+            bucket = min(self._bucket(n - 1), self.max_len)
+            _, pre = decode.prefill(
+                self.cfg, self.model,
+                self._tokens_tensor(prompt[:-1], bucket),
+                max_len=self.max_len)
+            decode.insert_prefill(self._cache, slot_id, pre, n - 1)
+        else:
+            self._set_length(slot_id, 0)
+        slot.request = request
+        slot.next_token = int(prompt[-1])
+
+    def _tick_legacy(self) -> None:
+        """Un-pipelined tick: per-slot token staging, one host sync per
+        generated token, greedy only."""
+        for slot in self._slots:
+            request = slot.request
+            if request is None:
+                continue
+            if request.cancelled:
+                slot.request = None
+                request._finish()  # pylint: disable=protected-access
+            elif request.deadline_exceeded():
+                slot.request = None
+                with self._metrics_lock:
+                    self._deadline_reaped += 1
+                request._finish(DeadlineExceeded(  # pylint: disable=protected-access
+                    'request deadline passed mid-generation'))
+        active = [i for i, s in enumerate(self._slots) if s.active]
+        if not active:
+            return
+        tokens = self._tokens.clone()
+        for i in active:
+            tokens[i, 0] = self._slots[i].next_token
+        logits, self._cache = decode.batched_step(self.cfg, self.model,
+                                                  tokens, self._cache)
+        nxt = torch.argmax(logits, dim=-1).tolist()   # the host sync
+        for i in active:
+            slot = self._slots[i]
+            request = slot.request
+            token = int(nxt[i])
+            request._push(token)  # pylint: disable=protected-access
+            if (len(request.tokens) >= request.max_new_tokens or
+                    token in request.stop_ids):
+                slot.request = None
+                request._finish()  # pylint: disable=protected-access
+            else:
+                slot.next_token = token
+        self._tokens = tokens
+        self._record_tokens(len(active))
+        with self._metrics_lock:
+            self._ticks += 1
+
+    def _run_legacy(self) -> None:
+        while not self._stop.is_set():
+            self._queue.expire_stale()
+            self._drain_host_ops()
+            idle = not any(s.active for s in self._slots)
+            for slot_id in [i for i, s in enumerate(self._slots)
+                            if not s.active]:
+                request = self._pop_admitted()
+                if request is None and idle:
+                    self._idle_wait()
+                    request = self._pop_admitted()
+                if request is None:
+                    break
+                try:
+                    self._admit_legacy(slot_id, request)
+                    idle = False
+                except Exception as e:  # pylint: disable=broad-except
+                    request._finish(e)  # pylint: disable=protected-access
+            self._tick_legacy()
+
+    def _pop_admitted(self) -> Optional[scheduler.Request]:
+        request = self._queue.pop()
+        if request is not None:
+            self._queue.record_admission(request)
+        return request
+
+    # ------------------------------------------------------------ failure
 
     def _fail_everything(self, e: Exception) -> None:
         self._failed = e
@@ -558,4 +981,6 @@ class ContinuousBatchingEngine:
             slot.drafter = None
         self._queue.drain(
             lambda: RuntimeError(f'batching engine failed: {e}'))
-        self._kv.release_all()
+        if self._kv is not None:
+            self._kv.release_all()
+        self._drain_host_ops()   # stop is set: queued ops error out

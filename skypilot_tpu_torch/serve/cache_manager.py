@@ -12,14 +12,16 @@ journal and chaos hooks).
   the cached pages instead of re-prefilling them; LRU-evicted under
   pressure.  Shared pages are never written.
 - `PagedKVManager`: what the engine talks to (plan an admission, track
-  slot ownership, release on every completion path).
+  slot ownership, release on every completion path), plus what a KV
+  handoff needs: how deep an import is already cached, fresh pages to
+  stage it in, and the hottest entries for a prefix export.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import threading
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 NULL_PAGE = 0
 
@@ -153,6 +155,11 @@ class PrefixCache:
     def __len__(self) -> int:
         return len(self._entries)
 
+    def contains(self, h: int) -> bool:
+        """Membership probe (no incref, no LRU touch): a KV import skips
+        pages already resident."""
+        return h in self._entries
+
     def match(self, hashes: Sequence[int]) -> List[int]:
         """Longest chain of cached pages; matched pages are incref'd."""
         pages: List[int] = []
@@ -195,6 +202,13 @@ class PrefixCache:
     def evictable(self) -> int:
         return sum(1 for page in self._entries.values()
                    if self._pool.refcount(page) == 0)
+
+    def hot_entries(self, n: int) -> List[Tuple[int, int]]:
+        """The n most recently used (hash, page) entries.  Each entry is
+        an independent hash -> page mapping, so any subset transfers
+        (the drain-time prefix export)."""
+        items = list(self._entries.items())
+        return items[-n:] if n > 0 else []
 
     def clear(self) -> None:
         for h in list(self._entries):
@@ -265,8 +279,35 @@ class PagedKVManager:
             self.prefix.evict(shortfall)
         return self.pool.alloc(n)
 
+    def alloc_pages(self, n: int) -> List[int]:
+        """n fresh pages (evicting idle prefix entries under pressure);
+        raises PagesExhausted.  A KV import stages its pages here before
+        publishing them."""
+        return self._alloc_with_eviction(n)
+
+    def import_prefix_depth(self, hashes: Sequence[int]) -> int:
+        """Longest leading run of `hashes` already in the prefix cache:
+        an import skips those pages (a chain hash can only be cached if
+        every earlier one was, so the run stops at the first miss)."""
+        depth = 0
+        for h in hashes:
+            if not self.prefix.contains(h):
+                break
+            depth += 1
+        return depth
+
     def commit(self, slot: int, plan: AdmissionPlan) -> None:
         self._slot_pages[slot] = list(plan.row)
+
+    def slot_row(self, slot: int) -> Optional[List[int]]:
+        """The page row a slot owns (None before commit)."""
+        pages = self._slot_pages.get(slot)
+        return list(pages) if pages is not None else None
+
+    def abandon(self, plan: AdmissionPlan) -> None:
+        """Drop a plan that never reached a slot."""
+        if plan.row:
+            self.pool.decref(plan.row)
 
     def register_prefix(self, plan: AdmissionPlan) -> None:
         """Publish the plan's freshly written FULL prompt pages."""

@@ -1,6 +1,6 @@
 """HTTP routes and headers of the port's replica front (copied from
-`skypilot_tpu/serve/http_protocol.py`; the other routes of the
-reference come with later slices)."""
+`skypilot_tpu/serve/http_protocol.py`; /metrics, /spans, /drain,
+/role_budget, /profile and /logs come with later slices)."""
 from __future__ import annotations
 
 REQUEST_ID_HEADER = 'X-SkyTPU-Request-Id'
@@ -8,4 +8,10 @@ DEADLINE_HEADER = 'X-SkyTPU-Deadline-Ms'
 
 HEALTH = '/health'                    # GET: health/readiness payload
 GENERATE = '/generate'                # POST: batch token generation
+GENERATE_STREAM = '/generate_stream'  # POST: SSE token stream
+GENERATE_TEXT = '/generate_text'      # POST: text in/out (tokenizer)
+PREFILL_EXPORT = '/prefill_export'    # POST: KV handoff, prefill side
+KV_IMPORT = '/kv_import'              # POST: KV handoff, decode side
+PREFIX_EXPORT = '/prefix_export'      # POST: drain-time sibling handoff
+WEIGHTS_SWAP = '/weights_swap'        # POST: live checkpoint swap
 # Any other GET answers the health payload (the probe path).

@@ -1,9 +1,9 @@
 """Model server of the port: `ModelServer` + a threaded HTTP front
-(mirrors `skypilot_tpu/serve/model_server.py`, the /health and
-/generate routes with the same JSON).
+(mirrors `skypilot_tpu/serve/model_server.py`: the routes below, with
+the same JSON, status codes and error mapping).
 
     python -m skypilot_tpu_torch.serve.model_server --model llama3-8b \
-        --continuous-batching --kv-pages 1024
+        --continuous-batching [--kv-pages 1024]
 
 - GET /health (and any other GET): {'status', 'model', 'device',
   'weight_version', 'engine': stats}; 503 once the engine failed.
@@ -12,9 +12,27 @@
   'latency_ms'}.  400 for a malformed body, 429 + Retry-After when the
   admission queue or the page pool is full, 503 + Retry-After when the
   request expired queued, 504 past its deadline, 500 otherwise.
+- POST /generate_stream (one prompt): SSE `data: {"token": N}` per
+  token, then `data: [DONE]`; 400 without continuous batching.
+- POST /generate_text {'prompt': str, 'max_new_tokens', 'stream'}:
+  text through the byte tokenizer, {'completion', 'tokens', ...}, or
+  with 'stream' SSE `data: {"text": delta}` (UTF-8-safe) then [DONE].
+- POST /prefill_export {'prompt_ids', 'page_size', 'wire'}: the KV
+  handoff's prefill side (serve/handoff.py JSON, or the binary frame
+  for {'wire': 'binary'} or Accept: application/octet-stream).
+- POST /kv_import (the JSON payload, or the frame as
+  application/octet-stream) -> {'imported_pages', 'cached_pages'}; 429
+  when the pool cannot hold the pages now, 400 on a mismatch.
+- POST /prefix_export {'max_pages', 'wire'}: the hottest cached pages;
+  404 when there are none.
+- POST /weights_swap {'checkpoint_dir'}: 400 with the reason, since no
+  checkpoint can be restored yet (orbax restore comes with a later
+  slice); `ContinuousBatchingEngine.swap_params` is the engine half.
+  `weight_version` follows the engine's weight epoch.
 
-Weights are seeded random values made on the device (`init_params`);
-checkpoint loading comes with a later slice of the port.
+Weights are seeded random values made on the device (`init_params`),
+or a given Transformer (`params`, e.g. one model shared by two
+servers); checkpoint loading comes with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -23,6 +41,7 @@ import json
 import logging
 import threading
 import time
+import uuid
 from http.server import BaseHTTPRequestHandler
 from http.server import ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Union
@@ -35,6 +54,7 @@ from skypilot_tpu_torch.models import decode
 from skypilot_tpu_torch.models import tokenizer as tokenizer_lib
 from skypilot_tpu_torch.models.transformer import init_params
 from skypilot_tpu_torch.serve import batching_engine as batching_engine_lib
+from skypilot_tpu_torch.serve import handoff as handoff_lib
 from skypilot_tpu_torch.serve import http_protocol
 
 logger = logging.getLogger(__name__)
@@ -56,7 +76,8 @@ class ModelServer:
                  quantize_kv: bool = False,
                  prefix_caching: bool = True,
                  spec_tokens: int = 0,
-                 device: Union[str, torch.device] = 'cuda') -> None:
+                 device: Union[str, torch.device] = 'cuda',
+                 params=None) -> None:
         self.device = resolve_device(device)
         self.cfg = configs.get_config(model)
         self.model_name = model
@@ -66,10 +87,15 @@ class ModelServer:
         self.default_temperature = float(default_temperature)
         self.default_top_k = int(default_top_k)
         self.default_seed = int(default_seed)
-        self.weight_version = 0
-        logger.warning('No checkpoint loading in this port yet; serving '
-                       'FRESH random-init weights (seed %d).', seed)
-        self.params = init_params(self.cfg, seed=seed, device=self.device)
+        if params is None:
+            logger.warning('No checkpoint loading in this port yet; '
+                           'serving FRESH random-init weights (seed %d).',
+                           seed)
+            params = init_params(self.cfg, seed=seed, device=self.device)
+        elif params.cfg != self.cfg or params.device != self.device:
+            raise ValueError(f'params are not a {model} model on '
+                             f'{self.device}')
+        self.params = params
         self._lock = threading.Lock()
         self._engine: Optional[
             batching_engine_lib.ContinuousBatchingEngine] = None
@@ -85,6 +111,27 @@ class ModelServer:
     @property
     def engine(self):
         return self._engine
+
+    @property
+    def weight_version(self) -> int:
+        """The engine's weight epoch (0 without an engine)."""
+        engine = self._engine
+        return 0 if engine is None else engine.weight_epoch
+
+    def weights_swap(self, req: Dict[str, Any]) -> Dict[str, Any]:
+        """POST /weights_swap: the reference restores the latest
+        checkpoint under `checkpoint_dir` and swaps it into the engine.
+        This port restores no checkpoints yet, so every request is
+        answered with the reason (HTTP 400)."""
+        if self._engine is None:
+            raise ValueError('live weight swap requires '
+                             '--continuous-batching')
+        checkpoint_dir = req.get('checkpoint_dir')
+        if not checkpoint_dir or not isinstance(checkpoint_dir, str):
+            raise ValueError('weights_swap needs a checkpoint_dir')
+        raise ValueError(f'no checkpoint under {checkpoint_dir} can be '
+                         'restored: checkpoint loading comes with a later '
+                         'slice of the port')
 
     def close(self) -> None:
         """Stop the batching engine's worker; safe to call twice."""
@@ -206,25 +253,82 @@ def _make_handler(server: ModelServer):
             self._reply(200 if payload['status'] == 'ok' else 503,
                         payload)
 
-        def do_POST(self):
-            path = self.path.partition('?')[0]
-            if path != http_protocol.GENERATE:
-                self._read_body()
-                self._reply(404, {'error': 'unknown path'})
-                return
-            rid = self.headers.get(http_protocol.REQUEST_ID_HEADER)
-            try:
-                req = json.loads(self._read_body() or b'{}')
-                if not isinstance(req, dict):
-                    raise ValueError('body must be a JSON object')
-                t0 = time.perf_counter()
-                tokens = server.generate(
-                    req['prompt_ids'], int(req.get('max_new_tokens', 16)),
-                    float(req.get('temperature',
+        def _read_json(self) -> Dict[str, Any]:
+            req = json.loads(self._read_body() or b'{}')
+            if not isinstance(req, dict):
+                raise ValueError('body must be a JSON object')
+            return req
+
+        def _sampling(self, req: Dict[str, Any]):
+            """(temperature, top_k, seed): the request's, else the
+            server's defaults."""
+            return (float(req.get('temperature',
                                   server.default_temperature)),
                     int(req.get('top_k', server.default_top_k)),
-                    seed=int(req.get('seed', server.default_seed)),
-                    request_id=rid, deadline_ms=self._deadline_ms())
+                    int(req.get('seed', server.default_seed)))
+
+        def _request_id(self) -> str:
+            return (self.headers.get(http_protocol.REQUEST_ID_HEADER) or
+                    uuid.uuid4().hex[:16])
+
+        def _reply_bytes(self, payload: bytes) -> None:
+            self.send_response(200)
+            self.send_header('Content-Type',
+                             handoff_lib.CONTENT_TYPE_BINARY)
+            self.send_header('Content-Length', str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def _wants_binary(self, req: Dict[str, Any]) -> bool:
+            return (req.get('wire') == 'binary' or
+                    handoff_lib.CONTENT_TYPE_BINARY in
+                    (self.headers.get('Accept') or ''))
+
+        def _start_sse(self, rid: str) -> None:
+            self.send_response(200)
+            self.send_header('Content-Type', 'text/event-stream')
+            self.send_header('Cache-Control', 'no-cache')
+            self.send_header('Transfer-Encoding', 'chunked')
+            self.send_header(http_protocol.REQUEST_ID_HEADER, rid)
+            self.end_headers()
+
+        def _sse_chunk(self, data: str) -> None:
+            payload = f'data: {data}\n\n'.encode()
+            self.wfile.write(f'{len(payload):x}\r\n'.encode() + payload +
+                             b'\r\n')
+            self.wfile.flush()
+
+        def _sse_stream(self, request, rid: str, events) -> None:
+            """Answer with the SSE frames `events` yields from the
+            request's token stream, then [DONE]; a client that goes
+            away, or any other failure, cancels the request."""
+            self._start_sse(rid)
+            try:
+                for data in events:
+                    self._sse_chunk(data)
+                self._sse_chunk('[DONE]')
+                self.wfile.write(b'0\r\n\r\n')
+            except (BrokenPipeError, ConnectionResetError):
+                request.cancel()
+            except Exception as e:  # pylint: disable=broad-except
+                request.cancel()
+                try:
+                    self._sse_chunk(json.dumps(
+                        {'error': f'{type(e).__name__}: {e}'}))
+                    self.wfile.write(b'0\r\n\r\n')
+                except (BrokenPipeError, ConnectionResetError, OSError):
+                    pass
+
+        def _generate(self):
+            rid = self.headers.get(http_protocol.REQUEST_ID_HEADER)
+            try:
+                req = self._read_json()
+                t0 = time.perf_counter()
+                temperature, top_k, seed = self._sampling(req)
+                tokens = server.generate(
+                    req['prompt_ids'], int(req.get('max_new_tokens', 16)),
+                    temperature, top_k, seed=seed, request_id=rid,
+                    deadline_ms=self._deadline_ms())
                 headers = ({http_protocol.REQUEST_ID_HEADER: rid}
                            if rid else None)
                 self._reply(200, {
@@ -242,6 +346,225 @@ def _make_handler(server: ModelServer):
                 # connection.
                 if not self._reply_backpressure(e):
                     self._reply(500, {'error': f'{type(e).__name__}: {e}'})
+
+        def _generate_stream(self):
+            """SSE token stream of one prompt (continuous batching)."""
+            try:
+                req = self._read_json()
+                prompt = req['prompt_ids']
+                if (isinstance(prompt, list) and prompt and
+                        isinstance(prompt[0], list)):
+                    if len(prompt) != 1:
+                        raise ValueError(
+                            'streaming serves one prompt per request')
+                    prompt = prompt[0]
+                if server.engine is None:
+                    self._reply(400, {'error': 'streaming requires '
+                                               '--continuous-batching'})
+                    return
+                temperature, top_k, seed = self._sampling(req)
+                rid = self._request_id()
+                request = server.engine.submit(
+                    [int(t) for t in prompt],
+                    int(req.get('max_new_tokens', 16)),
+                    stop_token=req.get('stop_token'),
+                    sampling=decode.SamplingConfig(
+                        temperature=temperature, top_k=top_k, seed=seed),
+                    request_id=rid, deadline_ms=self._deadline_ms())
+            except (KeyError, ValueError, TypeError,
+                    json.JSONDecodeError) as e:
+                self._reply(400, {'error': str(e)})
+                return
+            except Exception as e:  # pylint: disable=broad-except
+                # A stopped or failed engine (503) or a full queue (429).
+                if not self._reply_backpressure(e):
+                    self._reply(503, {'error': f'{type(e).__name__}: {e}'})
+                return
+            self._sse_stream(request, rid, (
+                json.dumps({'token': token})
+                for token in request.stream(timeout=600)))
+
+        def _generate_text(self):
+            """Text in, text out through the server's tokenizer; with
+            {"stream": true} SSE {"text": delta} events."""
+            try:
+                tok = server.tokenizer
+                if server.cfg.vocab_size < tok.vocab_size:
+                    raise ValueError(
+                        f'model vocab {server.cfg.vocab_size} < '
+                        f'tokenizer vocab {tok.vocab_size}: checkpoint '
+                        'and tokenizer do not match')
+                req = self._read_json()
+                text = req['prompt']
+                if not isinstance(text, str) or not text:
+                    raise ValueError('prompt must be a non-empty string')
+                ids = tok.encode(text, add_bos=True)
+                if not ids:
+                    raise ValueError('prompt tokenized to nothing')
+                rid = self._request_id()
+                temperature, top_k, seed = self._sampling(req)
+                max_new = int(req.get('max_new_tokens', 64))
+                if req.get('stream'):
+                    if server.engine is None:
+                        self._reply(400, {'error': 'streaming requires '
+                                                   '--continuous-batching'})
+                        return
+                    request = server.engine.submit(
+                        ids, max_new, stop_token=tok.eos_ids or None,
+                        sampling=decode.SamplingConfig(
+                            temperature=temperature, top_k=top_k,
+                            seed=seed),
+                        request_id=rid, deadline_ms=self._deadline_ms())
+                    self._sse_stream(request, rid,
+                                     self._text_events(tok, request))
+                    return
+                t0 = time.perf_counter()
+                tokens = server.generate(
+                    [ids], max_new, temperature, top_k,
+                    stop_token=tok.eos_ids or None, seed=seed,
+                    request_id=rid, deadline_ms=self._deadline_ms())[0]
+                stops = [i for i, t in enumerate(tokens)
+                         if t in tok.eos_ids]
+                if stops:
+                    tokens = tokens[:stops[0]]
+                self._reply(200, {
+                    'completion': tok.decode(tokens),
+                    'tokens': tokens,
+                    'weight_version': server.weight_version,
+                    'latency_ms': round(
+                        (time.perf_counter() - t0) * 1e3, 1),
+                }, {http_protocol.REQUEST_ID_HEADER: rid})
+            except (KeyError, ValueError, TypeError,
+                    json.JSONDecodeError) as e:
+                self._reply(400, {'error': str(e)})
+            except Exception as e:  # pylint: disable=broad-except
+                if not self._reply_backpressure(e):
+                    self._reply(500, {'error': f'{type(e).__name__}: {e}'})
+
+        @staticmethod
+        def _text_events(tok, request):
+            """{"text": delta} per token up to the tokenizer's EOS,
+            skipping tokens inside a multi-byte sequence."""
+            decoder = tokenizer_lib.StreamDecoder(tok)
+            for token in request.stream(timeout=600):
+                if token in tok.eos_ids:
+                    break
+                delta = decoder.push(token)
+                if delta:
+                    yield json.dumps({'text': delta})
+            tail = decoder.finish()
+            if tail:
+                yield json.dumps({'text': tail})
+
+        def _prefill_export(self):
+            """KV handoff, prefill side: the prompt's full pages as a
+            wire payload (JSON, or the binary frame on request)."""
+            if server.engine is None:
+                self._reply(400, {'error': 'KV handoff requires '
+                                           '--continuous-batching'})
+                return
+            try:
+                req = self._read_json()
+                prompt = req['prompt_ids']
+                if (isinstance(prompt, list) and prompt and
+                        isinstance(prompt[0], list)):
+                    if len(prompt) != 1:
+                        raise ValueError(
+                            'export serves one prompt per request')
+                    prompt = prompt[0]
+                binary = self._wants_binary(req)
+                payload = server.engine.export_prefill(
+                    [int(t) for t in prompt],
+                    page_size=req.get('page_size'), binary=binary)
+                if binary:
+                    self._reply_bytes(payload)
+                else:
+                    self._reply(200, payload)
+            except (handoff_lib.HandoffError, KeyError, ValueError,
+                    TypeError, json.JSONDecodeError) as e:
+                self._reply(400, {'error': str(e)})
+            except Exception as e:  # pylint: disable=broad-except
+                if not self._reply_backpressure(e):
+                    self._reply(500, {'error': f'{type(e).__name__}: {e}'})
+
+        def _kv_import(self):
+            """KV handoff, decode side: adopt exported pages into the
+            pool and the prefix cache (JSON or the binary frame)."""
+            if server.engine is None:
+                self._reply(400, {'error': 'KV handoff requires '
+                                           '--continuous-batching'})
+                return
+            try:
+                ctype = self.headers.get('Content-Type') or ''
+                if handoff_lib.CONTENT_TYPE_BINARY in ctype:
+                    decoded = handoff_lib.decode_binary(self._read_body())
+                else:
+                    decoded = handoff_lib.decode_payload(self._read_json())
+                imported, cached = server.engine.import_pages(
+                    decoded['hashes'], decoded['page_size'],
+                    decoded['k'], decoded['v'],
+                    k_scale=decoded.get('k_scale'),
+                    v_scale=decoded.get('v_scale'))
+                self._reply(200, {'imported_pages': imported,
+                                  'cached_pages': cached})
+            except handoff_lib.HandoffRejected as e:
+                self._reply(503, {'error': str(e),
+                                  'reason': 'kv_handoff_denied'})
+            except (handoff_lib.HandoffError, KeyError, ValueError,
+                    TypeError, json.JSONDecodeError) as e:
+                self._reply(400, {'error': str(e)})
+            except Exception as e:  # pylint: disable=broad-except
+                if not self._reply_backpressure(e):
+                    self._reply(500, {'error': f'{type(e).__name__}: {e}'})
+
+        def _prefix_export(self):
+            """Drain-time sibling handoff: the hottest prefix-cache
+            pages (no prefill runs)."""
+            if server.engine is None:
+                self._reply(400, {'error': 'prefix export requires '
+                                           '--continuous-batching'})
+                return
+            try:
+                req = self._read_json()
+                binary = self._wants_binary(req)
+                payload = server.engine.export_prefix_pages(
+                    max_pages=int(req.get('max_pages', 64)),
+                    binary=binary)
+                if binary:
+                    self._reply_bytes(payload)
+                else:
+                    self._reply(200, payload)
+            except (handoff_lib.HandoffError, KeyError, ValueError,
+                    TypeError, json.JSONDecodeError) as e:
+                self._reply(404, {'error': str(e)})
+            except Exception as e:  # pylint: disable=broad-except
+                if not self._reply_backpressure(e):
+                    self._reply(500, {'error': f'{type(e).__name__}: {e}'})
+
+        def _weights_swap(self):
+            try:
+                self._reply(200, server.weights_swap(self._read_json()))
+            except (KeyError, ValueError, TypeError,
+                    json.JSONDecodeError) as e:
+                self._reply(400, {'error': str(e)})
+            except Exception as e:  # pylint: disable=broad-except
+                self._reply(500, {'error': f'{type(e).__name__}: {e}'})
+
+        def do_POST(self):
+            route = {
+                http_protocol.GENERATE: self._generate,
+                http_protocol.GENERATE_STREAM: self._generate_stream,
+                http_protocol.GENERATE_TEXT: self._generate_text,
+                http_protocol.PREFILL_EXPORT: self._prefill_export,
+                http_protocol.KV_IMPORT: self._kv_import,
+                http_protocol.PREFIX_EXPORT: self._prefix_export,
+                http_protocol.WEIGHTS_SWAP: self._weights_swap,
+            }.get(self.path.partition('?')[0])
+            if route is None:
+                self._read_body()
+                self._reply(404, {'error': 'unknown path'})
+                return
+            route()
 
     return Handler
 
@@ -281,7 +604,7 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument('--max-batch', type=int, default=8)
     parser.add_argument('--continuous-batching', action='store_true',
                         help='Slot-pool scheduling with pipelined ticks '
-                             '(needs --kv-pages).')
+                             '(a dense slot cache unless --kv-pages).')
     parser.add_argument('--kv-pages', type=int, default=None,
                         help='Paged KV cache: a pool of N pages.')
     parser.add_argument('--page-size', type=int, default=16)

@@ -41,8 +41,8 @@ class NgramDrafter:
         return out
 
 
-def validate_sampling(sampling: Optional[Any], *, max_top_k: int
-                      ) -> Tuple[float, int, int]:
+def validate_sampling(sampling: Optional[Any], *, max_top_k: int,
+                      pipelined: bool = True) -> Tuple[float, int, int]:
     """-> (temperature, top_k, seed); raises ValueError on parameters
     the engine cannot honor."""
     temperature, top_k, seed = 0.0, 0, 0
@@ -54,6 +54,9 @@ def validate_sampling(sampling: Optional[Any], *, max_top_k: int
         raise ValueError(f'top_k must be >= 0, got {top_k}')
     if top_k > max_top_k:
         raise ValueError(f'top_k {top_k} > engine max_top_k {max_top_k}')
+    if temperature > 0.0 and not pipelined:
+        raise ValueError('the legacy (pipelined=False) loop serves greedy '
+                         'decoding only')
     return temperature, top_k, seed
 
 

@@ -133,6 +133,7 @@ class Slot:
     def __init__(self) -> None:
         self.request: Optional[Request] = None
         self.drafter = None          # NgramDrafter when spec decoding
+        self.next_token = 0          # the legacy loop's next input
 
     @property
     def active(self) -> bool:
@@ -151,6 +152,7 @@ class PendingPrefill:
         self.consumed = 0
         self.cache: Optional[Dict[str, Any]] = None  # private [*, 1, ..]
         self.plan: Optional[Any] = None   # cache_manager.AdmissionPlan
+        self.weight_epoch = 0             # the engine's epoch at admission
 
 
 class AdmissionQueue:

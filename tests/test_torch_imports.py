@@ -102,13 +102,31 @@ def test_entry_points_default_to_cuda(no_cuda):
 
 
 def test_engine_dense_mode_names_later_slice():
+    """The dense mode serves (tests/test_torch_engine_dense.py); MoE
+    models in it, and checkpoint restores behind /weights_swap, still
+    name a later slice."""
     from skypilot_tpu_torch.models import configs
     from skypilot_tpu_torch.models.transformer import init_params
     from skypilot_tpu_torch.serve import batching_engine
+    from skypilot_tpu_torch.serve import model_server
     cfg = configs.get_config('tiny')
     model = init_params(cfg, seed=0, device='cpu')
+    engine = batching_engine.ContinuousBatchingEngine(cfg, model,
+                                                      device='cpu')
+    try:
+        assert engine.stats()['decode_kernel'] == 'dense'
+    finally:
+        engine.stop()
+    moe = configs.get_config('tiny-moe')
     with pytest.raises(NotImplementedError, match='later slice'):
-        batching_engine.ContinuousBatchingEngine(cfg, model, device='cpu')
+        batching_engine.ContinuousBatchingEngine(moe, model, device='cpu')
+    server = model_server.ModelServer('tiny', continuous_batching=True,
+                                      device='cpu', params=model)
+    try:
+        with pytest.raises(ValueError, match='later slice'):
+            server.weights_swap({'checkpoint_dir': '/nonexistent'})
+    finally:
+        server.close()
 
 
 def test_ops_refuse_other_devices():

@@ -262,10 +262,48 @@ def test_paged_tickets_stay_zero_across_kernels_and_batches(cuda):
                          (8, True), (2, False), (8, False)):
         out = paged_attention.paged_attention(*cases[b, quantized])
         torch.cuda.synchronize()
-        tickets = paged_attention._TICKETS[cuda]  # pylint: disable=protected-access
+        tickets = paged_attention._TICKETS[  # pylint: disable=protected-access
+            cuda, torch.cuda.current_stream(cuda).cuda_stream]
         assert int(tickets.count_nonzero()) == 0, (b, quantized)
         if not quantized:
             assert torch.equal(out, fresh[b]), b
+
+
+def test_paged_launches_on_two_streams_match_one_stream(cuda):
+    """B1 (2 slots) and B2 (8 slots) launched in turn on two streams at
+    once, ten rounds: every output equals, bit for bit, a launch on the
+    current stream alone; each stream counts in its own tickets, and
+    every counter reads 0 after synchronising."""
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    h_q, h_kv, d, ps, rows = 32, 8, 128, 16, 64
+    cases = []
+    for b, quantized, s_q in ((2, False, 1), (8, True, 5)):
+        lengths = [1000 - 53 * i for i in range(b)]
+        k, v = _pool(gen, 1 + b * rows, h_kv, ps, d, torch.bfloat16,
+                     quantized, cuda)
+        q = torch.randn((b, h_q, s_q, d), generator=gen,
+                        device=cuda).to(torch.bfloat16)
+        tables, lens = _paged_tables(lengths, s_q, ps, rows, b)
+        cases.append((q, k, v, tables.to(cuda), lens.to(cuda)))
+    alone = [paged_attention.paged_attention(*case) for case in cases]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    for stream in streams:
+        stream.wait_stream(torch.cuda.current_stream(cuda))
+    outs = [[], []]
+    for _ in range(10):
+        for i, (stream, case) in enumerate(zip(streams, cases)):
+            with torch.cuda.stream(stream):
+                outs[i].append(paged_attention.paged_attention(*case))
+    torch.cuda.synchronize()
+    for i in range(2):
+        for out in outs[i]:
+            assert torch.equal(out, alone[i]), i
+    tickets = paged_attention._TICKETS  # pylint: disable=protected-access
+    mine = [tickets[cuda, s.cuda_stream] for s in streams]
+    assert mine[0].data_ptr() != mine[1].data_ptr()
+    for key, counters in tickets.items():
+        assert int(counters.count_nonzero()) == 0, key
 
 
 @pytest.mark.parametrize('h,h_kv,d', [(16, 8, 64), (32, 8, 128),
@@ -327,17 +365,23 @@ SMALL = configs.ModelConfig(vocab_size=512, d_model=256, n_layers=2,
 PROMPTS = ([3, 1, 4, 1, 5, 9, 2, 6], [7], list(range(5, 40)))
 
 
-@pytest.mark.parametrize('quantize_kv,spec_tokens', [
-    (False, 0), (True, 0), (True, 3)], ids=['paged', 'int8', 'int8-spec'])
-def test_engine_gpu_matches_cpu(cuda, quantize_kv, spec_tokens):
+@pytest.mark.parametrize('quantize_kv,spec_tokens,slots,kv_pages', [
+    (False, 0, 2, 24), (True, 0, 2, 24), (True, 3, 2, 24),
+    (True, 4, 16, 24), (False, 0, 2, None)],
+    ids=['paged', 'int8', 'int8-spec', 'int8-spec-16slots', 'dense'])
+def test_engine_gpu_matches_cpu(cuda, quantize_kv, spec_tokens, slots,
+                                kv_pages):
+    """GPU greedy tokens equal the CPU's; at 16 slots and k = 4 the
+    verify tick has 80 rows, past one 64-row bucket (decode's row
+    blocks)."""
     gpu_model = init_params(SMALL, seed=2, device=cuda)
     cpu_model = convert.from_jax_params(
         SMALL, convert.to_jax_params(gpu_model), device='cpu')
     out = {}
     for model in (gpu_model, cpu_model):
         engine = batching_engine.ContinuousBatchingEngine(
-            SMALL, model, max_len=64, slots=2, prefill_chunk=16,
-            kv_pages=24, page_size=16, quantize_kv=quantize_kv,
+            SMALL, model, max_len=64, slots=slots, prefill_chunk=16,
+            kv_pages=kv_pages, page_size=16, quantize_kv=quantize_kv,
             spec_tokens=spec_tokens if model is gpu_model else 0,
             device=model.device)
         try:
