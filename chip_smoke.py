@@ -52,6 +52,30 @@ Phases (each one that fails makes the script exit non-zero):
    greedy tokens must equal the same int8 engine's with speculation
    off.  Launch counts are zeroed just before and read just after:
    every serving kernel must have run on it.
+   Then, on the same server before it closes, the observability plane
+   in two windows, each with its own launch counts, zeroed just before
+   its requests and read just after its route reads: "observability"
+   on phase 4's bf16 pool (B1, B3), then "observability (int8 pool)" on
+   a second server with an int8 pool over the same weights (B2, B3).
+   Each window: 6 concurrent /generate requests with client-chosen
+   X-SkyTPU-Request-Ids (each echoed).
+   /metrics parses, and once the engine is idle its ticks and decode
+   tokens grew by what engine.stats() counted, the TTFT histogram by 6;
+   /spans holds one engine segment per id (status ok, TTFT within the
+   duration, queue -> prefill -> decode in order without overlap,
+   tokens as returned); /profile a non-empty ring of the reference's
+   phases, each tick's phases within its duration, memory within the
+   allocator's peak; /logs one access record per id.  After the
+   windows, in this thread on identical inputs (clones of one cache
+   and state), the sentinel-wrapped step and prefill between
+   begin_tick / lap / end_tick launch the bare entries' kernels
+   (`serve/plane_check.py`: per-call kernel-name multisets from
+   torch.profiler and B1/B2/B3 counts equal).  Then an
+   engine with SKYTPU_PROFILE_DISABLE=1 on the same weights gives the
+   same greedy tokens as the server's engine on two prompt sets new to
+   both (off, on, on, off).  The host ms a tick of each, the tick
+   profile and the plane's modeled cost are printed, never held: which
+   ticks admit or prefill is up to the worker thread's timing.
 5. More serving paths on the same 8B weights, each with its own launch
    counts, zeroed just before it and read just after:
    - "spec beyond one bucket": the int8 + spec engine at 16 slots,
@@ -108,8 +132,9 @@ Phases (each one that fails makes the script exit non-zero):
 The line before the last is the `kernels` JSON: each kernel's
 `launches` is its count on the path `path` names (serving for B1/B2,
 training for B3/B4/B5), and `launches_by_path` holds every driven
-path's own count (serving, the four paths of phase 5, training,
-`train_llama small`), each path zeroed just before it and read just
+path's own count (serving, the two observability windows, the four
+paths of phase 5,
+training, `train_llama small`), each path zeroed just before it and read just
 after.  B3's entry carries the
 512-token chunk under `serving_chunk`, B1's and B2's the full batch
 under `full_batch`, and B1's and B2's their split span in pages,
@@ -585,14 +610,26 @@ def check_flash_bwd(dev):
 # ------------------------------------------------------------ phase 4
 
 
+def http_call(port, path, rid=None, body=None):
+    """(status, echoed X-SkyTPU-Request-Id, body bytes) of a GET, or of
+    a JSON POST when `body` is given."""
+    from skypilot_tpu_torch.serve import http_protocol
+    headers = {http_protocol.REQUEST_ID_HEADER: rid} if rid else {}
+    data = None
+    if body is not None:
+        headers['Content-Type'] = 'application/json'
+        data = json.dumps(body).encode()
+    req = urllib.request.Request(f'http://127.0.0.1:{port}{path}',
+                                 data=data, headers=headers)
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return (resp.status, resp.headers.get(
+            http_protocol.REQUEST_ID_HEADER), resp.read())
+
+
 def post(port, body):
     from skypilot_tpu_torch.serve import http_protocol
-    req = urllib.request.Request(
-        f'http://127.0.0.1:{port}{http_protocol.GENERATE}',
-        data=json.dumps(body).encode(),
-        method='POST', headers={'Content-Type': 'application/json'})
-    with urllib.request.urlopen(req, timeout=600) as resp:
-        return resp.status, json.loads(resp.read())
+    status, _, raw = http_call(port, http_protocol.GENERATE, body=body)
+    return status, json.loads(raw)
 
 
 def prompt(seed, n, vocab):
@@ -707,16 +744,226 @@ def reference_check(dev):
     return err
 
 
+# ---------------------------------------- phase 4, the observability plane
+
+
+def family(parsed, name) -> float:
+    """Sum of a parsed exposition family over its label sets."""
+    return sum(parsed.get(name, {}).values())
+
+
+def burst(engine, prompts, new_tokens):
+    """Submit every prompt at once; (tokens, wall s, ticks) once the
+    engine has read its last tick."""
+    from skypilot_tpu_torch.serve import plane_check
+    plane_check.settle(engine)
+    ticks0 = engine.stats()['ticks']
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, new_tokens) for p in prompts]
+    out = [list(r.result(timeout=600)) for r in reqs]
+    wall = time.perf_counter() - t0
+    plane_check.settle(engine)
+    return out, wall, engine.stats()['ticks'] - ticks0
+
+
+def route_window(server, dev, prompts, ids, new_tokens, counters):
+    """One window of the plane on `server`, over HTTP with client-chosen
+    request ids: /metrics (deltas equal the engine's own), /spans (one
+    ordered engine segment per id), /profile (phases of the vocabulary,
+    each tick's phases within its duration, the memory watermark within
+    the allocator's peak), /logs (one access record per id).  The launch
+    counts are zeroed just before the requests and read just after the
+    route reads, so they are this window's own."""
+    import torch
+    from skypilot_tpu_torch.observability import metrics
+    from skypilot_tpu_torch.observability import profiling
+    from skypilot_tpu_torch.serve import http_protocol
+    from skypilot_tpu_torch.serve import model_server
+    from skypilot_tpu_torch.serve import plane_check
+    engine = server.engine
+    port, stop = model_server.start_background(server)
+    try:
+        plane_check.settle(engine)
+        before = metrics.parse_exposition(
+            http_call(port, http_protocol.METRICS)[2].decode())
+        stats0 = engine.stats()
+        replies = {}
+
+        def run(p, rid):
+            replies[rid] = http_call(port, http_protocol.GENERATE, rid, {
+                'prompt_ids': [p], 'max_new_tokens': new_tokens})
+        threads = [threading.Thread(target=run, args=(p, rid))
+                   for p, rid in zip(prompts, ids)]
+        zero_counts(counters)
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        plane_check.settle(engine)
+        status, echoed, body = http_call(port, http_protocol.METRICS,
+                                         f'{ids[0]}-scrape')
+        after = metrics.parse_exposition(body.decode())
+        stats1 = engine.stats()
+        spans = {rid: json.loads(http_call(
+            port, f'{http_protocol.SPANS}?request_id={rid}')[2])['segments']
+                 for rid in ids}
+        payload = json.loads(http_call(port, http_protocol.PROFILE)[2])
+        peak = torch.cuda.max_memory_allocated(dev)
+        records = {rid: json.loads(http_call(
+            port, f'{http_protocol.LOGS}?request_id={rid}')[2])['records']
+                   for rid in ids}
+        launches = read_counts(counters)
+    finally:
+        stop()
+    if status != 200 or echoed != f'{ids[0]}-scrape':
+        raise AssertionError(f'/metrics {status}, echoed {echoed}')
+    tokens = {}
+    for rid in ids:
+        code, echoed, body = replies[rid]
+        if code != 200 or echoed != rid:
+            raise AssertionError(f'/generate {rid}: {code}, echoed {echoed}')
+        tokens[rid] = json.loads(body)['tokens'][0]
+    for name, key in (('skytpu_engine_ticks_total', 'ticks'),
+                      ('skytpu_engine_decode_tokens_total',
+                       'tokens_generated')):
+        grown = family(after, name) - family(before, name)
+        if grown != stats1[key] - stats0[key]:
+            raise AssertionError(f'/metrics {name} grew {grown}, the '
+                                 f'engine counted {stats1[key] - stats0[key]}')
+    ttft = (family(after, 'skytpu_engine_ttft_seconds_count') -
+            family(before, 'skytpu_engine_ttft_seconds_count'))
+    if ttft != len(ids):
+        raise AssertionError(f'TTFT histogram grew {ttft}, not {len(ids)}')
+    for rid in ids:
+        engine_segs = [s for s in spans[rid] if s['name'] == 'engine']
+        if len(engine_segs) != 1:
+            raise AssertionError(f'/spans {rid}: {spans[rid]}')
+        seg = engine_segs[0]
+        phases = seg['phases']
+        if (seg['status'] != 'ok' or seg['tokens'] != len(tokens[rid]) or
+                seg['ttft_ms'] > seg['duration_ms'] or
+                [p['name'] for p in phases] != ['queue', 'prefill',
+                                                'decode']):
+            raise AssertionError(f'/spans {rid}: {seg}')
+        for p, nxt in zip(phases, phases[1:]):
+            if p['start'] + p['duration_ms'] / 1e3 > nxt['start'] + 1e-5:
+                raise AssertionError(f'/spans {rid}: phases overlap {phases}')
+        access = [r for r in records[rid] if r['msg'].startswith('POST ')]
+        if [r['msg'] for r in access] != [
+                f'POST {http_protocol.GENERATE} -> 200']:
+            raise AssertionError(f'/logs {rid}: {records[rid]}')
+    prof = payload['profile']
+    if not prof['enabled'] or not prof['ring']:
+        raise AssertionError('/profile: empty ring')
+    for rec in prof['ring']:
+        names = {name for name, _, _ in rec['phases']}
+        if not names <= set(profiling.PHASES):
+            raise AssertionError(f'/profile: phases {names}')
+        if sum(d for _, _, d in rec['phases']) > rec['dur_s'] + 1e-9:
+            raise AssertionError(f'/profile: phases exceed the tick {rec}')
+        if not 0 < rec['mem_bytes'] <= peak:
+            raise AssertionError(f'/profile: mem_bytes {rec["mem_bytes"]} '
+                                 f'against the peak {peak}')
+    return {'launches': launches, 'profile': prof}
+
+
+def observability(server, dev, new_tokens, counters):
+    """The plane on phase 4's full-width paged server (bf16 pool) and on
+    a second server with an int8 pool over the same weights, one
+    `route_window` each; then, in this thread on identical inputs, the
+    wrapped step adds no device work (`plane_check`); then an engine
+    with the plane off on the same weights gives the same tokens.  Times
+    are printed, never held.  Returns the windows' launch counts under
+    `launches`, by path."""
+    import os
+    import torch
+    from skypilot_tpu_torch.serve import batching_engine
+    from skypilot_tpu_torch.serve import model_server
+    from skypilot_tpu_torch.serve import plane_check
+    engine, cfg, vocab = server.engine, server.cfg, server.cfg.vocab_size
+    lengths = (23, 77, 130, 300, 45, 200)
+    prompts = [prompt(200 + i, n, vocab) for i, n in enumerate(lengths)]
+    window = route_window(server, dev, prompts,
+                          [f'chip-obs-{i}' for i in range(len(prompts))],
+                          new_tokens, counters)
+    int8_server = model_server.ModelServer(
+        'llama3-8b', continuous_batching=True, kv_pages=1024,
+        page_size=16, max_len=engine.max_len, max_batch=8,
+        quantize_kv=True, device=dev, params=server.params)
+    try:
+        int8_window = route_window(
+            int8_server, dev, prompts,
+            [f'chip-obs-int8-{i}' for i in range(len(prompts))],
+            new_tokens, counters)
+    finally:
+        int8_server.close()
+    del int8_server
+    prof = window['profile']
+    laps = sum(agg['count'] for agg in prof['phases'].values())
+    ring_bytes = len(json.dumps(prof['ring']))
+    durs = sorted(rec['dur_s'] * 1e3 for rec in prof['ring'])
+
+    tick_tokens = torch.tensor(
+        [prompts[2][:128]], dtype=torch.int32, device=dev)
+    work = plane_check.same_device_work(engine, tick_tokens)
+
+    os.environ['SKYTPU_PROFILE_DISABLE'] = '1'
+    try:
+        off = batching_engine.ContinuousBatchingEngine(
+            cfg, server.params, max_len=engine.max_len, slots=8,
+            kv_pages=1024, page_size=16, device=dev)
+    finally:
+        del os.environ['SKYTPU_PROFILE_DISABLE']
+    host_ms = {True: [], False: []}
+    try:
+        if off.profile()['enabled']:
+            raise AssertionError('SKYTPU_PROFILE_DISABLE left the plane on')
+        # Each prompt set is new to both engines (no prefix hit); the
+        # order alternates: off, on, on, off.
+        sets = [[prompt(300 + 10 * k + i, n, vocab)
+                 for i, n in enumerate(lengths)] for k in range(2)]
+        outs = {}
+        for k, plane in ((0, False), (0, True), (1, True), (1, False)):
+            outs[k, plane], wall, n_ticks = burst(
+                engine if plane else off, sets[k], new_tokens)
+            host_ms[plane].append(wall * 1e3 / n_ticks)
+    finally:
+        off.stop()
+    for k in range(2):
+        if outs[k, True] != outs[k, False]:
+            raise AssertionError(f'prompt set {k}: the engine with the '
+                                 'plane off gave other tokens than on')
+    sentinel = prof['recompiles']
+    int8_prof = int8_window['profile']
+    return {
+        'launches': {'observability': window['launches'],
+                     'observability (int8 pool)': int8_window['launches']},
+        'ticks': prof['ticks'], 'ring': len(prof['ring']),
+        'int8_ticks': int8_prof['ticks'], 'int8_ring': len(int8_prof['ring']),
+        'tick_ms_p50': durs[len(durs) // 2], 'tick_ms_min': durs[0],
+        'tick_ms_max': durs[-1],
+        'phases': {n: round(a['total_s'] * 1e3, 3)
+                   for n, a in prof['phases'].items()},
+        'overhead_ms': prof['overhead_s'] * 1e3,
+        'per_lap_us': prof['overhead_s'] / laps * 1e6,
+        'laps_per_tick': laps / prof['ticks'],
+        'ring_bytes_per_tick': ring_bytes / len(prof['ring']),
+        'ring_ticks': prof['ring_ticks'],
+        'mem_watermark_gib': prof['device_memory']['watermark_bytes'] / 2**30,
+        'recompiles': {n: (f['calls'], f['compiles'],
+                           f['steady_recompiles'])
+                       for n, f in sentinel['fns'].items() if f['calls']},
+        'work': work, 'host_ms_on': host_ms[True],
+        'host_ms_off': host_ms[False]}
+
+
 # ------------------------------------------------- phase 5: more serving
 
 
 def post_raw(port, path, body):
     """POST a JSON body; (status, raw response body)."""
-    req = urllib.request.Request(
-        f'http://127.0.0.1:{port}{path}', data=json.dumps(body).encode(),
-        method='POST', headers={'Content-Type': 'application/json'})
-    with urllib.request.urlopen(req, timeout=600) as resp:
-        return resp.status, resp.read()
+    status, _, raw = http_call(port, path, body=body)
+    return status, raw
 
 
 def sse_events(raw: bytes) -> list:
@@ -1344,6 +1591,35 @@ def more_serving(cfg, model, dev, counters, new_tokens):
     return paths
 
 
+def log_observability(obs) -> None:
+    def spread(xs):
+        return (f'{" / ".join(f"{x:.2f}" for x in xs)} '
+                f'(range {max(xs) - min(xs):.2f})')
+    log(f'observability (bf16 and int8 pools): /metrics deltas equal '
+        f'engine.stats(), TTFT count +6; /spans one ordered engine segment '
+        f'per id; /logs one access record per id; int8 pool '
+        f'{obs["int8_ring"]} ticks in the ring; bf16 pool /profile '
+        f'{obs["ring"]} ticks in the ring '
+        f'(capacity {obs["ring_ticks"]}), tick ms p50 '
+        f'{obs["tick_ms_p50"]:.2f} (min {obs["tick_ms_min"]:.2f}, max '
+        f'{obs["tick_ms_max"]:.2f}), phase ms {json.dumps(obs["phases"])}, '
+        f'memory watermark {obs["mem_watermark_gib"]:.2f} GiB')
+    log(f'observability cost: modeled {obs["per_lap_us"]:.3f} us a lap, '
+        f'{obs["laps_per_tick"]:.2f} laps a tick, {obs["overhead_ms"]:.3f} '
+        f'ms over {obs["ticks"]} ticks; ring {obs["ring_bytes_per_tick"]:.0f}'
+        f' JSON bytes a tick; host ms a tick (6 requests x 32 tokens, '
+        f'off, on, on, off): plane on {spread(obs["host_ms_on"])}, off '
+        f'{spread(obs["host_ms_off"])} (printed, not held)')
+    log(f'observability device work: the wrapped step + prefill launch '
+        f'the bare entries\' kernels on identical inputs '
+        f'({obs["work"]["kernels_per_call"]} kernels a call, '
+        f'{obs["work"]["distinct_kernels"]} distinct; B1/B2/B3 '
+        f'{obs["work"]["launches"]} over 8 calls each; profiler windows '
+        f'off the majority: {obs["work"]["windows_off_majority"]} of 16); '
+        f'sentinel '
+        f'(calls, signatures, steady): {json.dumps(obs["recompiles"])}')
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1418,17 +1694,28 @@ def main() -> int:
                                       new_tokens)
         log(f'int8 + spec(4): greedy equal to spec-off; accept len '
             f'{spec_stats["spec_accept_len_mean"]}')
+        paths = {'serving': read_counts(counters)}
+        serving = ('paged_attention', 'paged_attention_int8', 'flash_fwd')
+        launches = {name: paths['serving'][name] for name in serving}
+        log(f'peak memory: '
+            f'{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB; '
+            f'serving-path launches {launches}')
+        missing = [name for name, n in launches.items() if n <= 0]
+        if missing:
+            raise AssertionError(f'kernels not launched on the serving '
+                                 f'path: {missing}')
+        obs = observability(server, dev, new_tokens, counters)
+        paths.update(obs['launches'])
+        expect_launches('observability', paths['observability'],
+                        ('paged_attention', 'flash_fwd'),
+                        ('paged_attention_int8',))
+        expect_launches('observability (int8 pool)',
+                        paths['observability (int8 pool)'],
+                        ('paged_attention_int8', 'flash_fwd'),
+                        ('paged_attention',))
+        log_observability(obs)
     finally:
         server.close()
-    paths = {'serving': read_counts(counters)}
-    serving = ('paged_attention', 'paged_attention_int8', 'flash_fwd')
-    launches = {name: paths['serving'][name] for name in serving}
-    log(f'peak memory: {torch.cuda.max_memory_allocated(dev) / 2**30:.2f}'
-        f' GiB; serving-path launches {launches}')
-    missing = [name for name, n in launches.items() if n <= 0]
-    if missing:
-        raise AssertionError(f'kernels not launched on the serving path: '
-                             f'{missing}')
     cfg, model = server.cfg, server.params
     del server
     free_cuda()

@@ -59,6 +59,15 @@ the ones still queued.
 `stream`: on CUDA, the engine's own stream; its ticks, host ops and
 exports all run there, so two engines of one process run their ticks
 at once.  None on the CPU.
+
+Observability (observability/, as the reference wires it): the
+reference's engine instruments in the process-global registry
+(`GET /metrics`); a `RequestSpan` per request (`stats()['recent_spans']`,
+`span(id)`, `GET /spans`); a `TickProfiler` whose host-clock laps split
+every tick of all three loops into the reference's phases, and a
+`RecompileSentinel` over the step entries (`profile()`, `GET /profile`).
+None of it touches the device: the tick's one host sync stays where it
+is, and the lap after it carries the wait for the device.
 """
 from __future__ import annotations
 
@@ -73,6 +82,10 @@ import torch
 
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import decode
+from skypilot_tpu_torch.observability import logs as logs_lib
+from skypilot_tpu_torch.observability import metrics as metrics_lib
+from skypilot_tpu_torch.observability import profiling
+from skypilot_tpu_torch.observability import tracing
 from skypilot_tpu_torch.serve import cache_manager
 from skypilot_tpu_torch.serve import handoff as handoff_lib
 from skypilot_tpu_torch.serve import sampler as sampler_lib
@@ -88,6 +101,61 @@ HandoffRejected = handoff_lib.HandoffRejected
 _PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 
 logger = logging.getLogger(__name__)
+
+# Process-global registry instruments (observability/metrics.py), the
+# reference's names and labels.  Counters are process-cumulative; the
+# per-ENGINE view lives in stats().  Gauges describe the most recently
+# constructed engine.  Queue/admission instruments live in
+# serve/scheduler.py, page-pool ones in serve/cache_manager.py.
+_M_TICKS = metrics_lib.counter(
+    'skytpu_engine_ticks_total', 'Decode engine ticks dispatched.')
+_M_TOKENS = metrics_lib.counter(
+    'skytpu_engine_decode_tokens_total',
+    'Tokens generated across all requests.')
+_M_PREFILL_CHUNKS = metrics_lib.counter(
+    'skytpu_engine_prefill_chunks_total',
+    'Prompt prefill chunks executed.')
+_M_BUSY_SLOTS = metrics_lib.gauge(
+    'skytpu_engine_busy_slots', 'KV slots currently decoding.')
+_M_SLOTS = metrics_lib.gauge(
+    'skytpu_engine_slots', 'Total KV slots in the pool.')
+_M_DECODE_RATE = metrics_lib.gauge(
+    'skytpu_engine_decode_tokens_per_s',
+    'Decode tokens/s over the trailing 10s window.')
+_M_HANDOFF_EXPORTS = metrics_lib.counter(
+    'skytpu_engine_handoff_exports_total',
+    'KV page exports served (the prefill side of a handoff).')
+_M_HANDOFF_IMPORTS = metrics_lib.counter(
+    'skytpu_engine_handoff_imports_total',
+    'KV page imports (the decode side of a handoff), by result.',
+    ('result',))
+_M_DEADLINE_REAPED = metrics_lib.counter(
+    'skytpu_engine_deadline_reaped_total',
+    'Decoding requests cancelled mid-generation because their '
+    'X-SkyTPU-Deadline-Ms passed (slot and KV pages freed).')
+_M_SPEC_PROPOSED = metrics_lib.counter(
+    'skytpu_engine_spec_proposed_tokens_total',
+    'Draft tokens proposed to speculative verify ticks (k per live '
+    'slot per tick).')
+_M_SPEC_ACCEPTED = metrics_lib.counter(
+    'skytpu_engine_spec_accepted_tokens_total',
+    'Draft tokens accepted by speculative verify ticks (the emitted '
+    'base token per tick is not counted).')
+_M_SPEC_ACCEPT_LEN = metrics_lib.histogram(
+    'skytpu_engine_spec_accept_len_tokens',
+    'Tokens emitted per slot per speculative verify tick (1 = every '
+    'draft rejected; k+1 = all accepted plus the bonus token).',
+    buckets=(1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0))
+# The reference's name, kept for the fleet: 1 when the paged tick runs
+# the hand-written paged-decode kernel, 0 when it runs the plain
+# version.  In the port that is 1 for a paged engine on CUDA (the CUDA
+# kernels B1/B2 take the Pallas kernels' place) and 0 for a paged
+# engine on the CPU (the plain PyTorch versions, the counterpart of the
+# reference's jnp fallback); dense engines set 0.
+_M_KERNEL_PALLAS = metrics_lib.gauge(
+    'skytpu_engine_decode_kernel_pallas',
+    'Whether the paged decode attention runs the hand-written kernel '
+    '(1) or the plain fallback (0); dense engines set 0.')
 
 
 class ContinuousBatchingEngine:
@@ -154,6 +222,13 @@ class ContinuousBatchingEngine:
                 max_len // int(page_size), quantize_kv=quantize_kv,
                 device=self.device)
             self._step = decode.paged_engine_step
+            self._spec_step = decode.paged_spec_engine_step
+            self._admit_paged = decode.paged_admit_slot
+            self._release_paged = decode.paged_release_slot
+            self._insert_pages = decode.insert_prefill_pages
+            self._seed_private = decode.paged_seed_private
+            self._write_pages = decode.write_pages
+            self._write_pages_q = decode.write_pages_quantized
         else:
             if self.spec_tokens:
                 raise ValueError(
@@ -163,7 +238,36 @@ class ContinuousBatchingEngine:
             self._cache = decode.init_slot_cache(cfg, slots, max_len,
                                                  device=self.device)
             self._step = decode.engine_step
+        # Dense-cache entries (the paged engine keeps them, as the
+        # reference does, so both modes list the same sentinel entries).
+        self._insert = decode.insert_prefill
+        self._legacy_step = decode.batched_step
+        self._prefill = decode.prefill
+        self._prefill_chunk = decode.prefill_chunk
         self.decode_kernel = 'paged' if self._kv is not None else 'dense'
+        _M_KERNEL_PALLAS.set(1 if self._kv is not None and
+                             self.device.type == 'cuda' else 0)
+        # The profiling plane: the tick-phase ring and the shape sentinel
+        # over every step entry above (both no-ops under
+        # SKYTPU_PROFILE_DISABLE).  The sentinel sees each call's tensor
+        # shapes: prefill and chunk widths and page-write shapes.  A
+        # tick's row bucket comes from slots x (k+1) inside the step and
+        # is fixed for the engine's life, so the step keeps one
+        # signature.
+        self._profiler = profiling.TickProfiler(
+            memory_cb=profiling.device_memory_cb(self.device))
+        self._sentinel = profiling.RecompileSentinel()
+        for attr in ('_step', '_spec_step', '_admit_paged',
+                     '_release_paged', '_insert_pages', '_seed_private',
+                     '_write_pages', '_write_pages_q', '_legacy_step',
+                     '_prefill', '_prefill_chunk', '_insert'):
+            entry = getattr(self, attr, None)
+            if entry is not None:
+                setattr(self, attr,
+                        self._sentinel.wrap(attr.lstrip('_'), entry))
+        # The worker's records carry this identity (the model server
+        # sets it) plus the request id it binds around each admission.
+        self.log_identity: Optional[Dict[str, Any]] = None
         self._state = decode.init_engine_state(slots, max_stop_ids,
                                                device=self.device)
         self._tokens = torch.zeros((slots, 1), dtype=torch.int32,
@@ -186,6 +290,11 @@ class ContinuousBatchingEngine:
         self._spec_proposed = 0
         self._spec_accepted = 0
         self._rate_window: Deque[Tuple[float, int]] = collections.deque()
+        # Finished per-request spans, bounded; surfaced via
+        # stats()['recent_spans'], span() and GET /spans.
+        self._spans = tracing.SpanStore()
+        _M_SLOTS.set(slots)
+        _M_BUSY_SLOTS.set(0)
 
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
@@ -216,6 +325,10 @@ class ContinuousBatchingEngine:
                                     temperature=temperature, top_k=top_k,
                                     seed=seed, request_id=request_id,
                                     deadline_ms=deadline_ms)
+        request._span_store = self._spans  # pylint: disable=protected-access
+        # The epoch in force at submit: a swap landing mid-decode still
+        # attributes this request to the weights that prefilled it.
+        request.span.weight_epoch = self._weight_epoch
         sampler_lib.validate_stop_ids(request.stop_ids, self.max_stop_ids)
         self._check_running()
         if self._kv is not None:
@@ -226,6 +339,7 @@ class ContinuousBatchingEngine:
                     f'{self._kv.pool.capacity}')
             if len(self._queue) > 0 and not self._kv.can_admit(need):
                 raise self._queue.reject(
+                    'pages_exhausted',
                     f'KV page pool exhausted ({need} page(s) needed, '
                     f'{self._kv.pool.free_count} free); retry later')
         self._queue.submit(request)
@@ -361,7 +475,9 @@ class ContinuousBatchingEngine:
                 pages = decode.export_private_pages(
                     cache, full, ps, quantize=self.quantize_kv)
                 arrays = [t.cpu().numpy() for t in pages]
-        return encode(hashes[:full], ps, *arrays)
+        payload = encode(hashes[:full], ps, *arrays)
+        _M_HANDOFF_EXPORTS.inc()
+        return payload
 
     def _prefill_private(self, prompt_ids: List[int],
                          n_target: int) -> Dict[str, Any]:
@@ -418,14 +534,14 @@ class ContinuousBatchingEngine:
                 k, v = tensor(k_pages, cached), tensor(v_pages, cached)
                 if quantized and self.quantize_kv:
                     # int8 wire -> int8 pool: the bytes land verbatim.
-                    decode.write_pages_quantized(
+                    self._write_pages_q(
                         self._cache, k, v, tensor(k_scale, cached),
                         tensor(v_scale, cached), fresh)
                 else:
                     if quantized:   # int8 wire -> float pool
                         k = k.float() * tensor(k_scale, cached)[..., None]
                         v = v.float() * tensor(v_scale, cached)[..., None]
-                    decode.write_pages(self._cache, k, v, fresh)
+                    self._write_pages(self._cache, k, v, fresh)
                 self._kv.prefix.register(fresh_hashes, fresh)
             finally:
                 # register() pinned the published pages; dropping the
@@ -434,13 +550,22 @@ class ContinuousBatchingEngine:
                 self._kv.pool.decref(fresh)
             return len(fresh_hashes), cached
 
+        timeout = HandoffError(
+            'KV import timed out waiting for the engine worker')
         try:
-            return self._on_worker(adopt, HandoffError(
-                'KV import timed out waiting for the engine worker'))
+            result = self._on_worker(adopt, timeout)
         except PagesExhausted:
+            _M_HANDOFF_IMPORTS.labels(result='pages_exhausted').inc()
             raise self._queue.reject(
+                'pages_exhausted',
                 f'KV page pool exhausted for handoff import '
                 f'({len(hashes)} page(s) needed); retry later') from None
+        except Exception as e:
+            _M_HANDOFF_IMPORTS.labels(
+                result='timeout' if e is timeout else 'error').inc()
+            raise
+        _M_HANDOFF_IMPORTS.labels(result='ok').inc()
+        return result
 
     def export_prefix_pages(self, max_pages: int = 64,
                             binary: bool = True) -> Any:
@@ -472,7 +597,9 @@ class ContinuousBatchingEngine:
             'prefix export timed out waiting for the engine worker'))
         encode = (handoff_lib.encode_binary if binary
                   else handoff_lib.encode_payload)
-        return encode(hashes, self._kv.page_size, *arrays)
+        payload = encode(hashes, self._kv.page_size, *arrays)
+        _M_HANDOFF_EXPORTS.inc()
+        return payload
 
     # ------------------------------------------------------------ metrics
 
@@ -526,8 +653,31 @@ class ContinuousBatchingEngine:
         stats.update(self._queue.stats())
         if self._kv is not None:
             stats.update(self._kv.stats())
-        stats['decode_tokens_per_s'] = round(self._decode_rate(), 3)
+        rate = round(self._decode_rate(), 3)
+        stats['decode_tokens_per_s'] = rate
+        # Per-request phase traces, newest first.
+        stats['recent_spans'] = self._spans.recent()
+        # Freshen the scrape-time gauges so /metrics agrees with
+        # /health whichever is polled.
+        _M_SLOTS.set(stats['slots'])
+        _M_BUSY_SLOTS.set(busy)
+        _M_DECODE_RATE.set(rate)
         return stats
+
+    def span(self, request_id: str) -> Optional[Dict[str, Any]]:
+        """The finished span record of a request id (None while the
+        request runs or once it aged out of the store)."""
+        return self._spans.get(request_id)
+
+    def profile(self) -> Dict[str, Any]:
+        """The `GET /profile` snapshot: the tick-phase ring with
+        per-phase quantiles, the device-memory watermarks, the
+        profiler's modeled self-overhead, and the sentinel's counts per
+        step entry."""
+        snap = self._profiler.snapshot()
+        snap['recompiles'] = self._sentinel.snapshot()
+        snap['pipelined'] = self.pipelined
+        return snap
 
     def stop(self) -> None:
         self._stop.set()
@@ -553,6 +703,24 @@ class ContinuousBatchingEngine:
             while (self._rate_window and
                    now - self._rate_window[0][0] > 10.0):
                 self._rate_window.popleft()
+        _M_TOKENS.inc(n)
+        _M_DECODE_RATE.set(round(self._decode_rate(), 3))
+
+    def _record_chunk(self) -> None:
+        _M_PREFILL_CHUNKS.inc()
+        with self._metrics_lock:
+            self._prefill_chunks += 1
+
+    def _record_reap(self) -> None:
+        with self._metrics_lock:
+            self._deadline_reaped += 1
+        _M_DEADLINE_REAPED.inc()
+
+    def _record_tick(self) -> None:
+        with self._metrics_lock:
+            self._ticks += 1
+        _M_TICKS.inc()
+        _M_BUSY_SLOTS.set(sum(1 for s in self._slots if s.active))
 
     # ------------------------------------------------------------ worker
 
@@ -587,7 +755,7 @@ class ContinuousBatchingEngine:
         plan = None
         if self._kv is not None:
             plan = self._kv.plan_admission(prompt, request.max_new_tokens)
-            request.prefix_hit_pages = plan.prefix_hit_pages
+            request.span.prefix_hit_pages = plan.prefix_hit_pages
             self._kv.commit(slot_id, plan)
         self._queue.record_admission(request)
         if n <= 1 or (plan is not None and plan.n_reuse_tokens >= n - 1):
@@ -595,8 +763,8 @@ class ContinuousBatchingEngine:
             # hit (the prefilled region [0, n-1) is entirely cached).
             length = 0 if n <= 1 else n - 1
             if plan is not None:
-                decode.paged_admit_slot(self._cache, slot_id,
-                                        self._pad_row(plan.row), length)
+                self._admit_paged(self._cache, slot_id,
+                                  self._pad_row(plan.row), length)
             else:
                 self._set_length(slot_id, length)
             slot.request = request
@@ -618,7 +786,7 @@ class ContinuousBatchingEngine:
             # Chunk 0: flash prefill of the bucket-padded first piece.
             take = min(n_target, chunk)
             bucket = min(self._bucket(take), self.max_len)
-            _, cache = decode.prefill(
+            _, cache = self._prefill(
                 self.cfg, self.model,
                 self._tokens_tensor(prompt_ids[:take], bucket),
                 max_len=self.max_len)
@@ -628,7 +796,7 @@ class ContinuousBatchingEngine:
             # max_len - consumed) keeps every write inside the cache.
             take = min(n_target - consumed, chunk)
             width = min(self._bucket(take), chunk, self.max_len - consumed)
-            _, cache = decode.prefill_chunk(
+            _, cache = self._prefill_chunk(
                 self.cfg, self.model,
                 self._tokens_tensor(prompt_ids[consumed:consumed + take],
                                     width), cache)
@@ -643,27 +811,29 @@ class ContinuousBatchingEngine:
             if request.cancelled:
                 request._finish()  # pylint: disable=protected-access
             else:
-                with self._metrics_lock:
-                    self._deadline_reaped += 1
+                self._record_reap()
                 request._finish(DeadlineExceeded(  # pylint: disable=protected-access
                     'request deadline passed mid-prefill'))
             self._slots[pending.slot_id].request = None
             self._release_slot_pages(pending.slot_id)
             return True
+        t_chunk0 = time.perf_counter()
         plan = pending.plan
         if (pending.cache is None and plan is not None and
                 plan.n_reuse_tokens > 0):
             # Prefix hit: positions [0, reuse) come from the pool.
-            pending.cache = decode.paged_seed_private(
+            pending.cache = self._seed_private(
                 self.cfg, self._cache, plan.reuse_pages,
                 priv_len=self.max_len)
             pending.consumed = plan.n_reuse_tokens
+            request.span.mark_prefill_chunk(time.perf_counter() - t_chunk0)
             return False
         pending.cache, pending.consumed = self._prefill_piece(
             request.prompt_ids, pending.cache, pending.consumed,
             pending.n_target)
-        with self._metrics_lock:
-            self._prefill_chunks += 1
+        request.span.mark_prefill_chunk(time.perf_counter() - t_chunk0)
+        self._record_chunk()
+        self._profiler.lap('prefill-chunk')
         if pending.consumed < pending.n_target:
             return False
         return self._finish_prefill(pending)
@@ -679,20 +849,21 @@ class ContinuousBatchingEngine:
             ps = self._kv.page_size
             r = len(plan.reuse_pages)
             n_prompt_pages = -(-pending.n_target // ps)
-            decode.insert_prefill_pages(self._cache, pending.cache,
-                                        plan.row[r:n_prompt_pages],
-                                        first_page=r)
-            decode.paged_admit_slot(self._cache, pending.slot_id,
-                                    self._pad_row(plan.row),
-                                    pending.n_target)
+            self._insert_pages(self._cache, pending.cache,
+                               plan.row[r:n_prompt_pages], first_page=r)
+            self._admit_paged(self._cache, pending.slot_id,
+                              self._pad_row(plan.row), pending.n_target)
             if pending.weight_epoch == self._weight_epoch:
                 self._kv.register_prefix(plan)
         else:
-            decode.insert_prefill(self._cache, pending.slot_id,
-                                  pending.cache, pending.n_target)
+            self._insert(self._cache, pending.slot_id, pending.cache,
+                         pending.n_target)
         pending.cache = None
         self._activate(pending.slot_id, request,
                        int(request.prompt_ids[-1]))
+        # Cache adoption and activation: a phase of its own, so prefill
+        # compute and pool surgery separate.
+        self._profiler.lap('page-scatter')
         return True
 
     def _activate(self, slot_id: int, request: scheduler.Request,
@@ -715,7 +886,7 @@ class ContinuousBatchingEngine:
         pages."""
         if self._kv is None:
             return
-        decode.paged_release_slot(self._cache, slot_id)
+        self._release_paged(self._cache, slot_id)
         self._kv.release(slot_id)
 
     def _finish_slot(self, slot_id: int, live: Dict[int, Any]) -> None:
@@ -727,6 +898,7 @@ class ContinuousBatchingEngine:
     def _spec_tick(self, live: Dict[int, scheduler.Request]) -> None:
         """One synchronous speculative tick (see module docstring)."""
         k = self.spec_tokens
+        n_live = len(live)
         drafts = torch.zeros((len(self._slots), k), dtype=torch.int32)
         for slot_id in live:
             drafter = self._slots[slot_id].drafter
@@ -734,7 +906,7 @@ class ContinuousBatchingEngine:
                 drafts[slot_id] = torch.tensor(drafter.propose(k),
                                                dtype=torch.int32)
         self._state, self._cache, finished, toks_d, counts_d = (
-            decode.paged_spec_engine_step(
+            self._spec_step(
                 self.cfg, self.model, self._state, self._cache,
                 drafts.to(self.device), max_top_k=self.max_top_k))
         toks = toks_d.tolist()
@@ -754,17 +926,24 @@ class ContinuousBatchingEngine:
                 request._push(token)  # pylint: disable=protected-access
             pushed += c
             accepted += max(c - 1, 0)
+            span = request.span
+            span.spec_steps += 1
+            span.spec_proposed += k
+            span.spec_accepted += max(c - 1, 0)
+            _M_SPEC_ACCEPT_LEN.observe(float(max(c, 1)))
             if fins[slot_id]:
                 self._finish_slot(slot_id, live)
                 request._finish()  # pylint: disable=protected-access
         if pushed:
             self._record_tokens(pushed)
         with self._metrics_lock:
-            self._ticks += 1
             self._spec_ticks += 1
             self._spec_slot_ticks += slot_ticks
-            self._spec_proposed += k * len(live)
+            self._spec_proposed += k * n_live
             self._spec_accepted += accepted
+        _M_SPEC_PROPOSED.inc(k * n_live)
+        _M_SPEC_ACCEPTED.inc(accepted)
+        self._record_tick()
 
     def _run(self) -> None:
         try:
@@ -797,9 +976,13 @@ class ContinuousBatchingEngine:
         pending_prefills: Deque[scheduler.PendingPrefill] = (
             collections.deque())
         live: Dict[int, scheduler.Request] = {}
+        prof = self._profiler
         while not self._stop.is_set():
+            prof.begin_tick()
             self._queue.expire_stale()
-            self._drain_host_ops()
+            # Host ops (KV imports, exports, swaps) run between ticks.
+            ran_ops = self._drain_host_ops()
+            prof.lap('handoff', record=bool(ran_ops))
             # Cancelled or deadline-expired live requests: freeze their
             # slots on device before the next dispatch, free their pages.
             now = time.monotonic()
@@ -813,19 +996,22 @@ class ContinuousBatchingEngine:
                     if was_cancel:
                         request._finish()  # pylint: disable=protected-access
                     else:
-                        with self._metrics_lock:
-                            self._deadline_reaped += 1
+                        self._record_reap()
                         request._finish(DeadlineExceeded(  # pylint: disable=protected-access
                             'request deadline passed mid-generation'))
             # Admissions; page-pool exhaustion DEFERS the request.
-            deferred = False
+            deferred = admitted = False
             for slot_id in [i for i, s in enumerate(self._slots)
                             if not s.active]:
                 request = self._queue.pop()
                 if request is None:
                     break
+                admitted = True
                 try:
-                    pending = self._start_admission(slot_id, request)
+                    # Worker-side log records carry the request's id.
+                    with logs_lib.bind(request_id=request.request_id,
+                                       **(self.log_identity or {})):
+                        pending = self._start_admission(slot_id, request)
                 except PagesExhausted:
                     self._queue.requeue_front(request)
                     with self._metrics_lock:
@@ -836,6 +1022,8 @@ class ContinuousBatchingEngine:
                     pending_prefills.append(pending)
                 else:
                     live[slot_id] = request
+            # The admit phase: stale expiry, reaps and admissions.
+            prof.lap('admit', record=bool(admitted or deferred or reaped))
             # At most ONE prefill chunk between ticks.
             if pending_prefills:
                 pending = pending_prefills.popleft()
@@ -848,11 +1036,13 @@ class ContinuousBatchingEngine:
             dispatched = None
             if live and self.spec_tokens:
                 self._spec_tick(live)   # synchronous: nothing in flight
+                prof.lap('spec-verify')
             elif live:
                 self._state, self._cache, finished = self._step(
                     self.cfg, self.model, self._state, self._cache,
                     max_top_k=self.max_top_k)
                 dispatched = (self._state, finished, list(live.items()))
+                prof.lap('decode-step')
             if inflight is not None:
                 state_t, finished_t, snapshot = inflight
                 toks = state_t['tokens'].tolist()   # the host sync
@@ -868,9 +1058,12 @@ class ContinuousBatchingEngine:
                         request._finish()  # pylint: disable=protected-access
                 if pushed:
                     self._record_tokens(pushed)
-                with self._metrics_lock:
-                    self._ticks += 1
+                self._record_tick()
+                # The host sync above: this lap carries the wait for
+                # the device.
+                prof.lap('sample')
             inflight = dispatched
+            prof.end_tick()
             if inflight is None and not live and not pending_prefills:
                 if deferred:
                     time.sleep(0.005)
@@ -891,11 +1084,13 @@ class ContinuousBatchingEngine:
         n = len(prompt)
         if n > 1:
             bucket = min(self._bucket(n - 1), self.max_len)
-            _, pre = decode.prefill(
+            _, pre = self._prefill(
                 self.cfg, self.model,
                 self._tokens_tensor(prompt[:-1], bucket),
                 max_len=self.max_len)
-            decode.insert_prefill(self._cache, slot_id, pre, n - 1)
+            self._profiler.lap('prefill-chunk')
+            self._insert(self._cache, slot_id, pre, n - 1)
+            self._profiler.lap('page-scatter')
         else:
             self._set_length(slot_id, 0)
         slot.request = request
@@ -903,7 +1098,10 @@ class ContinuousBatchingEngine:
 
     def _tick_legacy(self) -> None:
         """Un-pipelined tick: per-slot token staging, one host sync per
-        generated token, greedy only."""
+        generated token, greedy only.  Laps: decode-step after the
+        dispatch, sample after the host sync and bookkeeping (the
+        reference's legacy loop records none; these are the phases its
+        pipelined loop uses for the same work)."""
         for slot in self._slots:
             request = slot.request
             if request is None:
@@ -913,8 +1111,7 @@ class ContinuousBatchingEngine:
                 request._finish()  # pylint: disable=protected-access
             elif request.deadline_exceeded():
                 slot.request = None
-                with self._metrics_lock:
-                    self._deadline_reaped += 1
+                self._record_reap()
                 request._finish(DeadlineExceeded(  # pylint: disable=protected-access
                     'request deadline passed mid-generation'))
         active = [i for i, s in enumerate(self._slots) if s.active]
@@ -923,8 +1120,9 @@ class ContinuousBatchingEngine:
         tokens = self._tokens.clone()
         for i in active:
             tokens[i, 0] = self._slots[i].next_token
-        logits, self._cache = decode.batched_step(self.cfg, self.model,
-                                                  tokens, self._cache)
+        logits, self._cache = self._legacy_step(self.cfg, self.model,
+                                                tokens, self._cache)
+        self._profiler.lap('decode-step')
         nxt = torch.argmax(logits, dim=-1).tolist()   # the host sync
         for i in active:
             slot = self._slots[i]
@@ -939,28 +1137,41 @@ class ContinuousBatchingEngine:
                 slot.next_token = token
         self._tokens = tokens
         self._record_tokens(len(active))
-        with self._metrics_lock:
-            self._ticks += 1
+        self._record_tick()
+        self._profiler.lap('sample')
 
     def _run_legacy(self) -> None:
+        prof = self._profiler
         while not self._stop.is_set():
+            prof.begin_tick()
             self._queue.expire_stale()
-            self._drain_host_ops()
+            ran_ops = self._drain_host_ops()
+            prof.lap('handoff', record=bool(ran_ops))
             idle = not any(s.active for s in self._slots)
+            admitted = False
             for slot_id in [i for i, s in enumerate(self._slots)
                             if not s.active]:
                 request = self._pop_admitted()
                 if request is None and idle:
+                    # The wait is no tick's work: close the tick (its
+                    # host ops stay recorded) and start another after.
+                    prof.end_tick()
                     self._idle_wait()
+                    prof.begin_tick()
                     request = self._pop_admitted()
                 if request is None:
                     break
+                admitted = True
                 try:
-                    self._admit_legacy(slot_id, request)
+                    with logs_lib.bind(request_id=request.request_id,
+                                       **(self.log_identity or {})):
+                        self._admit_legacy(slot_id, request)
                     idle = False
                 except Exception as e:  # pylint: disable=broad-except
                     request._finish(e)  # pylint: disable=protected-access
+            prof.lap('admit', record=admitted)
             self._tick_legacy()
+            prof.end_tick()
 
     def _pop_admitted(self) -> Optional[scheduler.Request]:
         request = self._queue.pop()

@@ -1,6 +1,6 @@
 """Paged KV-cache management for the batching engine, host side
-(mirrors `skypilot_tpu/serve/cache_manager.py`, without the metrics,
-journal and chaos hooks).
+(mirrors `skypilot_tpu/serve/cache_manager.py`, with its page-pool and
+prefix-cache instruments; without the journal and chaos hooks).
 
 - `PagePool`: free list + per-page refcounts + pins; page 0 is the
   reserved NULL page (freed slots' block tables point at it, so a
@@ -23,7 +23,25 @@ import dataclasses
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from skypilot_tpu_torch.observability import metrics as metrics_lib
+
 NULL_PAGE = 0
+
+_M_PAGES_TOTAL = metrics_lib.gauge(
+    'skytpu_engine_kv_pages_total',
+    'Allocatable KV pages in the page pool (excludes the null page).')
+_M_PAGES_USED = metrics_lib.gauge(
+    'skytpu_engine_kv_pages_used',
+    'KV pages currently referenced by live slots or the prefix cache.')
+_M_PAGES_PINNED = metrics_lib.gauge(
+    'skytpu_engine_kv_pages_pinned',
+    'KV pages pinned by the prefix cache (reusable cached prefixes).')
+_M_PREFIX_HITS = metrics_lib.counter(
+    'skytpu_engine_prefix_cache_hits_total',
+    'Prompt pages served from the prefix cache instead of prefill.')
+_M_PREFIX_MISSES = metrics_lib.counter(
+    'skytpu_engine_prefix_cache_misses_total',
+    'Prompt pages that had to be prefilled (no cached prefix).')
 
 
 class PagesExhausted(RuntimeError):
@@ -173,6 +191,8 @@ class PrefixCache:
             self._pool.incref(pages)
         self.hits += len(pages)
         self.misses += len(hashes) - len(pages)
+        _M_PREFIX_HITS.inc(len(pages))
+        _M_PREFIX_MISSES.inc(len(hashes) - len(pages))
         return pages
 
     def register(self, hashes: Sequence[int],
@@ -330,7 +350,7 @@ class PagedKVManager:
         self.prefix.clear()
 
     def stats(self) -> Dict[str, int]:
-        return {
+        stats = {
             'kv_pages_total': self.pool.capacity,
             'kv_pages_used': self.pool.used_count,
             'kv_pages_free': self.pool.free_count,
@@ -340,3 +360,8 @@ class PagedKVManager:
             'prefix_cache_hits': self.prefix.hits,
             'prefix_cache_misses': self.prefix.misses,
         }
+        # Scrape-time gauges: /metrics calls engine.stats() first.
+        _M_PAGES_TOTAL.set(stats['kv_pages_total'])
+        _M_PAGES_USED.set(stats['kv_pages_used'])
+        _M_PAGES_PINNED.set(stats['kv_pages_pinned'])
+        return stats

@@ -7,6 +7,19 @@ the same JSON, status codes and error mapping).
 
 - GET /health (and any other GET): {'status', 'model', 'device',
   'weight_version', 'engine': stats}; 503 once the engine failed.
+- GET /metrics: the Prometheus exposition of the process-global
+  registry (engine, scheduler, page pool, profiler, log and HTTP
+  instruments; scrape-time gauges freshened through engine.stats()).
+- GET /spans?since=&request_id=&limit=: {'segments': [...]}, the
+  engine's finished request spans and the handoff routes' segments as
+  identity-tagged trace segments, oldest first.
+- GET /profile: the identity plus {'profile': engine.profile()} (the
+  tick-phase ring and the shape sentinel's counts).
+- GET /logs?since=&level=&request_id=&grep=&limit=: {'records': [...]},
+  the structured log ring.
+- Every response carries X-SkyTPU-Request-Id: the request's own, or a
+  new id when it came without one; the id names the request's span and
+  its access-log record.
 - POST /generate {'prompt_ids': [[...], ...], 'max_new_tokens',
   'temperature', 'top_k', 'seed'} -> {'tokens', 'weight_version',
   'latency_ms'}.  400 for a malformed body, 429 + Retry-After when the
@@ -39,9 +52,9 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+import os
 import threading
 import time
-import uuid
 from http.server import BaseHTTPRequestHandler
 from http.server import ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Union
@@ -53,11 +66,41 @@ from skypilot_tpu_torch.models import configs
 from skypilot_tpu_torch.models import decode
 from skypilot_tpu_torch.models import tokenizer as tokenizer_lib
 from skypilot_tpu_torch.models.transformer import init_params
+from skypilot_tpu_torch.observability import logs as logs_lib
+from skypilot_tpu_torch.observability import metrics as metrics_lib
+from skypilot_tpu_torch.observability import tracing
 from skypilot_tpu_torch.serve import batching_engine as batching_engine_lib
 from skypilot_tpu_torch.serve import handoff as handoff_lib
 from skypilot_tpu_torch.serve import http_protocol
 
 logger = logging.getLogger(__name__)
+
+# The port's replicas serve one role (the reference's default); roles
+# and their budgets come with the rest of the replica front.
+ROLE = 'mixed'
+
+# Process identity marker: always 1; its labels (the registry's constant
+# labels when SKYTPU_SERVE_REPLICA_ID is set) name this replica.
+_M_PROCESS_INFO = metrics_lib.gauge(
+    'skytpu_process_info',
+    'Constant 1 carrying this process\'s identity labels '
+    '(replica_id / role / num_hosts on serving replicas).')
+# Forward FLOPs per generated token: the fleet aggregator multiplies
+# it by decode tokens/s for the replica's MFU estimate.
+_M_FLOPS_PER_TOKEN = metrics_lib.gauge(
+    'skytpu_engine_model_flops_per_token',
+    'Approximate forward FLOPs per generated token (2 x parameter '
+    'count plus the context-dependent attention term) of the model '
+    'this replica serves.')
+
+
+def model_flops_per_token(cfg, n_params: int, max_len: int) -> float:
+    """Forward FLOPs per generated token: ~2 x params for the matmuls,
+    plus attention over the mean decode context (max_len / 2): QK^T and
+    attn x V cost 2 x n_heads x head_dim each per layer and position."""
+    attn = (2.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim
+            * float(max_len))
+    return 2.0 * float(n_params) + attn
 
 
 class ModelServer:
@@ -96,6 +139,29 @@ class ModelServer:
             raise ValueError(f'params are not a {model} model on '
                              f'{self.device}')
         self.params = params
+        # Process identity for fleet telemetry: the controller-set env
+        # var names the replica; only then does this server own the
+        # process-global registry's constant labels.
+        env_rid = os.environ.get('SKYTPU_SERVE_REPLICA_ID')
+        self.replica_id: Optional[int] = (
+            int(env_rid) if env_rid and env_rid.isdigit() else None)
+        self.role = ROLE
+        self.num_hosts = 1
+        if self.replica_id is not None:
+            metrics_lib.REGISTRY.set_const_labels({
+                'replica_id': env_rid, 'role': self.role,
+                'num_hosts': self.num_hosts})
+            logs_lib.set_process_identity(
+                'replica', replica_id=self.replica_id, role=self.role)
+        logs_lib.install()
+        _M_PROCESS_INFO.set(1)
+        # Trace segments of the non-engine legs of a request's life
+        # (/prefill_export, /kv_import), exported with the engine's.
+        self.trace_segments = tracing.SegmentStore()
+        n_params = sum(p.numel() for p in params.parameters())
+        self.flops_per_token = model_flops_per_token(self.cfg, n_params,
+                                                     max_len)
+        _M_FLOPS_PER_TOKEN.set(self.flops_per_token)
         self._lock = threading.Lock()
         self._engine: Optional[
             batching_engine_lib.ContinuousBatchingEngine] = None
@@ -107,6 +173,9 @@ class ModelServer:
                 page_size=page_size, quantize_kv=quantize_kv,
                 prefix_caching=prefix_caching, spec_tokens=spec_tokens,
                 device=self.device)
+            self._engine.log_identity = {
+                'process': 'replica', 'replica_id': self.replica_id,
+                'role': self.role}
 
     @property
     def engine(self):
@@ -184,6 +253,51 @@ class ModelServer:
                                      sampling=sampling)
         return new.tolist()
 
+    def identity(self) -> Dict[str, Any]:
+        """Trace-segment identity tags for this replica's exports."""
+        return {'process': 'replica', 'replica_id': self.replica_id,
+                'role': self.role, 'num_hosts': self.num_hosts}
+
+    def export_spans(self, since: Optional[float] = None,
+                     request_id: Optional[str] = None,
+                     limit: Optional[int] = None) -> Dict[str, Any]:
+        """The `GET /spans` payload: engine request spans + the
+        handoff routes' segments, identity-tagged, oldest first."""
+        segments = self.trace_segments.export(
+            since=since, request_id=request_id)
+        engine = self._engine
+        if engine is not None:
+            segments.extend(engine._spans.export(  # pylint: disable=protected-access
+                self.identity(), since=since, request_id=request_id))
+        segments.sort(key=lambda s: s.get('start') or 0.0)
+        if limit is not None:
+            segments = segments[-int(limit):]
+        return {'segments': segments}
+
+    def export_profile(self) -> Dict[str, Any]:
+        """The `GET /profile` payload: the engine's tick-phase ring and
+        sentinel snapshot, identity-tagged."""
+        payload = self.identity()
+        engine = self._engine
+        payload['profile'] = (engine.profile() if engine is not None
+                              else None)
+        return payload
+
+    def record_handoff_segment(self, name: str, request_id: str,
+                               start: float, duration_ms: float,
+                               attempt: Optional[int] = None,
+                               **fields: Any) -> None:
+        """One non-engine leg of a request's life (/prefill_export,
+        /kv_import) as a trace segment: an export never creates an
+        engine span."""
+        seg = self.identity()
+        seg.update({'name': name, 'request_id': request_id,
+                    'start': start,
+                    'duration_ms': round(duration_ms, 3),
+                    'attempt': int(attempt or 0), 'phases': []})
+        seg.update(fields)
+        self.trace_segments.add(seg)
+
     def health(self) -> Dict[str, Any]:
         payload = {'status': 'ok',
                    'model': f'{self.cfg.d_model}x{self.cfg.n_layers}',
@@ -205,6 +319,25 @@ def _make_handler(server: ModelServer):
 
         def log_message(self, *args):
             del args
+
+        def send_response(self, code, message=None):
+            # Every response echoes the request id; the status is kept
+            # for the access log (the last one sent is what went out).
+            self._status = code
+            super().send_response(code, message)
+            rid = getattr(self, '_rid', None)   # None before _begin
+            if rid:
+                self.send_header(http_protocol.REQUEST_ID_HEADER, rid)
+
+        def _begin(self) -> str:
+            """The matched route (the access log's label), with the
+            request id read from X-SkyTPU-Request-Id or made anew."""
+            self._status = 0
+            self._rid = (self.headers.get(http_protocol.REQUEST_ID_HEADER)
+                         or tracing.new_request_id())
+            path = self.path.partition('?')[0]
+            return (path if path in http_protocol.REPLICA_PATHS
+                    else None)
 
         def _read_body(self) -> bytes:
             length = int(self.headers.get('Content-Length', 0))
@@ -249,9 +382,39 @@ def _make_handler(server: ModelServer):
             return None
 
         def do_GET(self):
-            payload = server.health()
-            self._reply(200 if payload['status'] == 'ok' else 503,
-                        payload)
+            route = self._begin() or logs_lib.HEALTH_ROUTE
+            with logs_lib.bind(request_id=self._rid, process='replica',
+                               replica_id=server.replica_id,
+                               role=server.role):
+                try:
+                    self._get(route, self.path.partition('?')[2])
+                finally:
+                    logs_lib.access_log(logger, 'GET', route,
+                                        self._status)
+
+        def _get(self, route: str, query: str) -> None:
+            if route == http_protocol.METRICS:
+                engine = server.engine
+                if engine is not None:
+                    engine.stats()   # freshen the scrape-time gauges
+                body = metrics_lib.expose().encode()
+                self.send_response(200)
+                self.send_header('Content-Type', metrics_lib.CONTENT_TYPE)
+                self.send_header('Content-Length', str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+            elif route == http_protocol.SPANS:
+                self._reply(200, server.export_spans(
+                    **tracing.parse_span_query(query)))
+            elif route == http_protocol.PROFILE:
+                self._reply(200, server.export_profile())
+            elif route == http_protocol.LOGS:
+                self._reply(200, {'records': logs_lib.get_ring().export(
+                    **logs_lib.parse_log_query(query))})
+            else:
+                payload = server.health()
+                self._reply(200 if payload['status'] == 'ok' else 503,
+                            payload)
 
         def _read_json(self) -> Dict[str, Any]:
             req = json.loads(self._read_body() or b'{}')
@@ -267,10 +430,6 @@ def _make_handler(server: ModelServer):
                     int(req.get('top_k', server.default_top_k)),
                     int(req.get('seed', server.default_seed)))
 
-        def _request_id(self) -> str:
-            return (self.headers.get(http_protocol.REQUEST_ID_HEADER) or
-                    uuid.uuid4().hex[:16])
-
         def _reply_bytes(self, payload: bytes) -> None:
             self.send_response(200)
             self.send_header('Content-Type',
@@ -284,12 +443,11 @@ def _make_handler(server: ModelServer):
                     handoff_lib.CONTENT_TYPE_BINARY in
                     (self.headers.get('Accept') or ''))
 
-        def _start_sse(self, rid: str) -> None:
+        def _start_sse(self) -> None:
             self.send_response(200)
             self.send_header('Content-Type', 'text/event-stream')
             self.send_header('Cache-Control', 'no-cache')
             self.send_header('Transfer-Encoding', 'chunked')
-            self.send_header(http_protocol.REQUEST_ID_HEADER, rid)
             self.end_headers()
 
         def _sse_chunk(self, data: str) -> None:
@@ -298,11 +456,11 @@ def _make_handler(server: ModelServer):
                              b'\r\n')
             self.wfile.flush()
 
-        def _sse_stream(self, request, rid: str, events) -> None:
+        def _sse_stream(self, request, events) -> None:
             """Answer with the SSE frames `events` yields from the
             request's token stream, then [DONE]; a client that goes
             away, or any other failure, cancels the request."""
-            self._start_sse(rid)
+            self._start_sse()
             try:
                 for data in events:
                     self._sse_chunk(data)
@@ -320,23 +478,20 @@ def _make_handler(server: ModelServer):
                     pass
 
         def _generate(self):
-            rid = self.headers.get(http_protocol.REQUEST_ID_HEADER)
             try:
                 req = self._read_json()
                 t0 = time.perf_counter()
                 temperature, top_k, seed = self._sampling(req)
                 tokens = server.generate(
                     req['prompt_ids'], int(req.get('max_new_tokens', 16)),
-                    temperature, top_k, seed=seed, request_id=rid,
+                    temperature, top_k, seed=seed, request_id=self._rid,
                     deadline_ms=self._deadline_ms())
-                headers = ({http_protocol.REQUEST_ID_HEADER: rid}
-                           if rid else None)
                 self._reply(200, {
                     'tokens': tokens,
                     'weight_version': server.weight_version,
                     'latency_ms': round(
                         (time.perf_counter() - t0) * 1e3, 1),
-                }, headers)
+                })
             except (KeyError, ValueError, TypeError,
                     json.JSONDecodeError) as e:
                 self._reply(400, {'error': str(e)})
@@ -363,14 +518,13 @@ def _make_handler(server: ModelServer):
                                                '--continuous-batching'})
                     return
                 temperature, top_k, seed = self._sampling(req)
-                rid = self._request_id()
                 request = server.engine.submit(
                     [int(t) for t in prompt],
                     int(req.get('max_new_tokens', 16)),
                     stop_token=req.get('stop_token'),
                     sampling=decode.SamplingConfig(
                         temperature=temperature, top_k=top_k, seed=seed),
-                    request_id=rid, deadline_ms=self._deadline_ms())
+                    request_id=self._rid, deadline_ms=self._deadline_ms())
             except (KeyError, ValueError, TypeError,
                     json.JSONDecodeError) as e:
                 self._reply(400, {'error': str(e)})
@@ -380,7 +534,7 @@ def _make_handler(server: ModelServer):
                 if not self._reply_backpressure(e):
                     self._reply(503, {'error': f'{type(e).__name__}: {e}'})
                 return
-            self._sse_stream(request, rid, (
+            self._sse_stream(request, (
                 json.dumps({'token': token})
                 for token in request.stream(timeout=600)))
 
@@ -401,7 +555,6 @@ def _make_handler(server: ModelServer):
                 ids = tok.encode(text, add_bos=True)
                 if not ids:
                     raise ValueError('prompt tokenized to nothing')
-                rid = self._request_id()
                 temperature, top_k, seed = self._sampling(req)
                 max_new = int(req.get('max_new_tokens', 64))
                 if req.get('stream'):
@@ -414,15 +567,17 @@ def _make_handler(server: ModelServer):
                         sampling=decode.SamplingConfig(
                             temperature=temperature, top_k=top_k,
                             seed=seed),
-                        request_id=rid, deadline_ms=self._deadline_ms())
-                    self._sse_stream(request, rid,
+                        request_id=self._rid,
+                        deadline_ms=self._deadline_ms())
+                    self._sse_stream(request,
                                      self._text_events(tok, request))
                     return
                 t0 = time.perf_counter()
                 tokens = server.generate(
                     [ids], max_new, temperature, top_k,
                     stop_token=tok.eos_ids or None, seed=seed,
-                    request_id=rid, deadline_ms=self._deadline_ms())[0]
+                    request_id=self._rid,
+                    deadline_ms=self._deadline_ms())[0]
                 stops = [i for i, t in enumerate(tokens)
                          if t in tok.eos_ids]
                 if stops:
@@ -433,7 +588,7 @@ def _make_handler(server: ModelServer):
                     'weight_version': server.weight_version,
                     'latency_ms': round(
                         (time.perf_counter() - t0) * 1e3, 1),
-                }, {http_protocol.REQUEST_ID_HEADER: rid})
+                })
             except (KeyError, ValueError, TypeError,
                     json.JSONDecodeError) as e:
                 self._reply(400, {'error': str(e)})
@@ -473,9 +628,13 @@ def _make_handler(server: ModelServer):
                             'export serves one prompt per request')
                     prompt = prompt[0]
                 binary = self._wants_binary(req)
+                t0, wall0 = time.perf_counter(), time.time()
                 payload = server.engine.export_prefill(
                     [int(t) for t in prompt],
                     page_size=req.get('page_size'), binary=binary)
+                server.record_handoff_segment(
+                    'prefill_export', self._rid, wall0,
+                    (time.perf_counter() - t0) * 1e3, tokens=len(prompt))
                 if binary:
                     self._reply_bytes(payload)
                 else:
@@ -500,11 +659,16 @@ def _make_handler(server: ModelServer):
                     decoded = handoff_lib.decode_binary(self._read_body())
                 else:
                     decoded = handoff_lib.decode_payload(self._read_json())
+                t0, wall0 = time.perf_counter(), time.time()
                 imported, cached = server.engine.import_pages(
                     decoded['hashes'], decoded['page_size'],
                     decoded['k'], decoded['v'],
                     k_scale=decoded.get('k_scale'),
                     v_scale=decoded.get('v_scale'))
+                server.record_handoff_segment(
+                    'kv_import', self._rid, wall0,
+                    (time.perf_counter() - t0) * 1e3,
+                    imported_pages=imported, cached_pages=cached)
                 self._reply(200, {'imported_pages': imported,
                                   'cached_pages': cached})
             except handoff_lib.HandoffRejected as e:
@@ -551,7 +715,8 @@ def _make_handler(server: ModelServer):
                 self._reply(500, {'error': f'{type(e).__name__}: {e}'})
 
         def do_POST(self):
-            route = {
+            route = self._begin()
+            handler = {
                 http_protocol.GENERATE: self._generate,
                 http_protocol.GENERATE_STREAM: self._generate_stream,
                 http_protocol.GENERATE_TEXT: self._generate_text,
@@ -559,12 +724,19 @@ def _make_handler(server: ModelServer):
                 http_protocol.KV_IMPORT: self._kv_import,
                 http_protocol.PREFIX_EXPORT: self._prefix_export,
                 http_protocol.WEIGHTS_SWAP: self._weights_swap,
-            }.get(self.path.partition('?')[0])
-            if route is None:
-                self._read_body()
-                self._reply(404, {'error': 'unknown path'})
-                return
-            route()
+            }.get(route)
+            with logs_lib.bind(request_id=self._rid, process='replica',
+                               replica_id=server.replica_id,
+                               role=server.role):
+                try:
+                    if handler is None:
+                        self._read_body()
+                        self._reply(404, {'error': 'unknown path'})
+                    else:
+                        handler()
+                finally:
+                    logs_lib.access_log(logger, 'POST', route or 'unknown',
+                                        self._status)
 
     return Handler
 

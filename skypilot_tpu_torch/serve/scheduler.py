@@ -1,13 +1,18 @@
 """Request lifecycle + bounded admission queue for the batching engine
-(mirrors `skypilot_tpu/serve/scheduler.py`, single QoS class, counters
-kept on the objects instead of a metrics registry).
+(mirrors `skypilot_tpu/serve/scheduler.py`, single QoS class).
 
 - `Request`: the handle submit() returns (token stream, result(),
-  stream(), cancel(); the first finish wins).
+  stream(), cancel(); the first finish wins), with its `RequestSpan`
+  (observability/tracing.py); a finished span lands in the engine's
+  span store.
 - `AdmissionQueue`: bounded FIFO with TTL.  `max_queue` rejects new
   submits (`QueueFull` -> HTTP 429 + Retry-After) and `queue_ttl`
   expires stale waiters (`QueueExpired` -> 503).
 - `Slot` / `PendingPrefill`: per-slot host bookkeeping.
+
+Admissions, rejections (by reason), queue depth and wait, TTFT and
+inter-token gaps go into the reference's process-global instruments
+(`GET /metrics`); the per-engine view stays in `stats()`.
 """
 from __future__ import annotations
 
@@ -15,12 +20,35 @@ import collections
 import queue
 import threading
 import time
-import uuid
 from typing import Any, Callable, Deque, Dict, List, Optional
+
+from skypilot_tpu_torch.observability import metrics as metrics_lib
+from skypilot_tpu_torch.observability import tracing
 
 # Queue-wait histogram bucket upper bounds (seconds); the last bucket
 # is open-ended.
 WAIT_BUCKETS = (0.01, 0.05, 0.1, 0.5, 1.0, 5.0)
+
+_M_ADMITTED = metrics_lib.counter(
+    'skytpu_engine_admitted_total',
+    'Requests admitted into a KV slot.')
+_M_REJECTED = metrics_lib.counter(
+    'skytpu_engine_rejected_total',
+    'Requests rejected at admission, by reason.', ('reason',))
+_M_QUEUE_DEPTH = metrics_lib.gauge(
+    'skytpu_engine_queue_depth', 'Requests waiting for a slot.')
+_M_QUEUE_WAIT = metrics_lib.histogram(
+    'skytpu_engine_queue_wait_seconds',
+    'Seconds a request waited queued before admission.',
+    buckets=WAIT_BUCKETS)
+_M_TTFT = metrics_lib.histogram(
+    'skytpu_engine_ttft_seconds',
+    'Submit-to-first-token latency per request.')
+_M_ITL = metrics_lib.histogram(
+    'skytpu_engine_itl_seconds',
+    'Inter-token gaps during decode.',
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+             0.5, 1.0, 2.5, 5.0))
 
 
 class QueueFull(RuntimeError):
@@ -52,7 +80,10 @@ class Request:
                  deadline_ms: Optional[float] = None) -> None:
         self.prompt_ids = list(prompt_ids)
         self.max_new_tokens = max_new_tokens
-        self.request_id = request_id or uuid.uuid4().hex[:16]
+        # Per-request phase trace; the id arrives via
+        # X-SkyTPU-Request-Id or is generated here.
+        self.span = tracing.RequestSpan(request_id)
+        self.request_id = self.span.request_id
         if stop_token is None:
             self.stop_ids = frozenset()
         elif isinstance(stop_token, int):
@@ -66,30 +97,30 @@ class Request:
         self.deadline: Optional[float] = (
             self.submit_time + float(deadline_ms) / 1e3
             if deadline_ms is not None else None)
-        self.admit_time: Optional[float] = None
-        self.first_token_time: Optional[float] = None
-        self.finish_time: Optional[float] = None
-        self.prefix_hit_pages = 0
         self.done = threading.Event()
         self.tokens: List[int] = []
         self.error: Optional[Exception] = None
         self.cancelled = False
         self._live: 'queue.Queue[Optional[int]]' = queue.Queue()
         self._state_lock = threading.Lock()
+        # Set by the engine at submit(): finished spans land here.
+        self._span_store: Optional[tracing.SpanStore] = None
 
     @property
     def ttft_s(self) -> Optional[float]:
         """Submit-to-first-token seconds (None before the first token)."""
-        if self.first_token_time is None:
-            return None
-        return self.first_token_time - self.submit_time
+        return self.span.ttft_s
 
     def _push(self, token: int) -> None:
         with self._state_lock:
             if self.done.is_set():
                 return
-            if self.first_token_time is None:
-                self.first_token_time = time.monotonic()
+            gap = self.span.mark_token()
+            if gap is None:
+                if self.span.ttft_s is not None:
+                    _M_TTFT.observe(self.span.ttft_s)
+            else:
+                _M_ITL.observe(gap)
             self.tokens.append(token)
             self._live.put(token)
 
@@ -98,7 +129,17 @@ class Request:
             if self.done.is_set():
                 return
             self.error = error
-            self.finish_time = time.monotonic()
+            if error is not None:
+                status = type(error).__name__
+            elif self.cancelled:
+                status = 'cancelled'
+            else:
+                status = 'ok'
+            self.span.finish(status)
+            if self._span_store is not None:
+                self._span_store.add(self.span)
+            # Done only once the span is stored, so a caller that
+            # result() wakes finds it (the reference sets done first).
             self.done.set()
             self._live.put(None)
 
@@ -172,6 +213,7 @@ class AdmissionQueue:
         self.queue_ttl_expiries = 0
         self.admitted = 0
         self.wait_hist = [0] * (len(WAIT_BUCKETS) + 1)
+        _M_QUEUE_DEPTH.set(0)
 
     def __len__(self) -> int:
         with self.cond:
@@ -183,23 +225,27 @@ class AdmissionQueue:
             if self.max_queue and len(self._queue) >= self.max_queue:
                 with self._metrics_lock:
                     self.queue_full_rejections += 1
+                _M_REJECTED.labels(reason='queue_full').inc()
                 raise QueueFull(
                     f'admission queue full ({self.max_queue} waiting); '
                     'retry later', retry_after=self._drain_estimate())
             self._queue.append(request)
+            _M_QUEUE_DEPTH.set(len(self._queue))
             self.cond.notify()
 
-    def reject(self, message: str) -> QueueFull:
+    def reject(self, reason: str, message: str) -> QueueFull:
         """Count a non-queue-bound rejection (page-pool exhaustion) and
         build the QueueFull to raise."""
         with self._metrics_lock:
             self.queue_full_rejections += 1
+        _M_REJECTED.labels(reason=reason).inc()
         return QueueFull(message, retry_after=self._drain_estimate())
 
     def requeue_front(self, request: Request) -> None:
         """Put a popped-but-not-admitted request back at the head."""
         with self.cond:
             self._queue.appendleft(request)
+            _M_QUEUE_DEPTH.set(len(self._queue))
 
     def pop(self) -> Optional[Request]:
         """Pop the next live request, finishing cancelled, deadlined and
@@ -209,10 +255,12 @@ class AdmissionQueue:
                 if not self._queue:
                     return None
                 request = self._queue.popleft()
+                _M_QUEUE_DEPTH.set(len(self._queue))
             if request.cancelled:
                 request._finish()  # pylint: disable=protected-access
                 continue
             if request.deadline_exceeded():
+                _M_REJECTED.labels(reason='deadline_exceeded').inc()
                 request._finish(DeadlineExceeded(  # pylint: disable=protected-access
                     'request deadline passed while queued'))
                 continue
@@ -226,8 +274,10 @@ class AdmissionQueue:
             return request
 
     def record_admission(self, request: Request) -> None:
-        request.admit_time = time.monotonic()
-        wait = request.admit_time - request.submit_time
+        request.span.mark_admitted()
+        wait = time.monotonic() - request.submit_time
+        _M_ADMITTED.inc()
+        _M_QUEUE_WAIT.observe(wait)
         with self._metrics_lock:
             self.admitted += 1
             for i, bound in enumerate(WAIT_BUCKETS):
@@ -239,6 +289,7 @@ class AdmissionQueue:
     def _record_expiry(self, n: int) -> None:
         with self._metrics_lock:
             self.queue_ttl_expiries += n
+        _M_REJECTED.labels(reason='queue_expired').inc(n)
 
     def expire_stale(self) -> None:
         """Fail queued requests past queue_ttl or their own deadline."""
@@ -257,12 +308,16 @@ class AdmissionQueue:
                 else:
                     keep.append(request)
             self._queue = keep
+            _M_QUEUE_DEPTH.set(len(keep))
         if expired:
             self._record_expiry(len(expired))
         for request in expired:
             request._finish(QueueExpired(  # pylint: disable=protected-access
                 f'request expired after {self.queue_ttl}s queued',
                 retry_after=self._drain_estimate()))
+        if deadlined:
+            _M_REJECTED.labels(reason='deadline_exceeded').inc(
+                len(deadlined))
         for request in deadlined:
             request._finish(DeadlineExceeded(  # pylint: disable=protected-access
                 'request deadline passed while queued'))
@@ -272,6 +327,7 @@ class AdmissionQueue:
         while True:
             with self.cond:
                 if not self._queue:
+                    _M_QUEUE_DEPTH.set(0)
                     return
                 request = self._queue.popleft()
             request._finish(error_factory())  # pylint: disable=protected-access

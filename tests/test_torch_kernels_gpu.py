@@ -7,9 +7,15 @@ imports no JAX, so it runs on a GPU host as it is:
 Tolerances: f32 outputs within 1e-4 and bf16 within 2e-2 (compared as
 f32; both sides accumulate in f32, in different orders); the LSE
 within 1e-3; flash-backward gradients within the same 1e-4 / 2e-2 of
-the plain version's largest |value|; greedy tokens equal.
+the plain version's largest |value|; greedy tokens equal.  The
+observability plane is checked for what it must not do (add device
+work) on identical inputs in the caller's thread, and its four routes
+for their payloads; no check compares times.
 """
 from __future__ import annotations
+
+import json
+import urllib.request
 
 import pytest
 import torch
@@ -18,9 +24,14 @@ from skypilot_tpu_torch.models import configs
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import decode
 from skypilot_tpu_torch.models.transformer import init_params
+from skypilot_tpu_torch.observability import metrics
+from skypilot_tpu_torch.observability import profiling
 from skypilot_tpu_torch.ops import attention
 from skypilot_tpu_torch.ops import paged_attention
 from skypilot_tpu_torch.serve import batching_engine
+from skypilot_tpu_torch.serve import http_protocol
+from skypilot_tpu_torch.serve import model_server
+from skypilot_tpu_torch.serve import plane_check
 
 pytestmark = pytest.mark.gpu
 
@@ -390,3 +401,82 @@ def test_engine_gpu_matches_cpu(cuda, quantize_kv, spec_tokens, slots,
         finally:
             engine.stop()
     assert out['cuda'] == out['cpu']
+
+
+def test_plane_adds_no_device_work(cuda):
+    """The sentinel-wrapped step and prefill, between a profiler's
+    begin_tick / lap / end_tick, launch the same kernels as the bare
+    entries on identical inputs (clones of one cache and state), 8 calls
+    each in this thread, and give the same tokens (`plane_check`, the
+    check chip_smoke.py runs at llama3-8b)."""
+    model = init_params(SMALL.replace(dtype=torch.bfloat16), seed=3,
+                        device=cuda)
+    engine = batching_engine.ContinuousBatchingEngine(
+        model.cfg, model, max_len=64, slots=2, prefill_chunk=16,
+        kv_pages=24, page_size=16, device=cuda)
+    try:
+        for p in PROMPTS:
+            engine.generate(p, 10)
+        tokens = torch.arange(1, 33, dtype=torch.int32, device=cuda)[None]
+        work = plane_check.same_device_work(engine, tokens)
+        step, prefill = engine._step, engine._prefill  # pylint: disable=protected-access
+    finally:
+        engine.stop()
+    # One B1 a layer a step, one B3 a layer a prefill, no B2.
+    n_layers = model.cfg.n_layers
+    assert work['launches'] == (8 * n_layers, 0, 8 * n_layers)
+    assert work['kernels_per_call'] > 0
+    assert work['ticks'] == plane_check.WARMUP_CALLS + 8
+    assert step.__name__ == 'step' and prefill.__name__ == 'prefill'
+
+
+def _http(url, rid=None, body=None):
+    headers = {http_protocol.REQUEST_ID_HEADER: rid} if rid else {}
+    data = None
+    if body is not None:
+        headers['Content-Type'] = 'application/json'
+        data = json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers=headers)
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return (resp.status, resp.headers.get(
+            http_protocol.REQUEST_ID_HEADER), resp.read())
+
+
+def test_observability_routes_on_the_card(cuda):
+    server = model_server.ModelServer(
+        'small', device=cuda, seed=1, continuous_batching=True, max_len=64,
+        max_batch=2, prefill_chunk=16, kv_pages=24, page_size=16)
+    port, stop = model_server.start_background(server)
+    base = f'http://127.0.0.1:{port}'
+    try:
+        code, rid, body = _http(base + http_protocol.GENERATE, 'card-1',
+                                {'prompt_ids': [PROMPTS[2]],
+                                 'max_new_tokens': 6})
+        assert code == 200 and rid == 'card-1'
+        tokens = json.loads(body)['tokens'][0]
+        plane_check.settle(server.engine)
+        parsed = metrics.parse_exposition(
+            _http(base + http_protocol.METRICS)[2].decode())
+        stats = server.engine.stats()
+        assert parsed['skytpu_engine_decode_kernel_pallas'][()] == 1
+        assert parsed['skytpu_engine_busy_slots'][()] == 0
+        assert stats['ticks'] > 0 and stats['tokens_generated'] == 6
+        [seg] = json.loads(_http(
+            base + http_protocol.SPANS + '?request_id=card-1')[2])[
+                'segments']
+        assert seg['status'] == 'ok' and seg['tokens'] == len(tokens)
+        assert seg['ttft_ms'] <= seg['duration_ms']
+        prof = json.loads(_http(base + http_protocol.PROFILE)[2])['profile']
+        assert prof['ring'] and set(prof['phases']) <= set(
+            profiling.PHASES)
+        peak = torch.cuda.max_memory_allocated(cuda)
+        for rec in prof['ring']:
+            assert 0 < rec['mem_bytes'] <= peak
+            assert sum(d for _, _, d in rec['phases']) <= rec['dur_s'] + 1e-9
+        records = json.loads(_http(
+            base + http_protocol.LOGS + '?request_id=card-1')[2])['records']
+        assert [r['msg'] for r in records] == [
+            f'POST {http_protocol.GENERATE} -> 200']
+    finally:
+        stop()
+        server.close()
