@@ -78,6 +78,26 @@ Phases (each one that fails makes the script exit non-zero):
    ticks admit or prefill is up to the worker thread's timing.
 5. More serving paths on the same 8B weights, each with its own launch
    counts, zeroed just before it and read just after:
+   - "replica front": a paged server behind the asyncio front
+     (`async_server.start_background`): greedy /generate, 5 concurrent
+     /generate_stream, a batch-class request (the class's
+     max_new_tokens set to 8 through SKYTPU_QOS_SPEC), POST
+     /role_budget decode then a 24-token prompt (prefill pieces of one
+     token: B3's chunk 0 at the 16 bucket, then 22 width-1 masked
+     continuations) then mixed, POST /drain with a stream in flight
+     (/generate must answer 503 + Retry-After while the stream ends
+     with all its tokens), and a stream whose client hangs up after
+     two events (its span must read 'cancelled', the busy slots and the
+     pages held beyond the prefix cache's must come back to their
+     baseline within 120 s).  B1 and B3 must run, B2 must not.  After
+     the read, the threaded front of a second server on the same
+     weights serves the same prompts (new to both, so no prefix hit
+     changes what runs), unclamped: /generate, the streams and the
+     drained stream must give equal tokens, the batch request the first
+     8 of its prompt's; the decode-budget prompt equal tokens or, where
+     they part, every token held at its own context as below (its
+     pieces ran the masked path, the reference's prefill the flash
+     kernel).  TTFT, tokens/s and ms are printed, never held.
    - "spec beyond one bucket": the int8 + spec engine at 16 slots,
      k = 4 (an 80-row verify tick, two 64-row blocks), counted alone;
      greedy tokens must equal those of spec-off, run after the read.  Then one verify tick timed in its blocks
@@ -132,7 +152,7 @@ Phases (each one that fails makes the script exit non-zero):
 The line before the last is the `kernels` JSON: each kernel's
 `launches` is its count on the path `path` names (serving for B1/B2,
 training for B3/B4/B5), and `launches_by_path` holds every driven
-path's own count (serving, the two observability windows, the four
+path's own count (serving, the two observability windows, the five
 paths of phase 5,
 training, `train_llama small`), each path zeroed just before it and read just
 after.  B3's entry carries the
@@ -161,6 +181,14 @@ F32_FLOPS = 67e12               # outside the tensor cores
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], check=True,
+                          capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1296,6 +1324,254 @@ def handoff(cfg, model, dev, new_tokens, counters):
     return counts, out
 
 
+# ------------------------------------------ phase 5: the replica front
+
+
+BATCH_BUDGET = 8         # the batch class's max_new_tokens in this phase
+FRONT_STREAMS = (5, 37, 64, 100, 250)
+BUDGET_PROMPT = 24       # tokens; under the decode budget, 1 a piece
+
+
+def http_post(port, path, body, headers=None):
+    """(status, response headers, body bytes) of a JSON POST."""
+    import http.client
+    conn = http.client.HTTPConnection('127.0.0.1', port, timeout=600)
+    try:
+        conn.request('POST', path, body=json.dumps(body).encode(),
+                     headers=dict({'Content-Type': 'application/json'},
+                                  **(headers or {})))
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def open_stream(port, body, rid):
+    """A socket that has sent one /generate_stream request."""
+    import socket
+    data = json.dumps(body).encode()
+    sock = socket.create_connection(('127.0.0.1', port), timeout=600)
+    sock.sendall(f'POST /generate_stream HTTP/1.1\r\nHost: x\r\n'
+                 f'Content-Type: application/json\r\n'
+                 f'Content-Length: {len(data)}\r\n'
+                 f'X-SkyTPU-Request-Id: {rid}\r\n'
+                 f'Connection: close\r\n\r\n'.encode() + data)
+    return sock
+
+
+def read_events(sock, raw, until):
+    """Read the stream until `until(events)` holds or the socket ends;
+    returns (raw bytes, SSE events)."""
+    while not until(sse_events(raw)):
+        chunk = sock.recv(65536)
+        if not chunk:
+            break
+        raw += chunk
+    return raw, sse_events(raw)
+
+
+def stream_tokens(events) -> list:
+    if not events or events[-1] != '[DONE]':
+        raise AssertionError(f'stream did not end with [DONE]: {events[-3:]}')
+    return [json.loads(e)['token'] for e in events[:-1]]
+
+
+def wait_until(predicate, timeout, what):
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise AssertionError(f'{what}: not within {timeout} s')
+        time.sleep(0.02)
+
+
+def pages_in_slots(stats) -> int:
+    """Pages held beyond the prefix cache's pinned ones."""
+    return stats['kv_pages_used'] - stats['kv_pages_pinned']
+
+
+def replica_front(cfg, model, dev, counters, new_tokens):
+    """The replica front at llama3-8b on phase 4's weights: a paged
+    server behind the asyncio front (`async_server.start_background`).
+    The window, zeroed just before and read just after its engine work:
+    greedy /generate (its TTFT), 5 concurrent /generate_stream
+    (tokens/s), a batch-class request (SKYTPU_QOS_SPEC gives the class
+    max_new_tokens BATCH_BUDGET), /role_budget decode then a 24-token
+    prompt (a B3 chunk 0 of one token at the 16 bucket, then width-1
+    continuations) then mixed, /drain with a stream in flight (/generate
+    503 + Retry-After, the stream finishes), and a stream whose client
+    hangs up after two events (busy slots and slot pages back to their
+    baseline, the span 'cancelled').  After the window, the threaded
+    front of a second server on the same weights serves the same
+    prompts, new to it, unclamped: /generate, the streams and the drain
+    stream must give its tokens; the batch request its first
+    BATCH_BUDGET; the decode-budget prompt its tokens, or else each
+    token held at its own context (its pieces ran the masked path where
+    the reference's one prefill ran the flash kernel).  Returns (launch
+    counts, printed numbers)."""
+    import os
+    from skypilot_tpu_torch.serve import async_server
+    from skypilot_tpu_torch.serve import http_protocol
+    from skypilot_tpu_torch.serve import model_server
+    vocab = cfg.vocab_size
+    kw = dict(continuous_batching=True, kv_pages=1024, page_size=16,
+              max_len=1024, max_batch=8, params=model, device=dev)
+    single = prompt(800, 40, vocab)
+    streams = [prompt(801 + i, n, vocab)
+               for i, n in enumerate(FRONT_STREAMS)]
+    batch_p = prompt(810, 60, vocab)
+    budget_p = prompt(811, BUDGET_PROMPT, vocab)
+    drain_p = prompt(812, 30, vocab)
+    gone_p = prompt(813, 50, vocab)
+    qos_header = {http_protocol.QOS_CLASS_HEADER: 'batch'}
+    t_phase = time.perf_counter()
+    os.environ['SKYTPU_QOS_SPEC'] = json.dumps(
+        {'batch': {'max_new_tokens': BATCH_BUDGET}})
+    got = {}
+    try:
+        server = model_server.ModelServer('llama3-8b', **kw)
+        engine = server.engine
+        port, stop = async_server.start_background(server)
+        try:
+            zero_counts(counters)
+            t0 = time.perf_counter()
+            code, _, raw = http_post(port, http_protocol.GENERATE, {
+                'prompt_ids': [single], 'max_new_tokens': new_tokens},
+                {http_protocol.REQUEST_ID_HEADER: 'front-1'})
+            if code != 200:
+                raise AssertionError(f'/generate {code}: {raw[:200]}')
+            got['single'] = json.loads(raw)['tokens'][0]
+            generate_s = time.perf_counter() - t0
+            results = [None] * len(streams)
+
+            def run(i):
+                results[i] = http_post(port, http_protocol.GENERATE_STREAM, {
+                    'prompt_ids': [streams[i]], 'max_new_tokens': new_tokens})
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=run, args=(i,))
+                       for i in range(len(streams))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            streams_s = time.perf_counter() - t0
+            got['streams'] = []
+            for code, headers, raw in results:
+                if code != 200 or headers.get('Content-Type') != \
+                        'text/event-stream':
+                    raise AssertionError(f'/generate_stream {code}')
+                got['streams'].append(stream_tokens(sse_events(raw)))
+            code, _, raw = http_post(port, http_protocol.GENERATE, {
+                'prompt_ids': [batch_p], 'max_new_tokens': new_tokens},
+                qos_header)
+            got['batch'] = json.loads(raw)['tokens'][0]
+            code, _, raw = http_post(port, http_protocol.ROLE_BUDGET,
+                                     {'role': 'decode', 'version': 1})
+            budget = json.loads(raw)
+            if code != 200 or not budget['applied'] or \
+                    budget['budget']['prefill_tokens'] != 1:
+                raise AssertionError(f'/role_budget decode: {budget}')
+            chunks0 = engine.stats()['prefill_chunks']
+            t0 = time.perf_counter()
+            code, _, raw = http_post(port, http_protocol.GENERATE, {
+                'prompt_ids': [budget_p], 'max_new_tokens': 16})
+            budget_s = time.perf_counter() - t0
+            got['budget'] = json.loads(raw)['tokens'][0]
+            budget_chunks = engine.stats()['prefill_chunks'] - chunks0
+            if budget_chunks != BUDGET_PROMPT - 1:
+                raise AssertionError(f'decode budget: {budget_chunks} '
+                                     f'prefill pieces for {BUDGET_PROMPT} '
+                                     f'tokens, expected {BUDGET_PROMPT - 1}')
+            code, _, raw = http_post(port, http_protocol.ROLE_BUDGET,
+                                     {'role': 'mixed', 'version': 2})
+            if code != 200 or not json.loads(raw)['morphed']:
+                raise AssertionError(f'/role_budget mixed: {raw[:200]}')
+            # /drain while a stream is in flight.
+            sock = open_stream(port, {'prompt_ids': [drain_p],
+                                      'max_new_tokens': new_tokens},
+                               'front-drain')
+            raw, _ = read_events(sock, b'', lambda ev: len(ev) >= 1)
+            code, _, body = http_post(port, http_protocol.DRAIN, {})
+            if code != 200 or not json.loads(body)['draining']:
+                raise AssertionError(f'/drain {code}: {body[:200]}')
+            refused = http_post(port, http_protocol.GENERATE, {
+                'prompt_ids': [single], 'max_new_tokens': 4})
+            if refused[0] != 503 or 'Retry-After' not in refused[1]:
+                raise AssertionError(f'draining /generate: {refused[0]} '
+                                     f'{refused[1]}')
+            raw, events = read_events(sock, raw,
+                                      lambda ev: ev[-1:] == ['[DONE]'])
+            sock.close()
+            got['drain'] = stream_tokens(events)
+            code, _, raw = http_post(port, http_protocol.ROLE_BUDGET, {
+                'role': 'mixed', 'resume': True, 'version': 3})
+            if code != 200 or json.loads(raw)['draining']:
+                raise AssertionError(f'resume: {raw[:200]}')
+            # A client that hangs up after two events.
+            base = engine.stats()
+            sock = open_stream(port, {'prompt_ids': [gone_p],
+                                      'max_new_tokens': 600}, 'front-gone')
+            read_events(sock, b'', lambda ev: len(ev) >= 2)
+            sock.close()
+            t0 = time.perf_counter()
+            wait_until(lambda: engine.span('front-gone') is not None, 120,
+                       'the hung-up stream finishing')
+            wait_until(lambda: engine.stats()['busy_slots'] == 0 and
+                       pages_in_slots(engine.stats()) ==
+                       pages_in_slots(base), 120,
+                       'slots and pages back to their baseline')
+            freed_s = time.perf_counter() - t0
+            gone = engine.span('front-gone')
+            counts = read_counts(counters)
+            if gone['status'] != 'cancelled' or gone['tokens'] >= 600:
+                raise AssertionError(f'hung-up stream: {gone}')
+            ttft_ms = engine.span('front-1')['ttft_ms']
+            sentinel = engine.profile()['recompiles']
+        finally:
+            stop()
+            server.close()
+        del server, engine
+        # The threaded front of a second server: the reference path.
+        ref_server = model_server.ModelServer('llama3-8b', **kw)
+        ref_port, ref_stop = model_server.start_background(ref_server)
+        try:
+            def ref_tokens(p, n):
+                code, _, raw = http_post(ref_port, http_protocol.GENERATE,
+                                         {'prompt_ids': [p],
+                                          'max_new_tokens': n})
+                if code != 200:
+                    raise AssertionError(f'threaded /generate {code}')
+                return json.loads(raw)['tokens'][0]
+            ref = {'single': ref_tokens(single, new_tokens),
+                   'streams': [ref_tokens(p, new_tokens) for p in streams],
+                   'batch': ref_tokens(batch_p, new_tokens),
+                   'budget': ref_tokens(budget_p, 16),
+                   'drain': ref_tokens(drain_p, new_tokens)}
+        finally:
+            ref_stop()
+            ref_server.close()
+    finally:
+        os.environ.pop('SKYTPU_QOS_SPEC', None)
+    for key in ('single', 'streams', 'drain'):
+        if got[key] != ref[key]:
+            raise AssertionError(f'replica front {key}: async {got[key]} '
+                                 f'!= threaded {ref[key]}')
+    if got['batch'] != ref['batch'][:BATCH_BUDGET]:
+        raise AssertionError(f'batch class: {got["batch"]} != the first '
+                             f'{BATCH_BUDGET} of {ref["batch"]}')
+    hold = (None if got['budget'] == ref['budget'] else
+            hold_tokens('decode budget vs unclamped', cfg, model, budget_p,
+                        got['budget'], ref['budget']))
+    n_stream_tokens = sum(len(t) for t in got['streams'])
+    return counts, dict(
+        wall_s=time.perf_counter() - t_phase, generate_s=generate_s, ttft_ms=ttft_ms,
+        streams_tokens_per_s=n_stream_tokens / streams_s,
+        streams_s=streams_s, budget_s=budget_s, freed_s=freed_s,
+        gone_tokens=gone['tokens'], budget_hold=hold,
+        sentinel={n: (f['calls'], f['compiles'], f['steady_recompiles'])
+                  for n, f in sentinel['fns'].items()
+                  if n in ('prefill', 'prefill_chunk', 'step')})
+
+
 # ------------------------------------------------------------ phase 7
 
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 2048
@@ -1529,9 +1805,35 @@ def expect_launches(path, counts, launched, idle=()):
 def more_serving(cfg, model, dev, counters, new_tokens):
     """The paths each zeroed just before and read just after, around
     the engine work alone (the reference paths and the holds run after
-    the read): 16-slot speculation, dense serving over HTTP, the legacy
-    loop, the KV handoff.  Returns {path: launch counts}."""
+    the read): the replica front, 16-slot speculation, dense serving
+    over HTTP, the legacy loop, the KV handoff.  Returns {path: launch
+    counts}."""
     paths = {}
+    paths['replica front'], front = replica_front(cfg, model, dev, counters,
+                                                  new_tokens)
+    expect_launches('replica front', paths['replica front'],
+                    ('paged_attention', 'flash_fwd'),
+                    ('paged_attention_int8',))
+    hold = front['budget_hold']
+    log(f'replica front ({card()}; host-clock times, printed, not held): '
+        f'{front["wall_s"]:.1f} s for the phase with both servers and the '
+        f'holds; async /generate {front["generate_s"] * 1e3:.1f} ms for '
+        f'{new_tokens} tokens, TTFT {front["ttft_ms"]:.1f} ms; 5 '
+        f'concurrent /generate_stream {front["streams_tokens_per_s"]:.1f} '
+        f'tokens/s ({front["streams_s"]:.2f}s); greedy /generate, streams '
+        f'and the stream /drain let finish equal to the threaded front; '
+        f'batch class = the first {BATCH_BUDGET} unclamped tokens; decode '
+        f'budget: {BUDGET_PROMPT - 1} one-token pieces, '
+        f'{front["budget_s"] * 1e3:.1f} ms for the request, tokens '
+        + ('equal to the unclamped run' if hold is None else
+           f'held token by token ({hold_summary([hold])})')
+        + f'; a client gone after two events: cancelled at '
+        f'{front["gone_tokens"]} tokens, slots and pages back in '
+        f'{front["freed_s"] * 1e3:.0f} ms; sentinel (calls, signatures, '
+        f'steady) {json.dumps(front["sentinel"])} (the decode budget\'s '
+        f'one-token chunk 0 and width-1 continuations are new signatures '
+        f'by design, not recompiles); launches '
+        f'{json.dumps(paths["replica front"])}')
     paths['spec beyond one bucket'], spec = spec_past_one_bucket(
         cfg, model, dev, new_tokens, counters)
     expect_launches('spec beyond one bucket',
@@ -1635,10 +1937,7 @@ def main() -> int:
         return 2
     dev = torch.device('cuda', 0)
     torch.cuda.set_device(dev)
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], check=True,
-                         capture_output=True, text=True).stdout.strip()
-    log(smi.splitlines()[0])
+    log(card())
     log(f'torch {torch.__version__} cuda {torch.version.cuda} '
         f'devices {torch.cuda.device_count()}')
 

@@ -12,6 +12,7 @@ unaffected (their matmuls are bf16 on the tensor cores either way).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import torch
@@ -37,3 +38,14 @@ def resolve_device(device: Union[str, torch.device, None] = DEFAULT_DEVICE
     elif dev.type != 'cpu':
         raise ValueError(f'unsupported device {device!r}; have cuda, cpu')
     return dev
+
+
+def device_scope(device: torch.device):
+    """Make `device` the calling thread's current CUDA device (a no-op
+    on the CPU).  PyTorch keeps the current device and stream per
+    thread, and the kernel wrappers launch on the current stream: a
+    thread that runs device work outside the engine's worker (an HTTP or
+    executor thread) enters this first instead of relying on defaults."""
+    if device.type == 'cuda':
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -42,6 +42,15 @@ Loops:
   synchronously.
 - Deadlines: a live request past its deadline is reaped (slot and pages
   freed, DeadlineExceeded -> 504); queued ones expire at pop.
+- Role budgets (`set_role_budget`, scheduler.RoleBudget): the pipelined
+  loop clamps each prefill chunk of an admission to the budget's
+  prefill tokens (chunk 0 and the continuations alike) and admits no
+  slot once the occupied slots reach its decode tokens.  Budgets change
+  when tokens come, never which.  The legacy loop and the exports are
+  not clamped, as in the reference.
+- Cancellation (a client that hung up): the worker reaps the slot and
+  frees its pages between ticks; a page it reassigns is written only by
+  later launches on the engine's stream, after the tick in flight.
 
 Host ops: KV imports, prefix exports and weight swaps touch state only
 the worker owns, so callers queue a closure (`_on_worker`) that the
@@ -94,6 +103,7 @@ from skypilot_tpu_torch.serve import scheduler
 QueueFull = scheduler.QueueFull
 QueueExpired = scheduler.QueueExpired
 DeadlineExceeded = scheduler.DeadlineExceeded
+RoleBudget = scheduler.RoleBudget
 PagesExhausted = cache_manager.PagesExhausted
 HandoffError = handoff_lib.HandoffError
 HandoffRejected = handoff_lib.HandoffRejected
@@ -304,11 +314,18 @@ class ContinuousBatchingEngine:
     def submit(self, prompt_ids: List[int], max_new_tokens: int,
                stop_token=None, sampling=None,
                request_id: Optional[str] = None,
-               deadline_ms: Optional[float] = None) -> scheduler.Request:
+               route_meta: Optional[Dict[str, Any]] = None,
+               deadline_ms: Optional[float] = None,
+               qos_class: Optional[str] = None) -> scheduler.Request:
         """stop_token: None, one id, or an iterable of ids.  sampling: a
         decode.SamplingConfig (temperature <= 0 decodes greedily; a
         seeded request is deterministic whatever else is in flight).
-        deadline_ms: total time budget from submission."""
+        route_meta: the LB's routing facts, stamped into the span.
+        deadline_ms: total time budget from submission.  qos_class: the
+        request's QoS class (serve/qos.py): its token budget clamps
+        max_new_tokens, its deadline default applies without a deadline
+        of the request's own, and queued work pops in weighted class
+        order."""
         if not prompt_ids:
             raise ValueError('empty prompt')
         if max_new_tokens < 1:
@@ -324,7 +341,9 @@ class ContinuousBatchingEngine:
         request = scheduler.Request(prompt_ids, max_new_tokens, stop_token,
                                     temperature=temperature, top_k=top_k,
                                     seed=seed, request_id=request_id,
-                                    deadline_ms=deadline_ms)
+                                    route_meta=route_meta,
+                                    deadline_ms=deadline_ms,
+                                    qos_class=qos_class)
         request._span_store = self._spans  # pylint: disable=protected-access
         # The epoch in force at submit: a swap landing mid-decode still
         # attributes this request to the weights that prefilled it.
@@ -441,6 +460,18 @@ class ContinuousBatchingEngine:
     def weight_epoch(self) -> int:
         return self._weight_epoch
 
+    def set_role_budget(
+            self, budget: Optional[scheduler.RoleBudget]) -> bool:
+        """Swap the fractional-role budget in place (weights and pools
+        untouched): the next admission checks and prefill chunks use it.
+        A push older than the budget in force is dropped and False
+        returned; None removes the clamp."""
+        return self._queue.set_role_budget(budget)
+
+    @property
+    def role_budget(self) -> Optional[scheduler.RoleBudget]:
+        return self._queue.role_budget
+
     # ------------------------------------------------------- KV handoff
 
     def export_prefill(self, prompt_ids: List[int],
@@ -485,8 +516,8 @@ class ContinuousBatchingEngine:
         ([L, 1, h_kv, max_len, d]): the admission path's chunks."""
         cache, consumed = None, 0
         while consumed < n_target:
-            cache, consumed = self._prefill_piece(prompt_ids, cache,
-                                                  consumed, n_target)
+            cache, consumed = self._prefill_piece(
+                prompt_ids, cache, consumed, n_target, self.prefill_chunk)
         return cache
 
     def import_pages(self, hashes: List[int], page_size: int, k_pages,
@@ -778,10 +809,10 @@ class ContinuousBatchingEngine:
 
     def _prefill_piece(self, prompt_ids: List[int],
                        cache: Optional[Dict[str, Any]], consumed: int,
-                       n_target: int) -> Tuple[Dict[str, Any], int]:
-        """Prefill the next chunk of tokens [consumed, n_target) into a
-        private cache; returns (cache, new consumed)."""
-        chunk = self.prefill_chunk
+                       n_target: int,
+                       chunk: int) -> Tuple[Dict[str, Any], int]:
+        """Prefill the next piece, at most `chunk` tokens of [consumed,
+        n_target), into a private cache; returns (cache, new consumed)."""
         if cache is None:
             # Chunk 0: flash prefill of the bucket-padded first piece.
             take = min(n_target, chunk)
@@ -828,9 +859,14 @@ class ContinuousBatchingEngine:
             pending.consumed = plan.n_reuse_tokens
             request.span.mark_prefill_chunk(time.perf_counter() - t_chunk0)
             return False
+        # The role budget's clamp (floor 1): a decode-heavy budget makes
+        # the pieces smaller, so the prefill slows and never stalls.
+        # Exports (`_prefill_private`) are not clamped, as in the
+        # reference.
         pending.cache, pending.consumed = self._prefill_piece(
             request.prompt_ids, pending.cache, pending.consumed,
-            pending.n_target)
+            pending.n_target,
+            self._queue.prefill_tokens_per_tick(self.prefill_chunk))
         request.span.mark_prefill_chunk(time.perf_counter() - t_chunk0)
         self._record_chunk()
         self._profiler.lap('prefill-chunk')
@@ -1001,8 +1037,14 @@ class ContinuousBatchingEngine:
                             'request deadline passed mid-generation'))
             # Admissions; page-pool exhaustion DEFERS the request.
             deferred = admitted = False
-            for slot_id in [i for i, s in enumerate(self._slots)
-                            if not s.active]:
+            free = [i for i, s in enumerate(self._slots) if not s.active]
+            occupied = len(self._slots) - len(free)
+            for slot_id in free:
+                # The role budget's decode cap: no admission once the
+                # occupied slots reach it (queued requests keep their
+                # order; running decodes finish).
+                if not self._queue.admission_allowed(occupied):
+                    break
                 request = self._queue.pop()
                 if request is None:
                     break
@@ -1022,6 +1064,7 @@ class ContinuousBatchingEngine:
                     pending_prefills.append(pending)
                 else:
                     live[slot_id] = request
+                occupied += 1
             # The admit phase: stale expiry, reaps and admissions.
             prof.lap('admit', record=bool(admitted or deferred or reaped))
             # At most ONE prefill chunk between ticks.

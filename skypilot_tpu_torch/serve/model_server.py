@@ -1,12 +1,16 @@
 """Model server of the port: `ModelServer` + a threaded HTTP front
 (mirrors `skypilot_tpu/serve/model_server.py`: the routes below, with
-the same JSON, status codes and error mapping).
+the same JSON, status codes and error mapping).  `main` serves through
+the asyncio front (serve/async_server.py, the same routes) unless
+`--http-server threaded` is given.
 
     python -m skypilot_tpu_torch.serve.model_server --model llama3-8b \
-        --continuous-batching [--kv-pages 1024]
+        --continuous-batching [--kv-pages 1024] [--role decode] \
+        [--http-server threaded]
 
-- GET /health (and any other GET): {'status', 'model', 'device',
-  'weight_version', 'engine': stats}; 503 once the engine failed.
+- GET /health (and any other GET): {'status', 'model', 'role',
+  'num_hosts', 'draining', 'device', 'weight_version', 'engine':
+  stats}; 503 once the engine failed.
 - GET /metrics: the Prometheus exposition of the process-global
   registry (engine, scheduler, page pool, profiler, log and HTTP
   instruments; scrape-time gauges freshened through engine.stats()).
@@ -24,7 +28,22 @@ the same JSON, status codes and error mapping).
   'temperature', 'top_k', 'seed'} -> {'tokens', 'weight_version',
   'latency_ms'}.  400 for a malformed body, 429 + Retry-After when the
   admission queue or the page pool is full, 503 + Retry-After when the
-  request expired queued, 504 past its deadline, 500 otherwise.
+  request expired queued, 504 past its deadline, 500 otherwise.  A
+  client that hangs up mid-generation (a MSG_PEEK probe of its socket)
+  cancels its requests; the engine frees their slots.
+- Request headers: X-SkyTPU-QoS-Class (the class's token budget and
+  deadline default, weighted admission order), X-SkyTPU-Deadline-Ms,
+  and the LB's routing facts (X-SkyTPU-Routed-Role, -Affinity,
+  -Handoff-Ms, -Attempt), stamped into the request's span and counted
+  in skytpu_engine_routed_total.
+- POST /drain -> {'draining': true, 'inflight'}: from then on
+  /generate, /generate_stream, /generate_text, /prefill_export and
+  /kv_import answer 503 + Retry-After while in-flight work finishes.
+- POST /role_budget {'role', 'version', 'split' | 'prefill_tokens' and
+  'decode_tokens', 'resume'} -> {'applied', 'morphed', 'role',
+  'draining', 'budget'}: swaps the engine's per-tick budget in place; a
+  push older than the budget in force is not applied; 400 without
+  continuous batching or for an unknown role.
 - POST /generate_stream (one prompt): SSE `data: {"token": N}` per
   token, then `data: [DONE]`; 400 without continuous batching.
 - POST /generate_text {'prompt': str, 'max_new_tokens', 'stream'}:
@@ -53,14 +72,17 @@ import argparse
 import json
 import logging
 import os
+import select
+import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler
 from http.server import ThreadingHTTPServer
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from skypilot_tpu_torch.device import device_scope
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import configs
 from skypilot_tpu_torch.models import decode
@@ -72,12 +94,25 @@ from skypilot_tpu_torch.observability import tracing
 from skypilot_tpu_torch.serve import batching_engine as batching_engine_lib
 from skypilot_tpu_torch.serve import handoff as handoff_lib
 from skypilot_tpu_torch.serve import http_protocol
+from skypilot_tpu_torch.serve import qos as qos_lib
+from skypilot_tpu_torch.serve import roles as roles_lib
 
 logger = logging.getLogger(__name__)
 
-# The port's replicas serve one role (the reference's default); roles
-# and their budgets come with the rest of the replica front.
-ROLE = 'mixed'
+# Requests routed by role (the LB's X-SkyTPU-Routed-Role /
+# X-SkyTPU-Affinity headers): the replica's view of the router.
+_M_ROUTED = metrics_lib.counter(
+    'skytpu_engine_routed_total',
+    'LB-routed requests served, by routed role and affinity outcome.',
+    ('role', 'affinity'))
+_M_DRAIN_REJECTED = metrics_lib.counter(
+    'skytpu_serve_drain_rejected_total',
+    'Generation requests answered 503 because the replica is '
+    'draining (the LB retries them on a sibling).')
+_M_BATCH_ROWS = metrics_lib.counter(
+    'skytpu_batch_rows_served_total',
+    'Generation rows served under QoS class batch — the replica-side '
+    'progress signal of a bulk-inference run.')
 
 # Process identity marker: always 1; its labels (the registry's constant
 # labels when SKYTPU_SERVE_REPLICA_ID is set) name this replica.
@@ -92,6 +127,61 @@ _M_FLOPS_PER_TOKEN = metrics_lib.gauge(
     'Approximate forward FLOPs per generated token (2 x parameter '
     'count plus the context-dependent attention term) of the model '
     'this replica serves.')
+
+
+class ClientDisconnected(RuntimeError):
+    """The client hung up while its request was in flight: the engine
+    slots were cancelled (the worker frees them); no response is owed."""
+
+
+def parse_attempt(raw: Optional[str]) -> Optional[int]:
+    """The LB's X-SkyTPU-Attempt value (None when absent or malformed;
+    spans then read as attempt 0)."""
+    if not raw:
+        return None
+    try:
+        return int(raw)
+    except ValueError:
+        return None
+
+
+def parse_route_meta(headers) -> Optional[Dict[str, Any]]:
+    """Routing facts the LB forwarded (`headers.get` by header name);
+    None for a direct hit.  Each routed request is counted here."""
+    role = headers.get(http_protocol.ROUTED_ROLE_HEADER)
+    affinity = headers.get(http_protocol.AFFINITY_HEADER)
+    handoff_ms = headers.get(http_protocol.HANDOFF_MS_HEADER)
+    if not (role or affinity or handoff_ms):
+        return None
+    _M_ROUTED.labels(role=role or 'unknown',
+                     affinity=affinity or 'none').inc()
+    try:
+        ms = float(handoff_ms) if handoff_ms else None
+    except ValueError:
+        ms = None
+    return {'routed_role': role,
+            'affinity_hit': affinity == 'hit' if affinity else None,
+            'handoff_ms': ms,
+            'attempt': parse_attempt(
+                headers.get(http_protocol.ATTEMPT_HEADER))}
+
+
+def parse_deadline_ms(headers) -> Optional[float]:
+    """The request's X-SkyTPU-Deadline-Ms (None when absent, malformed
+    or not positive)."""
+    raw = headers.get(http_protocol.DEADLINE_HEADER)
+    if raw:
+        try:
+            ms = float(raw)
+            return ms if ms > 0 else None
+        except ValueError:
+            pass
+    return None
+
+
+def parse_qos_class(headers) -> str:
+    """The request's X-SkyTPU-QoS-Class, clamped to a known class."""
+    return qos_lib.normalize(headers.get(http_protocol.QOS_CLASS_HEADER))
 
 
 def model_flops_per_token(cfg, n_params: int, max_len: int) -> float:
@@ -119,9 +209,20 @@ class ModelServer:
                  quantize_kv: bool = False,
                  prefix_caching: bool = True,
                  spec_tokens: int = 0,
+                 role: str = roles_lib.DEFAULT_ROLE,
                  device: Union[str, torch.device] = 'cuda',
                  params=None) -> None:
         self.device = resolve_device(device)
+        # The disaggregated-serving role this replica advertises
+        # (/health); the engine is role-agnostic until a /role_budget
+        # push gives it a budget.
+        if role not in roles_lib.ROLES:
+            raise ValueError(f'Unknown replica role {role!r}; one of '
+                             f'{roles_lib.ROLES}')
+        self.role = role
+        # Set by POST /drain: new generation work is refused (503 +
+        # Retry-After) while the engine finishes what it holds.
+        self.draining = False
         self.cfg = configs.get_config(model)
         self.model_name = model
         self.tokenizer = tokenizer_lib.load_tokenizer(None)
@@ -145,7 +246,6 @@ class ModelServer:
         env_rid = os.environ.get('SKYTPU_SERVE_REPLICA_ID')
         self.replica_id: Optional[int] = (
             int(env_rid) if env_rid and env_rid.isdigit() else None)
-        self.role = ROLE
         self.num_hosts = 1
         if self.replica_id is not None:
             metrics_lib.REGISTRY.set_const_labels({
@@ -208,13 +308,84 @@ class ModelServer:
             self._engine.stop()
             self._engine = None
 
+    def drain(self) -> Dict[str, Any]:
+        """POST /drain: refuse new generation work (503 + Retry-After)
+        while the engine finishes what it holds.  Idempotent; returns the
+        in-flight count the controller's drain waits on."""
+        self.draining = True
+        return {'draining': True, 'inflight': self.inflight()}
+
+    def inflight(self) -> int:
+        """Busy slots + queued requests (0 without an engine)."""
+        engine = self._engine
+        if engine is None:
+            return 0
+        stats = engine.stats()
+        return (int(stats.get('busy_slots', 0)) +
+                int(stats.get('queued_requests', 0)))
+
+    def apply_role_budget(self, req: Dict[str, Any]) -> Dict[str, Any]:
+        """POST /role_budget: a rebalance push or a role-morph commit.
+        Swaps the engine's budget in place: explicit prefill/decode
+        tokens, else a `split`, else the role's launch profile.  When it
+        names another role and is applied, the advertised role flips and
+        draining clears (the morph's drain is over); `resume` re-opens a
+        draining replica under its role.  A push older than the budget
+        in force is dropped."""
+        engine = self._engine
+        if engine is None:
+            raise ValueError('role budgets require --continuous-batching')
+        new_role = roles_lib.normalize(req.get('role') or self.role)
+        version = int(req.get('version', 0))
+        split = req.get('split')
+        if (req.get('prefill_tokens') is not None and
+                req.get('decode_tokens') is not None):
+            budget = batching_engine_lib.RoleBudget(
+                prefill_tokens=int(req['prefill_tokens']),
+                decode_tokens=int(req['decode_tokens']),
+                role=new_role,
+                split=float(split) if split is not None
+                else roles_lib.DEFAULT_SPLITS[new_role],
+                version=version)
+        elif split is not None:
+            budget = batching_engine_lib.RoleBudget.from_split(
+                float(split), slots=self.max_batch,
+                prefill_chunk=engine.prefill_chunk, role=new_role,
+                version=version)
+        else:
+            budget = batching_engine_lib.RoleBudget.for_role(
+                new_role, slots=self.max_batch,
+                prefill_chunk=engine.prefill_chunk, version=version)
+        applied = engine.set_role_budget(budget)
+        morphed = applied and new_role != self.role
+        if morphed:
+            self.role = new_role
+            self.draining = False
+        elif applied and req.get('resume'):
+            self.draining = False
+        return {'applied': applied, 'morphed': morphed,
+                'role': self.role, 'draining': self.draining,
+                'budget': budget.as_dict()}
+
     def generate(self, prompt_ids, max_new_tokens: int,
                  temperature: float = 0.0, top_k: int = 0,
                  stop_token=None, seed: int = 0,
                  request_id: Optional[str] = None,
-                 deadline_ms: Optional[float] = None) -> List[List[int]]:
+                 route_meta: Optional[Dict[str, Any]] = None,
+                 deadline_ms: Optional[float] = None,
+                 qos_class: Optional[str] = None,
+                 on_submit=None, disconnect_probe=None) -> List[List[int]]:
         """prompt_ids [batch][seq] -> new tokens per row.  Under
-        continuous batching each row is its own engine request."""
+        continuous batching each row is its own engine request (rows
+        after the first get `request_id` suffixed -1, -2, ...).
+
+        on_submit: called with the engine requests right after they are
+        submitted (the async front's disconnect watchdog cancels through
+        them).  disconnect_probe: polled while waiting; True means the
+        client hung up: every request is cancelled and ClientDisconnected
+        raised (the threaded front's MSG_PEEK probe).  Without an engine
+        the lock-step decode runs in the calling thread, on this
+        server's device."""
         if (not isinstance(prompt_ids, list) or not prompt_ids or
                 not all(isinstance(r, list) and r for r in prompt_ids)):
             raise ValueError('prompt_ids must be [batch, seq]')
@@ -238,13 +409,31 @@ class ModelServer:
                               request_id=(None if request_id is None else
                                           request_id if i == 0 else
                                           f'{request_id}-{i}'),
-                              deadline_ms=deadline_ms)
+                              route_meta=route_meta,
+                              deadline_ms=deadline_ms, qos_class=qos_class)
                 for i, row in enumerate(rows)]
+            if on_submit is not None:
+                on_submit(requests)
+            if disconnect_probe is not None:
+                wait_until = time.monotonic() + 600
+                while True:
+                    pending = next((r for r in requests
+                                    if not r.done.is_set()), None)
+                    if pending is None:
+                        break
+                    if disconnect_probe():
+                        for r in requests:
+                            r.cancel()
+                        raise ClientDisconnected(
+                            'client disconnected mid-generation')
+                    if time.monotonic() > wait_until:
+                        raise TimeoutError('generation timed out')
+                    pending.done.wait(0.1)
             return [list(r.result(timeout=600)) for r in requests]
         vocab = self.cfg.vocab_size
         if any(not 0 <= t < vocab for row in rows for t in row):
             raise ValueError(f'prompt ids must lie in [0, {vocab})')
-        with self._lock:
+        with self._lock, device_scope(self.device):
             prompt = torch.tensor(rows, dtype=torch.int64,
                                   device=self.device)
             _, new = decode.generate(self.cfg, self.params, prompt,
@@ -298,9 +487,12 @@ class ModelServer:
         seg.update(fields)
         self.trace_segments.add(seg)
 
-    def health(self) -> Dict[str, Any]:
+    def health(self) -> Tuple[int, Dict[str, Any]]:
+        """(HTTP code, the health payload): 503 once the engine failed."""
         payload = {'status': 'ok',
                    'model': f'{self.cfg.d_model}x{self.cfg.n_layers}',
+                   'role': self.role, 'num_hosts': self.num_hosts,
+                   'draining': self.draining,
                    'device': str(self.device),
                    'weight_version': self.weight_version}
         engine = self._engine
@@ -309,7 +501,7 @@ class ModelServer:
             payload['engine'] = stats
             if stats['failed']:
                 payload['status'] = 'engine_failed'
-        return payload
+        return 200 if payload['status'] == 'ok' else 503, payload
 
 
 def _make_handler(server: ModelServer):
@@ -371,21 +563,48 @@ def _make_handler(server: ModelServer):
                 return True
             return False
 
-        def _deadline_ms(self) -> Optional[float]:
-            raw = self.headers.get(http_protocol.DEADLINE_HEADER)
-            if raw:
+        def _reject_if_draining(self) -> bool:
+            """503 + Retry-After for new generation work on a draining
+            replica (the LB's same-role retry lands it on a sibling).
+            The body is read first: unread bytes would break the framing
+            of a keep-alive connection's next request."""
+            if not server.draining:
+                return False
+            self._read_body()
+            _M_DRAIN_REJECTED.inc()
+            self._reply(503, {'error': 'replica is draining',
+                              'reason': 'draining'},
+                        {'Retry-After': '5'})
+            return True
+
+        def _disconnect_probe(self):
+            """True once the client's socket is closed.  MSG_PEEK never
+            consumes pipelined bytes: data waiting reads as connected,
+            only an EOF (or a dead socket) as gone."""
+            sock = self.connection
+
+            def probe() -> bool:
                 try:
-                    ms = float(raw)
-                    return ms if ms > 0 else None
-                except ValueError:
-                    pass
-            return None
+                    readable, _, _ = select.select([sock], [], [], 0)
+                    if not readable:
+                        return False
+                    return sock.recv(1, socket.MSG_PEEK) == b''
+                except (OSError, ValueError):
+                    return True
+            return probe
+
+        def _bind(self):
+            """The request-scoped log context (id, attempt, identity)."""
+            return logs_lib.bind(
+                request_id=self._rid,
+                attempt=parse_attempt(
+                    self.headers.get(http_protocol.ATTEMPT_HEADER)),
+                process='replica', replica_id=server.replica_id,
+                role=server.role)
 
         def do_GET(self):
             route = self._begin() or logs_lib.HEALTH_ROUTE
-            with logs_lib.bind(request_id=self._rid, process='replica',
-                               replica_id=server.replica_id,
-                               role=server.role):
+            with self._bind():
                 try:
                     self._get(route, self.path.partition('?')[2])
                 finally:
@@ -412,9 +631,7 @@ def _make_handler(server: ModelServer):
                 self._reply(200, {'records': logs_lib.get_ring().export(
                     **logs_lib.parse_log_query(query))})
             else:
-                payload = server.health()
-                self._reply(200 if payload['status'] == 'ok' else 503,
-                            payload)
+                self._reply(*server.health())
 
         def _read_json(self) -> Dict[str, Any]:
             req = json.loads(self._read_body() or b'{}')
@@ -478,20 +695,30 @@ def _make_handler(server: ModelServer):
                     pass
 
         def _generate(self):
+            if self._reject_if_draining():
+                return
             try:
                 req = self._read_json()
                 t0 = time.perf_counter()
                 temperature, top_k, seed = self._sampling(req)
+                qos = parse_qos_class(self.headers)
                 tokens = server.generate(
                     req['prompt_ids'], int(req.get('max_new_tokens', 16)),
                     temperature, top_k, seed=seed, request_id=self._rid,
-                    deadline_ms=self._deadline_ms())
+                    route_meta=parse_route_meta(self.headers),
+                    deadline_ms=parse_deadline_ms(self.headers),
+                    qos_class=qos,
+                    disconnect_probe=self._disconnect_probe())
+                if qos == qos_lib.BATCH:
+                    _M_BATCH_ROWS.inc(len(tokens))
                 self._reply(200, {
                     'tokens': tokens,
                     'weight_version': server.weight_version,
                     'latency_ms': round(
                         (time.perf_counter() - t0) * 1e3, 1),
                 })
+            except ClientDisconnected:
+                return   # nobody is owed a reply; the slots are freed
             except (KeyError, ValueError, TypeError,
                     json.JSONDecodeError) as e:
                 self._reply(400, {'error': str(e)})
@@ -504,6 +731,8 @@ def _make_handler(server: ModelServer):
 
         def _generate_stream(self):
             """SSE token stream of one prompt (continuous batching)."""
+            if self._reject_if_draining():
+                return
             try:
                 req = self._read_json()
                 prompt = req['prompt_ids']
@@ -524,7 +753,10 @@ def _make_handler(server: ModelServer):
                     stop_token=req.get('stop_token'),
                     sampling=decode.SamplingConfig(
                         temperature=temperature, top_k=top_k, seed=seed),
-                    request_id=self._rid, deadline_ms=self._deadline_ms())
+                    request_id=self._rid,
+                    route_meta=parse_route_meta(self.headers),
+                    deadline_ms=parse_deadline_ms(self.headers),
+                    qos_class=parse_qos_class(self.headers))
             except (KeyError, ValueError, TypeError,
                     json.JSONDecodeError) as e:
                 self._reply(400, {'error': str(e)})
@@ -541,6 +773,8 @@ def _make_handler(server: ModelServer):
         def _generate_text(self):
             """Text in, text out through the server's tokenizer; with
             {"stream": true} SSE {"text": delta} events."""
+            if self._reject_if_draining():
+                return
             try:
                 tok = server.tokenizer
                 if server.cfg.vocab_size < tok.vocab_size:
@@ -568,7 +802,9 @@ def _make_handler(server: ModelServer):
                             temperature=temperature, top_k=top_k,
                             seed=seed),
                         request_id=self._rid,
-                        deadline_ms=self._deadline_ms())
+                        route_meta=parse_route_meta(self.headers),
+                        deadline_ms=parse_deadline_ms(self.headers),
+                        qos_class=parse_qos_class(self.headers))
                     self._sse_stream(request,
                                      self._text_events(tok, request))
                     return
@@ -577,7 +813,10 @@ def _make_handler(server: ModelServer):
                     [ids], max_new, temperature, top_k,
                     stop_token=tok.eos_ids or None, seed=seed,
                     request_id=self._rid,
-                    deadline_ms=self._deadline_ms())[0]
+                    route_meta=parse_route_meta(self.headers),
+                    deadline_ms=parse_deadline_ms(self.headers),
+                    qos_class=parse_qos_class(self.headers),
+                    disconnect_probe=self._disconnect_probe())[0]
                 stops = [i for i, t in enumerate(tokens)
                          if t in tok.eos_ids]
                 if stops:
@@ -589,6 +828,8 @@ def _make_handler(server: ModelServer):
                     'latency_ms': round(
                         (time.perf_counter() - t0) * 1e3, 1),
                 })
+            except ClientDisconnected:
+                return
             except (KeyError, ValueError, TypeError,
                     json.JSONDecodeError) as e:
                 self._reply(400, {'error': str(e)})
@@ -618,6 +859,8 @@ def _make_handler(server: ModelServer):
                 self._reply(400, {'error': 'KV handoff requires '
                                            '--continuous-batching'})
                 return
+            if self._reject_if_draining():
+                return
             try:
                 req = self._read_json()
                 prompt = req['prompt_ids']
@@ -634,7 +877,10 @@ def _make_handler(server: ModelServer):
                     page_size=req.get('page_size'), binary=binary)
                 server.record_handoff_segment(
                     'prefill_export', self._rid, wall0,
-                    (time.perf_counter() - t0) * 1e3, tokens=len(prompt))
+                    (time.perf_counter() - t0) * 1e3,
+                    attempt=parse_attempt(
+                        self.headers.get(http_protocol.ATTEMPT_HEADER)),
+                    tokens=len(prompt))
                 if binary:
                     self._reply_bytes(payload)
                 else:
@@ -653,6 +899,8 @@ def _make_handler(server: ModelServer):
                 self._reply(400, {'error': 'KV handoff requires '
                                            '--continuous-batching'})
                 return
+            if self._reject_if_draining():
+                return   # imported pages would die with this replica
             try:
                 ctype = self.headers.get('Content-Type') or ''
                 if handoff_lib.CONTENT_TYPE_BINARY in ctype:
@@ -668,6 +916,8 @@ def _make_handler(server: ModelServer):
                 server.record_handoff_segment(
                     'kv_import', self._rid, wall0,
                     (time.perf_counter() - t0) * 1e3,
+                    attempt=parse_attempt(
+                        self.headers.get(http_protocol.ATTEMPT_HEADER)),
                     imported_pages=imported, cached_pages=cached)
                 self._reply(200, {'imported_pages': imported,
                                   'cached_pages': cached})
@@ -705,6 +955,24 @@ def _make_handler(server: ModelServer):
                 if not self._reply_backpressure(e):
                     self._reply(500, {'error': f'{type(e).__name__}: {e}'})
 
+        def _drain(self):
+            """Controller retirement: refuse new generation work from
+            now on and report the in-flight count."""
+            self._read_body()
+            self._reply(200, server.drain())
+
+        def _role_budget(self):
+            """Rebalance push / morph commit (allowed while draining: a
+            morph drains, then commits)."""
+            try:
+                self._reply(200,
+                            server.apply_role_budget(self._read_json()))
+            except (KeyError, ValueError, TypeError,
+                    json.JSONDecodeError) as e:
+                self._reply(400, {'error': str(e)})
+            except Exception as e:  # pylint: disable=broad-except
+                self._reply(500, {'error': f'{type(e).__name__}: {e}'})
+
         def _weights_swap(self):
             try:
                 self._reply(200, server.weights_swap(self._read_json()))
@@ -723,11 +991,11 @@ def _make_handler(server: ModelServer):
                 http_protocol.PREFILL_EXPORT: self._prefill_export,
                 http_protocol.KV_IMPORT: self._kv_import,
                 http_protocol.PREFIX_EXPORT: self._prefix_export,
+                http_protocol.DRAIN: self._drain,
+                http_protocol.ROLE_BUDGET: self._role_budget,
                 http_protocol.WEIGHTS_SWAP: self._weights_swap,
             }.get(route)
-            with logs_lib.bind(request_id=self._rid, process='replica',
-                               replica_id=server.replica_id,
-                               role=server.role):
+            with self._bind():
                 try:
                     if handler is None:
                         self._read_body()
@@ -793,6 +1061,16 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument('--top-k', type=int, default=0)
     parser.add_argument('--seed', type=int, default=0,
                         help='Weight seed and default sampling seed.')
+    parser.add_argument('--role',
+                        default=os.environ.get('SKYTPU_SERVE_REPLICA_ROLE',
+                                               roles_lib.DEFAULT_ROLE),
+                        choices=list(roles_lib.ROLES),
+                        help='Disaggregated-serving role this replica '
+                             'advertises (env SKYTPU_SERVE_REPLICA_ROLE).')
+    parser.add_argument('--http-server', default='async',
+                        choices=['async', 'threaded'],
+                        help='Connection front: one asyncio event loop '
+                             '(default) or a thread per connection.')
     parser.add_argument('--device', default='cuda')
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -806,8 +1084,13 @@ def main(argv: Optional[List[str]] = None) -> None:
                          kv_pages=args.kv_pages, page_size=args.page_size,
                          quantize_kv=args.quantize_kv,
                          prefix_caching=not args.no_prefix_cache,
-                         spec_tokens=args.spec_tokens, device=args.device)
-    serve_forever(server, args.port)
+                         spec_tokens=args.spec_tokens, role=args.role,
+                         device=args.device)
+    if args.http_server == 'async':
+        from skypilot_tpu_torch.serve import async_server  # pylint: disable=import-outside-toplevel
+        async_server.serve_forever(server, args.port)
+    else:
+        serve_forever(server, args.port)
 
 
 if __name__ == '__main__':

@@ -28,6 +28,7 @@ from skypilot_tpu_torch.observability import metrics
 from skypilot_tpu_torch.observability import profiling
 from skypilot_tpu_torch.ops import attention
 from skypilot_tpu_torch.ops import paged_attention
+from skypilot_tpu_torch.serve import async_server
 from skypilot_tpu_torch.serve import batching_engine
 from skypilot_tpu_torch.serve import http_protocol
 from skypilot_tpu_torch.serve import model_server
@@ -401,6 +402,69 @@ def test_engine_gpu_matches_cpu(cuda, quantize_kv, spec_tokens, slots,
         finally:
             engine.stop()
     assert out['cuda'] == out['cpu']
+
+
+@pytest.mark.parametrize('kv_pages', [24, None], ids=['paged', 'dense'])
+def test_engine_under_decode_budget_gpu_matches_cpu(cuda, kv_pages):
+    """Under the decode role's budget every prefill piece is one token
+    (chunk 0 through B3 at the 16 bucket, then width-1 continuations):
+    the card gives the CPU's greedy tokens, and they equal the unclamped
+    engine's."""
+    gpu_model = init_params(SMALL, seed=2, device=cuda)
+    cpu_model = convert.from_jax_params(
+        SMALL, convert.to_jax_params(gpu_model), device='cpu')
+    out = {}
+    for name, model, clamped in (('cuda', gpu_model, True),
+                                 ('cpu', cpu_model, True),
+                                 ('cpu unclamped', cpu_model, False)):
+        engine = batching_engine.ContinuousBatchingEngine(
+            SMALL, model, max_len=64, slots=2, prefill_chunk=16,
+            kv_pages=kv_pages, page_size=16, device=model.device)
+        try:
+            if clamped:
+                assert engine.set_role_budget(
+                    batching_engine.RoleBudget.for_role(
+                        'decode', slots=2, prefill_chunk=16))
+            out[name] = [engine.generate(p, 10) for p in PROMPTS]
+            if clamped:
+                assert engine.stats()['prefill_chunks'] == sum(
+                    len(p) - 1 for p in PROMPTS)
+        finally:
+            engine.stop()
+    assert out['cuda'] == out['cpu'] == out['cpu unclamped']
+
+
+def test_async_front_serves_the_threaded_fronts_tokens(cuda):
+    """One server on the card behind both fronts (no prefix cache, so a
+    prompt served twice runs the same path): /generate and
+    /generate_stream give the same greedy tokens on either."""
+    server = model_server.ModelServer(
+        'small', device=cuda, seed=1, continuous_batching=True, max_len=64,
+        max_batch=2, prefill_chunk=16, kv_pages=24, page_size=16,
+        prefix_caching=False)
+    fronts = [async_server.start_background(server),
+              model_server.start_background(server)]
+    try:
+        got = []
+        for port, _ in fronts:
+            base = f'http://127.0.0.1:{port}'
+            tokens = [json.loads(_http(base + http_protocol.GENERATE, body={
+                'prompt_ids': [p], 'max_new_tokens': 8})[2])['tokens'][0]
+                for p in PROMPTS]
+            streams = [[json.loads(line[len(b'data: '):])['token']
+                        for line in _http(
+                            base + http_protocol.GENERATE_STREAM, body={
+                                'prompt_ids': [p],
+                                'max_new_tokens': 8})[2].split(b'\n')
+                        if line.startswith(b'data: {')]
+                       for p in PROMPTS]
+            assert streams == tokens
+            got.append(tokens)
+        assert got[0] == got[1]
+    finally:
+        for _, stop in fronts:
+            stop()
+        server.close()
 
 
 def test_plane_adds_no_device_work(cuda):

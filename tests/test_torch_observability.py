@@ -71,13 +71,6 @@ CASES = {'paged': {}, 'spec': {'spec_tokens': 3}}
 # Reference families this slice does not port yet, with the Queue A
 # item (ROADMAP) that brings each.
 MISSING = {
-    'skytpu_engine_qos_admitted_total': 'A11 (QoS classes)',
-    'skytpu_engine_prefill_budget_tokens': 'A11 (/role_budget)',
-    'skytpu_engine_decode_budget_tokens': 'A11 (/role_budget)',
-    'skytpu_engine_budget_swaps_total': 'A11 (/role_budget)',
-    'skytpu_engine_routed_total': 'A11 (LB routing headers)',
-    'skytpu_serve_drain_rejected_total': 'A11 (/drain)',
-    'skytpu_batch_rows_served_total': 'A11 (QoS batch class)',
     'skytpu_batch_weight_swaps_total': 'A14 (restore behind /weights_swap)',
     'skytpu_batch_weight_epoch': 'A14 (restore behind /weights_swap)',
 }
