@@ -129,6 +129,32 @@ Phases (each one that fails makes the script exit non-zero):
    reference path's tokens (dense: decode.generate; legacy: the dense
    pipelined engine; handoff: the single engine) say where the two
    part.
+5b. Real weights (models/quantize.py, models/import_weights.py,
+   data/checkpoints.py), each path with its own launch counts:
+   - quantize_params over a depth-1 full-width llama3-8b f32 tree on
+     the card equals the same call on the CPU, byte for byte.
+   - "int8 weights": ModelServer('llama3-8b', quantize='int8') at full
+     width and depth (seeded init quantized on the card leaf by leaf,
+     paged, 1024 pages) answers 6 concurrent greedy /generate requests;
+     its weights' GiB are printed beside the bf16 model's.  After the
+     read, a server on the bf16 model whose kernels are the dequantized
+     values (`convert.dequantize_model`, computed once) answers the same
+     requests: the tokens must be equal (both GEMMs see the same bf16
+     operands).  Then the int8 and the bf16 paged ticks are timed with
+     profile_decode's method (printed, not held).  B1 and B3 must run,
+     B2 must not.
+   - "checkpoint": a seeded depth-2 llama3-8b-width model whose values
+     are all bf16 values is written as an HF source (HF names, [out, in],
+     rotate-half q/k rows, BF16, config.json, a tiny SentencePiece
+     tokenizer.model) with the port's safetensors writer;
+     `import_weights.convert` makes step 0, whose restore must equal the
+     writer bit for bit; ModelServer('auto', checkpoint_dir=...) answers
+     /generate and /generate_text, a second seed is saved as step 1 and
+     POST /weights_swap must answer weight_version 1.  After the read,
+     in-memory servers on the same weights must give the same tokens
+     (and /generate_text the tokenizer's decode of them).  The
+     temporary directories are deleted as soon as they are not needed;
+     the disk use, convert and restore seconds are printed.
 6. A reference check: a depth-2, f32 cut of llama3-8b served on the
    GPU (CUDA kernels) and on the CPU (the plain versions) from the same
    weights must give the same greedy tokens, paged and dense engines.
@@ -153,7 +179,7 @@ The line before the last is the `kernels` JSON: each kernel's
 `launches` is its count on the path `path` names (serving for B1/B2,
 training for B3/B4/B5), and `launches_by_path` holds every driven
 path's own count (serving, the two observability windows, the five
-paths of phase 5,
+paths of phase 5, "int8 weights" and "checkpoint" of phase 5b,
 training, `train_llama small`), each path zeroed just before it and read just
 after.  B3's entry carries the
 512-token chunk under `serving_chunk`, B1's and B2's the full batch
@@ -1572,6 +1598,443 @@ def replica_front(cfg, model, dev, counters, new_tokens):
                   if n in ('prefill', 'prefill_chunk', 'step')})
 
 
+# ------------------------------------------- phase 5b: real weights
+
+REAL_LENGTHS = (5, 37, 64, 100, 250, 700)
+
+
+def weight_bytes(model) -> int:
+    """Bytes of every leaf of a model: parameters and buffers (an int8
+    kernel's qvalue and scale)."""
+    return sum(t.numel() * t.element_size() for t in
+               list(model.parameters()) + list(model.buffers()))
+
+
+def greedy_burst(server, bodies):
+    """POST every body to /generate at once through the server's threaded
+    front; -> (each body's greedy tokens, wall seconds)."""
+    from skypilot_tpu_torch.serve import model_server
+    port, stop = model_server.start_background(server)
+    results = [None] * len(bodies)
+
+    def run(i):
+        results[i] = post(port, bodies[i])
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+    finally:
+        stop()
+    tokens = []
+    for (code, out), body in zip(results, bodies):
+        if code != 200 or len(out['tokens'][0]) != body['max_new_tokens']:
+            raise AssertionError(f'/generate {code}: {out}')
+        tokens.append(out['tokens'][0])
+    return tokens, wall
+
+
+def quantize_card_vs_cpu(dev):
+    """quantize_params over a depth-1, full-width llama3-8b f32 tree on
+    the card and the same call on the CPU: equal bytes, leaf for leaf."""
+    import torch
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.models import quantize
+    from skypilot_tpu_torch.models.transformer import init_params
+    cfg = configs.get_config('llama3-8b', n_layers=1, dtype=torch.float32)
+    tree = convert.param_tree(init_params(cfg, seed=11, device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = quantize.quantize_params(tree)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    host = convert._map_tree(lambda t: t.cpu(), tree)  # pylint: disable=protected-access
+    del tree
+    t0 = time.perf_counter()
+    on_host = quantize.quantize_params(host)
+    host_s = time.perf_counter() - t0
+    leaves = n_int8 = 0
+
+    def walk(a, b, path):
+        nonlocal leaves, n_int8
+        if isinstance(b, dict):
+            if sorted(a) != sorted(b):
+                raise AssertionError(f'quantize card vs CPU: keys at {path}')
+            for k in b:
+                walk(a[k], b[k], f'{path}/{k}')
+            return
+        if a.dtype != b.dtype or not torch.equal(a.cpu(), b):
+            raise AssertionError(
+                f'quantize on the card != CPU at {path}: '
+                f'{int((a.cpu() != b).sum())} of {b.numel()} differ')
+        leaves += 1
+        n_int8 += b.dtype == torch.int8
+    walk(on_card, on_host, '')
+    if n_int8 != 8:
+        raise AssertionError(f'{n_int8} int8 leaves in a depth-1 tree')
+    return {'leaves': leaves, 'int8_leaves': n_int8, 'card_s': card_s,
+            'host_s': host_s}
+
+
+def int8_weights(dev, counters, new_tokens):
+    """The int8-weight server at full width and depth: its weights' bytes
+    beside bf16's, the greedy burst held to the dequantized bf16 model's
+    tokens (computed once, `convert.dequantize_model`), the int8 and
+    bf16 ticks timed.  Launches are read around the server's engine work
+    alone."""
+    import torch
+    from skypilot_tpu_torch import profile_decode
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.models.transformer import Transformer
+    from skypilot_tpu_torch.serve import model_server
+    cfg = configs.get_config('llama3-8b')
+    kw = dict(continuous_batching=True, kv_pages=1024, page_size=16,
+              max_len=1024, max_batch=8, device=dev)
+    bodies = [{'prompt_ids': [prompt(300 + i, n, cfg.vocab_size)],
+               'max_new_tokens': new_tokens}
+              for i, n in enumerate(REAL_LENGTHS)]
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    server = model_server.ModelServer('llama3-8b', quantize='int8', seed=0,
+                                      **kw)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    try:
+        tokens, wall = greedy_burst(server, bodies)
+    finally:
+        server.close()
+    launches = read_counts(counters)
+    q8 = server.params
+    del server
+    out = {'init_s': init_s, 'tokens_per_s': new_tokens * len(bodies) / wall,
+           'int8_gib': weight_bytes(q8) / 2**30,
+           'bf16_gib': weight_bytes(Transformer(cfg, device='meta')) / 2**30}
+    fp = convert.dequantize_model(q8)
+    free_cuda()
+    reference = model_server.ModelServer('llama3-8b', params=fp, **kw)
+    try:
+        ref_tokens, _ = greedy_burst(reference, bodies)
+    finally:
+        reference.close()
+    del reference
+    if tokens != ref_tokens:
+        parted = [i for i, (a, b) in enumerate(zip(tokens, ref_tokens))
+                  if a != b]
+        raise AssertionError(f'int8 weights: greedy tokens of prompts '
+                             f'{parted} differ from the dequantized bf16 '
+                             f'model\'s')
+    out['tick'] = {name: profile_decode.profile_tick(cfg, model, dev)
+                   for name, model in (('int8', q8), ('bf16', fp))}
+    del q8, fp
+    free_cuda()
+    return launches, out
+
+
+SP_PIECES = ['▁hello', '▁world', '▁the', '▁quick', 'ing', '▁fox', 'hel',
+             'lo', '▁', 'h', 'e', 'l', 'o', 'w', 'r', 'd', 't', 'q', 'u',
+             'i', 'c', 'k', 'n', 'g', 'f', 'x']
+
+
+def sp_model_bytes() -> bytes:
+    """A tiny SentencePiece ModelProto (unigram): <unk>, <s>, </s>, word
+    and character pieces, the 256 byte-fallback pieces."""
+    import struct
+
+    def varint(n):
+        out = b''
+        while True:
+            b, n = n & 0x7F, n >> 7
+            if n:
+                out += bytes([b | 0x80])
+            else:
+                return out + bytes([b])
+
+    def piece(text, score, ptype=1):
+        body = (b'\x0a' + varint(len(text.encode())) + text.encode() +
+                b'\x15' + struct.pack('<f', score))
+        if ptype != 1:
+            body += b'\x18' + varint(ptype)
+        return b'\x0a' + varint(len(body)) + body
+
+    pieces = [piece('<unk>', 0.0, 2), piece('<s>', 0.0, 3),
+              piece('</s>', 0.0, 3)]
+    pieces += [piece(p, -rank / 4.0 - 1.0)
+               for rank, p in enumerate(SP_PIECES)]
+    pieces += [piece(f'<0x{b:02X}>', -100.0, 6) for b in range(256)]
+    trainer = b'\x18' + varint(1)
+    return b''.join(pieces) + b'\x12' + varint(len(trainer)) + trainer
+
+
+def bf16_exact_model(cfg, seed, dev):
+    """Seeded weights whose every value is a bf16 value (the f32 lm_head
+    rounded through bf16), so a bf16 HF source or step holds them
+    exactly."""
+    import torch
+    from skypilot_tpu_torch.models.transformer import init_params
+    model = init_params(cfg, seed=seed, device=dev)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(p.to(torch.bfloat16))
+    return model
+
+
+def write_hf_source(model, src) -> None:
+    """The model as an HF Llama checkpoint: HF names, [out, in] kernels,
+    q/k rows in the rotate-half order, BF16, config.json, and a tiny
+    SentencePiece tokenizer.model; written tensor by tensor with the
+    port's own safetensors writer (no `transformers` needed)."""
+    import os
+    import torch
+    from skypilot_tpu_torch.utils import safetensors_io
+    cfg = model.cfg
+    d, hd = cfg.d_model, cfg.head_dim
+
+    def rotate_half_rows(kernel, heads):     # [d, h, hd] -> [h*hd, d]
+        k = kernel.reshape(d, heads, hd)
+        return torch.cat([k[..., 0::2], k[..., 1::2]], -1).reshape(
+            d, heads * hd).t()
+
+    leaves = [('model.embed_tokens.weight', lambda: model.embed.embedding),
+              ('model.norm.weight', lambda: model.final_norm.scale),
+              ('lm_head.weight', lambda: model.lm_head.kernel.t())]
+    for i, layer in enumerate(model.layers):
+        pre = f'model.layers.{i}.'
+        leaves += [
+            (pre + 'input_layernorm.weight',
+             lambda x=layer: x.attn_norm.scale),
+            (pre + 'post_attention_layernorm.weight',
+             lambda x=layer: x.mlp_norm.scale),
+            (pre + 'self_attn.q_proj.weight',
+             lambda x=layer: rotate_half_rows(x.attn.q_proj.kernel,
+                                              cfg.n_heads)),
+            (pre + 'self_attn.k_proj.weight',
+             lambda x=layer: rotate_half_rows(x.attn.k_proj.kernel,
+                                              cfg.n_kv_heads)),
+            (pre + 'self_attn.v_proj.weight',
+             lambda x=layer: x.attn.v_proj.kernel.reshape(d, -1).t()),
+            (pre + 'self_attn.o_proj.weight',
+             lambda x=layer: x.attn.o_proj.kernel.reshape(-1, d).t()),
+            (pre + 'mlp.gate_proj.weight',
+             lambda x=layer: x.mlp.gate_proj.kernel.t()),
+            (pre + 'mlp.up_proj.weight',
+             lambda x=layer: x.mlp.up_proj.kernel.t()),
+            (pre + 'mlp.down_proj.weight',
+             lambda x=layer: x.mlp.down_proj.kernel.t()),
+        ]
+    specs = [(name, torch.bfloat16, tuple(fn().shape)) for name, fn in leaves]
+    os.makedirs(src)
+    safetensors_io.write_file(os.path.join(src, 'model.safetensors'), specs,
+                              ((name, fn()) for name, fn in leaves))
+    with open(os.path.join(src, 'config.json'), 'w', encoding='utf-8') as f:
+        json.dump({'model_type': 'llama', 'vocab_size': cfg.vocab_size,
+                   'hidden_size': d, 'intermediate_size': cfg.d_ff,
+                   'num_hidden_layers': cfg.n_layers,
+                   'num_attention_heads': cfg.n_heads,
+                   'num_key_value_heads': cfg.n_kv_heads,
+                   'max_position_embeddings': cfg.max_seq_len,
+                   'rope_theta': cfg.rope_theta,
+                   'rms_norm_eps': cfg.norm_eps,
+                   'tie_word_embeddings': False,
+                   'torch_dtype': 'bfloat16'}, f)
+    with open(os.path.join(src, 'tokenizer.model'), 'wb') as f:
+        f.write(sp_model_bytes())
+
+
+def disk_bytes(path) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(root, name))
+               for root, _, names in os.walk(path) for name in names)
+
+
+def same_weights(a, b, what) -> None:
+    """Fail unless two models hold the same leaves, bit for bit."""
+    import torch
+    from skypilot_tpu_torch.models import convert
+
+    def walk(x, y, path):
+        if isinstance(y, dict):
+            for k in y:
+                walk(x[k], y[k], f'{path}/{k}')
+            return
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f'{what}: {path} differs')
+    walk(convert.param_tree(a), convert.param_tree(b), '')
+
+
+def generate_text(server, body):
+    from skypilot_tpu_torch.serve import http_protocol
+    from skypilot_tpu_torch.serve import model_server
+    port, stop = model_server.start_background(server)
+    try:
+        return json.loads(http_call(port, http_protocol.GENERATE_TEXT,
+                                    body=body)[2])
+    finally:
+        stop()
+
+
+def checkpoint_round_trip(dev, counters, new_tokens):
+    """HF source -> import_weights.convert -> restore (bit-equal to the
+    writer) -> ModelServer('auto') -> /generate, /generate_text -> step
+    1 -> POST /weights_swap, at full width and depth 2.  Launches are
+    read around the 'auto' server's life; the in-memory servers on the
+    same weights run after the read."""
+    import shutil
+    import tempfile
+    import torch
+    from skypilot_tpu_torch.data import checkpoints
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.models import import_weights
+    from skypilot_tpu_torch.serve import http_protocol
+    from skypilot_tpu_torch.serve import model_server
+    cfg = configs.get_config('llama3-8b', n_layers=2)
+    kw = dict(continuous_batching=True, kv_pages=256, page_size=16,
+              max_len=1024, max_batch=8, device=dev)
+    bodies = [{'prompt_ids': [prompt(400 + i, n, cfg.vocab_size)],
+               'max_new_tokens': new_tokens}
+              for i, n in enumerate(REAL_LENGTHS[:4])]
+    text_body = {'prompt': 'hello the quick fox', 'max_new_tokens': 16}
+    root = tempfile.mkdtemp(prefix='skytpu_real_weights_')
+    out = {}
+    try:
+        src, ckpt = f'{root}/hf', f'{root}/ckpt'
+        writer = bf16_exact_model(cfg, 21, dev)
+        t0 = time.perf_counter()
+        write_hf_source(writer, src)
+        out['source_s'] = time.perf_counter() - t0
+        out['source_gb'] = disk_bytes(src) / 1e9
+        t0 = time.perf_counter()
+        converted = import_weights.convert(src, ckpt, dtype='bfloat16')
+        out['convert_s'] = time.perf_counter() - t0
+        out['peak_disk_gb'] = (disk_bytes(src) + disk_bytes(ckpt)) / 1e9
+        shutil.rmtree(src)
+        if converted != cfg:
+            raise AssertionError(f'converted config {converted} != {cfg}')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = checkpoints.restore_params(ckpt, device=dev)
+        torch.cuda.synchronize()
+        out['restore_s'] = time.perf_counter() - t0
+        same_weights(convert.from_jax_params(cfg, tree, device=dev), writer,
+                     'the imported tree vs the model that wrote it')
+        del tree
+        free_cuda()
+
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        auto = model_server.ModelServer('auto', checkpoint_dir=ckpt, **kw)
+        torch.cuda.synchronize()
+        out['auto_init_s'] = time.perf_counter() - t0
+        try:
+            if auto.cfg != cfg:
+                raise AssertionError(f'--model auto read {auto.cfg}')
+            if type(auto.tokenizer).__name__ != 'SentencePieceTokenizer':
+                raise AssertionError(f'tokenizer {auto.tokenizer}')
+            tokens, _ = greedy_burst(auto, bodies)
+            text = generate_text(auto, text_body)
+            second = bf16_exact_model(cfg, 22, dev)
+            tree = convert.param_tree(second)
+            tree['lm_head']['kernel'] = tree['lm_head']['kernel'].to(
+                torch.bfloat16)
+            checkpoints.save_params(ckpt, 1, tree)
+            del tree
+            out['step1_gb'] = disk_bytes(f'{ckpt}/1') / 1e9
+            out['peak_disk_gb'] = max(out['peak_disk_gb'],
+                                      disk_bytes(ckpt) / 1e9)
+            port, stop = model_server.start_background(auto)
+            try:
+                swapped = json.loads(http_call(
+                    port, http_protocol.WEIGHTS_SWAP,
+                    body={'checkpoint_dir': ckpt})[2])
+            finally:
+                stop()
+            swapped_tokens, _ = greedy_burst(auto, bodies)
+        finally:
+            auto.close()
+        launches = read_counts(counters)
+        same_weights(auto.params, second, 'the swapped-in weights')
+        del auto
+        free_cuda()
+        if (swapped['weight_version'], swapped['step']) != (1, 1):
+            raise AssertionError(f'/weights_swap answered {swapped}')
+        out['swap_restore_ms'] = swapped['restore_ms']
+        for weights, got, what in ((writer, tokens, 'step 0'),
+                                   (second, swapped_tokens, 'after swap')):
+            fresh = model_server.ModelServer('auto', checkpoint_dir=ckpt,
+                                             params=weights, **kw)
+            try:
+                want, _ = greedy_burst(fresh, bodies)
+                if what == 'step 0':
+                    ref_text = generate_text(fresh, text_body)
+                    decoded = fresh.tokenizer.decode(text['tokens'])
+            finally:
+                fresh.close()
+            if got != want:
+                raise AssertionError(f'--model auto tokens ({what}) differ '
+                                     'from the in-memory server\'s')
+        if (text['tokens'] != ref_text['tokens'] or
+                text['completion'] != decoded):
+            raise AssertionError(f'/generate_text {text} vs in memory '
+                                 f'{ref_text}, decode {decoded!r}')
+        out['text_tokens'] = len(text['tokens'])
+        del writer, second
+        free_cuda()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, out
+
+
+def real_weights(dev, counters, new_tokens):
+    """Phase 5b; returns {path: launch counts}."""
+    paths = {}
+    t_phase = time.perf_counter()
+    q = quantize_card_vs_cpu(dev)
+    log(f'quantize_params on the card == CPU, byte for byte: depth-1 '
+        f'llama3-8b f32 tree, {q["leaves"]} leaves ({q["int8_leaves"]} '
+        f'int8); {q["card_s"]:.2f} s on the card, {q["host_s"]:.2f} s on '
+        f'the CPU')
+    free_cuda()
+    paths['int8 weights'], w = int8_weights(dev, counters, new_tokens)
+    expect_launches('int8 weights', paths['int8 weights'],
+                    ('paged_attention', 'flash_fwd'),
+                    ('paged_attention_int8',))
+    ticks = {name: {k: t[k] for k in ('tick_ms', 'device_ms_per_tick',
+                                      'device_idle_share',
+                                      'kernels_per_tick')}
+             for name, t in w['tick'].items()}
+    log(f'int8 weights ({card()}): weights {w["int8_gib"]:.3f} GiB vs bf16 '
+        f'{w["bf16_gib"]:.3f} GiB; init (seeded, quantized on the card '
+        f'leaf by leaf) {w["init_s"]:.1f} s; 6 concurrent /generate '
+        f'{w["tokens_per_s"]:.1f} tokens/s, greedy tokens equal to the '
+        f'dequantized bf16 model\'s; paged tick (8 slots, profile_decode, '
+        f'printed, not held) {json.dumps(ticks)}; top device ops int8 '
+        f'{json.dumps(w["tick"]["int8"]["top_device_ops"][:6])}, bf16 '
+        f'{json.dumps(w["tick"]["bf16"]["top_device_ops"][:4])}; launches '
+        f'{json.dumps(paths["int8 weights"])}')
+    paths['checkpoint'], c = checkpoint_round_trip(dev, counters, new_tokens)
+    expect_launches('checkpoint', paths['checkpoint'],
+                    ('paged_attention', 'flash_fwd'),
+                    ('paged_attention_int8',))
+    log(f'checkpoint (llama3-8b width, depth 2, bf16): HF source '
+        f'{c["source_gb"]:.2f} GB written in {c["source_s"]:.1f} s; '
+        f'import_weights.convert {c["convert_s"]:.1f} s; restore to the '
+        f'card {c["restore_s"]:.2f} s, bit-equal to the writer; --model '
+        f'auto init {c["auto_init_s"]:.1f} s, greedy tokens and '
+        f'/generate_text ({c["text_tokens"]} tokens) equal to an in-memory '
+        f'server\'s; step 1 ({c["step1_gb"]:.2f} GB) swapped in '
+        f'(restore_ms {c["swap_restore_ms"]}), weight_version 1, tokens '
+        f'equal to a fresh server\'s; peak disk {c["peak_disk_gb"]:.2f} GB; '
+        f'launches {json.dumps(paths["checkpoint"])}; the phase '
+        f'{time.perf_counter() - t_phase:.1f} s')
+    return paths
+
+
 # ------------------------------------------------------------ phase 7
 
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = 4, 2, 2048
@@ -2020,6 +2483,8 @@ def main() -> int:
     free_cuda()
     paths.update(more_serving(cfg, model, dev, counters, new_tokens))
     del model
+    free_cuda()
+    paths.update(real_weights(dev, counters, new_tokens))
     free_cuda()
     err = reference_check(dev)
     log(f'reference: depth-2 f32 llama3-8b GPU == CPU greedy tokens '

@@ -1,38 +1,42 @@
 """Bridge between the reference's flax parameter tree and the port.
 
-`from_jax_params` takes the reference tree as numpy arrays (the tests
-carry reference weights across with it; nothing is downloaded) and
+`from_jax_params` takes the reference tree (numpy arrays, or torch
+tensors such as a restored checkpoint's, already on the device) and
 returns a `Transformer` on `device`.  It reads both layer layouts of
 the reference: scan-stacked `params['layers']['layer']` with a leading
 [L] axis, and unstacked `params['layer_{i}']`.  The kernel layouts are
 the flax ones on both sides (q/k/v [d, h, hd], o_proj [h, hd, d], MLP
 [d, f] / [f, d], lm_head [d, V]), so leaves copy across unchanged, cast
 to the port's storage dtype (see models/transformer.py: the serving
-layout, or cfg.param_dtype when trainable).
+layout, or cfg.param_dtype when trainable).  A tree whose matmul
+kernels are int8 {'qvalue', 'scale'} leaves (models/quantize.py)
+becomes a quantized Transformer, its int8 bytes and f32 scales copied
+as they are.
 
-`to_jax_params` is the inverse (numpy f32 leaves), for round trips.
+`to_jax_params` is the inverse (numpy f32 leaves; int8 leaves byte for
+byte), for round trips; `param_tree` is the same tree over the model's
+own tensors, copying nothing.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Union
+from typing import Any, Callable, Dict, Tuple, Union
 
 import numpy as np
 import torch
 
 from skypilot_tpu_torch.device import resolve_device
+from skypilot_tpu_torch.models import quantize as quantize_lib
 from skypilot_tpu_torch.models.configs import ModelConfig
+from skypilot_tpu_torch.models.transformer import QuantDense
 from skypilot_tpu_torch.models.transformer import Transformer
+from skypilot_tpu_torch.models.transformer import _storage
 
 
-def _leaf(x: Any, where: str) -> np.ndarray:
+def _leaf(x: Any, where: str):
     if isinstance(x, dict):
-        if 'qvalue' in x:
-            raise NotImplementedError(
-                f'{where}: int8 weight leaves ({{qvalue, scale}}) come '
-                'with weight quantization in a later slice of the port')
         raise ValueError(f'{where}: expected an array, got keys '
                          f'{sorted(x)}')
-    return np.asarray(x)
+    return x if torch.is_tensor(x) else np.asarray(x)
 
 
 def _layer_trees(tree: Dict[str, Any], cfg: ModelConfig):
@@ -41,7 +45,7 @@ def _layer_trees(tree: Dict[str, Any], cfg: ModelConfig):
         stacked = tree['layers']['layer']
 
         def index(node, i):
-            if isinstance(node, dict) and 'qvalue' not in node:
+            if isinstance(node, dict):
                 return {k: index(v, i) for k, v in node.items()}
             return _leaf(node, 'layers.layer')[i]
         return [index(stacked, i) for i in range(cfg.n_layers)]
@@ -53,7 +57,26 @@ def _copy(dst: torch.Tensor, src: Any, where: str) -> None:
     if tuple(arr.shape) != tuple(dst.shape):
         raise ValueError(f'{where}: shape {tuple(arr.shape)} != '
                          f'{tuple(dst.shape)}')
-    dst.copy_(torch.from_numpy(np.array(arr)).to(dst.dtype))
+    if not torch.is_tensor(arr):
+        arr = torch.from_numpy(np.array(arr)).to(dst.dtype)
+    dst.copy_(arr)
+
+
+def _copy_dense(dense, src: Dict[str, Any], where: str) -> None:
+    kernel = src['kernel']
+    if isinstance(dense, QuantDense):
+        if not quantize_lib.is_quantized_leaf(kernel):
+            raise ValueError(f'{where}: expected an int8 {{qvalue, scale}} '
+                             'leaf like the first layer\'s q_proj')
+        _copy(dense.qvalue, kernel['qvalue'], f'{where}.qvalue')
+        _copy(dense.scale, kernel['scale'], f'{where}.scale')
+    else:
+        if quantize_lib.is_quantized_leaf(kernel):
+            raise ValueError(f'{where}: an int8 leaf in a tree whose first '
+                             'q_proj is not quantized')
+        _copy(dense.kernel, kernel, where)
+    if dense.bias is not None:
+        _copy(dense.bias, src['bias'], f'{where}.bias')
 
 
 def from_jax_params(cfg: ModelConfig, tree: Dict[str, Any],
@@ -61,72 +84,143 @@ def from_jax_params(cfg: ModelConfig, tree: Dict[str, Any],
                     trainable: bool = False) -> Transformer:
     """The reference tree as a `Transformer` on `device`; `trainable`
     keeps every leaf in cfg.param_dtype with grad (training), else the
-    serving layout (models/transformer.py)."""
+    serving layout (models/transformer.py), with int8 kernels when the
+    tree has them."""
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev, trainable=trainable)
+    layers = _layer_trees(tree, cfg)
+    quantized = bool(layers) and quantize_lib.is_quantized_leaf(
+        layers[0]['attn']['q_proj']['kernel'])
+    model = Transformer(cfg, device=dev, trainable=trainable,
+                        quantized=quantized)
     with torch.no_grad():
         _copy(model.embed.embedding, tree['embed']['embedding'],
               'embed.embedding')
-        for i, (layer, lp) in enumerate(zip(model.layers,
-                                            _layer_trees(tree, cfg))):
+        for i, (layer, lp) in enumerate(zip(model.layers, layers)):
             pre = f'layer {i}'
             _copy(layer.attn_norm.scale, lp['attn_norm']['scale'],
                   f'{pre} attn_norm')
             _copy(layer.mlp_norm.scale, lp['mlp_norm']['scale'],
                   f'{pre} mlp_norm')
             for name in ('q_proj', 'k_proj', 'v_proj', 'o_proj'):
-                dense = getattr(layer.attn, name)
-                src = lp['attn'][name]
-                _copy(dense.kernel, src['kernel'], f'{pre} {name}')
-                if dense.bias is not None:
-                    _copy(dense.bias, src['bias'], f'{pre} {name}.bias')
+                _copy_dense(getattr(layer.attn, name), lp['attn'][name],
+                            f'{pre} {name}')
             for name in ('gate_proj', 'up_proj', 'down_proj'):
-                _copy(getattr(layer.mlp, name).kernel,
-                      lp['mlp'][name]['kernel'], f'{pre} {name}')
+                _copy_dense(getattr(layer.mlp, name), lp['mlp'][name],
+                            f'{pre} {name}')
         _copy(model.final_norm.scale, tree['final_norm']['scale'],
               'final_norm')
         if model.lm_head is not None:
-            _copy(model.lm_head.kernel, tree['lm_head']['kernel'],
-                  'lm_head')
+            _copy_dense(model.lm_head, tree['lm_head'], 'lm_head')
     return model.eval()
 
 
-def to_jax_params(model: Transformer) -> Dict[str, Any]:
-    """The reference tree (layout per cfg.scan_layers) as numpy f32."""
-    cfg = model.cfg
+def _dense_tree(dense) -> Dict[str, Any]:
+    if isinstance(dense, QuantDense):
+        node = {'kernel': {'qvalue': dense.qvalue, 'scale': dense.scale}}
+    else:
+        node = {'kernel': dense.kernel}
+    if dense.bias is not None:
+        node['bias'] = dense.bias
+    return node
 
-    def np32(t: torch.Tensor) -> np.ndarray:
-        return t.detach().to('cpu', torch.float32).numpy()
 
-    def layer_tree(layer) -> Dict[str, Any]:
-        attn = {}
-        for name in ('q_proj', 'k_proj', 'v_proj', 'o_proj'):
-            dense = getattr(layer.attn, name)
-            attn[name] = {'kernel': np32(dense.kernel)}
-            if dense.bias is not None:
-                attn[name]['bias'] = np32(dense.bias)
-        return {
-            'attn_norm': {'scale': np32(layer.attn_norm.scale)},
-            'attn': attn,
-            'mlp_norm': {'scale': np32(layer.mlp_norm.scale)},
-            'mlp': {name: {'kernel': np32(getattr(layer.mlp, name).kernel)}
-                    for name in ('gate_proj', 'up_proj', 'down_proj')},
-        }
-
+def param_tree(model: Transformer) -> Dict[str, Any]:
+    """The reference tree over the model's own tensors, in the unstacked
+    layout (`layer_{i}`), copying nothing."""
     tree: Dict[str, Any] = {
-        'embed': {'embedding': np32(model.embed.embedding)},
-        'final_norm': {'scale': np32(model.final_norm.scale)},
+        'embed': {'embedding': model.embed.embedding},
+        'final_norm': {'scale': model.final_norm.scale},
     }
     if model.lm_head is not None:
-        tree['lm_head'] = {'kernel': np32(model.lm_head.kernel)}
-    layers = [layer_tree(layer) for layer in model.layers]
-    if cfg.scan_layers:
-        def stack(*nodes):
-            if isinstance(nodes[0], dict):
-                return {k: stack(*(n[k] for n in nodes)) for k in nodes[0]}
-            return np.stack(nodes)
-        tree['layers'] = {'layer': stack(*layers)}
-    else:
-        for i, lt in enumerate(layers):
-            tree[f'layer_{i}'] = lt
+        tree['lm_head'] = _dense_tree(model.lm_head)
+    for i, layer in enumerate(model.layers):
+        tree[f'layer_{i}'] = {
+            'attn_norm': {'scale': layer.attn_norm.scale},
+            'attn': {name: _dense_tree(getattr(layer.attn, name))
+                     for name in ('q_proj', 'k_proj', 'v_proj', 'o_proj')},
+            'mlp_norm': {'scale': layer.mlp_norm.scale},
+            'mlp': {name: _dense_tree(getattr(layer.mlp, name))
+                    for name in ('gate_proj', 'up_proj', 'down_proj')},
+        }
     return tree
+
+
+def _map_tree(fn, node):
+    if isinstance(node, dict):
+        return {k: _map_tree(fn, v) for k, v in node.items()}
+    return fn(node)
+
+
+def dequantize_model(model: Transformer) -> Transformer:
+    """The float Transformer whose kernels are the values an int8 model
+    computes with: every layer kernel dequantized to cfg.dtype (what
+    each call dequantizes to), the lm_head to the logits matmul dtype;
+    on the model's device.  Its GEMMs see the int8 model's operands."""
+    cfg = model.cfg
+    head = torch.float32 if cfg.logits_in_f32 else cfg.dtype
+
+    def walk(node, path):
+        if quantize_lib.is_quantized_leaf(node):
+            return quantize_lib.dequant(
+                node, head if path[0] == 'lm_head' else cfg.dtype)
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return node
+
+    with torch.no_grad():
+        tree = walk(param_tree(model), ())
+        return from_jax_params(cfg, tree, device=model.device)
+
+
+def to_jax_params(model: Transformer) -> Dict[str, Any]:
+    """The reference tree (layout per cfg.scan_layers) as numpy: float
+    leaves in f32, int8 leaves as their int8 bytes and f32 scales."""
+    def host(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().to('cpu')
+        if t.dtype != torch.int8:
+            t = t.to(torch.float32)
+        return t.numpy()
+
+    flat = _map_tree(host, param_tree(model))
+    layers = [flat.pop(f'layer_{i}') for i in range(model.cfg.n_layers)]
+    if not model.cfg.scan_layers:
+        flat.update({f'layer_{i}': lt for i, lt in enumerate(layers)})
+        return flat
+
+    def stack(*nodes):
+        if isinstance(nodes[0], dict):
+            return {k: stack(*(n[k] for n in nodes)) for k in nodes[0]}
+        return np.stack(nodes)
+    flat['layers'] = {'layer': stack(*layers)}
+    return flat
+
+
+def serving_leaf(cfg: ModelConfig, quantize: bool = False
+                 ) -> Callable[[Tuple[str, ...], torch.Tensor], Any]:
+    """fn(path, tensor) turning one leaf of a checkpoint tree into what
+    the serving Transformer stores: with `quantize`, a matmul kernel
+    becomes an int8 leaf, quantized from the leaf as stored (before any
+    cast, as the reference quantizes its restored tree); every other
+    leaf is cast to its storage dtype.  Applied leaf by leaf as a
+    restore streams (data/checkpoints.py), so the float tree never
+    exists on the device in f32."""
+    storage = _storage(cfg, trainable=False)
+
+    def fn(path: Tuple[str, ...], t: torch.Tensor) -> Any:
+        if path[-2:] in (('kernel', 'qvalue'), ('kernel', 'scale')):
+            return t          # a leaf already quantized
+        if quantize:
+            q = quantize_lib.quantize_leaf(path, t)
+            if q is not t:
+                return q
+        if path[-1] == 'embedding':
+            dtype = storage.embed
+        elif path[-1] == 'scale':
+            dtype = storage.norm
+        elif path[0] == 'lm_head':
+            dtype = storage.head
+        else:
+            dtype = storage.matmul
+        return t.to(dtype)
+
+    return fn

@@ -118,7 +118,7 @@ def _attn_proj(x, proj, shape, blocked: bool = False):
     [b, heads, s, hd] for the first b * s rows (`shape` = (b, s)), plus
     the [heads, hd] bias when the config has one."""
     b, s = shape
-    w = proj.matrix().to(x.dtype)
+    w = proj.matrix(x.dtype)   # once a call, before the blocks
     out = _by_blocks(lambda rows: rows @ w, x, blocked)[:b * s]
     out = out.reshape(b, s, *proj.out_shape).permute(0, 2, 1, 3)
     if proj.bias is not None:
@@ -126,13 +126,23 @@ def _attn_proj(x, proj, shape, blocked: bool = False):
     return out
 
 
-def _mlp(x, mlp, cfg: ModelConfig):
+def _mlp_weights(mlp, dtype):
+    """(gate, up, down) as matrices in `dtype` (int8 kernels dequantized
+    here, once a call)."""
+    return (mlp.gate_proj.matrix(dtype), mlp.up_proj.matrix(dtype),
+            mlp.down_proj.matrix(dtype))
+
+
+def _mlp(x, mlp, cfg: ModelConfig, weights=None):
+    """The MLP block on x [..., d]; `weights`: `_mlp_weights`' result,
+    made once by a caller that runs the block by rows."""
     if cfg.n_experts > 0:
         raise NotImplementedError(
             'MoE MLPs (models/moe.py) come with a later slice of the port')
+    w_gate, w_up, w_down = weights or _mlp_weights(mlp, x.dtype)
     x2 = x.reshape(-1, x.shape[-1])
-    gate = x2 @ mlp.gate_proj.matrix().to(x.dtype)
-    up = x2 @ mlp.up_proj.matrix().to(x.dtype)
+    gate = x2 @ w_gate
+    up = x2 @ w_up
     if cfg.mlp_act == 'silu':
         act = F.silu(gate)
     elif cfg.mlp_act == 'gelu':
@@ -140,7 +150,7 @@ def _mlp(x, mlp, cfg: ModelConfig):
         act = F.gelu(gate, approximate='tanh')
     else:
         raise ValueError(f'Unknown mlp_act {cfg.mlp_act!r}')
-    return (act * up @ mlp.down_proj.matrix().to(x.dtype)).reshape(x.shape)
+    return (act * up @ w_down).reshape(x.shape)
 
 
 def _masked_attention(q, k_cache, v_cache, positions, cfg: ModelConfig):
@@ -207,11 +217,13 @@ def _attn_out_and_mlp(x, out, layer, cfg: ModelConfig,
         padded = x.new_zeros((x.shape[0], hq * hd))
         padded[:b * s] = rows
         rows = padded
-    w = layer.attn.o_proj.matrix().to(x.dtype)
+    w = layer.attn.o_proj.matrix(x.dtype)
     x = x + _by_blocks(lambda r: r @ w, rows, blocked)
+    weights = _mlp_weights(layer.mlp, x.dtype)
     return x + _by_blocks(
         lambda r: _mlp(_norm(r, layer.mlp_norm.scale, cfg.norm_eps,
-                             cfg.norm_scale_plus_one), layer.mlp, cfg),
+                             cfg.norm_scale_plus_one), layer.mlp, cfg,
+                       weights),
         x, blocked)
 
 
@@ -257,10 +269,12 @@ def _scan_layers_and_unembed(cfg: ModelConfig, model, x, positions,
                            view_fn(v_leaf), use_flash=use_flash,
                            shape=(b, s), blocked=blocked)
 
+    kernel = heads.head_kernel(model, cfg)   # once, before the blocks
+
     def head(rows):
         rows = _norm(rows, model.final_norm.scale, cfg.norm_eps,
                      cfg.norm_scale_plus_one)
-        return heads.unembed(rows, model, cfg)
+        return heads.unembed(rows, model, cfg, kernel)
 
     if all_positions:
         logits = _by_blocks(head, x, blocked)[:b * s]

@@ -15,6 +15,12 @@ whose parameter names and shapes are the flax tree's, so a reader (and
     final_norm.scale                    [d]
     lm_head.kernel                      [d, V]       (absent when tied)
 
+With int8 weights (`quantized=True`, models/quantize.py) every matmul
+kernel, the lm_head's included, is a `QuantDense` instead: buffers
+`qvalue` (int8, the kernel's shape) and `scale` (f32, 1 on the input
+axes), the reference tree's {'qvalue', 'scale'} leaf; `matrix(dtype)`
+dequantizes it on every call, as the reference's `maybe_dequant` does.
+
 Two storage layouts:
 - serving (the default): parameters do not require grad; matmul
   weights are stored in `cfg.dtype` (the cast the reference makes on
@@ -36,13 +42,14 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Sequence, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import torch
 from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
 from skypilot_tpu_torch.device import resolve_device
+from skypilot_tpu_torch.models import quantize as quantize_lib
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.ops.attention import flash_attention
 
@@ -139,50 +146,84 @@ class Dense(nn.Module):
         self.bias = (_param(self.out_shape, dtype, device) if bias
                      else None)
 
-    def matrix(self) -> torch.Tensor:
-        """The kernel as a [fan_in, fan_out] matrix (a view)."""
-        return self.kernel.reshape(self.fan_in, -1)
+    def matrix(self, dtype: torch.dtype) -> torch.Tensor:
+        """The kernel as a [fan_in, fan_out] matrix in `dtype` (a view
+        when the kernel is stored in `dtype`)."""
+        return self.kernel.reshape(self.fan_in, -1).to(dtype)
+
+
+class QuantDense(nn.Module):
+    """Dense with an int8 kernel: buffers qvalue [*in_shape, *out_shape]
+    (int8) and scale [1 x len(in_shape), *out_shape] (f32, per output
+    channel), optional float bias [*out_shape]."""
+
+    def __init__(self, in_shape: Sequence[int], out_shape: Sequence[int],
+                 *, dtype, device, bias: bool = False) -> None:
+        super().__init__()
+        self.in_shape = tuple(in_shape)
+        self.out_shape = tuple(out_shape)
+        self.fan_in = math.prod(self.in_shape)
+        self.register_buffer('qvalue', torch.empty(
+            self.in_shape + self.out_shape, dtype=torch.int8,
+            device=device))
+        self.register_buffer('scale', torch.empty(
+            (1,) * len(self.in_shape) + self.out_shape,
+            dtype=torch.float32, device=device))
+        self.bias = (_param(self.out_shape, dtype, device) if bias
+                     else None)
+
+    def matrix(self, dtype: torch.dtype) -> torch.Tensor:
+        """The dequantized kernel as a [fan_in, fan_out] matrix in
+        `dtype`: the reference's maybe_dequant(kernel, dtype), a new
+        tensor on every call."""
+        leaf = {'qvalue': self.qvalue, 'scale': self.scale}
+        return quantize_lib.dequant(leaf, dtype).reshape(self.fan_in, -1)
 
 
 class Attention(nn.Module):
 
-    def __init__(self, cfg: ModelConfig, *, dtype, device) -> None:
+    def __init__(self, cfg: ModelConfig, *, dtype, device,
+                 dense=Dense) -> None:
         super().__init__()
         d, hd = cfg.d_model, cfg.head_dim
         kw = dict(dtype=dtype, device=device, bias=cfg.qkv_bias)
-        self.q_proj = Dense((d,), (cfg.n_heads, hd), **kw)
-        self.k_proj = Dense((d,), (cfg.n_kv_heads, hd), **kw)
-        self.v_proj = Dense((d,), (cfg.n_kv_heads, hd), **kw)
-        self.o_proj = Dense((cfg.n_heads, hd), (d,), dtype=dtype,
+        self.q_proj = dense((d,), (cfg.n_heads, hd), **kw)
+        self.k_proj = dense((d,), (cfg.n_kv_heads, hd), **kw)
+        self.v_proj = dense((d,), (cfg.n_kv_heads, hd), **kw)
+        self.o_proj = dense((cfg.n_heads, hd), (d,), dtype=dtype,
                             device=device)
 
 
 class MLP(nn.Module):
 
-    def __init__(self, cfg: ModelConfig, *, dtype, device) -> None:
+    def __init__(self, cfg: ModelConfig, *, dtype, device,
+                 dense=Dense) -> None:
         super().__init__()
         kw = dict(dtype=dtype, device=device)
-        self.gate_proj = Dense((cfg.d_model,), (cfg.d_ff,), **kw)
-        self.up_proj = Dense((cfg.d_model,), (cfg.d_ff,), **kw)
-        self.down_proj = Dense((cfg.d_ff,), (cfg.d_model,), **kw)
+        self.gate_proj = dense((cfg.d_model,), (cfg.d_ff,), **kw)
+        self.up_proj = dense((cfg.d_model,), (cfg.d_ff,), **kw)
+        self.down_proj = dense((cfg.d_ff,), (cfg.d_model,), **kw)
 
 
 class DecoderLayer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, storage: _Storage,
-                 device) -> None:
+                 device, dense=Dense) -> None:
         super().__init__()
         if cfg.n_experts > 0:
             raise NotImplementedError(
                 'MoE decoders (models/moe.py) come with a later slice of '
-                'the port')
+                'the port (ROADMAP Queue A, item 15); a Mixtral checkpoint '
+                'imports, but cannot be served yet')
         self.cfg = cfg
         self.attn_norm = RMSNorm(cfg.d_model, dtype=storage.norm,
                                  device=device)
-        self.attn = Attention(cfg, dtype=storage.matmul, device=device)
+        self.attn = Attention(cfg, dtype=storage.matmul, device=device,
+                              dense=dense)
         self.mlp_norm = RMSNorm(cfg.d_model, dtype=storage.norm,
                                 device=device)
-        self.mlp = MLP(cfg, dtype=storage.matmul, device=device)
+        self.mlp = MLP(cfg, dtype=storage.matmul, device=device,
+                       dense=dense)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 shape) -> torch.Tensor:
@@ -210,34 +251,33 @@ class Embed(nn.Module):
         self.embedding = _param((vocab, dim), dtype, device)
 
 
-class LMHead(nn.Module):
-
-    def __init__(self, cfg: ModelConfig, *, dtype, device) -> None:
-        super().__init__()
-        self.kernel = _param((cfg.d_model, cfg.vocab_size), dtype, device)
-        self.fan_in = cfg.d_model
-
-
 class Transformer(nn.Module):
     """Parameters of the whole decoder.  Construction allocates them
     UNINITIALISED on `device`; `init_params` fills them from a seed and
     `convert.from_jax_params` from a reference tree.  `trainable`
-    picks the storage layout (module docstring)."""
+    picks the storage layout, `quantized` int8 matmul kernels (module
+    docstring)."""
 
     def __init__(self, cfg: ModelConfig, *, device,
-                 trainable: bool = False) -> None:
+                 trainable: bool = False, quantized: bool = False) -> None:
         super().__init__()
+        if trainable and quantized:
+            raise ValueError('int8 weights serve only; a trainable model '
+                             'keeps float leaves')
         self.cfg = cfg
+        self.quantized = quantized
+        dense = QuantDense if quantized else Dense
         storage = _storage(cfg, trainable)
         self.embed = Embed(cfg.vocab_size, cfg.d_model, dtype=storage.embed,
                            device=device)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, storage=storage, device=device)
+            DecoderLayer(cfg, storage=storage, device=device, dense=dense)
             for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.d_model, dtype=storage.norm,
                                   device=device)
-        self.lm_head = (None if cfg.tie_embeddings else LMHead(
-            cfg, dtype=storage.head, device=device))
+        self.lm_head = (None if cfg.tie_embeddings else dense(
+            (cfg.d_model,), (cfg.vocab_size,), dtype=storage.head,
+            device=device))
         self.requires_grad_(trainable)
 
     @property
@@ -294,46 +334,73 @@ def _remat_context(cfg: ModelConfig):
                      "have 'full', 'dots'.")
 
 
-def _fill_(name: str, module: nn.Module, p: torch.Tensor, cfg: ModelConfig,
+def _leaves(model: Transformer):
+    """(qualified name, owning module) of every leaf in the reference
+    tree's order, which is the float model's parameter order: a
+    QuantDense's kernel stands where a Dense's does."""
+    for prefix, module in model.named_modules():
+        names = [n for n, _ in module.named_parameters(recurse=False)]
+        if isinstance(module, QuantDense):
+            names = ['kernel'] + names
+        for name in names:
+            yield f'{prefix}.{name}', module
+
+
+def _fill_(name: str, module: nn.Module, cfg: ModelConfig,
            gen: torch.Generator) -> None:
-    """Seeded flax-style init of one parameter, drawn in f32 on the
-    parameter's device and cast into it (one tensor at a time, so the
-    f32 tree never exists as a whole)."""
+    """Seeded flax-style init of one leaf, drawn in f32 on the leaf's
+    device and cast into it, or quantized into a QuantDense's buffers
+    (one tensor at a time, so the f32 tree never exists as a whole)."""
     leaf = name.rsplit('.', 1)[-1]
     if leaf == 'scale':
         # Gemma's (1 + w) norms start at w = 0; both are identity scale.
-        p.fill_(0.0 if cfg.norm_scale_plus_one else 1.0)
+        module.scale.fill_(0.0 if cfg.norm_scale_plus_one else 1.0)
         return
     if leaf == 'bias':
-        p.zero_()
+        module.bias.zero_()
         return
-    tmp = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+    if isinstance(module, QuantDense):
+        shape, device = module.qvalue.shape, module.qvalue.device
+    else:
+        p = getattr(module, leaf)
+        shape, device = p.shape, p.device
+    tmp = torch.empty(shape, dtype=torch.float32, device=device)
     if leaf == 'embedding':
         tmp.normal_(0.0, 0.02, generator=gen)
     else:
         std = math.sqrt(1.0 / module.fan_in) / _TRUNC_STD
         torch.nn.init.trunc_normal_(tmp, 0.0, std, -2.0 * std, 2.0 * std,
                                     generator=gen)
-    p.copy_(tmp)
+    if isinstance(module, QuantDense):
+        q = quantize_lib.quantize_leaf(tuple(name.split('.')), tmp)
+        module.qvalue.copy_(q['qvalue'])
+        module.scale.copy_(q['scale'])
+    else:
+        p.copy_(tmp)
     del tmp
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
                 device: Union[str, torch.device] = 'cuda',
-                trainable: bool = False) -> Transformer:
+                trainable: bool = False,
+                quantize: Optional[str] = None) -> Transformer:
     """Seeded random weights on `device`: normal(0.02) for the
     embedding, lecun-normal (truncated, variance 1/fan_in) for every
     kernel, identity norm scales, zero biases.  The port's own
     generator: values differ from the reference's jax.random init (the
     tests carry reference weights over with convert.from_jax_params).
-    `trainable` stores every leaf in cfg.param_dtype with grad."""
+    `trainable` stores every leaf in cfg.param_dtype with grad;
+    quantize='int8' quantizes each kernel's f32 draw on `device` (the
+    same draws as the float init)."""
+    if quantize not in (None, 'int8'):
+        raise ValueError(f'Unknown quantize mode {quantize!r}; '
+                         "have 'int8'.")
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev, trainable=trainable)
+    model = Transformer(cfg, device=dev, trainable=trainable,
+                        quantized=quantize is not None)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    modules = dict(model.named_modules())
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            owner = modules[name.rsplit('.', 1)[0]]
-            _fill_(name, owner, p, cfg, gen)
+        for name, module in _leaves(model):
+            _fill_(name, module, cfg, gen)
     return model.eval()

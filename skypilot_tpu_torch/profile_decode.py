@@ -1,9 +1,11 @@
 """Where a decode tick's time goes: host clock vs device kernels.
 
     python -m skypilot_tpu_torch.profile_decode [--model llama3-8b]
-        [--slots 8] [--ticks 20] [--quantize-kv | --dense] [--out PATH]
+        [--slots 8] [--ticks 20] [--quantize-kv | --dense]
+        [--quantize int8] [--out PATH]
 
-Builds the model with seeded random weights on the GPU, a paged pool
+Builds the model with seeded random weights on the GPU (int8 matmul
+kernels with `--quantize int8`), a paged pool
 with `slots` live slots at ragged depths (5 .. 700 tokens), and runs
 `decode.paged_engine_step` the way the engine does; with `--dense` the
 same slots in a dense slot cache (max_len 1024) and
@@ -62,25 +64,13 @@ def _build_state(cfg, slots: int, quantize_kv: bool, dense: bool, dev):
     return pool, state, lengths
 
 
-def main(argv=None) -> dict:
-    parser = argparse.ArgumentParser()
-    parser.add_argument('--model', default='llama3-8b')
-    parser.add_argument('--slots', type=int, default=8)
-    parser.add_argument('--ticks', type=int, default=20)
-    parser.add_argument('--quantize-kv', action='store_true')
-    parser.add_argument('--dense', action='store_true',
-                        help='Dense slot cache and decode.engine_step.')
-    parser.add_argument('--out', default=None,
-                        help='Also write the JSON to this file.')
-    args = parser.parse_args(argv)
-    dev = resolve_device('cuda')
-    cfg = configs.get_config(args.model)
-    model = init_params(cfg, seed=0, device=dev)
-    if args.dense and args.quantize_kv:
-        parser.error('--quantize-kv is a paged pool option')
-    pool, state, lengths = _build_state(cfg, args.slots, args.quantize_kv,
-                                        args.dense, dev)
-    step = decode.engine_step if args.dense else decode.paged_engine_step
+def profile_tick(cfg, model, dev, *, slots: int = 8, ticks: int = 20,
+                 quantize_kv: bool = False, dense: bool = False) -> dict:
+    """Host ms, device ms, idle share and launches of `model`'s decode
+    tick (module docstring), with a 128-token prefill's ms."""
+    pool, state, lengths = _build_state(cfg, slots, quantize_kv, dense,
+                                        dev)
+    step = decode.engine_step if dense else decode.paged_engine_step
 
     def tick():
         nonlocal state, pool
@@ -92,10 +82,10 @@ def main(argv=None) -> dict:
             tick()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(args.ticks):
+        for _ in range(ticks):
             tick()
         torch.cuda.synchronize()
-        tick_ms = (time.perf_counter() - t0) * 1e3 / args.ticks
+        tick_ms = (time.perf_counter() - t0) * 1e3 / ticks
 
         n_prof = 5
         with torch.profiler.profile(activities=[
@@ -122,10 +112,10 @@ def main(argv=None) -> dict:
         prefill_ms = (time.perf_counter() - t0) * 1e3
 
     device_ms = device_us / 1e3 / n_prof
-    result = {
+    return {
         'device': torch.cuda.get_device_name(0),
-        'model': args.model, 'slots': args.slots, 'lengths': lengths,
-        'quantize_kv': args.quantize_kv, 'dense': args.dense,
+        'slots': slots, 'lengths': lengths,
+        'quantize_kv': quantize_kv, 'dense': dense,
         'tick_ms': tick_ms,
         'device_ms_per_tick': device_ms,
         'device_idle_share': max(0.0, 1.0 - device_ms / tick_ms),
@@ -137,6 +127,31 @@ def main(argv=None) -> dict:
                           e.self_cpu_time_total / 1e3 / n_prof)
                          for e in by_host],
     }
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--model', default='llama3-8b')
+    parser.add_argument('--slots', type=int, default=8)
+    parser.add_argument('--ticks', type=int, default=20)
+    parser.add_argument('--quantize-kv', action='store_true')
+    parser.add_argument('--quantize', default=None, choices=['int8'],
+                        help='int8 weights (dequantized on every call).')
+    parser.add_argument('--dense', action='store_true',
+                        help='Dense slot cache and decode.engine_step.')
+    parser.add_argument('--out', default=None,
+                        help='Also write the JSON to this file.')
+    args = parser.parse_args(argv)
+    if args.dense and args.quantize_kv:
+        parser.error('--quantize-kv is a paged pool option')
+    dev = resolve_device('cuda')
+    cfg = configs.get_config(args.model)
+    model = init_params(cfg, seed=0, device=dev, quantize=args.quantize)
+    result = dict(model=args.model, quantize=args.quantize,
+                  **profile_tick(cfg, model, dev, slots=args.slots,
+                                 ticks=args.ticks,
+                                 quantize_kv=args.quantize_kv,
+                                 dense=args.dense))
     text = json.dumps(result, indent=1)
     print(text, flush=True)
     if args.out:

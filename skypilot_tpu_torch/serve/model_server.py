@@ -57,14 +57,22 @@ the asyncio front (serve/async_server.py, the same routes) unless
   when the pool cannot hold the pages now, 400 on a mismatch.
 - POST /prefix_export {'max_pages', 'wire'}: the hottest cached pages;
   404 when there are none.
-- POST /weights_swap {'checkpoint_dir'}: 400 with the reason, since no
-  checkpoint can be restored yet (orbax restore comes with a later
-  slice); `ContinuousBatchingEngine.swap_params` is the engine half.
+- POST /weights_swap {'checkpoint_dir'} -> {'weight_version', 'step',
+  'restore_ms'}: restores the newest step under `checkpoint_dir` onto
+  the engine's device (re-quantized when this server quantizes) and
+  swaps it in between ticks (`ContinuousBatchingEngine.swap_params`);
+  400 "no checkpoint under ..." when there is none, 400 for a step not
+  in the port's format (an orbax step) or of another shape.
   `weight_version` follows the engine's weight epoch.
 
-Weights are seeded random values made on the device (`init_params`),
+Weights: the newest step of `checkpoint_dir` (the port's checkpoint,
+data/checkpoints.py; `import_weights.convert` writes one from an HF
+source, with model_config.json for `model='auto'` and the tokenizer
+files), else seeded random values made on the device (`init_params`),
 or a given Transformer (`params`, e.g. one model shared by two
-servers); checkpoint loading comes with a later slice of the port.
+servers).  `quantize='int8'` keeps every matmul kernel in int8 on the
+device (models/quantize.py), quantized leaf by leaf as the weights
+arrive.
 """
 from __future__ import annotations
 
@@ -84,8 +92,12 @@ import torch
 
 from skypilot_tpu_torch.device import device_scope
 from skypilot_tpu_torch.device import resolve_device
+from skypilot_tpu_torch.data import checkpoints
 from skypilot_tpu_torch.models import configs
+from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import decode
+from skypilot_tpu_torch.models import import_weights
+from skypilot_tpu_torch.models import quantize as quantize_lib
 from skypilot_tpu_torch.models import tokenizer as tokenizer_lib
 from skypilot_tpu_torch.models.transformer import init_params
 from skypilot_tpu_torch.observability import logs as logs_lib
@@ -109,6 +121,16 @@ _M_DRAIN_REJECTED = metrics_lib.counter(
     'skytpu_serve_drain_rejected_total',
     'Generation requests answered 503 because the replica is '
     'draining (the LB retries them on a sibling).')
+# Live weight swap: the replica-side series the fleet aggregator folds
+# into its batch section.
+_M_WEIGHT_SWAPS = metrics_lib.counter(
+    'skytpu_batch_weight_swaps_total',
+    'Live weight swaps attempted on this replica (POST /weights_swap), '
+    'by outcome.', ('status',))
+_M_WEIGHT_EPOCH = metrics_lib.gauge(
+    'skytpu_batch_weight_epoch',
+    'Weight epoch currently serving (0 = boot weights; each '
+    'successful live swap bumps it).')
 _M_BATCH_ROWS = metrics_lib.counter(
     'skytpu_batch_rows_served_total',
     'Generation rows served under QoS class batch — the replica-side '
@@ -193,10 +215,21 @@ def model_flops_per_token(cfg, n_params: int, max_len: int) -> float:
     return 2.0 * float(n_params) + attn
 
 
+def n_leaf_elements(model) -> int:
+    """Elements of every leaf of the model's reference tree: parameters
+    and buffers (an int8 kernel's qvalue and scale), as the reference
+    counts the leaves of its tree."""
+    return (sum(p.numel() for p in model.parameters()) +
+            sum(b.numel() for b in model.buffers()))
+
+
 class ModelServer:
 
-    def __init__(self, model: str, *, max_len: int = 512,
+    def __init__(self, model: str, *, checkpoint_dir: Optional[str] = None,
+                 max_len: int = 512,
                  max_batch: int = 8, seed: int = 0,
+                 quantize: Optional[str] = None,
+                 tokenizer_path: Optional[str] = None,
                  continuous_batching: bool = False,
                  max_queue: int = 0,
                  queue_ttl: Optional[float] = None,
@@ -212,6 +245,10 @@ class ModelServer:
                  role: str = roles_lib.DEFAULT_ROLE,
                  device: Union[str, torch.device] = 'cuda',
                  params=None) -> None:
+        if quantize not in (None, 'int8'):
+            # Before the (possibly minutes-long) restore, not after.
+            raise ValueError(f'Unknown quantize mode {quantize!r}; '
+                             "have 'int8'.")
         self.device = resolve_device(device)
         # The disaggregated-serving role this replica advertises
         # (/health); the engine is role-agnostic until a /role_budget
@@ -223,22 +260,62 @@ class ModelServer:
         # Set by POST /drain: new generation work is refused (503 +
         # Retry-After) while the engine finishes what it holds.
         self.draining = False
-        self.cfg = configs.get_config(model)
+        if model == 'auto':
+            # Converted checkpoints carry their own ModelConfig
+            # (import_weights writes model_config.json next to step 0).
+            cfg = (import_weights.load_model_config(checkpoint_dir)
+                   if checkpoint_dir else None)
+            if cfg is None:
+                raise ValueError(
+                    "--model auto needs --checkpoint-dir pointing at a "
+                    "converted checkpoint (with model_config.json); see "
+                    "python -m skypilot_tpu_torch.models.import_weights.")
+            self.cfg = cfg
+        else:
+            self.cfg = configs.get_config(model)
         self.model_name = model
-        self.tokenizer = tokenizer_lib.load_tokenizer(None)
+        # The checkpoint's tokenizer when it ships one (converted
+        # checkpoints do); the byte-level fallback otherwise.
+        self.tokenizer = tokenizer_lib.load_tokenizer(
+            tokenizer_path or checkpoint_dir)
+        if self.tokenizer.eos_id is None:
+            logger.warning(
+                'Tokenizer has no EOS id (missing/incomplete '
+                'tokenizer_config.json?): generation cannot stop '
+                'early and will always run to max_new_tokens.')
         self.max_len = max_len
         self.max_batch = max_batch
         self.default_temperature = float(default_temperature)
         self.default_top_k = int(default_top_k)
         self.default_seed = int(default_seed)
-        if params is None:
-            logger.warning('No checkpoint loading in this port yet; '
-                           'serving FRESH random-init weights (seed %d).',
-                           seed)
-            params = init_params(self.cfg, seed=seed, device=self.device)
-        elif params.cfg != self.cfg or params.device != self.device:
-            raise ValueError(f'params are not a {model} model on '
-                             f'{self.device}')
+        self._quantize = quantize
+        if params is not None:
+            if (params.cfg != self.cfg or params.device != self.device or
+                    params.quantized != bool(quantize)):
+                raise ValueError(
+                    f'params are not a {model} model on {self.device}'
+                    f'{" with int8 weights" if quantize else ""}')
+        elif (checkpoint_dir and
+              checkpoints.latest_step(checkpoint_dir) is not None):
+            # Restored leaf by leaf onto the device, each cast (or
+            # quantized) on arrival: no random weights are made just to
+            # be overwritten.
+            params = self._restore(checkpoint_dir)
+        else:
+            if checkpoint_dir:
+                logger.warning('No checkpoint under %s; serving FRESH '
+                               'random-init weights.', checkpoint_dir)
+            else:
+                logger.warning('No --checkpoint-dir given; serving FRESH '
+                               'random-init weights.')
+            params = init_params(self.cfg, seed=seed, device=self.device,
+                                 quantize=quantize)
+        if quantize:
+            report = quantize_lib.quantization_report(
+                convert.param_tree(params))
+            logger.info('int8 weight-only quantization: %.1f MB (%.2fx of '
+                        'f32)', report['quantized_bytes'] / 1e6,
+                        report['ratio'])
         self.params = params
         # Process identity for fleet telemetry: the controller-set env
         # var names the replica; only then does this server own the
@@ -258,7 +335,7 @@ class ModelServer:
         # Trace segments of the non-engine legs of a request's life
         # (/prefill_export, /kv_import), exported with the engine's.
         self.trace_segments = tracing.SegmentStore()
-        n_params = sum(p.numel() for p in params.parameters())
+        n_params = n_leaf_elements(params)
         self.flops_per_token = model_flops_per_token(self.cfg, n_params,
                                                      max_len)
         _M_FLOPS_PER_TOKEN.set(self.flops_per_token)
@@ -287,20 +364,45 @@ class ModelServer:
         engine = self._engine
         return 0 if engine is None else engine.weight_epoch
 
+    def _restore(self, checkpoint_dir: str, step: Optional[int] = None):
+        """The step's weights as a serving Transformer on this server's
+        device, int8 when it quantizes."""
+        tree = checkpoints.restore_params(
+            checkpoint_dir, device=self.device, step=step,
+            leaf_fn=convert.serving_leaf(self.cfg, bool(self._quantize)))
+        return convert.from_jax_params(self.cfg, tree, device=self.device)
+
     def weights_swap(self, req: Dict[str, Any]) -> Dict[str, Any]:
-        """POST /weights_swap: the reference restores the latest
-        checkpoint under `checkpoint_dir` and swaps it into the engine.
-        This port restores no checkpoints yet, so every request is
-        answered with the reason (HTTP 400)."""
-        if self._engine is None:
+        """POST /weights_swap: restore the newest step under
+        `checkpoint_dir` (re-quantized when this server quantizes) and
+        swap it into the running engine between ticks, keeping the KV
+        pool and every in-flight request (swap_params).  The bumped
+        weight epoch lands in /health, later spans and responses."""
+        engine = self._engine
+        if engine is None:
             raise ValueError('live weight swap requires '
                              '--continuous-batching')
         checkpoint_dir = req.get('checkpoint_dir')
         if not checkpoint_dir or not isinstance(checkpoint_dir, str):
             raise ValueError('weights_swap needs a checkpoint_dir')
-        raise ValueError(f'no checkpoint under {checkpoint_dir} can be '
-                         'restored: checkpoint loading comes with a later '
-                         'slice of the port')
+        step = checkpoints.latest_step(checkpoint_dir)
+        if step is None:
+            raise ValueError(f'no checkpoint under {checkpoint_dir}')
+        t0 = time.perf_counter()
+        status = 'error'
+        epoch: Optional[int] = None
+        try:
+            with device_scope(self.device):
+                model = self._restore(checkpoint_dir, step)
+            epoch = engine.swap_params(model)
+            self.params = model
+            status = 'ok'
+        finally:
+            _M_WEIGHT_SWAPS.labels(status=status).inc()
+            if epoch is not None:
+                _M_WEIGHT_EPOCH.set(epoch)
+        return {'weight_version': epoch, 'step': step,
+                'restore_ms': round((time.perf_counter() - t0) * 1e3, 1)}
 
     def close(self) -> None:
         """Stop the batching engine's worker; safe to call twice."""
@@ -1038,7 +1140,9 @@ def start_background(server: ModelServer, port: int = 0,
 def main(argv: Optional[List[str]] = None) -> None:
     parser = argparse.ArgumentParser()
     parser.add_argument('--model', default='tiny',
-                        help=f'Preset name: {sorted(configs.PRESETS)}.')
+                        help=f'Preset name: {sorted(configs.PRESETS)}, or '
+                             "'auto' to read model_config.json from "
+                             '--checkpoint-dir.')
     parser.add_argument('--port', type=int, default=8080)
     parser.add_argument('--max-len', type=int, default=512)
     parser.add_argument('--max-batch', type=int, default=8)
@@ -1071,10 +1175,23 @@ def main(argv: Optional[List[str]] = None) -> None:
                         choices=['async', 'threaded'],
                         help='Connection front: one asyncio event loop '
                              '(default) or a thread per connection.')
+    parser.add_argument('--checkpoint-dir', default=None,
+                        help='The port\'s checkpoint dir (written by '
+                             'python -m skypilot_tpu_torch.models.'
+                             'import_weights); its newest step is served.')
+    parser.add_argument('--tokenizer', default=None,
+                        help='Tokenizer file/dir (default: tokenizer '
+                             'files next to --checkpoint-dir, else the '
+                             'byte-level fallback).')
+    parser.add_argument('--quantize', default=None, choices=['int8'],
+                        help='Weight-only int8 quantization of the matmul '
+                             'kernels: half the weight bytes of bf16.')
     parser.add_argument('--device', default='cuda')
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    server = ModelServer(args.model, max_len=args.max_len,
+    server = ModelServer(args.model, checkpoint_dir=args.checkpoint_dir,
+                         tokenizer_path=args.tokenizer,
+                         quantize=args.quantize, max_len=args.max_len,
                          max_batch=args.max_batch, seed=args.seed,
                          continuous_batching=args.continuous_batching,
                          max_queue=args.max_queue, queue_ttl=args.queue_ttl,

@@ -106,12 +106,31 @@ def test_bridge_round_trip_bit_exact(name, scan_layers):
 
 
 def test_bridge_rejects_int8_leaves():
-    _, _, tcfg, _, tree = _setup('tiny')
-    bad = jax.tree.map(lambda x: x, tree)
-    bad['lm_head'] = {'kernel': {'qvalue': np.zeros((1,), np.int8),
-                                 'scale': np.ones((1,), np.float32)}}
-    with pytest.raises(NotImplementedError, match='later slice'):
-        convert.from_jax_params(tcfg, bad, device='cpu')
+    """int8 {qvalue, scale} leaves (the reference's quantize_params)
+    cross the bridge byte for byte in both layouts; a stray int8 leaf in
+    a float tree, or a float one in an int8 tree, is refused."""
+    from skypilot_tpu.models import quantize as jax_quantize
+    for scan_layers in (True, False):
+        _, params, tcfg, _, tree = _setup('tiny', scan_layers)
+        qtree = jax.tree.map(np.asarray,
+                             jax_quantize.quantize_params(params))
+        model = convert.from_jax_params(tcfg, qtree, device='cpu')
+        assert model.quantized
+        back = convert.to_jax_params(model)
+        flat_a = jax.tree_util.tree_flatten_with_path(qtree)[0]
+        flat_b = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+        assert len(flat_a) == len(flat_b)
+        for path, leaf in flat_a:
+            assert leaf.dtype == flat_b[path].dtype, path
+            assert leaf.tobytes() == flat_b[path].tobytes(), path
+        bad = jax.tree.map(lambda x: x, tree)
+        bad['lm_head'] = qtree['lm_head']
+        with pytest.raises(ValueError, match='int8 leaf'):
+            convert.from_jax_params(tcfg, bad, device='cpu')
+        bad = jax.tree.map(lambda x: x, qtree)
+        bad['lm_head'] = tree['lm_head']
+        with pytest.raises(ValueError, match='int8'):
+            convert.from_jax_params(tcfg, bad, device='cpu')
 
 
 def test_init_params_seeded_and_flax_shaped():

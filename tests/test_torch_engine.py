@@ -319,8 +319,12 @@ def test_byte_tokenizer_and_stream_decoder_match_reference():
     deltas = [a.push(t) for t in ids]
     assert deltas == [b.push(t) for t in ids]
     assert ''.join(deltas) + a.finish() == text
-    with pytest.raises(NotImplementedError, match='later slice'):
-        tokenizer.load_tokenizer('/nonexistent')
+    # A path with no tokenizer files: the byte fallback, as the
+    # reference (checkpoint tokenizers: tests/test_torch_tokenizer.py).
+    assert isinstance(tokenizer.load_tokenizer('/nonexistent'),
+                      tokenizer.ByteTokenizer)
+    assert isinstance(jax_tok.load_tokenizer('/nonexistent'),
+                      jax_tok.ByteTokenizer)
 
 
 def test_request_stream_and_deadline(setup):

@@ -40,6 +40,7 @@ from skypilot_tpu.models.transformer import Transformer as JaxTransformer
 from skypilot_tpu.serve import batching_engine as jax_engine
 from skypilot_tpu.serve import handoff as jax_handoff
 from skypilot_tpu.serve import model_server as jax_server
+from skypilot_tpu_torch.data import checkpoints
 from skypilot_tpu_torch.models import configs
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import decode
@@ -502,7 +503,7 @@ def servers(setup):
         server.close()
 
 
-def test_http_prefill_export_to_kv_import(servers):
+def test_http_prefill_export_to_kv_import(servers, setup, tmp_path):
     p, d = servers['prefill'], servers['decode']
     code, ctype, frame = _request(p, '/prefill_export',
                                   {'prompt_ids': [PROMPT], 'page_size': 8,
@@ -541,11 +542,25 @@ def test_http_prefill_export_to_kv_import(servers):
         'Content-Type': 'application/octet-stream'})[0] == 400
     # Pages only a later request may use: 429 with Retry-After when the
     # pool cannot take them is pinned at the engine level.
-    code, _, body = _request(d, '/weights_swap', {'checkpoint_dir': '/x'})
-    assert code == 400 and 'checkpoint' in json.loads(body)['error']
-    assert _request(d, '/weights_swap', {})[0] == 400
-    assert _request(servers['plain'], '/weights_swap',
-                    {'checkpoint_dir': '/x'})[0] == 400
+    # /weights_swap: the reference's 400 texts, then a real restore of
+    # the served weights (tokens unchanged, the epoch bumped).
+    for port, body, error in (
+            (d, {'checkpoint_dir': '/x'}, 'no checkpoint under /x'),
+            (d, {}, 'weights_swap needs a checkpoint_dir'),
+            (servers['plain'], {'checkpoint_dir': '/x'},
+             'live weight swap requires --continuous-batching')):
+        code, _, raw = _request(port, '/weights_swap', body)
+        assert (code, json.loads(raw)['error']) == (400, error)
+    ckpt = str(tmp_path / 'ckpt')
+    checkpoints.save_params(ckpt, 3, convert.param_tree(setup[3]))
+    code, _, raw = _request(d, '/weights_swap', {'checkpoint_dir': ckpt})
+    swapped = json.loads(raw)
+    assert code == 200 and (swapped['weight_version'],
+                            swapped['step']) == (1, 3)
+    again = json.loads(_request(d, '/generate', {
+        'prompt_ids': [PROMPT], 'max_new_tokens': 6})[2])
+    assert again['tokens'] == outs[0]['tokens']
+    assert again['weight_version'] == 1
 
 
 @pytest.fixture(scope='module')

@@ -1,8 +1,10 @@
 """Package rules of the PyTorch port (skypilot_tpu_torch/).
 
 - An AST walk: neither the port nor chip_smoke.py imports jax, flax,
-  optax, orbax, or the JAX package `skypilot_tpu` (exact-prefix rule,
-  so the port's own name does not match).
+  optax, orbax, ml_dtypes, safetensors, or the JAX package
+  `skypilot_tpu` (exact-prefix rule, so the port's own name does not
+  match); `tokenizers` is imported only inside HFTokenizer.__init__
+  (the card has none of these packages).
 - Every entry point defaults to CUDA and raises without it unless the
   caller passes device='cpu'.
 - Kernels are built at first launch, never at import.
@@ -20,7 +22,8 @@ import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / 'skypilot_tpu_torch'
-FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'skypilot_tpu')
+FORBIDDEN = ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'ml_dtypes',
+             'safetensors', 'skypilot_tpu')
 
 
 def _forbidden(name: str) -> bool:
@@ -66,6 +69,38 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f'{path.relative_to(REPO)} imports {bad}'
 
 
+def _tokenizers_imports():
+    """(file, enclosing class.function) of every import of `tokenizers`
+    in the port and chip_smoke.py."""
+    found = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+
+        def visit(node, scope):
+            for child in ast.iter_child_nodes(node):
+                inner = scope
+                if isinstance(child, (ast.ClassDef, ast.FunctionDef,
+                                      ast.AsyncFunctionDef)):
+                    inner = scope + (child.name,)
+                names = []
+                if isinstance(child, ast.Import):
+                    names = [a.name for a in child.names]
+                elif isinstance(child, ast.ImportFrom) and child.module:
+                    names = [child.module]
+                if any(n == 'tokenizers' or n.startswith('tokenizers.')
+                       for n in names):
+                    found.append((path.relative_to(REPO).as_posix(),
+                                  '.'.join(inner)))
+                visit(child, inner)
+        visit(tree, ())
+    return found
+
+
+def test_tokenizers_only_inside_hf_tokenizer():
+    assert _tokenizers_imports() == [
+        ('skypilot_tpu_torch/models/tokenizer.py', 'HFTokenizer.__init__')]
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
@@ -82,7 +117,7 @@ def test_resolve_device_raises_without_cuda(no_cuda):
         resolve_device('meta')
 
 
-def test_entry_points_default_to_cuda(no_cuda):
+def test_entry_points_default_to_cuda(no_cuda, tmp_path):
     from skypilot_tpu_torch.models import configs
     from skypilot_tpu_torch.models import convert
     from skypilot_tpu_torch.models.transformer import init_params
@@ -95,16 +130,25 @@ def test_entry_points_default_to_cuda(no_cuda):
         convert.from_jax_params(cfg, {})
     with pytest.raises(RuntimeError, match='no CUDA device'):
         model_server.ModelServer('tiny')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        init_params(cfg, seed=0, quantize='int8')
     model = init_params(cfg, seed=0, device='cpu')
     with pytest.raises(RuntimeError, match='no CUDA device'):
         batching_engine.ContinuousBatchingEngine(cfg, model, kv_pages=8,
                                                  max_len=32, page_size=8)
+    from skypilot_tpu_torch.data import checkpoints
+    checkpoints.save_params(str(tmp_path), 0, convert.param_tree(model))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        checkpoints.restore_params(str(tmp_path))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        model_server.ModelServer('tiny', checkpoint_dir=str(tmp_path))
+    assert checkpoints.restore_params(str(tmp_path), device='cpu')
 
 
 def test_engine_dense_mode_names_later_slice():
     """The dense mode serves (tests/test_torch_engine_dense.py); MoE
-    models in it, and checkpoint restores behind /weights_swap, still
-    name a later slice."""
+    models in it still name a later slice.  /weights_swap restores (the
+    reference's messages: tests/test_torch_real_weights.py)."""
     from skypilot_tpu_torch.models import configs
     from skypilot_tpu_torch.models.transformer import init_params
     from skypilot_tpu_torch.serve import batching_engine
@@ -123,7 +167,8 @@ def test_engine_dense_mode_names_later_slice():
     server = model_server.ModelServer('tiny', continuous_batching=True,
                                       device='cpu', params=model)
     try:
-        with pytest.raises(ValueError, match='later slice'):
+        with pytest.raises(ValueError,
+                           match='^no checkpoint under /nonexistent$'):
             server.weights_swap({'checkpoint_dir': '/nonexistent'})
     finally:
         server.close()

@@ -68,12 +68,9 @@ PROMPTS = [(_RNG.integers(1, 250, n).tolist(), new) for n, new in
 PROMPTS += [(_SHARED + [3, 1, 4, 1], 5), (_SHARED + [2, 7, 1], 6)]
 CASES = {'paged': {}, 'spec': {'spec_tokens': 3}}
 
-# Reference families this slice does not port yet, with the Queue A
-# item (ROADMAP) that brings each.
-MISSING = {
-    'skytpu_batch_weight_swaps_total': 'A14 (restore behind /weights_swap)',
-    'skytpu_batch_weight_epoch': 'A14 (restore behind /weights_swap)',
-}
+# Reference families the port does not have yet, with the Queue A item
+# (ROADMAP) that brings each: none.
+MISSING: dict = {}
 
 
 @pytest.fixture(scope='module')
