@@ -155,6 +155,36 @@ Phases (each one that fails makes the script exit non-zero):
      (and /generate_text the tokenizer's decode of them).  The
      temporary directories are deleted as soon as they are not needed;
      the disk use, convert and restore seconds are printed.
+5c. MoE: mixtral-8x7b at full width (d_model 4096, 32/8 heads,
+   head_dim 128, d_ff 14336, 8 experts, top-2, vocab 32000), its 32
+   layers cut to 8 (2.90 GB a layer in bf16: 32 would not fit the
+   card's 80 GB), seeded bf16 weights, after the 8B models are freed.
+   Three windows, each with its own launch counts, zeroed just before
+   its requests and read just after: "moe paged" (ModelServer
+   ('mixtral-8x7b'), paged, 1024 pages of 16, max_len 1024, 8 slots),
+   "moe int8 pool" (the same with int8 KV) and "moe dense" (the dense
+   slot cache).  Each answers 6 concurrent greedy /generate requests of
+   5-700 tokens and one seeded sampled request, 32 new tokens each,
+   then the 100-token prompt again (the same tokens, and no prefix
+   entry: MoE prefill couples every prompt token, so pages never
+   share).  Each prompt prefills whole, so B3 must run exactly once per
+   prompt and layer; B1 only on the bf16 pool, B2 only on the int8
+   pool, neither in dense mode.  After the windows every greedy token
+   is held at its own context as in phase 5, the forward computing the
+   MoE blocks as the engine does (the capacity dispatch over the
+   prompt's rows, the dense gather over each generated row); the
+   (token, expert) assignments the prefill dispatch dropped are
+   printed per prompt.  Printed, not held: the paged MoE tick at 8
+   slots (`profile_decode.profile_tick`: host ms, device ms, kernels)
+   and the f32 expert casts' ms a tick, by CUDA events (the
+   reference's decode ticks compute every expert in f32).  "moe checkpoint": a depth-1
+   Mixtral-width HF source (the port's writer, BF16) ->
+   `import_weights.convert` -> ModelServer('auto') answers /generate
+   (B1, B3), the directories deleted once read; after the read an
+   in-memory server on the writer's weights must give the same tokens.
+   Then a depth-1 f32 cut served on the GPU (kernels) and the CPU
+   (plain versions) from the same weights must give the same greedy
+   tokens for 2 prompts, paged and dense.
 6. A reference check: a depth-2, f32 cut of llama3-8b served on the
    GPU (CUDA kernels) and on the CPU (the plain versions) from the same
    weights must give the same greedy tokens, paged and dense engines.
@@ -179,9 +209,9 @@ The line before the last is the `kernels` JSON: each kernel's
 `launches` is its count on the path `path` names (serving for B1/B2,
 training for B3/B4/B5), and `launches_by_path` holds every driven
 path's own count (serving, the two observability windows, the five
-paths of phase 5, "int8 weights" and "checkpoint" of phase 5b,
-training, `train_llama small`), each path zeroed just before it and read just
-after.  B3's entry carries the
+paths of phase 5, "int8 weights" and "checkpoint" of phase 5b, the
+four MoE paths of phase 5c, training, `train_llama small`), each path
+zeroed just before it and read just after.  B3's entry carries the
 512-token chunk under `serving_chunk`, B1's and B2's the full batch
 under `full_batch`, and B1's and B2's their split span in pages,
 `split_pages`.
@@ -189,6 +219,7 @@ The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -1785,10 +1816,11 @@ def bf16_exact_model(cfg, seed, dev):
 
 
 def write_hf_source(model, src) -> None:
-    """The model as an HF Llama checkpoint: HF names, [out, in] kernels,
-    q/k rows in the rotate-half order, BF16, config.json, and a tiny
-    SentencePiece tokenizer.model; written tensor by tensor with the
-    port's own safetensors writer (no `transformers` needed)."""
+    """The model as an HF Llama (or, with experts, Mixtral) checkpoint:
+    HF names, [out, in] kernels, q/k rows in the rotate-half order,
+    BF16, config.json, and a tiny SentencePiece tokenizer.model; written
+    tensor by tensor with the port's own safetensors writer (no
+    `transformers` needed)."""
     import os
     import torch
     from skypilot_tpu_torch.utils import safetensors_io
@@ -1820,19 +1852,33 @@ def write_hf_source(model, src) -> None:
              lambda x=layer: x.attn.v_proj.kernel.reshape(d, -1).t()),
             (pre + 'self_attn.o_proj.weight',
              lambda x=layer: x.attn.o_proj.kernel.reshape(-1, d).t()),
-            (pre + 'mlp.gate_proj.weight',
-             lambda x=layer: x.mlp.gate_proj.kernel.t()),
-            (pre + 'mlp.up_proj.weight',
-             lambda x=layer: x.mlp.up_proj.kernel.t()),
-            (pre + 'mlp.down_proj.weight',
-             lambda x=layer: x.mlp.down_proj.kernel.t()),
         ]
+        if cfg.n_experts == 0:
+            leaves += [(pre + f'mlp.{name}.weight',
+                        lambda x=layer, n=name:
+                        getattr(x.mlp, n).kernel.t())
+                       for name in ('gate_proj', 'up_proj', 'down_proj')]
+            continue
+        moe = pre + 'block_sparse_moe.'
+        leaves.append((moe + 'gate.weight',
+                       lambda x=layer: x.moe_mlp.router.kernel.t()))
+        for e in range(cfg.n_experts):
+            leaves += [(moe + f'experts.{e}.{theirs}.weight',
+                        lambda x=layer, n=ours, e=e:
+                        getattr(x.moe_mlp, n)[e].t())
+                       for ours, theirs in (('gate_proj', 'w1'),
+                                            ('up_proj', 'w3'),
+                                            ('down_proj', 'w2'))]
     specs = [(name, torch.bfloat16, tuple(fn().shape)) for name, fn in leaves]
     os.makedirs(src)
     safetensors_io.write_file(os.path.join(src, 'model.safetensors'), specs,
                               ((name, fn()) for name, fn in leaves))
+    moe = ({'model_type': 'mixtral', 'num_local_experts': cfg.n_experts,
+            'num_experts_per_tok': cfg.expert_top_k,
+            'router_aux_loss_coef': cfg.router_aux_loss_coef}
+           if cfg.n_experts else {'model_type': 'llama'})
     with open(os.path.join(src, 'config.json'), 'w', encoding='utf-8') as f:
-        json.dump({'model_type': 'llama', 'vocab_size': cfg.vocab_size,
+        json.dump({**moe, 'vocab_size': cfg.vocab_size,
                    'hidden_size': d, 'intermediate_size': cfg.d_ff,
                    'num_hidden_layers': cfg.n_layers,
                    'num_attention_heads': cfg.n_heads,
@@ -2031,6 +2077,276 @@ def real_weights(dev, counters, new_tokens):
         f'(restore_ms {c["swap_restore_ms"]}), weight_version 1, tokens '
         f'equal to a fresh server\'s; peak disk {c["peak_disk_gb"]:.2f} GB; '
         f'launches {json.dumps(paths["checkpoint"])}; the phase '
+        f'{time.perf_counter() - t_phase:.1f} s')
+    return paths
+
+
+# ------------------------------------------------------------ phase 5c
+
+MOE_LAYERS = 8           # Mixtral-8x7B's 32 layers cut to 8 (2.90 GB each)
+MOE_LENGTHS = (5, 37, 64, 100, 250, 700)
+
+
+@contextlib.contextmanager
+def moe_as_served(n_prompt, drops=None):
+    """decode._moe_mlp as the engine applies it to a teacher-forced
+    sequence (prompt + generated tokens in one forward): the capacity
+    dispatch over the prompt's rows (its prefill), the dense gather
+    over each generated row (its ticks); `drops` collects each layer's
+    dropped (token, expert) assignments of the prompt."""
+    import torch
+    from skypilot_tpu_torch.models import decode
+    from skypilot_tpu_torch.models import moe as moe_lib
+    served = decode._moe_mlp  # pylint: disable=protected-access
+
+    def moe_mlp(x, moe, cfg, capacity=False):
+        b, s, d = x.shape
+        head = served(x[:, :n_prompt], moe, cfg, capacity=capacity)
+        if drops is not None:
+            drops.append(moe_lib.dropped_tokens(
+                x[0, :n_prompt].float() @ moe.router.kernel.float(), cfg))
+        if s == n_prompt:
+            return head
+        tail = served(x[:, n_prompt:].reshape(-1, 1, d), moe, cfg)
+        return torch.cat([head, tail.reshape(b, s - n_prompt, d)], 1)
+
+    decode._moe_mlp = moe_mlp  # pylint: disable=protected-access
+    try:
+        yield
+    finally:
+        decode._moe_mlp = served  # pylint: disable=protected-access
+
+
+def moe_window(model, dev, counters, new_tokens, **engine_kw):
+    """One MoE serving window: ModelServer('mixtral-8x7b') cut to
+    MOE_LAYERS on `model`, 6 concurrent greedy /generate requests of
+    MOE_LENGTHS and one seeded sampled request, then the 100-token
+    prompt again; launch counts zeroed just before the requests and
+    read just after."""
+    from skypilot_tpu_torch.serve import model_server
+    server = model_server.ModelServer(
+        'mixtral-8x7b', overrides={'n_layers': MOE_LAYERS},
+        continuous_batching=True, max_len=1024, max_batch=8, params=model,
+        device=dev, **engine_kw)
+    vocab = server.cfg.vocab_size
+    prompts = [prompt(700 + i, n, vocab) for i, n in enumerate(MOE_LENGTHS)]
+    bodies = [{'prompt_ids': [p], 'max_new_tokens': new_tokens}
+              for p in prompts]
+    bodies.append({'prompt_ids': [prompt(720, 48, vocab)],
+                   'max_new_tokens': new_tokens, 'temperature': 0.8,
+                   'top_k': 40, 'seed': 7})
+    try:
+        zero_counts(counters)
+        tokens, wall = greedy_burst(server, bodies)
+        again, _ = greedy_burst(server, bodies[3:4])
+        launches = read_counts(counters)
+        stats = server.engine.stats()
+    finally:
+        server.close()
+    if any(not 0 <= t < vocab for t in tokens[-1]):
+        raise AssertionError(f'sampled tokens out of the vocab: {tokens[-1]}')
+    if again[0] != tokens[3]:
+        raise AssertionError('the repeated greedy prompt gave other tokens')
+    want_b3 = (len(bodies) + 1) * MOE_LAYERS
+    if launches['flash_fwd'] != want_b3:
+        raise AssertionError(f'B3 ran {launches["flash_fwd"]} times, not once '
+                             f'per prompt and layer ({want_b3})')
+    if stats.get('prefix_cache_entries', 0) or stats.get(
+            'prefix_cache_hits', 0):
+        raise AssertionError(f'MoE pages were reused: {stats}')
+    return launches, {'prompts': prompts, 'tokens': tokens[:len(prompts)],
+                      'tokens_per_s': new_tokens * len(bodies) / wall,
+                      'ticks': stats['ticks']}
+
+
+def hold_moe(what, cfg, model, window, ref, quantized=False):
+    """Every greedy token of a window held at its own context
+    (`hold_tokens` under `moe_as_served`); -> (holds, each prompt's
+    dropped assignments summed over the layers)."""
+    holds, dropped = [], []
+    for p, got, other in zip(window['prompts'], window['tokens'], ref):
+        drops = []
+        with moe_as_served(len(p), drops):
+            holds.append(hold_tokens(what, cfg, model, p, got, other,
+                                     quantized=quantized))
+        # hold_tokens runs two forwards; each records every layer.
+        dropped.append(sum(drops[:cfg.n_layers]))
+    return holds, dropped
+
+
+def moe_expert_cast_ms(model):
+    """ms of one tick's f32 expert casts: the three stacks of one layer
+    to f32 (what the s == 1 dense gather makes), times the layers.  CUDA
+    events: three launches of ~1.5 ms each carry no host time worth
+    separating (and a profiler window here, after the earlier phases'
+    many, once saw no device events)."""
+    import torch
+    moe = model.layers[0].moe_mlp
+
+    def cast():
+        for name in ('gate_proj', 'up_proj', 'down_proj'):
+            moe.stack(name, torch.float32)
+    return time_ms(cast, iters=5, warmup=1) * model.cfg.n_layers
+
+
+def moe_checkpoint(dev, counters, new_tokens):
+    """A depth-1 Mixtral-width HF source (the port's writer) ->
+    import_weights.convert -> ModelServer('auto') answers /generate;
+    launches read around that server's life; after the read an
+    in-memory server on the writer's weights must give the same
+    tokens.  The directories are deleted as soon as they are read."""
+    import shutil
+    import tempfile
+    import torch
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import import_weights
+    from skypilot_tpu_torch.serve import model_server
+    cfg = configs.get_config('mixtral-8x7b', n_layers=1)
+    kw = dict(continuous_batching=True, kv_pages=256, page_size=16,
+              max_len=1024, max_batch=8, device=dev)
+    bodies = [{'prompt_ids': [prompt(740 + i, n, cfg.vocab_size)],
+               'max_new_tokens': new_tokens}
+              for i, n in enumerate(MOE_LENGTHS[:4])]
+    root = tempfile.mkdtemp(prefix='skytpu_moe_ckpt_')
+    out = {}
+    try:
+        src, ckpt = f'{root}/hf', f'{root}/ckpt'
+        writer = bf16_exact_model(cfg, 41, dev)
+        t0 = time.perf_counter()
+        write_hf_source(writer, src)
+        out['source_s'] = time.perf_counter() - t0
+        out['source_gb'] = disk_bytes(src) / 1e9
+        t0 = time.perf_counter()
+        converted = import_weights.convert(src, ckpt, dtype='bfloat16')
+        out['convert_s'] = time.perf_counter() - t0
+        shutil.rmtree(src)
+        if converted != cfg:
+            raise AssertionError(f'converted config {converted} != {cfg}')
+        zero_counts(counters)
+        auto = model_server.ModelServer('auto', checkpoint_dir=ckpt, **kw)
+        try:
+            tokens, _ = greedy_burst(auto, bodies)
+        finally:
+            auto.close()
+        launches = read_counts(counters)
+        same_weights(auto.params, writer, 'the restored Mixtral checkpoint')
+        del auto
+        fresh = model_server.ModelServer('auto', checkpoint_dir=ckpt,
+                                         params=writer, **kw)
+        shutil.rmtree(ckpt)
+        try:
+            want, _ = greedy_burst(fresh, bodies)
+        finally:
+            fresh.close()
+        if tokens != want:
+            raise AssertionError('--model auto (Mixtral) tokens differ from '
+                                 'the in-memory server\'s')
+        del writer, fresh
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_cuda()
+    return launches, out
+
+
+def moe_reference_check(dev):
+    """Depth-1 f32 Mixtral width: GPU kernels vs the CPU plain versions,
+    greedy tokens of 2 prompts, paged and dense engines."""
+    import torch
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.models.transformer import init_params
+    from skypilot_tpu_torch.serve import batching_engine
+    cfg = configs.get_config('mixtral-8x7b', n_layers=1,
+                             dtype=torch.float32)
+    gpu_model = init_params(cfg, seed=43, device=dev)
+    cpu_model = convert.from_jax_params(
+        cfg, convert.to_jax_params(gpu_model), device='cpu')
+    prompts = [prompt(760, 12, cfg.vocab_size),
+               prompt(761, 40, cfg.vocab_size)]
+    toks = {}
+    for mode, kv_pages in (('paged', 32), ('dense', None)):
+        for device, model in (('gpu', gpu_model), ('cpu', cpu_model)):
+            engine = batching_engine.ContinuousBatchingEngine(
+                cfg, model, max_len=128, slots=2, kv_pages=kv_pages,
+                page_size=16, device=model.device)
+            try:
+                reqs = [engine.submit(p, 8) for p in prompts]
+                toks[mode, device] = [r.result(timeout=600) for r in reqs]
+            finally:
+                engine.stop()
+        if toks[mode, 'gpu'] != toks[mode, 'cpu']:
+            raise AssertionError(f'MoE {mode}: GPU vs CPU greedy tokens '
+                                 f'differ:\n{toks[mode, "gpu"]}\n'
+                                 f'{toks[mode, "cpu"]}')
+    del gpu_model, cpu_model
+    free_cuda()
+
+
+def moe_serving(dev, counters, new_tokens):
+    """Phase 5c; returns {path: launch counts}."""
+    import torch
+    from skypilot_tpu_torch import profile_decode
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models.transformer import init_params
+    t_phase = time.perf_counter()
+    cfg = configs.get_config('mixtral-8x7b', n_layers=MOE_LAYERS)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=31, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gib = weight_bytes(model) / 2**30
+    paged = dict(kv_pages=1024, page_size=16)
+    paths, windows = {}, {}
+    for name, kw, launched, idle in (
+            ('moe paged', paged, ('paged_attention', 'flash_fwd'),
+             ('paged_attention_int8',)),
+            ('moe int8 pool', dict(paged, quantize_kv=True),
+             ('paged_attention_int8', 'flash_fwd'), ('paged_attention',)),
+            ('moe dense', {}, ('flash_fwd',),
+             ('paged_attention', 'paged_attention_int8'))):
+        paths[name], windows[name] = moe_window(model, dev, counters,
+                                                new_tokens, **kw)
+        expect_launches(name, paths[name], launched, idle)
+    holds, dropped = {}, None
+    for name, other in (('moe paged', 'moe dense'),
+                        ('moe int8 pool', 'moe paged'),
+                        ('moe dense', 'moe paged')):
+        holds[name], drops = hold_moe(
+            f'{name} greedy', cfg, model, windows[name],
+            windows[other]['tokens'], quantized=name == 'moe int8 pool')
+        dropped = dropped or drops
+    tick = profile_decode.profile_tick(cfg, model, dev)
+    cast_ms = moe_expert_cast_ms(model)
+    del model
+    free_cuda()
+    paths['moe checkpoint'], ck = moe_checkpoint(dev, counters, new_tokens)
+    expect_launches('moe checkpoint', paths['moe checkpoint'],
+                    ('paged_attention', 'flash_fwd'),
+                    ('paged_attention_int8',))
+    moe_reference_check(dev)
+    summary = {k: tick[k] for k in ('tick_ms', 'device_ms_per_tick',
+                                    'device_idle_share', 'kernels_per_tick')}
+    top = [(k[:48], n, ms) for k, n, ms in tick['top_device_ops'][:6]]
+    log(f'MoE (mixtral-8x7b width, depth {MOE_LAYERS}, bf16; {card()}): '
+        f'weights {gib:.2f} GiB, seeded init {init_s:.1f} s; 7 concurrent '
+        f'/generate (6 greedy of {list(MOE_LENGTHS)} tokens, 1 sampled) '
+        + '; '.join(f'{n}: {w["tokens_per_s"]:.1f} tokens/s, {w["ticks"]} '
+                    f'ticks, held: {hold_summary(holds[n])}'
+                    for n, w in windows.items())
+        + f'; the repeated 100-token prompt gave its tokens again, no '
+        f'prefix entry; prefill dispatch dropped (token, expert) '
+        f'assignments per prompt, summed over the layers: {dropped}; '
+        f'paged tick at 8 slots (profile_decode, printed, not held) '
+        f'{json.dumps(summary)}; f32 expert casts {cast_ms:.2f} ms a tick '
+        f'(CUDA events; {cast_ms / tick["device_ms_per_tick"]:.1%} of the '
+        f'device ms); '
+        f'top device ops {json.dumps(top)}')
+    log(f'MoE checkpoint (depth 1): HF source {ck["source_gb"]:.2f} GB '
+        f'written in {ck["source_s"]:.1f} s, import_weights.convert '
+        f'{ck["convert_s"]:.1f} s, --model auto greedy tokens equal to an '
+        f'in-memory server\'s; depth-1 f32 GPU == CPU greedy tokens (paged '
+        f'and dense); launches {json.dumps(paths)}; the phase '
         f'{time.perf_counter() - t_phase:.1f} s')
     return paths
 
@@ -2485,6 +2801,8 @@ def main() -> int:
     del model
     free_cuda()
     paths.update(real_weights(dev, counters, new_tokens))
+    free_cuda()
+    paths.update(moe_serving(dev, counters, new_tokens))
     free_cuda()
     err = reference_check(dev)
     log(f'reference: depth-2 f32 llama3-8b GPU == CPU greedy tokens '

@@ -6,7 +6,8 @@ returns a `Transformer` on `device`.  It reads both layer layouts of
 the reference: scan-stacked `params['layers']['layer']` with a leading
 [L] axis, and unstacked `params['layer_{i}']`.  The kernel layouts are
 the flax ones on both sides (q/k/v [d, h, hd], o_proj [h, hd, d], MLP
-[d, f] / [f, d], lm_head [d, V]), so leaves copy across unchanged, cast
+[d, f] / [f, d], MoE expert stacks [E, d, f] / [E, f, d] and router
+[d, E], lm_head [d, V]), so leaves copy across unchanged, cast
 to the port's storage dtype (see models/transformer.py: the serving
 layout, or cfg.param_dtype when trainable).  A tree whose matmul
 kernels are int8 {'qvalue', 'scale'} leaves (models/quantize.py)
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch.device import resolve_device
+from skypilot_tpu_torch.models import moe as moe_lib
 from skypilot_tpu_torch.models import quantize as quantize_lib
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.models.transformer import QuantDense
@@ -62,19 +64,24 @@ def _copy(dst: torch.Tensor, src: Any, where: str) -> None:
     dst.copy_(arr)
 
 
-def _copy_dense(dense, src: Dict[str, Any], where: str) -> None:
-    kernel = src['kernel']
-    if isinstance(dense, QuantDense):
+def _copy_kernel(owner, name: str, kernel: Any, where: str) -> None:
+    """A kernel or expert stack into `owner` (a Dense / MoEMLP holding
+    float `name`, or a QuantDense / QuantStack holding int8 buffers)."""
+    if isinstance(owner, (QuantDense, moe_lib.QuantStack)):
         if not quantize_lib.is_quantized_leaf(kernel):
             raise ValueError(f'{where}: expected an int8 {{qvalue, scale}} '
                              'leaf like the first layer\'s q_proj')
-        _copy(dense.qvalue, kernel['qvalue'], f'{where}.qvalue')
-        _copy(dense.scale, kernel['scale'], f'{where}.scale')
+        _copy(owner.qvalue, kernel['qvalue'], f'{where}.qvalue')
+        _copy(owner.scale, kernel['scale'], f'{where}.scale')
     else:
         if quantize_lib.is_quantized_leaf(kernel):
             raise ValueError(f'{where}: an int8 leaf in a tree whose first '
                              'q_proj is not quantized')
-        _copy(dense.kernel, kernel, where)
+        _copy(getattr(owner, name), kernel, where)
+
+
+def _copy_dense(dense, src: Dict[str, Any], where: str) -> None:
+    _copy_kernel(dense, 'kernel', src['kernel'], where)
     if dense.bias is not None:
         _copy(dense.bias, src['bias'], f'{where}.bias')
 
@@ -104,9 +111,19 @@ def from_jax_params(cfg: ModelConfig, tree: Dict[str, Any],
             for name in ('q_proj', 'k_proj', 'v_proj', 'o_proj'):
                 _copy_dense(getattr(layer.attn, name), lp['attn'][name],
                             f'{pre} {name}')
-            for name in ('gate_proj', 'up_proj', 'down_proj'):
-                _copy_dense(getattr(layer.mlp, name), lp['mlp'][name],
-                            f'{pre} {name}')
+            if cfg.n_experts > 0:
+                moe, src = layer.moe_mlp, lp['moe_mlp']
+                _copy(moe.router.kernel, src['router']['kernel'],
+                      f'{pre} router')
+                for name in moe_lib.STACKS:
+                    leaf = getattr(moe, name)
+                    _copy_kernel(leaf if isinstance(leaf, moe_lib.QuantStack)
+                                 else moe, name, src[name],
+                                 f'{pre} moe_mlp.{name}')
+            else:
+                for name in ('gate_proj', 'up_proj', 'down_proj'):
+                    _copy_dense(getattr(layer.mlp, name), lp['mlp'][name],
+                                f'{pre} {name}')
         _copy(model.final_norm.scale, tree['final_norm']['scale'],
               'final_norm')
         if model.lm_head is not None:
@@ -134,14 +151,18 @@ def param_tree(model: Transformer) -> Dict[str, Any]:
     if model.lm_head is not None:
         tree['lm_head'] = _dense_tree(model.lm_head)
     for i, layer in enumerate(model.layers):
-        tree[f'layer_{i}'] = {
+        node = {
             'attn_norm': {'scale': layer.attn_norm.scale},
             'attn': {name: _dense_tree(getattr(layer.attn, name))
                      for name in ('q_proj', 'k_proj', 'v_proj', 'o_proj')},
             'mlp_norm': {'scale': layer.mlp_norm.scale},
-            'mlp': {name: _dense_tree(getattr(layer.mlp, name))
-                    for name in ('gate_proj', 'up_proj', 'down_proj')},
         }
+        if model.cfg.n_experts > 0:
+            node['moe_mlp'] = layer.moe_mlp.tree()
+        else:
+            node['mlp'] = {name: _dense_tree(getattr(layer.mlp, name))
+                           for name in ('gate_proj', 'up_proj', 'down_proj')}
+        tree[f'layer_{i}'] = node
     return tree
 
 
@@ -154,15 +175,19 @@ def _map_tree(fn, node):
 def dequantize_model(model: Transformer) -> Transformer:
     """The float Transformer whose kernels are the values an int8 model
     computes with: every layer kernel dequantized to cfg.dtype (what
-    each call dequantizes to), the lm_head to the logits matmul dtype;
-    on the model's device.  Its GEMMs see the int8 model's operands."""
+    each call dequantizes to), the lm_head to the logits matmul dtype,
+    MoE expert stacks to f32 (what `decode._moe_mlp` dequantizes them
+    to; stored in cfg.dtype, so with a bf16 config the decode ticks'
+    f32 expert products read them rounded); on the model's device.  Its
+    GEMMs see the int8 model's operands."""
     cfg = model.cfg
     head = torch.float32 if cfg.logits_in_f32 else cfg.dtype
 
     def walk(node, path):
         if quantize_lib.is_quantized_leaf(node):
-            return quantize_lib.dequant(
-                node, head if path[0] == 'lm_head' else cfg.dtype)
+            dtype = (head if path[0] == 'lm_head' else
+                     torch.float32 if 'moe_mlp' in path else cfg.dtype)
+            return quantize_lib.dequant(node, dtype)
         if isinstance(node, dict):
             return {k: walk(v, path + (k,)) for k, v in node.items()}
         return node
@@ -207,7 +232,8 @@ def serving_leaf(cfg: ModelConfig, quantize: bool = False
     storage = _storage(cfg, trainable=False)
 
     def fn(path: Tuple[str, ...], t: torch.Tensor) -> Any:
-        if path[-2:] in (('kernel', 'qvalue'), ('kernel', 'scale')):
+        if (len(path) >= 2 and path[-1] in ('qvalue', 'scale') and
+                path[-2] in ('kernel',) + moe_lib.STACKS):
             return t          # a leaf already quantized
         if quantize:
             q = quantize_lib.quantize_leaf(path, t)
@@ -219,6 +245,8 @@ def serving_leaf(cfg: ModelConfig, quantize: bool = False
             dtype = storage.norm
         elif path[0] == 'lm_head':
             dtype = storage.head
+        elif 'router' in path:
+            dtype = storage.router
         else:
             dtype = storage.matmul
         return t.to(dtype)

@@ -42,6 +42,15 @@ slots and k.  (CPU ticks run the same blocks, unpadded.)  Ticks of at most 64 ro
 before; prefill chunks keep one call per op on their padded rows
 (spec-on and spec-off engines prefill alike).
 
+MoE layers (`_moe_mlp`, the reference's): a prefill or a verify tick
+(s > 1) runs the capacity dispatch (`moe.moe_apply`) over exactly its
+b * s real rows, never the bucket padding (a pad row would change N,
+the capacity and the buffer slots, and zero rows tie in the router); a
+decode tick (s == 1) computes every expert in f32 for its rows,
+weighted by gates that are zero off the top k.  The MoE block runs in
+one call over those rows; the norm before it runs on every row as the
+other row ops do.
+
 Sampling keys are the port's own counter-based stream: a key is an
 int64 pair (seed, counter); a split returns (seed, counter + 1) as the
 carry and (seed, counter) as the draw key, and Gumbel noise comes from
@@ -59,6 +68,7 @@ import torch
 import torch.nn.functional as F
 
 from skypilot_tpu_torch.models import heads
+from skypilot_tpu_torch.models import moe as moe_lib
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.models.transformer import _rope
 from skypilot_tpu_torch.ops import paged_attention as paged_attention_ops
@@ -134,23 +144,49 @@ def _mlp_weights(mlp, dtype):
 
 
 def _mlp(x, mlp, cfg: ModelConfig, weights=None):
-    """The MLP block on x [..., d]; `weights`: `_mlp_weights`' result,
-    made once by a caller that runs the block by rows."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            'MoE MLPs (models/moe.py) come with a later slice of the port')
+    """The dense MLP block on x [..., d]; `weights`: `_mlp_weights`'
+    result, made once by a caller that runs the block by rows."""
     w_gate, w_up, w_down = weights or _mlp_weights(mlp, x.dtype)
     x2 = x.reshape(-1, x.shape[-1])
     gate = x2 @ w_gate
     up = x2 @ w_up
-    if cfg.mlp_act == 'silu':
-        act = F.silu(gate)
-    elif cfg.mlp_act == 'gelu':
-        # jax.nn.gelu defaults to the tanh approximation.
-        act = F.gelu(gate, approximate='tanh')
-    else:
-        raise ValueError(f'Unknown mlp_act {cfg.mlp_act!r}')
+    act = moe_lib.act_fn(cfg)(gate)
     return (act * up @ w_down).reshape(x.shape)
+
+
+def _moe_mlp(x, moe, cfg: ModelConfig, *, capacity: bool = False):
+    """Inference MoE on x [b, s, d] (the reference's decode._moe_mlp);
+    returns [b, s, d] in x's dtype.  The router runs in f32.  For s > 1
+    (a prefill or a verify tick) and with `capacity` (the training
+    forward, at every s) the capacity dispatch `moe.moe_apply` over the
+    b * s tokens; for s == 1 the dense gather: every expert computed in
+    f32 (the stacks dequantized to f32, as the reference's
+    maybe_dequant(stack, f32)), weighted by [N, E] gates that are zero
+    off the top k."""
+    b, s, d = x.shape
+    tokens = x.reshape(b * s, d)
+    logits = (tokens.to(torch.float32) @
+              moe.router.kernel.to(torch.float32))
+    if s > 1 or capacity:
+        # The reference passes maybe_dequant(stack, f32) on and moe_apply
+        # casts it to cfg.dtype; for a float stack the f32 copy would
+        # round back to the same bits, so it goes in as stored.
+        stacks = [moe.stack(name, torch.float32)
+                  if isinstance(getattr(moe, name), moe_lib.QuantStack)
+                  else getattr(moe, name) for name in moe_lib.STACKS]
+        out, _ = moe_lib.moe_apply(tokens, logits, *stacks, cfg)
+        return out.to(x.dtype).reshape(b, s, d)
+    _, gate_vals, gate_idx = moe_lib.route(logits, cfg.expert_top_k)
+    gates = torch.sum(
+        F.one_hot(gate_idx, cfg.n_experts).to(torch.float32) *
+        gate_vals[..., None], dim=1)                      # [N, E]
+    xt = tokens.to(torch.float32)
+    # [N, d] @ [E, d, f] -> [E, N, f]; one f32 stack alive at a time.
+    h = moe_lib.act_fn(cfg)(xt @ moe.stack('gate_proj', torch.float32))
+    h = h * (xt @ moe.stack('up_proj', torch.float32))
+    out_e = h @ moe.stack('down_proj', torch.float32)     # [E, N, d]
+    out = torch.einsum('ne,end->nd', gates, out_e)
+    return out.to(x.dtype).reshape(b, s, d)
 
 
 def _masked_attention(q, k_cache, v_cache, positions, cfg: ModelConfig):
@@ -204,12 +240,12 @@ def _layer_forward(x, layer, cfg: ModelConfig, positions, k_cache, v_cache,
 
 
 def _attn_out_and_mlp(x, out, layer, cfg: ModelConfig,
-                      blocked: bool = False):
+                      blocked: bool = False, capacity: bool = False):
     """The tail of a layer, shared with the training forward
-    (`DecoderLayer.forward`): o_proj of the attention output
-    [b, h, s, hd] into the residual rows x [M, d] (rows past b * s are
-    bucket padding and get zeros), then the MLP block; `blocked` for a
-    decode tick (`_by_blocks`)."""
+    (`DecoderLayer.forward`, which passes `capacity`: `_moe_mlp`):
+    o_proj of the attention output [b, h, s, hd] into the residual rows
+    x [M, d] (rows past b * s are bucket padding and get zeros), then
+    the MLP block; `blocked` for a decode tick (`_by_blocks`)."""
     b, hq, s, hd = out.shape
     # The masked path's attention output is f32: cast to x's dtype.
     rows = out.permute(0, 2, 1, 3).reshape(b * s, hq * hd).to(x.dtype)
@@ -219,6 +255,19 @@ def _attn_out_and_mlp(x, out, layer, cfg: ModelConfig,
         rows = padded
     w = layer.attn.o_proj.matrix(x.dtype)
     x = x + _by_blocks(lambda r: r @ w, rows, blocked)
+    if cfg.n_experts > 0:
+        # The MoE block sees the b * s real rows only, in one call: a pad
+        # row would join the capacity dispatch (N, the capacity and the
+        # buffer slots are the reference's only over the real tokens).
+        # The norm runs on every row, as every other row op does.
+        h = _by_blocks(lambda r: _norm(r, layer.mlp_norm.scale,
+                                       cfg.norm_eps, cfg.norm_scale_plus_one),
+                       x, blocked)[:b * s]
+        y = _moe_mlp(h.reshape(b, s, -1), layer.moe_mlp, cfg,
+                     capacity=capacity).reshape(b * s, -1)
+        if x.shape[0] != b * s:
+            y = torch.cat([y, y.new_zeros((x.shape[0] - b * s, y.shape[1]))])
+        return x + y
     weights = _mlp_weights(layer.mlp, x.dtype)
     return x + _by_blocks(
         lambda r: _mlp(_norm(r, layer.mlp_norm.scale, cfg.norm_eps,

@@ -304,20 +304,12 @@ def _plan_for(cfg: configs.ModelConfig, family: str):
 def expected_tree(cfg: configs.ModelConfig) -> Dict[str, Any]:
     """Shape skeleton (tuples) of the reference tree for `cfg`, in its
     layer layout: the port's own Transformer built on the meta device
-    (nothing is allocated), with Mixtral's expert stacks (which the
-    port does not serve yet) in place of the dense MLP."""
-    model = Transformer(cfg.replace(n_experts=0), device='meta')
+    (nothing is allocated), MoE layers and their expert stacks
+    included."""
+    model = Transformer(cfg, device='meta')
     tree = convert_lib._map_tree(  # pylint: disable=protected-access
         lambda t: tuple(t.shape), convert_lib.param_tree(model))
     layers = [tree.pop(f'layer_{i}') for i in range(cfg.n_layers)]
-    if cfg.n_experts > 0:
-        e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
-        for layer in layers:
-            del layer['mlp']
-            layer['moe_mlp'] = {'router': {'kernel': (d, e)},
-                                'gate_proj': (e, d, f),
-                                'up_proj': (e, d, f),
-                                'down_proj': (e, f, d)}
     if cfg.scan_layers:
         tree['layers'] = {'layer': convert_lib._map_tree(  # pylint: disable=protected-access
             lambda s: (cfg.n_layers,) + s, layers[0])}

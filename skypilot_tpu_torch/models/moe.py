@@ -1,0 +1,178 @@
+"""Mixture-of-Experts layer (mirrors `skypilot_tpu/models/moe.py`).
+
+GShard-style top-k dispatch with a static per-expert capacity: one-hot
+dispatch and combine tensors, tokens past an expert's capacity dropped
+(their residual path still carries them).  `moe_apply` is the routing
+math, shared by the training forward (`DecoderLayer.forward`) and the
+decode path's prefill and verify ticks (`decode._moe_mlp`), so it
+exists once; every step is the reference's, in the same order and
+dtypes:
+
+- router softmax in f32; top-k with the reference's tie order (the
+  lower expert index first); gates renormalised over the k chosen;
+- capacity = max(1, int(factor * N * k / E)) in Python floats;
+- buffer positions from a cumsum over the [N*k, E] one-hot, token-major
+  (earlier tokens fill an expert first);
+- dispatch / combine [N, E, C] in f32; the expert inputs and stacks
+  cast to cfg.dtype for the three expert products; the combine in f32;
+- the Switch Transformer load-balancing aux loss (returned; the
+  reference's trainer never reads it).
+
+`MoEMLP` holds the reference tree's leaves: router.kernel [d, E] (f32)
+and the raw expert stacks gate_proj / up_proj [E, d, f] and down_proj
+[E, f, d], or with int8 weights one `QuantStack` each (per-expert,
+per-output-channel scales, models/quantize.py).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from skypilot_tpu_torch.models import quantize as quantize_lib
+from skypilot_tpu_torch.models.configs import ModelConfig
+
+STACKS = ('gate_proj', 'up_proj', 'down_proj')
+
+
+def act_fn(cfg: ModelConfig):
+    if cfg.mlp_act == 'silu':
+        return F.silu
+    if cfg.mlp_act == 'gelu':
+        # jax.nn.gelu defaults to the tanh approximation.
+        return lambda x: F.gelu(x, approximate='tanh')
+    raise ValueError(f'Unknown mlp_act {cfg.mlp_act!r}')
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """jax.lax.top_k over the last axis: the k largest values in
+    descending order, equal values in ascending index order (a stable
+    descending sort; torch.topk promises no order among ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def route(router_logits: torch.Tensor, k: int):
+    """-> (probs [N, E] f32, gates [N, k] renormalised, expert ids
+    [N, k])."""
+    probs = torch.softmax(router_logits.to(torch.float32), dim=-1)
+    gate_vals, gate_idx = top_k(probs, k)
+    gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+    return probs, gate_vals, gate_idx
+
+
+def capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    return max(1, int(cfg.expert_capacity_factor * n_tokens *
+                      cfg.expert_top_k / cfg.n_experts))
+
+
+def moe_apply(tokens: torch.Tensor, router_logits: torch.Tensor,
+              w_gate: torch.Tensor, w_up: torch.Tensor,
+              w_down: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-dispatched top-k MoE on tokens [N, d] given router
+    logits [N, E]; returns (out [N, d] f32, aux loss scalar)."""
+    n_exp, k = cfg.n_experts, cfg.expert_top_k
+    n_tokens = tokens.shape[0]
+    probs, gate_vals, gate_idx = route(router_logits, k)
+    cap = capacity(cfg, n_tokens)
+
+    # One-hot expert choice per (token, slot) [N, k, E]; each token's
+    # buffer position within its expert, over the token-major order.
+    choice = F.one_hot(gate_idx, n_exp).to(torch.float32)
+    flat = choice.reshape(n_tokens * k, n_exp)
+    position = torch.cumsum(flat, dim=0) * flat - 1.0
+    in_cap = (position >= 0) & (position < cap)
+    position = position.reshape(n_tokens, k, n_exp)
+    kept = in_cap.reshape(n_tokens, k, n_exp).to(torch.float32)
+
+    # jax.nn.one_hot of a float position: zeros for -1 and past C.
+    slots = torch.arange(cap, dtype=torch.float32, device=tokens.device)
+    pos_onehot = (position[..., None] == slots).to(torch.float32)
+    chosen = choice * kept
+    placed = pos_onehot * kept[..., None]
+    dispatch = torch.einsum('nke,nkec->nec', chosen, placed)
+    combine = torch.einsum('nk,nke,nkec->nec', gate_vals, chosen, placed)
+
+    expert_in = torch.einsum('nec,nd->ecd', dispatch,
+                             tokens.to(torch.float32)).to(cfg.dtype)
+    act = act_fn(cfg)
+    h = act(torch.matmul(expert_in, w_gate.to(cfg.dtype)))
+    h = h * torch.matmul(expert_in, w_up.to(cfg.dtype))
+    expert_out = torch.matmul(h, w_down.to(cfg.dtype))
+    out = torch.einsum('nec,ecd->nd', combine,
+                       expert_out.to(torch.float32))
+
+    # Load-balancing auxiliary loss (Switch Transformer eq. 4).
+    density = torch.mean(choice[:, 0, :], dim=0)
+    density_proxy = torch.mean(probs, dim=0)
+    aux = (torch.sum(density * density_proxy) * n_exp *
+           cfg.router_aux_loss_coef)
+    return out, aux
+
+
+def dropped_tokens(router_logits: torch.Tensor, cfg: ModelConfig) -> int:
+    """How many (token, expert) assignments `moe_apply` drops for these
+    router logits (past their expert's capacity)."""
+    _, _, gate_idx = route(router_logits, cfg.expert_top_k)
+    counts = torch.bincount(gate_idx.reshape(-1), minlength=cfg.n_experts)
+    cap = capacity(cfg, router_logits.shape[0])
+    return int(torch.clamp(counts - cap, min=0).sum())
+
+
+class QuantStack(nn.Module):
+    """An int8 expert stack: buffers qvalue [E, in, out] (int8) and scale
+    [E, 1, out] (f32), the reference tree's {'qvalue', 'scale'} leaf."""
+
+    def __init__(self, shape, *, device) -> None:
+        super().__init__()
+        self.fan_in = shape[0] * shape[1]
+        self.register_buffer('qvalue', torch.empty(
+            tuple(shape), dtype=torch.int8, device=device))
+        self.register_buffer('scale', torch.empty(
+            (shape[0], 1, shape[2]), dtype=torch.float32, device=device))
+
+    def leaf(self):
+        return {'qvalue': self.qvalue, 'scale': self.scale}
+
+
+class MoEMLP(nn.Module):
+    """The MoE block's parameters (module docstring); `dense` is the
+    float Dense class the router is made of.  The stacks are
+    created before the router, so a float and an int8 model list their
+    leaves in one order (the seeded init draws them alike)."""
+
+    def __init__(self, cfg: ModelConfig, *, dtype, router_dtype, device,
+                 dense, quantized: bool = False) -> None:
+        super().__init__()
+        e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+        shapes = {'gate_proj': (e, d, f), 'up_proj': (e, d, f),
+                  'down_proj': (e, f, d)}
+        for name in STACKS:
+            if quantized:
+                setattr(self, name, QuantStack(shapes[name], device=device))
+            else:
+                setattr(self, name, nn.Parameter(
+                    torch.empty(shapes[name], dtype=dtype, device=device),
+                    requires_grad=False))
+        self.router = dense((d,), (e,), dtype=router_dtype, device=device)
+
+    def stack(self, name: str, dtype: torch.dtype) -> torch.Tensor:
+        """Expert stack `name` in `dtype`: the reference's
+        maybe_dequant(stack, dtype) (int8 as qvalue * scale in `dtype`)."""
+        leaf = getattr(self, name)
+        if isinstance(leaf, QuantStack):
+            return quantize_lib.dequant(leaf.leaf(), dtype)
+        return leaf.to(dtype)
+
+    def tree(self):
+        """This block's subtree of the reference tree (the model's own
+        tensors)."""
+        node = {'router': {'kernel': self.router.kernel}}
+        for name in STACKS:
+            leaf = getattr(self, name)
+            node[name] = (leaf.leaf() if isinstance(leaf, QuantStack)
+                          else leaf)
+        return node

@@ -12,6 +12,9 @@ whose parameter names and shapes are the flax tree's, so a reader (and
     layers.{i}.mlp_norm.scale           [d]
     layers.{i}.mlp.{gate,up}_proj.kernel [d, f]
     layers.{i}.mlp.down_proj.kernel     [f, d]
+    layers.{i}.moe_mlp.router.kernel    [d, E]       (MoE, in place of mlp)
+    layers.{i}.moe_mlp.{gate,up}_proj   [E, d, f]
+    layers.{i}.moe_mlp.down_proj        [E, f, d]
     final_norm.scale                    [d]
     lm_head.kernel                      [d, V]       (absent when tied)
 
@@ -20,13 +23,15 @@ kernel, the lm_head's included, is a `QuantDense` instead: buffers
 `qvalue` (int8, the kernel's shape) and `scale` (f32, 1 on the input
 axes), the reference tree's {'qvalue', 'scale'} leaf; `matrix(dtype)`
 dequantizes it on every call, as the reference's `maybe_dequant` does.
+An MoE layer's expert stacks are `moe.QuantStack`s then (per-expert
+scales); its router stays float.
 
 Two storage layouts:
 - serving (the default): parameters do not require grad; matmul
   weights are stored in `cfg.dtype` (the cast the reference makes on
-  every call with `maybe_dequant(kernel, x.dtype)`, done once); norm
-  scales stay f32, and so does the lm_head (and a tied embedding) when
-  `cfg.logits_in_f32`.
+  every call with `maybe_dequant(kernel, x.dtype)`, done once), MoE
+  expert stacks included; norm scales and the MoE router stay f32, and
+  so does the lm_head (and a tied embedding) when `cfg.logits_in_f32`.
 - `trainable=True`: every leaf in `cfg.param_dtype` (f32) with
   requires_grad, as flax keeps `param_dtype` and casts to `cfg.dtype`
   for compute; the math casts with `.to(x.dtype)`, which autograd
@@ -49,6 +54,7 @@ from torch import nn
 from torch.utils import checkpoint as torch_checkpoint
 
 from skypilot_tpu_torch.device import resolve_device
+from skypilot_tpu_torch.models import moe as moe_lib
 from skypilot_tpu_torch.models import quantize as quantize_lib
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.ops.attention import flash_attention
@@ -111,18 +117,19 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 class _Storage(NamedTuple):
     """Storage dtype of each kind of parameter (module docstring)."""
-    matmul: torch.dtype     # q/k/v/o and MLP kernels, q/k/v biases
+    matmul: torch.dtype     # q/k/v/o, MLP kernels, expert stacks, biases
     norm: torch.dtype
     embed: torch.dtype
     head: torch.dtype
+    router: torch.dtype     # the MoE router kernel
 
 
 def _storage(cfg: ModelConfig, trainable: bool) -> _Storage:
     if trainable:
-        return _Storage(*[cfg.param_dtype] * 4)
+        return _Storage(*[cfg.param_dtype] * 5)
     head = torch.float32 if cfg.logits_in_f32 else cfg.dtype
     embed = head if cfg.tie_embeddings else cfg.dtype
-    return _Storage(cfg.dtype, torch.float32, embed, head)
+    return _Storage(cfg.dtype, torch.float32, embed, head, torch.float32)
 
 
 class RMSNorm(nn.Module):
@@ -210,11 +217,6 @@ class DecoderLayer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, storage: _Storage,
                  device, dense=Dense) -> None:
         super().__init__()
-        if cfg.n_experts > 0:
-            raise NotImplementedError(
-                'MoE decoders (models/moe.py) come with a later slice of '
-                'the port (ROADMAP Queue A, item 15); a Mixtral checkpoint '
-                'imports, but cannot be served yet')
         self.cfg = cfg
         self.attn_norm = RMSNorm(cfg.d_model, dtype=storage.norm,
                                  device=device)
@@ -222,14 +224,21 @@ class DecoderLayer(nn.Module):
                               dense=dense)
         self.mlp_norm = RMSNorm(cfg.d_model, dtype=storage.norm,
                                 device=device)
-        self.mlp = MLP(cfg, dtype=storage.matmul, device=device,
-                       dense=dense)
+        if cfg.n_experts > 0:
+            self.moe_mlp = moe_lib.MoEMLP(
+                cfg, dtype=storage.matmul, router_dtype=storage.router,
+                device=device, dense=Dense, quantized=dense is QuantDense)
+        else:
+            self.mlp = MLP(cfg, dtype=storage.matmul, device=device,
+                           dense=dense)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 shape) -> torch.Tensor:
         """The training forward of one layer: residual rows x [b * s, d]
         (`shape` = (b, s)) -> the same, attention through the
-        differentiable `flash_attention` on the whole sequence."""
+        differentiable `flash_attention` on the whole sequence; an MoE
+        block takes the capacity dispatch at every s, as flax's MoEMLP
+        does."""
         from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
         cfg = self.cfg
         h = decode._norm(x, self.attn_norm.scale, cfg.norm_eps,  # pylint: disable=protected-access
@@ -241,7 +250,8 @@ class DecoderLayer(nn.Module):
         v = decode._attn_proj(h, self.attn.v_proj, shape)  # pylint: disable=protected-access
         out = flash_attention(q.contiguous(), k.contiguous(),
                               v.contiguous(), causal=True)
-        return decode._attn_out_and_mlp(x, out, self, cfg)  # pylint: disable=protected-access
+        return decode._attn_out_and_mlp(x, out, self, cfg,  # pylint: disable=protected-access
+                                        capacity=True)
 
 
 class Embed(nn.Module):
@@ -335,10 +345,14 @@ def _remat_context(cfg: ModelConfig):
 
 
 def _leaves(model: Transformer):
-    """(qualified name, owning module) of every leaf in the reference
-    tree's order, which is the float model's parameter order: a
-    QuantDense's kernel stands where a Dense's does."""
+    """(qualified name, owning module) of every leaf in the float
+    model's parameter order: a QuantDense's kernel stands where a
+    Dense's does, a QuantStack where the float stack does (named as the
+    stack, owned by the QuantStack)."""
     for prefix, module in model.named_modules():
+        if isinstance(module, moe_lib.QuantStack):
+            yield prefix, module
+            continue
         names = [n for n, _ in module.named_parameters(recurse=False)]
         if isinstance(module, QuantDense):
             names = ['kernel'] + names
@@ -349,7 +363,8 @@ def _leaves(model: Transformer):
 def _fill_(name: str, module: nn.Module, cfg: ModelConfig,
            gen: torch.Generator) -> None:
     """Seeded flax-style init of one leaf, drawn in f32 on the leaf's
-    device and cast into it, or quantized into a QuantDense's buffers
+    device and cast into it, or quantized into a QuantDense's (or a
+    QuantStack's) buffers
     (one tensor at a time, so the f32 tree never exists as a whole)."""
     leaf = name.rsplit('.', 1)[-1]
     if leaf == 'scale':
@@ -359,19 +374,25 @@ def _fill_(name: str, module: nn.Module, cfg: ModelConfig,
     if leaf == 'bias':
         module.bias.zero_()
         return
-    if isinstance(module, QuantDense):
+    quantized = isinstance(module, (QuantDense, moe_lib.QuantStack))
+    if quantized:
         shape, device = module.qvalue.shape, module.qvalue.device
+        fan_in = module.fan_in
     else:
         p = getattr(module, leaf)
         shape, device = p.shape, p.device
+        # An expert stack [E, in, out]: flax's lecun_normal counts the
+        # leading axis as receptive field, so fan_in = E * in.
+        fan_in = (shape[0] * shape[1] if isinstance(module, moe_lib.MoEMLP)
+                  else getattr(module, 'fan_in', 1))
     tmp = torch.empty(shape, dtype=torch.float32, device=device)
     if leaf == 'embedding':
         tmp.normal_(0.0, 0.02, generator=gen)
     else:
-        std = math.sqrt(1.0 / module.fan_in) / _TRUNC_STD
+        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
         torch.nn.init.trunc_normal_(tmp, 0.0, std, -2.0 * std, 2.0 * std,
                                     generator=gen)
-    if isinstance(module, QuantDense):
+    if quantized:
         q = quantize_lib.quantize_leaf(tuple(name.split('.')), tmp)
         module.qvalue.copy_(q['qvalue'])
         module.scale.copy_(q['scale'])

@@ -31,6 +31,14 @@ Loops:
   token as its first tick input, which overwrites the first pad
   position, so logits match unpadded decode.  A prefix-cache hit seeds
   the private cache from the pool instead of running chunk 0.
+- MoE models (cfg.n_experts > 0): the capacity dispatch couples every
+  prompt token, so a pad, the n-1 / last-token split or a chunk
+  boundary would change which tokens drop.  Admission prefills the
+  WHOLE prompt unpadded in one piece (`_admit_moe`), takes the first
+  token from its logits with the key a first tick would use, and the
+  slot joins at length n; prefixes are never reused (pages still pool)
+  and KV handoff is refused.  A speculative verify tick dispatches all
+  B * (k + 1) rows, inactive slots' too, as the reference does.
 - Legacy (`pipelined=False`, dense cache only): the whole prompt
   prefills inline at admission, every tick is `decode.batched_step`
   with one host sync per token, greedy only.  It is the un-pipelined
@@ -186,9 +194,6 @@ class ContinuousBatchingEngine:
         if model.device != self.device:
             raise ValueError(f'model on {model.device}, engine on '
                              f'{self.device}')
-        if cfg.n_experts > 0:
-            raise NotImplementedError(
-                'MoE serving comes with a later slice of the port')
         self.spec_tokens = int(spec_tokens)
         if self.spec_tokens < 0:
             raise ValueError(f'spec_tokens must be >= 0, got {spec_tokens}')
@@ -483,6 +488,10 @@ class ContinuousBatchingEngine:
         dict, or with `binary` the octet-stream frame.  int8 pages and
         scales when this engine quantizes KV, f32 otherwise.  The
         sub-page tail is the importer's to prefill."""
+        if self.cfg.n_experts > 0:
+            raise HandoffError(
+                'MoE prefill couples every prompt token through the '
+                'capacity dispatch; its KV cannot transfer page-wise')
         self._check_running()
         ps = int(page_size) if page_size else (
             self._kv.page_size if self._kv is not None else 16)
@@ -535,6 +544,8 @@ class ContinuousBatchingEngine:
         if not self._kv.prefix_caching:
             raise HandoffError('KV import needs the prefix cache '
                                '(imports publish pages through it)')
+        if self.cfg.n_experts > 0:
+            raise HandoffError('MoE engines do not reuse prefix pages')
         if int(page_size) != self._kv.page_size:
             raise HandoffError(f'page_size mismatch: payload {page_size}, '
                                f'pool {self._kv.page_size}')
@@ -785,10 +796,17 @@ class ContinuousBatchingEngine:
         n = len(prompt)
         plan = None
         if self._kv is not None:
-            plan = self._kv.plan_admission(prompt, request.max_new_tokens)
+            # MoE: a shared prefix has no shared KV (the capacity
+            # dispatch couples every prompt token); pages still pool.
+            plan = self._kv.plan_admission(
+                prompt, request.max_new_tokens,
+                prefix_ok=self.cfg.n_experts == 0)
             request.span.prefix_hit_pages = plan.prefix_hit_pages
             self._kv.commit(slot_id, plan)
         self._queue.record_admission(request)
+        if self.cfg.n_experts > 0:
+            self._admit_moe(slot_id, request, plan)
+            return None
         if n <= 1 or (plan is not None and plan.n_reuse_tokens >= n - 1):
             # Nothing to prefill: a one-token prompt, or a full prefix
             # hit (the prefilled region [0, n-1) is entirely cached).
@@ -806,6 +824,46 @@ class ContinuousBatchingEngine:
         pending.plan = plan
         pending.weight_epoch = self._weight_epoch
         return pending
+
+    def _admit_moe(self, slot_id: int, request: scheduler.Request,
+                   plan) -> None:
+        """MoE admission: pad tokens, the n-1 / last-token split and
+        chunk boundaries would all change which tokens the capacity
+        dispatch drops, so the WHOLE prompt prefills unpadded in one
+        piece (flash attention from index 0) and the first token comes
+        from its logits, selected as a tick selects it with the key a
+        first tick would draw with; the slot joins at length n."""
+        prompt = request.prompt_ids
+        n = len(prompt)
+        t0 = time.perf_counter()
+        logits, pre = self._prefill(self.cfg, self.model,
+                                    self._tokens_tensor(prompt, n),
+                                    max_len=self.max_len)
+        request.span.mark_prefill_chunk(time.perf_counter() - t0)
+        if plan is not None:
+            n_pages = -(-n // self._kv.page_size)
+            self._insert_pages(self._cache, pre, plan.row[:n_pages],
+                               first_page=0)
+        else:
+            self._insert(self._cache, slot_id, pre, n)
+        carry, draw = decode.split_keys(torch.tensor(
+            self._sampler.key(request.seed), dtype=torch.int64))
+        first = self._sampler.sample_one(logits, draw, request.temperature,
+                                         request.top_k)
+        request._push(first)  # pylint: disable=protected-access
+        self._record_tokens(1)
+        if request.max_new_tokens <= 1 or first in request.stop_ids:
+            request._finish()  # pylint: disable=protected-access
+            if plan is not None:
+                self._kv.release(slot_id)
+            return
+        if plan is not None:
+            self._admit_paged(self._cache, slot_id, self._pad_row(plan.row),
+                              n)
+        self._slots[slot_id].request = request
+        self._activate(slot_id, request, first,
+                       remaining=request.max_new_tokens - 1,
+                       key=carry.tolist())
 
     def _prefill_piece(self, prompt_ids: List[int],
                        cache: Optional[Dict[str, Any]], consumed: int,
@@ -903,13 +961,20 @@ class ContinuousBatchingEngine:
         return True
 
     def _activate(self, slot_id: int, request: scheduler.Request,
-                  token: int) -> None:
+                  token: int, remaining: Optional[int] = None,
+                  key=None) -> None:
+        """Flip a slot live: `token` is its next tick input (prompt[-1],
+        or the MoE first token from prefill), `remaining` and `key`
+        default to a request with nothing generated yet."""
         if self.spec_tokens:
+            # The history ends with the token the next tick feeds.
             self._slots[slot_id].drafter = sampler_lib.NgramDrafter(
                 list(request.prompt_ids) + list(request.tokens))
         self._state = self._sampler.admit(
-            self._state, slot_id, token, request.max_new_tokens,
-            request.stop_ids, self._sampler.key(request.seed),
+            self._state, slot_id, token,
+            request.max_new_tokens if remaining is None else remaining,
+            request.stop_ids,
+            self._sampler.key(request.seed) if key is None else key,
             request.temperature, request.top_k)
 
     def _deactivate(self, slot_ids: List[int]) -> None:
@@ -1062,8 +1127,10 @@ class ContinuousBatchingEngine:
                     break
                 if pending is not None:
                     pending_prefills.append(pending)
-                else:
+                elif self._slots[slot_id].request is not None:
                     live[slot_id] = request
+                else:
+                    continue   # finished at admission (MoE, one token)
                 occupied += 1
             # The admit phase: stale expiry, reaps and admissions.
             prof.lap('admit', record=bool(admitted or deferred or reaped))
@@ -1125,6 +1192,24 @@ class ContinuousBatchingEngine:
         slot = self._slots[slot_id]
         prompt = request.prompt_ids
         n = len(prompt)
+        if self.cfg.n_experts > 0:
+            # MoE: the whole prompt unpadded (`_admit_moe`); the first
+            # token is the argmax of its logits.
+            logits, pre = self._prefill(self.cfg, self.model,
+                                        self._tokens_tensor(prompt, n),
+                                        max_len=self.max_len)
+            self._profiler.lap('prefill-chunk')
+            self._insert(self._cache, slot_id, pre, n)
+            self._profiler.lap('page-scatter')
+            first = int(torch.argmax(logits[0]))
+            request._push(first)  # pylint: disable=protected-access
+            self._record_tokens(1)
+            if request.max_new_tokens <= 1 or first in request.stop_ids:
+                request._finish()  # pylint: disable=protected-access
+                return
+            slot.request = request
+            slot.next_token = first
+            return
         if n > 1:
             bucket = min(self._bucket(n - 1), self.max_len)
             _, pre = self._prefill(

@@ -270,15 +270,17 @@ class PagedKVManager:
         return self.pool.free_count + self.prefix.evictable() >= n_pages
 
     def plan_admission(self, prompt_ids: Sequence[int],
-                       max_new_tokens: int) -> AdmissionPlan:
+                       max_new_tokens: int, *,
+                       prefix_ok: bool = True) -> AdmissionPlan:
         """Match the prompt against the prefix cache and allocate the
-        fresh remainder; raises PagesExhausted (matched pages released)."""
+        fresh remainder; raises PagesExhausted (matched pages released).
+        `prefix_ok=False` (MoE) neither matches nor publishes a prefix."""
         ps = self.page_size
         n = len(prompt_ids)
         total_pages = self.pages_needed(n, max_new_tokens)
         # Only pages fully inside the PREFILLED region [0, n-1) share.
         hashes = (chunk_hashes(prompt_ids[:n - 1], ps)
-                  if self.prefix_caching and n > 1 else [])
+                  if prefix_ok and self.prefix_caching and n > 1 else [])
         reuse = self.prefix.match(hashes)
         try:
             fresh = self._alloc_with_eviction(total_pages - len(reuse))

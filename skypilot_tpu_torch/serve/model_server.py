@@ -72,7 +72,17 @@ files), else seeded random values made on the device (`init_params`),
 or a given Transformer (`params`, e.g. one model shared by two
 servers).  `quantize='int8'` keeps every matmul kernel in int8 on the
 device (models/quantize.py), quantized leaf by leaf as the weights
-arrive.
+arrive.  `overrides` replaces fields of a preset (a depth cut of
+`mixtral-8x7b`, say).  MoE presets (`mixtral-8x7b`, `tiny-moe`) and
+converted Mixtral checkpoints serve in every mode: static, dense and
+paged continuous batching, the legacy loop, both fronts.
+
+Environment (as the reference's `main` and fronts read it):
+SKYTPU_SERVE_KV_PAGES, _PAGE_SIZE, _KV_INT8=1, _SPEC_TOKENS and
+_PREFIX_CACHE=0 give `main`'s flag defaults (`build_parser`);
+SKYTPU_SERVE_DEFAULT_DEADLINE_MS is the deadline of a request without
+X-SkyTPU-Deadline-Ms (both fronts); SKYTPU_MODEL_FLOPS_PER_TOKEN
+overrides the FLOPs estimate behind skytpu_engine_model_flops_per_token.
 """
 from __future__ import annotations
 
@@ -188,9 +198,24 @@ def parse_route_meta(headers) -> Optional[Dict[str, Any]]:
                 headers.get(http_protocol.ATTEMPT_HEADER))}
 
 
+def default_deadline_ms() -> Optional[float]:
+    """The replica's default deadline (ms) for a request that carries
+    no X-SkyTPU-Deadline-Ms: SKYTPU_SERVE_DEFAULT_DEADLINE_MS, None
+    when unset, empty, malformed or not positive."""
+    value = os.environ.get('SKYTPU_SERVE_DEFAULT_DEADLINE_MS')
+    if not value:
+        return None
+    try:
+        ms = float(value)
+    except ValueError:
+        return None
+    return ms if ms > 0 else None
+
+
 def parse_deadline_ms(headers) -> Optional[float]:
-    """The request's X-SkyTPU-Deadline-Ms (None when absent, malformed
-    or not positive)."""
+    """The request's X-SkyTPU-Deadline-Ms (None when it is not
+    positive), else `default_deadline_ms()` when the header is absent
+    or malformed, as both of the reference's fronts read it."""
     raw = headers.get(http_protocol.DEADLINE_HEADER)
     if raw:
         try:
@@ -198,7 +223,7 @@ def parse_deadline_ms(headers) -> Optional[float]:
             return ms if ms > 0 else None
         except ValueError:
             pass
-    return None
+    return default_deadline_ms()
 
 
 def parse_qos_class(headers) -> str:
@@ -209,7 +234,17 @@ def parse_qos_class(headers) -> str:
 def model_flops_per_token(cfg, n_params: int, max_len: int) -> float:
     """Forward FLOPs per generated token: ~2 x params for the matmuls,
     plus attention over the mean decode context (max_len / 2): QK^T and
-    attn x V cost 2 x n_heads x head_dim each per layer and position."""
+    attn x V cost 2 x n_heads x head_dim each per layer and position.
+    SKYTPU_MODEL_FLOPS_PER_TOKEN overrides the whole estimate (imported
+    models whose tree misleads the count); a non-numeric value is
+    logged and ignored."""
+    override = os.environ.get('SKYTPU_MODEL_FLOPS_PER_TOKEN')
+    if override:
+        try:
+            return float(override)
+        except ValueError:
+            logger.warning('Ignoring non-numeric '
+                           'SKYTPU_MODEL_FLOPS_PER_TOKEN=%r', override)
     attn = (2.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim
             * float(max_len))
     return 2.0 * float(n_params) + attn
@@ -244,7 +279,8 @@ class ModelServer:
                  spec_tokens: int = 0,
                  role: str = roles_lib.DEFAULT_ROLE,
                  device: Union[str, torch.device] = 'cuda',
-                 params=None) -> None:
+                 params=None,
+                 overrides: Optional[Dict[str, Any]] = None) -> None:
         if quantize not in (None, 'int8'):
             # Before the (possibly minutes-long) restore, not after.
             raise ValueError(f'Unknown quantize mode {quantize!r}; '
@@ -272,7 +308,8 @@ class ModelServer:
                     "python -m skypilot_tpu_torch.models.import_weights.")
             self.cfg = cfg
         else:
-            self.cfg = configs.get_config(model)
+            # `overrides` replaces preset fields (a depth cut, say).
+            self.cfg = configs.get_config(model, **(overrides or {}))
         self.model_name = model
         # The checkpoint's tokenizer when it ships one (converted
         # checkpoints do); the byte-level fallback otherwise.
@@ -1137,7 +1174,13 @@ def start_background(server: ModelServer, port: int = 0,
     return httpd.server_port, stop
 
 
-def main(argv: Optional[List[str]] = None) -> None:
+def build_parser() -> argparse.ArgumentParser:
+    """`main`'s flags.  --kv-pages, --page-size, --quantize-kv,
+    --spec-tokens and --no-prefix-cache take their defaults from the
+    environment as the reference's `main` reads it (SKYTPU_SERVE_KV_PAGES,
+    _PAGE_SIZE, _KV_INT8=1, _SPEC_TOKENS, _PREFIX_CACHE=0), read when
+    the parser is built."""
+    env = os.environ
     parser = argparse.ArgumentParser()
     parser.add_argument('--model', default='tiny',
                         help=f'Preset name: {sorted(configs.PRESETS)}, or '
@@ -1149,15 +1192,32 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument('--continuous-batching', action='store_true',
                         help='Slot-pool scheduling with pipelined ticks '
                              '(a dense slot cache unless --kv-pages).')
-    parser.add_argument('--kv-pages', type=int, default=None,
-                        help='Paged KV cache: a pool of N pages.')
-    parser.add_argument('--page-size', type=int, default=16)
+    parser.add_argument('--kv-pages', type=int,
+                        default=(int(env['SKYTPU_SERVE_KV_PAGES'])
+                                 if env.get('SKYTPU_SERVE_KV_PAGES')
+                                 else None),
+                        help='Paged KV cache: a pool of N pages (env '
+                             'SKYTPU_SERVE_KV_PAGES).')
+    parser.add_argument('--page-size', type=int,
+                        default=int(env.get('SKYTPU_SERVE_PAGE_SIZE',
+                                            '16')),
+                        help='Tokens per KV page (env '
+                             'SKYTPU_SERVE_PAGE_SIZE).')
     parser.add_argument('--quantize-kv', action='store_true',
-                        help='int8 KV pages with per-token scales.')
-    parser.add_argument('--spec-tokens', type=int, default=0,
+                        default=env.get('SKYTPU_SERVE_KV_INT8', '') == '1',
+                        help='int8 KV pages with per-token scales (env '
+                             'SKYTPU_SERVE_KV_INT8=1).')
+    parser.add_argument('--spec-tokens', type=int,
+                        default=int(env.get('SKYTPU_SERVE_SPEC_TOKENS',
+                                            '0')),
                         help='Self-speculative decoding: N n-gram drafts '
-                             'per slot verified in one tick (0 = off).')
-    parser.add_argument('--no-prefix-cache', action='store_true')
+                             'per slot verified in one tick (0 = off; env '
+                             'SKYTPU_SERVE_SPEC_TOKENS).')
+    parser.add_argument('--no-prefix-cache', action='store_true',
+                        default=env.get('SKYTPU_SERVE_PREFIX_CACHE',
+                                        '1') == '0',
+                        help='No prompt prefix reuse across requests '
+                             '(env SKYTPU_SERVE_PREFIX_CACHE=0).')
     parser.add_argument('--max-queue', type=int, default=0)
     parser.add_argument('--queue-ttl', type=float, default=None)
     parser.add_argument('--prefill-chunk', type=int, default=512)
@@ -1187,7 +1247,11 @@ def main(argv: Optional[List[str]] = None) -> None:
                         help='Weight-only int8 quantization of the matmul '
                              'kernels: half the weight bytes of bf16.')
     parser.add_argument('--device', default='cuda')
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     server = ModelServer(args.model, checkpoint_dir=args.checkpoint_dir,
                          tokenizer_path=args.tokenizer,

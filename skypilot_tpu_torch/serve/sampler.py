@@ -7,6 +7,8 @@ from __future__ import annotations
 
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
+import torch
+
 from skypilot_tpu_torch.models import decode
 
 
@@ -78,6 +80,20 @@ class SlotSampler:
     def key(seed: int) -> List[int]:
         """A fresh key stream: (seed, counter 0)."""
         return [int(seed), 0]
+
+    def sample_one(self, logits, key, temperature: float,
+                   top_k: int) -> int:
+        """One token from single-row logits ([1, V] or [V]) and a draw
+        key (seed, counter), with the math a tick uses (the MoE first
+        token from prefill)."""
+        dev = logits.device
+        token = decode.batched_sample(
+            logits.reshape(1, -1),
+            torch.as_tensor(key, dtype=torch.int64, device=dev).reshape(1, 2),
+            torch.tensor([temperature], dtype=torch.float32, device=dev),
+            torch.tensor([top_k], dtype=torch.int32, device=dev),
+            max_top_k=self.max_top_k)
+        return int(token[0])
 
     def stop_row(self, stop_ids: Iterable[int]) -> List[int]:
         row = [-1] * self.max_stop_ids

@@ -399,9 +399,19 @@ def test_admit_and_release_slot():
     assert pool['lengths'].tolist() == [0, 0]
 
 
-def test_moe_is_a_later_slice():
+@pytest.mark.parametrize('quantize', [None, 'int8'])
+def test_moe_builds_and_runs(quantize):
+    """tiny-moe builds from a seed (float and int8 stacks) and decodes on
+    the CPU; its parity with the JAX package is tests/test_torch_moe.py's."""
     cfg = configs.get_config('tiny-moe')
-    with pytest.raises(NotImplementedError, match='later slice'):
-        decode._mlp(torch.zeros((1, 1, cfg.d_model)), None, cfg)  # pylint: disable=protected-access
-    with pytest.raises(NotImplementedError, match='later slice'):
-        init_params(cfg, device='cpu')
+    model = init_params(cfg, device='cpu', quantize=quantize)
+    moe = model.layers[0].moe_mlp
+    assert not hasattr(model.layers[0], 'mlp')
+    assert moe.router.kernel.dtype == torch.float32
+    for s in (1, 3):
+        out = decode._moe_mlp(torch.randn(2, s, cfg.d_model), moe, cfg)  # pylint: disable=protected-access
+        assert out.shape == (2, s, cfg.d_model)
+        assert bool(torch.isfinite(out).all())
+    _, new = decode.generate(cfg, model, torch.tensor([[5, 6, 7]]),
+                             max_new_tokens=4, max_len=16)
+    assert new.shape == (1, 4)

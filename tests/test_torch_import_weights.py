@@ -132,9 +132,11 @@ def test_load_params_and_config_match_reference(tmp_path, family):
     _same_tree(params, ref_params)
     assert all(t.dtype == torch.float32 for _, t in _flat(params))
     if family == 'mixtral':
-        # Imports to a tree; serving MoE waits for its slice.
-        with pytest.raises(NotImplementedError, match='later slice'):
-            convert.from_jax_params(cfg, params, device='cpu')
+        # The tree becomes a serving MoE model, leaf for leaf (its
+        # tokens against the reference: tests/test_torch_moe.py).
+        model = convert.from_jax_params(cfg.replace(dtype=torch.float32),
+                                        params, device='cpu')
+        _same_tree(convert.to_jax_params(model), params)
 
 
 @pytest.mark.parametrize('family', ['llama', 'llama3-scaling',

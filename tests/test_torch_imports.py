@@ -146,9 +146,9 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
 
 
 def test_engine_dense_mode_names_later_slice():
-    """The dense mode serves (tests/test_torch_engine_dense.py); MoE
-    models in it still name a later slice.  /weights_swap restores (the
-    reference's messages: tests/test_torch_real_weights.py)."""
+    """The dense mode serves (tests/test_torch_engine_dense.py), MoE
+    models in it too (tests/test_torch_moe.py).  /weights_swap restores
+    (the reference's messages: tests/test_torch_real_weights.py)."""
     from skypilot_tpu_torch.models import configs
     from skypilot_tpu_torch.models.transformer import init_params
     from skypilot_tpu_torch.serve import batching_engine
@@ -162,8 +162,13 @@ def test_engine_dense_mode_names_later_slice():
     finally:
         engine.stop()
     moe = configs.get_config('tiny-moe')
-    with pytest.raises(NotImplementedError, match='later slice'):
-        batching_engine.ContinuousBatchingEngine(moe, model, device='cpu')
+    moe_model = init_params(moe, seed=0, device='cpu')
+    engine = batching_engine.ContinuousBatchingEngine(moe, moe_model,
+                                                      device='cpu')
+    try:
+        assert len(engine.generate([1, 2, 3], 3)) == 3
+    finally:
+        engine.stop()
     server = model_server.ModelServer('tiny', continuous_batching=True,
                                       device='cpu', params=model)
     try:

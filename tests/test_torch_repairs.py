@@ -1,4 +1,4 @@
-"""Two repaired faults of the port, pinned on the CPU.
+"""Three repaired faults of the port, pinned on the CPU.
 
 - Row blocks (decode ticks past one bucket): on the GPU a decode tick
   whose padded rows exceed one 64-row bucket runs every op whose kernel
@@ -9,8 +9,22 @@
 - Ticket counters: the paged kernels' counters are kept per (device,
   stream), and a stream's array grows only after that stream has
   synchronised.  Two fake stream handles stand in for CUDA streams.
+- The serving environment defaults (C3): `build_parser()`'s defaults
+  under each of SKYTPU_SERVE_KV_PAGES, _PAGE_SIZE, _KV_INT8,
+  _SPEC_TOKENS and _PREFIX_CACHE, set and unset, equal what the
+  reference's `main` hands its ModelServer (its ModelServer and
+  serve_forever patched to record); SKYTPU_SERVE_DEFAULT_DEADLINE_MS
+  reaps a request without a deadline header with 504 on both fronts;
+  SKYTPU_MODEL_FLOPS_PER_TOKEN overrides the FLOPs estimate, and a
+  non-numeric value is ignored as the reference ignores it.
 """
 from __future__ import annotations
+
+import http.client
+import json
+import logging
+import sys
+import time
 
 import pytest
 import torch
@@ -19,7 +33,9 @@ from skypilot_tpu_torch.models import configs
 from skypilot_tpu_torch.models import decode
 from skypilot_tpu_torch.models.transformer import init_params
 from skypilot_tpu_torch.ops import paged_attention
+from skypilot_tpu_torch.serve import async_server
 from skypilot_tpu_torch.serve import batching_engine
+from skypilot_tpu_torch.serve import model_server
 
 BLOCK = 64
 
@@ -184,3 +200,128 @@ def test_ticket_counters_keyed_by_stream(tickets):
     assert get(dev, 2, 16, sync(2)) is b and tickets[dev, 2] is b
     assert get(dev, 1, 16, sync(1)) is grown
 
+
+
+# ------------------------------------------- C3: the environment defaults
+
+# variable -> the value set in the "set" case
+ENV_DEFAULTS = {'SKYTPU_SERVE_KV_PAGES': '96',
+                'SKYTPU_SERVE_PAGE_SIZE': '32',
+                'SKYTPU_SERVE_KV_INT8': '1',
+                'SKYTPU_SERVE_SPEC_TOKENS': '3',
+                'SKYTPU_SERVE_PREFIX_CACHE': '0'}
+# What each main hands ModelServer from those flags.
+SERVER_KWARGS = ('kv_pages', 'page_size', 'quantize_kv', 'spec_tokens',
+                 'prefix_caching')
+
+
+def _main_kwargs(monkeypatch, lib, argv):
+    """The ModelServer kwargs `lib.main` builds from `argv` (its
+    ModelServer and serve_forever patched to record, nothing served)."""
+    seen = {}
+
+    class Recorder:
+        def __init__(self, model, **kwargs):
+            seen.update(kwargs, model=model)
+
+    monkeypatch.setattr(lib, 'ModelServer', Recorder)
+    monkeypatch.setattr(lib, 'serve_forever', lambda *a, **k: None)
+    monkeypatch.setattr(sys, 'argv', ['model_server'] + argv)
+    lib.main()
+    return {k: seen[k] for k in SERVER_KWARGS}
+
+
+@pytest.mark.parametrize('state', ['set', 'unset'])
+@pytest.mark.parametrize('var', sorted(ENV_DEFAULTS))
+def test_parser_env_defaults_equal_reference(monkeypatch, var, state):
+    from skypilot_tpu.serve import model_server as ref_server
+    for name in ENV_DEFAULTS:
+        monkeypatch.delenv(name, raising=False)
+    if state == 'set':
+        monkeypatch.setenv(var, ENV_DEFAULTS[var])
+    argv = ['--http-server', 'threaded']
+    want = _main_kwargs(monkeypatch, ref_server, argv)
+    assert _main_kwargs(monkeypatch, model_server, argv) == want
+    args = model_server.build_parser().parse_args([])
+    assert (args.kv_pages, args.page_size, args.quantize_kv,
+            args.spec_tokens, not args.no_prefix_cache) == tuple(
+                want[k] for k in SERVER_KWARGS)
+    if state == 'set':
+        # The variable moved the default away from the unset one.
+        monkeypatch.delenv(var)
+        assert _main_kwargs(monkeypatch, model_server, argv) != want
+
+
+@pytest.mark.parametrize('header', [None, '', 'soon', '0', '-5', '750'])
+@pytest.mark.parametrize('env', [None, '2500', 'bogus', '-1'])
+def test_deadline_parse_equals_reference(monkeypatch, env, header):
+    from skypilot_tpu.serve import async_server as ref_async
+    from skypilot_tpu.serve import model_server as ref_server
+    if env is None:
+        monkeypatch.delenv('SKYTPU_SERVE_DEFAULT_DEADLINE_MS', raising=False)
+    else:
+        monkeypatch.setenv('SKYTPU_SERVE_DEFAULT_DEADLINE_MS', env)
+    headers = {} if header is None else {'X-SkyTPU-Deadline-Ms': header}
+    want = ref_async._deadline_ms(  # pylint: disable=protected-access
+        {k.lower(): v for k, v in headers.items()})
+    assert model_server.parse_deadline_ms(headers) == want
+    assert (model_server.default_deadline_ms() ==
+            ref_server.default_deadline_ms())
+
+
+def _slow_ticks(engine, seconds=0.05):
+    step = engine._step  # pylint: disable=protected-access
+
+    def slow_step(*args, **kwargs):
+        time.sleep(seconds)
+        return step(*args, **kwargs)
+    engine._step = slow_step  # pylint: disable=protected-access
+
+
+@pytest.mark.parametrize('front', ['threaded', 'async'])
+def test_default_deadline_reaps_without_header(monkeypatch, tiny, front):
+    """As tests/unit/test_serve_lifecycle.py holds the reference: with
+    SKYTPU_SERVE_DEFAULT_DEADLINE_MS set, a slow request that carries no
+    deadline header is answered 504."""
+    _, model = tiny
+    monkeypatch.setenv('SKYTPU_SERVE_DEFAULT_DEADLINE_MS', '300')
+    server = model_server.ModelServer('tiny', device='cpu', params=model,
+                                      max_len=256, max_batch=2,
+                                      continuous_batching=True)
+    _slow_ticks(server.engine)
+    start = (async_server.start_background if front == 'async'
+             else model_server.start_background)
+    port, stop = start(server)
+    try:
+        conn = http.client.HTTPConnection('127.0.0.1', port, timeout=60)
+        conn.request('POST', '/generate', body=json.dumps(
+            {'prompt_ids': [[1, 2, 3, 4]], 'max_new_tokens': 200}),
+            headers={'Content-Type': 'application/json'})
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        conn.close()
+        assert resp.status == 504, body
+        if front == 'threaded':
+            assert body['reason'] == 'deadline_exceeded'
+        assert server.engine.stats()['deadline_reaped'] == 1
+    finally:
+        stop()
+        server.close()
+
+
+@pytest.mark.parametrize('env', [None, '1.5e9', 'bogus'])
+def test_flops_override_equals_reference(monkeypatch, caplog, env):
+    from skypilot_tpu.models import configs as ref_configs
+    from skypilot_tpu.serve import model_server as ref_server
+    if env is None:
+        monkeypatch.delenv('SKYTPU_MODEL_FLOPS_PER_TOKEN', raising=False)
+    else:
+        monkeypatch.setenv('SKYTPU_MODEL_FLOPS_PER_TOKEN', env)
+    with caplog.at_level(logging.WARNING):
+        got = model_server.model_flops_per_token(
+            configs.get_config('tiny'), 123456, 512)
+    want = ref_server.model_flops_per_token(
+        ref_configs.get_config('tiny'), 123456, 512)
+    assert got == want
+    assert (got == 1.5e9) == (env == '1.5e9')
+    assert ('SKYTPU_MODEL_FLOPS_PER_TOKEN' in caplog.text) == (env == 'bogus')
