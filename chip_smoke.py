@@ -200,6 +200,32 @@ Phases (each one that fails makes the script exit non-zero):
    accum_steps = 2 from the same initial weights, whose step-1 loss and
    grad_norm must equal the unfused run's within 1e-3 relative; then
    the CLI, `train_llama --model small` (d 64 kernels) for 3 steps.
+7b. Training resume (data/loader.py, data/prefetch.py, the training
+   half of data/checkpoints.py, callbacks/): llama3-8b at full width
+   (d_model 4096, 32/8 heads, head_dim 128, d_ff 14336, vocab 128256),
+   depth cut 32 -> 1 (a training step is 12 B a parameter: 15.2 GB on
+   disk and in host RAM at depth 1), batch 2 x 2048.  A seeded token
+   file (4,194,304 ids, uint32) and a depth-1 HF source written with the
+   port's safetensors writer, converted into an init directory; then
+   `train_llama.run` with `--model auto --init-from <init> --data
+   <tokens>`: run U (5 steps, no checkpoint directory), run A
+   (SKYTPU_CHECKPOINT_DIR set, 1 step: saves step 0, on the 10-step
+   interval), run B (the same directory, 5 steps: resumes at 1).  Held:
+   A's step-0 loss equal to U's; B's losses for steps 1-4 within 1e-5
+   relative of U's (the largest difference and whether they are
+   bit-equal printed); the state `restore_or_init` restores bit-equal
+   to run A's final state (every parameter, both moments, the counts);
+   the prefetched batches equal `batch_at` for steps 0 and 1;
+   ModelServer('auto', checkpoint_dir=<ckpt>) restores the step's
+   params bit-equal to the in-memory cast and answers /generate with an
+   in-memory server's greedy tokens (2 prompts).  Launch counts are
+   zeroed just before U and read just after B ("training resume"): B3
+   exactly 20, B4 and B5 exactly 10 (10 steps, 2L / L / L).  Printed
+   with the card: convert, checkpoint write (the save histogram),
+   blocked and restore seconds, each run's summary.json
+   (compute_seconds_per_step, data_wait_seconds, prefetch_wait_seconds,
+   peak memory), the free disk before and the disk used at peak, the
+   phase's seconds.  Every temporary directory is deleted.
 8. A training reference check: depth-1 f32 llama3-8b, one 256-token
    sequence, loss.backward() on the GPU (kernels) and on the CPU (the
    plain versions) from the same weights: the loss and every gradient
@@ -207,10 +233,11 @@ Phases (each one that fails makes the script exit non-zero):
 
 The line before the last is the `kernels` JSON: each kernel's
 `launches` is its count on the path `path` names (serving for B1/B2,
-training for B3/B4/B5), and `launches_by_path` holds every driven
-path's own count (serving, the two observability windows, the five
-paths of phase 5, "int8 weights" and "checkpoint" of phase 5b, the
-four MoE paths of phase 5c, training, `train_llama small`), each path
+"training resume" for B3/B4/B5), and `launches_by_path` holds every
+driven path's own count (serving, the two observability windows, the
+five paths of phase 5, "int8 weights" and "checkpoint" of phase 5b,
+the four MoE paths of phase 5c, training, `train_llama small`,
+"training resume"), each path
 zeroed just before it and read just after.  B3's entry carries the
 512-token chunk under `serving_chunk`, B1's and B2's the full batch
 under `full_batch`, and B1's and B2's their split span in pages,
@@ -2517,10 +2544,11 @@ def train_main_path(dev, counters):
 def cli_check(counters):
     """`train_llama --model small`: -> launches of the run."""
     from skypilot_tpu_torch import train_llama
-    zero_counts(counters)
-    history = train_llama.main(['--model', 'small', '--steps', '3',
-                                '--batch-size', '8', '--seq-len', '512'])
-    counts = read_counts(counters)
+    with train_log_dir():
+        zero_counts(counters)
+        history = train_llama.main(['--model', 'small', '--steps', '3',
+                                    '--batch-size', '8', '--seq-len', '512'])
+        counts = read_counts(counters)
     launches = {name: counts[name] for name in TRAIN_KERNELS}
     losses = [h['loss'] for h in history]
     if not all(map(math.isfinite, losses)):
@@ -2531,6 +2559,271 @@ def cli_check(counters):
         f'{" ".join(f"{x:.4f}" for x in losses)}; launches {launches}')
     free_cuda()
     return counts
+
+
+# ----------------------------------------------------------- phase 7b
+
+RESUME_STEPS = 5
+RESUME_TOKENS = 4_194_304        # a 16 MB uint32 token file
+RESUME_DISK_GB = 20.0            # 15.2 GB step + 2.5 GB HF source + init
+
+
+@contextlib.contextmanager
+def train_log_dir():
+    """A summary.json directory of its own for the train_llama runs
+    inside (a fresh callbacks singleton), deleted after; yields its
+    path."""
+    import os
+    import shutil
+    import tempfile
+    from skypilot_tpu_torch.callbacks import base as callbacks
+    log_dir = tempfile.mkdtemp(prefix='skytpu_train_logs_')
+    before = os.environ.get(callbacks.ENV_LOG_DIR)
+    os.environ[callbacks.ENV_LOG_DIR] = log_dir
+    callbacks.reset()
+    try:
+        yield log_dir
+    finally:
+        callbacks.reset()
+        if before is None:
+            os.environ.pop(callbacks.ENV_LOG_DIR, None)
+        else:
+            os.environ[callbacks.ENV_LOG_DIR] = before
+        shutil.rmtree(log_dir, ignore_errors=True)
+
+
+class Tee:
+    """sys.stdout that also keeps what was printed."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, []
+
+    def write(self, text):
+        self.kept.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def resume_run(argv, ckpt=None):
+    """train_llama.run(argv) with SKYTPU_CHECKPOINT_DIR=ckpt (or unset)
+    and a summary of its own; -> (history, state, printed, summary)."""
+    import os
+    from skypilot_tpu_torch import train_llama
+    from skypilot_tpu_torch.callbacks import base as callbacks
+    from skypilot_tpu_torch.data import checkpoints
+    if ckpt is None:
+        os.environ.pop(checkpoints.ENV_CHECKPOINT_DIR, None)
+    else:
+        os.environ[checkpoints.ENV_CHECKPOINT_DIR] = ckpt
+    try:
+        with train_log_dir() as log_dir:
+            tee = Tee(sys.stdout)
+            with contextlib.redirect_stdout(tee):
+                history, state = train_llama.run(argv)
+            with open(f'{log_dir}/{callbacks.SUMMARY_FILE}',
+                      encoding='utf-8') as f:
+                summary = json.load(f)
+    finally:
+        os.environ.pop(checkpoints.ENV_CHECKPOINT_DIR, None)
+    return history, state, ''.join(tee.kept), summary
+
+
+def train_state_leaves(state):
+    """{name: tensor} of every parameter, both AdamW moments and the
+    optimizer's step count, plus the TrainState's step."""
+    from skypilot_tpu_torch.models import train
+    out = {'step': state.step}
+    for path, p in train.param_paths(state.model):
+        name = '/'.join(path)
+        st = state.optimizer.state[p]
+        out.update({name: p.detach(), f'mu/{name}': st['exp_avg'],
+                    f'nu/{name}': st['exp_avg_sq'],
+                    f'count/{name}': st['step']})
+    return out
+
+
+def same_train_state(a, b, what) -> None:
+    """Fail unless two TrainStates hold the same leaves, bit for bit."""
+    import torch
+    la, lb = train_state_leaves(a), train_state_leaves(b)
+    if sorted(la) != sorted(lb) or la['step'] != lb['step']:
+        raise AssertionError(f'{what}: leaves or step differ')
+    for name, x in la.items():
+        if name == 'step':
+            continue
+        y = lb[name]
+        if x.dtype != y.dtype or not torch.equal(x.cpu(), y.cpu()):
+            raise AssertionError(f'{what}: {name} differs')
+
+
+def training_resume(dev, counters):
+    """Phase 7b: token file + converted init -> run U (5 steps), run A
+    (1 step, saves step 0), run B (resumes at 1); -> (launches of the
+    three runs, numbers to print)."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.data import checkpoints
+    from skypilot_tpu_torch.data import loader
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.models import import_weights
+    from skypilot_tpu_torch.models import train
+    from skypilot_tpu_torch.serve import model_server
+    cfg = configs.get_config('llama3-8b', n_layers=1)
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix='skytpu_train_resume_')
+    out = {'free_gb': shutil.disk_usage(root).free / 1e9}
+    if out['free_gb'] < RESUME_DISK_GB:
+        shutil.rmtree(root)
+        raise AssertionError(f'training resume needs ~{RESUME_DISK_GB} GB '
+                             f'of free disk under {root}: '
+                             f'{out["free_gb"]:.1f} GB')
+    try:
+        tok, src = f'{root}/tokens.bin', f'{root}/hf'
+        init, ckpt = f'{root}/init', f'{root}/ckpt'
+        loader.write_token_file(tok, np.random.default_rng(17).integers(
+            0, cfg.vocab_size, RESUME_TOKENS, dtype=np.uint32))
+        writer = bf16_exact_model(cfg, 31, dev)
+        write_hf_source(writer, src)
+        del writer
+        free_cuda()
+        t0 = time.perf_counter()
+        if import_weights.convert(src, init, dtype='bfloat16') != cfg:
+            raise AssertionError('converted config differs')
+        out['convert_s'] = time.perf_counter() - t0
+        out['used_gb'] = disk_bytes(root) / 1e9
+        shutil.rmtree(src)
+        argv = ['--model', 'auto', '--init-from', init, '--data', tok,
+                '--batch-size', str(TRAIN_BATCH), '--seq-len', str(TRAIN_SEQ),
+                '--device', str(dev)]
+        save_hist = checkpoints.checkpoint_save_hist()
+        blocked = checkpoints.checkpoint_blocked_counter()
+
+        zero_counts(counters)
+        hist_u, state, _, sum_u = resume_run(
+            argv + ['--steps', str(RESUME_STEPS)])
+        del state
+        free_cuda()
+        saves, save_s, blocked_s = (save_hist.count, save_hist.sum,
+                                    blocked.value)
+        hist_a, state_a, printed_a, _ = resume_run(argv + ['--steps', '1'],
+                                                   ckpt)
+        out['save_s'] = save_hist.sum - save_s
+        out['blocked_s'] = blocked.value - blocked_s
+        if save_hist.count - saves != 1 or checkpoints.latest_step(
+                ckpt) != 0:
+            raise AssertionError(f'run A: {save_hist.count - saves} saves, '
+                                 f'newest step '
+                                 f'{checkpoints.latest_step(ckpt)}')
+        out['step_gb'] = disk_bytes(f'{ckpt}/0') / 1e9
+        out['used_gb'] = max(out['used_gb'], disk_bytes(root) / 1e9)
+        fresh, _ = train.create_train_state(cfg, device=dev, seed=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, start = checkpoints.restore_or_init(fresh, ckpt)
+        torch.cuda.synchronize()
+        out['restore_s'] = time.perf_counter() - t0
+        if start != 1:
+            raise AssertionError(f'restore_or_init start_step {start}')
+        same_train_state(restored, state_a,
+                         'restore_or_init vs run A\'s final state')
+        served = convert.from_jax_params(cfg, convert.param_tree(
+            state_a.model), device=dev)
+        del fresh, restored, state_a
+        free_cuda()
+        hist_b, state, printed_b, sum_b = resume_run(
+            argv + ['--steps', str(RESUME_STEPS)], ckpt)
+        launches = read_counts(counters)
+        del state
+        free_cuda()
+
+        for text, step in ((printed_a, 0), (printed_b, 1)):
+            if f'resuming from step {step}' not in text:
+                raise AssertionError(f'no "resuming from step {step}"')
+        if [h['step'] for h in hist_b] != list(range(1, RESUME_STEPS)):
+            raise AssertionError(f'run B ran {[h["step"] for h in hist_b]}')
+        if hist_a[0]['loss'] != hist_u[0]['loss']:
+            raise AssertionError(f'run A step 0 loss {hist_a[0]["loss"]} vs '
+                                 f'U {hist_u[0]["loss"]}')
+        rel = [abs(b['loss'] - u['loss']) / abs(u['loss'])
+               for b, u in zip(hist_b, hist_u[1:])]
+        out['max_rel'] = max(rel)
+        out['bit_equal'] = all(b['loss'] == u['loss'] and
+                               b['grad_norm'] == u['grad_norm']
+                               for b, u in zip(hist_b, hist_u[1:]))
+        if out['max_rel'] > 1e-5:
+            raise AssertionError(f'run B losses vs U: {rel}')
+        out['losses_u'] = [h['loss'] for h in hist_u]
+        out['losses_ab'] = [h['loss'] for h in hist_a + hist_b]
+
+        batches = loader.HostShardedBatches(
+            loader.TokenDataset(tok), global_batch=TRAIN_BATCH,
+            seq_len=TRAIN_SEQ)
+        with loader.prefetch_to_device(batches.batches(0),
+                                       device=dev) as prefetched:
+            for step in range(2):
+                got = next(prefetched)['tokens']
+                want = torch.from_numpy(batches.batch_at(step)['tokens'])
+                if (got.device != dev or got.dtype != torch.int32 or
+                        not torch.equal(got.cpu(), want)):
+                    raise AssertionError(f'prefetched batch {step} differs '
+                                         'from batch_at')
+
+        kw = dict(continuous_batching=True, kv_pages=256, page_size=16,
+                  max_len=1024, max_batch=8, device=dev)
+        bodies = [{'prompt_ids': [prompt(700 + i, n, cfg.vocab_size)],
+                   'max_new_tokens': 16} for i, n in enumerate((37, 250))]
+        auto = model_server.ModelServer('auto', checkpoint_dir=ckpt, **kw)
+        try:
+            tokens, _ = greedy_burst(auto, bodies)
+        finally:
+            auto.close()
+        same_weights(auto.params, served, 'the served training step')
+        del auto
+        free_cuda()
+        fresh = model_server.ModelServer('auto', checkpoint_dir=ckpt,
+                                         params=served, **kw)
+        try:
+            want, _ = greedy_burst(fresh, bodies)
+        finally:
+            fresh.close()
+        if tokens != want:
+            raise AssertionError('the training step\'s server and the '
+                                 'in-memory server differ')
+        del fresh, served
+        free_cuda()
+        out['summary'] = {run: {k: s[k] for k in (
+            'compute_seconds_per_step', 'data_wait_seconds',
+            'prefetch_wait_seconds', 'peak_memory_bytes')}
+            for run, s in (('U', sum_u), ('B', sum_b))}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out['wall_s'] = time.perf_counter() - t_phase
+    return launches, out
+
+
+def log_training_resume(r, launched) -> None:
+    summary = {run: {k: (round(v, 6) if isinstance(v, float) else v)
+                     for k, v in x.items()} for run, x in r['summary'].items()}
+    log(f'training resume ({card()}): llama3-8b width at depth 1, batch '
+        f'{TRAIN_BATCH} x {TRAIN_SEQ}, --model auto --init-from --data; '
+        f'losses U {" ".join(f"{x:.6f}" for x in r["losses_u"])}, A+B '
+        f'{" ".join(f"{x:.6f}" for x in r["losses_ab"])}; A step 0 == U; '
+        f'B steps 1-4 vs U largest relative difference {r["max_rel"]:.3g} '
+        f'(bit-equal: {r["bit_equal"]}); restore_or_init bit-equal to run '
+        f'A\'s final state; prefetched batches 0-1 == batch_at; the step\'s '
+        f'server == an in-memory server on the same params (2 prompts)')
+    log(f'training resume seconds ({card()}): convert {r["convert_s"]:.2f}; '
+        f'checkpoint write {r["save_s"]:.2f} ({r["step_gb"]:.2f} GB step); '
+        f'blocked {r["blocked_s"]:.3f}; restore {r["restore_s"]:.2f}; '
+        f'summary.json {json.dumps(summary)}; free disk before '
+        f'{r["free_gb"]:.1f} GB, used at peak {r["used_gb"]:.2f} GB; the '
+        f'phase {r["wall_s"]:.1f} s; launches {json.dumps(launched)}')
 
 
 # ------------------------------------------------------------ phase 8
@@ -2810,6 +3103,14 @@ def main() -> int:
 
     paths['training'] = train_main_path(dev, counters)
     paths['train_llama small'] = cli_check(counters)
+    paths['training resume'], resume = training_resume(dev, counters)
+    launched = {name: paths['training resume'][name]
+                for name in TRAIN_KERNELS}
+    want = {'flash_fwd': 2 * 10, 'flash_bwd_dq': 10, 'flash_bwd_dkv': 10}
+    if launched != want:
+        raise AssertionError(f'training resume: launches {launched}, '
+                             f'expected {want} (10 steps at depth 1)')
+    log_training_resume(resume, launched)
     loss, (rel, name) = train_reference_check(dev)
     log(f'train reference: depth-1 f32 llama3-8b loss GPU '
         f'{loss["cuda"]:.6f} CPU {loss["cpu"]:.6f}; largest gradient '
@@ -2828,12 +3129,15 @@ def main() -> int:
                 'flash_bwd_dq': 'skypilot_tpu/ops/attention.py:257',
                 'flash_bwd_dkv': 'skypilot_tpu/ops/attention.py:306'}
     # `launches` counts the run of the path named by `path`: serving
-    # for the decode kernels, training (this port's newest main path,
-    # 2L / L / L a step) for the flash kernels.  `launches_by_path`
+    # for the decode kernels, "training resume" (this port's newest main
+    # path: 10 steps at depth 1, 2L / L / L a step) for the flash
+    # kernels.  `launches_by_path`
     # gives each driven path's own count; no two runs are added.
     main_path = {'paged_attention': 'serving',
-                 'paged_attention_int8': 'serving', 'flash_fwd': 'training',
-                 'flash_bwd_dq': 'training', 'flash_bwd_dkv': 'training'}
+                 'paged_attention_int8': 'serving',
+                 'flash_fwd': 'training resume',
+                 'flash_bwd_dq': 'training resume',
+                 'flash_bwd_dkv': 'training resume'}
     kernels = [dict(name=name, route='cuda', source=sources[name],
                     replaces=replaces[name],
                     launches=paths[main_path[name]][name],

@@ -468,9 +468,7 @@ def convert(src_dir: str, out_dir: str,
         n_params = sum(int(np.prod(want)) for _, want, _ in plan)
     finally:
         reader.close()
-    with open(os.path.join(out_dir, MODEL_CONFIG_FILENAME), 'w',
-              encoding='utf-8') as f:
-        json.dump(cfg.to_json_dict(), f, indent=1)
+    save_model_config(out_dir, cfg)
     copied = []
     for fname in _TOKENIZER_FILES:
         src = os.path.join(src_dir, fname)
@@ -480,6 +478,16 @@ def convert(src_dir: str, out_dir: str,
     logger.info('Converted %.1fM params from %s -> %s (tokenizer files: %s)',
                 n_params / 1e6, src_dir, out_dir, copied or 'none')
     return cfg
+
+
+def save_model_config(directory: str, cfg: configs.ModelConfig) -> None:
+    """Write `cfg` as the directory's model_config.json, which `--model
+    auto` reads (the importer's output; the trainer's checkpoint
+    directory, so a server reads its training steps)."""
+    os.makedirs(directory, exist_ok=True)
+    with open(os.path.join(directory, MODEL_CONFIG_FILENAME), 'w',
+              encoding='utf-8') as f:
+        json.dump(cfg.to_json_dict(), f, indent=1)
 
 
 def load_model_config(directory: str) -> Optional[configs.ModelConfig]:

@@ -14,22 +14,31 @@ on CUDA tensors; the loss is `loss_fn` or, with `fused_ce`, the fused
 linear + CE of models/losses.py; each layer is rematerialised per
 cfg.remat / cfg.remat_policy (models/transformer.py).
 
-Meshes, `jit_train_step`, `abstract_train_state` and
-`load_pretrained_params` (sharding, checkpoints) come with a later
+Checkpoints: `snapshot` turns a TrainState into host copies of its
+leaves (the params, the AdamW moments by tree path, the optimizer's
+count, the step) for data/checkpoints.py to write, `load_train_step`
+puts a saved step back in place, and `load_pretrained_params` starts a
+finetune from a params-only checkpoint (an import) with fresh moments.
+
+Meshes, `jit_train_step` and `abstract_train_state` come with a later
 slice of the port.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from skypilot_tpu_torch.callbacks import base as callbacks
+from skypilot_tpu_torch.data import checkpoints
 from skypilot_tpu_torch.device import resolve_device
+from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import losses
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.models.transformer import Transformer
 from skypilot_tpu_torch.models.transformer import init_params
+from skypilot_tpu_torch.utils import safetensors_io
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,9 +200,164 @@ def peak_memory_bytes(device: Union[str, torch.device] = 'cuda'
                       ) -> Optional[int]:
     """Peak bytes allocated on a CUDA device since the last
     torch.cuda.reset_peak_memory_stats (the port's counterpart of the
-    reference's compiled_peak_memory); None for the CPU, which keeps no
-    such count."""
+    reference's compiled_peak_memory, measured rather than compiled),
+    fed to the training telemetry (callbacks.record_peak_memory:
+    skytpu_train_peak_memory_bytes and summary.json); None for the CPU,
+    which keeps no such count."""
     dev = torch.device(device)
     if dev.type != 'cuda':
         return None
-    return int(torch.cuda.max_memory_allocated(dev))
+    peak = int(torch.cuda.max_memory_allocated(dev))
+    callbacks.record_peak_memory(peak)
+    return peak
+
+
+# ------------------------------------------------------------- checkpoints
+
+
+def param_paths(model: Transformer) -> List[Tuple[Tuple[str, ...],
+                                                   torch.nn.Parameter]]:
+    """(tree path, parameter) for every parameter of a trainable model,
+    in `convert.param_tree`'s order (the unstacked `layer_{i}` layout);
+    raises unless they are exactly model.parameters()."""
+    def walk(node, prefix):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                yield from walk(value, prefix + (key,))
+            else:
+                yield prefix + (key,), value
+    pairs = list(walk(convert.param_tree(model), ()))
+    if ({id(p) for _, p in pairs} != {id(p) for p in model.parameters()} or
+            len(pairs) != len(list(model.parameters()))):
+        raise ValueError('param_tree does not cover the model\'s '
+                         'parameters one to one')
+    return pairs
+
+
+def _host_copy(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to('cpu', copy=True)
+
+
+@torch.no_grad()
+def snapshot(state: TrainState) -> checkpoints.TrainSnapshot:
+    """Host copies of the state's leaves, all taken before this returns
+    (`train_step` updates the state in place, so a snapshot that
+    aliased it would change under a writer thread).  A parameter the
+    optimizer has not stepped yet has zero moments, as AdamW's lazy
+    state starts."""
+    params, mu, nu, counts = [], [], [], set()
+    for path, p in param_paths(state.model):
+        params.append((path, _host_copy(p)))
+        st = state.optimizer.state.get(p)
+        if st:
+            mu.append((path, _host_copy(st['exp_avg'])))
+            nu.append((path, _host_copy(st['exp_avg_sq'])))
+            counts.add(int(st['step']))
+        else:
+            mu.append((path, torch.zeros(p.shape, dtype=p.dtype)))
+            nu.append((path, torch.zeros(p.shape, dtype=p.dtype)))
+            counts.add(0)
+    if len(counts) != 1:
+        raise ValueError(f'optimizer step counts differ across '
+                         f'parameters: {sorted(counts)}')
+    return checkpoints.TrainSnapshot(params=params, mu=mu, nu=nu,
+                                     count=counts.pop(),
+                                     train_step=state.step)
+
+
+@torch.no_grad()
+def load_train_step(state: TrainState, params, moments, *, count: int,
+                    train_step: int) -> TrainState:
+    """Put a saved training step back into `state` in place: every
+    parameter, AdamW's exp_avg / exp_avg_sq and its step count (exactly:
+    the bias correction of the next step reads it), and state.step.
+    `params` / `moments` are the step's open safetensors readers; every
+    name, dtype and shape is checked before anything is written."""
+    pairs = param_paths(state.model)
+    want = {}
+    for path, p in pairs:
+        name = '/'.join(path)
+        spec = (safetensors_io.dtype_name(p.dtype),
+                tuple(p.shape))
+        want[(params, name)] = spec
+        want[(moments, f'mu/{name}')] = spec
+        want[(moments, f'nu/{name}')] = spec
+    have = {(reader, name): (reader.dtype(name), reader.shape(name))
+            for reader in (params, moments) for name in reader.keys()}
+    if have != want:
+        diff = sorted(f'{r.path}:{n} {have.get((r, n))} vs model '
+                      f'{want.get((r, n))}' for r, n in set(have) | set(want)
+                      if have.get((r, n)) != want.get((r, n)))
+        raise ValueError(f'training step does not match this model '
+                         f'(wrong model_config?): {diff[:4]}')
+    for path, p in pairs:
+        name = '/'.join(path)
+        p.copy_(params.get_tensor(name))
+        state.optimizer.state[p] = {
+            # make_optimizer's AdamW (neither capturable nor fused) keeps
+            # its step count as a 0-dim tensor of the default dtype on
+            # the host.
+            'step': torch.tensor(float(count)),
+            'exp_avg': moments.get_tensor(f'mu/{name}').to(p.device),
+            'exp_avg_sq': moments.get_tensor(f'nu/{name}').to(p.device),
+        }
+    state.step = train_step
+    return state
+
+
+@torch.no_grad()
+def load_pretrained_params(state: TrainState, directory: str) -> TrainState:
+    """Start a finetune from a converted checkpoint (import_weights) or
+    any params-bearing step of this port's format: each leaf of the
+    newest step streams through `restore_params`' leaf_fn straight into
+    the existing f32 master parameter (cast to its dtype), so no second
+    tree exists on the device.  The optimizer's moments stay fresh:
+    this is init, not resume.  Either layer layout is read (stacked
+    `layers/layer/...` or `layer_{i}`); the leaf count and every shape
+    are checked before anything is copied, and int8 weights are
+    refused."""
+    step = checkpoints.latest_step(directory)
+    if step is None:
+        raise FileNotFoundError(f'No checkpoint under {directory}')
+    specs = checkpoints.step_specs(directory, step)
+    int8 = sorted(n for n in specs if n.split('/')[-1] == 'qvalue')
+    if int8:
+        raise ValueError(
+            f'{directory} step {step} holds int8 weights ({int8[0]}, ...): '
+            'a finetune starts from float weights; convert the HF source '
+            'without quantization')
+    targets = dict(param_paths(state.model))
+    n_layers = state.model.cfg.n_layers
+    stacked = any(n.startswith('layers/layer/') for n in specs)
+    expected: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
+    for path, p in targets.items():
+        if stacked and path[0].startswith('layer_'):
+            if path[0] == 'layer_0':
+                expected[('layers', 'layer') + path[1:]] = (
+                    (n_layers,) + tuple(p.shape))
+        else:
+            expected[path] = tuple(p.shape)
+    if len(specs) != len(expected):
+        raise ValueError(
+            f'Checkpoint has {len(specs)} arrays; model expects '
+            f'{len(expected)} — wrong model_config for this state?')
+    for name, (_, shape) in specs.items():
+        want = expected.get(tuple(name.split('/')))
+        if want is None:
+            raise ValueError(f'Checkpoint array {name} is not in this model '
+                             '— wrong model_config for this state?')
+        if tuple(shape) != want:
+            raise ValueError(f'Shape mismatch: checkpoint {tuple(shape)} '
+                             f'vs model {want} ({name})')
+
+    def copy_in(path: Tuple[str, ...], leaf: torch.Tensor) -> Any:
+        if stacked and path[:2] == ('layers', 'layer'):
+            for i in range(n_layers):
+                targets[(f'layer_{i}',) + path[2:]].copy_(leaf[i])
+        else:
+            targets[path].copy_(leaf)
+        return None
+
+    checkpoints.restore_params(directory, device=state.model.device,
+                               leaf_fn=copy_in, step=step)
+    return state

@@ -87,6 +87,9 @@ class SafetensorsFile:
     def dtype(self, name: str) -> str:
         return self._entries[name][0]
 
+    def shape(self, name: str) -> Tuple[int, ...]:
+        return self._entries[name][1]
+
     def get(self, name: str) -> np.ndarray:
         dtype_str, shape, begin, end = self._entries[name]
         np_dtype = _np_dtype(dtype_str)
