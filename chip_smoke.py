@@ -18,8 +18,9 @@ Phases (each one that fails makes the script exit non-zero):
    (one split-context kernel: splits of `split_pages` pages merged in
    order) with
    ragged lengths (1, 15, 16, 17, 1000), S = 1 and S = 5, tables that
-   include the null page, and a full batch of 8 slots at 1000 (two
-   launches bit-equal); B3 flash forward at q_len 1, 100, 512
+   include the null page, a full batch of 8 slots at 1000, and S = 1 at
+   the slice path's last tick (phase 5d: 4 slots at 3030, 7930, 130
+   and 0 over 512-row tables) (two launches bit-equal); B3 flash forward at q_len 1, 100, 512
    and q_len < k_len, at the training shape (b 2 x 2048) and at
    `small`'s (16/8, d 64, b 8 x 512); one f32 case each.  B4 (dQ) and
    B5 (dK/dV) flash
@@ -34,11 +35,19 @@ Phases (each one that fails makes the script exit non-zero):
    2e-2 / 1e-4 of the plain version's largest |value|.  A kernel's
    `ms` and the `library_ms` of its PyTorch yardstick are device time:
    the summed durations of the kernels 20 calls launch, after 3
-   warm-up calls, in a torch.profiler trace, over 20; `ms_with_host`
+   warm-up calls, in a torch.profiler trace, over 20 (`timed_by`
+   "profiler"); where a trace records no device event, CUDA event pairs
+   around calls queued behind a spin kernel (`queued_event_ms`, which
+   also counts the gaps between a call's kernels; `timed_by`
+   "queued_events"; `library_timed_by` for the yardstick); `ms_with_host`
    (CUDA events around the same 20 calls) keeps the host's launch work,
    and the plain version is timed that way.  B3 is timed at the
-   training shape and the 512-token chunk, B1 (S = 1) and B2 (S = 5)
-   at the ragged lengths and the full batch.  Bounds from this run's
+   training shape and the 512-token chunk; B1 and B2 at the slice
+   tick (S = 1), at the serving phases' tick on the ragged lengths (B1
+   S = 1, B2 S = 5) and at the full batch.  B3 is also held and
+   timed at the ring hop of phase 5d (b 1, 32/8, d 128, 2048 x 2048,
+   bf16), causal and non-causal, beside SDPA's forward for the same
+   setting.  Bounds from this run's
    bytes and FLOPs against 3.35 TB/s and 989 TFLOP/s (H100 SXM data
    sheet), labelled by whichever of the two is larger.  B4/B5 are timed at the training
    shape; their plain version computes dQ, dK and dV together, and so
@@ -185,6 +194,37 @@ Phases (each one that fails makes the script exit non-zero):
    Then a depth-1 f32 cut served on the GPU (kernels) and the CPU
    (plain versions) from the same weights must give the same greedy
    tokens for 2 prompts, paged and dense.
+5d. The slice (serve/slice_replica.py, sequence-parallel serving) on
+   phase 4's llama3-8b weights at full width and depth, every rank of
+   a mesh on the one card (`devices=[cuda:0] * sp`), max_len 8192 (the
+   preset's max_seq_len):
+   - ring_attention and ulysses_attention at sp 2 and 4 on [1, 32,
+     8192, 128] / [1, 8, 8192, 128] bf16, within 2e-2 of the plain
+     causal attention of the whole sequence, B3 launched sp (sp + 1) / 2
+     (ring) or sp (Ulysses) times; device ms beside one B3 call.
+   - prefill_sp at sp 1, 2 and 4 on a 7,936-token prompt: the caches
+     against decode.prefill's (sp 1 bit for bit; sp 2 and 4 within 2e-2
+     relative, Frobenius, per leaf), B3 launched 32 sp (sp + 1) / 2
+     times, the first greedy token held at its own context; device ms
+     and host-clock ms per sp beside the engine's chunked prefill of the
+     same prompt (512-token pieces).
+   - "slice": SliceReplicaEngine(num_hosts=4, sequence=4), paged bf16
+     pool (2048 pages of 16), sp_threshold 1024, 4 slots; prompts of
+     3000, 7900 and 100 tokens submitted at once, 32 greedy tokens
+     each.  Held: sp_prefills == 2, sync_count > 0, slice_sync_ms on
+     every span, launches equal to PERF.md's prediction (B3 32 x 10
+     per SP prefill and 32 for the short prompt's chunk 0, B1 32 a
+     tick, B2 none), and every token at its own context against the
+     single paged engine on the same prompts (`hold_tokens`, as in
+     phase 5: the masked forward of ~8,000 tokens holds ~17 GB of f32
+     scores a layer for a moment).
+     "slice (int8 pool)": the same at sequence=2 with an int8 pool
+     (B3 32 x 3 per SP prefill, B2 32 a tick, B1 none).
+   - "slice http": ModelServer(num_hosts=4, slice_sequence=4,
+     slice_devices=[cuda:0] * 4) behind the asyncio front: one greedy
+     /generate of the 3000-token prompt equals the slice engine's
+     tokens, /health carries `slice` (one SP prefill); B3 320, B1 32 a
+     tick.
 6. A reference check: a depth-2, f32 cut of llama3-8b served on the
    GPU (CUDA kernels) and on the CPU (the plain versions) from the same
    weights must give the same greedy tokens, paged and dense engines.
@@ -232,16 +272,20 @@ Phases (each one that fails makes the script exit non-zero):
    within 1e-3 of the CPU's largest |value| for that leaf.
 
 The line before the last is the `kernels` JSON: each kernel's
-`launches` is its count on the path `path` names (serving for B1/B2,
-"training resume" for B3/B4/B5), and `launches_by_path` holds every
+`launches` is its count on the path `path` names ("slice" for B1 and
+B3, "slice (int8 pool)" for B2, "training resume" for B4/B5), and
+`launches_by_path` holds every
 driven path's own count (serving, the two observability windows, the
 five paths of phase 5, "int8 weights" and "checkpoint" of phase 5b,
-the four MoE paths of phase 5c, training, `train_llama small`,
-"training resume"), each path
+the four MoE paths of phase 5c, the three slice paths of phase 5d,
+training, `train_llama small`, "training resume"), each path
 zeroed just before it and read just after.  B3's entry carries the
-512-token chunk under `serving_chunk`, B1's and B2's the full batch
-under `full_batch`, and B1's and B2's their split span in pages,
-`split_pages`.
+512-token chunk under `serving_chunk` and the ring hop under
+`ring_hop_causal` / `ring_hop_full`; B1's and B2's top-level times are
+at the slice tick, with the serving tick under `serving_tick`, the
+full batch under `full_batch` and their split span in pages,
+`split_pages`.  Every time carries the method that took it
+(`timed_by`, `library_timed_by`).
 The last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -298,10 +342,15 @@ def is_device_event(e) -> bool:
             not getattr(e, 'is_user_annotation', False))
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Device time per call: the summed durations of every kernel that
-    `iters` calls launch (torch.profiler, CUDA activity), over `iters`,
-    after `warmup` calls.  Unlike `time_ms` it holds no host time."""
+def device_time(fn, iters: int = 20, warmup: int = 3) -> dict:
+    """{'ms': device time per call, 'timed_by': its method}.  By
+    'profiler': the summed durations of every kernel that `iters` calls
+    launch (torch.profiler, CUDA activity), over `iters`, after
+    `warmup` calls; unlike `time_ms` it holds no host time.  On some
+    machines a window records no device event at all (four runs of this
+    script on the H100, at different windows); the same calls are then
+    timed by 'queued_events' (`queued_event_ms`), which also counts the
+    device's gaps between a call's kernels, and a line says so."""
     import torch
     for _ in range(warmup):
         fn()
@@ -314,15 +363,53 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
     us = sum(e.time_range.end - e.time_range.start for e in prof.events()
              if is_device_event(e))
-    if us <= 0:
-        raise AssertionError('device_ms: the profiler saw no device time')
-    return us / 1e3 / iters
+    if us > 0:
+        return {'ms': us / 1e3 / iters, 'timed_by': 'profiler'}
+    ms = queued_event_ms(fn, iters)
+    log(f'device_time: the profiler window saw no device event; CUDA '
+        f'event pairs on a queued stream: {ms:.4f} ms a call')
+    return {'ms': ms, 'timed_by': 'queued_events'}
+
+
+def queued_event_ms(fn, iters: int) -> float:
+    """Device time per call without the profiler: a CUDA event pair
+    around each of `iters` calls, all queued behind a spin kernel that
+    holds the stream until the host has queued them, so no pair waits
+    for the host.  The spin grows until it outlasts the queueing (three
+    tries)."""
+    import torch
+    spin_s = 0.05
+    for _ in range(3):
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+                 for _ in range(iters)]
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(spin_s * 2e9))  # pylint: disable=protected-access
+        t0 = time.perf_counter()
+        for start, end in pairs:
+            start.record()
+            fn()
+            end.record()
+        queued_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if queued_s < spin_s / 2:
+            return sum(a.elapsed_time(b) for a, b in pairs) / iters
+        spin_s *= 4
+    raise AssertionError(f'queued_event_ms: queueing took {queued_s:.3f} s, '
+                         f'past a {spin_s / 4:.3f} s spin')
 
 
 def timed_call(fn) -> dict:
-    """{'ms': device time per call, 'ms_with_host': CUDA-event time per
-    call, the host's launch work included}."""
-    return {'ms': device_ms(fn), 'ms_with_host': time_ms(fn)}
+    """`device_time`'s {'ms', 'timed_by'} and 'ms_with_host': CUDA-event
+    time per call, the host's launch work included."""
+    return dict(device_time(fn), ms_with_host=time_ms(fn))
+
+
+def library_time(fn) -> dict:
+    """{'library_ms', 'library_timed_by'}: `device_time` of the PyTorch
+    call that computes a kernel's function."""
+    t = device_time(fn)
+    return {'library_ms': t['ms'], 'library_timed_by': t['timed_by']}
 
 
 def max_err(a, b) -> float:
@@ -332,10 +419,13 @@ def max_err(a, b) -> float:
 def kernel_summary(r) -> str:
     """One kernel's times: device ms with its roofline share, the
     CUDA-event ms with the host, plain and library ms, bound."""
-    return (f'{r["ms"]:.4f} ms device ({100 * r["bound_ms"] / r["ms"]:.1f}% '
-            f'of the bound), {r["ms_with_host"]:.4f} ms per call with host; '
-            f'plain {r["plain_ms"]:.4f}, bound {r["bound_ms"]:.4f} by '
-            f'{r["bound_by"]}, library {r["library_ms"]}')
+    return (f'{r["ms"]:.4f} ms device by {r["timed_by"]} '
+            f'({100 * r["bound_ms"] / r["ms"]:.1f}% of the bound), '
+            f'{r["ms_with_host"]:.4f} ms per call with host; plain '
+            f'{r["plain_ms"]:.4f}, bound {r["bound_ms"]:.4f} by '
+            f'{r["bound_by"]}, library {r["library_ms"]}'
+            + (f' by {r["library_timed_by"]}'
+               if r.get("library_timed_by") else ''))
 
 
 def check_close(name, out, ref, tol) -> float:
@@ -430,18 +520,25 @@ def compiled_report(build) -> None:
 # ------------------------------------------------------------ phase 3
 
 
-# Slot lengths of the paged cases: ragged (the timed tick) and a full
-# batch of 8 slots at 1000 positions, as the 1024-token server holds it.
+# Slot lengths of the paged cases, with their block-table rows: ragged
+# (the serving tick) and a full batch of 8 slots at 1000 positions, as
+# the 1024-token server holds them (64 rows); the slice path's last tick
+# (phase 5d: 4 slots of an 8192-token engine, 512 rows, holding prompts
+# of 3000, 7900 and 100 tokens 31 tokens on, and a free slot).
 PAGED_RAGGED = [1, 15, 16, 17, 1000]
 PAGED_FULL = [1000] * 8
+PAGED_ROWS = 64
+SLICE_TICK = [3030, 7930, 130, 0]
+SLICE_ROWS = 512
 
 
-def paged_case(dev, dtype, quantized, s_q, seed, lengths=PAGED_RAGGED):
+def paged_case(dev, dtype, quantized, s_q, seed, lengths=PAGED_RAGGED,
+               rows=PAGED_ROWS):
     """Pool, q, tables, lengths at the 8B decode shapes."""
     import torch
     from skypilot_tpu_torch.models import decode
     gen = torch.Generator(device=dev).manual_seed(seed)
-    b, h_q, h_kv, d, ps, rows = len(lengths), 32, 8, 128, 16, 64
+    b, h_q, h_kv, d, ps = len(lengths), 32, 8, 128, 16
     n_pages = 1 + b * rows
     kshape = (n_pages, h_kv, ps, d)
     k = torch.randn(kshape, generator=gen, device=dev)
@@ -488,23 +585,28 @@ def paged_bound(q, k_leaf, tables, lengths, quantized):
 
 
 def check_paged(dev, quantized):
-    """B1 or B2 against its plain version (bf16 S = 1 and 5, f32 S = 5 on
-    the ragged lengths, the timed dtype and S on the full batch); two
-    launches must give the same bits.  Timed at the main path's tick (S
-    = 1 native, S = 5 (spec) int8) on the ragged lengths, with the full
-    batch under `full_batch`; both record their split span."""
+    """B1 or B2 against its plain version: bf16 S = 1 and 5 and f32 S = 5
+    on the ragged lengths, the serving phases' S (1 native, 5 (spec)
+    int8) on the full batch, and S = 1 at the slice path's tick
+    (`SLICE_TICK`, 512-row tables); two launches must give the same
+    bits.  Timed at the slice tick (the kernels line's shape: its
+    launches are the slice paths'), with the serving phases' tick on the
+    ragged lengths under `serving_tick` and the full batch under
+    `full_batch`; `split_pages` is their split span."""
     import torch
     from skypilot_tpu_torch.ops import paged_attention as pa
     errs = []
     timed = {}
-    s_main = 5 if quantized else 1
-    cases = [(torch.bfloat16, 1, PAGED_RAGGED), (torch.bfloat16, 5,
-                                                 PAGED_RAGGED),
-             (torch.float32, 5, PAGED_RAGGED),
-             (torch.bfloat16, s_main, PAGED_FULL)]
-    for dtype, s_q, lens in cases:
+    s_serve = 5 if quantized else 1
+    cases = [(torch.bfloat16, 1, PAGED_RAGGED, PAGED_ROWS),
+             (torch.bfloat16, 5, PAGED_RAGGED, PAGED_ROWS),
+             (torch.float32, 5, PAGED_RAGGED, PAGED_ROWS),
+             (torch.bfloat16, s_serve, PAGED_FULL, PAGED_ROWS),
+             (torch.bfloat16, 1, SLICE_TICK, SLICE_ROWS)]
+    for dtype, s_q, lens, rows in cases:
         q, kl, vl, tables, lengths = paged_case(dev, dtype, quantized, s_q,
-                                                seed=s_q, lengths=lens)
+                                                seed=s_q, lengths=lens,
+                                                rows=rows)
         scale = q.shape[-1] ** -0.5
         out = pa.paged_attention(q, kl, vl, tables, lengths)
         again = pa.paged_attention(q, kl, vl, tables, lengths)
@@ -513,27 +615,30 @@ def check_paged(dev, quantized):
         torch.cuda.synchronize()
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         shape = ('full batch 8 x 1000' if lens is PAGED_FULL else
-                 f'lengths {lens}')
+                 f'lengths {lens}, {rows}-row tables')
         name = f'paged{"_int8" if quantized else ""} {dtype} S={s_q} {shape}'
         if not torch.equal(out, again):
             raise AssertionError(f'{name}: two launches differ')
         errs.append(check_close(name, out, ref, tol))
         log(f'  {name}: max_abs_err {errs[-1]:.3g} (tol {tol}); two '
             'launches bit-equal')
-        if dtype == torch.bfloat16 and s_q == s_main:
-            timed[lens is PAGED_FULL] = (q, kl, vl, tables, lengths, scale)
+        if lens is SLICE_TICK:
+            timed['slice_tick'] = (q, kl, vl, tables, lengths, scale)
+        elif dtype == torch.bfloat16 and s_q == s_serve:
+            key = 'full_batch' if lens is PAGED_FULL else 'serving_tick'
+            timed[key] = (q, kl, vl, tables, lengths, scale)
     shapes = {}
-    for full, (q, kl, vl, tables, lengths, scale) in timed.items():
+    for key, (q, kl, vl, tables, lengths, scale) in timed.items():
         kernel = timed_call(lambda: pa.paged_attention(q, kl, vl, tables,
                                                        lengths))
         plain = time_ms(lambda: pa._paged_attention_reference(  # pylint: disable=protected-access
             q, kl, vl, tables, lengths, sm_scale=scale))
         bound_ms, bound_by = paged_bound(q, kl, tables, lengths, quantized)
-        shapes[full] = dict(max_abs_err=max(errs), **kernel, plain_ms=plain,
-                            bound_ms=bound_ms, bound_by=bound_by,
-                            library_ms=None)
-    return dict(shapes[False], full_batch=shapes[True],
-                split_pages=pa.SPLIT_PAGES)
+        shapes[key] = dict(max_abs_err=max(errs), **kernel, plain_ms=plain,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=None)
+    return dict(shapes['slice_tick'], serving_tick=shapes['serving_tick'],
+                full_batch=shapes['full_batch'], split_pages=pa.SPLIT_PAGES)
 
 
 # (dtype, b, h, h_kv, d, q_len, k_len) of B3 against its plain version:
@@ -588,16 +693,67 @@ def check_flash(dev):
         kernel = timed_call(lambda: attention.flash_attention(q, k, v))
         plain = time_ms(lambda: attention._blockwise_attention(  # pylint: disable=protected-access
             q, k, v, causal=True, sm_scale=d ** -0.5))
-        library = device_ms(lambda: F.scaled_dot_product_attention(
+        library = library_time(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True))
         flops = 4 * d * visible_entries(b, h, n, n, True)
         io = ((2 * q.numel() + 2 * k.numel()) * q.element_size() +
               b * h * n * 4)
         bound_ms, bound_by = bound(io, flops, BF16_FLOPS)
         shapes[n] = dict(max_abs_err=max(errs), **kernel, plain_ms=plain,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=library)
+                         bound_ms=bound_ms, bound_by=bound_by, **library)
     return dict(shapes[TRAIN_SEQ], serving_chunk=shapes[512])
+
+
+# The hop of a ring over a 8192-token prompt at sp 4 (2048 rows a rank):
+# the diagonal hop runs B3 causal, an earlier chunk's hop non-causal.
+RING_HOP = 2048
+
+
+def check_ring_hops(dev):
+    """B3 at the ring-hop shape, bf16, b 1, 32/8 heads, d 128, q_len =
+    k_len = 2048, causal and non-causal: held against the plain version
+    at phase 3's bf16 tolerance; device ms (20 calls after 3 warm-ups),
+    the bound by operations (989 TFLOP/s), the plain version's ms and
+    SDPA's forward for the same setting.  -> {name: result}."""
+    import torch
+    import torch.nn.functional as F
+    from skypilot_tpu_torch.ops import attention
+    out = {}
+    for causal in (True, False):
+        gen = torch.Generator(device=dev).manual_seed(RING_HOP + causal)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for shape in ((1, 32, RING_HOP, 128),
+                                          (1, 8, RING_HOP, 128),
+                                          (1, 8, RING_HOP, 128)))
+        got, lse = attention.flash_attention_with_lse(q, k, v,
+                                                      causal=causal)
+        ref, ref_lse = attention._blockwise_attention(  # pylint: disable=protected-access
+            q, k, v, causal=causal, sm_scale=128 ** -0.5, return_lse=True)
+        torch.cuda.synchronize()
+        name = f'ring hop {"causal" if causal else "non-causal"}'
+        err = check_close(name, got, ref, 2e-2)
+        check_close(name + ' lse', lse, ref_lse, 1e-3)
+        kernel = timed_call(lambda: attention.flash_attention(
+            q, k, v, causal=causal))
+        plain = time_ms(lambda: attention._blockwise_attention(  # pylint: disable=protected-access
+            q, k, v, causal=causal, sm_scale=128 ** -0.5))
+        library = library_time(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True))
+        flops = 4 * 128 * visible_entries(1, 32, RING_HOP, RING_HOP, causal)
+        io = ((2 * q.numel() + 2 * k.numel()) * q.element_size() +
+              32 * RING_HOP * 4)
+        bound_ms, bound_by = bound(io, flops, BF16_FLOPS)
+        out['ring_hop_causal' if causal else 'ring_hop_full'] = dict(
+            max_abs_err=err, **kernel, plain_ms=plain, bound_ms=bound_ms,
+            bound_by=bound_by, **library)
+        log(f'  flash_fwd {name} (b 1, 32/8, d 128, {RING_HOP} x '
+            f'{RING_HOP}): max_abs_err {err:.3g} (tol 2e-2); '
+            f'{kernel["ms"]:.4f} ms device by {kernel["timed_by"]}, bound '
+            f'{bound_ms:.4f} ms by {bound_by} '
+            f'({100 * bound_ms / kernel["ms"]:.1f}% of it); SDPA forward '
+            f'{library["library_ms"]:.4f} ms by '
+            f'{library["library_timed_by"]}; plain {plain:.4f} ms')
+    return out
 
 
 # (dtype, b, h, h_kv, d, q_len, k_len, causal); the first is the
@@ -706,8 +862,11 @@ def check_flash_bwd(dev):
                                               enable_gqa=True)
     # SDPA's backward: the device time of forward + backward less the
     # forward's.
-    sdpa_bwd = (device_ms(lambda: torch.autograd.grad(sdpa(), leaves, g)) -
-                device_ms(sdpa))
+    both = device_time(lambda: torch.autograd.grad(sdpa(), leaves, g))
+    fwd = device_time(sdpa)
+    sdpa_bwd = {'library_ms': both['ms'] - fwd['ms'],
+                'library_timed_by': ' - '.join(
+                    sorted({both['timed_by'], fwd['timed_by']}))}
     results = {}
     for name, kernel, n_products, out_numel in (
             ('flash_bwd_dq', dq, 3, q.numel()),
@@ -715,7 +874,7 @@ def check_flash_bwd(dev):
         bound_ms, bound_by = bwd_bound(q, k, n_products, out_numel)
         results[name] = dict(max_abs_err=max(errs[name]), **kernel,
                              plain_ms=plain, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=sdpa_bwd)
+                             bound_by=bound_by, **sdpa_bwd)
     return results
 
 
@@ -2914,9 +3073,10 @@ def more_serving(cfg, model, dev, counters, new_tokens):
     blocked, one_call = verify_tick_cost(cfg, model, dev)
     log(f'int8 + spec(4) at 16 slots (80 rows): greedy equal to spec-off; '
         f'accept len {spec["spec_accept_len_mean"]}; verify tick in two '
-        f'64-row blocks {blocked["ms"]:.3f} ms device '
-        f'({blocked["ms_with_host"]:.3f} with host), as one 128-row call '
-        f'{one_call["ms"]:.3f} ({one_call["ms_with_host"]:.3f})')
+        f'64-row blocks {blocked["ms"]:.3f} ms device by '
+        f'{blocked["timed_by"]} ({blocked["ms_with_host"]:.3f} with host), '
+        f'as one 128-row call {one_call["ms"]:.3f} by {one_call["timed_by"]} '
+        f'({one_call["ms_with_host"]:.3f})')
 
     zero_counts(counters)
     dense = dense_serving(cfg, model, dev, new_tokens)
@@ -2963,6 +3123,314 @@ def more_serving(cfg, model, dev, counters, new_tokens):
             f'{hold_summary([r["hold"]])}')
     log(f'launches: {json.dumps(paths)}')
     return paths
+
+
+# ------------------------------------------------------------ phase 5d
+
+SLICE_MAX_LEN = 8192       # llama3-8b's max_seq_len
+SLICE_PROMPT = 7936        # prefill_sp's prompt: 1984 rows a rank at sp 4
+SLICE_LENGTHS = (3000, 7900, 100)
+SLICE_THRESHOLD = 1024
+SLICE_ENGINE = dict(max_len=SLICE_MAX_LEN, slots=4, prefill_chunk=512,
+                    kv_pages=2048, page_size=16)
+PREFILL_CHUNK = 512
+
+
+def chunked_prefill(cfg, model, ids):
+    """The single engine's chunked prefill of `ids` into a fresh cache:
+    its own chunk loop (`batching_engine.prefill_piece`), 512-token
+    pieces, chunk 0 through B3, later ones masked."""
+    from skypilot_tpu_torch.models import decode
+    from skypilot_tpu_torch.serve import batching_engine
+    cache, consumed = None, 0
+    while consumed < len(ids):
+        cache, consumed = batching_engine.prefill_piece(
+            cfg, model, ids, cache, consumed, len(ids), PREFILL_CHUNK,
+            max_len=SLICE_MAX_LEN, device=model.device,
+            prefill=decode.prefill, prefill_chunk=decode.prefill_chunk)
+    return cache
+
+
+def first_token(cfg, model, cache, last):
+    """The greedy token after a prompt whose cache holds its first n-1
+    positions: the engine's first tick, one masked decode step of the
+    prompt's last token."""
+    import torch
+    from skypilot_tpu_torch.models import decode
+    # A copy: the step writes position n-1 of the cache it is given.
+    cache = {'k': cache['k'].clone(), 'v': cache['v'].clone(),
+             'index': int(cache['index']) - 1}
+    logits, _ = decode.decode_step(cfg, model, torch.tensor(
+        [[last]], device=model.device), cache)
+    return int(logits[0].argmax())
+
+
+def host_ms(fn, iters: int = 3) -> float:
+    """Host-clock ms a call, the device drained before and after
+    (`--bench-prefill`'s time where it runs on the host)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def slice_ops(dev):
+    """ring_attention and ulysses_attention over sp ranks that all name
+    `dev` (sp 2 and 4) at [1, 32, 8192, 128] / [1, 8, 8192, 128] bf16,
+    held within 2e-2 of the plain causal attention of the whole
+    sequence; B3's launches per call; device ms a call (5 calls after a
+    warm-up) beside one B3 call over the whole sequence."""
+    import torch
+    from skypilot_tpu_torch.ops import attention
+    from skypilot_tpu_torch.ops import ring_attention
+    from skypilot_tpu_torch.ops import ulysses_attention
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    gen = torch.Generator(device=dev).manual_seed(SLICE_MAX_LEN)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16) for shape in ((1, 32, SLICE_MAX_LEN, 128),
+                                      (1, 8, SLICE_MAX_LEN, 128),
+                                      (1, 8, SLICE_MAX_LEN, 128)))
+    ref = attention._blockwise_attention(  # pylint: disable=protected-access
+        q, k, v, causal=True, sm_scale=128 ** -0.5)
+    out = {'whole sequence (one B3)': dict(
+        **device_time(lambda: attention.flash_attention(q, k, v), iters=5,
+                      warmup=1), b3_launches=1)}
+    for name, fn in (('ring', ring_attention.ring_attention),
+                     ('ulysses', ulysses_attention.ulysses_attention)):
+        for sp in (2, 4):
+            mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(sequence=sp),
+                                       [dev] * sp)
+            before = attention.LAUNCHES['flash_fwd']
+            got = fn(q, k, v, mesh=mesh)
+            launched = attention.LAUNCHES['flash_fwd'] - before
+            torch.cuda.synchronize()
+            want = sp * (sp + 1) // 2 if name == 'ring' else sp
+            if launched != want:
+                raise AssertionError(f'{name} sp={sp}: B3 ran {launched} '
+                                     f'times, expected {want}')
+            err = check_close(f'{name} sp={sp}', got, ref, 2e-2)
+            out[f'{name} sp={sp}'] = dict(
+                max_abs_err=err, b3_launches=launched,
+                **device_time(lambda: fn(q, k, v, mesh=mesh), iters=5,
+                              warmup=1))
+    return out
+
+
+def slice_prefill(cfg, model, dev, counters):
+    """prefill_sp at sp 1, 2 and 4 on a 7,936-token prompt: the caches
+    against decode.prefill's (sp 1 bit for bit; sp 2 and 4 within 2e-2
+    relative, Frobenius, per leaf), B3 launched L sp (sp + 1) / 2
+    times, the first greedy token held at its own context; device ms (3
+    calls after a warm-up) and host-clock ms per sp, beside the engine's
+    chunked prefill of the same prompt."""
+    import torch
+    from skypilot_tpu_torch.models import decode
+    from skypilot_tpu_torch.serve import slice_replica
+    ids = prompt(8100, SLICE_PROMPT, cfg.vocab_size)
+    tokens = torch.tensor([ids], dtype=torch.int32, device=dev)
+    _, want = decode.prefill(cfg, model, tokens, max_len=SLICE_MAX_LEN)
+    # The engine's tokens [0, n-1) go into the cache; decode.prefill's
+    # positions are causal, so its first n-1 are that cache.
+    ref_token = first_token(cfg, model, want, ids[-1])
+    out = {}
+    for sp in (1, 2, 4):
+        mesh = slice_replica.build_slice_mesh(sp, cfg, sequence=sp,
+                                              devices=[dev] * sp)
+
+        def run(mesh=mesh):
+            return decode.prefill_sp(cfg, model, tokens, mesh=mesh,
+                                     max_len=SLICE_MAX_LEN)
+        zero_counts(counters)
+        got = run()
+        launched = read_counts(counters)['flash_fwd']
+        torch.cuda.synchronize()
+        if launched != cfg.n_layers * sp * (sp + 1) // 2:
+            raise AssertionError(f'prefill_sp sp={sp}: B3 ran {launched} '
+                                 'times')
+        errs = {}
+        for leaf in ('k', 'v'):
+            a, b = got[leaf].float(), want[leaf].float()
+            if sp == 1 and not torch.equal(got[leaf], want[leaf]):
+                raise AssertionError(f'prefill_sp sp=1 {leaf} differs '
+                                     'from prefill')
+            rel = float(torch.linalg.vector_norm(a - b) /
+                        torch.linalg.vector_norm(b))
+            if rel > 2e-2:
+                raise AssertionError(f'prefill_sp sp={sp} {leaf}: relative '
+                                     f'difference {rel:.3g} > 2e-2')
+            errs[leaf] = (float((a - b).abs().max()), rel)
+        token = first_token(cfg, model, got, ids[-1])
+        hold = hold_tokens(f'prefill_sp sp={sp} first token', cfg, model,
+                           ids, [token], [ref_token])
+        del got
+        out[sp] = dict(launches=launched, errs=errs, hold=hold,
+                       **device_time(run, iters=3, warmup=1),
+                       host_ms=host_ms(run))
+    chunked = lambda: chunked_prefill(cfg, model, ids[:-1])  # noqa: E731
+    out['chunked'] = dict(**device_time(chunked, iters=3, warmup=1),
+                          host_ms=host_ms(chunked))
+    return out
+
+
+def slice_window(cfg, model, dev, counters, prompts, new_tokens, *, sp,
+                 quantize_kv):
+    """SliceReplicaEngine(num_hosts=sp, sequence=sp) over sp ranks that
+    name `dev`: the prompts submitted at once (under the queue's lock,
+    so one admission takes them all), counts zeroed just before and
+    read once the engine has read its last tick.  -> (launches, tokens,
+    stats)."""
+    from skypilot_tpu_torch.serve import plane_check
+    from skypilot_tpu_torch.serve import slice_replica
+    engine = slice_replica.SliceReplicaEngine(
+        cfg, model, num_hosts=sp, sequence=sp,
+        mesh=slice_replica.build_slice_mesh(sp, cfg, sequence=sp,
+                                            devices=[dev] * sp),
+        sp_threshold=SLICE_THRESHOLD, quantize_kv=quantize_kv, device=dev,
+        **SLICE_ENGINE)
+    try:
+        zero_counts(counters)
+        with engine._cond:  # pylint: disable=protected-access
+            handles = [engine.submit(p, new_tokens) for p in prompts]
+        tokens = [list(h.result(timeout=600)) for h in handles]
+        plane_check.settle(engine)
+        launches = read_counts(counters)
+        stats = engine.stats()
+    finally:
+        engine.stop()
+    return launches, tokens, stats
+
+
+def single_tokens(cfg, model, dev, prompts, new_tokens, quantize_kv):
+    """The single-process paged engine's greedy tokens on the same
+    prompts (the reference path of the slice holds)."""
+    from skypilot_tpu_torch.serve import batching_engine
+    engine = batching_engine.ContinuousBatchingEngine(
+        cfg, model, quantize_kv=quantize_kv, device=dev, **SLICE_ENGINE)
+    try:
+        with engine._cond:  # pylint: disable=protected-access
+            handles = [engine.submit(p, new_tokens) for p in prompts]
+        return [list(h.result(timeout=600)) for h in handles]
+    finally:
+        engine.stop()
+
+
+def slice_launches_expected(cfg, prompts, sp, ticks, quantize_kv):
+    """The counts PERF.md predicts: B3 L sp (sp + 1) / 2 per prompt at or
+    over the threshold (its SP prefill) and L per shorter prompt (one
+    chunk 0 of at most 512 tokens); B1 (B2 for an int8 pool) L per
+    tick; the other paged kernel 0."""
+    b3 = sum(cfg.n_layers * (sp * (sp + 1) // 2
+                             if len(p) - 1 >= SLICE_THRESHOLD else 1)
+             for p in prompts)
+    paged = cfg.n_layers * ticks
+    return {'flash_fwd': b3,
+            'paged_attention': 0 if quantize_kv else paged,
+            'paged_attention_int8': paged if quantize_kv else 0}
+
+
+def slice_serving(cfg, model, dev, counters, new_tokens):
+    """Phase 5d: the slice path on phase 4's llama3-8b weights.  ->
+    ({path: launch counts}, report)."""
+    from skypilot_tpu_torch.serve import async_server
+    from skypilot_tpu_torch.serve import model_server
+    from skypilot_tpu_torch.serve import plane_check
+    t_phase = time.perf_counter()
+    report = {'ops': slice_ops(dev)}
+    free_cuda()
+    report['prefill'] = slice_prefill(cfg, model, dev, counters)
+    free_cuda()
+    prompts = [prompt(8200 + i, n, cfg.vocab_size)
+               for i, n in enumerate(SLICE_LENGTHS)]
+    paths = {}
+    for path, sp, quantize_kv in (('slice', 4, False),
+                                  ('slice (int8 pool)', 2, True)):
+        launches, tokens, stats = slice_window(
+            cfg, model, dev, counters, prompts, new_tokens, sp=sp,
+            quantize_kv=quantize_kv)
+        paths[path] = launches
+        want = slice_launches_expected(cfg, prompts, sp, stats['ticks'],
+                                       quantize_kv)
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f'{path}: launches {got}, predicted {want} '
+                                 f'({stats["ticks"]} ticks)')
+        sl = stats['slice']
+        if sl['sp_prefills'] != 2 or sl['sync_count'] <= 0:
+            raise AssertionError(f'{path}: slice stats {sl}')
+        if not all('slice_sync_ms' in s for s in stats['recent_spans']):
+            raise AssertionError(f'{path}: a span without slice_sync_ms')
+        free_cuda()
+        ref = single_tokens(cfg, model, dev, prompts, new_tokens,
+                            quantize_kv)
+        holds = [hold_tokens(f'{path} prompt {len(p)}', cfg, model, p, g,
+                             r, quantized=quantize_kv)
+                 for p, g, r in zip(prompts, tokens, ref)]
+        report[path] = dict(ticks=stats['ticks'], slice=sl, holds=holds,
+                            tokens=tokens)
+        free_cuda()
+    # One greedy /generate through ModelServer's slice engine behind the
+    # asyncio front: the 3,000-token prompt alone (an SP prefill).
+    server = model_server.ModelServer(
+        'llama3-8b', params=model, continuous_batching=True,
+        max_len=SLICE_MAX_LEN, max_batch=4, prefill_chunk=PREFILL_CHUNK,
+        kv_pages=2048, page_size=16, num_hosts=4, slice_sequence=4,
+        slice_devices=[dev] * 4, sp_threshold=SLICE_THRESHOLD, device=dev)
+    port, stop = async_server.start_background(server)
+    try:
+        zero_counts(counters)
+        status, body = post(port, {'prompt_ids': [prompts[0]],
+                                   'max_new_tokens': new_tokens})
+        plane_check.settle(server.engine)
+        paths['slice http'] = read_counts(counters)
+        status_h, _, raw = http_call(port, '/health')
+        health = json.loads(raw)
+    finally:
+        stop()
+        server.close()
+    if status != 200 or body['tokens'][0] != report['slice']['tokens'][0]:
+        raise AssertionError(f'slice http: {status}, tokens differ from the '
+                             'slice engine\'s')
+    if status_h != 200 or health.get('slice', {}).get('sp_prefills') != 1:
+        raise AssertionError(f'slice http /health: {status_h} '
+                             f'{health.get("slice")}')
+    want = slice_launches_expected(cfg, prompts[:1], 4,
+                                   health['engine']['ticks'], False)
+    got = {k: paths['slice http'][k] for k in want}
+    if got != want:
+        raise AssertionError(f'slice http: launches {got}, predicted {want}')
+    report['seconds'] = time.perf_counter() - t_phase
+    return paths, report
+
+
+def log_slice(report) -> None:
+    ops = report['ops']
+    log(f'slice ops ({card()}; [1, 32, 8192, 128] / [1, 8, 8192, 128] '
+        f'bf16, ranks on one card, held within 2e-2 of the plain causal '
+        f'attention): ' + '; '.join(
+            f'{name} {r["ms"]:.3f} ms device by {r["timed_by"]}, '
+            f'{r["b3_launches"]} B3'
+            + (f', max_abs_err {r["max_abs_err"]:.3g}'
+               if 'max_abs_err' in r else '') for name, r in ops.items()))
+    pre = report['prefill']
+    log(f'prefill_sp ({SLICE_PROMPT} tokens, llama3-8b full depth, ranks on '
+        f'one card): ' + '; '.join(
+            f'sp {sp}: {r["ms"]:.2f} ms device by {r["timed_by"]}, '
+            f'{r["host_ms"]:.2f} ms by the host clock, B3 {r["launches"]}, k/v max |diff| '
+            f'{r["errs"]["k"][0]:.3g}/{r["errs"]["v"][0]:.3g} (relative '
+            f'{r["errs"]["k"][1]:.3g}/{r["errs"]["v"][1]:.3g}), first token '
+            f'{hold_summary([r["hold"]])}'
+            for sp, r in pre.items() if sp != 'chunked')
+        + f'; chunked prefill (512) {pre["chunked"]["ms"]:.2f} ms device '
+        f'by {pre["chunked"]["timed_by"]}, '
+        f'{pre["chunked"]["host_ms"]:.2f} ms by the host clock')
+    for path in ('slice', 'slice (int8 pool)'):
+        r = report[path]
+        log(f'{path}: {r["ticks"]} ticks; slice {json.dumps(r["slice"])}; '
+            f'vs the single paged engine: {hold_summary(r["holds"])}')
+    log(f'slice phase: {report["seconds"]:.1f} s')
 
 
 def log_observability(obs) -> None:
@@ -3025,12 +3493,17 @@ def main() -> int:
         'paged_attention_int8': check_paged(dev, quantized=True),
         'flash_fwd': check_flash(dev),
     }
+    results['flash_fwd'].update(check_ring_hops(dev))
     results.update(check_flash_bwd(dev))
     for name, r in results.items():
-        log(f'  {name}: {kernel_summary(r)}')
+        at = (f' at the slice tick (lengths {SLICE_TICK})'
+              if name.startswith('paged') else '')
+        log(f'  {name}{at}: {kernel_summary(r)}')
     log(f'  flash_fwd at the 512-token serving chunk: '
         f'{kernel_summary(results["flash_fwd"]["serving_chunk"])}')
     for name in ('paged_attention', 'paged_attention_int8'):
+        log(f'  {name} at the serving tick (lengths {PAGED_RAGGED}): '
+            f'{kernel_summary(results[name]["serving_tick"])}')
         log(f'  {name} at the full batch (8 slots x 1000): '
             f'{kernel_summary(results[name]["full_batch"])}')
     counters = {'paged_attention': paged_attention.LAUNCHES,
@@ -3091,6 +3564,12 @@ def main() -> int:
     del server
     free_cuda()
     paths.update(more_serving(cfg, model, dev, counters, new_tokens))
+    free_cuda()
+    slice_paths, slice_report = slice_serving(cfg, model, dev, counters,
+                                              new_tokens)
+    paths.update(slice_paths)
+    log_slice(slice_report)
+    log(f'launches: {json.dumps(slice_paths)}')
     del model
     free_cuda()
     paths.update(real_weights(dev, counters, new_tokens))
@@ -3128,14 +3607,15 @@ def main() -> int:
                 'flash_fwd': 'skypilot_tpu/ops/attention.py:138',
                 'flash_bwd_dq': 'skypilot_tpu/ops/attention.py:257',
                 'flash_bwd_dkv': 'skypilot_tpu/ops/attention.py:306'}
-    # `launches` counts the run of the path named by `path`: serving
-    # for the decode kernels, "training resume" (this port's newest main
-    # path: 10 steps at depth 1, 2L / L / L a step) for the flash
-    # kernels.  `launches_by_path`
-    # gives each driven path's own count; no two runs are added.
-    main_path = {'paged_attention': 'serving',
-                 'paged_attention_int8': 'serving',
-                 'flash_fwd': 'training resume',
+    # `launches` counts the run of the path named by `path`: "slice"
+    # (this port's newest serving path: the 4-rank slice engine, bf16
+    # pool) for B1 and B3, "slice (int8 pool)" for B2, "training
+    # resume" (10 steps at depth 1, L / L a step) for the backward
+    # kernels.  `launches_by_path` gives each driven path's own count;
+    # no two runs are added.
+    main_path = {'paged_attention': 'slice',
+                 'paged_attention_int8': 'slice (int8 pool)',
+                 'flash_fwd': 'slice',
                  'flash_bwd_dq': 'training resume',
                  'flash_bwd_dkv': 'training resume'}
     kernels = [dict(name=name, route='cuda', source=sources[name],

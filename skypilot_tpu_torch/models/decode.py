@@ -384,6 +384,81 @@ def prefill_chunk(cfg: ModelConfig, model, tokens, cache):
     return _forward_with_cache(cfg, model, tokens, cache, use_flash=False)
 
 
+def prefill_sp(cfg: ModelConfig, model, tokens, *, mesh, max_len: int,
+               axis_name: str = 'sequence'):
+    """Sequence-parallel full-prompt prefill for slice replicas.
+
+    tokens [1, S] (S divisible by the mesh's sequence-axis size sp) ->
+    a private prefill cache {'k', 'v': [L, 1, h_kv, max_len, d],
+    'index': S}, the layout `prefill` returns, so `insert_prefill` /
+    `insert_prefill_pages` adopt it unchanged.  Rank r of the sequence
+    axis holds prompt rows [r S/sp, (r + 1) S/sp) on its device and
+    runs the embedding, the norms, the projections, RoPE, o_proj and
+    the MLP on them (its rows padded to the GPU's row bucket, as every
+    forward pads them); attention runs through
+    `ops.ring_attention.ring_attention_shards` (B3 per hop).  k/v are
+    cached after RoPE, as the chunked path writes them, on the first
+    rank's device.
+
+    The weights are read on every rank's device, so each mesh device
+    must be the weights' device (a list that repeats one card); copies
+    of the weights on other cards come with the tensor axis (A16b).
+
+    MoE configs are refused: the capacity dispatch couples every prompt
+    token, so a sequence split would change which tokens drop.
+    """
+    if cfg.n_experts > 0:
+        raise ValueError('sequence-parallel prefill does not support '
+                         'MoE configs (the capacity dispatch couples '
+                         'every prompt token)')
+    # Imported here as the reference does: the ring is this function's
+    # alone.
+    from skypilot_tpu_torch.ops import sp_common  # pylint: disable=import-outside-toplevel
+    from skypilot_tpu_torch.ops.ring_attention import ring_attention_shards  # pylint: disable=import-outside-toplevel
+
+    b, s = tokens.shape
+    if b != 1:
+        raise ValueError(f'prefill_sp serves one sequence, got '
+                         f'batch {b}')
+    shards = sp_common.sp_partition(mesh, axis_name, s)
+    for sh in shards:
+        if sh.device != model.device:
+            raise ValueError(
+                f'prefill_sp: sequence rank {sh.rank} is on {sh.device}, '
+                f'the weights on {model.device}; a copy of the weights '
+                'on each card comes with the tensor axis (A16b)')
+    devices = [sh.device for sh in shards]
+    n = s // len(shards)
+    shape = (1, n)
+    positions = [torch.arange(sh.start, sh.stop, device=sh.device)
+                 for sh in shards]
+    xs = [_pad_rows(_embed(cfg, model, tokens[:, sh.start:sh.stop].to(
+        sh.device))[0]) for sh in shards]
+    out_shape = (cfg.n_layers, 1, cfg.n_kv_heads, max_len, cfg.head_dim)
+    cache = {name: torch.zeros(out_shape, dtype=cfg.dtype,
+                               device=devices[0]) for name in ('k', 'v')}
+    with torch.no_grad():
+        for i, layer in enumerate(model.layers):
+            qs, ks, vs = [], [], []
+            for x, pos in zip(xs, positions):
+                h = _attn_norm(x, layer, cfg, False)
+                qs.append(_rope(_attn_proj(h, layer.attn.q_proj, shape),
+                                pos, cfg).contiguous())
+                ks.append(_rope(_attn_proj(h, layer.attn.k_proj, shape),
+                                pos, cfg).contiguous())
+                vs.append(_attn_proj(h, layer.attn.v_proj,
+                                     shape).contiguous())
+            outs = ring_attention_shards(qs, ks, vs, devices, causal=True,
+                                         sm_scale=cfg.head_dim ** -0.5)
+            for r, sh in enumerate(shards):
+                xs[r] = _attn_out_and_mlp(xs[r], outs[r], layer, cfg)
+                # k/v cached post-RoPE, exactly like the chunked write.
+                for name, new in (('k', ks[r]), ('v', vs[r])):
+                    cache[name][i, :, :, sh.start:sh.stop] = new.to(
+                        devices[0], cfg.dtype)
+    return {'k': cache['k'], 'v': cache['v'], 'index': s}
+
+
 # ---------------------------------------------------- slot-batched decoding
 # The serving engine's dense mode: a fixed pool of slots, each at its
 # own depth, decoded together in one step.

@@ -77,6 +77,11 @@ the ones still queued.
 exports all run there, so two engines of one process run their ticks
 at once.  None on the CPU.
 
+Slices: `mesh=` (parallel/mesh.py) places the engine on the mesh's
+first device; every tick goes through `_dispatch_step` /
+`_dispatch_spec_step`, which the slice engine (serve/slice_replica.py)
+overrides to broadcast the tick to its ranks first.
+
 Observability (observability/, as the reference wires it): the
 reference's engine instruments in the process-global registry
 (`GET /metrics`); a `RequestSpan` per request (`stats()['recent_spans']`,
@@ -117,6 +122,52 @@ HandoffError = handoff_lib.HandoffError
 HandoffRejected = handoff_lib.HandoffRejected
 
 _PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def prefill_bucket(n: int) -> int:
+    """The smallest prefill bucket that holds n tokens (n past the
+    largest)."""
+    for b in _PREFILL_BUCKETS:
+        if n <= b:
+            return b
+    return n
+
+
+def tokens_tensor(ids: List[int], width: int, device) -> torch.Tensor:
+    """ids as a [1, width] int32 tensor on `device`, zero-padded."""
+    padded = torch.zeros((1, width), dtype=torch.int32)
+    padded[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
+    return padded.to(device)
+
+
+def prefill_piece(cfg, model, prompt_ids: List[int],
+                  cache: Optional[Dict[str, Any]], consumed: int,
+                  n_target: int, chunk: int, *, max_len: int, device,
+                  prefill, prefill_chunk) -> Tuple[Dict[str, Any], int]:
+    """Prefill the next piece, at most `chunk` tokens of [consumed,
+    n_target), into a private cache; returns (cache, new consumed).
+    The engine's chunk loop, which a slice's followers replay:
+    `prefill` and `prefill_chunk` are decode's functions or the
+    engine's wrapped ones."""
+    if cache is None:
+        # Chunk 0: flash prefill of the bucket-padded first piece.
+        take = min(n_target, chunk)
+        bucket = min(prefill_bucket(take), max_len)
+        _, cache = prefill(cfg, model,
+                           tokens_tensor(prompt_ids[:take], bucket, device),
+                           max_len=max_len)
+    else:
+        # Chunk i > 0: masked continuation at index = consumed.  The
+        # width (power-of-two bucket, capped at the chunk and at
+        # max_len - consumed) keeps every write inside the cache.
+        take = min(n_target - consumed, chunk)
+        width = min(prefill_bucket(take), chunk, max_len - consumed)
+        _, cache = prefill_chunk(
+            cfg, model,
+            tokens_tensor(prompt_ids[consumed:consumed + take], width,
+                          device), cache)
+    cache['index'] = consumed + take
+    return cache, consumed + take
 
 logger = logging.getLogger(__name__)
 
@@ -189,11 +240,22 @@ class ContinuousBatchingEngine:
                  quantize_kv: bool = False,
                  prefix_caching: bool = True,
                  spec_tokens: int = 0,
+                 mesh=None,
                  device: Union[str, torch.device] = 'cuda') -> None:
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f'model on {model.device}, engine on '
                              f'{self.device}')
+        # A slice replica's mesh (parallel/mesh.py): the pool, the state
+        # and the weights live on its first device, the engine's.
+        self.mesh = mesh
+        if mesh is not None:
+            if any(d.type != self.device.type for d in mesh.devices):
+                raise ValueError(f'mesh devices {mesh.devices} are not '
+                                 f'all {self.device.type} devices')
+            if mesh.devices[0] != self.device:
+                raise ValueError(f'the mesh starts at {mesh.devices[0]}, '
+                                 f'the engine is on {self.device}')
         self.spec_tokens = int(spec_tokens)
         if self.spec_tokens < 0:
             raise ValueError(f'spec_tokens must be >= 0, got {spec_tokens}')
@@ -766,16 +828,8 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------------ worker
 
-    def _bucket(self, n: int) -> int:
-        for b in _PREFILL_BUCKETS:
-            if n <= b:
-                return b
-        return n
-
     def _tokens_tensor(self, ids: List[int], width: int) -> torch.Tensor:
-        padded = torch.zeros((1, width), dtype=torch.int32)
-        padded[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
-        return padded.to(self.device)
+        return tokens_tensor(ids, width, self.device)
 
     def _pad_row(self, row: List[int]) -> List[int]:
         return list(row) + [0] * (self.max_len // self._kv.page_size -
@@ -817,7 +871,7 @@ class ContinuousBatchingEngine:
             else:
                 self._set_length(slot_id, length)
             slot.request = request
-            self._activate(slot_id, request, int(prompt[-1]))
+            self._activate(slot_id, request, int(prompt[-1]), length)
             return None
         slot.request = request
         pending = scheduler.PendingPrefill(slot_id, request, n - 1)
@@ -861,7 +915,7 @@ class ContinuousBatchingEngine:
             self._admit_paged(self._cache, slot_id, self._pad_row(plan.row),
                               n)
         self._slots[slot_id].request = request
-        self._activate(slot_id, request, first,
+        self._activate(slot_id, request, first, n,
                        remaining=request.max_new_tokens - 1,
                        key=carry.tolist())
 
@@ -869,28 +923,11 @@ class ContinuousBatchingEngine:
                        cache: Optional[Dict[str, Any]], consumed: int,
                        n_target: int,
                        chunk: int) -> Tuple[Dict[str, Any], int]:
-        """Prefill the next piece, at most `chunk` tokens of [consumed,
-        n_target), into a private cache; returns (cache, new consumed)."""
-        if cache is None:
-            # Chunk 0: flash prefill of the bucket-padded first piece.
-            take = min(n_target, chunk)
-            bucket = min(self._bucket(take), self.max_len)
-            _, cache = self._prefill(
-                self.cfg, self.model,
-                self._tokens_tensor(prompt_ids[:take], bucket),
-                max_len=self.max_len)
-        else:
-            # Chunk i > 0: masked continuation at index = consumed.  The
-            # width (power-of-two bucket, capped at the chunk and at
-            # max_len - consumed) keeps every write inside the cache.
-            take = min(n_target - consumed, chunk)
-            width = min(self._bucket(take), chunk, self.max_len - consumed)
-            _, cache = self._prefill_chunk(
-                self.cfg, self.model,
-                self._tokens_tensor(prompt_ids[consumed:consumed + take],
-                                    width), cache)
-        cache['index'] = consumed + take
-        return cache, consumed + take
+        return prefill_piece(self.cfg, self.model, prompt_ids, cache,
+                             consumed, n_target, chunk,
+                             max_len=self.max_len, device=self.device,
+                             prefill=self._prefill,
+                             prefill_chunk=self._prefill_chunk)
 
     def _advance_prefill(self, pending: scheduler.PendingPrefill) -> bool:
         """Run ONE chunk of a pending prefill; True when it completed
@@ -954,18 +991,21 @@ class ContinuousBatchingEngine:
                          pending.n_target)
         pending.cache = None
         self._activate(pending.slot_id, request,
-                       int(request.prompt_ids[-1]))
+                       int(request.prompt_ids[-1]), pending.n_target)
         # Cache adoption and activation: a phase of its own, so prefill
         # compute and pool surgery separate.
         self._profiler.lap('page-scatter')
         return True
 
     def _activate(self, slot_id: int, request: scheduler.Request,
-                  token: int, remaining: Optional[int] = None,
-                  key=None) -> None:
+                  token: int, length: int, *,
+                  remaining: Optional[int] = None, key=None) -> None:
         """Flip a slot live: `token` is its next tick input (prompt[-1],
-        or the MoE first token from prefill), `remaining` and `key`
-        default to a request with nothing generated yet."""
+        or the MoE first token from prefill), `length` the slot's depth
+        (set by the admission paths; the slice engine broadcasts it),
+        `remaining` and `key` default to a request with nothing
+        generated yet."""
+        del length
         if self.spec_tokens:
             # The history ends with the token the next tick feeds.
             self._slots[slot_id].drafter = sampler_lib.NgramDrafter(
@@ -996,6 +1036,22 @@ class ContinuousBatchingEngine:
         self._slots[slot_id].drafter = None
         self._release_slot_pages(slot_id)
 
+    def _dispatch_step(self):
+        """Dispatch one engine tick.  The slice engine
+        (serve/slice_replica.py) overrides this to broadcast the tick
+        through its rank coordinator first: every rank of a slice
+        dispatches the same step in lockstep."""
+        return self._step(self.cfg, self.model, self._state, self._cache,
+                          max_top_k=self.max_top_k)
+
+    def _dispatch_spec_step(self, drafts: torch.Tensor):
+        """Dispatch one speculative verify tick on the host's draft
+        batch [slots, k] (the slice engine broadcasts it, exactly like
+        `_dispatch_step`)."""
+        return self._spec_step(self.cfg, self.model, self._state,
+                               self._cache, drafts.to(self.device),
+                               max_top_k=self.max_top_k)
+
     def _spec_tick(self, live: Dict[int, scheduler.Request]) -> None:
         """One synchronous speculative tick (see module docstring)."""
         k = self.spec_tokens
@@ -1007,9 +1063,7 @@ class ContinuousBatchingEngine:
                 drafts[slot_id] = torch.tensor(drafter.propose(k),
                                                dtype=torch.int32)
         self._state, self._cache, finished, toks_d, counts_d = (
-            self._spec_step(
-                self.cfg, self.model, self._state, self._cache,
-                drafts.to(self.device), max_top_k=self.max_top_k))
+            self._dispatch_spec_step(drafts))
         toks = toks_d.tolist()
         counts = counts_d.tolist()
         fins = finished.tolist()
@@ -1148,9 +1202,7 @@ class ContinuousBatchingEngine:
                 self._spec_tick(live)   # synchronous: nothing in flight
                 prof.lap('spec-verify')
             elif live:
-                self._state, self._cache, finished = self._step(
-                    self.cfg, self.model, self._state, self._cache,
-                    max_top_k=self.max_top_k)
+                self._state, self._cache, finished = self._dispatch_step()
                 dispatched = (self._state, finished, list(live.items()))
                 prof.lap('decode-step')
             if inflight is not None:
@@ -1211,7 +1263,7 @@ class ContinuousBatchingEngine:
             slot.next_token = first
             return
         if n > 1:
-            bucket = min(self._bucket(n - 1), self.max_len)
+            bucket = min(prefill_bucket(n - 1), self.max_len)
             _, pre = self._prefill(
                 self.cfg, self.model,
                 self._tokens_tensor(prompt[:-1], bucket),

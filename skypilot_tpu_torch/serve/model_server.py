@@ -10,7 +10,9 @@ the asyncio front (serve/async_server.py, the same routes) unless
 
 - GET /health (and any other GET): {'status', 'model', 'role',
   'num_hosts', 'draining', 'device', 'weight_version', 'engine':
-  stats}; 503 once the engine failed.
+  stats}, plus 'slice' (the rank protocol's health) on a slice
+  replica; 503 'engine_failed' once the engine failed (a dead rank
+  fails a slice's engine).
 - GET /metrics: the Prometheus exposition of the process-global
   registry (engine, scheduler, page pool, profiler, log and HTTP
   instruments; scrape-time gauges freshened through engine.stats()).
@@ -76,10 +78,15 @@ arrive.  `overrides` replaces fields of a preset (a depth cut of
 `mixtral-8x7b`, say).  MoE presets (`mixtral-8x7b`, `tiny-moe`) and
 converted Mixtral checkpoints serve in every mode: static, dense and
 paged continuous batching, the legacy loop, both fronts.
+`num_hosts` > 1 serves a slice (serve/slice_replica.py): the sequence
+axis only (`slice_sequence`; a tensor factor above 1, like `tensor` >
+1, raises: A16b), over `slice_devices` when given (a list that may
+repeat one card), else the visible devices.
 
 Environment (as the reference's `main` and fronts read it):
-SKYTPU_SERVE_KV_PAGES, _PAGE_SIZE, _KV_INT8=1, _SPEC_TOKENS and
-_PREFIX_CACHE=0 give `main`'s flag defaults (`build_parser`);
+SKYTPU_SERVE_KV_PAGES, _PAGE_SIZE, _KV_INT8=1, _SPEC_TOKENS,
+_PREFIX_CACHE=0, SKYTPU_SERVE_REPLICA_NUM_HOSTS and
+SKYTPU_SLICE_SP_THRESHOLD give `main`'s flag defaults (`build_parser`);
 SKYTPU_SERVE_DEFAULT_DEADLINE_MS is the deadline of a request without
 X-SkyTPU-Deadline-Ms (both fronts); SKYTPU_MODEL_FLOPS_PER_TOKEN
 overrides the FLOPs estimate behind skytpu_engine_model_flops_per_token.
@@ -278,6 +285,12 @@ class ModelServer:
                  prefix_caching: bool = True,
                  spec_tokens: int = 0,
                  role: str = roles_lib.DEFAULT_ROLE,
+                 tensor: int = 1,
+                 num_hosts: int = 1,
+                 sp_threshold: Optional[int] = None,
+                 slice_sequence: Optional[int] = None,
+                 slice_tensor: Optional[int] = None,
+                 slice_devices: Optional[List[Any]] = None,
                  device: Union[str, torch.device] = 'cuda',
                  params=None,
                  overrides: Optional[Dict[str, Any]] = None) -> None:
@@ -285,6 +298,26 @@ class ModelServer:
             # Before the (possibly minutes-long) restore, not after.
             raise ValueError(f'Unknown quantize mode {quantize!r}; '
                              "have 'int8'.")
+        self.num_hosts = int(num_hosts)
+        if self.num_hosts > 1:
+            # The reference's refusals, in its order.
+            if tensor > 1:
+                raise ValueError(
+                    '--num-hosts subsumes --tensor: the slice mesh '
+                    'lays out sequence x tensor itself '
+                    '(--slice-tensor pins the factor).')
+            if quantize:
+                raise ValueError(
+                    'quantize + multi-host sharding is not supported '
+                    'yet (quantized leaves change the param pytree '
+                    'the shardings were computed for).')
+            if not continuous_batching:
+                raise ValueError('--num-hosts > 1 requires '
+                                 '--continuous-batching (the slice '
+                                 'engine IS the batching engine)')
+        elif tensor > 1:
+            raise ValueError(f'--tensor {tensor}: tensor-sharded serving '
+                             'is not ported yet (A16b)')
         self.device = resolve_device(device)
         # The disaggregated-serving role this replica advertises
         # (/health); the engine is role-agnostic until a /role_budget
@@ -360,7 +393,6 @@ class ModelServer:
         env_rid = os.environ.get('SKYTPU_SERVE_REPLICA_ID')
         self.replica_id: Optional[int] = (
             int(env_rid) if env_rid and env_rid.isdigit() else None)
-        self.num_hosts = 1
         if self.replica_id is not None:
             metrics_lib.REGISTRY.set_const_labels({
                 'replica_id': env_rid, 'role': self.role,
@@ -380,13 +412,29 @@ class ModelServer:
         self._engine: Optional[
             batching_engine_lib.ContinuousBatchingEngine] = None
         if continuous_batching:
-            self._engine = batching_engine_lib.ContinuousBatchingEngine(
-                self.cfg, self.params, max_len=max_len, slots=max_batch,
-                max_queue=max_queue, queue_ttl=queue_ttl,
-                prefill_chunk=prefill_chunk, kv_pages=kv_pages,
-                page_size=page_size, quantize_kv=quantize_kv,
-                prefix_caching=prefix_caching, spec_tokens=spec_tokens,
-                device=self.device)
+            engine_kw = dict(
+                max_len=max_len, slots=max_batch, max_queue=max_queue,
+                queue_ttl=queue_ttl, prefill_chunk=prefill_chunk,
+                kv_pages=kv_pages, page_size=page_size,
+                quantize_kv=quantize_kv, prefix_caching=prefix_caching,
+                spec_tokens=spec_tokens, device=self.device)
+            if self.num_hosts > 1:
+                # A slice replica: coordinated ticks across the gang and
+                # sequence-parallel long-context prefill.  `slice_devices`
+                # may repeat one card (emulated hosts).  Imported here,
+                # as the reference does, so a single-host replica
+                # registers no skytpu_slice_* families.
+                from skypilot_tpu_torch.serve import slice_replica as slice_lib  # pylint: disable=import-outside-toplevel
+                mesh = slice_lib.build_slice_mesh(
+                    self.num_hosts, self.cfg, devices=slice_devices,
+                    sequence=slice_sequence, tensor=slice_tensor,
+                    device=self.device)
+                self._engine = slice_lib.SliceReplicaEngine(
+                    self.cfg, self.params, num_hosts=self.num_hosts,
+                    sp_threshold=sp_threshold, mesh=mesh, **engine_kw)
+            else:
+                self._engine = batching_engine_lib.ContinuousBatchingEngine(
+                    self.cfg, self.params, **engine_kw)
             self._engine.log_identity = {
                 'process': 'replica', 'replica_id': self.replica_id,
                 'role': self.role}
@@ -638,6 +686,10 @@ class ModelServer:
         if engine is not None:
             stats = engine.stats()
             payload['engine'] = stats
+            if 'slice' in stats:
+                # Gang health top-level: the controller's probe tells a
+                # dead rank (tear down, replace) from a transient flap.
+                payload['slice'] = stats['slice']
             if stats['failed']:
                 payload['status'] = 'engine_failed'
         return 200 if payload['status'] == 'ok' else 503, payload
@@ -1176,10 +1228,11 @@ def start_background(server: ModelServer, port: int = 0,
 
 def build_parser() -> argparse.ArgumentParser:
     """`main`'s flags.  --kv-pages, --page-size, --quantize-kv,
-    --spec-tokens and --no-prefix-cache take their defaults from the
-    environment as the reference's `main` reads it (SKYTPU_SERVE_KV_PAGES,
-    _PAGE_SIZE, _KV_INT8=1, _SPEC_TOKENS, _PREFIX_CACHE=0), read when
-    the parser is built."""
+    --spec-tokens, --no-prefix-cache, --num-hosts and --sp-threshold
+    take their defaults from the environment as the reference's `main`
+    reads it (SKYTPU_SERVE_KV_PAGES, _PAGE_SIZE, _KV_INT8=1,
+    _SPEC_TOKENS, _PREFIX_CACHE=0, SKYTPU_SERVE_REPLICA_NUM_HOSTS,
+    SKYTPU_SLICE_SP_THRESHOLD), read when the parser is built."""
     env = os.environ
     parser = argparse.ArgumentParser()
     parser.add_argument('--model', default='tiny',
@@ -1225,6 +1278,35 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--top-k', type=int, default=0)
     parser.add_argument('--seed', type=int, default=0,
                         help='Weight seed and default sampling seed.')
+    parser.add_argument('--tensor', type=int, default=1,
+                        help='Tensor-shard the model over N devices (not '
+                             'ported yet: A16b; only 1 is served).')
+    parser.add_argument('--num-hosts', type=int,
+                        default=int(env.get(
+                            'SKYTPU_SERVE_REPLICA_NUM_HOSTS', '1')),
+                        help='Serve this replica as a SLICE of N ranks: '
+                             'ticks coordinated across ranks, long '
+                             'prompts prefilled sequence-parallel (ring '
+                             'attention).  Env '
+                             'SKYTPU_SERVE_REPLICA_NUM_HOSTS.  Requires '
+                             '--continuous-batching.')
+    parser.add_argument('--sp-threshold', type=int,
+                        default=(int(env['SKYTPU_SLICE_SP_THRESHOLD'])
+                                 if env.get('SKYTPU_SLICE_SP_THRESHOLD')
+                                 else None),
+                        help='Prompt tokens at which a multi-host '
+                             'replica prefills sequence-parallel in one '
+                             'shot instead of chunked (default 1024; env '
+                             'SKYTPU_SLICE_SP_THRESHOLD).')
+    parser.add_argument('--slice-sequence', type=int, default=None,
+                        help='Pin the sequence-axis factor of the slice '
+                             'mesh (default: hosts left over after the '
+                             'tensor factor).')
+    parser.add_argument('--slice-tensor', type=int, default=None,
+                        help='Pin the tensor-axis factor of the slice '
+                             'mesh (default: the largest divisor of '
+                             '--num-hosts the model shapes support; '
+                             'above 1 is A16b).')
     parser.add_argument('--role',
                         default=os.environ.get('SKYTPU_SERVE_REPLICA_ROLE',
                                                roles_lib.DEFAULT_ROLE),
@@ -1266,6 +1348,10 @@ def main(argv: Optional[List[str]] = None) -> None:
                          quantize_kv=args.quantize_kv,
                          prefix_caching=not args.no_prefix_cache,
                          spec_tokens=args.spec_tokens, role=args.role,
+                         tensor=args.tensor, num_hosts=args.num_hosts,
+                         sp_threshold=args.sp_threshold,
+                         slice_sequence=args.slice_sequence,
+                         slice_tensor=args.slice_tensor,
                          device=args.device)
     if args.http_server == 'async':
         from skypilot_tpu_torch.serve import async_server  # pylint: disable=import-outside-toplevel

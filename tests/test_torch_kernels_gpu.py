@@ -54,7 +54,8 @@ def _tol(dtype):
     (32, 8, 128, 1, 1, True), (32, 8, 128, 100, 100, True),
     (32, 8, 128, 64, 200, True), (32, 8, 128, 130, 130, False),
     (8, 1, 256, 70, 70, True), (4, 2, 64, 33, 90, True),
-    (32, 8, 128, 2048, 2048, True), (16, 8, 64, 512, 512, True)])
+    (32, 8, 128, 2048, 2048, True), (16, 8, 64, 512, 512, True),
+    (32, 8, 128, 2048, 2048, False)])
 def test_flash_kernel_matches_plain(cuda, dtype, h, h_kv, d, q_len, k_len,
                                     causal):
     gen = torch.Generator(device=cuda).manual_seed(q_len * 7 + d)
@@ -220,6 +221,31 @@ def test_paged_kernel_matches_plain(cuda, dtype, quantized, s_q, h_q, h_kv,
                                rtol=_tol(dtype))
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('quantized', [False, True], ids=['native', 'int8'])
+def test_paged_kernel_at_the_slice_tick(cuda, dtype, quantized):
+    """The slice engine's tick at llama3-8b's width: 4 slots of an
+    8192-token engine (512-row tables, 128 splits a slot) holding
+    contexts up to 7930 and a free slot, S = 1."""
+    gen = torch.Generator(device=cuda).manual_seed(7930)
+    lengths, ps, rows, h_q, h_kv, d = [3030, 7930, 130, 0], 16, 512, 32, 8, 128
+    k, v = _pool(gen, 1 + len(lengths) * rows, h_kv, ps, d, dtype,
+                 quantized, cuda)
+    q = torch.randn((len(lengths), h_q, 1, d), generator=gen,
+                    device=cuda).to(dtype)
+    tables, lengths = _paged_tables(lengths, 1, ps, rows, d)
+    tables, lengths = tables.to(cuda), lengths.to(cuda)
+    out = paged_attention.paged_attention(q, k, v, tables, lengths)
+    again = paged_attention.paged_attention(q, k, v, tables, lengths)
+    ref = paged_attention._paged_attention_reference(  # pylint: disable=protected-access
+        q, k, v, tables, lengths, sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(dtype),
+                               rtol=_tol(dtype))
+
+
 @pytest.mark.parametrize('quantized', [False, True], ids=['native', 'int8'])
 def test_paged_rows_do_not_depend_on_s_or_batch(cuda, quantized):
     """A query row's bits do not depend on S, R, B or the other slots:
@@ -369,6 +395,62 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         paged_attention.paged_attention(q[:, :, :1].contiguous(),
                                         pool.bfloat16(), pool.bfloat16(),
                                         tables, lengths)
+
+
+@pytest.mark.parametrize('sp', [2, 4])
+@pytest.mark.parametrize('op', ['ring', 'ulysses'])
+def test_sp_attention_on_a_repeated_card_matches_plain(cuda, op, sp):
+    """Ring and Ulysses attention over sp ranks that all name cuda:0,
+    bf16 at 32/8 heads, d 128: within 2e-2 of the plain causal
+    attention of the whole sequence; the ring launches B3 sp (sp + 1) / 2
+    times, Ulysses once per rank."""
+    from skypilot_tpu_torch.ops import ring_attention
+    from skypilot_tpu_torch.ops import ulysses_attention
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    gen = torch.Generator(device=cuda).manual_seed(sp)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(
+        torch.bfloat16) for shape in ((1, 32, 1024, 128), (1, 8, 1024, 128),
+                                      (1, 8, 1024, 128)))
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(sequence=sp), [cuda] * sp)
+    fn = (ring_attention.ring_attention if op == 'ring'
+          else ulysses_attention.ulysses_attention)
+    before = attention.LAUNCHES['flash_fwd']
+    out = fn(q, k, v, mesh=mesh)
+    launched = attention.LAUNCHES['flash_fwd'] - before
+    ref = attention._blockwise_attention(  # pylint: disable=protected-access
+        q, k, v, causal=True, sm_scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    assert launched == (sp * (sp + 1) // 2 if op == 'ring' else sp)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_prefill_sp_on_the_card_matches_prefill(cuda):
+    """prefill_sp over 4 ranks on cuda:0, llama3-8b width cut to depth
+    2, a 1024-token prompt: sp 1 gives prefill's cache bit for bit (one
+    causal hop, the same row shapes); sp 4 within 2e-2 of its largest
+    |value| per leaf (bf16; other GEMM row counts and the ring's
+    merge)."""
+    from skypilot_tpu_torch.serve import slice_replica
+    cfg = configs.get_config('llama3-8b', n_layers=2)
+    model = init_params(cfg, seed=5, device=cuda)
+    gen = torch.Generator().manual_seed(0)
+    tokens = torch.randint(1, cfg.vocab_size, (1, 1024), generator=gen,
+                           dtype=torch.int32).to(cuda)
+    _, want = decode.prefill(cfg, model, tokens, max_len=1088)
+    for sp in (1, 4):
+        mesh = slice_replica.build_slice_mesh(sp, cfg, sequence=sp,
+                                              devices=[cuda] * sp)
+        got = decode.prefill_sp(cfg, model, tokens, mesh=mesh,
+                                max_len=1088)
+        assert got['index'] == 1024
+        for leaf in ('k', 'v'):
+            if sp == 1:
+                assert torch.equal(got[leaf], want[leaf]), leaf
+            else:
+                err = (got[leaf].float() - want[leaf].float()).abs().max()
+                assert float(err) <= 2e-2 * float(
+                    want[leaf].float().abs().max()), (leaf, float(err))
 
 
 SMALL = configs.ModelConfig(vocab_size=512, d_model=256, n_layers=2,
