@@ -36,7 +36,8 @@ Phases (each one that fails makes the script exit non-zero):
    `ms` and the `library_ms` of its PyTorch yardstick are device time:
    the summed durations of the kernels 20 calls launch, after 3
    warm-up calls, in a torch.profiler trace, over 20 (`timed_by`
-   "profiler"); where a trace records no device event, CUDA event pairs
+   "profiler"); where a trace holds fewer kernels than 20 times one
+   profiled call's (none, on some windows), CUDA event pairs
    around calls queued behind a spin kernel (`queued_event_ms`, which
    also counts the gaps between a call's kernels; `timed_by`
    "queued_events"; `library_timed_by` for the yardstick); `ms_with_host`
@@ -47,7 +48,12 @@ Phases (each one that fails makes the script exit non-zero):
    S = 1, B2 S = 5) and at the full batch.  B3 is also held and
    timed at the ring hop of phase 5d (b 1, 32/8, d 128, 2048 x 2048,
    bf16), causal and non-causal, beside SDPA's forward for the same
-   setting.  Bounds from this run's
+   setting.  At the shapes sharded training gives them (phase 7c): B4
+   and B5 at mesh A's ring hop (b 1, 32/8, 2048 x 2048), non-causal
+   and causal, with an lse cotangent, and B3-B5 at mesh B's Ulysses
+   call (b 1, 16/4, 4096, causal), each against its plain version and
+   two launches bit-equal, timed beside SDPA (forward; backward as dq
+   + dkv).  Bounds from this run's
    bytes and FLOPs against 3.35 TB/s and 989 TFLOP/s (H100 SXM data
    sheet), labelled by whichever of the two is larger.  B4/B5 are timed at the training
    shape; their plain version computes dQ, dK and dV together, and so
@@ -266,6 +272,20 @@ Phases (each one that fails makes the script exit non-zero):
    (compute_seconds_per_step, data_wait_seconds, prefetch_wait_seconds,
    peak memory), the free disk before and the disk used at peak, the
    phase's seconds.  Every temporary directory is deleted.
+7c. Sharded training ("sharded training"): llama3-8b width at depth
+   2, bf16, remat, batch 2 x 4096, 3 steps from seed 0: the unsharded
+   step, then mesh A (fsdp 2 x sequence 2, ring) and mesh B (data 2 x
+   sequence 2, Ulysses) over four entries of the card.  Held: losses
+   finite and falling, step-1 loss within 1e-2 of the unsharded step's,
+   launches exactly `shard_launches` (ring: ranks x L x sp(sp+1)/2 hops,
+   Ulysses: ranks x L x sp calls; B3 twice for the layer checkpoint);
+   printed: step ms, peak memory, params + moments a mesh position
+   holds.  An f32 cut (depth 1, 2 x 1024): meshes A and B against the
+   unsharded GPU step, loss within rtol 1e-5, every gradient within
+   1e-3 of max |unsharded|.  `train_llama --model small` over four
+   entries (fsdp 2 x sequence 2) with --preflight and a checkpoint
+   directory, launches held; its step 0 restored onto fsdp 4
+   (`restore_sharded`) bit-equal to the step's files.
 8. A training reference check: depth-1 f32 llama3-8b, one 256-token
    sequence, loss.backward() on the GPU (kernels) and on the CPU (the
    plain versions) from the same weights: the loss and every gradient
@@ -273,15 +293,20 @@ Phases (each one that fails makes the script exit non-zero):
 
 The line before the last is the `kernels` JSON: each kernel's
 `launches` is its count on the path `path` names ("slice" for B1 and
-B3, "slice (int8 pool)" for B2, "training resume" for B4/B5), and
+B3, "slice (int8 pool)" for B2, "sharded training" (mesh A) for
+B4/B5), and
 `launches_by_path` holds every
 driven path's own count (serving, the two observability windows, the
 five paths of phase 5, "int8 weights" and "checkpoint" of phase 5b,
 the four MoE paths of phase 5c, the three slice paths of phase 5d,
-training, `train_llama small`, "training resume"), each path
-zeroed just before it and read just after.  B3's entry carries the
-512-token chunk under `serving_chunk` and the ring hop under
-`ring_hop_causal` / `ring_hop_full`; B1's and B2's top-level times are
+training, `train_llama small`, "training resume", the four paths of
+phase 7c), each path zeroed just before it and read just after.  B3's
+entry carries the 512-token chunk under `serving_chunk`, the ring hop
+under `ring_hop_causal` / `ring_hop_full` and mesh B's call under
+`ulysses`; B4's and B5's top-level times are at mesh A's non-causal
+ring hop, with the causal hop under `ring_hop_causal`, the Ulysses
+shape under `ulysses` and the training shape under `training_shape`;
+B1's and B2's top-level times are
 at the slice tick, with the serving tick under `serving_tick`, the
 full batch under `full_batch` and their split span in pages,
 `split_pages`.  Every time carries the method that took it
@@ -346,28 +371,40 @@ def device_time(fn, iters: int = 20, warmup: int = 3) -> dict:
     """{'ms': device time per call, 'timed_by': its method}.  By
     'profiler': the summed durations of every kernel that `iters` calls
     launch (torch.profiler, CUDA activity), over `iters`, after
-    `warmup` calls; unlike `time_ms` it holds no host time.  On some
-    machines a window records no device event at all (four runs of this
-    script on the H100, at different windows); the same calls are then
-    timed by 'queued_events' (`queued_event_ms`), which also counts the
-    device's gaps between a call's kernels, and a line says so."""
+    `warmup` calls; unlike `time_ms` it holds no host time.  A window
+    counts only when it holds at least `iters` times the kernels of one
+    profiled call (the fewer of two; copies and memsets, which a call
+    may add only sometimes, are not counted): on some machines a window
+    records none or only some of them (runs of this script on the H100,
+    at different windows, once a B4 under its bound).  The same calls
+    are then timed by 'queued_events' (`queued_event_ms`), which also
+    counts the device's gaps between a call's kernels, and a line says
+    so."""
     import torch
+
+    def profiled(n):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return [e for e in prof.events() if is_device_event(e)]
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if is_device_event(e))
-    if us > 0:
+    def kernels(events):
+        return sum(1 for e in events
+                   if not e.name.startswith(('Memcpy', 'Memset')))
+    per_call = min(kernels(profiled(1)), kernels(profiled(1)))
+    events = profiled(iters)
+    us = sum(e.time_range.end - e.time_range.start for e in events)
+    if per_call > 0 and kernels(events) >= per_call * iters:
         return {'ms': us / 1e3 / iters, 'timed_by': 'profiler'}
     ms = queued_event_ms(fn, iters)
-    log(f'device_time: the profiler window saw no device event; CUDA '
-        f'event pairs on a queued stream: {ms:.4f} ms a call')
+    log(f'device_time: the profiler window saw {kernels(events)} '
+        f'kernels, under {iters} x {per_call}; CUDA event pairs on a '
+        f'queued stream: {ms:.4f} ms a call')
     return {'ms': ms, 'timed_by': 'queued_events'}
 
 
@@ -794,12 +831,12 @@ def visible_entries(b, h, q_len, k_len, causal) -> int:
     return b * h * (q_len * off + q_len * (q_len + 1) // 2)
 
 
-def bwd_bound(q, k, n_products, out_numel):
+def bwd_bound(q, k, n_products, out_numel, causal=True):
     """Bound of a backward kernel: n_products products of 2 d FLOPs per
     visible score entry; bytes of q, dO, k, v, lse and delta read once
     and out_numel gradient elements written once."""
     b, h, q_len, d = q.shape
-    entries = visible_entries(b, h, q_len, k.shape[2], True)
+    entries = visible_entries(b, h, q_len, k.shape[2], causal)
     n_bytes = ((2 * q.numel() + 2 * k.numel() + out_numel) *
                q.element_size() + 2 * b * h * q_len * 4)
     peak = F32_FLOPS if q.dtype.itemsize == 4 else BF16_FLOPS
@@ -810,7 +847,6 @@ def check_flash_bwd(dev):
     """B4 and B5 against _flash_bwd_reference; -> {name: result}, timed
     at the training shape."""
     import torch
-    import torch.nn.functional as F
     from skypilot_tpu_torch.ops import attention
     dtypes = {'bf16': torch.bfloat16, 'f32': torch.float32}
     errs = {'flash_bwd_dq': [], 'flash_bwd_dkv': []}
@@ -855,18 +891,9 @@ def check_flash_bwd(dev):
         q, k, v, g, lse, delta, **kw))
     plain = time_ms(lambda: attention._flash_bwd_reference(  # pylint: disable=protected-access
         q, k, v, out, lse, g, g_lse, **kw))
-    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-
-    def sdpa():
-        return F.scaled_dot_product_attention(*leaves, is_causal=True,
-                                              enable_gqa=True)
     # SDPA's backward: the device time of forward + backward less the
     # forward's.
-    both = device_time(lambda: torch.autograd.grad(sdpa(), leaves, g))
-    fwd = device_time(sdpa)
-    sdpa_bwd = {'library_ms': both['ms'] - fwd['ms'],
-                'library_timed_by': ' - '.join(
-                    sorted({both['timed_by'], fwd['timed_by']}))}
+    sdpa_bwd = sdpa_times(q, k, v, g, True)[1]
     results = {}
     for name, kernel, n_products, out_numel in (
             ('flash_bwd_dq', dq, 3, q.numel()),
@@ -876,6 +903,120 @@ def check_flash_bwd(dev):
                              plain_ms=plain, bound_ms=bound_ms,
                              bound_by=bound_by, **sdpa_bwd)
     return results
+
+
+# The shapes sharded training (phase 7c, llama3-8b width, batch 2 x
+# 4096) gives B3-B5: mesh A's ring hop (fsdp 2 x sequence 2: b 1, 32/8
+# heads, 2048 x 2048; non-causal on the earlier chunk, causal on the
+# diagonal, both with the lse cotangent of the merge) and mesh B's
+# Ulysses call (data 2 x sequence 2: b 1, 16/4 heads, 4096 causal).
+SHARD_SHAPES = {'ring_hop_full': (1, 32, 8, 2048, False),
+                'ring_hop_causal': (1, 32, 8, 2048, True),
+                'ulysses': (1, 16, 4, 4096, True)}
+
+
+def sdpa_times(q, k, v, g, causal):
+    """SDPA's forward and its backward (dq + dkv: forward + backward
+    less the forward), device time, on the same inputs.  The difference
+    takes both times by one method: where `device_time` timed the two
+    calls by different ones, both are timed again by queued CUDA
+    events."""
+    import torch
+    import torch.nn.functional as F
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                              enable_gqa=True)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), leaves, g)
+    both = device_time(fwd_bwd)
+    one = device_time(fwd)
+    if both['timed_by'] != one['timed_by']:
+        both = {'ms': queued_event_ms(fwd_bwd, 20),
+                'timed_by': 'queued_events'}
+        one = {'ms': queued_event_ms(fwd, 20), 'timed_by': 'queued_events'}
+    return ({'library_ms': one['ms'], 'library_timed_by': one['timed_by']},
+            {'library_ms': both['ms'] - one['ms'],
+             'library_timed_by': both['timed_by']})
+
+
+def check_sharded_shapes(dev):
+    """B3-B5 at SHARD_SHAPES (bf16, d 128; the backward with a random
+    output and lse cotangent): held against the plain versions (B3 at
+    2e-2 absolute, B4/B5 at 2e-2 of max |plain|), two launches of each
+    bit-equal, then device ms, the plain version's ms, SDPA's (forward;
+    backward as dq + dkv) and the bound.  -> {kernel: {shape: result}}."""
+    import torch
+    from skypilot_tpu_torch.ops import attention
+    out = {'flash_fwd': {}, 'flash_bwd_dq': {}, 'flash_bwd_dkv': {}}
+    for label, (b, h, h_kv, n, causal) in SHARD_SHAPES.items():
+        q, k, v, o, lse, g, g_lse = bwd_inputs(
+            dev, torch.bfloat16, b, h, h_kv, 128, n, n, causal,
+            seed=n + h + causal)
+        kw = dict(causal=causal, sm_scale=128 ** -0.5)
+        name = (f'{label} (b {b}, {h}/{h_kv}, d 128, {n} x {n}, '
+                f'{"causal" if causal else "non-causal"})')
+        ref_o, ref_lse = attention._blockwise_attention(  # pylint: disable=protected-access
+            q, k, v, return_lse=True, **kw)
+        again = attention.flash_attention_with_lse(q, k, v, causal=causal)
+        if not (torch.equal(o, again[0]) and torch.equal(lse, again[1])):
+            raise AssertionError(f'flash_fwd {name}: two launches differ')
+        fwd_err = check_close(f'flash_fwd {name}', o, ref_o, 2e-2)
+        check_close(f'flash_fwd {name} lse', lse, ref_lse, 1e-3)
+        got = attention._flash_bwd_cuda(q, k, v, o, lse, g, g_lse, **kw)  # pylint: disable=protected-access
+        again = attention._flash_bwd_cuda(q, k, v, o, lse, g, g_lse, **kw)  # pylint: disable=protected-access
+        ref = attention._flash_bwd_reference(q, k, v, o, lse, g, g_lse, **kw)  # pylint: disable=protected-access
+        torch.cuda.synchronize()
+        errs = {}
+        for grad, a, a2, r in zip(('dq', 'dk', 'dv'), got, again, ref):
+            if not torch.equal(a, a2):
+                raise AssertionError(f'flash_bwd {name} {grad}: two '
+                                     'launches differ')
+            if not torch.isfinite(a.float()).all():
+                raise AssertionError(f'flash_bwd {name} {grad}: non-finite')
+            err = max_err(a, r)
+            rel = err / max(float(r.float().abs().max()), 1e-30)
+            if rel > 2e-2:
+                raise AssertionError(f'flash_bwd {name} {grad}: max err '
+                                     f'{err:.3g} is {rel:.3g} of max |ref|')
+            errs[grad] = err
+        delta = attention._delta(o, g, g_lse).contiguous()  # pylint: disable=protected-access
+        fwd_sdpa, bwd_sdpa = sdpa_times(q, k, v, g, causal)
+        flops = 4 * 128 * visible_entries(b, h, n, n, causal)
+        io = ((2 * q.numel() + 2 * k.numel()) * q.element_size() +
+              b * h * n * 4)
+        bound_ms, bound_by = bound(io, flops, BF16_FLOPS)
+        if label == 'ulysses':     # check_ring_hops times the hops
+            out['flash_fwd'][label] = dict(
+                max_abs_err=fwd_err, **timed_call(
+                    lambda: attention.flash_attention_with_lse(
+                        q, k, v, causal=causal)),
+                plain_ms=time_ms(lambda: attention._blockwise_attention(  # pylint: disable=protected-access
+                    q, k, v, return_lse=True, **kw), iters=5, warmup=1),
+                bound_ms=bound_ms, bound_by=bound_by, **fwd_sdpa)
+        plain = time_ms(lambda: attention._flash_bwd_reference(  # pylint: disable=protected-access
+            q, k, v, o, lse, g, g_lse, **kw), iters=5, warmup=1)
+        for kname, fn, n_products, numel, err in (
+                ('flash_bwd_dq', lambda: attention._flash_bwd_dq_cuda(  # pylint: disable=protected-access
+                    q, k, v, g, lse, delta, **kw), 3, q.numel(),
+                 errs['dq']),
+                ('flash_bwd_dkv', lambda: attention._flash_bwd_dkv_cuda(  # pylint: disable=protected-access
+                    q, k, v, g, lse, delta, **kw), 4, 2 * k.numel(),
+                 max(errs['dk'], errs['dv']))):
+            bound_ms, bound_by = bwd_bound(q, k, n_products, numel, causal)
+            out[kname][label] = dict(max_abs_err=err, **timed_call(fn),
+                                     plain_ms=plain, bound_ms=bound_ms,
+                                     bound_by=bound_by, **bwd_sdpa)
+        for kname in [k for k in out if label in out[k]]:
+            r = out[kname][label]
+            log(f'  {kname} at {name}: max_abs_err {r["max_abs_err"]:.3g}; '
+                f'{kernel_summary(r)}'
+                + ('; plain is dq + dkv' if kname != 'flash_fwd' else ''))
+        del q, k, v, o, lse, g, g_lse, got, again, ref
+        free_cuda()
+    return out
 
 
 # ------------------------------------------------------------ phase 4
@@ -2985,6 +3126,242 @@ def log_training_resume(r, launched) -> None:
         f'phase {r["wall_s"]:.1f} s; launches {json.dumps(launched)}')
 
 
+# ------------------------------------------------------------ phase 7c
+
+SHARD_LAYERS, SHARD_BATCH, SHARD_SEQ, SHARD_STEPS = 2, 2, 4096, 3
+SHARD_F32_SEQ = 1024
+# label -> (mesh axes over four entries of the one card, SP mode).
+SHARD_MESHES = {'sharded training': (dict(data=1, fsdp=2, sequence=2),
+                                     'ring'),
+                'sharded training (ulysses)': (dict(data=2, sequence=2),
+                                               'ulysses')}
+
+
+def shard_launches(axes, mode, n_layers, n_steps):
+    """B3/B4/B5 launches of n_steps steps on a mesh, with one forward per
+    batch rank and a layer checkpoint (the forward runs again in the
+    backward): a causal ring over sp ranks launches sp (sp + 1) / 2
+    hops, Ulysses one call a rank; each launch has one B4 and one B5."""
+    ranks = axes.get('data', 1) * axes.get('fsdp', 1)
+    sp = axes.get('sequence', 1)
+    per_rank = sp * (sp + 1) // 2 if mode == 'ring' else sp
+    fwd = ranks * n_layers * per_rank
+    return {'flash_fwd': 2 * fwd * n_steps, 'flash_bwd_dq': fwd * n_steps,
+            'flash_bwd_dkv': fwd * n_steps}
+
+
+def full_grads(state):
+    """{parameter name: its gradient, whole, on the host}."""
+    import torch
+    out = {}
+    for name, p in state.model.named_parameters():
+        if state.shards is None:
+            out[name] = p.grad.detach().cpu()
+            continue
+        full = torch.empty(p.shape, dtype=p.dtype)
+        for t, idx in state.shards.pieces(name):
+            full[idx] = t.grad.detach().cpu()
+        out[name] = full
+    return out
+
+
+def sharded_f32_check(dev):
+    """Depth-1 f32 llama3-8b width, batch 2 x SHARD_F32_SEQ: the loss and
+    every gradient of meshes A and B against the unsharded GPU step
+    from the same seed (loss rtol 1e-5, gradients within 1e-3 of max
+    |unsharded| per leaf).  -> {mesh: (loss, unsharded loss, worst)}."""
+    import torch
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import train
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    cfg = configs.get_config('llama3-8b', n_layers=1, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(11)
+    batch = {'tokens': torch.randint(0, cfg.vocab_size,
+                                     (SHARD_BATCH, SHARD_F32_SEQ + 1),
+                                     generator=gen).to(dev)}
+    state, _ = train.create_train_state(cfg, device=dev, seed=1)
+    ref_loss = float(train.value_and_grad(state, batch).detach())
+    ref = full_grads(state)
+    del state
+    free_cuda()
+    out = {}
+    for label, (axes, mode) in SHARD_MESHES.items():
+        mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(**axes), [dev] * 4)
+        state, _ = train.create_train_state(
+            cfg.replace(sequence_parallel=mode), mesh=mesh, seed=1)
+        loss = float(train.value_and_grad(state, batch).detach())
+        if not abs(loss - ref_loss) <= 1e-5 * abs(ref_loss):
+            raise AssertionError(f'{label} f32: loss {loss} vs unsharded '
+                                 f'{ref_loss}')
+        worst = (0.0, '')
+        for name, g in full_grads(state).items():
+            scale = max(float(ref[name].abs().max()), 1e-30)
+            rel = float((g - ref[name]).abs().max()) / scale
+            if rel > 1e-3:
+                raise AssertionError(f'{label} f32: {name} gradient '
+                                     f'{rel:.3g} of max |unsharded|')
+            worst = max(worst, (rel, name))
+        out[label] = (loss, ref_loss, worst)
+        del state
+        free_cuda()
+    return out
+
+
+def sharded_cli(dev, counters):
+    """`train_llama --model small` over four entries of the card (fsdp
+    2 x sequence 2, ring) with --preflight and a checkpoint directory,
+    then its step 0 restored onto fsdp 4 (`restore_sharded`), held
+    bit-equal to the step's files.  -> (launches, report)."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from skypilot_tpu_torch.data import checkpoints
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import train
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    ckpt = tempfile.mkdtemp(prefix='skytpu_shard_ckpt_')
+    try:
+        argv = ['--model', 'small', '--steps', '3', '--batch-size', '8',
+                '--seq-len', '512', '--mesh-devices',
+                ','.join([str(dev)] * 4), '--fsdp', '2', '--sequence', '2',
+                '--preflight']
+        zero_counts(counters)
+        history, state, printed, _ = resume_run(argv, ckpt)
+        counts = read_counts(counters)
+        losses = [h['loss'] for h in history]
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f'train_llama small mesh: losses {losses}')
+        if 'collective preflight: healthy' not in printed:
+            raise AssertionError('train_llama small mesh: no preflight line')
+        want = shard_launches(dict(fsdp=2, sequence=2), 'ring',
+                              configs.get_config('small').n_layers, 3)
+        got = {k: counts[k] for k in want}
+        if got != want:
+            raise AssertionError(f'train_llama small mesh: launches {got}, '
+                                 f'predicted {want}')
+        if state.shards is None:
+            raise AssertionError('train_llama small mesh: unsharded state')
+        del state
+        cfg = configs.get_config('small')
+        mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(data=1, fsdp=4),
+                                   [dev] * 4)
+        abstract, shardings = train.abstract_train_state(cfg, mesh=mesh)
+        t0 = time.perf_counter()
+        restored, start = checkpoints.restore_sharded(ckpt, abstract,
+                                                      shardings)
+        restore_s = time.perf_counter() - t0
+        saved = checkpoints.restore_params(ckpt, device='cpu')
+        if start != 1:
+            raise AssertionError(f'restore_sharded: start {start}, not 1')
+        for path, t in train.snapshot(restored).params:
+            node = saved
+            for key in path:
+                node = node[key]
+            if not torch.equal(t, node):
+                raise AssertionError(f'restore_sharded: {path} differs')
+        blocks = len(restored.shards.blocks['embed.embedding'])
+        report = dict(losses=losses, restore_s=restore_s, blocks=blocks,
+                      printed=[line for line in printed.splitlines()
+                               if line.startswith(('mesh:', 'collective'))])
+        del restored
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        os.environ.pop(checkpoints.ENV_CHECKPOINT_DIR, None)
+    free_cuda()
+    return counts, report
+
+
+def sharded_training(dev, counters):
+    """Phase 7c: llama3-8b width at SHARD_LAYERS layers, bf16, remat,
+    batch SHARD_BATCH x SHARD_SEQ: the unsharded step, then meshes A and
+    B over four entries of the card, SHARD_STEPS steps each from the
+    same seed on the same batch; launches held to `shard_launches`;
+    then the f32 cut and the CLI.  -> (paths, report)."""
+    import torch
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import train
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    t_phase = time.perf_counter()
+    cfg = configs.get_config('llama3-8b', n_layers=SHARD_LAYERS)
+    gen = torch.Generator().manual_seed(7)
+    batch = {'tokens': torch.randint(0, cfg.vocab_size,
+                                     (SHARD_BATCH, SHARD_SEQ + 1),
+                                     generator=gen).to(dev)}
+    paths, report = {}, {}
+    runs = {'sharded training (unsharded)': (None, cfg.sequence_parallel)}
+    runs.update(SHARD_MESHES)
+    for label, (axes, mode) in runs.items():
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats(dev)
+        c = cfg.replace(sequence_parallel=mode)
+        if axes is None:
+            state, _ = train.create_train_state(c, device=dev, seed=0)
+            want = shard_launches({}, 'ring', SHARD_LAYERS, SHARD_STEPS)
+        else:
+            mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(**axes),
+                                       [dev] * 4)
+            state, _ = train.create_train_state(c, mesh=mesh, seed=0)
+            want = shard_launches(axes, mode, SHARD_LAYERS, SHARD_STEPS)
+        zero_counts(counters)
+        state, steps = run_steps(dev, c, None, batch, SHARD_STEPS, state)
+        paths[label] = read_counts(counters)
+        got = {k: paths[label][k] for k in want}
+        if got != want:
+            raise AssertionError(f'{label}: launches {got}, predicted {want}')
+        losses = [x[0] for x in steps]
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f'{label}: losses {losses}')
+        params = (state.shards.position_bytes() if state.shards is not None
+                  else [sum(p.numel() * 4 for p in state.model.parameters())])
+        report[label] = dict(
+            losses=losses, grad_norms=[x[1] for x in steps],
+            step_ms=[x[2] for x in steps],
+            peak_gib=train.peak_memory_bytes(dev) / 2**30,
+            state_gb=[3 * b / 1e9 for b in params], launches=got)
+        del state
+    ref = report['sharded training (unsharded)']['losses'][0]
+    for label in SHARD_MESHES:
+        first = report[label]['losses'][0]
+        if not abs(first - ref) <= 1e-2 * abs(ref):
+            raise AssertionError(f'{label}: step-1 loss {first} vs '
+                                 f'unsharded {ref}')
+    free_cuda()
+    report['f32'] = sharded_f32_check(dev)
+    paths['train_llama small mesh'], report['cli'] = sharded_cli(
+        dev, counters)
+    report['seconds'] = time.perf_counter() - t_phase
+    return paths, report
+
+
+def log_sharded(r) -> None:
+    log(f'sharded training ({card()}; llama3-8b width, {SHARD_LAYERS} '
+        f'layers, bf16, remat, batch {SHARD_BATCH} x {SHARD_SEQ}, every '
+        f'mesh position on the one card):')
+    for label in ['sharded training (unsharded)'] + list(SHARD_MESHES):
+        x = r[label]
+        axes = SHARD_MESHES.get(label, ({}, ''))
+        log(f'  {label} {json.dumps(axes[0])} {axes[1]}: losses '
+            f'{" ".join(f"{v:.4f}" for v in x["losses"])}; grad_norms '
+            f'{" ".join(f"{v:.3f}" for v in x["grad_norms"])}; step ms '
+            f'{" ".join(f"{v:.1f}" for v in x["step_ms"])}; peak '
+            f'{x["peak_gib"]:.2f} GiB; params + moments a position '
+            f'{" ".join(f"{v:.2f}" for v in x["state_gb"])} GB; launches '
+            f'{json.dumps(x["launches"])}')
+    for label, (loss, ref, (rel, name)) in r['f32'].items():
+        log(f'  {label} f32 depth 1, batch {SHARD_BATCH} x '
+            f'{SHARD_F32_SEQ}: loss {loss:.7f} vs unsharded {ref:.7f}; '
+            f'largest gradient difference {rel:.3g} of max |unsharded| '
+            f'({name})')
+    cli = r['cli']
+    log(f'  train_llama --model small over 4 entries (fsdp 2 x sequence '
+        f'2): {" / ".join(cli["printed"])}; losses '
+        f'{" ".join(f"{v:.4f}" for v in cli["losses"])}; step 0 restored '
+        f'onto fsdp 4 ({cli["blocks"]} embedding blocks) in '
+        f'{cli["restore_s"]:.2f} s, bit-equal to its files')
+    log(f'sharded training phase: {r["seconds"]:.1f} s')
+
+
 # ------------------------------------------------------------ phase 8
 
 
@@ -3495,9 +3872,20 @@ def main() -> int:
     }
     results['flash_fwd'].update(check_ring_hops(dev))
     results.update(check_flash_bwd(dev))
+    # B4/B5's entries are at phase 7c's ring hop (mesh A's path), the
+    # other shapes under their labels.
+    sharded = check_sharded_shapes(dev)
+    results['flash_fwd']['ulysses'] = sharded['flash_fwd']['ulysses']
+    for name in ('flash_bwd_dq', 'flash_bwd_dkv'):
+        results[name] = dict(sharded[name]['ring_hop_full'],
+                             training_shape=results[name],
+                             ring_hop_causal=sharded[name]['ring_hop_causal'],
+                             ulysses=sharded[name]['ulysses'])
     for name, r in results.items():
         at = (f' at the slice tick (lengths {SLICE_TICK})'
-              if name.startswith('paged') else '')
+              if name.startswith('paged') else
+              ' at the ring hop (b 1, 32/8, 2048 x 2048, non-causal)'
+              if name.startswith('flash_bwd') else '')
         log(f'  {name}{at}: {kernel_summary(r)}')
     log(f'  flash_fwd at the 512-token serving chunk: '
         f'{kernel_summary(results["flash_fwd"]["serving_chunk"])}')
@@ -3590,6 +3978,9 @@ def main() -> int:
         raise AssertionError(f'training resume: launches {launched}, '
                              f'expected {want} (10 steps at depth 1)')
     log_training_resume(resume, launched)
+    shard_paths, shard_report = sharded_training(dev, counters)
+    paths.update(shard_paths)
+    log_sharded(shard_report)
     loss, (rel, name) = train_reference_check(dev)
     log(f'train reference: depth-1 f32 llama3-8b loss GPU '
         f'{loss["cuda"]:.6f} CPU {loss["cpu"]:.6f}; largest gradient '
@@ -3616,8 +4007,8 @@ def main() -> int:
     main_path = {'paged_attention': 'slice',
                  'paged_attention_int8': 'slice (int8 pool)',
                  'flash_fwd': 'slice',
-                 'flash_bwd_dq': 'training resume',
-                 'flash_bwd_dkv': 'training resume'}
+                 'flash_bwd_dq': 'sharded training',
+                 'flash_bwd_dkv': 'sharded training'}
     kernels = [dict(name=name, route='cuda', source=sources[name],
                     replaces=replaces[name],
                     launches=paths[main_path[name]][name],

@@ -781,9 +781,9 @@ struct Args {
 template <typename T, int D>
 int launch_dq(const Args& a) {
   const size_t smem = dq_smem_bytes<D>();
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t attr = hopper::max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_bwd_dq_kernel<T, D>),
+      (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(a.b * a.h, (a.q_len + kDqBQ - 1) / kDqBQ);
   flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
@@ -798,9 +798,9 @@ int launch_dq(const Args& a) {
 template <int D>
 int launch_dq_wgmma(const Args& a) {
   constexpr size_t smem = DqWgTiles<D>::kSmem;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_wgmma_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t attr = hopper::max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_bwd_dq_wgmma_kernel<D>),
+      (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap tq, tdo, tk, tv;
   int err = hopper::make_map(&tq, a.q, a.b * a.h, a.q_len, D, kWgBQ);
@@ -822,9 +822,9 @@ int launch_dq_wgmma(const Args& a) {
 template <int D>
 int launch_dkv_wgmma(const Args& a) {
   constexpr size_t smem = DkvWgTiles<D>::kSmem;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_wgmma_kernel<D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t attr = hopper::max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_bwd_dkv_wgmma_kernel<D>),
+      (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap tq, tdo, tk, tv;
   int err = hopper::make_map(&tq, a.q, a.b * a.h, a.q_len, D, kWgBQ);
@@ -847,9 +847,9 @@ int launch_dkv_wgmma(const Args& a) {
 template <typename T, int D>
 int launch_dkv(const Args& a) {
   const size_t smem = dkv_smem_bytes<D>();
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t attr = hopper::max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_bwd_dkv_kernel<T, D>),
+      (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   constexpr int BK = DkvTile<D>::BK;
   const dim3 grid(a.b * a.h_kv, (a.k_len + BK - 1) / BK);

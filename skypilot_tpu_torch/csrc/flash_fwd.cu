@@ -267,8 +267,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  void* lse, int b, int h, int h_kv, int q_len, int k_len,
                  float sm_scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = FwdTiles<D>::kSmem;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const cudaError_t attr = hopper::max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_fwd_wgmma_kernel<D>),
       (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   CUtensorMap tq, tk, tv;
@@ -421,8 +421,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
                void* lse, int b, int h, int h_kv, int q_len, int k_len,
                float sm_scale, int causal, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const cudaError_t attr = hopper::max_dynamic_smem(
+      reinterpret_cast<const void*>(flash_fwd_kernel<D>),
       (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(b * h, (q_len + kBQ - 1) / kBQ);

@@ -27,9 +27,32 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <set>
+#include <utility>
+
 namespace hopper {
 
 // ------------------------------------------------------------ host side
+
+// Raise `kernel`'s dynamic shared memory limit to `bytes`.
+// cudaFuncSetAttribute acts on the calling thread's current device, so
+// this runs once per (kernel, device): a mesh whose positions lie on
+// several cards launches each kernel on each of them.
+inline cudaError_t max_dynamic_smem(const void* kernel, int bytes) {
+  static std::mutex mu;
+  static std::set<std::pair<const void*, int>> done;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  if (done.count({kernel, dev})) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) done.insert({kernel, dev});
+  return err;
+}
 
 typedef CUresult (*EncodeTiledFn)(
     CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,

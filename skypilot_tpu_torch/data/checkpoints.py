@@ -31,7 +31,11 @@ The training half (the reference's checkpoint contract):
   (`mu/<path>`, `nu/<path>`, f32) and, in its metadata, the optimizer's
   step count and the TrainState's step.  12 bytes a parameter.
 - `restore_or_init(state, directory)` -> (state, saved step + 1), or
-  (state, 0) without a checkpoint.  A step that holds params only (an
+  (state, 0) without a checkpoint; `restore_sharded(directory,
+  abstract, shardings)` restores onto another mesh's layout.  A
+  sharded state writes the same files as an unsharded one (whole
+  leaves gathered to the host), so either kind restores onto any
+  mesh.  A step that holds params only (an
   import, a serving checkpoint) is refused for resume: a finetune
   starts from it with `--init-from` (`train.load_pretrained_params`).
 - `AsyncCheckpointManager` takes the snapshot (host copies) on the
@@ -323,19 +327,11 @@ def step_specs(directory: str, step: int) -> Dict[str, Tuple[str, Tuple[
         reader.close()
 
 
-def restore_or_init(state: Any, directory: Optional[str] = None
-                    ) -> Tuple[Any, int]:
-    """(state, start_step): the newest training step under `directory`
-    (default `checkpoint_dir()`) restored into `state` in place (every
-    parameter, both moments, the optimizer's count and the step), and
-    start_step = saved step + 1; (state, 0) without a checkpoint.  The
-    auto-resume convention: a relaunched task calls this and continues
-    where the evicted run left off."""
+def _load_step(state: Any, directory: str, step: int) -> Any:
+    """Training step `step` under `directory` put into `state` in place
+    (`train.load_train_step`: whole leaves read on the host, each
+    parameter or block given its slice)."""
     from skypilot_tpu_torch.models import train as train_lib  # pylint: disable=import-outside-toplevel
-    directory = directory or checkpoint_dir()
-    step = latest_step(directory)
-    if step is None:
-        return state, 0
     params_path = _step_file(directory, step)
     opt_path = os.path.join(directory, str(step), OPTIMIZER_FILE)
     if not os.path.isfile(opt_path):
@@ -358,7 +354,46 @@ def restore_or_init(state: Any, directory: Optional[str] = None
     finally:
         params.close()
         moments.close()
+    return state
+
+
+def restore_or_init(state: Any, directory: Optional[str] = None
+                    ) -> Tuple[Any, int]:
+    """(state, start_step): the newest training step under `directory`
+    (default `checkpoint_dir()`) restored into `state` in place (every
+    parameter, both moments, the optimizer's count and the step; a
+    sharded state's blocks each get their slices), and start_step =
+    saved step + 1; (state, 0) without a checkpoint.  The auto-resume
+    convention: a relaunched task calls this and continues where the
+    evicted run left off."""
+    directory = directory or checkpoint_dir()
+    step = latest_step(directory)
+    if step is None:
+        return state, 0
+    _load_step(state, directory, step)
     logger.info('Restored training step %d of %s', step, directory)
+    return state, step + 1
+
+
+def restore_sharded(directory: str, abstract_state: Any,
+                    shardings: Dict[str, Any]) -> Tuple[Optional[Any], int]:
+    """(state, start_step): the newest training step under `directory`
+    put onto `shardings`, which may lie on another mesh (smaller or
+    larger) than the one that saved it (the counterpart of the
+    reference's orbax restore onto NamedShardings).  `abstract_state`
+    and `shardings` come from `train.abstract_train_state`; the state is
+    materialised with that layout and each block filled from the whole
+    leaves read on the host, so no device holds a full leaf that it
+    does not keep.  (None, 0) when the directory holds no checkpoint."""
+    from skypilot_tpu_torch.models import train as train_lib  # pylint: disable=import-outside-toplevel
+    step = latest_step(directory)
+    if step is None:
+        return None, 0
+    state = _load_step(train_lib.materialize(abstract_state, shardings),
+                       directory, step)
+    mesh = next(iter(shardings.values())).mesh
+    logger.info('Sharded-restored step %d of %s onto %d device(s)', step,
+                directory, len(mesh.distinct_devices()))
     return state, step + 1
 
 

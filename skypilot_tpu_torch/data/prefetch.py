@@ -24,6 +24,13 @@ Guarantees (tests/test_torch_data.py, after tests/unit/test_prefetch.py):
   next(), and keeps re-raising (no deadlock on a drained queue);
 - exhaustion is repeatable (StopIteration on every later next()).
 
+With `sharding=` (parallel/sharding.py `token_batch_sharding(mesh)`),
+each array's rows are split over the batch ranks as the reference's
+placement splits them (batch only: 'data' x 'fsdp') and each rank's
+rows are copied to its device, one side stream per distinct device;
+the batch comes out as {name: [one tensor per batch rank]}, which
+`train.train_step` takes on that mesh.
+
 The time the consumer blocks on an empty queue goes to
 `callbacks.record_data_wait` (the summary's `prefetch_wait_seconds`
 and `skytpu_train_data_wait_seconds_total`).
@@ -33,7 +40,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Any, Dict, Iterator, Union
+from typing import Any, Dict, Iterator, List, Optional, Union
 
 import torch
 
@@ -49,31 +56,62 @@ class DevicePrefetcher:
 
     def __init__(self, iterator: Iterator[Any],
                  device: Union[str, torch.device] = 'cuda',
-                 depth: int = 2):
+                 depth: int = 2, sharding: Optional[Any] = None):
         if depth < 1:
             raise ValueError(f'depth must be >= 1, got {depth}')
-        self.device = resolve_device(device)
+        self._sharding = sharding
+        if sharding is None:
+            self._targets = [resolve_device(device)]
+        else:
+            # The batch ranks' devices, in block order.
+            self._targets = [
+                resolve_device(sharding.mesh.devices[pos])
+                for pos in sharding.owners(2).values()]
+        self.device = self._targets[0]
         self._iterator = iterator
         self._queue: 'queue.Queue[Any]' = queue.Queue()
         self._slots = threading.Semaphore(depth)
         self._stop = threading.Event()
         self._done = object()
         self._error = None
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == 'cuda' else None)
+        self._streams = {dev: torch.cuda.Stream(dev)
+                         for dev in dict.fromkeys(self._targets)
+                         if dev.type == 'cuda'}
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name='skytpu-prefetch')
         self._thread.start()
 
+    def _rows(self, t: torch.Tensor) -> List[torch.Tensor]:
+        n = len(self._targets)
+        if t.shape[0] % n:
+            raise ValueError(f'batch of {t.shape[0]} rows does not split '
+                             f'over {n} batch ranks')
+        return list(t.split(t.shape[0] // n))
+
     def _put_on_device(self, batch: Dict[str, Any]):
         batch = {k: torch.as_tensor(v) for k, v in batch.items()}
-        if self._stream is None:
-            return batch, None
-        with torch.cuda.stream(self._stream):
-            staged = {k: t.pin_memory().to(self.device, non_blocking=True)
-                      for k, t in batch.items()}
-            ready = torch.cuda.Event()
-            ready.record(self._stream)
+        if self._sharding is None:
+            pieces = {k: [t] for k, t in batch.items()}
+        else:
+            pieces = {k: self._rows(t) for k, t in batch.items()}
+        if not self._streams:
+            staged = {k: [p.to(dev) for p, dev in zip(ps, self._targets)]
+                      for k, ps in pieces.items()}
+            ready = []
+        else:
+            staged = {k: [] for k in pieces}
+            for k, ps in pieces.items():
+                for p, dev in zip(ps, self._targets):
+                    with torch.cuda.stream(self._streams[dev]):
+                        staged[k].append(p.pin_memory().to(
+                            dev, non_blocking=True))
+            ready = []
+            for dev, stream in self._streams.items():
+                event = torch.cuda.Event()
+                event.record(stream)
+                ready.append((dev, event))
+        if self._sharding is None:
+            staged = {k: ps[0] for k, ps in staged.items()}
         return staged, ready
 
     def _run(self) -> None:
@@ -110,11 +148,13 @@ class DevicePrefetcher:
             raise StopIteration
         self._slots.release()
         batch, ready = item
-        if ready is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(ready)
-            for t in batch.values():
-                t.record_stream(stream)
+        for dev, event in ready:
+            stream = torch.cuda.current_stream(dev)
+            stream.wait_event(event)
+            for value in batch.values():
+                for t in (value if isinstance(value, list) else [value]):
+                    if t.device == dev:
+                        t.record_stream(stream)
         return batch
 
     def close(self) -> None:
@@ -133,7 +173,10 @@ class DevicePrefetcher:
 
 def prefetch_to_device(iterator: Iterator[Any], *,
                        device: Union[str, torch.device] = 'cuda',
-                       depth: int = 2) -> DevicePrefetcher:
+                       depth: int = 2,
+                       sharding: Optional[Any] = None) -> DevicePrefetcher:
     """`for batch in prefetch_to_device(src): ...` with step N+1's copy
-    overlapping step N's compute."""
-    return DevicePrefetcher(iterator, device=device, depth=depth)
+    overlapping step N's compute; with `sharding`, each batch rank's
+    rows on its device (module docstring)."""
+    return DevicePrefetcher(iterator, device=device, depth=depth,
+                            sharding=sharding)

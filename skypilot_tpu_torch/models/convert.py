@@ -252,3 +252,68 @@ def serving_leaf(cfg: ModelConfig, quantize: bool = False
         return t.to(dtype)
 
     return fn
+
+
+# ------------------------------------------------------- training states
+
+
+def _flat_port_leaves(cfg: ModelConfig, tree: Dict[str, Any]
+                      ) -> Dict[str, np.ndarray]:
+    """A reference params-shaped tree (either layer layout) as {port
+    tree path joined with '/': f32 numpy leaf}, layers unstacked."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                walk(value, prefix + (key,))
+            else:
+                flat['/'.join(prefix + (key,))] = np.asarray(
+                    _leaf(value, '/'.join(prefix + (key,))), np.float32)
+    for i, layer in enumerate(_layer_trees(tree, cfg)):
+        walk(layer, (f'layer_{i}',))
+    walk({k: v for k, v in tree.items()
+          if k != 'layers' and not k.startswith('layer_')}, ())
+    return flat
+
+
+class _ArrayReader:
+    """The part of a safetensors reader that `train.load_train_step`
+    reads, over numpy arrays in memory."""
+
+    def __init__(self, arrays: Dict[str, np.ndarray], path: str) -> None:
+        self._arrays = arrays
+        self.path = path
+
+    def keys(self):
+        return list(self._arrays)
+
+    def dtype(self, name: str) -> str:
+        del name    # every leaf is f32 (`_flat_port_leaves`)
+        return 'F32'
+
+    def shape(self, name: str) -> Tuple[int, ...]:
+        return tuple(self._arrays[name].shape)
+
+    def get_tensor(self, name: str) -> torch.Tensor:
+        return torch.from_numpy(np.array(self._arrays[name]))
+
+
+def load_reference_train_state(state, params: Dict[str, Any],
+                               mu: Dict[str, Any], nu: Dict[str, Any], *,
+                               count: int, step: int):
+    """Put the reference's TrainState into the port's `state` (sharded
+    or not) in place: `params` and the AdamW moments `mu` / `nu` as
+    params-shaped trees of numpy arrays (`np.asarray` of the global jax
+    arrays, partitioning boxes removed), the optimizer's `count` and
+    the TrainState's `step`; through `train.load_train_step`, as a
+    saved step is restored."""
+    from skypilot_tpu_torch.models import train as train_lib  # pylint: disable=import-outside-toplevel
+    cfg = state.model.cfg
+    moments = {f'mu/{k}': v for k, v in _flat_port_leaves(cfg, mu).items()}
+    moments.update({f'nu/{k}': v
+                    for k, v in _flat_port_leaves(cfg, nu).items()})
+    return train_lib.load_train_step(
+        state, _ArrayReader(_flat_port_leaves(cfg, params), 'params'),
+        _ArrayReader(moments, 'moments'), count=int(count),
+        train_step=int(step))

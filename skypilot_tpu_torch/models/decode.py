@@ -239,13 +239,9 @@ def _layer_forward(x, layer, cfg: ModelConfig, positions, k_cache, v_cache,
     return _attn_out_and_mlp(x, out, layer, cfg, blocked)
 
 
-def _attn_out_and_mlp(x, out, layer, cfg: ModelConfig,
-                      blocked: bool = False, capacity: bool = False):
-    """The tail of a layer, shared with the training forward
-    (`DecoderLayer.forward`, which passes `capacity`: `_moe_mlp`):
-    o_proj of the attention output [b, h, s, hd] into the residual rows
-    x [M, d] (rows past b * s are bucket padding and get zeros), then
-    the MLP block; `blocked` for a decode tick (`_by_blocks`)."""
+def _attn_out(x, out, layer, blocked: bool = False):
+    """o_proj of the attention output [b, h, s, hd] into the residual
+    rows x [M, d] (rows past b * s are bucket padding and get zeros)."""
     b, hq, s, hd = out.shape
     # The masked path's attention output is f32: cast to x's dtype.
     rows = out.permute(0, 2, 1, 3).reshape(b * s, hq * hd).to(x.dtype)
@@ -254,7 +250,17 @@ def _attn_out_and_mlp(x, out, layer, cfg: ModelConfig,
         padded[:b * s] = rows
         rows = padded
     w = layer.attn.o_proj.matrix(x.dtype)
-    x = x + _by_blocks(lambda r: r @ w, rows, blocked)
+    return x + _by_blocks(lambda r: r @ w, rows, blocked)
+
+
+def _attn_out_and_mlp(x, out, layer, cfg: ModelConfig,
+                      blocked: bool = False, capacity: bool = False):
+    """The tail of a layer, shared with the training forward
+    (`DecoderLayer.forward`, which passes `capacity`: `_moe_mlp`):
+    `_attn_out`, then the MLP block; `blocked` for a decode tick
+    (`_by_blocks`)."""
+    b, _, s, _ = out.shape
+    x = _attn_out(x, out, layer, blocked)
     if cfg.n_experts > 0:
         # The MoE block sees the b * s real rows only, in one call: a pad
         # row would join the capacity dispatch (N, the capacity and the

@@ -1,13 +1,30 @@
-"""Training step for the model family on one GPU (mirrors
+"""Training step for the model family (mirrors
 `skypilot_tpu/models/train.py`).
 
 The reference jit-compiles a sharded step over an optax chain; the port
-runs eagerly on one device: `create_train_state` builds a trainable
-`Transformer` (f32 master parameters, cfg.dtype compute) and an AdamW
-optimizer, and `train_step` takes one optimizer step.  Unlike the
-reference's pure step, `train_step` UPDATES THE STATE IN PLACE (the
-parameters, the optimizer's moments, the step count) and returns the
-same object, so the f32 state never exists twice on the card.
+runs eagerly: `create_train_state` builds a trainable `Transformer` (f32
+master parameters, cfg.dtype compute) and an AdamW optimizer, and
+`train_step` takes one optimizer step.  Unlike the reference's pure
+step, `train_step` UPDATES THE STATE IN PLACE (the parameters, the
+optimizer's moments, the step count) and returns the same object, so
+the f32 state never exists twice on the card.
+
+Meshes (`create_train_state(mesh=)`, parallel/mesh.py): every leaf and
+both AdamW moments are split over the mesh axes that the reference's
+logical-axis rules give its dims (`transformer.ShardedParams`; today
+'embed' over 'fsdp', replicated over 'data' and 'sequence').  Each
+distinct block is stored once, on the device of the first mesh position
+that holds it, and positions that hold it replicated read that copy.
+The step (`make_train_step`, the counterpart of `jit_train_step`) runs
+each batch rank's rows on its own devices (`transformer.mesh_forward`),
+sums the NLL of all ranks over the global denominator and
+backpropagates once: autograd turns each layer's weight gather into a
+sum of the gradient slices into each block's `.grad` (the
+reduce-scatter, and over 'data' the all-reduce, that GSPMD inserts).
+The clip takes the global norm over the blocks (each element once) and
+AdamW steps each block elementwise.  A mesh of one position is the
+unsharded state on its device.  `abstract_train_state` builds the same
+layout on the 'meta' device, for `data.checkpoints.restore_sharded`.
 
 Attention's gradient runs the flash backward kernels (ops/attention.py)
 on CUDA tensors; the loss is `loss_fn` or, with `fused_ce`, the fused
@@ -20,8 +37,8 @@ count, the step) for data/checkpoints.py to write, `load_train_step`
 puts a saved step back in place, and `load_pretrained_params` starts a
 finetune from a params-only checkpoint (an import) with fresh moments.
 
-Meshes, `jit_train_step` and `abstract_train_state` come with a later
-slice of the port.
+A sharded state reads and writes the same step files (whole leaves,
+gathered to the host): either kind restores onto any mesh.
 """
 from __future__ import annotations
 
@@ -36,8 +53,11 @@ from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import losses
 from skypilot_tpu_torch.models.configs import ModelConfig
+from skypilot_tpu_torch.models import transformer as transformer_lib
+from skypilot_tpu_torch.models.transformer import ShardedParams
 from skypilot_tpu_torch.models.transformer import Transformer
 from skypilot_tpu_torch.models.transformer import init_params
+from skypilot_tpu_torch.parallel.mesh import Mesh
 from skypilot_tpu_torch.utils import safetensors_io
 
 
@@ -65,11 +85,21 @@ class TrainConfig:
 class TrainState:
     """step, the trainable model and its optimizer (updated in place by
     `train_step`), and the global-norm clip that precedes the optimizer,
-    fixed when the state is made as the reference's chain fixes it."""
+    fixed when the state is made as the reference's chain fixes it.
+    Over a mesh of several positions, `shards` holds the parameters'
+    blocks (the optimizer's tensors) and `model` lives on 'meta'."""
     step: int
     model: Transformer
     optimizer: torch.optim.Optimizer
     grad_clip: float
+    shards: Optional[ShardedParams] = None
+
+    def parameters(self) -> List[torch.Tensor]:
+        """The tensors the optimizer steps: the model's parameters, or
+        every block over a mesh."""
+        if self.shards is not None:
+            return self.shards.parameters()
+        return list(self.model.parameters())
 
 
 @torch.no_grad()
@@ -80,11 +110,13 @@ def clip_by_global_norm_(grads: List[torch.Tensor],
     every gradient is scaled by max_norm / g_norm when g_norm >=
     max_norm (no epsilon, unlike torch's clip_grad_norm_).  Returns the
     pre-clip g_norm, a 0-dim f32 tensor on the device (no host sync)."""
+    dev = grads[0].device
     g_norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.to(torch.float32)) for g in grads]))
+        [torch.linalg.vector_norm(g.to(torch.float32)).to(dev)
+         for g in grads]))
     scale = torch.where(g_norm < max_norm, 1.0, max_norm / g_norm)
     for g in grads:
-        g.mul_(scale.to(g.dtype))
+        g.mul_(scale.to(g.device, g.dtype))
     return g_norm
 
 
@@ -117,21 +149,76 @@ def loss_fn(logits, targets, mask=None, reduction: str = 'mean'):
 
 def create_train_state(cfg: ModelConfig,
                        tcfg: Optional[TrainConfig] = None, *,
+                       mesh: Optional[Mesh] = None,
                        device: Union[str, torch.device] = 'cuda',
-                       seed: int = 0,
-                       mesh=None) -> Tuple[TrainState, None]:
-    """-> (state, None): seeded trainable parameters on `device` (the
-    None stands where the reference returns its shardings)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            'create_train_state(mesh=...): sharded training over several '
-            'GPUs comes with a later slice of the port')
+                       seed: int = 0) -> Tuple[TrainState, Optional[dict]]:
+    """-> (state, shardings): seeded trainable parameters on `device`,
+    and None where the reference returns its shardings; or over `mesh`
+    (its devices; `device` is not used), with {parameter name:
+    sharding.Placement}.  The blocks gathered are bit-equal to the
+    mesh=None state of the same seed on the mesh's first device, and no
+    device ever holds more than one full leaf at a time."""
     tcfg = tcfg or TrainConfig()
-    model = init_params(cfg, seed=seed, device=resolve_device(device),
-                        trainable=True)
+    if mesh is None or mesh.size == 1:
+        dev = resolve_device(device if mesh is None else mesh.devices[0])
+        model = init_params(cfg, seed=seed, device=dev, trainable=True)
+        shardings = (None if mesh is None else
+                     transformer_lib.placements(model, mesh))
+        return TrainState(step=0, model=model,
+                          optimizer=make_optimizer(model.parameters(), tcfg),
+                          grad_clip=tcfg.grad_clip), shardings
+    transformer_lib.check_mesh(mesh)
+    for dev in mesh.distinct_devices():
+        resolve_device(dev)
+    model = Transformer(cfg, device='meta', trainable=True)
+    shards = ShardedParams.init(model, mesh, seed)
     return TrainState(step=0, model=model,
-                      optimizer=make_optimizer(model.parameters(), tcfg),
-                      grad_clip=tcfg.grad_clip), None
+                      optimizer=make_optimizer(shards.parameters(), tcfg),
+                      grad_clip=tcfg.grad_clip,
+                      shards=shards), dict(shards.placements)
+
+
+def abstract_train_state(cfg: ModelConfig,
+                         tcfg: Optional[TrainConfig] = None, *,
+                         mesh: Mesh) -> Tuple[TrainState, dict]:
+    """-> (abstract state, shardings) on `mesh` without materialising
+    anything: the state's tensors live on the 'meta' device, laid out
+    as `create_train_state(mesh=)` lays them out.  The elastic entry
+    point: `data.checkpoints.restore_sharded` puts a checkpoint onto
+    these shardings."""
+    tcfg = tcfg or TrainConfig()
+    transformer_lib.check_mesh(mesh)
+    model = Transformer(cfg, device='meta', trainable=True)
+    shards = ShardedParams.empty(model, mesh, device='meta')
+    return TrainState(step=0, model=model,
+                      optimizer=make_optimizer(shards.parameters(), tcfg),
+                      grad_clip=tcfg.grad_clip,
+                      shards=shards), dict(shards.placements)
+
+
+def materialize(abstract: TrainState, shardings: dict) -> TrainState:
+    """An uninitialised state with the layout of `shardings` (from
+    `abstract_train_state` or `create_train_state`), with `abstract`'s
+    config and optimizer settings: the whole model on the device of a
+    one-position mesh, else blocks on their owners."""
+    mesh = next(iter(shardings.values())).mesh
+    cfg = abstract.model.cfg
+    opt = abstract.optimizer
+    if mesh.size == 1:
+        model = Transformer(cfg, device=resolve_device(mesh.devices[0]),
+                            trainable=True)
+        params, shards = list(model.parameters()), None
+    else:
+        for dev in mesh.distinct_devices():
+            resolve_device(dev)
+        model = Transformer(cfg, device='meta', trainable=True)
+        shards = ShardedParams.empty(model, mesh)
+        params = shards.parameters()
+    settings = {k: opt.defaults[k] for k in ('lr', 'betas', 'eps',
+                                               'weight_decay')}
+    return TrainState(step=0, model=model,
+                      optimizer=torch.optim.AdamW(params, **settings),
+                      grad_clip=abstract.grad_clip, shards=shards)
 
 
 def _microbatch_nll(model, inputs, targets, mask, tcfg: TrainConfig):
@@ -153,6 +240,24 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     accumulates summed-NLL gradients over microbatches, normalised by
     the full batch's denominator.  Metrics: 'loss' and 'grad_norm'
     (before clipping), 0-dim tensors on the device."""
+    loss = value_and_grad(state, batch, tcfg)
+    grads = [p.grad for p in state.parameters() if p.grad is not None]
+    grad_norm = clip_by_global_norm_(grads, state.grad_clip)
+    state.optimizer.step()
+    state.step += 1
+    return state, {'loss': loss.detach(), 'grad_norm': grad_norm}
+
+
+def value_and_grad(state: TrainState, batch: Dict[str, torch.Tensor],
+                   tcfg: Optional[TrainConfig] = None) -> torch.Tensor:
+    """`train_step` without the clip and the update: the step's loss,
+    with the gradient of every parameter (over a mesh, every block) left
+    in its `.grad`, zeroed first."""
+    if state.shards is not None:
+        return _mesh_value_and_grad(state, batch, tcfg)
+    # A one-position mesh's batch: its one shard.
+    batch = {k: v[0] if isinstance(v, (list, tuple)) else v
+             for k, v in batch.items()}
     if 'tokens' in batch:
         inputs = batch['tokens'][:, :-1]
         targets = batch['tokens'][:, 1:]
@@ -185,29 +290,152 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
             part.backward()
             nll = nll + part.detach()
         loss = nll / denom
-        with torch.no_grad():
-            for p in model.parameters():
-                p.grad.div_(denom.to(p.grad.dtype))
-
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    grad_norm = clip_by_global_norm_(grads, state.grad_clip)
-    state.optimizer.step()
-    state.step += 1
-    return state, {'loss': loss.detach(), 'grad_norm': grad_norm}
+        _divide_grads(state, denom)
+    return loss
 
 
-def peak_memory_bytes(device: Union[str, torch.device] = 'cuda'
+def _rank_rows(x, geo, mesh: Mesh) -> List[torch.Tensor]:
+    """A batch array as one row block per batch rank, each on the rank's
+    first device (`token_batch_sharding`: rows split over 'data' x
+    'fsdp'); a list is taken as those blocks already."""
+    devs = [mesh.devices[rank[0]] for rank in geo.ranks]
+    if isinstance(x, (list, tuple)):
+        if len(x) != len(devs):
+            raise ValueError(f'{len(x)} batch shards for {len(devs)} batch '
+                             'ranks')
+        return [t.to(dev) for t, dev in zip(x, devs)]
+    if x.shape[0] % len(devs):
+        raise ValueError(f'batch size {x.shape[0]} not divisible by the '
+                         f'{len(devs)} batch ranks of the mesh')
+    n = x.shape[0] // len(devs)
+    return [x[i * n:(i + 1) * n].to(dev) for i, dev in enumerate(devs)]
+
+
+def _position_cols(xs: List[torch.Tensor], geo, mesh: Mesh
+                   ) -> List[torch.Tensor]:
+    """Per-rank [b_i, s] blocks -> each mesh position's columns (its
+    sequence rank's chunk), on its device, batch rank major."""
+    chunk = xs[0].shape[1] // geo.sp
+    return [x[:, r * chunk:(r + 1) * chunk].to(mesh.devices[pos])
+            for x, rank in zip(xs, geo.ranks)
+            for r, pos in enumerate(rank)]
+
+
+def _sum_to(parts: List[torch.Tensor], device) -> torch.Tensor:
+    total = parts[0].to(device)
+    for part in parts[1:]:
+        total = total + part.to(device)
+    return total
+
+
+def _mesh_value_and_grad(state: TrainState, batch,
+                         tcfg: Optional[TrainConfig]) -> torch.Tensor:
+    """`value_and_grad` over a mesh (module docstring): batch arrays are
+    global tensors or one row block per batch rank (`prefetch_to_device
+    (sharding=)`); accum_steps microbatches are the global batch's
+    consecutive row ranges, each split over the batch ranks, as the
+    reference's reshape of the global batch cuts them."""
+    shards = state.shards
+    mesh = shards.mesh
+    geo = transformer_lib.mesh_geometry(mesh)
+    dev0 = mesh.devices[0]
+    if 'tokens' in batch:
+        toks = _rank_rows(batch['tokens'], geo, mesh)
+        arrays = {'inputs': [t[:, :-1] for t in toks],
+                  'targets': [t[:, 1:] for t in toks]}
+    else:
+        arrays = {k: _rank_rows(batch[k], geo, mesh)
+                  for k in ('inputs', 'targets')}
+    if batch.get('mask') is not None:
+        arrays['mask'] = _rank_rows(batch['mask'], geo, mesh)
+    masks = arrays.get('mask')
+    if masks is None:
+        denom = torch.tensor(float(sum(t.numel() for t in arrays['targets'])),
+                             device=dev0)
+    else:
+        denom = torch.clamp(_sum_to([m.sum() for m in masks], dev0),
+                            min=1).to(torch.float32)
+    state.optimizer.zero_grad(set_to_none=True)
+
+    def nll(part) -> torch.Tensor:
+        """Summed NLL of one microbatch ({name: per-rank blocks})."""
+        targets = _position_cols(part['targets'], geo, mesh)
+        mask = (None if 'mask' not in part else
+                _position_cols(part['mask'], geo, mesh))
+        fused = tcfg is not None and tcfg.fused_ce
+        outs = state.model(part['inputs'], return_hidden=fused,
+                           shards=shards)
+        sums = []
+        for i, (out, t) in enumerate(zip(outs, targets)):
+            m = None if mask is None else mask[i]
+            if fused:
+                sums.append(losses.fused_linear_cross_entropy(
+                    out[0], out[1], t, m, vocab_chunk=tcfg.vocab_chunk,
+                    reduction='sum'))
+            else:
+                sums.append(loss_fn(out, t, m, reduction='sum'))
+        return _sum_to(sums, dev0)
+
+    accum = 1 if tcfg is None else max(tcfg.accum_steps, 1)
+    if accum <= 1:
+        total = nll(arrays)
+        loss = total / denom
+        if tcfg is None or not tcfg.fused_ce:
+            loss.backward()
+        else:
+            total.backward()
+            _divide_grads(state, denom)
+    else:
+        whole = {k: torch.cat([t.to(dev0) for t in v])
+                 for k, v in arrays.items()}
+        b = whole['inputs'].shape[0]
+        if b % accum:
+            raise ValueError(f'batch size {b} not divisible by accum_steps '
+                             f'{accum}')
+        mb = b // accum
+        total = torch.zeros((), device=dev0)
+        for i in range(accum):
+            part = {k: _rank_rows(v[i * mb:(i + 1) * mb], geo, mesh)
+                    for k, v in whole.items()}
+            piece = nll(part)
+            piece.backward()
+            total = total + piece.detach()
+        loss = total / denom
+        _divide_grads(state, denom)
+    return loss
+
+
+@torch.no_grad()
+def _divide_grads(state: TrainState, denom: torch.Tensor) -> None:
+    for p in state.parameters():
+        if p.grad is not None:
+            p.grad.div_(denom.to(p.grad.device, p.grad.dtype))
+
+
+def make_train_step(tcfg: Optional[TrainConfig] = None):
+    """The counterpart of the reference's `jit_train_step(shardings,
+    batch_sharding, tcfg)`: fn(state, batch) -> (state, metrics) with
+    tcfg bound.  The placement travels with the state (its blocks) and
+    the batch (global tensors, or `prefetch_to_device(sharding=)`'s row
+    blocks), so nothing is compiled or bound to a layout here."""
+    return lambda state, batch: train_step(state, batch, tcfg)
+
+
+def peak_memory_bytes(device: Union[str, torch.device, Mesh] = 'cuda'
                       ) -> Optional[int]:
     """Peak bytes allocated on a CUDA device since the last
     torch.cuda.reset_peak_memory_stats (the port's counterpart of the
     reference's compiled_peak_memory, measured rather than compiled),
     fed to the training telemetry (callbacks.record_peak_memory:
-    skytpu_train_peak_memory_bytes and summary.json); None for the CPU,
-    which keeps no such count."""
-    dev = torch.device(device)
-    if dev.type != 'cuda':
+    skytpu_train_peak_memory_bytes and summary.json); for a mesh, the
+    largest peak over its distinct devices; None for the CPU, which
+    keeps no such count."""
+    devices = (device.distinct_devices() if isinstance(device, Mesh)
+               else [torch.device(device)])
+    cuda = [d for d in devices if d.type == 'cuda']
+    if not cuda:
         return None
-    peak = int(torch.cuda.max_memory_allocated(dev))
+    peak = max(int(torch.cuda.max_memory_allocated(d)) for d in cuda)
     callbacks.record_peak_memory(peak)
     return peak
 
@@ -234,29 +462,50 @@ def param_paths(model: Transformer) -> List[Tuple[Tuple[str, ...],
     return pairs
 
 
-def _host_copy(t: torch.Tensor) -> torch.Tensor:
-    return t.detach().to('cpu', copy=True)
+def _pieces(state: TrainState) -> List[Tuple[Tuple[str, ...], List[Tuple[
+        torch.Tensor, Tuple[slice, ...]]], torch.Size, torch.dtype]]:
+    """(tree path, [(tensor, its slice of the full leaf)], full shape,
+    dtype) of every leaf, in `param_paths`' order: a parameter as one
+    piece, or over a mesh its blocks."""
+    names = {id(p): name for name, p in state.model.named_parameters()}
+    out = []
+    for path, p in param_paths(state.model):
+        if state.shards is None:
+            pieces = [(p, (slice(None),) * p.dim())]
+        else:
+            pieces = state.shards.pieces(names[id(p)])
+        out.append((path, pieces, p.shape, p.dtype))
+    return out
+
+
+def _whole(pieces, shape, dtype, fn) -> torch.Tensor:
+    """A full leaf on the host from fn(piece tensor) of every piece."""
+    full = torch.empty(shape, dtype=dtype)
+    for t, idx in pieces:
+        full[idx] = fn(t).detach().to('cpu')
+    return full
 
 
 @torch.no_grad()
 def snapshot(state: TrainState) -> checkpoints.TrainSnapshot:
     """Host copies of the state's leaves, all taken before this returns
     (`train_step` updates the state in place, so a snapshot that
-    aliased it would change under a writer thread).  A parameter the
-    optimizer has not stepped yet has zero moments, as AdamW's lazy
-    state starts."""
+    aliased it would change under a writer thread); over a mesh each
+    leaf is gathered whole, so a sharded and an unsharded run of the
+    same state write the same bytes.  A parameter the optimizer has not
+    stepped yet has zero moments, as AdamW's lazy state starts."""
     params, mu, nu, counts = [], [], [], set()
-    for path, p in param_paths(state.model):
-        params.append((path, _host_copy(p)))
-        st = state.optimizer.state.get(p)
-        if st:
-            mu.append((path, _host_copy(st['exp_avg'])))
-            nu.append((path, _host_copy(st['exp_avg_sq'])))
-            counts.add(int(st['step']))
-        else:
-            mu.append((path, torch.zeros(p.shape, dtype=p.dtype)))
-            nu.append((path, torch.zeros(p.shape, dtype=p.dtype)))
-            counts.add(0)
+    for path, pieces, shape, dtype in _pieces(state):
+        params.append((path, _whole(pieces, shape, dtype, lambda t: t)))
+        moments = []
+        for name in ('exp_avg', 'exp_avg_sq'):
+            def moment(t, name=name):
+                st = state.optimizer.state.get(t)
+                counts.add(int(st['step']) if st else 0)
+                return st[name] if st else torch.zeros_like(t)
+            moments.append(_whole(pieces, shape, dtype, moment))
+        mu.append((path, moments[0]))
+        nu.append((path, moments[1]))
     if len(counts) != 1:
         raise ValueError(f'optimizer step counts differ across '
                          f'parameters: {sorted(counts)}')
@@ -270,15 +519,15 @@ def load_train_step(state: TrainState, params, moments, *, count: int,
                     train_step: int) -> TrainState:
     """Put a saved training step back into `state` in place: every
     parameter, AdamW's exp_avg / exp_avg_sq and its step count (exactly:
-    the bias correction of the next step reads it), and state.step.
+    the bias correction of the next step reads it), and state.step;
+    over a mesh each block gets its slice of the whole leaves.
     `params` / `moments` are the step's open safetensors readers; every
     name, dtype and shape is checked before anything is written."""
-    pairs = param_paths(state.model)
+    leaves = _pieces(state)
     want = {}
-    for path, p in pairs:
+    for path, _, shape, dtype in leaves:
         name = '/'.join(path)
-        spec = (safetensors_io.dtype_name(p.dtype),
-                tuple(p.shape))
+        spec = (safetensors_io.dtype_name(dtype), tuple(shape))
         want[(params, name)] = spec
         want[(moments, f'mu/{name}')] = spec
         want[(moments, f'nu/{name}')] = spec
@@ -290,17 +539,21 @@ def load_train_step(state: TrainState, params, moments, *, count: int,
                       if have.get((r, n)) != want.get((r, n)))
         raise ValueError(f'training step does not match this model '
                          f'(wrong model_config?): {diff[:4]}')
-    for path, p in pairs:
+    for path, pieces, _, _ in leaves:
         name = '/'.join(path)
-        p.copy_(params.get_tensor(name))
-        state.optimizer.state[p] = {
-            # make_optimizer's AdamW (neither capturable nor fused) keeps
-            # its step count as a 0-dim tensor of the default dtype on
-            # the host.
-            'step': torch.tensor(float(count)),
-            'exp_avg': moments.get_tensor(f'mu/{name}').to(p.device),
-            'exp_avg_sq': moments.get_tensor(f'nu/{name}').to(p.device),
-        }
+        full = params.get_tensor(name)
+        mu = moments.get_tensor(f'mu/{name}')
+        nu = moments.get_tensor(f'nu/{name}')
+        for t, idx in pieces:
+            t.copy_(full[idx])
+            state.optimizer.state[t] = {
+                # make_optimizer's AdamW (neither capturable nor fused)
+                # keeps its step count as a 0-dim tensor of the default
+                # dtype on the host.
+                'step': torch.tensor(float(count)),
+                'exp_avg': mu[idx].to(t.device, copy=True).contiguous(),
+                'exp_avg_sq': nu[idx].to(t.device, copy=True).contiguous(),
+            }
     state.step = train_step
     return state
 
@@ -310,7 +563,8 @@ def load_pretrained_params(state: TrainState, directory: str) -> TrainState:
     """Start a finetune from a converted checkpoint (import_weights) or
     any params-bearing step of this port's format: each leaf of the
     newest step streams through `restore_params`' leaf_fn straight into
-    the existing f32 master parameter (cast to its dtype), so no second
+    the existing f32 master parameter (cast to its dtype; over a mesh,
+    its slices into the blocks, the leaf read on the host), so no second
     tree exists on the device.  The optimizer's moments stay fresh:
     this is init, not resume.  Either layer layout is read (stacked
     `layers/layer/...` or `layer_{i}`); the leaf count and every shape
@@ -326,17 +580,18 @@ def load_pretrained_params(state: TrainState, directory: str) -> TrainState:
             f'{directory} step {step} holds int8 weights ({int8[0]}, ...): '
             'a finetune starts from float weights; convert the HF source '
             'without quantization')
-    targets = dict(param_paths(state.model))
+    targets = {path: (pieces, shape) for path, pieces, shape, _ in
+               _pieces(state)}
     n_layers = state.model.cfg.n_layers
     stacked = any(n.startswith('layers/layer/') for n in specs)
     expected: Dict[Tuple[str, ...], Tuple[int, ...]] = {}
-    for path, p in targets.items():
+    for path, (_, shape) in targets.items():
         if stacked and path[0].startswith('layer_'):
             if path[0] == 'layer_0':
                 expected[('layers', 'layer') + path[1:]] = (
-                    (n_layers,) + tuple(p.shape))
+                    (n_layers,) + tuple(shape))
         else:
-            expected[path] = tuple(p.shape)
+            expected[path] = tuple(shape)
     if len(specs) != len(expected):
         raise ValueError(
             f'Checkpoint has {len(specs)} arrays; model expects '
@@ -350,14 +605,19 @@ def load_pretrained_params(state: TrainState, directory: str) -> TrainState:
             raise ValueError(f'Shape mismatch: checkpoint {tuple(shape)} '
                              f'vs model {want} ({name})')
 
+    def put(path: Tuple[str, ...], leaf: torch.Tensor) -> None:
+        for t, idx in targets[path][0]:
+            t.copy_(leaf[idx])
+
     def copy_in(path: Tuple[str, ...], leaf: torch.Tensor) -> Any:
         if stacked and path[:2] == ('layers', 'layer'):
             for i in range(n_layers):
-                targets[(f'layer_{i}',) + path[2:]].copy_(leaf[i])
+                put((f'layer_{i}',) + path[2:], leaf[i])
         else:
-            targets[path].copy_(leaf)
+            put(path, leaf)
         return None
 
-    checkpoints.restore_params(directory, device=state.model.device,
-                               leaf_fn=copy_in, step=step)
+    device = 'cpu' if state.shards is not None else state.model.device
+    checkpoints.restore_params(directory, device=device, leaf_fn=copy_in,
+                               step=step)
     return state

@@ -47,7 +47,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import NamedTuple, Optional, Sequence, Union
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -58,6 +58,7 @@ from skypilot_tpu_torch.models import moe as moe_lib
 from skypilot_tpu_torch.models import quantize as quantize_lib
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.ops.attention import flash_attention
+from skypilot_tpu_torch.parallel import sharding
 
 # flax's lecun_normal: variance_scaling(1, 'fan_in', truncated_normal),
 # whose stddev is divided by the std of a unit normal truncated at +-2.
@@ -232,13 +233,10 @@ class DecoderLayer(nn.Module):
             self.mlp = MLP(cfg, dtype=storage.matmul, device=device,
                            dense=dense)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                shape) -> torch.Tensor:
-        """The training forward of one layer: residual rows x [b * s, d]
-        (`shape` = (b, s)) -> the same, attention through the
-        differentiable `flash_attention` on the whole sequence; an MoE
-        block takes the capacity dispatch at every s, as flax's MoEMLP
-        does."""
+    def attn_inputs(self, x: torch.Tensor, positions: torch.Tensor,
+                    shape) -> Tuple[torch.Tensor, ...]:
+        """Residual rows x [b * s, d] (`shape` = (b, s)) -> the rotated
+        q and k and v [b, heads, s, hd], contiguous, at `positions`."""
         from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
         cfg = self.cfg
         h = decode._norm(x, self.attn_norm.scale, cfg.norm_eps,  # pylint: disable=protected-access
@@ -248,9 +246,19 @@ class DecoderLayer(nn.Module):
         k = _rope(decode._attn_proj(h, self.attn.k_proj, shape),  # pylint: disable=protected-access
                   positions, cfg)
         v = decode._attn_proj(h, self.attn.v_proj, shape)  # pylint: disable=protected-access
-        out = flash_attention(q.contiguous(), k.contiguous(),
-                              v.contiguous(), causal=True)
-        return decode._attn_out_and_mlp(x, out, self, cfg,  # pylint: disable=protected-access
+        return q.contiguous(), k.contiguous(), v.contiguous()
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                shape) -> torch.Tensor:
+        """The training forward of one layer: residual rows x [b * s, d]
+        (`shape` = (b, s)) -> the same, attention through the
+        differentiable `flash_attention` on the whole sequence; an MoE
+        block takes the capacity dispatch at every s, as flax's MoEMLP
+        does."""
+        from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
+        out = flash_attention(*self.attn_inputs(x, positions, shape),
+                              causal=True)
+        return decode._attn_out_and_mlp(x, out, self, self.cfg,  # pylint: disable=protected-access
                                         capacity=True)
 
 
@@ -294,11 +302,19 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.embedding.device
 
-    def forward(self, tokens: torch.Tensor, return_hidden: bool = False):
+    def forward(self, tokens, return_hidden: bool = False, *,
+                shards: Optional['ShardedParams'] = None):
         """tokens [b, s] -> logits [b, s, V] f32; with return_hidden,
         -> (final hidden [b, s, d] in cfg.dtype, lm-head kernel [d, V]
         in the logits matmul dtype) for the fused linear + CE loss
-        (models/losses.py), so the [b, s, V] tensor is never built."""
+        (models/losses.py), so the [b, s, V] tensor is never built.
+
+        With `shards` (a model over a mesh; this module then only names
+        the leaves), `tokens` is one [b / ranks, s] tensor per batch
+        rank and the result one logits tensor (or hidden and kernel)
+        per mesh position: `mesh_forward`."""
+        if shards is not None:
+            return mesh_forward(self, shards, tokens, return_hidden)
         from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
         from skypilot_tpu_torch.models import heads  # pylint: disable=import-outside-toplevel
         cfg = self.cfg
@@ -360,6 +376,42 @@ def _leaves(model: Transformer):
             yield f'{prefix}.{name}', module
 
 
+def _is_quantized(leaf: str, module: nn.Module) -> bool:
+    """Whether leaf `leaf` of `module` is an int8 kernel or stack (a
+    QuantDense's float bias is not)."""
+    return leaf != 'bias' and isinstance(module, (QuantDense,
+                                                  moe_lib.QuantStack))
+
+
+def _initial_value(name: str, module: nn.Module, cfg: ModelConfig,
+                   gen: torch.Generator, device) -> torch.Tensor:
+    """Seeded flax-style initial value of one leaf as a new f32 tensor
+    on `device` (the generator's): identity norm scales, zero biases,
+    normal(0.02) embeddings, truncated lecun-normal kernels."""
+    leaf = name.rsplit('.', 1)[-1]
+    if _is_quantized(leaf, module):
+        shape, fan_in = module.qvalue.shape, module.fan_in
+    else:
+        shape = getattr(module, leaf).shape
+        # An expert stack [E, in, out]: flax's lecun_normal counts the
+        # leading axis as receptive field, so fan_in = E * in.
+        fan_in = (shape[0] * shape[1] if isinstance(module, moe_lib.MoEMLP)
+                  else getattr(module, 'fan_in', 1))
+    tmp = torch.empty(shape, dtype=torch.float32, device=device)
+    if leaf == 'scale':
+        # Gemma's (1 + w) norms start at w = 0; both are identity scale.
+        return tmp.fill_(0.0 if cfg.norm_scale_plus_one else 1.0)
+    if leaf == 'bias':
+        return tmp.zero_()
+    if leaf == 'embedding':
+        tmp.normal_(0.0, 0.02, generator=gen)
+    else:
+        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+        torch.nn.init.trunc_normal_(tmp, 0.0, std, -2.0 * std, 2.0 * std,
+                                    generator=gen)
+    return tmp
+
+
 def _fill_(name: str, module: nn.Module, cfg: ModelConfig,
            gen: torch.Generator) -> None:
     """Seeded flax-style init of one leaf, drawn in f32 on the leaf's
@@ -367,37 +419,15 @@ def _fill_(name: str, module: nn.Module, cfg: ModelConfig,
     QuantStack's) buffers
     (one tensor at a time, so the f32 tree never exists as a whole)."""
     leaf = name.rsplit('.', 1)[-1]
-    if leaf == 'scale':
-        # Gemma's (1 + w) norms start at w = 0; both are identity scale.
-        module.scale.fill_(0.0 if cfg.norm_scale_plus_one else 1.0)
-        return
-    if leaf == 'bias':
-        module.bias.zero_()
-        return
-    quantized = isinstance(module, (QuantDense, moe_lib.QuantStack))
-    if quantized:
-        shape, device = module.qvalue.shape, module.qvalue.device
-        fan_in = module.fan_in
-    else:
-        p = getattr(module, leaf)
-        shape, device = p.shape, p.device
-        # An expert stack [E, in, out]: flax's lecun_normal counts the
-        # leading axis as receptive field, so fan_in = E * in.
-        fan_in = (shape[0] * shape[1] if isinstance(module, moe_lib.MoEMLP)
-                  else getattr(module, 'fan_in', 1))
-    tmp = torch.empty(shape, dtype=torch.float32, device=device)
-    if leaf == 'embedding':
-        tmp.normal_(0.0, 0.02, generator=gen)
-    else:
-        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-        torch.nn.init.trunc_normal_(tmp, 0.0, std, -2.0 * std, 2.0 * std,
-                                    generator=gen)
+    quantized = _is_quantized(leaf, module)
+    target = module.qvalue if quantized else getattr(module, leaf)
+    tmp = _initial_value(name, module, cfg, gen, target.device)
     if quantized:
         q = quantize_lib.quantize_leaf(tuple(name.split('.')), tmp)
         module.qvalue.copy_(q['qvalue'])
         module.scale.copy_(q['scale'])
     else:
-        p.copy_(tmp)
+        target.copy_(tmp)
     del tmp
 
 
@@ -425,3 +455,353 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
         for name, module in _leaves(model):
             _fill_(name, module, cfg, gen)
     return model.eval()
+
+
+# ------------------------------------------------------------------ meshes
+#
+# A trainable model over a mesh (parallel/mesh.py) keeps every leaf as
+# the distinct blocks that the reference's logical-axis rules give it
+# (parallel/sharding.py), each stored once on the device of the first
+# mesh position that holds it; positions that hold a block replicated
+# read that one copy.  `Transformer` itself then lives on the 'meta'
+# device and only names the leaves: `mesh_forward` runs each mesh
+# position's rows on its own device, with each layer's weights gathered
+# there inside the layer's checkpoint.
+
+# The reference's logical axes of each kernel (its
+# with_logical_partitioning annotations), by the module that owns it.
+_KERNEL_AXES = {
+    'q_proj': ('embed', 'heads', 'head_dim'),
+    'k_proj': ('embed', 'kv_heads', 'head_dim'),
+    'v_proj': ('embed', 'kv_heads', 'head_dim'),
+    'o_proj': ('heads', 'head_dim', 'embed'),
+    'gate_proj': ('embed', 'mlp'),
+    'up_proj': ('embed', 'mlp'),
+    'down_proj': ('mlp', 'embed'),
+    'router': ('embed', 'expert'),
+    'lm_head': ('embed', 'vocab'),
+}
+
+
+def logical_axes(name: str) -> Tuple[Optional[str], ...]:
+    """The logical axes of the parameter `name` (its module path, such
+    as 'layers.0.attn.q_proj.kernel'), as the reference annotates it
+    (`skypilot_tpu/models/transformer.py`, `models/moe.py`).  A bias
+    carries none (replicated), as flax's unannotated bias."""
+    parts = name.split('.')
+    leaf = parts[-1]
+    if leaf == 'embedding':
+        return ('vocab', 'embed')
+    if leaf == 'scale':
+        return ('embed',)
+    if leaf == 'bias':
+        return ()
+    if parts[-2] == 'moe_mlp':      # an expert stack [E, in, out]
+        return (('expert', 'mlp', 'embed') if leaf == 'down_proj'
+                else ('expert', 'embed', 'mlp'))
+    return _KERNEL_AXES[parts[-2]]
+
+
+def check_mesh(mesh) -> None:
+    """Refuse the mesh axes the port does not train over yet."""
+    later = {'tensor': 'A16b (the tensor axis: column- and row-parallel '
+                       'linears, a vocab-parallel head)',
+             'pipeline': 'A17d (parallel/pipeline.py)',
+             'expert': 'A17g (the expert axis: experts split over '
+                       'devices)'}
+    for axis, item in later.items():
+        if mesh.shape.get(axis, 1) > 1:
+            raise NotImplementedError(
+                f'{axis}={mesh.shape[axis]}: training over the {axis!r} '
+                f'mesh axis is ROADMAP item {item}, a later slice of the '
+                'port')
+
+
+class MeshGeometry(NamedTuple):
+    """Where a mesh runs a training forward: `ranks[i][r]` is the mesh
+    position of batch rank i (over 'data' x 'fsdp', data major, as
+    `token_batch_sharding` splits the batch) and sequence rank r."""
+    ranks: List[List[int]]
+    sp: int
+
+
+def mesh_geometry(mesh) -> MeshGeometry:
+    check_mesh(mesh)
+    sp = mesh.shape.get('sequence', 1)
+    data, fsdp = mesh.shape.get('data', 1), mesh.shape.get('fsdp', 1)
+    ranks = [[mesh.position(data=d, fsdp=f, sequence=r) for r in range(sp)]
+             for d in range(data) for f in range(fsdp)]
+    return MeshGeometry(ranks, sp)
+
+
+class ShardedParams:
+    """The blocks of every parameter of `model` (a 'meta' Transformer
+    naming the leaves) over `mesh`: `blocks[name]` is {block index:
+    tensor}, each a leaf with requires_grad on its owner's device, and
+    `placements[name]` its `sharding.Placement`."""
+
+    def __init__(self, model: Transformer, mesh,
+                 blocks: Dict[str, Dict[Tuple[int, ...], torch.Tensor]]
+                 ) -> None:
+        self.model = model
+        self.mesh = mesh
+        self.placements = placements(model, mesh)
+        self.shapes = {name: p.shape for name, p in model.named_parameters()}
+        if list(blocks) != list(self.placements):
+            raise ValueError('blocks do not name the model\'s parameters '
+                             'in order')
+        for name, placement in self.placements.items():
+            want = list(placement.owners(len(self.shapes[name])))
+            if list(blocks[name]) != want:
+                raise ValueError(f'{name}: blocks {list(blocks[name])}, '
+                                 f'the placement has {want}')
+        self.blocks = blocks
+
+    @classmethod
+    def init(cls, model: Transformer, mesh, seed: int) -> 'ShardedParams':
+        """Seeded initial values, bit-equal to `init_params(cfg, seed=,
+        trainable=True)` on the mesh's first device: each leaf is drawn
+        whole there, in init_params' order and with its generator, cut
+        into blocks and freed before the next (one full leaf at a
+        time)."""
+        dev = mesh.devices[0]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        places = placements(model, mesh)
+        dtype = model.cfg.param_dtype
+        blocks = {}
+        with torch.no_grad():
+            for name, module in _leaves(model):
+                full = _initial_value(name, module, model.cfg, gen, dev)
+                blocks[name] = sharding.split(full.to(dtype), places[name],
+                                              requires_grad=True)
+                del full
+        return cls(model, mesh, blocks)
+
+    @classmethod
+    def empty(cls, model: Transformer, mesh,
+              device: Optional[Union[str, torch.device]] = None
+              ) -> 'ShardedParams':
+        """Uninitialised blocks on their owners (on `device` instead, as
+        'meta' for an abstract state)."""
+        blocks = {}
+        params = dict(model.named_parameters())
+        for name, placement in placements(model, mesh).items():
+            p = params[name]
+            blocks[name] = {}
+            for blk, pos in placement.owners(p.dim()).items():
+                shape = [len(range(*s.indices(n))) for s, n in zip(
+                    placement.index(pos, p.shape), p.shape)]
+                blocks[name][blk] = torch.empty(
+                    shape, dtype=p.dtype,
+                    device=device or mesh.devices[pos]).requires_grad_()
+        return cls(model, mesh, blocks)
+
+    def parameters(self) -> List[torch.Tensor]:
+        """Every block, leaf by leaf in the model's order."""
+        return [t for blocks in self.blocks.values()
+                for t in blocks.values()]
+
+    def pieces(self, name: str) -> List[Tuple[torch.Tensor,
+                                              Tuple[slice, ...]]]:
+        """(block, its slice of the full leaf) for each block of
+        `name`."""
+        placement = self.placements[name]
+        full = self.shapes[name]
+        owners = placement.owners(len(full))
+        return [(t, placement.index(owners[blk], full))
+                for blk, t in self.blocks[name].items()]
+
+    def gather(self, name: str, device) -> torch.Tensor:
+        return sharding.gather(self.blocks[name], self.placements[name],
+                               device)
+
+    def tree(self, prefix: str, device,
+             keep_prefix: bool = False) -> Dict[str, torch.Tensor]:
+        """{name (less `prefix` unless `keep_prefix`): the full leaf on
+        `device`} for every parameter whose name starts with
+        `prefix`."""
+        cut = 0 if keep_prefix else len(prefix)
+        return {name[cut:]: self.gather(name, device)
+                for name in self.blocks if name.startswith(prefix)}
+
+    def position_bytes(self) -> List[int]:
+        """Bytes of the blocks each mesh position holds (a replicated
+        block counts at every position that reads it)."""
+        out = [0] * self.mesh.size
+        for name, blocks in self.blocks.items():
+            ndim = len(self.shapes[name])
+            for pos in range(self.mesh.size):
+                t = blocks[self.placements[name].block(pos, ndim)]
+                out[pos] += t.numel() * t.element_size()
+        return out
+
+
+def placements(model: Transformer, mesh) -> Dict[str, object]:
+    """{parameter name: its Placement on `mesh`}, in the model's
+    order."""
+    return {name: sharding.logical_sharding(mesh, *logical_axes(name))
+            for name, _ in model.named_parameters()}
+
+
+class _Bound(nn.Module):
+    """functional_call's target: fn(module, *args) with the given
+    tensors standing in for the module's parameters."""
+
+    def __init__(self, module: nn.Module) -> None:
+        super().__init__()
+        self.module = module
+
+    def forward(self, fn, *args):
+        return fn(self.module, *args)
+
+
+def _call(module: nn.Module, params: Dict[str, torch.Tensor], fn, *args):
+    return torch.func.functional_call(
+        _Bound(module), {f'module.{k}': v for k, v in params.items()},
+        (fn,) + args)
+
+
+def mesh_forward(model: Transformer, shards: ShardedParams,
+                 tokens: Sequence[torch.Tensor], return_hidden: bool):
+    """The reference's forward under a mesh, made explicit.  Activations
+    follow ('batch', 'seq', 'embed'): batch rank i's tokens [b_i, s]
+    (any device) are cut into `sp` chunks of s / sp columns, and mesh
+    position ranks[i][r] runs chunk r on its own device (positions
+    r * s / sp onwards).  Attention is `ring_attention_shards` or
+    `ulysses_attention_shards` over a batch rank's sequence ranks (per
+    cfg.sequence_parallel) when the sequence axis is above 1, else the
+    flash kernel.  -> one logits [b_i, s / sp, V] (or (hidden, head
+    kernel)) per position, batch rank major."""
+    from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
+    cfg = model.cfg
+    if cfg.sequence_parallel not in ('ring', 'ulysses'):
+        raise ValueError(f'Unknown sequence_parallel '
+                         f'{cfg.sequence_parallel!r}; have \'ring\', '
+                         '\'ulysses\'.')
+    geo = mesh_geometry(shards.mesh)
+    if len(tokens) != len(geo.ranks):
+        raise ValueError(f'{len(tokens)} token shards for '
+                         f'{len(geo.ranks)} batch ranks')
+    s = tokens[0].shape[1]
+    if s % geo.sp:
+        raise ValueError(f'sequence length {s} is not divisible by the '
+                         f'\'sequence\' axis ({geo.sp})')
+    chunk = s // geo.sp
+    devs = [shards.mesh.devices[p] for rank in geo.ranks for p in rank]
+    embeds: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+    xs = []
+    for i, toks in enumerate(tokens):
+        for r in range(geo.sp):
+            dev = devs[i * geo.sp + r]
+            if dev not in embeds:
+                embeds[dev] = shards.tree('embed.', dev, keep_prefix=True)
+            t = toks[:, r * chunk:(r + 1) * chunk].to(dev)
+            xs.append(_call(model, embeds[dev],
+                            lambda m, t: decode._embed(cfg, m, t),  # pylint: disable=protected-access
+                            t).reshape(-1, cfg.d_model))
+    # A mesh's layer checkpoint is the reentrant one, whatever devices
+    # its positions name.  Over several devices, autograd runs each
+    # device's backward on a thread of its own, and two of them could
+    # unpack one non-reentrant checkpoint at once: torch would then
+    # recompute the layer twice, at the same time, over one 'meta' layer
+    # whose parameters `functional_call` swaps.  The reentrant checkpoint
+    # recomputes inside one autograd node, once; it takes no selective
+    # policy.
+    if cfg.remat and cfg.remat_policy != 'full':
+        raise NotImplementedError(
+            f'remat_policy {cfg.remat_policy!r} on a mesh: only \'full\' '
+            'recomputes there')
+    for index in range(cfg.n_layers):
+        fn = functools.partial(_mesh_layer, model, shards, geo, index,
+                               tokens[0].shape[0], chunk, devs)
+        if cfg.remat:
+            xs = torch_checkpoint.checkpoint(fn, *xs, use_reentrant=True)
+        else:
+            xs = fn(*xs)
+    head = 'embed.' if cfg.tie_embeddings else 'lm_head.'
+    outs, finals = [], {}
+    for x, dev in zip(xs, devs):
+        if dev not in finals:
+            finals[dev] = {**shards.tree('final_norm.', dev, True),
+                           **shards.tree(head, dev, True)}
+        outs.append(_call(model, finals[dev], _final, x, return_hidden,
+                          x.shape[0] // chunk))
+    return outs
+
+
+def _final(model: Transformer, x: torch.Tensor, return_hidden: bool,
+           b: int):
+    """Final norm, then logits or (hidden, head kernel), of one mesh
+    position's rows."""
+    from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
+    from skypilot_tpu_torch.models import heads  # pylint: disable=import-outside-toplevel
+    cfg = model.cfg
+    x = decode._norm(x, model.final_norm.scale, cfg.norm_eps,  # pylint: disable=protected-access
+                     cfg.norm_scale_plus_one).reshape(b, -1, cfg.d_model)
+    if return_hidden:
+        return x, heads.head_kernel(model, cfg)
+    return heads.unembed(x, model, cfg)
+
+
+def _mesh_layer(model: Transformer, shards: ShardedParams,
+                geo: MeshGeometry, index: int, b: int, chunk: int,
+                devs: List[torch.device], *xs: torch.Tensor):
+    """Layer `index` over every mesh position's rows xs[p] [b * chunk,
+    d], its weights gathered once per distinct device (inside the
+    checkpoint that calls this, so autograd keeps none of them).  An
+    MoE block dispatches the tokens of all positions together, in the
+    global [batch, seq] order, on the first position's device: the
+    reference's capacity dispatch runs over the global batch."""
+    from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
+    from skypilot_tpu_torch.ops.ring_attention import ring_attention_shards  # pylint: disable=import-outside-toplevel
+    from skypilot_tpu_torch.ops.ulysses_attention import ulysses_attention_shards  # pylint: disable=import-outside-toplevel
+    cfg = model.cfg
+    layer = model.layers[index]
+    weights: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+
+    def run(dev, fn, *args):
+        if dev not in weights:
+            weights[dev] = shards.tree(f'layers.{index}.', dev)
+        return _call(layer, weights[dev], fn, *args)
+
+    qkv = []
+    for p, (x, dev) in enumerate(zip(xs, devs)):
+        start = (p % geo.sp) * chunk      # the rank's first position
+        qkv.append(run(dev, DecoderLayer.attn_inputs, x,
+                       torch.arange(start, start + chunk, device=dev),
+                       (b, chunk)))
+    outs = []
+    for i in range(len(geo.ranks)):
+        span = slice(i * geo.sp, (i + 1) * geo.sp)
+        q, k, v = ([t[j] for t in qkv[span]] for j in range(3))
+        if geo.sp == 1:
+            outs.append(flash_attention(q[0], k[0], v[0], causal=True))
+            continue
+        attend = (ulysses_attention_shards
+                  if cfg.sequence_parallel == 'ulysses'
+                  else ring_attention_shards)
+        outs.extend(attend(q, k, v, devs[span], causal=True,
+                           sm_scale=float(cfg.head_dim) ** -0.5))
+    if cfg.n_experts == 0:
+        return tuple(
+            run(dev, lambda m, x, o: decode._attn_out_and_mlp(  # pylint: disable=protected-access
+                x, o, m, cfg, capacity=True), x, o)
+            for x, o, dev in zip(xs, outs, devs))
+    mids = [run(dev, lambda m, x, o: decode._attn_out(x, o, m), x, o)  # pylint: disable=protected-access
+            for x, o, dev in zip(xs, outs, devs)]
+    hs = [run(dev, lambda m, x: decode._norm(  # pylint: disable=protected-access
+        x, m.mlp_norm.scale, cfg.norm_eps, cfg.norm_scale_plus_one), x)
+          for x, dev in zip(mids, devs)]
+    d = cfg.d_model
+    rows = torch.cat([
+        torch.cat([hs[i * geo.sp + r].reshape(b, chunk, d).to(devs[0])
+                   for r in range(geo.sp)], dim=1)
+        for i in range(len(geo.ranks))])
+    y = run(devs[0], lambda m, h: decode._moe_mlp(  # pylint: disable=protected-access
+        h, m.moe_mlp, cfg, capacity=True), rows)
+    return tuple(
+        mid + y[(p // geo.sp) * b:(p // geo.sp + 1) * b,
+                (p % geo.sp) * chunk:(p % geo.sp + 1) * chunk
+                ].reshape(-1, d).to(dev)
+        for p, (mid, dev) in enumerate(zip(mids, devs)))

@@ -167,9 +167,10 @@ def _flash_fwd_cuda(q, k, v, *, causal: bool, sm_scale: float
     lse = torch.empty((b, h, q_len), dtype=torch.float32, device=q.device)
     fn = _bind('flash_fwd', 'skyt_flash_fwd', 5)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), _DTYPE_CODES[q.dtype], b, h, h_kv, q_len,
-            k_len, d, float(sm_scale), int(bool(causal)), stream)
+    with torch.cuda.device(q.device):   # the launch's device is q's
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), _DTYPE_CODES[q.dtype], b, h, h_kv, q_len,
+                k_len, d, float(sm_scale), int(bool(causal)), stream)
     _build.check(rc, 'flash_fwd')
     LAUNCHES['flash_fwd'] += 1
     return out, lse
@@ -208,8 +209,9 @@ def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, *, causal: bool,
     _check_bwd_inputs(q, k, v, g, lse, delta)
     ptrs, scalars = _bwd_args(q, k, v, g, lse, delta, causal, sm_scale)
     dq = torch.empty_like(q)
-    rc = _bind('flash_bwd', 'skyt_flash_bwd_dq', 7)(*ptrs, dq.data_ptr(),
-                                                   *scalars)
+    with torch.cuda.device(q.device):
+        rc = _bind('flash_bwd', 'skyt_flash_bwd_dq', 7)(
+            *ptrs, dq.data_ptr(), *scalars)
     _build.check(rc, 'flash_bwd_dq')
     LAUNCHES['flash_bwd_dq'] += 1
     return dq
@@ -223,8 +225,9 @@ def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, *, causal: bool,
     ptrs, scalars = _bwd_args(q, k, v, g, lse, delta, causal, sm_scale)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    rc = _bind('flash_bwd', 'skyt_flash_bwd_dkv', 8)(
-        *ptrs, dk.data_ptr(), dv.data_ptr(), *scalars)
+    with torch.cuda.device(q.device):
+        rc = _bind('flash_bwd', 'skyt_flash_bwd_dkv', 8)(
+            *ptrs, dk.data_ptr(), dv.data_ptr(), *scalars)
     _build.check(rc, 'flash_bwd_dkv')
     LAUNCHES['flash_bwd_dkv'] += 1
     return dk, dv

@@ -24,6 +24,14 @@ The result is cast to q's dtype.
 Per rank and call the kernel launches r + 1 times under `causal`, so a
 causal ring launches sp (sp + 1) / 2 times; every hop launches without
 `causal`.
+
+Differentiable (sharded training, models/transformer.mesh_forward):
+autograd runs back through the hops, each `.to` moving its gradient to
+the rank that sent the shard, and the merge gives every hop's
+`flash_attention_with_lse` an out and an lse cotangent, so the backward
+kernels run once per hop that ran (non-causal on earlier chunks).  The
+layer's checkpoint already recomputes the ring; no second one is taken
+here.
 """
 from __future__ import annotations
 

@@ -9,8 +9,10 @@ kernel B3 on CUDA tensors, its plain version on the CPU); the inverse
 regroup hands every rank its rows of every head back.  Each regroup
 moves shards with `.to(device, non_blocking=True)`.  Requires the q
 heads (and the kv heads, unless they are broadcast up) to divide the
-sequence axis.  The serving path does not use it (`prefill_sp` is
-ring-only); it is held as an op.
+sequence axis.  Serving's `prefill_sp` is ring-only; sharded training
+runs it with `cfg.sequence_parallel='ulysses'`
+(models/transformer.mesh_forward), and autograd carries the gradients
+back through both regroups' moves.
 """
 from __future__ import annotations
 

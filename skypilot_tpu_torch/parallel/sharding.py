@@ -1,0 +1,181 @@
+"""Logical-axis placement rules and the shards they give (mirrors
+`skypilot_tpu/parallel/sharding.py`).
+
+Modules name the dims of their tensors with logical axes ('batch',
+'embed', 'heads', ...), and `LOGICAL_AXIS_RULES` maps those onto the
+mesh axes of parallel/mesh.py, as in the reference.  Where the
+reference returns a NamedSharding and GSPMD inserts the collectives,
+the port returns a `Placement` (the mesh and, for each dim, the mesh
+axes that split it) and moves the shards itself:
+
+- `Placement.index(position, shape)` is the slice of the full tensor
+  that a mesh position holds, in the form of the reference's
+  `addressable_shards[i].index`;
+- `split(tensor, placement)` cuts a tensor into its distinct blocks,
+  each stored ONCE, on the device of the first mesh position that
+  holds it (its owner).  Positions that hold a block replicated (the
+  'data' and 'sequence' axes of a parameter, say) read it from that
+  owner: on a list that repeats one card, the read moves nothing.
+- `gather(blocks, placement, device)` joins the blocks on `device`
+  with `.to` and `torch.cat`, so autograd carries the full tensor's
+  gradient back to each block as a sum over its readers: the
+  reduce-scatter the reference's GSPMD inserts.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+import torch
+
+from skypilot_tpu_torch.parallel.mesh import Mesh
+
+# (logical axis, mesh axis or tuple of mesh axes); the first matching
+# rule wins.  batch rides data (+ fsdp), everything model-internal stays
+# on ICI axes.
+LOGICAL_AXIS_RULES: Tuple[Tuple[str, Optional[object]], ...] = (
+    ('batch', ('data', 'fsdp')),
+    ('seq', 'sequence'),
+    ('embed', 'fsdp'),
+    ('heads', 'tensor'),
+    ('kv_heads', 'tensor'),
+    ('mlp', 'tensor'),
+    ('vocab', 'tensor'),
+    ('expert', 'expert'),
+    ('head_dim', None),
+    ('kv', None),
+    ('stage', 'pipeline'),
+    ('layers', None),
+)
+
+Block = Tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """The port's NamedSharding: `spec[i]` is the tuple of mesh axes
+    that split dim i (empty: replicated), the first axis major, as a
+    PartitionSpec entry.  Dims past len(spec) are replicated."""
+    mesh: Mesh
+    spec: Tuple[Tuple[str, ...], ...]
+
+    def parts(self, ndim: int) -> Tuple[int, ...]:
+        """How many blocks each of ndim dims is cut into."""
+        spec = self.spec + ((),) * (ndim - len(self.spec))
+        return tuple(math.prod(self.mesh.shape[a] for a in axes)
+                     for axes in spec[:ndim])
+
+    def block(self, position: int, ndim: int) -> Block:
+        """The block index, per dim, that a mesh position holds."""
+        coords = self.mesh.coords(position)
+        spec = self.spec + ((),) * (ndim - len(self.spec))
+        out = []
+        for axes in spec[:ndim]:
+            idx = 0
+            for a in axes:
+                idx = idx * self.mesh.shape[a] + coords[a]
+            out.append(idx)
+        return tuple(out)
+
+    def index(self, position: int, shape: Sequence[int]) -> Tuple[slice, ...]:
+        """The slice of a `shape` tensor that `position` holds: slice(
+        start, stop) on split dims and slice(None) on the others, as
+        jax's Shard.index reads."""
+        out = []
+        for n, blk, dim in zip(self.parts(len(shape)),
+                               self.block(position, len(shape)), shape):
+            if n == 1:
+                out.append(slice(None, None, None))
+            else:
+                if dim % n:
+                    raise ValueError(f'dim of size {dim} does not divide '
+                                     f'into {n} shards')
+                out.append(slice(blk * dim // n, (blk + 1) * dim // n, None))
+        return tuple(out)
+
+    def owners(self, ndim: int) -> Dict[Block, int]:
+        """{block: the first mesh position holding it}, in block
+        order."""
+        first: Dict[Block, int] = {}
+        for pos in range(self.mesh.size):
+            first.setdefault(self.block(pos, ndim), pos)
+        return dict(sorted(first.items()))
+
+    def is_replicated(self) -> bool:
+        return all(n == 1 for n in self.parts(len(self.spec)))
+
+
+def logical_sharding(mesh: Mesh, *logical_axes: Optional[str]) -> Placement:
+    """The placement of a tensor whose dims carry these logical names.
+    An axis not in the mesh, or already used by an earlier dim, is
+    dropped (a mesh axis splits at most one dim of a tensor)."""
+    rules = dict(LOGICAL_AXIS_RULES)
+    spec = []
+    used = set()
+    for name in logical_axes:
+        mesh_axes = rules.get(name) if name is not None else None
+        if mesh_axes is None:
+            spec.append(())
+            continue
+        if isinstance(mesh_axes, str):
+            mesh_axes = (mesh_axes,)
+        usable = tuple(a for a in mesh_axes
+                       if a in mesh.axis_names and a not in used)
+        used.update(usable)
+        spec.append(usable)
+    return Placement(mesh, tuple(spec))
+
+
+def batch_sharding(mesh: Mesh) -> Placement:
+    """Placement of [batch, seq, ...] activations."""
+    return logical_sharding(mesh, 'batch', 'seq')
+
+
+def token_batch_sharding(mesh: Mesh) -> Placement:
+    """Placement of raw token batches [batch, seq_len + 1]: batch only
+    (the + 1 column makes seq indivisible by a sequence axis; the
+    model re-shards activations onto it after the embedding)."""
+    return logical_sharding(mesh, 'batch', None)
+
+
+def head_kernel_sharding(mesh: Mesh) -> Placement:
+    """Placement of the lm-head kernel [embed, vocab] travelling as a
+    plain tensor (the fused CE's argument)."""
+    return logical_sharding(mesh, 'embed', 'vocab')
+
+
+def replicated(mesh: Mesh) -> Placement:
+    return Placement(mesh, ())
+
+
+def split(x: torch.Tensor, placement: Placement,
+          requires_grad: bool = False) -> Dict[Block, torch.Tensor]:
+    """x cut into its distinct blocks, each a new contiguous tensor on
+    its owner's device (a leaf with `requires_grad` when asked)."""
+    out = {}
+    for blk, pos in placement.owners(x.dim()).items():
+        piece = x[placement.index(pos, x.shape)]
+        piece = piece.to(placement.mesh.devices[pos], copy=True)
+        out[blk] = piece.contiguous().requires_grad_(requires_grad)
+    return out
+
+
+def gather(blocks: Dict[Block, torch.Tensor], placement: Placement,
+           device: Union[str, torch.device]) -> torch.Tensor:
+    """The full tensor on `device`, joined from its blocks
+    (differentiable).  One block is returned as it is when it already
+    lies on `device`."""
+    device = torch.device(device)
+    if len(blocks) == 1:
+        return next(iter(blocks.values())).to(device)
+    ndim = next(iter(blocks.values())).dim()
+    parts = placement.parts(ndim)
+
+    def join(prefix: Block) -> torch.Tensor:
+        d = len(prefix)
+        if d == ndim:
+            return blocks[prefix].to(device, non_blocking=True)
+        pieces = [join(prefix + (i,)) for i in range(parts[d])]
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=d)
+    return join(())

@@ -136,10 +136,7 @@ def build_slice_mesh(num_hosts: int, cfg, *, devices=None,
             f'num_hosts={num_hosts} needs {num_hosts} devices; have '
             f'{len(devices)} (pass devices= to emulate hosts on a '
             f'repeated device)')
-    return mesh_lib.build_mesh(
-        mesh_lib.MeshConfig(sequence=axes['sequence'],
-                            tensor=axes['tensor']),
-        devices=list(devices)[:num_hosts])
+    return mesh_lib.Mesh(list(devices)[:num_hosts], axes)
 
 
 class SliceReplicaEngine(batching_engine_lib.ContinuousBatchingEngine):

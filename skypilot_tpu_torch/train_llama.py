@@ -1,10 +1,24 @@
-"""Train or finetune a Llama-style model on one GPU with the port's
-training step (`examples/train_llama.py` without meshes).
+"""Train or finetune a Llama-style model with the port's training step
+(`examples/train_llama.py`).
 
     python -m skypilot_tpu_torch.train_llama --model small --steps 20
     python -m skypilot_tpu_torch.train_llama --model tiny --device cpu
     SKYTPU_CHECKPOINT_DIR=<ckpt> python -m skypilot_tpu_torch.train_llama \
         --model auto --init-from <converted dir> --data <tokens.bin>
+    python -m skypilot_tpu_torch.train_llama --model small \
+        --mesh-devices cuda:0,cuda:0,cuda:0,cuda:0 --fsdp 2 --sequence 2 \
+        --preflight
+
+- The mesh, as the reference builds it: `MeshConfig(data=-1, fsdp=,
+  sequence=, tensor=)` over the device list (parallel/mesh.py), the
+  [dcn, ici] axes, with the slices of SKYTPU_NUM_SLICES.  The list is
+  every visible card (one CPU entry with `--device cpu`), or
+  `--mesh-devices a,b,...`, which may repeat a device (several mesh
+  positions on one card, as the reference's virtual devices).
+  `--sp-mode ring|ulysses` picks the sequence-parallel attention for
+  `--sequence` > 1; `--tensor` > 1 raises (ROADMAP A16b).
+  `--preflight` checks the mesh's collectives first
+  (parallel/preflight.py).  A gang of several hosts raises (A17f).
 
 - `--model auto` reads the shape from `--init-from`'s model_config.json
   (models/import_weights.py writes it).
@@ -20,13 +34,14 @@ training step (`examples/train_llama.py` without meshes).
   an uninterrupted one would, copied to the device ahead of the step
   (data/prefetch.py).  Without it: one batch of random tokens seeded by
   the start step, repeated every step as the example does.
+- `--layers N` keeps the preset's widths at N layers (a depth cut).
 - Step telemetry through `callbacks` (summary.json in
-  SKYTPU_BENCHMARK_LOG_DIR); the peak device memory after the first
-  step is printed.
+  SKYTPU_BENCHMARK_LOG_DIR); after the first step, the peak memory of
+  each of the mesh's cards is printed.
 
-Prints `step N: loss=... grad_norm=...` every 10 steps and at the last.
-Meshes (--fsdp/--tensor/--sequence > 1) and the collective preflight
-come with a later slice of the port and raise here.
+Prints `step N: loss=... grad_norm=...` every 10 steps and at the last,
+and at the end each step's ms on the host clock (every card of the mesh
+synchronized before and after the step).
 """
 from __future__ import annotations
 
@@ -44,6 +59,10 @@ from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import configs
 from skypilot_tpu_torch.models import import_weights
 from skypilot_tpu_torch.models import train
+from skypilot_tpu_torch.parallel import distributed
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+from skypilot_tpu_torch.parallel import preflight
+from skypilot_tpu_torch.parallel import sharding
 
 SAVE_INTERVAL_STEPS = 10
 
@@ -62,6 +81,8 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument('--data', default=None,
                         help='SKYTOK1 token file (data/loader.py); random '
                              'tokens when omitted')
+    parser.add_argument('--layers', type=int, default=None,
+                        help="the preset's widths at this many layers")
     parser.add_argument('--steps', type=int, default=20)
     parser.add_argument('--batch-size', type=int, default=8)
     parser.add_argument('--seq-len', type=int, default=512)
@@ -73,36 +94,62 @@ def _parser() -> argparse.ArgumentParser:
                              'trajectory, lower peak memory)')
     parser.add_argument('--vocab-chunk', type=int, default=8192,
                         help='vocab chunk width for the fused CE')
-    parser.add_argument('--device', default='cuda')
-    # The example's multi-device flags: refused, not ignored.
+    parser.add_argument('--device', default='cuda',
+                        help="'cuda' (every visible card is the mesh's "
+                             "device list) or 'cpu' (one entry)")
     parser.add_argument('--fsdp', type=int, default=1)
     parser.add_argument('--tensor', type=int, default=1)
     parser.add_argument('--sequence', type=int, default=1)
-    parser.add_argument('--preflight', action='store_true')
+    parser.add_argument('--sp-mode', default='ring',
+                        choices=['ring', 'ulysses'],
+                        help='sequence-parallel strategy when --sequence '
+                             '> 1 (ops/ring_attention vs '
+                             'ops/ulysses_attention)')
+    parser.add_argument('--preflight', action='store_true',
+                        help='probe the mesh\'s collectives before training '
+                             '(fail fast on a sick fabric)')
+    parser.add_argument('--mesh-devices', default=None,
+                        help='comma-separated devices of the mesh, in '
+                             'position order; may repeat one (several '
+                             'positions on one card)')
     return parser
 
 
-def _refuse_later_slice(args) -> None:
-    later = [f'--{name} {getattr(args, name)}'
-             for name in ('fsdp', 'tensor', 'sequence')
-             if getattr(args, name) > 1]
-    if args.preflight:
-        later.append('--preflight')
-    if later:
+def _mesh(args) -> mesh_lib.Mesh:
+    if args.tensor > 1:
         raise NotImplementedError(
-            f'{", ".join(later)}: meshes and the collective preflight '
-            'come with a later slice of the port (one GPU here)')
+            f'--tensor {args.tensor}: the tensor axis of training is '
+            'ROADMAP item A16b, a later slice of the port')
+    if args.mesh_devices:
+        devices = [resolve_device(d.strip())
+                   for d in args.mesh_devices.split(',')]
+    else:
+        devices = mesh_lib.default_devices(args.device)
+    return mesh_lib.build_mesh(
+        mesh_lib.MeshConfig(data=-1, fsdp=args.fsdp, sequence=args.sequence,
+                            tensor=args.tensor),
+        devices, num_slices=distributed.num_slices())
 
 
 def _model_config(args) -> configs.ModelConfig:
     if args.model != 'auto':
-        return configs.get_config(args.model)
+        depth = {} if args.layers is None else {'n_layers': args.layers}
+        return configs.get_config(args.model, **depth,
+                                  sequence_parallel=args.sp_mode)
+    if args.layers is not None:
+        raise SystemExit('--layers cuts a preset; --model auto takes the '
+                         'depth of its checkpoint')
     if not args.init_from:
         raise SystemExit('--model auto needs --init-from')
     cfg = import_weights.load_model_config(args.init_from)
     if cfg is None:
         raise SystemExit(f'No model_config.json under {args.init_from}')
-    return cfg
+    return cfg.replace(sequence_parallel=args.sp_mode)
+
+
+def _sync(devices: List[torch.device]) -> None:
+    for dev in devices:
+        torch.cuda.synchronize(dev)
 
 
 def run(argv: Optional[List[str]] = None
@@ -110,13 +157,21 @@ def run(argv: Optional[List[str]] = None
     """Runs the steps; -> (one {'step', 'loss', 'grad_norm'} per step
     run, the final TrainState)."""
     args = _parser().parse_args(argv)
-    _refuse_later_slice(args)
-    device = resolve_device(args.device)
+    distributed.initialize_from_env()
+    mesh = _mesh(args)
+    device = mesh.devices[0]
+    print(f'mesh: {mesh.shape} over {len(mesh.distinct_devices())} '
+          f'device(s) ({mesh.size} positions)', flush=True)
+    if args.preflight:
+        probe = preflight.probe_collectives(mesh)
+        print(f'collective preflight: {probe}', flush=True)
+        preflight.check_collectives(mesh, results=probe)
+        print('collective preflight: healthy', flush=True)
     cfg = _model_config(args)
     tcfg = train.TrainConfig(fused_ce=args.fused_ce,
                              accum_steps=args.accum_steps,
                              vocab_chunk=args.vocab_chunk)
-    state, _ = train.create_train_state(cfg, tcfg, device=device, seed=0)
+    state, _ = train.create_train_state(cfg, tcfg, mesh=mesh, seed=0)
 
     start_step = 0
     mgr = None
@@ -146,7 +201,8 @@ def run(argv: Optional[List[str]] = None
             loader.TokenDataset(args.data), global_batch=args.batch_size,
             seq_len=args.seq_len)
         prefetcher = loader.prefetch_to_device(
-            batches.batches(start_step=start_step), device=device)
+            batches.batches(start_step=start_step),
+            sharding=sharding.token_batch_sharding(mesh))
         batch_iter = prefetcher
     else:
         gen = torch.Generator().manual_seed(start_step)
@@ -155,24 +211,32 @@ def run(argv: Optional[List[str]] = None
                                generator=gen, dtype=torch.int64).to(device)
         batch_iter = itertools.repeat({'tokens': tokens})
 
-    history = []
-    if device.type == 'cuda':
+    history, step_ms = [], []
+    cards = [d for d in mesh.distinct_devices() if d.type == 'cuda']
+    for dev in cards:
         # The printed peak is this run's, not the process's so far.
-        torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     try:
         for step in range(start_step, args.steps):
             batch = next(batch_iter)
+            _sync(cards)
+            t_step = time.perf_counter()
             with cb.step():
                 state, metrics = train.train_step(state, batch, tcfg)
                 loss = float(metrics['loss'])
                 grad_norm = float(metrics['grad_norm'])
+            _sync(cards)
+            step_ms.append((time.perf_counter() - t_step) * 1e3)
             history.append({'step': step, 'loss': loss,
                             'grad_norm': grad_norm})
             if step == start_step:
-                peak = train.peak_memory_bytes(device)
+                peak = train.peak_memory_bytes(mesh)
                 if peak is not None:
-                    print(f'step peak memory: {peak / 1e9:.2f} GB',
+                    each = ', '.join(
+                        f'{d} {torch.cuda.max_memory_allocated(d) / 1e9:.2f}'
+                        for d in cards)
+                    print(f'step peak memory: {peak / 1e9:.2f} GB ({each})',
                           flush=True)
             if step % 10 == 0 or step == args.steps - 1:
                 print(f'step {step}: loss={loss:.4f} '
@@ -187,6 +251,7 @@ def run(argv: Optional[List[str]] = None
     cb.flush()
     print(f'done: {len(history)} steps in {time.perf_counter() - t0:.1f}s '
           f'on {device}', flush=True)
+    print('step ms: ' + ' '.join(f'{ms:.1f}' for ms in step_ms), flush=True)
     return history, state
 
 

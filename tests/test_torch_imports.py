@@ -143,6 +143,9 @@ def test_entry_points_default_to_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match='no CUDA device'):
         model_server.ModelServer('tiny', checkpoint_dir=str(tmp_path))
     assert checkpoints.restore_params(str(tmp_path), device='cpu')
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        mesh_lib.build_mesh(mesh_lib.MeshConfig(fsdp=2))
 
 
 def test_engine_dense_mode_names_later_slice():

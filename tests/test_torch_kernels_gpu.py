@@ -425,6 +425,127 @@ def test_sp_attention_on_a_repeated_card_matches_plain(cuda, op, sp):
                                rtol=2e-2)
 
 
+@pytest.mark.parametrize('h,h_kv,n,causal', [
+    (32, 8, 2048, False), (32, 8, 2048, True), (16, 4, 4096, True)],
+    ids=['ring-hop', 'ring-diagonal', 'ulysses'])
+def test_flash_kernels_at_the_sharded_training_shapes(cuda, h, h_kv, n,
+                                                      causal):
+    """B3-B5 at the shapes sharded training gives them at llama3-8b
+    width, batch 2 x 4096 (bf16, b 1, d 128): mesh A's ring hop (fsdp 2
+    x sequence 2: 2048 x 2048, non-causal on the earlier chunk, causal on
+    the diagonal) and mesh B's Ulysses call (data 2 x sequence 2: 16/4
+    heads over 4096).  The forward and its lse against the plain
+    version; dQ and dK/dV with a non-zero lse cotangent (what the ring's
+    merge feeds each hop) against _flash_bwd_reference; two launches
+    give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(n + h + causal)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=cuda).to(
+        torch.bfloat16) for shape in ((1, h, n, 128), (1, h_kv, n, 128),
+                                      (1, h_kv, n, 128), (1, h, n, 128)))
+    g_lse = torch.randn((1, h, n), generator=gen, device=cuda)
+    kw = dict(causal=causal, sm_scale=128 ** -0.5)
+    out, lse = attention.flash_attention_with_lse(q, k, v, causal=causal)
+    out2, lse2 = attention.flash_attention_with_lse(q, k, v, causal=causal)
+    ref, ref_lse = attention._blockwise_attention(  # pylint: disable=protected-access
+        q, k, v, return_lse=True, **kw)
+    got = attention._flash_bwd_cuda(q, k, v, out, lse, g, g_lse, **kw)  # pylint: disable=protected-access
+    again = attention._flash_bwd_cuda(q, k, v, out, lse, g, g_lse, **kw)  # pylint: disable=protected-access
+    want = attention._flash_bwd_reference(q, k, v, out, lse, g, g_lse, **kw)  # pylint: disable=protected-access
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-3)
+    for name, a, b, r in zip(('dq', 'dk', 'dv'), got, again, want):
+        assert torch.equal(a, b), f'{name}: launches differ'
+        _assert_rel_close(a, r, 2e-2, name)
+
+
+@pytest.mark.parametrize('sp', [2, 4])
+@pytest.mark.parametrize('op', ['ring', 'ulysses'])
+def test_sp_attention_gradients_on_a_repeated_card(cuda, op, sp):
+    """The backward through ring and Ulysses attention over sp ranks on
+    cuda:0 (B3 forward hops, B4/B5 per hop with the merge's lse
+    cotangent), bf16 32/8 heads, d 128, 1024 tokens: dq/dk/dv within
+    2e-2 of the largest |value| of autograd through the plain causal
+    attention of the whole sequence, from the same upstream gradient.
+    The ring launches B4 and B5 once per hop it runs: sp (sp + 1) / 2."""
+    from skypilot_tpu_torch.ops import ring_attention
+    from skypilot_tpu_torch.ops import ulysses_attention
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    gen = torch.Generator(device=cuda).manual_seed(10 + sp)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=cuda).to(
+        torch.bfloat16) for shape in ((1, 32, 1024, 128), (1, 8, 1024, 128),
+                                      (1, 8, 1024, 128), (1, 32, 1024, 128)))
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(sequence=sp), [cuda] * sp)
+    fn = (ring_attention.ring_attention if op == 'ring'
+          else ulysses_attention.ulysses_attention)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dict(attention.LAUNCHES)
+    got = torch.autograd.grad(fn(*leaves, mesh=mesh), leaves, g)
+    launched = attention.LAUNCHES['flash_bwd_dq'] - before['flash_bwd_dq']
+    plain = [t.float().clone().requires_grad_() for t in (q, k, v)]
+    ref_out = attention._blockwise_attention(  # pylint: disable=protected-access
+        *plain, causal=True, sm_scale=128 ** -0.5)
+    want = torch.autograd.grad(ref_out, plain, g.float())
+    torch.cuda.synchronize()
+    assert launched == (sp * (sp + 1) // 2 if op == 'ring' else sp)
+    for name, a, r in zip(('dq', 'dk', 'dv'), got, want):
+        _assert_rel_close(a, r, 2e-2, name)
+
+
+@pytest.mark.parametrize('cards', ['one', 'four'])
+@pytest.mark.parametrize('axes,mode', [
+    ({'fsdp': 2, 'sequence': 2}, 'ring'),
+    ({'data': 2, 'sequence': 2}, 'ulysses')], ids=['fsdp2-seq2-ring',
+                                                   'data2-seq2-ulysses'])
+def test_sharded_step_matches_unsharded(cuda, axes, mode, cards):
+    """Two sharded steps over four mesh positions, all on cuda:0 ('one')
+    or one on each of four cards ('four', skipped with fewer), against
+    the unsharded step on cuda:0 from the same seed, f32 at llama3-8b
+    head shapes cut narrow (d_model 512, 4/2 heads of 128, 2 layers,
+    vocab 1024), batch 4 x 256: loss and grad_norm within rtol 1e-5,
+    every parameter after 2 steps within 2 * lr * steps (Adam's noise
+    bound of tests/test_torch_train.py); the kernels launched as
+    `chip_smoke.shard_launches` counts them; each block on the card of
+    the first position that holds it."""
+    from skypilot_tpu_torch.models import train
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    if cards == 'four' and torch.cuda.device_count() < 4:
+        pytest.skip('needs four NVIDIA GPUs')
+    devices = ([cuda] * 4 if cards == 'one' else
+               [torch.device('cuda', i) for i in range(4)])
+    cfg = configs.get_config('tiny', d_model=512, n_heads=4, n_kv_heads=2,
+                             d_ff=1024, vocab_size=1024,
+                             max_seq_len=512, sequence_parallel=mode,
+                             remat=True)
+    gen = torch.Generator().manual_seed(3)
+    batch = {'tokens': torch.randint(0, 1024, (4, 257), generator=gen
+                                     ).to(cuda)}
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(**axes), devices)
+    sharded, placements = train.create_train_state(cfg, mesh=mesh, seed=2)
+    for name, blocks in sharded.shards.blocks.items():
+        owners = placements[name].owners(len(sharded.shards.shapes[name]))
+        for blk, t in blocks.items():
+            assert t.device == devices[owners[blk]], name
+    plain, _ = train.create_train_state(cfg, device=cuda, seed=2)
+    before = dict(attention.LAUNCHES)
+    for _ in range(2):
+        _, m = train.train_step(sharded, batch)
+        _, want = train.train_step(plain, batch)
+        for key in ('loss', 'grad_norm'):
+            torch.testing.assert_close(m[key].to(cuda), want[key],
+                                       rtol=1e-5, atol=0)
+    ranks = axes.get('data', 1) * axes.get('fsdp', 1)
+    hops = 3 if mode == 'ring' else 2
+    assert (attention.LAUNCHES['flash_bwd_dkv'] - before['flash_bwd_dkv'] ==
+            2 * (ranks * 2 * hops + 2))
+    for name, p in plain.model.named_parameters():
+        torch.testing.assert_close(
+            sharded.shards.gather(name, cuda), p, rtol=0,
+            atol=2 * train.TrainConfig().learning_rate * 2, msg=name)
+
+
 def test_prefill_sp_on_the_card_matches_prefill(cuda):
     """prefill_sp over 4 ranks on cuda:0, llama3-8b width cut to depth
     2, a 1024-token prompt: sp 1 gives prefill's cache bit for bit (one

@@ -20,6 +20,7 @@ Tolerances (f32 on both sides, summed in different orders):
 from __future__ import annotations
 
 import functools
+import re
 
 import flax.linen as nn
 import jax
@@ -38,6 +39,7 @@ from skypilot_tpu_torch.models import configs
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import train
 from skypilot_tpu_torch.models.transformer import init_params
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 PRESETS = ('tiny', 'tiny-gemma', 'tiny-qwen')
 TRAIN_CONFIGS = {'plain': {}, 'fused': {'fused_ce': True, 'vocab_chunk': 96},
@@ -208,17 +210,57 @@ def test_cli_loss_falls_on_the_repeated_batch(capsys, monkeypatch,
     assert 'step 0: loss=' in out and 'step 11: loss=' in out
 
 
+def test_cli_layers_cuts_depth_and_prints_step_ms(capsys, monkeypatch,
+                                                  tmp_path):
+    """--layers keeps the preset's widths at that depth; the run prints
+    the preflight's numbers per mesh axis and each step's ms; --model
+    auto refuses it (its depth is the checkpoint's)."""
+    monkeypatch.setenv(callbacks.ENV_LOG_DIR, str(tmp_path))
+    monkeypatch.setattr(callbacks, '_instance', None)
+    history, state = train_llama.run(
+        ['--model', 'tiny', '--layers', '1', '--device', 'cpu',
+         '--mesh-devices', 'cpu,cpu', '--fsdp', '2', '--preflight',
+         '--steps', '2', '--batch-size', '2', '--seq-len', '16'])
+    assert len(history) == 2
+    assert len(state.model.layers) == state.model.cfg.n_layers == 1
+    assert state.model.cfg.d_model == configs.get_config('tiny').d_model
+    out = capsys.readouterr().out
+    assert "collective preflight: {'fsdp': {'size': 2.0" in out
+    ms = re.search(r'^step ms: (.*)$', out, re.M).group(1).split()
+    assert len(ms) == 2 and all(float(x) > 0 for x in ms)
+    with pytest.raises(SystemExit, match='--layers'):
+        train_llama.main(['--model', 'auto', '--layers', '1',
+                          '--device', 'cpu'])
+
+
 @pytest.mark.parametrize('flags', [['--fsdp', '2'], ['--tensor', '2'],
                                    ['--sequence', '2'], ['--preflight']])
-def test_cli_refuses_later_slice_flags(flags):
-    with pytest.raises(NotImplementedError, match='later slice'):
-        train_llama.main(['--device', 'cpu', '--steps', '1', *flags])
+def test_cli_refuses_later_slice_flags(flags, monkeypatch, tmp_path):
+    """Of the example's mesh flags only --tensor > 1 is still refused
+    (the tensor axis is ROADMAP A16b); --fsdp, --sequence and
+    --preflight run on a mesh of four CPU entries."""
+    monkeypatch.setenv(callbacks.ENV_LOG_DIR, str(tmp_path))
+    monkeypatch.setattr(callbacks, '_instance', None)
+    argv = ['--device', 'cpu', '--mesh-devices', 'cpu,cpu,cpu,cpu',
+            '--steps', '2', '--batch-size', '4', '--seq-len', '16', *flags]
+    if flags[0] == '--tensor':
+        with pytest.raises(NotImplementedError, match='A16b'):
+            train_llama.main(argv)
+        return
+    history = train_llama.main(argv)
+    assert len(history) == 2
+    assert all(np.isfinite([h['loss'] for h in history]))
 
 
 def test_create_train_state_device_and_mesh(monkeypatch):
     cfg = configs.get_config('tiny')
-    with pytest.raises(NotImplementedError, match='later slice'):
-        train.create_train_state(cfg, device='cpu', mesh=object())
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(fsdp=2), ['cpu', 'cpu'])
+    state, shardings = train.create_train_state(cfg, device='cpu', mesh=mesh)
+    assert state.shards is not None and state.step == 0
+    assert shardings['embed.embedding'].spec == (('tensor',), ('fsdp',))
+    with pytest.raises(NotImplementedError, match='A16b'):
+        train.create_train_state(cfg, mesh=mesh_lib.build_mesh(
+            mesh_lib.MeshConfig(tensor=2), ['cpu', 'cpu']))
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         train.create_train_state(cfg)
