@@ -40,7 +40,8 @@ Phases (each one that fails makes the script exit non-zero):
    profiled call's (none, on some windows), CUDA event pairs
    around calls queued behind a spin kernel (`queued_event_ms`, which
    also counts the gaps between a call's kernels; `timed_by`
-   "queued_events"; `library_timed_by` for the yardstick); `ms_with_host`
+   "queued_events"; "events_with_host" where the queueing outlasts the
+   spin; `library_timed_by` for the yardstick); `ms_with_host`
    (CUDA events around the same 20 calls) keeps the host's launch work,
    and the plain version is timed that way.  B3 is timed at the
    training shape and the 512-token chunk; B1 and B2 at the slice
@@ -53,7 +54,10 @@ Phases (each one that fails makes the script exit non-zero):
    and causal, with an lse cotangent, and B3-B5 at mesh B's Ulysses
    call (b 1, 16/4, 4096, causal), each against its plain version and
    two launches bit-equal, timed beside SDPA (forward; backward as dq
-   + dkv).  Bounds from this run's
+   + dkv).  At a tensor rank's heads (llama3-8b at tensor 2 and 4:
+   16/4 and 8/2): B1 (bf16, S = 1) and B2 (int8, S = 5) on the ragged
+   lengths and B3 at the 512-token chunk, held and timed the same way
+   (`check_tensor_ranks`).  Bounds from this run's
    bytes and FLOPs against 3.35 TB/s and 989 TFLOP/s (H100 SXM data
    sheet), labelled by whichever of the two is larger.  B4/B5 are timed at the training
    shape; their plain version computes dQ, dK and dV together, and so
@@ -231,6 +235,46 @@ Phases (each one that fails makes the script exit non-zero):
      /generate of the 3000-token prompt equals the slice engine's
      tokens, /health carries `slice` (one SP prefill); B3 320, B1 32 a
      tick.
+5e. Tensor serving (models/tensor_parallel.py) on phase 4's llama3-8b
+   weights at full width and depth, every tensor rank on the one card
+   (a device list that repeats `cuda:0`): the weights cut into 2, then 4
+   ranks (`convert.to_tensor_parallel`), 4 prompts of 5-700 tokens and
+   32 greedy tokens each.  A tensor-1 engine on the same prompts first
+   (its counts are the base the tensor paths multiply).  Paths, each
+   with its launch counts zeroed just before and read once the worker
+   has read its last tick, held exactly to PERF.md's prediction (B3 L
+   tp a prompt, tp times the tensor-1 count; B1, or B2 on an int8 pool,
+   L tp a tick; B3 L tp sp (sp + 1) / 2 per SP prefill): "tensor 2"
+   (ModelServer(tensor=2, tensor_devices=[cuda:0] * 2), paged, over
+   HTTP behind the asyncio front; /health's tensor_degree 2), "tensor 2
+   dense" (the dense slot cache, pipelined then the legacy loop),
+   "tensor x sequence slice" (SliceReplicaEngine over sequence 2 x
+   tensor 2, max_len 8192, prompts of 1100, 2000 and 100 tokens: two
+   SP prefills), "tensor 4" (as tensor 2), "tensor 4 (int8 pool)"
+   (int8 KV and spec k = 4) and "tensor slice" (ModelServer(num_hosts=4,
+   slice_devices=[cuda:0] * 4): llama3-8b's default layout is tensor 4;
+   one 1100-token /generate, an SP prefill at sp 1).  Every generated
+   token is held at its own context as in phase 5, under the tensor
+   model's own forward (flash vs masked), the tensor-1 engine's tokens
+   saying where they part; and on the same contexts the tensor model's
+   logits are held to the tensor-1 model's: max |A_tp - A_1| at most
+   DRIFT_LIMIT times tensor-1's own flash-vs-masked delta.  Also:
+   prefill_sp of 7,936 tokens over sequence 2 x tensor 2 (B3 L x 3 x
+   2, the cache within 2e-2 relative of decode.prefill's, the first
+   token held, device ms); the handoff across degrees (a tensor-2
+   prefill export of 100 tokens against the tensor-1 export: hashes
+   equal, k and v of every layer within HANDOFF_LAYER_LIMIT relative;
+   the tensor-1 frame imported into a tensor-1 and a tensor-2 engine and
+   exported again: byte-equal frames; the tensor-2 engine's decode from
+   the imported pages held); a depth-1 f32 cut at tensor 2, GPU ==
+   CPU greedy tokens (paged and dense); and the paged tick at tp 1 / 2
+   / 4 (`profile_decode.profile_tick`, 10 timed ticks and one profiled:
+   host ms, device ms, kernels; printed, not held).  Both limits are
+   shown to catch a fault each run: with rank tp-1's partial left out
+   of every row-parallel sum (`planted_drift`), the drift must pass
+   DRIFT_LIMIT; with the ranks' heads joined in reverse order on
+   export (`tensor_handoff`), a layer must pass HANDOFF_LAYER_LIMIT
+   (the code is patched in this process, for that call only).
 6. A reference check: a depth-2, f32 cut of llama3-8b served on the
    GPU (CUDA kernels) and on the CPU (the plain versions) from the same
    weights must give the same greedy tokens, paged and dense engines.
@@ -299,6 +343,7 @@ B4/B5), and
 driven path's own count (serving, the two observability windows, the
 five paths of phase 5, "int8 weights" and "checkpoint" of phase 5b,
 the four MoE paths of phase 5c, the three slice paths of phase 5d,
+the six tensor paths of phase 5e,
 training, `train_llama small`, "training resume", the four paths of
 phase 7c), each path zeroed just before it and read just after.  B3's
 entry carries the 512-token chunk under `serving_chunk`, the ring hop
@@ -309,7 +354,8 @@ shape under `ulysses` and the training shape under `training_shape`;
 B1's and B2's top-level times are
 at the slice tick, with the serving tick under `serving_tick`, the
 full batch under `full_batch` and their split span in pages,
-`split_pages`.  Every time carries the method that took it
+`split_pages`.  B1's, B2's and B3's times at a tensor rank's heads are
+under `tensor_rank` ('tp2', 'tp4').  Every time carries the method that took it
 (`timed_by`, `library_timed_by`).
 The last line is {"ok": true, "device": {...}}.
 """
@@ -367,7 +413,8 @@ def is_device_event(e) -> bool:
             not getattr(e, 'is_user_annotation', False))
 
 
-def device_time(fn, iters: int = 20, warmup: int = 3) -> dict:
+def device_time(fn, iters: int = 20, warmup: int = 3,
+                host_gaps_ok: bool = False) -> dict:
     """{'ms': device time per call, 'timed_by': its method}.  By
     'profiler': the summed durations of every kernel that `iters` calls
     launch (torch.profiler, CUDA activity), over `iters`, after
@@ -379,7 +426,12 @@ def device_time(fn, iters: int = 20, warmup: int = 3) -> dict:
     at different windows, once a B4 under its bound).  The same calls
     are then timed by 'queued_events' (`queued_event_ms`), which also
     counts the device's gaps between a call's kernels, and a line says
-    so."""
+    so.  Where the queueing outlasts every spin (a call that waits on
+    the device inside it, or a long queue), `queued_event_ms` raises;
+    only with `host_gaps_ok` (a whole prefill_sp call, which syncs
+    inside) are the calls then timed by 'events_with_host' (`time_ms`:
+    CUDA events around the calls, the host's gaps included), and a line
+    says so.  A kernel's row never takes that fallback."""
     import torch
 
     def profiled(n):
@@ -401,11 +453,17 @@ def device_time(fn, iters: int = 20, warmup: int = 3) -> dict:
     us = sum(e.time_range.end - e.time_range.start for e in events)
     if per_call > 0 and kernels(events) >= per_call * iters:
         return {'ms': us / 1e3 / iters, 'timed_by': 'profiler'}
-    ms = queued_event_ms(fn, iters)
+    try:
+        ms, timed_by = queued_event_ms(fn, iters), 'queued_events'
+        how = 'CUDA event pairs on a queued stream'
+    except AssertionError as e:
+        if not host_gaps_ok:
+            raise
+        ms, timed_by = time_ms(fn, iters, warmup=0), 'events_with_host'
+        how = f'{e}; CUDA events around the calls, host gaps included'
     log(f'device_time: the profiler window saw {kernels(events)} '
-        f'kernels, under {iters} x {per_call}; CUDA event pairs on a '
-        f'queued stream: {ms:.4f} ms a call')
-    return {'ms': ms, 'timed_by': 'queued_events'}
+        f'kernels, under {iters} x {per_call}; {how}: {ms:.4f} ms a call')
+    return {'ms': ms, 'timed_by': timed_by}
 
 
 def queued_event_ms(fn, iters: int) -> float:
@@ -570,12 +628,13 @@ SLICE_ROWS = 512
 
 
 def paged_case(dev, dtype, quantized, s_q, seed, lengths=PAGED_RAGGED,
-               rows=PAGED_ROWS):
-    """Pool, q, tables, lengths at the 8B decode shapes."""
+               rows=PAGED_ROWS, heads=(32, 8)):
+    """Pool, q, tables, lengths at the 8B decode shapes (`heads`: a
+    tensor rank's (h_q, h_kv))."""
     import torch
     from skypilot_tpu_torch.models import decode
     gen = torch.Generator(device=dev).manual_seed(seed)
-    b, h_q, h_kv, d, ps = len(lengths), 32, 8, 128, 16
+    (h_q, h_kv), b, d, ps = heads, len(lengths), 128, 16
     n_pages = 1 + b * rows
     kshape = (n_pages, h_kv, ps, d)
     k = torch.randn(kshape, generator=gen, device=dev)
@@ -676,6 +735,73 @@ def check_paged(dev, quantized):
                            library_ms=None)
     return dict(shapes['slice_tick'], serving_tick=shapes['serving_tick'],
                 full_batch=shapes['full_batch'], split_pages=pa.SPLIT_PAGES)
+
+
+# A tensor rank's heads (h_q, h_kv) of llama3-8b at tensor 2 and 4.
+TENSOR_HEADS = {2: (16, 4), 4: (8, 2)}
+
+
+def check_tensor_ranks(dev):
+    """B1 (bf16, S = 1) and B2 (int8, S = 5) on the serving tick's
+    ragged lengths, and B3 (bf16, causal) at the 512-token chunk, at a
+    tensor rank's heads (`TENSOR_HEADS`): held against the plain version
+    at phase 3's bf16 tolerance, two launches bit-equal; device ms,
+    bound, plain ms and, for B3, SDPA's forward.  -> {kernel: {'tp2':
+    result, 'tp4': result}}."""
+    import torch
+    import torch.nn.functional as F
+    from skypilot_tpu_torch.ops import attention
+    from skypilot_tpu_torch.ops import paged_attention as pa
+    out = {'paged_attention': {}, 'paged_attention_int8': {},
+           'flash_fwd': {}}
+    for tp, heads in TENSOR_HEADS.items():
+        for name, quantized, s_q in (('paged_attention', False, 1),
+                                     ('paged_attention_int8', True, 5)):
+            q, kl, vl, tables, lengths = paged_case(
+                dev, torch.bfloat16, quantized, s_q, seed=40 + tp,
+                heads=heads)
+            scale = q.shape[-1] ** -0.5
+            got = pa.paged_attention(q, kl, vl, tables, lengths)
+            again = pa.paged_attention(q, kl, vl, tables, lengths)
+            ref = pa._paged_attention_reference(  # pylint: disable=protected-access
+                q, kl, vl, tables, lengths, sm_scale=scale)
+            torch.cuda.synchronize()
+            label = f'{name} tensor {tp} (h {heads[0]}/{heads[1]}, S={s_q})'
+            if not torch.equal(got, again):
+                raise AssertionError(f'{label}: two launches differ')
+            err = check_close(label, got, ref, 2e-2)
+            bound_ms, bound_by = paged_bound(q, kl, tables, lengths,
+                                             quantized)
+            out[name][f'tp{tp}'] = dict(
+                max_abs_err=err, **timed_call(lambda: pa.paged_attention(
+                    q, kl, vl, tables, lengths)),
+                plain_ms=time_ms(lambda: pa._paged_attention_reference(  # pylint: disable=protected-access
+                    q, kl, vl, tables, lengths, sm_scale=scale)),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        gen = torch.Generator(device=dev).manual_seed(512 + tp)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for shape in ((1, heads[0], 512, 128),
+                                          (1, heads[1], 512, 128),
+                                          (1, heads[1], 512, 128)))
+        got = attention.flash_attention(q, k, v)
+        ref = attention._blockwise_attention(  # pylint: disable=protected-access
+            q, k, v, causal=True, sm_scale=128 ** -0.5)
+        torch.cuda.synchronize()
+        label = f'flash_fwd tensor {tp} (h {heads[0]}/{heads[1]}, 512)'
+        err = check_close(label, got, ref, 2e-2)
+        flops = 4 * 128 * visible_entries(1, heads[0], 512, 512, True)
+        io = ((2 * q.numel() + 2 * k.numel()) * q.element_size() +
+              heads[0] * 512 * 4)
+        bound_ms, bound_by = bound(io, flops, BF16_FLOPS)
+        out['flash_fwd'][f'tp{tp}'] = dict(
+            max_abs_err=err,
+            **timed_call(lambda: attention.flash_attention(q, k, v)),
+            plain_ms=time_ms(lambda: attention._blockwise_attention(  # pylint: disable=protected-access
+                q, k, v, causal=True, sm_scale=128 ** -0.5)),
+            bound_ms=bound_ms, bound_by=bound_by,
+            **library_time(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)))
+    return out
 
 
 # (dtype, b, h, h_kv, d, q_len, k_len) of B3 against its plain version:
@@ -1392,7 +1518,7 @@ def path_logits(cfg, model, ids, use_flash, quantize=False):
     from skypilot_tpu_torch.models import decode
     s = len(ids)
     tokens = torch.tensor([ids], device=model.device)
-    cache = decode.init_cache(cfg, 1, s, device=model.device)
+    cache = decode.init_cache(cfg, 1, s, device=model.device, model=model)
 
     def write(c, new):
         if quantize:
@@ -1408,7 +1534,16 @@ def path_logits(cfg, model, ids, use_flash, quantize=False):
     return logits[0].float()
 
 
-def hold_tokens(what, cfg, model, prompt_ids, got, ref, quantized=False):
+# A tensor model's logits against the tensor-1 model's on the same
+# context: max |A_tp - A_1| over the generated positions and the
+# vocabulary, at most this many times tensor-1's own flash-vs-masked
+# delta (phase 5e; PERF.md gives a sound run's reading and a planted
+# fault's).
+DRIFT_LIMIT = 4.0
+
+
+def hold_tokens(what, cfg, model, prompt_ids, got, ref, quantized=False,
+                one=None):
     """Greedy tokens `got`, each held at its own context (teacher
     forcing): under the logits A of one flash forward of prompt + got,
     every got[j] is A's argmax at its position or within 2 delta of it,
@@ -1417,9 +1552,13 @@ def hold_tokens(what, cfg, model, prompt_ids, got, ref, quantized=False):
     (two exact paths of one function: either path's bf16 rounding moves
     a logit by about delta).  With `quantized` (an int8 pool) B's k/v go
     through the pool's quantizer, so delta holds its effect too.  `ref`,
-    the reference path's tokens, says where the two part.  Returns
-    (first j where got and ref part or None, tokens that are not A's
-    argmax, the largest gap, delta)."""
+    the reference path's tokens, says where the two part.  With `one`
+    (the tensor-1 model of a tensor `model`), A is also held to one's
+    flash logits A1 on the same context: max |A - A1| at most
+    DRIFT_LIMIT times delta1, one's own max |A1 - B1| (`tensor_drift`).
+    Returns (first j where got and ref part or None, tokens that are
+    not A's argmax, the largest gap, delta), with `one` also (drift,
+    delta1)."""
     import torch
     if len(got) != len(ref):
         raise AssertionError(f'{what}: {len(got)} tokens, reference '
@@ -1441,18 +1580,47 @@ def hold_tokens(what, cfg, model, prompt_ids, got, ref, quantized=False):
             f'{delta:.3g}')
     parted = next((j for j, (x, y) in enumerate(zip(got, ref)) if x != y),
                   None)
-    return parted, int((gaps > 0).sum()), worst, delta
+    out = (parted, int((gaps > 0).sum()), worst, delta)
+    if one is None:
+        return out
+    del b
+    drift, delta1 = tensor_drift(cfg, one, ids, n, a)
+    if drift > DRIFT_LIMIT * delta1:
+        raise AssertionError(
+            f'{what}: logits {drift:.4f} from the tensor-1 model\'s > '
+            f'{DRIFT_LIMIT:g} x its flash-vs-masked delta {delta1:.3g}')
+    return out + (drift, delta1)
+
+
+def tensor_drift(cfg, one, ids, n, a):
+    """(max |a - A1|, delta1): `a` a tensor model's flash logits at
+    positions n - 1.. of `ids`, A1 and B1 the tensor-1 model `one`'s
+    flash and masked logits there, delta1 = max |A1 - B1|."""
+    a1 = path_logits(cfg, one, ids, use_flash=True)[n - 1:]
+    drift = float((a - a1).abs().max())
+    b1 = path_logits(cfg, one, ids, use_flash=False)[n - 1:]
+    return drift, float((a1 - b1).abs().max())
 
 
 def hold_summary(holds) -> str:
     equal = sum(1 for h in holds if h[0] is None)
     parted = [h[0] for h in holds if h[0] is not None]
+    drift = ''
+    if all(len(h) == 6 for h in holds):  # held against tensor 1
+        drift = (f'; logits vs tensor 1 at most {max_drift(holds):.3g} x '
+                 f'its delta (limit {DRIFT_LIMIT:g}; largest '
+                 f'{max(h[4] for h in holds):.3g})')
     return (f'{equal}/{len(holds)} equal to the reference path'
             + (f' (others part at tokens {parted})' if parted else '')
             + f'; all {len(holds)} held token by '
             f'token: {sum(h[1] for h in holds)} not the flash argmax, '
             f'largest gap {max(h[2] for h in holds):.3g} (2 delta >= '
-            f'{2 * min(h[3] for h in holds):.3g})')
+            f'{2 * min(h[3] for h in holds):.3g})' + drift)
+
+
+def max_drift(holds) -> float:
+    """The largest drift / delta1 of holds made with a tensor-1 model."""
+    return max(h[4] / h[5] for h in holds)
 
 
 def dense_serving(cfg, model, dev, new_tokens):
@@ -3644,7 +3812,8 @@ def slice_prefill(cfg, model, dev, counters):
                            ids, [token], [ref_token])
         del got
         out[sp] = dict(launches=launched, errs=errs, hold=hold,
-                       **device_time(run, iters=3, warmup=1),
+                       **device_time(run, iters=3, warmup=1,
+                                     host_gaps_ok=True),
                        host_ms=host_ms(run))
     chunked = lambda: chunked_prefill(cfg, model, ids[:-1])  # noqa: E731
     out['chunked'] = dict(**device_time(chunked, iters=3, warmup=1),
@@ -3810,6 +3979,573 @@ def log_slice(report) -> None:
     log(f'slice phase: {report["seconds"]:.1f} s')
 
 
+# ------------------------------------------------------------ phase 5e
+
+TENSOR_LENGTHS = (5, 100, 300, 700)
+# The tensor slices' prompts: two over the SP threshold, one under it
+# (phase 5d's shapes at shorter lengths; prefill_sp runs SLICE_PROMPT).
+TENSOR_SLICE_LENGTHS = (1100, 2000, 100)
+TENSOR_ENGINE = dict(max_len=1024, slots=8, prefill_chunk=512,
+                     kv_pages=1024, page_size=16)
+TENSOR_SERVER = dict(max_len=1024, max_batch=8, prefill_chunk=512,
+                     kv_pages=1024, page_size=16)
+TENSOR_HANDOFF = 100       # tokens of the handoff prompt
+
+
+def tensor_mesh(dev, tp, sequence=None):
+    """A mesh over `dev` repeated: tensor tp (and a sequence axis)."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    axes = {'tensor': tp} if sequence is None else {'sequence': sequence,
+                                                    'tensor': tp}
+    return mesh_lib.Mesh([dev] * math.prod(axes.values()), axes)
+
+
+def tensor_cut(cfg, model, mesh):
+    """Phase 4's weights cut into the mesh's tensor ranks (printed: the
+    cut's seconds and the ranks' GiB)."""
+    import torch
+    from skypilot_tpu_torch.models import convert
+    t0 = time.perf_counter()
+    tp = convert.to_tensor_parallel(cfg, model, mesh)
+    torch.cuda.synchronize()
+    gib = sum(p.numel() * p.element_size() for p in tp.parameters()) / 2**30
+    log(f'tensor {tp.tp}: shards cut in {time.perf_counter() - t0:.1f} s, '
+        f'{gib:.2f} GiB over {tp.tp} ranks on one card')
+    return tp
+
+
+def tensor_predicted(cfg, tp, n_prompts, ticks, *, kernel, b3_each=1):
+    """PERF.md's prediction for a tensor window: B3 L tp per prompt
+    (its chunk 0; `b3_each` hops of a ring instead), the window's paged
+    kernel L tp per tick, the other paged kernel 0."""
+    paged = cfg.n_layers * tp * ticks
+    return {'flash_fwd': cfg.n_layers * tp * n_prompts * b3_each,
+            'paged_attention': paged if kernel == 'paged_attention' else 0,
+            'paged_attention_int8': (paged if kernel == 'paged_attention_int8'
+                                     else 0)}
+
+
+def hold_launches(path, launched, want):
+    got = {k: launched[k] for k in want}
+    if got != want:
+        raise AssertionError(f'{path}: launches {got}, predicted {want}')
+
+
+def engine_window(cfg, model, dev, counters, prompts, new_tokens, **kw):
+    """A ContinuousBatchingEngine on `model`: the prompts submitted at
+    once (under the queue's lock: one admission takes them all), counts
+    zeroed just before and read once the worker has read its last
+    tick.  -> (launches, tokens, stats)."""
+    from skypilot_tpu_torch.serve import batching_engine
+    from skypilot_tpu_torch.serve import plane_check
+    engine = batching_engine.ContinuousBatchingEngine(
+        cfg, model, device=dev, **dict(TENSOR_ENGINE, **kw))
+    try:
+        zero_counts(counters)
+        with engine._cond:  # pylint: disable=protected-access
+            handles = [engine.submit(p, new_tokens) for p in prompts]
+        tokens = [list(h.result(timeout=900)) for h in handles]
+        plane_check.settle(engine)
+        launches = read_counts(counters)
+        stats = engine.stats()
+    finally:
+        engine.stop()
+    return launches, tokens, stats
+
+
+def tensor_http(cfg, model, dev, counters, prompts, new_tokens, **server_kw):
+    """ModelServer over `model` behind the asyncio front: the prompts as
+    concurrent /generate requests, counts zeroed just before and read
+    once the engine has read its last tick; /health after.  ->
+    (launches, tokens, health, the server's weights)."""
+    from skypilot_tpu_torch.serve import async_server
+    from skypilot_tpu_torch.serve import model_server
+    from skypilot_tpu_torch.serve import plane_check
+    server = model_server.ModelServer('llama3-8b', params=model,
+                                      continuous_batching=True, device=dev,
+                                      **server_kw)
+    port, stop = async_server.start_background(server)
+    try:
+        zero_counts(counters)
+        results = [None] * len(prompts)
+
+        def run(i):
+            results[i] = post(port, {'prompt_ids': [prompts[i]],
+                                     'max_new_tokens': new_tokens})
+        threads = [threading.Thread(target=run, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        plane_check.settle(server.engine)
+        launches = read_counts(counters)
+        status, _, raw = http_call(port, '/health')
+        health = json.loads(raw)
+    finally:
+        stop()
+        server.close()
+    for code, body in results:
+        if code != 200:
+            raise AssertionError(f'/generate: {code} {body}')
+    if status != 200:
+        raise AssertionError(f'/health: {status} {health}')
+    return launches, [r[1]['tokens'][0] for r in results], health, \
+        server.params
+
+
+def tensor_holds(path, cfg, tp, one, prompts, got, ref, quantized=False):
+    """Every token of `got` held at its own context under the tensor
+    model's own forward (flash vs masked, `hold_tokens`), the tensor-1
+    engine's tokens `ref` saying where they part, and the tensor
+    model's logits held to the tensor-1 model `one`'s there."""
+    return [hold_tokens(f'{path} prompt {len(p)}', cfg, tp, p, g, r,
+                        quantized=quantized, one=one)
+            for p, g, r in zip(prompts, got, ref)]
+
+
+def planted_drift(cfg, tp, one, ids, got):
+    """The drift / delta1 (`tensor_drift`) of `got` at its context with
+    a fault planted in this process for the call: rank tp-1's partial
+    left out of every row-parallel sum (`tensor_parallel.all_reduce`
+    patched, then restored).  It must pass DRIFT_LIMIT, or the limit
+    would not see a dropped partial."""
+    from unittest import mock
+    import torch
+    from skypilot_tpu_torch.models import tensor_parallel
+    real = tensor_parallel.all_reduce
+
+    def dropped(parts, dtype):
+        return real(list(parts[:-1]) + [torch.zeros_like(parts[-1])],
+                    dtype)
+    n = len(ids)
+    ctx = list(ids) + list(got[:-1])
+    with mock.patch.object(tensor_parallel, 'all_reduce', dropped):
+        a = path_logits(cfg, tp, ctx, use_flash=True)[n - 1:]
+    drift, delta1 = tensor_drift(cfg, one, ctx, n, a)
+    if drift <= DRIFT_LIMIT * delta1:
+        raise AssertionError(
+            f'planted fault (a dropped partial): logits {drift:.4f} from '
+            f'the tensor-1 model\'s, within {DRIFT_LIMIT:g} x delta '
+            f'{delta1:.3g}: the limit does not see it')
+    return drift / delta1
+
+
+def tensor_f32_check(dev):
+    """A depth-1 f32 cut of llama3-8b at tensor 2: the GPU engine (the
+    kernels, ranks on the card) and the CPU engine (the plain versions,
+    CPU ranks) give the same greedy tokens, paged and dense."""
+    import torch
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import convert
+    from skypilot_tpu_torch.models.transformer import init_params
+    from skypilot_tpu_torch.serve import batching_engine
+    cfg = configs.get_config('llama3-8b', n_layers=1, dtype=torch.float32)
+    gpu_model = init_params(cfg, seed=1, device=dev)
+    cpu_model = convert.from_jax_params(
+        cfg, convert.to_jax_params(gpu_model), device='cpu')
+    models = {'gpu': convert.to_tensor_parallel(cfg, gpu_model,
+                                                tensor_mesh(dev, 2)),
+              'cpu': convert.to_tensor_parallel(
+                  cfg, cpu_model, tensor_mesh(torch.device('cpu'), 2))}
+    del gpu_model, cpu_model
+    prompts = [prompt(210, 12, cfg.vocab_size),
+               prompt(211, 40, cfg.vocab_size)]
+    for mode, kv_pages in (('paged', 32), ('dense', None)):
+        toks = {}
+        for where, model in models.items():
+            engine = batching_engine.ContinuousBatchingEngine(
+                cfg, model, max_len=128, slots=2, kv_pages=kv_pages,
+                page_size=16, device=model.device)
+            try:
+                toks[where] = [engine.generate(p, 12) for p in prompts]
+            finally:
+                engine.stop()
+        if toks['gpu'] != toks['cpu']:
+            raise AssertionError(f'tensor 2 {mode}: GPU vs CPU greedy '
+                                 f'tokens differ:\n{toks["gpu"]}\n'
+                                 f'{toks["cpu"]}')
+
+
+# A tensor-2 prefill export against the tensor-1 export: each layer's
+# k and v within this relative difference (Frobenius over the layer).
+# PERF.md gives a sound run's largest layer and a planted fault's.
+HANDOFF_LAYER_LIMIT = 5e-2
+
+
+def layer_rel(one, two):
+    """The largest relative difference of a layer's k or v between two
+    decoded frames (Frobenius over the layer), and the whole leaves'
+    ({'k': x, 'v': y})."""
+    import numpy as np
+    rel, by_layer = {}, []
+    for name in ('k', 'v'):
+        a, b = one[name].astype(np.float64), two[name].astype(np.float64)
+        rel[name] = float(np.linalg.norm(a - b) / np.linalg.norm(a))
+        by_layer += [float(np.linalg.norm(a[i] - b[i]) /
+                           np.linalg.norm(a[i])) for i in range(a.shape[0])]
+    return max(by_layer), rel
+
+
+def tensor_handoff(cfg, tp, model, dev):
+    """The wire across tensor degrees on the card: a tensor-2 prefill
+    export of a 100-token prompt against the tensor-1 export (header and
+    hashes equal; every layer's k and v within HANDOFF_LAYER_LIMIT
+    relative; the whole leaves' relative difference printed), and again
+    with the ranks' heads joined in reverse order on export (a planted
+    fault, `decode._join_heads` patched for that call), which must pass
+    the limit; the tensor-1 frame imported into a tensor-2 and a
+    tensor-1 engine and exported again: byte-equal frames.  The
+    tensor-2 engine then decodes the prompt from the imported pages
+    (its tokens held, and held to the tensor-1 model's logits)."""
+    from unittest import mock
+    from skypilot_tpu_torch.models import decode
+    from skypilot_tpu_torch.serve import batching_engine
+    from skypilot_tpu_torch.serve import handoff as handoff_lib
+    ids = prompt(220, TENSOR_HANDOFF, cfg.vocab_size)
+    engines = {name: batching_engine.ContinuousBatchingEngine(
+        cfg, m, device=dev, **TENSOR_ENGINE)
+        for name, m in (('one', model), ('two', tp))}
+    try:
+        frames = {n: e.export_prefill(ids, binary=True)
+                  for n, e in engines.items()}
+        one = handoff_lib.decode_binary(frames['one'])
+        two = handoff_lib.decode_binary(frames['two'])
+        for key in ('hashes', 'page_size'):
+            if one[key] != two[key]:
+                raise AssertionError(f'tensor handoff: {key} differs')
+        if one['k'].shape != two['k'].shape:
+            raise AssertionError('tensor handoff: page shapes differ')
+        worst, rel = layer_rel(one, two)
+        if worst > HANDOFF_LAYER_LIMIT:
+            raise AssertionError(f'tensor handoff: a layer\'s relative '
+                                 f'difference {worst:.3g} > '
+                                 f'{HANDOFF_LAYER_LIMIT:g}')
+        real_join = decode._join_heads  # pylint: disable=protected-access
+        with mock.patch.object(
+                decode, '_join_heads',
+                lambda leaves: real_join(leaves[::-1]
+                                         if isinstance(leaves, list)
+                                         else leaves)):
+            swapped = handoff_lib.decode_binary(
+                engines['two'].export_prefill(ids, binary=True))
+        fault, _ = layer_rel(one, swapped)
+        if fault <= HANDOFF_LAYER_LIMIT:
+            raise AssertionError(
+                f'planted fault (heads joined in reverse): a layer\'s '
+                f'relative difference {fault:.3g} within '
+                f'{HANDOFF_LAYER_LIMIT:g}: the limit does not see it')
+        again = {}
+        for n, e in engines.items():
+            e.import_pages(one['hashes'], one['page_size'], one['k'],
+                           one['v'])
+            again[n] = e.export_prefix_pages(64, binary=True)
+        if again['one'] != again['two'] or len(again['one']) < 1:
+            raise AssertionError('tensor handoff: the re-exported frames '
+                                 'differ across tensor degrees')
+        got = engines['two'].generate(ids, 32, timeout=600)
+        ref = engines['one'].generate(ids, 32, timeout=600)
+    finally:
+        for e in engines.values():
+            e.stop()
+    hold = hold_tokens('tensor 2 handoff', cfg, tp, ids, got, ref,
+                       one=model)
+    return dict(frame_bytes=len(frames['two']), rel=rel,
+                layer_rel_max=worst, fault_layer_rel_max=fault,
+                layer0_equal=bool(one['k'][0].tobytes() ==
+                                  two['k'][0].tobytes()),
+                round_trip_bytes=len(again['two']), hold=hold)
+
+
+def tensor_ticks(cfg, model, dev, tps):
+    """profile_decode's paged tick (8 slots at depths 5..700, 10 timed
+    ticks, one under the profiler: the profiler's post-processing of a
+    tensor tick's ~8,400 kernels is what costs) at each tensor degree:
+    host ms, device ms, kernels (printed, not held)."""
+    from skypilot_tpu_torch import profile_decode
+    out = {}
+    for tp, m in tps.items():
+        r = profile_decode.profile_tick(cfg, m, dev, ticks=10, n_prof=1)
+        out[tp] = {k: r[k] for k in ('tick_ms', 'device_ms_per_tick',
+                                     'device_idle_share',
+                                     'kernels_per_tick')}
+    return out
+
+
+def tensor_prefill_sp(cfg, model, tp_slice, mesh, dev, counters):
+    """prefill_sp of SLICE_PROMPT tokens over sequence 2 x tensor 2 on
+    the card: B3 L x 3 x 2 (each tensor rank's ring), the cache within
+    2e-2 relative of decode.prefill's (tensor 1), the first greedy token
+    held at its own context; device ms (one call after a warm-up)."""
+    import torch
+    from skypilot_tpu_torch.models import decode
+    ids = prompt(8100, SLICE_PROMPT, cfg.vocab_size)
+    tokens = torch.tensor([ids], dtype=torch.int32, device=dev)
+    _, want = decode.prefill(cfg, model, tokens, max_len=SLICE_MAX_LEN)
+    ref_token = first_token(cfg, model, want, ids[-1])
+
+    def run():
+        return decode.prefill_sp(cfg, tp_slice, tokens, mesh=mesh,
+                                 max_len=SLICE_MAX_LEN)
+    zero_counts(counters)
+    got = run()
+    launched = read_counts(counters)['flash_fwd']
+    torch.cuda.synchronize()
+    sp, tp = mesh.shape['sequence'], mesh.shape['tensor']
+    if launched != cfg.n_layers * tp * sp * (sp + 1) // 2:
+        raise AssertionError(f'tensor prefill_sp: B3 ran {launched} times')
+    errs = {}
+    for leaf in ('k', 'v'):
+        a = torch.cat(got[leaf], dim=2).float()
+        b = want[leaf].float()
+        rel = float(torch.linalg.vector_norm(a - b) /
+                    torch.linalg.vector_norm(b))
+        if rel > 2e-2:
+            raise AssertionError(f'tensor prefill_sp {leaf}: relative '
+                                 f'difference {rel:.3g} > 2e-2')
+        errs[leaf] = rel
+    joined = {'k': torch.cat(got['k'], dim=2), 'v': torch.cat(got['v'], 2),
+              'index': got['index']}
+    del got
+    token = first_token(cfg, model, joined, ids[-1])
+    hold = hold_tokens('tensor prefill_sp first token', cfg, model, ids,
+                       [token], [ref_token])
+    del joined, want
+    return dict(launches=launched, errs=errs, hold=hold,
+                **device_time(run, iters=1, warmup=1, host_gaps_ok=True))
+
+
+def tensor_serving(cfg, model, dev, counters, new_tokens):
+    """Phase 5e: tensor-parallel serving on phase 4's llama3-8b weights,
+    every rank on the one card.  -> ({path: launch counts}, report)."""
+    import torch
+    from skypilot_tpu_torch.models import tensor_parallel
+    t_phase = time.perf_counter()
+    L = cfg.n_layers
+    report = {'ticks': {}, 'laps': {}}
+    last = [t_phase]
+
+    def lap(name):
+        now = time.perf_counter()
+        report['laps'][name] = round(now - last[0], 1)
+        last[0] = now
+    prompts = [prompt(8300 + i, n, cfg.vocab_size)
+               for i, n in enumerate(TENSOR_LENGTHS)]
+    paths = {}
+    # The tensor-1 engine on the same prompts: the counts the tensor
+    # paths multiply, and the tokens the holds compare with.
+    base, ref_tokens, base_stats = engine_window(cfg, model, dev, counters,
+                                                 prompts, new_tokens)
+    hold_launches('tensor 1 base', base, tensor_predicted(
+        cfg, 1, len(prompts), base_stats['ticks'], kernel='paged_attention'))
+    free_cuda()
+    lap('tensor 1 base')
+
+    tp2 = tensor_cut(cfg, model, tensor_mesh(dev, 2))
+    launches, tokens, health, _ = tensor_http(
+        cfg, tp2, dev, counters, prompts, new_tokens, tensor=2,
+        tensor_devices=[dev] * 2, **TENSOR_SERVER)
+    paths['tensor 2'] = launches
+    ticks = health['engine']['ticks']
+    hold_launches('tensor 2', launches, tensor_predicted(
+        cfg, 2, len(prompts), ticks, kernel='paged_attention'))
+    if launches['flash_fwd'] != 2 * base['flash_fwd']:
+        raise AssertionError('tensor 2: B3 is not twice tensor 1\'s')
+    if health['engine']['tensor_degree'] != 2:
+        raise AssertionError(f'tensor 2 /health: {health["engine"]}')
+    lap('tensor 2')
+    report['tensor 2'] = dict(ticks=ticks, holds=tensor_holds(
+        'tensor 2', cfg, tp2, model, prompts, tokens, ref_tokens))
+    report['planted drift'] = planted_drift(cfg, tp2, model, prompts[2],
+                                            tokens[2])
+    free_cuda()
+    lap('tensor 2 holds')
+
+    zero_counts(counters)
+    dense, dense_tokens, dense_stats = engine_window(
+        cfg, tp2, dev, counters, prompts, new_tokens, kv_pages=None)
+    legacy, legacy_tokens, _ = engine_window(
+        cfg, tp2, dev, counters, prompts, new_tokens, kv_pages=None,
+        pipelined=False)
+    lap('tensor 2 dense')
+    paths['tensor 2 dense'] = {k: dense[k] + legacy[k] for k in dense}
+    for name, got in (('tensor 2 dense', dense), ('tensor 2 legacy',
+                                                  legacy)):
+        hold_launches(name, got, tensor_predicted(cfg, 2, len(prompts), 0,
+                                                  kernel=None))
+    report['tensor 2 dense'] = dict(
+        ticks=dense_stats['ticks'],
+        holds=tensor_holds('tensor 2 dense', cfg, tp2, model, prompts,
+                           dense_tokens, ref_tokens) +
+        tensor_holds('tensor 2 legacy', cfg, tp2, model, prompts,
+                     legacy_tokens, ref_tokens))
+    free_cuda()
+    lap('tensor 2 dense holds')
+    report['handoff'] = tensor_handoff(cfg, tp2, model, dev)
+    lap('handoff')
+    tensor_f32_check(dev)
+    free_cuda()
+    lap('f32 cut')
+
+    # sequence 2 x tensor 2: tensor 2's ranks over the slice's mesh (the
+    # repeated card needs no copy).
+    mesh = tensor_mesh(dev, 2, sequence=2)
+    tp_slice = tensor_parallel.TensorParallel(cfg, list(tp2.ranks), mesh)
+    report['prefill_sp'] = tensor_prefill_sp(cfg, model, tp_slice, mesh,
+                                             dev, counters)
+    free_cuda()
+    lap('prefill_sp')
+    slice_prompts = [prompt(8400 + i, n, cfg.vocab_size)
+                     for i, n in enumerate(TENSOR_SLICE_LENGTHS)]
+    from skypilot_tpu_torch.serve import slice_replica
+    engine = slice_replica.SliceReplicaEngine(
+        cfg, tp_slice, num_hosts=4, mesh=mesh,
+        sp_threshold=SLICE_THRESHOLD, device=dev, **SLICE_ENGINE)
+    from skypilot_tpu_torch.serve import plane_check
+    try:
+        zero_counts(counters)
+        with engine._cond:  # pylint: disable=protected-access
+            handles = [engine.submit(p, new_tokens) for p in slice_prompts]
+        sl_tokens = [list(h.result(timeout=900)) for h in handles]
+        plane_check.settle(engine)
+        paths['tensor x sequence slice'] = read_counts(counters)
+        sl_stats = engine.stats()
+    finally:
+        engine.stop()
+    long_prompts = sum(1 for p in slice_prompts
+                       if len(p) - 1 >= SLICE_THRESHOLD)
+    want = tensor_predicted(cfg, 2, long_prompts, sl_stats['ticks'],
+                            kernel='paged_attention', b3_each=3)
+    want['flash_fwd'] += L * 2 * (len(slice_prompts) - long_prompts)
+    hold_launches('tensor x sequence slice',
+                  paths['tensor x sequence slice'], want)
+    sl = sl_stats['slice']
+    if (sl['tensor_degree'], sl['sp_degree'], sl['sp_prefills']) != (2, 2,
+                                                                    2):
+        raise AssertionError(f'tensor x sequence slice: {sl}')
+    free_cuda()
+    lap('tensor x sequence slice')
+    sl_ref = single_tokens(cfg, model, dev, slice_prompts, new_tokens, False)
+    report['tensor x sequence slice'] = dict(
+        ticks=sl_stats['ticks'], slice=sl,
+        holds=tensor_holds('tensor x sequence slice', cfg, tp_slice, model,
+                           slice_prompts, sl_tokens, sl_ref))
+    del tp_slice, engine
+    free_cuda()
+    lap('tensor x sequence slice holds')
+    report['ticks'] = tensor_ticks(cfg, model, dev, {1: model, 2: tp2})
+    del tp2
+    free_cuda()
+    lap('ticks 1, 2')
+
+    tp4 = tensor_cut(cfg, model, tensor_mesh(dev, 4))
+    launches, tokens, health, _ = tensor_http(
+        cfg, tp4, dev, counters, prompts, new_tokens, tensor=4,
+        tensor_devices=[dev] * 4, **TENSOR_SERVER)
+    paths['tensor 4'] = launches
+    ticks = health['engine']['ticks']
+    hold_launches('tensor 4', launches, tensor_predicted(
+        cfg, 4, len(prompts), ticks, kernel='paged_attention'))
+    if launches['flash_fwd'] != 4 * base['flash_fwd']:
+        raise AssertionError('tensor 4: B3 is not four times tensor 1\'s')
+    lap('tensor 4')
+    report['tensor 4'] = dict(ticks=ticks, holds=tensor_holds(
+        'tensor 4', cfg, tp4, model, prompts, tokens, ref_tokens))
+    free_cuda()
+    lap('tensor 4 holds')
+
+    launches, tokens, stats = engine_window(
+        cfg, tp4, dev, counters, prompts, new_tokens, quantize_kv=True,
+        spec_tokens=4)
+    lap('tensor 4 (int8 pool)')
+    paths['tensor 4 (int8 pool)'] = launches
+    hold_launches('tensor 4 (int8 pool)', launches, tensor_predicted(
+        cfg, 4, len(prompts), stats['ticks'],
+        kernel='paged_attention_int8'))
+    report['tensor 4 (int8 pool)'] = dict(
+        ticks=stats['ticks'], accept=stats['spec_accept_len_mean'],
+        holds=tensor_holds('tensor 4 (int8 pool)', cfg, tp4, model,
+                           prompts, tokens, ref_tokens, quantized=True))
+    free_cuda()
+    lap('tensor 4 (int8 pool) holds')
+
+    # --num-hosts 4 in the default layout: llama3-8b's is tensor 4.
+    launches, tokens, health, _ = tensor_http(
+        cfg, tp4, dev, counters, slice_prompts[:1], new_tokens,
+        num_hosts=4, slice_devices=[dev] * 4, max_len=SLICE_MAX_LEN,
+        max_batch=4, prefill_chunk=PREFILL_CHUNK, kv_pages=2048,
+        page_size=16, sp_threshold=SLICE_THRESHOLD)
+    lap('tensor slice')
+    paths['tensor slice'] = launches
+    sl = health['slice']
+    if (sl['tensor_degree'], sl['sp_degree'], sl['sp_prefills']) != (4, 1,
+                                                                    1):
+        raise AssertionError(f'tensor slice /health: {sl}')
+    hold_launches('tensor slice', launches, tensor_predicted(
+        cfg, 4, 1, health['engine']['ticks'], kernel='paged_attention'))
+    report['tensor slice'] = dict(
+        ticks=health['engine']['ticks'], slice=sl,
+        holds=tensor_holds('tensor slice', cfg, tp4, model,
+                           slice_prompts[:1], tokens, sl_ref[:1]))
+    free_cuda()
+    lap('tensor slice holds')
+    report['ticks'][4] = tensor_ticks(cfg, model, dev, {4: tp4})[4]
+    del tp4
+    free_cuda()
+    lap('ticks 4')
+    report['base'] = dict(launches=base, ticks=base_stats['ticks'])
+    report['seconds'] = time.perf_counter() - t_phase
+    return paths, report
+
+
+def log_tensor(report, paths) -> None:
+    for path in ('tensor 2', 'tensor 2 dense', 'tensor x sequence slice',
+                 'tensor 4', 'tensor 4 (int8 pool)', 'tensor slice'):
+        r = report[path]
+        extra = (f'; slice {json.dumps(r["slice"])}' if 'slice' in r else
+                 f'; accept len {r["accept"]}' if 'accept' in r else '')
+        log(f'{path}: {r["ticks"]} ticks{extra}; launches '
+            f'{json.dumps(paths[path])}; tokens vs the tensor-1 engine: '
+            f'{hold_summary(r["holds"])}')
+    h = report['handoff']
+    log(f'tensor 2 handoff ({TENSOR_HANDOFF}-token prompt): frame '
+        f'{h["frame_bytes"]} bytes, header and hashes equal to tensor 1\'s, '
+        f'the largest layer\'s k/v relative difference '
+        f'{h["layer_rel_max"]:.3g} (limit {HANDOFF_LAYER_LIMIT:g}; with '
+        f'the heads joined in reverse, a planted fault: '
+        f'{h["fault_layer_rel_max"]:.3g}), whole leaves '
+        f'{h["rel"]["k"]:.3g}/{h["rel"]["v"]:.3g}, layer 0 byte-equal: '
+        f'{h["layer0_equal"]}; re-exported frames byte-equal across '
+        f'degrees ({h["round_trip_bytes"]} bytes); decode after import: '
+        f'{hold_summary([h["hold"]])}')
+    sound = max(max_drift(report[p]['holds']) for p in (
+        'tensor 2', 'tensor 2 dense', 'tensor x sequence slice', 'tensor 4',
+        'tensor 4 (int8 pool)', 'tensor slice'))
+    sound = max(sound, max_drift([report['handoff']['hold']]))
+    log(f'tensor logits vs tensor 1\'s on the same contexts: at most '
+        f'{sound:.3g} x tensor 1\'s flash-vs-masked delta over every path '
+        f'(limit {DRIFT_LIMIT:g}); with rank 1\'s partial left out of every '
+        f'row-parallel sum at tensor 2, a planted fault: '
+        f'{report["planted drift"]:.3g} x')
+    pre = report['prefill_sp']
+    log(f'tensor prefill_sp (sequence 2 x tensor 2, {SLICE_PROMPT} tokens, '
+        f'{card()}): {pre["ms"]:.2f} ms device by {pre["timed_by"]}, B3 '
+        f'{pre["launches"]}, k/v relative to tensor 1 '
+        f'{pre["errs"]["k"]:.3g}/{pre["errs"]["v"]:.3g}, first token '
+        f'{hold_summary([pre["hold"]])}')
+    for tp, t in sorted(report['ticks'].items()):
+        log(f'tensor {tp} paged tick (8 slots, depths 5..700; {card()}; '
+            f'printed, not held): {t["tick_ms"]:.2f} ms host, '
+            f'{t["device_ms_per_tick"]:.2f} ms device, idle share '
+            f'{t["device_idle_share"]:.3f}, {t["kernels_per_tick"]:.0f} '
+            'kernels')
+    log(f'tensor 1 base window: {report["base"]["ticks"]} ticks, launches '
+        f'{json.dumps(report["base"]["launches"])}; tensor f32 cut (depth '
+        f'1, tensor 2): GPU == CPU greedy tokens, paged and dense; tensor '
+        f'phase {report["seconds"]:.1f} s (s by step: '
+        f'{json.dumps(report["laps"])})')
+
+
 def log_observability(obs) -> None:
     def spread(xs):
         return (f'{" / ".join(f"{x:.2f}" for x in xs)} '
@@ -3881,6 +4617,11 @@ def main() -> int:
                              training_shape=results[name],
                              ring_hop_causal=sharded[name]['ring_hop_causal'],
                              ulysses=sharded[name]['ulysses'])
+    for name, ranks in check_tensor_ranks(dev).items():
+        results[name]['tensor_rank'] = ranks
+        for tp, r in ranks.items():
+            log(f'  {name} at a tensor rank ({tp}, heads '
+                f'{TENSOR_HEADS[int(tp[2:])]}): {kernel_summary(r)}')
     for name, r in results.items():
         at = (f' at the slice tick (lengths {SLICE_TICK})'
               if name.startswith('paged') else
@@ -3958,6 +4699,11 @@ def main() -> int:
     paths.update(slice_paths)
     log_slice(slice_report)
     log(f'launches: {json.dumps(slice_paths)}')
+    free_cuda()
+    tensor_paths, tensor_report = tensor_serving(cfg, model, dev, counters,
+                                                 new_tokens)
+    paths.update(tensor_paths)
+    log_tensor(tensor_report, tensor_paths)
     del model
     free_cuda()
     paths.update(real_weights(dev, counters, new_tokens))

@@ -192,11 +192,21 @@ def restore_params(directory: str, *,
                    device: Union[str, torch.device] = 'cuda',
                    leaf_fn: Optional[Callable[[Tuple[str, ...],
                                                torch.Tensor], Any]] = None,
-                   step: Optional[int] = None) -> Any:
+                   step: Optional[int] = None,
+                   pieces: Optional[Callable[[Tuple[str, ...],
+                                              Tuple[int, ...]],
+                                             List[Tuple[Any, Any]]]] = None
+                   ) -> Any:
     """The params tree of the newest step (or `step`) under
     `directory`, its leaves streamed one at a time onto `device`, each
     through `leaf_fn(path, tensor)` when given.  Without a checkpoint,
-    warns and returns None, as the reference returns its template."""
+    warns and returns None, as the reference returns its template.
+
+    With `pieces` (fn(path, shape) -> [(index, device)], as many pairs
+    for every leaf: `convert.tensor_pieces`), each leaf is read piece by
+    piece, the slice `index` of the stored leaf straight from the file
+    onto its device, so no whole leaf reaches a device; returns one
+    tree per piece (the tensor ranks' trees)."""
     dev = resolve_device(device)
     if step is None:
         step = latest_step(directory)
@@ -209,20 +219,29 @@ def restore_params(directory: str, *,
             raise CheckpointFormatError(
                 f'{reader.path}: format {reader.metadata.get("format")!r}, '
                 f'not {FORMAT!r}: {_REIMPORT}')
-        tree: Dict[str, Any] = {}
+        trees: List[Dict[str, Any]] = []
         for name in reader.keys():
             path = tuple(name.split(_SEP))
-            leaf = reader.get_tensor(name).to(dev)
-            if leaf_fn is not None:
-                leaf = leaf_fn(path, leaf)
-            node = tree
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = leaf
+            if pieces is None:
+                leaves = [reader.get_tensor(name).to(dev)]
+            else:
+                stored = reader.get(name)
+                leaves = [safetensors_io.to_torch(
+                    stored[index], reader.dtype(name)).to(piece_dev)
+                          for index, piece_dev in pieces(path, stored.shape)]
+            while len(trees) < len(leaves):
+                trees.append({})
+            for tree, leaf in zip(trees, leaves):
+                if leaf_fn is not None:
+                    leaf = leaf_fn(path, leaf)
+                node = tree
+                for key in path[:-1]:
+                    node = node.setdefault(key, {})
+                node[path[-1]] = leaf
     finally:
         reader.close()
     logger.info('Restored params from step %d of %s', step, directory)
-    return tree
+    return trees if pieces is not None else trees[0] if trees else {}
 
 
 # ---------------------------------------------------- training checkpoints

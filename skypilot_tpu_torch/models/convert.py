@@ -17,10 +17,18 @@ as they are.
 `to_jax_params` is the inverse (numpy f32 leaves; int8 leaves byte for
 byte), for round trips; `param_tree` is the same tree over the model's
 own tensors, copying nothing.
+
+`to_tensor_parallel` cuts the reference tree, or an unsharded
+Transformer, into the per-rank shards of a `TensorParallel` over a
+mesh's 'tensor' axis (models/tensor_parallel.py): rank t's slice of
+each leaf is the one `parallel/sharding.Placement.index` gives its
+mesh position under the leaf's logical axes (`leaf_axes`), copied bit
+for bit; `tensor_pieces` is the same cut for a restore that reads each
+rank's slice straight from the file (data/checkpoints.py).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,10 +36,13 @@ import torch
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import moe as moe_lib
 from skypilot_tpu_torch.models import quantize as quantize_lib
+from skypilot_tpu_torch.models import tensor_parallel
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.models.transformer import QuantDense
 from skypilot_tpu_torch.models.transformer import Transformer
 from skypilot_tpu_torch.models.transformer import _storage
+from skypilot_tpu_torch.models.transformer import logical_axes
+from skypilot_tpu_torch.parallel import sharding
 
 
 def _leaf(x: Any, where: str):
@@ -250,6 +261,73 @@ def serving_leaf(cfg: ModelConfig, quantize: bool = False
         else:
             dtype = storage.matmul
         return t.to(dtype)
+
+    return fn
+
+
+# ------------------------------------------------------- tensor shards
+
+
+def leaf_axes(path: Tuple[str, ...]) -> Tuple[Optional[str], ...]:
+    """The logical axes of the reference tree's leaf at `path` (either
+    layer layout; a stacked leaf's [L] axis carries none).  A q/k/v
+    bias is cut with its kernel's heads, which the rank's narrow
+    projection adds it to."""
+    if path[-1] == 'bias':
+        axes = logical_axes('.'.join(path[:-1] + ('kernel',)))[1:]
+    else:
+        axes = logical_axes('.'.join(path))
+    return ((None,) + axes) if path[0] == 'layers' else axes
+
+
+def _rank_tree(node: Any, path: Tuple[str, ...], mesh, position: int):
+    if isinstance(node, dict):
+        if quantize_lib.is_quantized_leaf(node):
+            raise ValueError(f'{"/".join(path)}: int8 leaves are not '
+                             'tensor-sharded (quantize + tensor sharding '
+                             'is not supported)')
+        return {k: _rank_tree(v, path + (k,), mesh, position)
+                for k, v in node.items()}
+    placement = sharding.logical_sharding(mesh, *leaf_axes(path))
+    return sharding.shard_of(_leaf(node, '/'.join(path)), placement,
+                             position)
+
+
+def to_tensor_parallel(cfg: ModelConfig, source: Any,
+                       mesh) -> tensor_parallel.TensorParallel:
+    """The reference tree (numpy or tensors, either layer layout) or an
+    unsharded float Transformer as a TensorParallel over `mesh`'s
+    'tensor' axis: each rank's slices copied onto its device, bit for
+    bit, one rank at a time."""
+    tree = param_tree(source) if isinstance(source, Transformer) else source
+    devices = tensor_parallel.rank_devices(mesh)
+    rcfg = tensor_parallel.rank_config(cfg, len(devices))
+    ranks = [from_jax_params(
+        rcfg, _rank_tree(tree, (), mesh, mesh.position(tensor=t)),
+        device=dev) for t, dev in enumerate(devices)]
+    return tensor_parallel.TensorParallel(cfg, ranks, mesh)
+
+
+def from_rank_trees(cfg: ModelConfig, trees: List[Dict[str, Any]],
+                    mesh) -> tensor_parallel.TensorParallel:
+    """Per-rank trees (a `tensor_pieces` restore: rank t's slices,
+    already on its device) as a TensorParallel."""
+    rcfg = tensor_parallel.rank_config(cfg, len(trees))
+    ranks = [from_jax_params(rcfg, tree, device=dev) for tree, dev in
+             zip(trees, tensor_parallel.rank_devices(mesh))]
+    return tensor_parallel.TensorParallel(cfg, ranks, mesh)
+
+
+def tensor_pieces(mesh):
+    """fn(path, shape) -> [(index, device)] per tensor rank: the slice
+    of a stored leaf each rank reads and where it goes
+    (`checkpoints.restore_params(pieces=)`)."""
+    devices = tensor_parallel.rank_devices(mesh)
+
+    def fn(path: Tuple[str, ...], shape) -> List[Tuple[Any, Any]]:
+        placement = sharding.logical_sharding(mesh, *leaf_axes(path))
+        return [(placement.index(mesh.position(tensor=t), shape), dev)
+                for t, dev in enumerate(devices)]
 
     return fn
 

@@ -51,6 +51,26 @@ weighted by gates that are zero off the top k.  The MoE block runs in
 one call over those rows; the norm before it runs on every row as the
 other row ops do.
 
+Tensor-parallel models (`models/tensor_parallel.TensorParallel`, the
+reference's 'tensor' axis): every function here that takes a model
+takes one too.  Each rank runs its narrow layer on its own device;
+the attention norm, the MLP norm and the residual adds run once a
+card; the o_proj and down_proj partials are all-reduced
+(`tensor_parallel.all_reduce`), the embedding is vocab-parallel and
+masked, the head vocab-parallel (models/heads.py).  Its caches keep
+one leaf per rank, in rank order, where a plain model's keep one
+tensor: {'k': [rank leaves], 'v': [...]} with each rank's kv heads
+[h_kv / tp] on its device, one contiguous pool a rank (so B1/B2 take
+it as it is) shaped as the reference's `page_pool_sharding`,
+`page_scale_sharding` and `slot_cache_sharding` (parallel/sharding.py)
+cut the whole leaf for the rank's mesh position; block tables, lengths
+and the engine state stay single, on rank 0's device, and a rank on
+another card reads a copy made once a call.  Chunk 0 of a prefill runs B3 once
+per layer and rank, a paged tick B1/B2 once per layer and rank.  The
+wire layout of exported pages joins the ranks' heads in rank order, as
+a tensor-1 pool holds them (`export_private_pages`, `read_pages`), and
+imports split them again (`write_pages`).
+
 Sampling keys are the port's own counter-based stream: a key is an
 int64 pair (seed, counter); a split returns (seed, counter + 1) as the
 carry and (seed, counter) as the draw key, and Gumbel noise comes from
@@ -62,18 +82,22 @@ frameworks and seeded output within the port.)
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from skypilot_tpu_torch.models import heads
 from skypilot_tpu_torch.models import moe as moe_lib
+from skypilot_tpu_torch.models import tensor_parallel
 from skypilot_tpu_torch.models.configs import ModelConfig
+from skypilot_tpu_torch.models.tensor_parallel import TensorParallel
 from skypilot_tpu_torch.models.transformer import _rope
 from skypilot_tpu_torch.ops import paged_attention as paged_attention_ops
 from skypilot_tpu_torch.ops.attention import NEG_INF
 from skypilot_tpu_torch.ops.attention import flash_attention
+from skypilot_tpu_torch.parallel import sharding
+
 
 class _PagedView(NamedTuple):
     """What attention receives on the paged path: the raw pool leaf of
@@ -92,6 +116,53 @@ class SamplingConfig:
 
 
 # ------------------------------------------------------------ model math
+
+
+def _rank_leaves(leaf) -> List[Any]:
+    """A cache leaf as its per-rank leaves (a TensorParallel cache keeps
+    a list; a plain one is its only rank)."""
+    return leaf if isinstance(leaf, list) else [leaf]
+
+
+def _first(leaf):
+    return leaf[0] if isinstance(leaf, list) else leaf
+
+
+def _leaf_device(leaf) -> torch.device:
+    return (leaf['q'] if isinstance(leaf, dict) else leaf).device
+
+
+def _split_heads(x, n: int):
+    """Wire pages [L, n_pages, h_kv, ...] as n rank pieces along the
+    kv heads, rank order (x itself for one rank)."""
+    return [x] if n == 1 else list(x.chunk(n, dim=2))
+
+
+def _join_heads(leaves):
+    """Per-rank [L, ..., h_kv / tp, ...] pieces joined along the kv
+    heads (dim 2) on the first rank's device: the tensor-1 layout."""
+    if not isinstance(leaves, list):
+        return leaves
+    dev = leaves[0].device
+    return torch.cat([t.to(dev) for t in leaves], dim=2)
+
+
+def _local():
+    """get(t, device): a call's small index tensor `t` on `device`: `t`
+    itself on its own card, else one copy a card for the whole call."""
+    memo: Dict[Tuple[int, torch.device], Tuple[torch.Tensor,
+                                              torch.Tensor]] = {}
+
+    def get(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+        if t.device == device:
+            return t
+        key = (id(t), device)
+        if key not in memo:
+            memo[key] = (t, t.to(device))
+        return memo[key][1]
+
+    return get
+
 
 _ROW_BUCKET = 64
 
@@ -223,34 +294,48 @@ def _layer_forward(x, layer, cfg: ModelConfig, positions, k_cache, v_cache,
     h = _attn_norm(x, layer, cfg, blocked)
     q = _rope(_attn_proj(h, layer.attn.q_proj, shape, blocked), positions,
               cfg)
+    out = _attention(q, k_cache, v_cache, positions, cfg, use_flash)
+    return _attn_out_and_mlp(x, out, layer, cfg, blocked)
+
+
+def _attention(q, k_cache, v_cache, positions, cfg: ModelConfig,
+               use_flash: bool):
+    """q [b, h, s, hd] against a cache that holds this call's k/v: the
+    paged kernel for a `_PagedView`, the flash kernel for a prefill
+    from index 0, else the masked grouped einsum."""
     if isinstance(k_cache, _PagedView):
         # Paged kernel: query token j of slot b sits at lengths[b] + j.
-        out = paged_attention_ops.paged_attention(
+        return paged_attention_ops.paged_attention(
             q.contiguous(), k_cache.leaf, v_cache.leaf, k_cache.tables,
             k_cache.lengths, sm_scale=cfg.head_dim ** -0.5)
-    elif use_flash:
+    if use_flash:
         # Prefill from index 0: the valid cache region is [0, s).
         s = q.shape[2]
-        out = flash_attention(q.contiguous(),
-                              k_cache[:, :, :s].contiguous(),
-                              v_cache[:, :, :s].contiguous(), causal=True)
-    else:
-        out = _masked_attention(q, k_cache, v_cache, positions, cfg)
-    return _attn_out_and_mlp(x, out, layer, cfg, blocked)
+        return flash_attention(q.contiguous(),
+                               k_cache[:, :, :s].contiguous(),
+                               v_cache[:, :, :s].contiguous(), causal=True)
+    return _masked_attention(q, k_cache, v_cache, positions, cfg)
+
+
+def _o_proj(out, layer, n_rows: int, dtype, blocked: bool = False):
+    """o_proj of the attention output [b, h, s, hd] as n_rows residual
+    rows [n_rows, d] (rows past b * s are bucket padding and get
+    zeros); a tensor rank's partial of the row-parallel product."""
+    b, hq, s, hd = out.shape
+    # The masked path's attention output is f32: cast to x's dtype.
+    rows = out.permute(0, 2, 1, 3).reshape(b * s, hq * hd).to(dtype)
+    if n_rows != b * s:
+        padded = rows.new_zeros((n_rows, hq * hd))
+        padded[:b * s] = rows
+        rows = padded
+    w = layer.attn.o_proj.matrix(dtype)
+    return _by_blocks(lambda r: r @ w, rows, blocked)
 
 
 def _attn_out(x, out, layer, blocked: bool = False):
     """o_proj of the attention output [b, h, s, hd] into the residual
-    rows x [M, d] (rows past b * s are bucket padding and get zeros)."""
-    b, hq, s, hd = out.shape
-    # The masked path's attention output is f32: cast to x's dtype.
-    rows = out.permute(0, 2, 1, 3).reshape(b * s, hq * hd).to(x.dtype)
-    if x.shape[0] != b * s:
-        padded = x.new_zeros((x.shape[0], hq * hd))
-        padded[:b * s] = rows
-        rows = padded
-    w = layer.attn.o_proj.matrix(x.dtype)
-    return x + _by_blocks(lambda r: r @ w, rows, blocked)
+    rows x [M, d]."""
+    return x + _o_proj(out, layer, x.shape[0], x.dtype, blocked)
 
 
 def _attn_out_and_mlp(x, out, layer, cfg: ModelConfig,
@@ -282,8 +367,26 @@ def _attn_out_and_mlp(x, out, layer, cfg: ModelConfig,
         x, blocked)
 
 
-def _embed(cfg: ModelConfig, model, tokens):
-    x = model.embed.embedding[tokens.long()].to(cfg.dtype)
+def _embed(cfg: ModelConfig, model, tokens, shards=None):
+    """Token embeddings in cfg.dtype.  A TensorParallel model (or its
+    `shards`, one per rank) of more than one rank: each rank looks up
+    its vocab range masked, and the lookups are summed (exact) on the
+    first rank's device."""
+    if shards is None:
+        shards = (list(model.ranks) if isinstance(model, TensorParallel)
+                  else [model])
+    if len(shards) == 1:
+        x = shards[0].embed.embedding[
+            tokens.to(shards[0].device).long()].to(cfg.dtype)
+    else:
+        vr = model.rank_cfg.vocab_size
+        parts = []
+        for t, shard in enumerate(shards):
+            local = tokens.to(shard.device).long() - t * vr
+            hit = (local >= 0) & (local < vr)
+            e = shard.embed.embedding[local.clamp(0, vr - 1)].to(cfg.dtype)
+            parts.append(e.masked_fill(~hit[..., None], 0))
+        x = tensor_parallel.reduce_sum(parts, shards[0].device, cfg.dtype)
     if cfg.scale_embeddings:  # Gemma
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -309,6 +412,11 @@ def _scan_layers_and_unembed(cfg: ModelConfig, model, x, positions,
     caches being the (mutated) inputs."""
     if view_fn is None:
         view_fn = lambda c: c  # noqa: E731
+    if isinstance(model, TensorParallel):
+        return _tp_scan_layers_and_unembed(
+            cfg, model, x, positions, cache_k, cache_v, write_fn,
+            use_flash=use_flash, view_fn=view_fn,
+            all_positions=all_positions, blocked=blocked)
     b, s, d = x.shape
     x = _pad_rows(x.reshape(b * s, d))
     for i, layer in enumerate(model.layers):
@@ -338,15 +446,127 @@ def _scan_layers_and_unembed(cfg: ModelConfig, model, x, positions,
     return _by_blocks(head, x, blocked)[:b], cache_k, cache_v
 
 
+# ------------------------------------------------------ tensor parallel
+
+
+def _tp_qkv(rcfg: ModelConfig, shards, i: int, xs, positions, shape,
+            blocked: bool):
+    """Layer i's rotated q and k and v [b, heads / tp, s, hd] of each
+    tensor rank (`shards`), from its residual rows xs[t]; the attention
+    norm runs once a card.  positions[t]: on rank t's device."""
+    hs = tensor_parallel.per_card(
+        lambda x, shard: _attn_norm(x, shard.layers[i], rcfg, blocked),
+        xs, shards)
+    out = []
+    for h, shard, pos in zip(hs, shards, positions):
+        attn = shard.layers[i].attn
+        out.append((_rope(_attn_proj(h, attn.q_proj, shape, blocked), pos,
+                          rcfg),
+                    _rope(_attn_proj(h, attn.k_proj, shape, blocked), pos,
+                          rcfg),
+                    _attn_proj(h, attn.v_proj, shape, blocked)))
+    return out
+
+
+def _tp_add(xs, parts):
+    """xs[t] + the all-reduced partials, once a card."""
+    ys = tensor_parallel.all_reduce(parts, xs[0].dtype)
+    return tensor_parallel.per_card(lambda x, y: x + y, xs, ys)
+
+
+def _tp_out_and_mlp(rcfg: ModelConfig, shards, i: int, xs, outs,
+                    blocked: bool):
+    """The tail of layer i over the tensor ranks: each rank's o_proj
+    partial of its heads' output outs[t], all-reduced into the
+    residual; the MLP norm once a card; each rank's MLP partial over
+    its d_ff / tp columns, all-reduced."""
+    dtype = xs[0].dtype
+    xs = _tp_add(xs, [_o_proj(out, shard.layers[i], x.shape[0], dtype,
+                              blocked)
+                      for x, out, shard in zip(xs, outs, shards)])
+    hs = tensor_parallel.per_card(
+        lambda x, shard: _by_blocks(lambda r: _norm(
+            r, shard.layers[i].mlp_norm.scale, rcfg.norm_eps,
+            rcfg.norm_scale_plus_one), x, blocked), xs, shards)
+    parts = []
+    for h, shard in zip(hs, shards):
+        mlp = shard.layers[i].mlp
+        weights = _mlp_weights(mlp, dtype)
+        parts.append(_by_blocks(
+            lambda r, mlp=mlp, weights=weights: _mlp(r, mlp, rcfg, weights),
+            h, blocked))
+    return _tp_add(xs, parts)
+
+
+def _tp_scan_layers_and_unembed(cfg: ModelConfig, model: TensorParallel,
+                                x, positions, cache_k, cache_v, write_fn, *,
+                                use_flash: bool, view_fn,
+                                all_positions: bool, blocked: bool):
+    """`_scan_layers_and_unembed` over a TensorParallel model: rank t
+    writes its k/v into cache_k[t] / cache_v[t] and attends there; the
+    reductions as the module docstring says; the head on rank 0's rows."""
+    shards = list(model.ranks)
+    rcfg = model.rank_cfg
+    b, s, d = x.shape
+    xs = tensor_parallel.on_cards(_pad_rows(x.reshape(b * s, d)),
+                                  model.devices)
+    local = _local()
+    pos = [local(positions, dev) for dev in model.devices]
+    for i in range(cfg.n_layers):
+        outs = []
+        for t, (q, k, v) in enumerate(_tp_qkv(rcfg, shards, i, xs, pos,
+                                              (b, s), blocked)):
+            k_leaf = _layer_leaf(cache_k[t], i)
+            v_leaf = _layer_leaf(cache_v[t], i)
+            write_fn(k_leaf, k)
+            write_fn(v_leaf, v)
+            outs.append(_attention(q, view_fn(k_leaf), view_fn(v_leaf),
+                                   pos[t], rcfg, use_flash))
+        xs = _tp_out_and_mlp(rcfg, shards, i, xs, outs, blocked)
+
+    kernels = heads.head_kernel(model, cfg)   # once, before the blocks
+
+    def head(rows):
+        rows = _norm(rows, shards[0].final_norm.scale, cfg.norm_eps,
+                     cfg.norm_scale_plus_one)
+        return heads.unembed(rows, model, cfg, kernels)
+
+    x = xs[0]
+    if all_positions:
+        logits = _by_blocks(head, x, blocked)[:b * s]
+        return logits.reshape(b, s, -1), cache_k, cache_v
+    x = _pad_rows(x[:b * s].reshape(b, s, d)[:, -1])
+    return _by_blocks(head, x, blocked)[:b], cache_k, cache_v
+
+
 # ----------------------------------------------------------- dense cache
 
 
+def _kv_leaves(shape, dtype, device, model, placement, fill=0.0):
+    """One cache leaf `shape` [L, n, h_kv, ...] of zeros (ones for
+    fill=1), or with a TensorParallel `model` one per rank on its
+    device, shaped as `placement(model.mesh)` (parallel/sharding.py)
+    cuts the leaf for the rank's mesh position: its h_kv / tp kv
+    heads."""
+    make = torch.zeros if fill == 0.0 else torch.ones
+    if isinstance(model, TensorParallel):
+        cut = placement(model.mesh)
+        full = torch.empty(shape, device='meta')
+        return [make(sharding.shard_of(full, cut, model.mesh.position(
+            tensor=t)).shape, dtype=dtype, device=dev)
+            for t, dev in enumerate(model.devices)]
+    return make(shape, dtype=dtype, device=device)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: Any = 'cuda') -> Dict[str, Any]:
-    """Zeroed KV cache (per-layer stacked)."""
+               device: Any = 'cuda', model=None) -> Dict[str, Any]:
+    """Zeroed KV cache (per-layer stacked); one leaf per rank of a
+    TensorParallel `model`."""
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim)
-    return {'k': torch.zeros(shape, dtype=cfg.dtype, device=device),
-            'v': torch.zeros(shape, dtype=cfg.dtype, device=device),
+    return {'k': _kv_leaves(shape, cfg.dtype, device, model,
+                            sharding.slot_cache_sharding),
+            'v': _kv_leaves(shape, cfg.dtype, device, model,
+                            sharding.slot_cache_sharding),
             'index': 0}
 
 
@@ -356,9 +576,10 @@ def _forward_with_cache(cfg: ModelConfig, model, tokens, cache, *,
     return (last-token logits [b, V], cache advanced by s)."""
     s = tokens.shape[1]
     start = int(cache['index'])
-    if start + s > cache['k'].shape[3]:
+    max_len = _first(cache['k']).shape[3]
+    if start + s > max_len:
         raise ValueError(f'cache overflow: index {start} + {s} tokens > '
-                         f'max_len {cache["k"].shape[3]}')
+                         f'max_len {max_len}')
     positions = start + torch.arange(s, device=tokens.device)
 
     def write(c, new):
@@ -375,7 +596,8 @@ def prefill(cfg: ModelConfig, model, tokens, *, max_len: int):
     """Process the prompt [b, s] into a FRESH cache; returns
     (last-token logits [b, V], cache).  Flash-kernel attention (exact
     only from index 0, hence the fresh cache)."""
-    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
+    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device,
+                       model=model)
     return _forward_with_cache(cfg, model, tokens, cache, use_flash=True)
 
 
@@ -406,9 +628,19 @@ def prefill_sp(cfg: ModelConfig, model, tokens, *, mesh, max_len: int,
     cached after RoPE, as the chunked path writes them, on the first
     rank's device.
 
-    The weights are read on every rank's device, so each mesh device
-    must be the weights' device (a list that repeats one card); copies
-    of the weights on other cards come with the tensor axis (A16b).
+    A plain Transformer runs as a TensorParallel of one rank, and each
+    mesh device must be the weights' device (a list that repeats one
+    card); its cache leaves are single tensors, as `prefill` returns
+    them.  A TensorParallel model (models/tensor_parallel.py) runs over
+    the mesh's sequence x tensor positions: position (r, t) runs tensor
+    rank t's heads and d_ff columns of sequence rank r's rows on its
+    own device, reading the model's shard of rank t there (a copy on
+    each further card), with the row-parallel reductions over each
+    sequence rank's tensor ranks; the ring runs once per tensor rank
+    over its sequence ranks (B3 per hop at h / tp heads).  Its cache
+    keeps one leaf per tensor rank, on that rank's (sequence rank 0)
+    device.  A TensorParallel of one rank serves a mesh whose sequence
+    ranks sit on distinct cards.
 
     MoE configs are refused: the capacity dispatch couples every prompt
     token, so a sequence split would change which tokens drop.
@@ -420,49 +652,72 @@ def prefill_sp(cfg: ModelConfig, model, tokens, *, mesh, max_len: int,
     # Imported here as the reference does: the ring is this function's
     # alone.
     from skypilot_tpu_torch.ops import sp_common  # pylint: disable=import-outside-toplevel
-    from skypilot_tpu_torch.ops.ring_attention import ring_attention_shards  # pylint: disable=import-outside-toplevel
 
     b, s = tokens.shape
     if b != 1:
         raise ValueError(f'prefill_sp serves one sequence, got '
                          f'batch {b}')
     shards = sp_common.sp_partition(mesh, axis_name, s)
+    if isinstance(model, TensorParallel):
+        return _tp_prefill_sp(cfg, model, tokens, mesh, shards, max_len,
+                              axis_name)
     for sh in shards:
         if sh.device != model.device:
             raise ValueError(
                 f'prefill_sp: sequence rank {sh.rank} is on {sh.device}, '
-                f'the weights on {model.device}; a copy of the weights '
-                'on each card comes with the tensor axis (A16b)')
-    devices = [sh.device for sh in shards]
-    n = s // len(shards)
+                f'the weights on {model.device}; pass the model as a '
+                'TensorParallel over the mesh '
+                '(convert.to_tensor_parallel), which keeps a copy on '
+                'each card')
+    cache = _tp_prefill_sp(cfg, TensorParallel(cfg, [model], mesh), tokens,
+                           mesh, shards, max_len, axis_name)
+    return {'k': cache['k'][0], 'v': cache['v'][0], 'index': s}
+
+
+def _tp_prefill_sp(cfg: ModelConfig, model: TensorParallel, tokens, mesh,
+                   seq, max_len: int, axis_name: str):
+    """`prefill_sp` over a TensorParallel model (its docstring)."""
+    from skypilot_tpu_torch.ops.ring_attention import ring_attention_shards  # pylint: disable=import-outside-toplevel
+    tp = model.tp
+    if mesh.shape.get('tensor', 1) != tp:
+        raise ValueError(f'prefill_sp: a tensor-{tp} model over a mesh '
+                         f'whose tensor axis is {mesh.shape.get("tensor", 1)}')
+    rcfg = model.rank_cfg
+    # groups[r][t]: rank t's shard on sequence rank r's position.
+    groups = [model.group([
+        mesh.devices[mesh.position(**{axis_name: sh.rank, 'tensor': t})]
+        for t in range(tp)]) for sh in seq]
+    n = tokens.shape[1] // len(seq)
     shape = (1, n)
-    positions = [torch.arange(sh.start, sh.stop, device=sh.device)
-                 for sh in shards]
-    xs = [_pad_rows(_embed(cfg, model, tokens[:, sh.start:sh.stop].to(
-        sh.device))[0]) for sh in shards]
-    out_shape = (cfg.n_layers, 1, cfg.n_kv_heads, max_len, cfg.head_dim)
-    cache = {name: torch.zeros(out_shape, dtype=cfg.dtype,
-                               device=devices[0]) for name in ('k', 'v')}
+    positions = [[torch.arange(sh.start, sh.stop, device=g.device)
+                  for g in group] for sh, group in zip(seq, groups)]
+    xs = [tensor_parallel.on_cards(_pad_rows(_embed(
+        cfg, model, tokens[:, sh.start:sh.stop], group)[0]),
+        [g.device for g in group]) for sh, group in zip(seq, groups)]
+    out_shape = (cfg.n_layers, 1, rcfg.n_kv_heads, max_len, cfg.head_dim)
+    cache = {name: [torch.zeros(out_shape, dtype=cfg.dtype, device=g.device)
+                    for g in groups[0]] for name in ('k', 'v')}
     with torch.no_grad():
-        for i, layer in enumerate(model.layers):
-            qs, ks, vs = [], [], []
-            for x, pos in zip(xs, positions):
-                h = _attn_norm(x, layer, cfg, False)
-                qs.append(_rope(_attn_proj(h, layer.attn.q_proj, shape),
-                                pos, cfg).contiguous())
-                ks.append(_rope(_attn_proj(h, layer.attn.k_proj, shape),
-                                pos, cfg).contiguous())
-                vs.append(_attn_proj(h, layer.attn.v_proj,
-                                     shape).contiguous())
-            outs = ring_attention_shards(qs, ks, vs, devices, causal=True,
-                                         sm_scale=cfg.head_dim ** -0.5)
-            for r, sh in enumerate(shards):
-                xs[r] = _attn_out_and_mlp(xs[r], outs[r], layer, cfg)
-                # k/v cached post-RoPE, exactly like the chunked write.
-                for name, new in (('k', ks[r]), ('v', vs[r])):
-                    cache[name][i, :, :, sh.start:sh.stop] = new.to(
-                        devices[0], cfg.dtype)
-    return {'k': cache['k'], 'v': cache['v'], 'index': s}
+        for i in range(cfg.n_layers):
+            qkv = [_tp_qkv(rcfg, group, i, x, pos, shape, False)
+                   for group, x, pos in zip(groups, xs, positions)]
+            outs = [[None] * tp for _ in seq]
+            for t in range(tp):
+                q, k, v = ([row[t][j].contiguous() for row in qkv]
+                           for j in range(3))
+                got = ring_attention_shards(
+                    q, k, v, [group[t].device for group in groups],
+                    causal=True, sm_scale=cfg.head_dim ** -0.5)
+                for r, sh in enumerate(seq):
+                    outs[r][t] = got[r]
+                    # k/v cached post-RoPE, exactly like the chunked write.
+                    for name, new in (('k', k[r]), ('v', v[r])):
+                        dst = cache[name][t]
+                        dst[i, :, :, sh.start:sh.stop] = new.to(dst.device,
+                                                                cfg.dtype)
+            xs = [_tp_out_and_mlp(rcfg, group, i, x, out, False)
+                  for group, x, out in zip(groups, xs, outs)]
+    return {'k': cache['k'], 'v': cache['v'], 'index': tokens.shape[1]}
 
 
 # ---------------------------------------------------- slot-batched decoding
@@ -471,11 +726,15 @@ def prefill_sp(cfg: ModelConfig, model, tokens, *, mesh, max_len: int,
 
 
 def init_slot_cache(cfg: ModelConfig, slots: int, max_len: int,
-                    device: Any = 'cuda') -> Dict[str, Any]:
-    """Zeroed slot cache: like init_cache, with per-slot lengths."""
+                    device: Any = 'cuda', model=None) -> Dict[str, Any]:
+    """Zeroed slot cache: like init_cache, with per-slot lengths (one
+    k/v leaf per rank of a TensorParallel `model`; the lengths single,
+    on `device`)."""
     shape = (cfg.n_layers, slots, cfg.n_kv_heads, max_len, cfg.head_dim)
-    return {'k': torch.zeros(shape, dtype=cfg.dtype, device=device),
-            'v': torch.zeros(shape, dtype=cfg.dtype, device=device),
+    return {'k': _kv_leaves(shape, cfg.dtype, device, model,
+                            sharding.slot_cache_sharding),
+            'v': _kv_leaves(shape, cfg.dtype, device, model,
+                            sharding.slot_cache_sharding),
             'lengths': torch.zeros((slots,), dtype=torch.int32,
                                    device=device)}
 
@@ -485,8 +744,9 @@ def insert_prefill(slot_cache: Dict[str, Any], slot: int,
     """Adopt a single-sequence prefill cache ([L, 1, h_kv, max_len, d])
     into slot `slot` at depth `length` (in place)."""
     for name in ('k', 'v'):
-        slot_cache[name][:, slot] = prefill_cache[name][:, 0].to(
-            slot_cache[name].dtype)
+        for dst, src in zip(_rank_leaves(slot_cache[name]),
+                            _rank_leaves(prefill_cache[name])):
+            dst[:, slot] = src[:, 0].to(dst.dtype)
     slot_cache['lengths'][slot] = int(length)
     return slot_cache
 
@@ -501,13 +761,16 @@ def batched_step(cfg: ModelConfig, model, tokens, slot_cache, active=None):
     row, where the reference's dynamic_update_slice clamps it."""
     lengths = slot_cache['lengths']
     positions = lengths.long()[:, None]                       # [B, 1]
-    at = torch.clamp(positions[:, 0], max=slot_cache['k'].shape[3] - 1)
+    at = torch.clamp(positions[:, 0],
+                     max=_first(slot_cache['k']).shape[3] - 1)
     slots = torch.arange(tokens.shape[0], device=tokens.device)
+    local = _local()
 
     def write(c, new):
         # c [B, h_kv, max_len, d], new [B, h_kv, 1, d]: one indexed
         # write puts every slot's token at that slot's own depth.
-        c[slots, :, at] = new[:, :, 0].to(c.dtype)
+        c[local(slots, c.device), :, local(at, c.device)] = (
+            new[:, :, 0].to(c.dtype))
 
     with torch.no_grad():
         logits, k, v = _scan_layers_and_unembed(
@@ -703,27 +966,34 @@ def admit_slot_state(state, slot: int, token: int, max_new_tokens: int,
 
 
 def _page_size_of(paged: Dict[str, Any]) -> int:
-    leaf = paged['k']['q'] if isinstance(paged['k'], dict) else paged['k']
+    leaf = _first(paged['k'])
+    leaf = leaf['q'] if isinstance(leaf, dict) else leaf
     return leaf.shape[3]
 
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
                      slots: int, max_pages_per_slot: int,
                      quantize_kv: bool = False,
-                     device: Any = 'cuda') -> Dict[str, Any]:
+                     device: Any = 'cuda', model=None) -> Dict[str, Any]:
     """Zeroed page pool: k/v [L, n_pages, h_kv, ps, d] (int8 {'q',
     'scale'} leaves when quantize_kv); block_tables [B, P] (0 = null
-    page); lengths [B]."""
+    page); lengths [B].  A TensorParallel `model`: one contiguous pool
+    leaf per rank ([L, n_pages, h_kv / tp, ...] on its device); tables
+    and lengths single, on `device`."""
     kv_shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, page_size,
                 cfg.head_dim)
 
     def kv_leaf():
         if quantize_kv:
-            return {'q': torch.zeros(kv_shape, dtype=torch.int8,
-                                     device=device),
-                    'scale': torch.ones(kv_shape[:-1], dtype=torch.float32,
-                                        device=device)}
-        return torch.zeros(kv_shape, dtype=cfg.dtype, device=device)
+            q = _kv_leaves(kv_shape, torch.int8, device, model,
+                           sharding.page_pool_sharding)
+            scale = _kv_leaves(kv_shape[:-1], torch.float32, device,
+                               model, sharding.page_scale_sharding, fill=1.0)
+            if isinstance(q, list):
+                return [{'q': a, 'scale': b} for a, b in zip(q, scale)]
+            return {'q': q, 'scale': scale}
+        return _kv_leaves(kv_shape, cfg.dtype, device, model,
+                          sharding.page_pool_sharding)
 
     return {
         'k': kv_leaf(),
@@ -775,20 +1045,24 @@ def _paged_forward(cfg: ModelConfig, model, tokens, paged, *,
                         torch.zeros_like(rows))
     flat_pages = pages.reshape(-1)
     flat_off = (positions % ps).reshape(-1)
+    local = _local()
 
     def write(c, new):
         # new [B, h_kv, S, d] -> one (page, offset) write per (slot, token).
         tok = new.permute(0, 2, 1, 3).reshape(b * s_q, new.shape[1],
                                               new.shape[3])
+        dev = _leaf_device(c)
+        at_pages, at_off = local(flat_pages, dev), local(flat_off, dev)
         if isinstance(c, dict):
             q, scale = _quant_kv(tok)
-            c['q'][flat_pages, :, flat_off] = q
-            c['scale'][flat_pages, :, flat_off] = scale
+            c['q'][at_pages, :, at_off] = q
+            c['scale'][at_pages, :, at_off] = scale
         else:
-            c[flat_pages, :, flat_off] = tok.to(c.dtype)
+            c[at_pages, :, at_off] = tok.to(c.dtype)
 
     def view(c):
-        return _PagedView(c, tables, lengths)
+        dev = _leaf_device(c)
+        return _PagedView(c, local(tables, dev), local(lengths, dev))
 
     with torch.no_grad():
         return _scan_layers_and_unembed(
@@ -910,20 +1184,24 @@ def insert_prefill_pages(paged, private_cache, pages_row, *,
     if n == 0:
         return paged
     ids = torch.as_tensor(pages_row, dtype=torch.long,
-                          device=private_cache['k'].device)
+                          device=_first(private_cache['k']).device)
+    local = _local()
 
     def leaf(pool_leaf, private_leaf):
         piece = _private_as_pages(private_leaf, ps)[
             :, first_page:first_page + n]      # [L, n, h_kv, ps, d]
+        at = local(ids, _leaf_device(pool_leaf))
         if isinstance(pool_leaf, dict):
             q, scale = _quant_kv(piece)
-            pool_leaf['q'][:, ids] = q
-            pool_leaf['scale'][:, ids] = scale
+            pool_leaf['q'][:, at] = q
+            pool_leaf['scale'][:, at] = scale
         else:
-            pool_leaf[:, ids] = piece.to(pool_leaf.dtype)
+            pool_leaf[:, at] = piece.to(pool_leaf.dtype)
 
-    leaf(paged['k'], private_cache['k'])
-    leaf(paged['v'], private_cache['v'])
+    for name in ('k', 'v'):
+        for pool_leaf, private_leaf in zip(_rank_leaves(paged[name]),
+                                           _rank_leaves(private_cache[name])):
+            leaf(pool_leaf, private_leaf)
     return paged
 
 
@@ -935,16 +1213,18 @@ def paged_seed_private(cfg: ModelConfig, paged, pages_row, *,
     len(pages_row) * page_size.  The pool is only read."""
     ps = _page_size_of(paged)
     r = len(pages_row)
-    pool_k = paged['k']['q'] if isinstance(paged['k'], dict) else paged['k']
-    ids = torch.as_tensor(pages_row, dtype=torch.long, device=pool_k.device)
+    ids = torch.as_tensor(pages_row, dtype=torch.long,
+                          device=_leaf_device(_first(paged['k'])))
+    local = _local()
 
     def leaf(pool_leaf):
+        at = local(ids, _leaf_device(pool_leaf))
         if isinstance(pool_leaf, dict):
-            arr = _dequant_kv({'q': pool_leaf['q'][:, ids],
-                               'scale': pool_leaf['scale'][:, ids]},
+            arr = _dequant_kv({'q': pool_leaf['q'][:, at],
+                               'scale': pool_leaf['scale'][:, at]},
                               cfg.dtype)
         else:
-            arr = pool_leaf[:, ids]            # [L, r, h_kv, ps, d]
+            arr = pool_leaf[:, at]             # [L, r, h_kv, ps, d]
         l, _, h, _, d = arr.shape
         dense = arr.permute(0, 2, 1, 3, 4).reshape(l, 1, h, r * ps, d)
         out = torch.zeros((l, 1, h, priv_len, d), dtype=cfg.dtype,
@@ -952,7 +1232,13 @@ def paged_seed_private(cfg: ModelConfig, paged, pages_row, *,
         out[:, :, :, :r * ps] = dense.to(cfg.dtype)
         return out
 
-    return {'k': leaf(paged['k']), 'v': leaf(paged['v']), 'index': r * ps}
+    def leaves(pool):
+        if isinstance(pool, list):
+            return [leaf(rank) for rank in pool]
+        return leaf(pool)
+
+    return {'k': leaves(paged['k']), 'v': leaves(paged['v']),
+            'index': r * ps}
 
 
 def write_pages(paged, k_pages, v_pages, pages_row):
@@ -961,20 +1247,25 @@ def write_pages(paged, k_pages, v_pages, pages_row):
     [L, n, h_kv, ps, d] (the wire's f32); an int8 pool quantizes them
     with `_quant_kv`, which is round-trip stable, so a quantize ->
     dequantize -> requantize chain reproduces a local prefill's bytes."""
-    pool = paged['k']['q'] if isinstance(paged['k'], dict) else paged['k']
-    ids = torch.as_tensor(pages_row, dtype=torch.long, device=pool.device)
+    ids = torch.as_tensor(pages_row, dtype=torch.long,
+                          device=_leaf_device(_first(paged['k'])))
+    local = _local()
 
     def leaf(pool_leaf, piece):
-        piece = piece.to(pool.device)
+        dev = _leaf_device(pool_leaf)
+        ids_here = local(ids, dev)
+        piece = piece.to(dev)
         if isinstance(pool_leaf, dict):
             q, scale = _quant_kv(piece)
-            pool_leaf['q'][:, ids] = q
-            pool_leaf['scale'][:, ids] = scale
+            pool_leaf['q'][:, ids_here] = q
+            pool_leaf['scale'][:, ids_here] = scale
         else:
-            pool_leaf[:, ids] = piece.to(pool_leaf.dtype)
+            pool_leaf[:, ids_here] = piece.to(pool_leaf.dtype)
 
-    leaf(paged['k'], k_pages)
-    leaf(paged['v'], v_pages)
+    for name, pages in (('k', k_pages), ('v', v_pages)):
+        ranks = _rank_leaves(paged[name])
+        for pool_leaf, piece in zip(ranks, _split_heads(pages, len(ranks))):
+            leaf(pool_leaf, piece)
     return paged
 
 
@@ -982,10 +1273,15 @@ def write_pages_quantized(paged, k_q, v_q, k_scale, v_scale, pages_row):
     """Adopt ALREADY-QUANTIZED pages into an int8 pool (in place): the
     wire's int8 values and f32 scales land verbatim."""
     ids = torch.as_tensor(pages_row, dtype=torch.long,
-                          device=paged['k']['q'].device)
+                          device=_leaf_device(_first(paged['k'])))
+    local = _local()
     for name, q, scale in (('k', k_q, k_scale), ('v', v_q, v_scale)):
-        paged[name]['q'][:, ids] = q.to(ids.device)
-        paged[name]['scale'][:, ids] = scale.to(ids.device)
+        ranks = _rank_leaves(paged[name])
+        for leaf, q_t, s_t in zip(ranks, _split_heads(q, len(ranks)),
+                                  _split_heads(scale, len(ranks))):
+            at = local(ids, leaf['q'].device)
+            leaf['q'][:, at] = q_t.to(at.device)
+            leaf['scale'][:, at] = s_t.to(at.device)
     return paged
 
 
@@ -997,10 +1293,29 @@ def export_private_pages(private_cache, n_pages: int, page_size: int,
     int8 values and f32 scales from `_quant_kv`, the int8 pool's own
     quantizer."""
     span = n_pages * page_size
-    k, v = (_private_as_pages(private_cache[name][:, :, :, :span],
-                              page_size) for name in ('k', 'v'))
+    k, v = (_private_as_pages(_join_heads(private_cache[name])[
+        :, :, :, :span], page_size) for name in ('k', 'v'))
     if quantize:
         kq, ks = _quant_kv(k)
         vq, vs = _quant_kv(v)
         return kq, vq, ks, vs
     return k.to(torch.float32), v.to(torch.float32)
+
+
+def read_pages(paged, pages_row, quantized: bool):
+    """Pool pages `pages_row` in the wire's layout, the ranks' kv heads
+    joined in rank order: (k, v) as f32 [L, n, h_kv, ps, d], or for an
+    int8 pool (k, v, k_scale, v_scale) as stored."""
+    k, v = paged['k'], paged['v']
+    dev = _leaf_device(_first(k))
+    ids = torch.tensor(list(pages_row), dtype=torch.long, device=dev)
+    local = _local()
+
+    def take(leaf, part=None):
+        ranks = [(r[part] if part else r)[:, local(ids, _leaf_device(r))]
+                 for r in _rank_leaves(leaf)]
+        return _join_heads(ranks) if isinstance(leaf, list) else ranks[0]
+
+    if quantized:
+        return take(k, 'q'), take(v, 'q'), take(k, 'scale'), take(v, 'scale')
+    return take(k).float(), take(v).float()

@@ -1,19 +1,28 @@
 """Output head shared by the forward and the decode paths (mirrors
-`skypilot_tpu/models/heads.py`)."""
+`skypilot_tpu/models/heads.py`).
+
+A `TensorParallel` model's head is vocab-parallel: each rank holds the
+lm_head columns (or tied embedding rows) of its vocab range and
+computes its logits [..., V / tp] on its own device; the pieces are
+concatenated in rank order on the device of the rows (rank 0's)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from skypilot_tpu_torch.models import tensor_parallel
 from skypilot_tpu_torch.models.configs import ModelConfig
 
 
-def head_kernel(model, cfg: ModelConfig) -> torch.Tensor:
+def head_kernel(model, cfg: ModelConfig):
     """The lm-head kernel [d, V] in the logits matmul dtype (f32 or the
     activation dtype per cfg.logits_in_f32; tied: the embedding's
     transpose; int8: dequantized to that dtype, as the reference's
-    maybe_dequant(kernel, mm_dtype))."""
+    maybe_dequant(kernel, mm_dtype)).  A TensorParallel model: one
+    [d, V / tp] kernel per rank, on its device."""
+    if isinstance(model, tensor_parallel.TensorParallel):
+        return [head_kernel(rank, model.rank_cfg) for rank in model.ranks]
     mm_dtype = torch.float32 if cfg.logits_in_f32 else cfg.dtype
     if cfg.tie_embeddings:
         return model.embed.embedding.to(mm_dtype).t()
@@ -24,8 +33,15 @@ def unembed(x: torch.Tensor, model, cfg: ModelConfig,
             kernel: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[..., d] -> logits [..., V], always RETURNED in f32, with the
     matmul in `head_kernel`'s dtype (`kernel`: head_kernel's result,
-    made once by a caller that unembeds in blocks)."""
+    made once by a caller that unembeds in blocks).  A TensorParallel
+    model: x is read on each rank's device (one copy a card) and the
+    ranks' logits are joined on x's device."""
     if kernel is None:
         kernel = head_kernel(model, cfg)
+    if isinstance(model, tensor_parallel.TensorParallel):
+        xs = tensor_parallel.on_cards(x, model.devices)
+        return torch.cat([
+            unembed(xr, rank, model.rank_cfg, k).to(x.device)
+            for xr, rank, k in zip(xs, model.ranks, kernel)], dim=-1)
     logits = x.reshape(-1, x.shape[-1]).to(kernel.dtype) @ kernel
     return logits.reshape(*x.shape[:-1], -1).to(torch.float32)

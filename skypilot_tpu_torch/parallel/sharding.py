@@ -145,8 +145,39 @@ def head_kernel_sharding(mesh: Mesh) -> Placement:
     return logical_sharding(mesh, 'embed', 'vocab')
 
 
+def slot_cache_sharding(mesh: Mesh) -> Placement:
+    """Placement of the engine's slot KV cache [layers, slots,
+    kv_heads, max_len, head_dim]: kv heads on 'tensor', like the
+    attention kernels, so a tensor rank reads and writes its own heads
+    (models/decode.py keeps one such cache per rank)."""
+    return logical_sharding(mesh, 'layers', None, 'kv_heads', None,
+                            'head_dim')
+
+
+def page_pool_sharding(mesh: Mesh) -> Placement:
+    """Placement of one paged-KV pool leaf [layers, n_pages, kv_heads,
+    page_size, head_dim]: kv heads on 'tensor'; every rank holds every
+    page's slice of its own heads, so one page id names the same page
+    in each rank's pool."""
+    return logical_sharding(mesh, 'layers', None, 'kv_heads', None,
+                            'head_dim')
+
+
+def page_scale_sharding(mesh: Mesh) -> Placement:
+    """Placement of an int8 pool's per-token scales [layers, n_pages,
+    kv_heads, page_size]."""
+    return logical_sharding(mesh, 'layers', None, 'kv_heads', None)
+
+
 def replicated(mesh: Mesh) -> Placement:
     return Placement(mesh, ())
+
+
+def shard_of(x, placement: Placement, position: int):
+    """The slice of `x` (a tensor or numpy array) that mesh position
+    `position` holds under `placement` (a view where slicing gives
+    one)."""
+    return x[placement.index(position, x.shape)]
 
 
 def split(x: torch.Tensor, placement: Placement,

@@ -2,14 +2,18 @@
 
     python -m skypilot_tpu_torch.profile_decode [--model llama3-8b]
         [--slots 8] [--ticks 20] [--quantize-kv | --dense]
-        [--quantize int8] [--out PATH]
+        [--quantize int8] [--tensor N [--tensor-devices cuda:0,...]]
+        [--out PATH]
 
 Builds the model with seeded random weights on the GPU (int8 matmul
 kernels with `--quantize int8`), a paged pool
 with `slots` live slots at ragged depths (5 .. 700 tokens), and runs
 `decode.paged_engine_step` the way the engine does; with `--dense` the
 same slots in a dense slot cache (max_len 1024) and
-`decode.engine_step`, the engine's default mode.  Reports:
+`decode.engine_step`, the engine's default mode.  With `--tensor N`
+the model is cut into N tensor ranks (models/tensor_parallel.py) over
+`--tensor-devices` (default: `cuda:0` N times), each rank with its own
+pool, and the tick runs every rank.  Reports:
 
 - tick_ms: host wall time per tick, each tick synchronised;
 - device_ms_per_tick: summed CUDA kernel time per tick from
@@ -31,8 +35,11 @@ import torch
 
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import configs
+from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import decode
+from skypilot_tpu_torch.models import tensor_parallel
 from skypilot_tpu_torch.models.transformer import init_params
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 
 
 def _device_us(evt) -> float:
@@ -43,17 +50,19 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _build_state(cfg, slots: int, quantize_kv: bool, dense: bool, dev):
+def _build_state(cfg, model, slots: int, quantize_kv: bool, dense: bool,
+                 dev):
     ps, max_len = 16, 1024
     rows = max_len // ps
     lengths = [int(5 + i * 695 / max(1, slots - 1)) for i in range(slots)]
     if dense:
-        pool = decode.init_slot_cache(cfg, slots, max_len, device=dev)
+        pool = decode.init_slot_cache(cfg, slots, max_len, device=dev,
+                                      model=model)
         pool['lengths'][:] = torch.tensor(lengths, dtype=torch.int32)
     else:
         pool = decode.init_paged_cache(cfg, 1 + slots * rows, ps, slots,
                                        rows, quantize_kv=quantize_kv,
-                                       device=dev)
+                                       device=dev, model=model)
         for slot, length in enumerate(lengths):
             row = list(range(1 + slot * rows, 1 + (slot + 1) * rows))
             decode.paged_admit_slot(pool, slot, row, length)
@@ -65,11 +74,14 @@ def _build_state(cfg, slots: int, quantize_kv: bool, dense: bool, dev):
 
 
 def profile_tick(cfg, model, dev, *, slots: int = 8, ticks: int = 20,
-                 quantize_kv: bool = False, dense: bool = False) -> dict:
+                 quantize_kv: bool = False, dense: bool = False,
+                 n_prof: int = 5) -> dict:
     """Host ms, device ms, idle share and launches of `model`'s decode
-    tick (module docstring), with a 128-token prefill's ms."""
-    pool, state, lengths = _build_state(cfg, slots, quantize_kv, dense,
-                                        dev)
+    tick (module docstring), with a 128-token prefill's ms: `ticks`
+    timed ticks after 3 warm-ups, then `n_prof` ticks under the
+    profiler."""
+    pool, state, lengths = _build_state(cfg, model, slots, quantize_kv,
+                                        dense, dev)
     step = decode.engine_step if dense else decode.paged_engine_step
 
     def tick():
@@ -87,7 +99,6 @@ def profile_tick(cfg, model, dev, *, slots: int = 8, ticks: int = 20,
         torch.cuda.synchronize()
         tick_ms = (time.perf_counter() - t0) * 1e3 / ticks
 
-        n_prof = 5
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -115,6 +126,7 @@ def profile_tick(cfg, model, dev, *, slots: int = 8, ticks: int = 20,
     return {
         'device': torch.cuda.get_device_name(0),
         'slots': slots, 'lengths': lengths,
+        'tensor': tensor_parallel.degree(model),
         'quantize_kv': quantize_kv, 'dense': dense,
         'tick_ms': tick_ms,
         'device_ms_per_tick': device_ms,
@@ -139,14 +151,29 @@ def main(argv=None) -> dict:
                         help='int8 weights (dequantized on every call).')
     parser.add_argument('--dense', action='store_true',
                         help='Dense slot cache and decode.engine_step.')
+    parser.add_argument('--tensor', type=int, default=1,
+                        help='Tensor ranks the model is cut into.')
+    parser.add_argument('--tensor-devices', default=None,
+                        help='Comma-separated devices of the ranks '
+                             '(default: the first card, N times).')
     parser.add_argument('--out', default=None,
                         help='Also write the JSON to this file.')
     args = parser.parse_args(argv)
     if args.dense and args.quantize_kv:
         parser.error('--quantize-kv is a paged pool option')
+    if args.tensor > 1 and args.quantize:
+        parser.error('--quantize int8 with --tensor: quantize + tensor '
+                     'sharding is not supported')
     dev = resolve_device('cuda')
     cfg = configs.get_config(args.model)
     model = init_params(cfg, seed=0, device=dev, quantize=args.quantize)
+    if args.tensor > 1:
+        devices = (args.tensor_devices.split(',') if args.tensor_devices
+                   else [dev] * args.tensor)
+        mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(tensor=args.tensor),
+                                   devices)
+        model = convert.to_tensor_parallel(cfg, model, mesh)
+        dev = model.device
     result = dict(model=args.model, quantize=args.quantize,
                   **profile_tick(cfg, model, dev, slots=args.slots,
                                  ticks=args.ticks,

@@ -240,6 +240,9 @@ class AsyncModelServer:
                     {gen, watchdog}, return_when=asyncio.FIRST_COMPLETED)
             finally:
                 watchdog.cancel()
+                # The read must be gone before the connection's next
+                # read starts: a stream takes one waiting reader.
+                await asyncio.gather(watchdog, return_exceptions=True)
             if gen not in done:
                 hung_up.set()
                 for handle in list(handles):

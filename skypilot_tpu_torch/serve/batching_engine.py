@@ -82,6 +82,17 @@ first device; every tick goes through `_dispatch_step` /
 `_dispatch_spec_step`, which the slice engine (serve/slice_replica.py)
 overrides to broadcast the tick to its ranks first.
 
+Tensor ranks: a `TensorParallel` model (models/tensor_parallel.py)
+gives the engine one pool (paged or dense) per tensor rank, on the
+rank's device, through the same decode functions; the block tables,
+the lengths, the page allocator, the prefix cache and the per-slot
+state stay single, on rank 0's device (the engine's), so one page id
+names the same page in every rank's pool and a tick's rollback,
+release or prefix adoption touches every pool alike.  The tick keeps
+its one set of host reads.  Exports join the ranks' kv heads into the
+tensor-1 wire layout and imports split them (`decode.read_pages`,
+`decode.write_pages`).
+
 Observability (observability/, as the reference wires it): the
 reference's engine instruments in the process-global registry
 (`GET /metrics`); a `RequestSpan` per request (`stats()['recent_spans']`,
@@ -104,6 +115,7 @@ import torch
 
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import decode
+from skypilot_tpu_torch.models import tensor_parallel
 from skypilot_tpu_torch.observability import logs as logs_lib
 from skypilot_tpu_torch.observability import metrics as metrics_lib
 from skypilot_tpu_torch.observability import profiling
@@ -246,8 +258,10 @@ class ContinuousBatchingEngine:
         if model.device != self.device:
             raise ValueError(f'model on {model.device}, engine on '
                              f'{self.device}')
-        # A slice replica's mesh (parallel/mesh.py): the pool, the state
-        # and the weights live on its first device, the engine's.
+        # A slice replica's mesh (parallel/mesh.py): the state and rank
+        # 0's weights and pool live on its first device, the engine's; a
+        # tensor axis above 1, or positions on other cards, need a
+        # TensorParallel model over the same positions.
         self.mesh = mesh
         if mesh is not None:
             if any(d.type != self.device.type for d in mesh.devices):
@@ -256,6 +270,16 @@ class ContinuousBatchingEngine:
             if mesh.devices[0] != self.device:
                 raise ValueError(f'the mesh starts at {mesh.devices[0]}, '
                                  f'the engine is on {self.device}')
+            want = (tensor_parallel.mesh_layout(mesh)
+                    if tensor_parallel.needs_ranks(mesh, self.device)
+                    else None)
+            if tensor_parallel.layout(model) != want:
+                raise ValueError(
+                    f'the model\'s tensor layout '
+                    f'{tensor_parallel.layout(model)} is not the mesh\'s '
+                    f'{want}: a mesh with a tensor axis above 1 or '
+                    'positions on other cards serves a TensorParallel '
+                    'over its positions (convert.to_tensor_parallel)')
         self.spec_tokens = int(spec_tokens)
         if self.spec_tokens < 0:
             raise ValueError(f'spec_tokens must be >= 0, got {spec_tokens}')
@@ -297,7 +321,7 @@ class ContinuousBatchingEngine:
             self._cache = decode.init_paged_cache(
                 cfg, int(kv_pages), int(page_size), slots,
                 max_len // int(page_size), quantize_kv=quantize_kv,
-                device=self.device)
+                device=self.device, model=model)
             self._step = decode.paged_engine_step
             self._spec_step = decode.paged_spec_engine_step
             self._admit_paged = decode.paged_admit_slot
@@ -313,7 +337,8 @@ class ContinuousBatchingEngine:
                     'paged KV engine (kv_pages): rejected drafts roll '
                     "back through the pool's reserved null page")
             self._cache = decode.init_slot_cache(cfg, slots, max_len,
-                                                 device=self.device)
+                                                 device=self.device,
+                                                 model=model)
             self._step = decode.engine_step
         # Dense-cache entries (the paged engine keeps them, as the
         # reference does, so both modes list the same sentinel entries).
@@ -498,17 +523,30 @@ class ContinuousBatchingEngine:
         Unlike the reference, the prefix cache forgets its entries (pages
         a live slot holds stay with it) and prefills begun before the
         swap publish none: a later request must not adopt KV the old
-        weights computed."""
+        weights computed.  An engine over tensor ranks takes a
+        TensorParallel of its model's layout, or cuts a plain
+        Transformer into one (convert.to_tensor_parallel)."""
         if new_model.cfg != self.cfg:
             raise ValueError('swap_params: the new model has another '
                              'config than the engine')
         if new_model.device != self.device:
             raise ValueError(f'swap_params: model on {new_model.device}, '
                              f'engine on {self.device}')
+        layout = tensor_parallel.layout(self.model)
+        if layout is not None and tensor_parallel.layout(new_model) is None:
+            from skypilot_tpu_torch.models import convert  # pylint: disable=import-outside-toplevel
+            new_model = convert.to_tensor_parallel(self.cfg, new_model,
+                                                   self.model.mesh)
+        if tensor_parallel.layout(new_model) != layout:
+            raise ValueError(
+                f'swap_params: the new model\'s tensor layout '
+                f'{tensor_parallel.layout(new_model)} is not the '
+                f'engine\'s {layout}')
 
         if self.stream is not None:
             # The new weights are written before the worker reads them.
-            torch.cuda.current_stream(self.device).synchronize()
+            for dev in tensor_parallel.cards(new_model):
+                torch.cuda.current_stream(dev).synchronize()
 
         def swap() -> int:
             if self.stream is not None:
@@ -686,14 +724,9 @@ class ContinuousBatchingEngine:
             entries = self._kv.prefix.hot_entries(int(max_pages))
             if not entries:
                 raise HandoffError('no cached prefixes to export')
-            ids = torch.tensor([p for _, p in entries], dtype=torch.long,
-                               device=self.device)
-            k, v = self._cache['k'], self._cache['v']
-            if self.quantize_kv:
-                arrays = (k['q'][:, ids], v['q'][:, ids],
-                          k['scale'][:, ids], v['scale'][:, ids])
-            else:
-                arrays = (k[:, ids].float(), v[:, ids].float())
+            arrays = decode.read_pages(self._cache,
+                                       [p for _, p in entries],
+                                       self.quantize_kv)
             return [h for h, _ in entries], [a.cpu().numpy()
                                              for a in arrays]
 
@@ -743,6 +776,7 @@ class ContinuousBatchingEngine:
                 'weight_epoch': self._weight_epoch,
                 'deadline_reaped': self._deadline_reaped,
                 'device': str(self.device),
+                'tensor_degree': tensor_parallel.degree(self.model),
             }
             if self.spec_tokens:
                 stats['spec_ticks'] = self._spec_ticks

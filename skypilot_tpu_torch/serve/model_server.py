@@ -78,10 +78,18 @@ arrive.  `overrides` replaces fields of a preset (a depth cut of
 `mixtral-8x7b`, say).  MoE presets (`mixtral-8x7b`, `tiny-moe`) and
 converted Mixtral checkpoints serve in every mode: static, dense and
 paged continuous batching, the legacy loop, both fronts.
-`num_hosts` > 1 serves a slice (serve/slice_replica.py): the sequence
-axis only (`slice_sequence`; a tensor factor above 1, like `tensor` >
-1, raises: A16b), over `slice_devices` when given (a list that may
-repeat one card), else the visible devices.
+`tensor` > 1 serves the model tensor-sharded
+(models/tensor_parallel.py): per-rank weight shards, row-parallel
+reductions, a vocab-parallel head and a KV pool per rank, over
+`tensor_devices` when given (a list that may repeat one card), else
+the first `tensor` visible cards (CPU entries with device='cpu').
+`num_hosts` > 1 serves a slice (serve/slice_replica.py): `sequence x
+tensor` by `slice_axes` (the reference's default: the largest tensor
+factor the shapes allow; `slice_sequence` / `slice_tensor` pin it),
+over `slice_devices` when given (a list that may repeat one card),
+else the visible devices.  Weights of either restore straight to the
+shards (`checkpoints.restore_params(pieces=)`).  int8 weights, and an
+MoE config (A16c), with a tensor factor above 1 are refused.
 
 Environment (as the reference's `main` and fronts read it):
 SKYTPU_SERVE_KV_PAGES, _PAGE_SIZE, _KV_INT8=1, _SPEC_TOKENS,
@@ -115,11 +123,13 @@ from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import decode
 from skypilot_tpu_torch.models import import_weights
 from skypilot_tpu_torch.models import quantize as quantize_lib
+from skypilot_tpu_torch.models import tensor_parallel
 from skypilot_tpu_torch.models import tokenizer as tokenizer_lib
 from skypilot_tpu_torch.models.transformer import init_params
 from skypilot_tpu_torch.observability import logs as logs_lib
 from skypilot_tpu_torch.observability import metrics as metrics_lib
 from skypilot_tpu_torch.observability import tracing
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.serve import batching_engine as batching_engine_lib
 from skypilot_tpu_torch.serve import handoff as handoff_lib
 from skypilot_tpu_torch.serve import http_protocol
@@ -260,7 +270,10 @@ def model_flops_per_token(cfg, n_params: int, max_len: int) -> float:
 def n_leaf_elements(model) -> int:
     """Elements of every leaf of the model's reference tree: parameters
     and buffers (an int8 kernel's qvalue and scale), as the reference
-    counts the leaves of its tree."""
+    counts the leaves of its tree (a TensorParallel model's unsharded
+    tree)."""
+    if isinstance(model, tensor_parallel.TensorParallel):
+        return model.n_elements()
     return (sum(p.numel() for p in model.parameters()) +
             sum(b.numel() for b in model.buffers()))
 
@@ -286,6 +299,7 @@ class ModelServer:
                  spec_tokens: int = 0,
                  role: str = roles_lib.DEFAULT_ROLE,
                  tensor: int = 1,
+                 tensor_devices: Optional[List[Any]] = None,
                  num_hosts: int = 1,
                  sp_threshold: Optional[int] = None,
                  slice_sequence: Optional[int] = None,
@@ -298,6 +312,11 @@ class ModelServer:
             # Before the (possibly minutes-long) restore, not after.
             raise ValueError(f'Unknown quantize mode {quantize!r}; '
                              "have 'int8'.")
+        if tensor > 1 and quantize:
+            raise ValueError(
+                'quantize + tensor sharding is not supported yet '
+                '(quantized leaves change the param pytree the '
+                'shardings were computed for).')
         self.num_hosts = int(num_hosts)
         if self.num_hosts > 1:
             # The reference's refusals, in its order.
@@ -315,9 +334,6 @@ class ModelServer:
                 raise ValueError('--num-hosts > 1 requires '
                                  '--continuous-batching (the slice '
                                  'engine IS the batching engine)')
-        elif tensor > 1:
-            raise ValueError(f'--tensor {tensor}: tensor-sharded serving '
-                             'is not ported yet (A16b)')
         self.device = resolve_device(device)
         # The disaggregated-serving role this replica advertises
         # (/health); the engine is role-agnostic until a /role_budget
@@ -344,6 +360,46 @@ class ModelServer:
             # `overrides` replaces preset fields (a depth cut, say).
             self.cfg = configs.get_config(model, **(overrides or {}))
         self.model_name = model
+        # A slice's mesh, or the tensor mesh; its first position is the
+        # engine's device.
+        mesh = None
+        if self.num_hosts > 1:
+            # A slice replica.  Imported here, as the reference does, so
+            # a single-host replica registers no skytpu_slice_* families.
+            from skypilot_tpu_torch.serve import slice_replica as slice_lib  # pylint: disable=import-outside-toplevel
+            mesh = slice_lib.build_slice_mesh(
+                self.num_hosts, self.cfg, devices=slice_devices,
+                sequence=slice_sequence, tensor=slice_tensor,
+                device=self.device)
+        elif tensor > 1:
+            if tensor_devices is not None:
+                devices = list(tensor_devices)
+            elif self.device.type == 'cuda':
+                devices = mesh_lib.default_devices(self.device)
+            else:
+                devices = [self.device] * tensor
+            if len(devices) < tensor:
+                raise ValueError(f'tensor={tensor} needs {tensor} devices; '
+                                 f'have {len(devices)}.')
+            for dim in ('n_kv_heads', 'n_heads', 'd_ff', 'vocab_size'):
+                value = getattr(self.cfg, dim)
+                if value % tensor:
+                    raise ValueError(
+                        f'tensor={tensor} must divide {dim} ({value}) '
+                        f'for {model!r}; pick a smaller degree.')
+            mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(tensor=tensor),
+                                       devices[:tensor])
+        self._slice_mesh = mesh if self.num_hosts > 1 else None
+        # The mesh the weights are sharded over: None when one plain
+        # model on the first device serves it.
+        self._mesh = None
+        if mesh is not None:
+            self.device = mesh.devices[0]
+            if tensor_parallel.needs_ranks(mesh, self.device):
+                # MoE + tensor names its ROADMAP item (A16c).
+                tensor_parallel.check_degree(
+                    self.cfg, int(mesh.shape.get('tensor', 1)))
+                self._mesh = mesh
         # The checkpoint's tokenizer when it ships one (converted
         # checkpoints do); the byte-level fallback otherwise.
         self.tokenizer = tokenizer_lib.load_tokenizer(
@@ -365,6 +421,7 @@ class ModelServer:
                 raise ValueError(
                     f'params are not a {model} model on {self.device}'
                     f'{" with int8 weights" if quantize else ""}')
+            params = self._on_mesh(params)
         elif (checkpoint_dir and
               checkpoints.latest_step(checkpoint_dir) is not None):
             # Restored leaf by leaf onto the device, each cast (or
@@ -378,8 +435,11 @@ class ModelServer:
             else:
                 logger.warning('No --checkpoint-dir given; serving FRESH '
                                'random-init weights.')
-            params = init_params(self.cfg, seed=seed, device=self.device,
-                                 quantize=quantize)
+            # Made whole on the first device, then cut: the shards hold
+            # the single model's values (as the reference inits
+            # unsharded, then places).
+            params = self._on_mesh(init_params(
+                self.cfg, seed=seed, device=self.device, quantize=quantize))
         if quantize:
             report = quantize_lib.quantization_report(
                 convert.param_tree(params))
@@ -421,17 +481,12 @@ class ModelServer:
             if self.num_hosts > 1:
                 # A slice replica: coordinated ticks across the gang and
                 # sequence-parallel long-context prefill.  `slice_devices`
-                # may repeat one card (emulated hosts).  Imported here,
-                # as the reference does, so a single-host replica
-                # registers no skytpu_slice_* families.
+                # may repeat one card (emulated hosts).
                 from skypilot_tpu_torch.serve import slice_replica as slice_lib  # pylint: disable=import-outside-toplevel
-                mesh = slice_lib.build_slice_mesh(
-                    self.num_hosts, self.cfg, devices=slice_devices,
-                    sequence=slice_sequence, tensor=slice_tensor,
-                    device=self.device)
                 self._engine = slice_lib.SliceReplicaEngine(
                     self.cfg, self.params, num_hosts=self.num_hosts,
-                    sp_threshold=sp_threshold, mesh=mesh, **engine_kw)
+                    sp_threshold=sp_threshold, mesh=self._slice_mesh,
+                    **engine_kw)
             else:
                 self._engine = batching_engine_lib.ContinuousBatchingEngine(
                     self.cfg, self.params, **engine_kw)
@@ -449,12 +504,31 @@ class ModelServer:
         engine = self._engine
         return 0 if engine is None else engine.weight_epoch
 
+    def _on_mesh(self, model):
+        """`model` cut into this server's tensor shards (as it is when
+        the server has none, or it holds them already)."""
+        want = (None if self._mesh is None else
+                tensor_parallel.mesh_layout(self._mesh))
+        have = tensor_parallel.layout(model)
+        if have is None and want is not None:
+            return convert.to_tensor_parallel(self.cfg, model, self._mesh)
+        if have != want:
+            raise ValueError(f'params are sharded as {have}, this server '
+                             f'as {want}')
+        return model
+
     def _restore(self, checkpoint_dir: str, step: Optional[int] = None):
         """The step's weights as a serving Transformer on this server's
-        device, int8 when it quantizes."""
+        device, int8 when it quantizes; with tensor shards, each rank's
+        slice of each leaf read from the file onto its device."""
+        leaf_fn = convert.serving_leaf(self.cfg, bool(self._quantize))
+        if self._mesh is not None:
+            trees = checkpoints.restore_params(
+                checkpoint_dir, device=self.device, step=step,
+                leaf_fn=leaf_fn, pieces=convert.tensor_pieces(self._mesh))
+            return convert.from_rank_trees(self.cfg, trees, self._mesh)
         tree = checkpoints.restore_params(
-            checkpoint_dir, device=self.device, step=step,
-            leaf_fn=convert.serving_leaf(self.cfg, bool(self._quantize)))
+            checkpoint_dir, device=self.device, step=step, leaf_fn=leaf_fn)
         return convert.from_jax_params(self.cfg, tree, device=self.device)
 
     def weights_swap(self, req: Dict[str, Any]) -> Dict[str, Any]:
@@ -1279,8 +1353,14 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--seed', type=int, default=0,
                         help='Weight seed and default sampling seed.')
     parser.add_argument('--tensor', type=int, default=1,
-                        help='Tensor-shard the model over N devices (not '
-                             'ported yet: A16b; only 1 is served).')
+                        help='Tensor-shard the model over N devices: '
+                             'per-rank weight shards, row-parallel '
+                             'reductions, a vocab-parallel head, a KV '
+                             'pool per rank.')
+    parser.add_argument('--tensor-devices', default=None,
+                        help='Comma-separated devices of the tensor mesh '
+                             '(may repeat one card: cuda:0,cuda:0); '
+                             'default: the first --tensor visible cards.')
     parser.add_argument('--num-hosts', type=int,
                         default=int(env.get(
                             'SKYTPU_SERVE_REPLICA_NUM_HOSTS', '1')),
@@ -1305,8 +1385,12 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--slice-tensor', type=int, default=None,
                         help='Pin the tensor-axis factor of the slice '
                              'mesh (default: the largest divisor of '
-                             '--num-hosts the model shapes support; '
-                             'above 1 is A16b).')
+                             '--num-hosts the model shapes support).')
+    parser.add_argument('--slice-devices', default=None,
+                        help='Comma-separated devices of the slice\'s '
+                             'ranks (may repeat one card: four entries of '
+                             'cuda:0 emulate four hosts); default: the '
+                             'visible cards.')
     parser.add_argument('--role',
                         default=os.environ.get('SKYTPU_SERVE_REPLICA_ROLE',
                                                roles_lib.DEFAULT_ROLE),
@@ -1332,6 +1416,10 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _device_list(text: Optional[str]) -> Optional[List[str]]:
+    return None if not text else [d.strip() for d in text.split(',')]
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO)
@@ -1348,10 +1436,13 @@ def main(argv: Optional[List[str]] = None) -> None:
                          quantize_kv=args.quantize_kv,
                          prefix_caching=not args.no_prefix_cache,
                          spec_tokens=args.spec_tokens, role=args.role,
-                         tensor=args.tensor, num_hosts=args.num_hosts,
+                         tensor=args.tensor,
+                         tensor_devices=_device_list(args.tensor_devices),
+                         num_hosts=args.num_hosts,
                          sp_threshold=args.sp_threshold,
                          slice_sequence=args.slice_sequence,
                          slice_tensor=args.slice_tensor,
+                         slice_devices=_device_list(args.slice_devices),
                          device=args.device)
     if args.http_server == 'async':
         from skypilot_tpu_torch.serve import async_server  # pylint: disable=import-outside-toplevel

@@ -1,13 +1,18 @@
 """Slice-serving runtime: one replica = one gang of ranks (mirrors
-`skypilot_tpu/serve/slice_replica.py`, its sequence-only layout).
+`skypilot_tpu/serve/slice_replica.py`).
 
 - **Mesh.**  `build_slice_mesh(num_hosts, cfg)` lays the slice out as
-  `sequence x tensor` over a device list (parallel/mesh.py).
-  `slice_axes` factors the hosts exactly as the reference does; this
-  slice serves the tensor factor 1 only (a tensor factor above 1,
-  sharded weights and pool, is A16b) and raises otherwise.  The list
-  may repeat one card: four entries of `cuda:0` are four emulated
-  hosts, the counterpart of the reference's virtual CPU devices.
+  `sequence x tensor` over a device list (parallel/mesh.py), position
+  (r, t) at r * tensor + t as the reference's mesh orders its devices.
+  `slice_axes` factors the hosts exactly as the reference does: by
+  default the tensor factor takes the largest divisor of the hosts the
+  config's shapes allow.  A tensor factor above 1, or ranks on distinct
+  cards, serve a `TensorParallel` model over the mesh
+  (models/tensor_parallel.py: per-rank weight shards, a pool per
+  tensor rank, one copy of the shards on each further card); the
+  engine cuts a plain model into one.  The list may repeat one card:
+  four entries of `cuda:0` are four emulated hosts, the counterpart of
+  the reference's virtual CPU devices.
 - **Gang.**  :class:`SliceReplicaEngine` wraps the continuous-batching
   engine with the rank protocol (`serve/coordinator.py`): rank 0
   broadcasts every host-side scheduling decision (admit, release,
@@ -18,7 +23,8 @@
 - **Sequence-parallel prefill.**  A prompt at or above `sp_threshold`
   tokens skips the chunked-prefill ladder and runs ONE
   `models/decode.prefill_sp` call: ring attention
-  (`ops/ring_attention.py`) over the mesh's sequence axis, B3 per hop.
+  (`ops/ring_attention.py`) over the mesh's sequence axis, B3 per hop
+  (once per tensor rank, at its heads).
 
 Ranks: emulated followers are `LocalRank` threads; a
 :class:`FollowerExecutor` given to one replays the command log through
@@ -42,7 +48,9 @@ import torch
 
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import configs
+from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import decode
+from skypilot_tpu_torch.models import tensor_parallel
 from skypilot_tpu_torch.models.transformer import init_params
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.serve import batching_engine as batching_engine_lib
@@ -72,8 +80,7 @@ def slice_axes(num_hosts: int, cfg,
     divisible) and the remainder rides 'sequence'.  Either factor can
     be pinned explicitly (``--slice-sequence`` / ``--slice-tensor``);
     they must multiply to num_hosts.  (The reference's policy and
-    errors, unchanged; the engine then refuses a tensor factor above
-    1, A16b.)
+    errors, unchanged.)
     """
     if num_hosts < 1:
         raise ValueError(f'num_hosts must be >= 1, got {num_hosts}')
@@ -119,10 +126,11 @@ def build_slice_mesh(num_hosts: int, cfg, *, devices=None,
                      device: Union[str, torch.device] = 'cuda'
                      ) -> mesh_lib.Mesh:
     """The `sequence x tensor` Mesh of one slice replica over its first
-    `num_hosts` devices.  `devices=None` takes the visible CUDA devices
-    (raising without CUDA, or with fewer than num_hosts), or with
-    device='cpu' num_hosts CPU entries (the emulated hosts); an
-    explicit list may repeat one device."""
+    `num_hosts` devices, row-major (position r * tensor + t is sequence
+    rank r, tensor rank t, as in the reference's mesh).  `devices=None`
+    takes the visible CUDA devices (raising without CUDA, or with fewer
+    than num_hosts), or with device='cpu' num_hosts CPU entries (the
+    emulated hosts); an explicit list may repeat one device."""
     axes = slice_axes(num_hosts, cfg, tensor=tensor, sequence=sequence)
     if devices is None:
         dev = resolve_device(device)
@@ -141,7 +149,10 @@ def build_slice_mesh(num_hosts: int, cfg, *, devices=None,
 
 class SliceReplicaEngine(batching_engine_lib.ContinuousBatchingEngine):
     """Continuous-batching engine whose replica is a slice: (a) the slice
-    mesh, whose first device holds the weights, the pool and the state;
+    mesh, whose first device holds the state and rank 0's weights and
+    pool (a TensorParallel model over the mesh when it has a tensor
+    factor above 1 or ranks on other cards: a plain model is cut into
+    one);
     (b) the rank protocol: every tick, admission and release broadcasts
     through the SliceCoordinator before rank 0 dispatches, and a dead
     rank fails the replica as a unit; (c) sequence-parallel prefill for
@@ -162,22 +173,14 @@ class SliceReplicaEngine(batching_engine_lib.ContinuousBatchingEngine):
         if mesh is None:
             mesh = build_slice_mesh(self.num_hosts, cfg, sequence=sequence,
                                     tensor=tensor, device=device)
-        tensor_degree = int(mesh.shape.get('tensor', 1))
-        if tensor_degree > 1:
-            raise ValueError(
-                f'slice tensor factor {tensor_degree}: sharded weights and '
-                'KV pools are not ported yet (A16b); pin --slice-sequence '
-                'to the host count')
         if cfg.n_experts > 0:
             raise ValueError(
                 'slice replicas serve dense models: the capacity dispatch '
                 'of an MoE prefill couples every prompt token, so it '
                 'cannot split over the sequence axis')
-        if any(d != model.device for d in mesh.devices):
-            raise ValueError(
-                f'slice mesh {mesh.devices}: every rank must be on the '
-                f'weights\' device {model.device}; a copy of the weights '
-                'on each card comes with the tensor axis (A16b)')
+        if (tensor_parallel.layout(model) is None and
+                tensor_parallel.needs_ranks(mesh, model.device)):
+            model = convert.to_tensor_parallel(cfg, model, mesh)
         self._slice_mesh = mesh
         self._sp_degree = int(mesh.shape.get('sequence', 1))
         self._coordinator = coordinator_lib.SliceCoordinator(
@@ -340,7 +343,9 @@ class SliceReplicaEngine(batching_engine_lib.ContinuousBatchingEngine):
 class FollowerExecutor:
     """Execute rank 0's command log on a follower's own device state.
 
-    A follower holds the same weights and engine geometry as rank 0;
+    A follower holds the same weights and engine geometry as rank 0
+    (a TensorParallel model replays every tensor rank, each into its own
+    pool);
     every broadcast carries rank 0's host-side decision (which slot,
     which pages, which drafts), so replaying the log through the same
     functions reproduces rank 0's state: the sampler state and block
@@ -383,14 +388,16 @@ class FollowerExecutor:
             self._cache = decode.init_paged_cache(
                 cfg, int(kv_pages), self._page_size, int(slots),
                 self.max_len // self._page_size,
-                quantize_kv=bool(quantize_kv), device=self.device)
+                quantize_kv=bool(quantize_kv), device=self.device,
+                model=model)
         else:
             if spec_tokens:
                 raise ValueError('spec_tokens requires the paged KV '
                                  'engine (kv_pages)')
             self._cache = decode.init_slot_cache(cfg, int(slots),
                                                  self.max_len,
-                                                 device=self.device)
+                                                 device=self.device,
+                                                 model=model)
         self._state = decode.init_engine_state(int(slots),
                                                int(max_stop_ids),
                                                device=self.device)
@@ -476,11 +483,17 @@ def _bench_prefill(args) -> None:
     cfg = configs.get_config(args.model)
     model = init_params(cfg, seed=0, device=dev)
     n = int(args.prompt_len)
-    sp = int(args.sequence or args.num_hosts)
+    sequence = args.sequence
+    if sequence is None and args.tensor is None:
+        sequence = args.num_hosts
+    mesh = build_slice_mesh(args.num_hosts, cfg, sequence=sequence,
+                            tensor=args.tensor,
+                            devices=[dev] * int(args.num_hosts))
+    sp = int(mesh.shape['sequence'])
+    if tensor_parallel.needs_ranks(mesh, dev):
+        model = convert.to_tensor_parallel(cfg, model, mesh)
     width = -(-n // sp) * sp
     max_len = width + 16
-    mesh = build_slice_mesh(args.num_hosts, cfg, sequence=sp,
-                            devices=[dev] * int(args.num_hosts))
     gen = torch.Generator().manual_seed(0)
     tokens = torch.zeros((1, width), dtype=torch.int32)
     tokens[0, :n] = torch.randint(1, cfg.vocab_size - 1, (n,),
@@ -533,7 +546,15 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--prefill-chunk', type=int, default=512)
     parser.add_argument('--bench-prefill', action='store_true')
     parser.add_argument('--prompt-len', type=int, default=2048)
-    parser.add_argument('--sequence', type=int, default=None)
+    parser.add_argument('--sequence', type=int, default=None,
+                        help='--bench-prefill: the sequence factor '
+                             '(default: --num-hosts, or what --tensor '
+                             'leaves).')
+    parser.add_argument('--tensor', type=int, default=None,
+                        help='The slice\'s tensor factor (default: '
+                             '--bench-prefill 1; a follower rank the '
+                             'largest the model allows, as rank 0 lays '
+                             'it out by default).')
     parser.add_argument('--iters', type=int, default=3)
     parser.add_argument('--device', default='cuda')
     return parser
@@ -556,8 +577,17 @@ def main(argv: Optional[List[str]] = None) -> None:
         dev = resolve_device(args.device)
         cfg = configs.get_config(args.model)
         kv_pages_env = os.environ.get('SKYTPU_SERVE_KV_PAGES')
+        # The slice's layout as rank 0 lays it out, its ranks emulated on
+        # this rank's device: a tensor factor above 1 replays every
+        # tensor rank.
+        model = init_params(cfg, seed=0, device=dev)
+        mesh = build_slice_mesh(args.num_hosts, cfg, sequence=args.sequence,
+                                tensor=args.tensor,
+                                devices=[dev] * args.num_hosts)
+        if tensor_parallel.needs_ranks(mesh, dev):
+            model = convert.to_tensor_parallel(cfg, model, mesh)
         executor = FollowerExecutor(
-            cfg, init_params(cfg, seed=0, device=dev),
+            cfg, model,
             max_len=args.max_len, slots=args.max_batch,
             prefill_chunk=args.prefill_chunk,
             kv_pages=(int(kv_pages_env) if kv_pages_env else None),
@@ -574,13 +604,16 @@ def main(argv: Optional[List[str]] = None) -> None:
     # Rank 0: the model server's CLI with num_hosts set, one entry
     # point for a slice's task.
     from skypilot_tpu_torch.serve import model_server  # pylint: disable=import-outside-toplevel
-    model_server.main(['--num-hosts', str(args.num_hosts),
-                       '--model', args.model,
-                       '--max-len', str(args.max_len),
-                       '--max-batch', str(args.max_batch),
-                       '--prefill-chunk', str(args.prefill_chunk),
-                       '--device', args.device,
-                       '--continuous-batching'] + list(extra))
+    pins = []
+    for flag, value in (('--slice-sequence', args.sequence),
+                        ('--slice-tensor', args.tensor)):
+        if value is not None:
+            pins += [flag, str(value)]
+    model_server.main(pins + [
+        '--num-hosts', str(args.num_hosts), '--model', args.model,
+        '--max-len', str(args.max_len), '--max-batch', str(args.max_batch),
+        '--prefill-chunk', str(args.prefill_chunk), '--device', args.device,
+        '--continuous-batching'] + list(extra))
 
 
 if __name__ == '__main__':

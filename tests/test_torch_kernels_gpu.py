@@ -747,3 +747,105 @@ def test_observability_routes_on_the_card(cuda):
     finally:
         stop()
         server.close()
+
+
+# ------------------------------------------------------------ tensor ranks
+
+# A llama3-8b tensor rank's heads at tensor 2 and 4.
+TENSOR_HEADS = [(16, 4), (8, 2)]
+
+
+@pytest.mark.parametrize('quantized,s_q', [(False, 1), (True, 5)],
+                         ids=['native', 'int8'])
+@pytest.mark.parametrize('h_q,h_kv', TENSOR_HEADS, ids=['tp2', 'tp4'])
+def test_paged_kernel_at_a_tensor_ranks_heads(cuda, quantized, s_q, h_q,
+                                              h_kv):
+    """B1 (bf16, S = 1) and B2 (int8, S = 5) at a tensor rank's heads on
+    the serving tick's ragged lengths; two launches bit-equal."""
+    gen = torch.Generator(device=cuda).manual_seed(h_q)
+    lengths, ps, rows, d = [1, 15, 16, 17, 1000], 16, 64, 128
+    k, v = _pool(gen, 1 + len(lengths) * rows, h_kv, ps, d, torch.bfloat16,
+                 quantized, cuda)
+    q = torch.randn((len(lengths), h_q, s_q, d), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    tables, lengths = _paged_tables(lengths, s_q, ps, rows, d)
+    tables, lengths = tables.to(cuda), lengths.to(cuda)
+    out = paged_attention.paged_attention(q, k, v, tables, lengths)
+    again = paged_attention.paged_attention(q, k, v, tables, lengths)
+    ref = paged_attention._paged_attention_reference(  # pylint: disable=protected-access
+        q, k, v, tables, lengths, sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize('h,h_kv', TENSOR_HEADS, ids=['tp2', 'tp4'])
+def test_flash_kernel_at_a_tensor_ranks_heads(cuda, h, h_kv):
+    """B3 at a tensor rank's heads: the 512-token prefill chunk."""
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(
+        torch.bfloat16) for shape in ((1, h, 512, 128), (1, h_kv, 512, 128),
+                                      (1, h_kv, 512, 128)))
+    out = attention.flash_attention(q, k, v)
+    ref = attention._blockwise_attention(  # pylint: disable=protected-access
+        q, k, v, causal=True, sm_scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
+@pytest.mark.parametrize('kv_pages', [24, None], ids=['paged', 'dense'])
+def test_tensor_engine_gpu_matches_cpu(cuda, kv_pages):
+    """A tensor-2 engine (ranks on the card, the kernels) and the same
+    ranks on the CPU (the plain versions) give the same greedy tokens,
+    f32."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    gpu_model = init_params(SMALL, seed=2, device=cuda)
+    cpu_model = convert.from_jax_params(
+        SMALL, convert.to_jax_params(gpu_model), device='cpu')
+    out = {}
+    for model in (gpu_model, cpu_model):
+        mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(tensor=2),
+                                   [model.device] * 2)
+        tp = convert.to_tensor_parallel(SMALL, model, mesh)
+        engine = batching_engine.ContinuousBatchingEngine(
+            SMALL, tp, max_len=64, slots=2, prefill_chunk=16,
+            kv_pages=kv_pages, page_size=16, device=model.device)
+        try:
+            out[model.device.type] = [engine.generate(p, 10)
+                                      for p in PROMPTS]
+        finally:
+            engine.stop()
+    assert out['cuda'] == out['cpu']
+
+
+@pytest.mark.parametrize('layout', ['tensor 4', 'sequence 2 x tensor 2'])
+def test_tensor_ranks_on_four_cards_match_one_card(cuda, layout):
+    """Tensor 4 (and a slice of sequence 2 x tensor 2) with one rank on
+    each of four cards gives the tokens the same ranks give on one card
+    (the kernels and their inputs are the same; the copies between
+    cards change no bits), bf16, prompts over the SP threshold."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip('needs four NVIDIA GPUs')
+    from skypilot_tpu_torch.serve import slice_replica
+    cfg = SMALL.replace(d_model=512, n_heads=8, n_kv_heads=4,
+                        dtype=torch.bfloat16)
+    model = init_params(cfg, seed=3, device=cuda)
+    prompts = [list(range(1, 40)), [5, 6, 7], list(range(7, 60))]
+    out = {}
+    for cards in ([cuda] * 4,
+                  [torch.device('cuda', i) for i in range(4)]):
+        axes = ({'tensor': 4} if layout == 'tensor 4' else
+                {'sequence': 2, 'tensor': 2})
+        mesh = slice_replica.build_slice_mesh(4, cfg, devices=cards,
+                                              **axes)
+        engine = slice_replica.SliceReplicaEngine(
+            cfg, model, num_hosts=4, mesh=mesh, sp_threshold=32,
+            max_len=128, slots=2, prefill_chunk=16, kv_pages=48,
+            page_size=16, device=cuda)
+        try:
+            out[len(set(cards))] = [engine.generate(p, 12) for p in prompts]
+        finally:
+            engine.stop()
+    assert out[4] == out[1]

@@ -25,6 +25,7 @@ from __future__ import annotations
 import contextlib
 import http.client
 import json
+import logging
 import os
 import socket
 import subprocess
@@ -497,6 +498,22 @@ def test_front_keep_alive_reuses_connection(fronts, front):
             assert sock is not None and conn.sock is sock
         finally:
             conn.close()
+
+
+def test_connection_close_generate_leaves_no_reader_error(fronts, caplog):
+    """A /generate with Connection: close (the LB's routed path) answers,
+    and the disconnect watchdog's read is gone before the connection
+    reads again: asyncio logs no second reader on the stream."""
+    ports, _, _ = fronts
+    with caplog.at_level(logging.ERROR, logger='asyncio'):
+        for _ in range(2):
+            status, _, body = _request(
+                ports['async'][1], 'POST', '/generate',
+                {'prompt_ids': [[3, 1, 4]], 'max_new_tokens': 2},
+                headers={'Connection': 'close'})
+            assert status == 200 and len(json.loads(body)['tokens'][0]) == 2
+        time.sleep(0.2)
+    assert not [r for r in caplog.records if r.name == 'asyncio']
 
 
 @pytest.mark.parametrize('front', sorted(FRONTS))

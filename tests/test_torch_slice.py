@@ -25,7 +25,9 @@ The same seeded inputs go through the reference and the port:
   `slice` on both fronts.
 - The CLI: `build_parser()`'s slice flags and environment defaults
   equal what the reference's `main` hands its ModelServer; a tensor
-  factor above 1 raises, naming A16b.
+  factor above 1 (a slice's default layout, `tensor=2`) serves the
+  reference's tokens (tests/test_torch_tensor.py holds the rest of the
+  tensor axis).
 """
 from __future__ import annotations
 
@@ -253,11 +255,20 @@ def test_prefill_sp_refusals_equal_reference(setup):
             decode.prefill_sp(c, model, torch.from_numpy(tokens),
                               mesh=mesh, max_len=64)
         assert str(got.value) == str(want.value)
+    # Sequence ranks on distinct cards read a copy of the weights on
+    # their own card: a plain model is refused, a TensorParallel over the
+    # mesh holds one copy a further card ('meta' stands in for a card).
     other = mesh_lib.build_mesh(mesh_lib.MeshConfig(sequence=2),
                                 ['cpu', 'meta'])
-    with pytest.raises(ValueError, match='A16b'):
+    with pytest.raises(ValueError, match='TensorParallel over the mesh'):
         decode.prefill_sp(cfg, model, torch.zeros((1, 8), dtype=torch.int32),
                           mesh=other, max_len=64)
+    spread = convert.to_tensor_parallel(cfg, model, other)
+    assert spread.shard(0, 'cpu') is spread.ranks[0]
+    copy = spread.shard(0, 'meta')
+    assert copy.device == torch.device('meta')
+    assert ([(n, p.shape) for n, p in copy.named_parameters()] ==
+            [(n, p.shape) for n, p in model.named_parameters()])
 
 
 # ----------------------------------------------------------- the layout
@@ -733,17 +744,40 @@ def test_slice_flags_equal_reference(monkeypatch, state, argv):
 
 
 def test_tensor_factor_above_one_names_a16b(setup):
-    cfg, model = setup[2], setup[3]
-    with pytest.raises(ValueError, match='A16b'):
-        # tiny's default layout on 2 hosts is tensor=2.
-        slice_replica.SliceReplicaEngine(cfg, model, num_hosts=2,
-                                         device='cpu', **ENGINE_KW)
-    with pytest.raises(ValueError, match='A16b'):
-        model_server.ModelServer('tiny', params=model, tensor=2,
-                                 device='cpu')
-    with pytest.raises(ValueError, match='A16b'):
-        model_server.ModelServer('tiny', params=model, num_hosts=2,
-                                 continuous_batching=True, device='cpu')
+    """The calls that raised naming A16b before the tensor axis was
+    ported now serve, with the reference's greedy tokens."""
+    from skypilot_tpu.serve import model_server as ref_server
+    jcfg, params, cfg, model = setup
+    # tiny's default layout on 2 hosts is tensor=2.
+    ref = jax_slice.SliceReplicaEngine(jcfg, params, num_hosts=2,
+                                       sp_threshold=32, **ENGINE_KW)
+    try:
+        want = _greedy(ref, PROMPTS[1:])
+    finally:
+        ref.stop()
+    eng = slice_replica.SliceReplicaEngine(cfg, model, num_hosts=2,
+                                           sp_threshold=32, device='cpu',
+                                           **ENGINE_KW)
+    try:
+        assert _greedy(eng, PROMPTS[1:]) == want
+        assert eng.stats()['slice']['tensor_degree'] == 2
+    finally:
+        eng.stop()
+    prompt = [[3, 1, 4, 1, 5]]
+    assert (model_server.ModelServer('tiny', params=model, tensor=2,
+                                     max_len=32, device='cpu'
+                                     ).generate(prompt, 5) ==
+            ref_server.ModelServer('tiny', max_len=32, max_batch=1,
+                                   tensor=2).generate(prompt, 5))
+    server = model_server.ModelServer(
+        'tiny', params=model, num_hosts=2, continuous_batching=True,
+        max_len=128, max_batch=2, prefill_chunk=16, kv_pages=48,
+        page_size=8, sp_threshold=32, device='cpu')
+    try:
+        assert server.generate([PROMPTS[1]], 8) == [want[0]]
+        assert server.health()[1]['slice']['tensor_degree'] == 2
+    finally:
+        server.close()
     with pytest.raises(ValueError, match='subsumes --tensor'):
         model_server.ModelServer('tiny', params=model, num_hosts=2,
                                  tensor=2, continuous_batching=True,
