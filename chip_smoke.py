@@ -51,10 +51,11 @@ Phases (each one that fails makes the script exit non-zero):
    bf16), causal and non-causal, beside SDPA's forward for the same
    setting.  At the shapes sharded training gives them (phase 7c): B4
    and B5 at mesh A's ring hop (b 1, 32/8, 2048 x 2048), non-causal
-   and causal, with an lse cotangent, and B3-B5 at mesh B's Ulysses
-   call (b 1, 16/4, 4096, causal), each against its plain version and
-   two launches bit-equal, timed beside SDPA (forward; backward as dq
-   + dkv).  At a tensor rank's heads (llama3-8b at tensor 2 and 4:
+   and causal, with an lse cotangent, B3-B5 at mesh B's Ulysses
+   call (b 1, 16/4, 4096, causal) and at the tensor mesh's ring hop
+   (a tensor rank's 16/4 heads, 2048 x 2048, causal and non-causal),
+   each against its plain version and two launches bit-equal, timed
+   beside SDPA (forward; backward as dq + dkv).  At a tensor rank's heads (llama3-8b at tensor 2 and 4:
    16/4 and 8/2): B1 (bf16, S = 1) and B2 (int8, S = 5) on the ragged
    lengths and B3 at the 512-token chunk, held and timed the same way
    (`check_tensor_ranks`).  Bounds from this run's
@@ -319,12 +320,16 @@ Phases (each one that fails makes the script exit non-zero):
 7c. Sharded training ("sharded training"): llama3-8b width at depth
    2, bf16, remat, batch 2 x 4096, 3 steps from seed 0: the unsharded
    step, then mesh A (fsdp 2 x sequence 2, ring) and mesh B (data 2 x
-   sequence 2, Ulysses) over four entries of the card.  Held: losses
+   sequence 2, Ulysses) and the tensor mesh (sequence 2 x tensor 2,
+   ring: each tensor rank runs its 16/4 heads, the o_proj and MLP
+   partials summed across the tensor ranks, the fused or plain loss
+   vocab-parallel) over four entries of the card.  Held: losses
    finite and falling, step-1 loss within 1e-2 of the unsharded step's,
    launches exactly `shard_launches` (ring: ranks x L x sp(sp+1)/2 hops,
-   Ulysses: ranks x L x sp calls; B3 twice for the layer checkpoint);
+   Ulysses: ranks x L x sp calls; each times tp, the tensor degree;
+   B3 twice for the layer checkpoint);
    printed: step ms, peak memory, params + moments a mesh position
-   holds.  An f32 cut (depth 1, 2 x 1024): meshes A and B against the
+   holds.  An f32 cut (depth 1, 2 x 1024): the three meshes against the
    unsharded GPU step, loss within rtol 1e-5, every gradient within
    1e-3 of max |unsharded|.  `train_llama --model small` over four
    entries (fsdp 2 x sequence 2) with --preflight and a checkpoint
@@ -337,20 +342,23 @@ Phases (each one that fails makes the script exit non-zero):
 
 The line before the last is the `kernels` JSON: each kernel's
 `launches` is its count on the path `path` names ("slice" for B1 and
-B3, "slice (int8 pool)" for B2, "sharded training" (mesh A) for
-B4/B5), and
+B3, "slice (int8 pool)" for B2, "sharded training (tensor)" (phase
+7c's tensor mesh, the newest training path) for B4/B5), and
 `launches_by_path` holds every
 driven path's own count (serving, the two observability windows, the
 five paths of phase 5, "int8 weights" and "checkpoint" of phase 5b,
 the four MoE paths of phase 5c, the three slice paths of phase 5d,
 the six tensor paths of phase 5e,
-training, `train_llama small`, "training resume", the four paths of
+training, `train_llama small`, "training resume", the five paths of
 phase 7c), each path zeroed just before it and read just after.  B3's
 entry carries the 512-token chunk under `serving_chunk`, the ring hop
 under `ring_hop_causal` / `ring_hop_full` and mesh B's call under
-`ulysses`; B4's and B5's top-level times are at mesh A's non-causal
-ring hop, with the causal hop under `ring_hop_causal`, the Ulysses
-shape under `ulysses` and the training shape under `training_shape`;
+`ulysses`, the tensor mesh's hops under `tensor_ring_hop_full` /
+`tensor_ring_hop_causal`; B4's and B5's top-level times are at the
+tensor mesh's non-causal ring hop (16/4 heads), with its causal hop
+under `tensor_ring_hop_causal`, mesh A's hops under `ring_hop_full` /
+`ring_hop_causal`, the Ulysses shape under `ulysses` and the training
+shape under `training_shape`;
 B1's and B2's top-level times are
 at the slice tick, with the serving tick under `serving_tick`, the
 full batch under `full_batch` and their split span in pages,
@@ -1035,10 +1043,14 @@ def check_flash_bwd(dev):
 # 4096) gives B3-B5: mesh A's ring hop (fsdp 2 x sequence 2: b 1, 32/8
 # heads, 2048 x 2048; non-causal on the earlier chunk, causal on the
 # diagonal, both with the lse cotangent of the merge) and mesh B's
-# Ulysses call (data 2 x sequence 2: b 1, 16/4 heads, 4096 causal).
+# Ulysses call (data 2 x sequence 2: b 1, 16/4 heads, 4096 causal) and
+# the tensor mesh's ring hop (sequence 2 x tensor 2: a tensor rank's
+# 16/4 heads, 2048 x 2048, both kinds of hop).
 SHARD_SHAPES = {'ring_hop_full': (1, 32, 8, 2048, False),
                 'ring_hop_causal': (1, 32, 8, 2048, True),
-                'ulysses': (1, 16, 4, 4096, True)}
+                'ulysses': (1, 16, 4, 4096, True),
+                'tensor_ring_hop_full': (1, 16, 4, 2048, False),
+                'tensor_ring_hop_causal': (1, 16, 4, 2048, True)}
 
 
 def sdpa_times(q, k, v, g, causal):
@@ -1114,7 +1126,7 @@ def check_sharded_shapes(dev):
         io = ((2 * q.numel() + 2 * k.numel()) * q.element_size() +
               b * h * n * 4)
         bound_ms, bound_by = bound(io, flops, BF16_FLOPS)
-        if label == 'ulysses':     # check_ring_hops times the hops
+        if not label.startswith('ring_hop'):   # check_ring_hops'
             out['flash_fwd'][label] = dict(
                 max_abs_err=fwd_err, **timed_call(
                     lambda: attention.flash_attention_with_lse(
@@ -3302,18 +3314,21 @@ SHARD_F32_SEQ = 1024
 SHARD_MESHES = {'sharded training': (dict(data=1, fsdp=2, sequence=2),
                                      'ring'),
                 'sharded training (ulysses)': (dict(data=2, sequence=2),
-                                               'ulysses')}
+                                               'ulysses'),
+                'sharded training (tensor)': (dict(data=1, sequence=2,
+                                                   tensor=2), 'ring')}
 
 
 def shard_launches(axes, mode, n_layers, n_steps):
     """B3/B4/B5 launches of n_steps steps on a mesh, with one forward per
     batch rank and a layer checkpoint (the forward runs again in the
     backward): a causal ring over sp ranks launches sp (sp + 1) / 2
-    hops, Ulysses one call a rank; each launch has one B4 and one B5."""
+    hops, Ulysses one call a rank, each tensor rank over its own heads;
+    each launch has one B4 and one B5."""
     ranks = axes.get('data', 1) * axes.get('fsdp', 1)
-    sp = axes.get('sequence', 1)
+    sp, tp = axes.get('sequence', 1), axes.get('tensor', 1)
     per_rank = sp * (sp + 1) // 2 if mode == 'ring' else sp
-    fwd = ranks * n_layers * per_rank
+    fwd = ranks * tp * n_layers * per_rank
     return {'flash_fwd': 2 * fwd * n_steps, 'flash_bwd_dq': fwd * n_steps,
             'flash_bwd_dkv': fwd * n_steps}
 
@@ -4608,15 +4623,16 @@ def main() -> int:
     }
     results['flash_fwd'].update(check_ring_hops(dev))
     results.update(check_flash_bwd(dev))
-    # B4/B5's entries are at phase 7c's ring hop (mesh A's path), the
-    # other shapes under their labels.
+    # B4/B5's entries are at the tensor mesh's non-causal ring hop
+    # (phase 7c's newest path), the other shapes under their labels.
     sharded = check_sharded_shapes(dev)
-    results['flash_fwd']['ulysses'] = sharded['flash_fwd']['ulysses']
+    results['flash_fwd'].update(sharded['flash_fwd'])
     for name in ('flash_bwd_dq', 'flash_bwd_dkv'):
-        results[name] = dict(sharded[name]['ring_hop_full'],
-                             training_shape=results[name],
-                             ring_hop_causal=sharded[name]['ring_hop_causal'],
-                             ulysses=sharded[name]['ulysses'])
+        results[name] = dict(
+            sharded[name]['tensor_ring_hop_full'],
+            training_shape=results[name],
+            **{label: sharded[name][label] for label in SHARD_SHAPES
+               if label != 'tensor_ring_hop_full'})
     for name, ranks in check_tensor_ranks(dev).items():
         results[name]['tensor_rank'] = ranks
         for tp, r in ranks.items():
@@ -4625,8 +4641,8 @@ def main() -> int:
     for name, r in results.items():
         at = (f' at the slice tick (lengths {SLICE_TICK})'
               if name.startswith('paged') else
-              ' at the ring hop (b 1, 32/8, 2048 x 2048, non-causal)'
-              if name.startswith('flash_bwd') else '')
+              ' at the tensor mesh\'s ring hop (b 1, 16/4, 2048 x 2048, '
+              'non-causal)' if name.startswith('flash_bwd') else '')
         log(f'  {name}{at}: {kernel_summary(r)}')
     log(f'  flash_fwd at the 512-token serving chunk: '
         f'{kernel_summary(results["flash_fwd"]["serving_chunk"])}')
@@ -4746,15 +4762,15 @@ def main() -> int:
                 'flash_bwd_dkv': 'skypilot_tpu/ops/attention.py:306'}
     # `launches` counts the run of the path named by `path`: "slice"
     # (this port's newest serving path: the 4-rank slice engine, bf16
-    # pool) for B1 and B3, "slice (int8 pool)" for B2, "training
-    # resume" (10 steps at depth 1, L / L a step) for the backward
-    # kernels.  `launches_by_path` gives each driven path's own count;
-    # no two runs are added.
+    # pool) for B1 and B3, "slice (int8 pool)" for B2, "sharded
+    # training (tensor)" (phase 7c's tensor mesh, the newest training
+    # path) for the backward kernels.  `launches_by_path` gives each
+    # driven path's own count; no two runs are added.
     main_path = {'paged_attention': 'slice',
                  'paged_attention_int8': 'slice (int8 pool)',
                  'flash_fwd': 'slice',
-                 'flash_bwd_dq': 'sharded training',
-                 'flash_bwd_dkv': 'sharded training'}
+                 'flash_bwd_dq': 'sharded training (tensor)',
+                 'flash_bwd_dkv': 'sharded training (tensor)'}
     kernels = [dict(name=name, route='cuda', source=sources[name],
                     replaces=replaces[name],
                     launches=paths[main_path[name]][name],

@@ -379,7 +379,7 @@ def _embed(cfg: ModelConfig, model, tokens, shards=None):
         x = shards[0].embed.embedding[
             tokens.to(shards[0].device).long()].to(cfg.dtype)
     else:
-        vr = model.rank_cfg.vocab_size
+        vr = shards[0].cfg.vocab_size
         parts = []
         for t, shard in enumerate(shards):
             local = tokens.to(shard.device).long() - t * vr

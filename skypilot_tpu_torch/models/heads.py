@@ -4,10 +4,12 @@
 A `TensorParallel` model's head is vocab-parallel: each rank holds the
 lm_head columns (or tied embedding rows) of its vocab range and
 computes its logits [..., V / tp] on its own device; the pieces are
-concatenated in rank order on the device of the rows (rank 0's)."""
+concatenated in rank order on the device of the rows (rank 0's).  A
+training mesh's row of tensor ranks (narrow models bound to their
+slices) takes the same head through `unembed_ranks`."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -39,9 +41,20 @@ def unembed(x: torch.Tensor, model, cfg: ModelConfig,
     if kernel is None:
         kernel = head_kernel(model, cfg)
     if isinstance(model, tensor_parallel.TensorParallel):
-        xs = tensor_parallel.on_cards(x, model.devices)
-        return torch.cat([
-            unembed(xr, rank, model.rank_cfg, k).to(x.device)
-            for xr, rank, k in zip(xs, model.ranks, kernel)], dim=-1)
+        return unembed_ranks(x, list(model.ranks), model.rank_cfg, kernel)
     logits = x.reshape(-1, x.shape[-1]).to(kernel.dtype) @ kernel
     return logits.reshape(*x.shape[:-1], -1).to(torch.float32)
+
+
+def unembed_ranks(x: torch.Tensor, ranks: Sequence, rcfg: ModelConfig,
+                  kernels: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The vocab-parallel head over a row of tensor ranks (their narrow
+    models `ranks` of config `rcfg` and `head_kernel`s `kernels`): x is
+    read on each rank's device (one copy a card) and the ranks' logits
+    are joined in rank order on x's device.  One rank is the plain
+    head."""
+    if len(ranks) == 1:
+        return unembed(x, ranks[0], rcfg, kernels[0])
+    xs = tensor_parallel.on_cards(x, [k.device for k in kernels])
+    return torch.cat([unembed(xr, rank, rcfg, k).to(x.device)
+                      for xr, rank, k in zip(xs, ranks, kernels)], dim=-1)

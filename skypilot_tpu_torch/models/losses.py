@@ -9,7 +9,11 @@ the [batch, seq, vocab] f32 log-softmax.
   hidden states [b, s, d] and the lm-head kernel [d, V] and computes
   each vocab chunk's logits inside the same online logsumexp, so the
   [b, s, V] tensor exists in neither pass; the backward recomputes each
-  chunk's logits and accumulates dx / dW per chunk.
+  chunk's logits and accumulates dx / dW per chunk.  Vocab-parallel
+  when the kernel comes as the tensor ranks' column blocks: each rank
+  runs its own chunks on its own device and the ranks' (max, sum,
+  target logit) combine into the global logsumexp, which each rank's
+  backward reads.
 
 Both are `torch.autograd.Function`s (the reference's custom VJPs), so
 autograd never keeps per-chunk logits.  The matmul dtype follows the
@@ -26,6 +30,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from skypilot_tpu_torch.models import tensor_parallel
 
 DEFAULT_VOCAB_CHUNK = 8192
 
@@ -67,14 +73,8 @@ def _online_update(carry, logits_c, targets, col0: int):
 def _lse_and_target(chunk_logits, targets, vocab: int, vocab_chunk: int):
     """(lse, target logit) from chunk_logits(col0, width) -> f32
     [..., width], one chunk live at a time."""
-    carry = (torch.full(targets.shape, float('-inf'), device=targets.device),
-             torch.zeros(targets.shape, device=targets.device),
-             torch.zeros(targets.shape, device=targets.device))
-    for col0, width in _chunks(vocab, vocab_chunk):
-        carry = _online_update(carry, chunk_logits(col0, width), targets,
-                               col0)
-    m, s, t = carry
-    return m + torch.log(s), t
+    return _combine([_online_stats(chunk_logits, targets, vocab,
+                                   vocab_chunk)], targets.device)
 
 
 def _dprobs(logits_c, lse, targets, col0: int, coeff):
@@ -115,37 +115,96 @@ class _StreamingNLLSum(torch.autograd.Function):
 
 
 class _FusedNLLSum(torch.autograd.Function):
+    """The summed NLL from hidden states and the lm-head kernel, given
+    as the column blocks [d, V_t] of the tensor ranks that hold them
+    (one block: the whole kernel): each rank runs the online logsumexp
+    over its own vocab chunks on its own device (hidden[t] there), the
+    ranks' (max, sum, target logit) combine into the global lse on
+    targets' device, and each rank's backward recomputes its chunks
+    against that lse.  No device builds more than one [b, s, chunk]
+    block of logits."""
 
     @staticmethod
-    def forward(ctx, hidden, kernel, targets, mask, vocab_chunk: int):
+    def forward(ctx, targets, mask, vocab_chunk: int, *args):
         # pylint: disable=arguments-differ
-        x = hidden.to(kernel.dtype)
-        lse, tgt = _lse_and_target(
-            lambda c0, w: (x @ kernel[:, c0:c0 + w]).to(torch.float32),
-            targets, kernel.shape[-1], vocab_chunk)
-        ctx.save_for_backward(hidden, kernel, targets, mask, lse, tgt)
+        n = len(args) // 2
+        hiddens, kernels = args[:n], args[n:]
+        offsets, stats = [], []
+        col0 = 0
+        for hidden, kernel in zip(hiddens, kernels):
+            x = hidden.to(kernel.dtype)
+            offsets.append(col0)
+            stats.append(_online_stats(
+                lambda c0, w, x=x, kernel=kernel: (
+                    x @ kernel[:, c0:c0 + w]).to(torch.float32),
+                targets.to(kernel.device) - col0, kernel.shape[-1],
+                vocab_chunk))
+            col0 += kernel.shape[-1]
+        lse, tgt = _combine(stats, targets.device)
+        ctx.save_for_backward(targets, mask, lse, tgt, *args)
         ctx.vocab_chunk = vocab_chunk
+        ctx.offsets = offsets
         return torch.sum((lse - tgt) * mask)
 
     @staticmethod
     def backward(ctx, g):
         # pylint: disable=arguments-differ
-        hidden, kernel, targets, mask, lse, tgt = ctx.saved_tensors
-        x = hidden.to(kernel.dtype)
-        x32 = hidden.to(torch.float32).reshape(-1, hidden.shape[-1])
+        targets, mask, lse, tgt, *args = ctx.saved_tensors
+        n = len(args) // 2
         coeff = (g * mask)[..., None]
-        dx = torch.zeros(hidden.shape, dtype=torch.float32,
-                         device=hidden.device)
-        dkernel = torch.empty_like(kernel)
-        for col0, width in _chunks(kernel.shape[-1], ctx.vocab_chunk):
-            kernel_c = kernel[:, col0:col0 + width]
-            scaled = _dprobs((x @ kernel_c).to(torch.float32), lse,
-                             targets, col0, coeff)
-            dx += scaled @ kernel_c.to(torch.float32).t()
-            dkernel[:, col0:col0 + width] = (
-                x32.t() @ scaled.reshape(-1, width)).to(kernel.dtype)
-        dmask = g * (lse - tgt) if ctx.needs_input_grad[3] else None
-        return dx.to(hidden.dtype), dkernel, None, dmask, None
+        grads = []
+        dkernels = []
+        for hidden, kernel, col0 in zip(args[:n], args[n:], ctx.offsets):
+            dev = kernel.device
+            x = hidden.to(kernel.dtype)
+            x32 = hidden.to(torch.float32).reshape(-1, hidden.shape[-1])
+            lse_t, coeff_t = lse.to(dev), coeff.to(dev)
+            local = targets.to(dev) - col0
+            dx = torch.zeros(hidden.shape, dtype=torch.float32, device=dev)
+            dkernel = torch.empty_like(kernel)
+            for c0, width in _chunks(kernel.shape[-1], ctx.vocab_chunk):
+                kernel_c = kernel[:, c0:c0 + width]
+                scaled = _dprobs((x @ kernel_c).to(torch.float32), lse_t,
+                                 local, c0, coeff_t)
+                dx += scaled @ kernel_c.to(torch.float32).t()
+                dkernel[:, c0:c0 + width] = (
+                    x32.t() @ scaled.reshape(-1, width)).to(kernel.dtype)
+            grads.append(dx.to(hidden.dtype))
+            dkernels.append(dkernel)
+        dmask = g * (lse - tgt) if ctx.needs_input_grad[1] else None
+        return (None, dmask, None, *grads, *dkernels)
+
+
+def _online_stats(chunk_logits, targets, vocab: int, vocab_chunk: int):
+    """(running max, sum of exp relative to it, target logit) over one
+    rank's columns, targets relative to its first column (a target
+    outside them adds 0 to the target logit)."""
+    carry = (torch.full(targets.shape, float('-inf'), device=targets.device),
+             torch.zeros(targets.shape, device=targets.device),
+             torch.zeros(targets.shape, device=targets.device))
+    for col0, width in _chunks(vocab, vocab_chunk):
+        carry = _online_update(carry, chunk_logits(col0, width), targets,
+                               col0)
+    return carry
+
+
+def _combine(stats, device):
+    """The ranks' (max, sum, target logit) -> (lse, target logit) on
+    `device`: the max over ranks, each sum rescaled to it and added in
+    rank order; one rank is its own lse."""
+    if len(stats) == 1:
+        m, s, t = stats[0]
+        return m + torch.log(s), t
+    stats = [[v.to(device) for v in st] for st in stats]
+    m = stats[0][0]
+    for st in stats[1:]:
+        m = torch.maximum(m, st[0])
+    s = torch.zeros_like(m)
+    t = torch.zeros_like(m)
+    for m_r, s_r, t_r in stats:
+        s = s + s_r * torch.exp(m_r - m)
+        t = t + t_r
+    return m + torch.log(s), t
 
 
 def _check_reduction(reduction: str) -> None:
@@ -183,12 +242,20 @@ def fused_linear_cross_entropy(hidden, kernel, targets,
     """Exact CE from final hidden states [b, s, d] and the lm-head kernel
     [d, V]; per-chunk logits are computed on the fly (and recomputed in
     the backward), so the [b, s, V] tensor never exists.  For tied
-    embeddings pass the transposed embedding (a view, not a copy)."""
-    if hidden.shape[-1] != kernel.shape[0]:
+    embeddings pass the transposed embedding (a view, not a copy).
+
+    Vocab-parallel: `kernel` may be a list of the tensor ranks' column
+    blocks [d, V / tp], in rank order, each on its rank's device; the
+    hidden states are read there (one copy a card) and the ranks'
+    partial logsumexps combine into the global one (`_FusedNLLSum`).
+    The loss lands on targets' device."""
+    kernels = list(kernel) if isinstance(kernel, (list, tuple)) else [kernel]
+    if hidden.shape[-1] != kernels[0].shape[0]:
         raise ValueError(
             f'hidden d_model {hidden.shape[-1]} != kernel rows '
-            f'{kernel.shape[0]} — pass the kernel as [d_model, vocab].')
+            f'{kernels[0].shape[0]} — pass the kernel as [d_model, vocab].')
     _check_reduction(reduction)
-    nll = _FusedNLLSum.apply(hidden, kernel, targets.long(),
-                             _mask_or_ones(targets, mask), vocab_chunk)
+    hiddens = tensor_parallel.on_cards(hidden, [k.device for k in kernels])
+    nll = _FusedNLLSum.apply(targets.long(), _mask_or_ones(targets, mask),
+                             vocab_chunk, *hiddens, *kernels)
     return _reduce(nll, targets, mask, reduction)

@@ -35,8 +35,16 @@ positions name gets one copy of the shards its ranks need
 its own copy.  A `TensorParallel` of one rank is the degenerate case a
 slice whose sequence ranks sit on distinct cards serves.
 
-MoE configs are refused: the reference serves them under GSPMD with
-the expert stacks split on 'mlp', which is ROADMAP item A16c.
+Training over a mesh with a 'tensor' axis (models/transformer.py's
+`mesh_forward`) runs the same layer body under autograd: each tensor
+rank's slices are gathered from the sharded state and bound to a
+narrow meta model, `reduce_sum` is out of place (autograd hands each
+partial the sum's gradient on its own device), and the loss is
+vocab-parallel (models/losses.py).
+
+MoE configs are refused at tensor > 1: the reference serves them under
+GSPMD with the expert stacks split on 'mlp', which is ROADMAP item
+A16c.  At tensor 1 an MoE model stays plain (`needs_ranks`).
 """
 from __future__ import annotations
 
@@ -189,23 +197,30 @@ def cards(model) -> List[torch.device]:
     return [model.device]
 
 
-def needs_ranks(mesh, device) -> bool:
+def needs_ranks(mesh, device, cfg: ModelConfig) -> bool:
     """Whether a mesh needs a TensorParallel model: a tensor axis above
-    1, or a position on another card than the weights' `device`."""
-    return (mesh.shape.get('tensor', 1) > 1 or
-            any(d != torch.device(device) for d in mesh.devices))
+    1, or a position on another card than the weights' `device`.  An
+    MoE model stays plain at tensor 1 (the tensor decode loop has no
+    MoE block until A16c; a slice runs no SP prefill for it, so no
+    sequence rank reads its weights on another card)."""
+    if mesh.shape.get('tensor', 1) > 1:
+        return True
+    return cfg.n_experts == 0 and any(d != torch.device(device)
+                                      for d in mesh.devices)
 
 
 def reduce_sum(parts: Sequence[torch.Tensor], device,
                dtype: torch.dtype) -> torch.Tensor:
     """The sum of the ranks' partials on `device`: f32 adds in rank
-    order, rounded once to `dtype`.  One partial is returned as it
-    is."""
+    order, rounded once to `dtype`.  One partial is returned as it is.
+    Out of place, so the partials keep their values (a partial already
+    f32 on `device` is its own `.to`) and autograd hands each partial
+    the sum's gradient on its own device."""
     if len(parts) == 1:
         return parts[0]
     acc = parts[0].to(device=device, dtype=torch.float32)
     for p in parts[1:]:
-        acc.add_(p.to(device))
+        acc = acc + p.to(device)
     return acc.to(dtype)
 
 

@@ -11,16 +11,20 @@ the f32 state never exists twice on the card.
 
 Meshes (`create_train_state(mesh=)`, parallel/mesh.py): every leaf and
 both AdamW moments are split over the mesh axes that the reference's
-logical-axis rules give its dims (`transformer.ShardedParams`; today
-'embed' over 'fsdp', replicated over 'data' and 'sequence').  Each
-distinct block is stored once, on the device of the first mesh position
-that holds it, and positions that hold it replicated read that copy.
-The step (`make_train_step`, the counterpart of `jit_train_step`) runs
-each batch rank's rows on its own devices (`transformer.mesh_forward`),
-sums the NLL of all ranks over the global denominator and
-backpropagates once: autograd turns each layer's weight gather into a
-sum of the gradient slices into each block's `.grad` (the
-reduce-scatter, and over 'data' the all-reduce, that GSPMD inserts).
+logical-axis rules give its dims (`transformer.ShardedParams`: 'embed'
+over 'fsdp'; 'heads', 'kv_heads', 'mlp' and 'vocab' over 'tensor';
+replicated over 'data' and 'sequence').  Each distinct block is stored
+once, on the device of the first mesh position that holds it, and
+positions that hold it replicated read that copy.  The step
+(`make_train_step`, the counterpart of `jit_train_step`) runs each
+batch rank's rows on its own devices (`transformer.mesh_forward`; a
+tensor rank gathers only its slice of each leaf and the row-parallel
+partials are summed across the tensor ranks), sums the NLL of every
+(batch, sequence) rank once over the global denominator (the fused CE
+vocab-parallel over the tensor ranks' head columns) and backpropagates
+once: autograd turns each layer's weight gather into a sum of the
+gradient slices into each block's `.grad` (the reduce-scatter, and
+over 'data' the all-reduce, that GSPMD inserts).
 The clip takes the global norm over the blocks (each element once) and
 AdamW steps each block elementwise.  A mesh of one position is the
 unsharded state on its device.  `abstract_train_state` builds the same
@@ -167,7 +171,7 @@ def create_train_state(cfg: ModelConfig,
         return TrainState(step=0, model=model,
                           optimizer=make_optimizer(model.parameters(), tcfg),
                           grad_clip=tcfg.grad_clip), shardings
-    transformer_lib.check_mesh(mesh)
+    transformer_lib.check_mesh(mesh, cfg)
     for dev in mesh.distinct_devices():
         resolve_device(dev)
     model = Transformer(cfg, device='meta', trainable=True)
@@ -187,7 +191,7 @@ def abstract_train_state(cfg: ModelConfig,
     point: `data.checkpoints.restore_sharded` puts a checkpoint onto
     these shardings."""
     tcfg = tcfg or TrainConfig()
-    transformer_lib.check_mesh(mesh)
+    transformer_lib.check_mesh(mesh, cfg)
     model = Transformer(cfg, device='meta', trainable=True)
     shards = ShardedParams.empty(model, mesh, device='meta')
     return TrainState(step=0, model=model,
@@ -298,7 +302,7 @@ def _rank_rows(x, geo, mesh: Mesh) -> List[torch.Tensor]:
     """A batch array as one row block per batch rank, each on the rank's
     first device (`token_batch_sharding`: rows split over 'data' x
     'fsdp'); a list is taken as those blocks already."""
-    devs = [mesh.devices[rank[0]] for rank in geo.ranks]
+    devs = [mesh.devices[rank[0][0]] for rank in geo.ranks]
     if isinstance(x, (list, tuple)):
         if len(x) != len(devs):
             raise ValueError(f'{len(x)} batch shards for {len(devs)} batch '
@@ -313,12 +317,14 @@ def _rank_rows(x, geo, mesh: Mesh) -> List[torch.Tensor]:
 
 def _position_cols(xs: List[torch.Tensor], geo, mesh: Mesh
                    ) -> List[torch.Tensor]:
-    """Per-rank [b_i, s] blocks -> each mesh position's columns (its
-    sequence rank's chunk), on its device, batch rank major."""
+    """Per-rank [b_i, s] blocks -> each (batch, sequence) rank's columns
+    (its sequence rank's chunk), on its tensor rank 0's device, batch
+    rank major: `mesh_forward`'s outputs, one a row of tensor ranks, so
+    each target's NLL counts once."""
     chunk = xs[0].shape[1] // geo.sp
-    return [x[:, r * chunk:(r + 1) * chunk].to(mesh.devices[pos])
+    return [x[:, r * chunk:(r + 1) * chunk].to(mesh.devices[row[0]])
             for x, rank in zip(xs, geo.ranks)
-            for r, pos in enumerate(rank)]
+            for r, row in enumerate(rank)]
 
 
 def _sum_to(parts: List[torch.Tensor], device) -> torch.Tensor:
@@ -337,7 +343,7 @@ def _mesh_value_and_grad(state: TrainState, batch,
     reference's reshape of the global batch cuts them."""
     shards = state.shards
     mesh = shards.mesh
-    geo = transformer_lib.mesh_geometry(mesh)
+    geo = transformer_lib.mesh_geometry(mesh, state.model.cfg)
     dev0 = mesh.devices[0]
     if 'tokens' in batch:
         toks = _rank_rows(batch['tokens'], geo, mesh)

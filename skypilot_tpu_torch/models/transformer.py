@@ -466,7 +466,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 # read that one copy.  `Transformer` itself then lives on the 'meta'
 # device and only names the leaves: `mesh_forward` runs each mesh
 # position's rows on its own device, with each layer's weights gathered
-# there inside the layer's checkpoint.
+# there inside the layer's checkpoint.  Over a 'tensor' axis a position
+# gathers only its tensor rank's slice of each leaf and runs it through
+# a narrow meta model of the rank's config (`ShardedParams.rank_models`),
+# the tensor ranks joined as the serving path joins them
+# (models/decode.py's tensor-parallel layer body).
 
 # The reference's logical axes of each kernel (its
 # with_logical_partitioning annotations), by the module that owns it.
@@ -502,11 +506,13 @@ def logical_axes(name: str) -> Tuple[Optional[str], ...]:
     return _KERNEL_AXES[parts[-2]]
 
 
-def check_mesh(mesh) -> None:
-    """Refuse the mesh axes the port does not train over yet."""
-    later = {'tensor': 'A16b (the tensor axis: column- and row-parallel '
-                       'linears, a vocab-parallel head)',
-             'pipeline': 'A17d (parallel/pipeline.py)',
+def check_mesh(mesh, cfg: ModelConfig) -> None:
+    """Refuse the mesh axes the port does not train over yet, and a
+    tensor degree that `cfg`'s shapes or kind do not take
+    (`tensor_parallel.check_degree`: it must divide heads, kv heads,
+    d_ff and vocab; an MoE config takes none above 1, A16c)."""
+    from skypilot_tpu_torch.models import tensor_parallel  # pylint: disable=import-outside-toplevel
+    later = {'pipeline': 'A17d (parallel/pipeline.py)',
              'expert': 'A17g (the expert axis: experts split over '
                        'devices)'}
     for axis, item in later.items():
@@ -515,30 +521,37 @@ def check_mesh(mesh) -> None:
                 f'{axis}={mesh.shape[axis]}: training over the {axis!r} '
                 f'mesh axis is ROADMAP item {item}, a later slice of the '
                 'port')
+    tensor_parallel.check_degree(cfg, int(mesh.shape.get('tensor', 1)))
 
 
 class MeshGeometry(NamedTuple):
-    """Where a mesh runs a training forward: `ranks[i][r]` is the mesh
-    position of batch rank i (over 'data' x 'fsdp', data major, as
-    `token_batch_sharding` splits the batch) and sequence rank r."""
-    ranks: List[List[int]]
+    """Where a mesh runs a training forward: `ranks[i][r][t]` is the
+    mesh position of batch rank i (over 'data' x 'fsdp', data major, as
+    `token_batch_sharding` splits the batch), sequence rank r and
+    tensor rank t.  The tensor ranks of one (i, r) hold the same rows
+    and columns: one (batch, sequence) rank."""
+    ranks: List[List[List[int]]]
     sp: int
+    tp: int
 
 
-def mesh_geometry(mesh) -> MeshGeometry:
-    check_mesh(mesh)
-    sp = mesh.shape.get('sequence', 1)
+def mesh_geometry(mesh, cfg: ModelConfig) -> MeshGeometry:
+    check_mesh(mesh, cfg)
+    sp, tp = mesh.shape.get('sequence', 1), mesh.shape.get('tensor', 1)
     data, fsdp = mesh.shape.get('data', 1), mesh.shape.get('fsdp', 1)
-    ranks = [[mesh.position(data=d, fsdp=f, sequence=r) for r in range(sp)]
+    ranks = [[[mesh.position(data=d, fsdp=f, sequence=r, tensor=t)
+               for t in range(tp)] for r in range(sp)]
              for d in range(data) for f in range(fsdp)]
-    return MeshGeometry(ranks, sp)
+    return MeshGeometry(ranks, sp, tp)
 
 
 class ShardedParams:
     """The blocks of every parameter of `model` (a 'meta' Transformer
     naming the leaves) over `mesh`: `blocks[name]` is {block index:
     tensor}, each a leaf with requires_grad on its owner's device, and
-    `placements[name]` its `sharding.Placement`."""
+    `placements[name]` its `sharding.Placement`.  `rank_models[t]` is
+    tensor rank t's narrow meta Transformer (`rank_cfg`), which `tree`
+    binds to the rank's slices."""
 
     def __init__(self, model: Transformer, mesh,
                  blocks: Dict[str, Dict[Tuple[int, ...], torch.Tensor]]
@@ -556,6 +569,16 @@ class ShardedParams:
                 raise ValueError(f'{name}: blocks {list(blocks[name])}, '
                                  f'the placement has {want}')
         self.blocks = blocks
+        # One meta model a tensor rank, of the rank's narrow config
+        # (distinct modules, so `_call` binds every rank's slices at
+        # once); the model itself at tensor 1.
+        from skypilot_tpu_torch.models import tensor_parallel  # pylint: disable=import-outside-toplevel
+        tp = int(mesh.shape.get('tensor', 1))
+        self.rank_cfg = tensor_parallel.rank_config(model.cfg, tp)
+        self.rank_models = nn.ModuleList(
+            [model] if tp == 1 else
+            [Transformer(self.rank_cfg, device='meta', trainable=True)
+             for _ in range(tp)])
 
     @classmethod
     def init(cls, model: Transformer, mesh, seed: int) -> 'ShardedParams':
@@ -612,17 +635,22 @@ class ShardedParams:
         return [(t, placement.index(owners[blk], full))
                 for blk, t in self.blocks[name].items()]
 
-    def gather(self, name: str, device) -> torch.Tensor:
+    def gather(self, name: str, device,
+               tensor: Optional[int] = None) -> torch.Tensor:
+        """The full leaf `name` on `device`; with `tensor`, tensor rank
+        `tensor`'s slice of it (the dims 'tensor' splits cut to the
+        rank's block, the other axes' blocks joined)."""
+        fixed = None if tensor is None else {'tensor': tensor}
         return sharding.gather(self.blocks[name], self.placements[name],
-                               device)
+                               device, fixed)
 
-    def tree(self, prefix: str, device,
-             keep_prefix: bool = False) -> Dict[str, torch.Tensor]:
-        """{name (less `prefix` unless `keep_prefix`): the full leaf on
-        `device`} for every parameter whose name starts with
-        `prefix`."""
-        cut = 0 if keep_prefix else len(prefix)
-        return {name[cut:]: self.gather(name, device)
+    def tree(self, prefix: str, devices: Sequence[torch.device]
+             ) -> Dict[str, torch.Tensor]:
+        """`_call`'s parameters for `rank_models` over one row of tensor
+        ranks: {f'{t}.{name}': rank t's slice on devices[t]} for every
+        parameter whose name starts with `prefix`."""
+        return {f'{t}.{name}': self.gather(name, dev, tensor=t)
+                for t, dev in enumerate(devices)
                 for name in self.blocks if name.startswith(prefix)}
 
     def position_bytes(self) -> List[int]:
@@ -666,20 +694,28 @@ def mesh_forward(model: Transformer, shards: ShardedParams,
                  tokens: Sequence[torch.Tensor], return_hidden: bool):
     """The reference's forward under a mesh, made explicit.  Activations
     follow ('batch', 'seq', 'embed'): batch rank i's tokens [b_i, s]
-    (any device) are cut into `sp` chunks of s / sp columns, and mesh
-    position ranks[i][r] runs chunk r on its own device (positions
-    r * s / sp onwards).  Attention is `ring_attention_shards` or
-    `ulysses_attention_shards` over a batch rank's sequence ranks (per
+    (any device) are cut into `sp` chunks of s / sp columns, and
+    (batch, sequence) rank (i, r) runs chunk r (positions r * s / sp
+    onwards) over its tensor ranks ranks[i][r], each on its own device.
+    A row of tensor ranks runs decode.py's tensor-parallel layer body
+    over its slices (`shards.rank_models`): the vocab-masked embedding,
+    each rank's q/k/v heads, o_proj and MLP partials summed in rank
+    order (`tensor_parallel.all_reduce`), the residual rows kept on
+    tensor rank 0's device.  Attention runs per tensor rank over its
+    heads: `ring_attention_shards` or `ulysses_attention_shards` over
+    the sequence ranks of one (batch, tensor) rank (per
     cfg.sequence_parallel) when the sequence axis is above 1, else the
-    flash kernel.  -> one logits [b_i, s / sp, V] (or (hidden, head
-    kernel)) per position, batch rank major."""
+    flash kernel.  -> one output per (batch, sequence) rank, batch rank
+    major: logits [b_i, s / sp, V] (the tensor ranks' vocab columns
+    joined on tensor rank 0's device), or (hidden, [head kernel [d,
+    V / tp] of each tensor rank, on its device])."""
     from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
     cfg = model.cfg
     if cfg.sequence_parallel not in ('ring', 'ulysses'):
         raise ValueError(f'Unknown sequence_parallel '
                          f'{cfg.sequence_parallel!r}; have \'ring\', '
                          '\'ulysses\'.')
-    geo = mesh_geometry(shards.mesh)
+    geo = mesh_geometry(shards.mesh, cfg)
     if len(tokens) != len(geo.ranks):
         raise ValueError(f'{len(tokens)} token shards for '
                          f'{len(geo.ranks)} batch ranks')
@@ -688,23 +724,27 @@ def mesh_forward(model: Transformer, shards: ShardedParams,
         raise ValueError(f'sequence length {s} is not divisible by the '
                          f'\'sequence\' axis ({geo.sp})')
     chunk = s // geo.sp
-    devs = [shards.mesh.devices[p] for rank in geo.ranks for p in rank]
-    embeds: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+    # devs[g][t]: the device of tensor rank t of (batch, sequence) rank
+    # g = i * sp + r.
+    devs = [[shards.mesh.devices[p] for p in row]
+            for rank in geo.ranks for row in rank]
+    embeds: Dict[Tuple[torch.device, ...], Dict[str, torch.Tensor]] = {}
     xs = []
     for i, toks in enumerate(tokens):
         for r in range(geo.sp):
-            dev = devs[i * geo.sp + r]
-            if dev not in embeds:
-                embeds[dev] = shards.tree('embed.', dev, keep_prefix=True)
-            t = toks[:, r * chunk:(r + 1) * chunk].to(dev)
-            xs.append(_call(model, embeds[dev],
-                            lambda m, t: decode._embed(cfg, m, t),  # pylint: disable=protected-access
+            row = tuple(devs[i * geo.sp + r])
+            if row not in embeds:
+                embeds[row] = shards.tree('embed.', row)
+            t = toks[:, r * chunk:(r + 1) * chunk].to(row[0])
+            xs.append(_call(shards.rank_models, embeds[row],
+                            lambda ms, t: decode._embed(cfg, None, t,  # pylint: disable=protected-access
+                                                        shards=list(ms)),
                             t).reshape(-1, cfg.d_model))
     # A mesh's layer checkpoint is the reentrant one, whatever devices
     # its positions name.  Over several devices, autograd runs each
     # device's backward on a thread of its own, and two of them could
     # unpack one non-reentrant checkpoint at once: torch would then
-    # recompute the layer twice, at the same time, over one 'meta' layer
+    # recompute the layer twice, at the same time, over 'meta' layers
     # whose parameters `functional_call` swaps.  The reentrant checkpoint
     # recomputes inside one autograd node, once; it takes no selective
     # policy.
@@ -721,87 +761,105 @@ def mesh_forward(model: Transformer, shards: ShardedParams,
             xs = fn(*xs)
     head = 'embed.' if cfg.tie_embeddings else 'lm_head.'
     outs, finals = [], {}
-    for x, dev in zip(xs, devs):
-        if dev not in finals:
-            finals[dev] = {**shards.tree('final_norm.', dev, True),
-                           **shards.tree(head, dev, True)}
-        outs.append(_call(model, finals[dev], _final, x, return_hidden,
-                          x.shape[0] // chunk))
+    for x, row in zip(xs, map(tuple, devs)):
+        if row not in finals:
+            finals[row] = {**shards.tree('final_norm.', row),
+                           **shards.tree(head, row)}
+        outs.append(_call(shards.rank_models, finals[row], _final, x,
+                          return_hidden, x.shape[0] // chunk))
     return outs
 
 
-def _final(model: Transformer, x: torch.Tensor, return_hidden: bool,
+def _final(ranks: nn.ModuleList, x: torch.Tensor, return_hidden: bool,
            b: int):
-    """Final norm, then logits or (hidden, head kernel), of one mesh
-    position's rows."""
+    """Final norm, then logits (the ranks' vocab columns joined on x's
+    device) or (hidden, each rank's head kernel), of one (batch,
+    sequence) rank's rows."""
     from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
     from skypilot_tpu_torch.models import heads  # pylint: disable=import-outside-toplevel
-    cfg = model.cfg
-    x = decode._norm(x, model.final_norm.scale, cfg.norm_eps,  # pylint: disable=protected-access
-                     cfg.norm_scale_plus_one).reshape(b, -1, cfg.d_model)
+    rcfg = ranks[0].cfg
+    x = decode._norm(x, ranks[0].final_norm.scale, rcfg.norm_eps,  # pylint: disable=protected-access
+                     rcfg.norm_scale_plus_one).reshape(b, -1, rcfg.d_model)
+    kernels = [heads.head_kernel(m, rcfg) for m in ranks]
     if return_hidden:
-        return x, heads.head_kernel(model, cfg)
-    return heads.unembed(x, model, cfg)
+        return x, kernels
+    return heads.unembed_ranks(x, list(ranks), rcfg, kernels)
 
 
 def _mesh_layer(model: Transformer, shards: ShardedParams,
                 geo: MeshGeometry, index: int, b: int, chunk: int,
-                devs: List[torch.device], *xs: torch.Tensor):
-    """Layer `index` over every mesh position's rows xs[p] [b * chunk,
-    d], its weights gathered once per distinct device (inside the
-    checkpoint that calls this, so autograd keeps none of them).  An
-    MoE block dispatches the tokens of all positions together, in the
-    global [batch, seq] order, on the first position's device: the
-    reference's capacity dispatch runs over the global batch."""
+                devs: List[List[torch.device]], *xs: torch.Tensor):
+    """Layer `index` over every (batch, sequence) rank's rows xs[g]
+    [b * chunk, d] (on its tensor rank 0's device), through decode.py's
+    tensor-parallel layer body (`_tp_qkv`, `_tp_out_and_mlp`; at tensor
+    1 the plain layer's ops), each row of tensor ranks' slices gathered
+    once (inside the checkpoint that calls this, so autograd keeps none
+    of them).  An MoE block (tensor 1) dispatches the tokens of all
+    positions together, in the global [batch, seq] order, on the first
+    position's device: the reference's capacity dispatch runs over the
+    global batch."""
     from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
+    from skypilot_tpu_torch.models import tensor_parallel  # pylint: disable=import-outside-toplevel
     from skypilot_tpu_torch.ops.ring_attention import ring_attention_shards  # pylint: disable=import-outside-toplevel
     from skypilot_tpu_torch.ops.ulysses_attention import ulysses_attention_shards  # pylint: disable=import-outside-toplevel
-    cfg = model.cfg
-    layer = model.layers[index]
-    weights: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+    cfg, rcfg = model.cfg, shards.rank_cfg
+    weights: Dict[Tuple[torch.device, ...], Dict[str, torch.Tensor]] = {}
 
-    def run(dev, fn, *args):
-        if dev not in weights:
-            weights[dev] = shards.tree(f'layers.{index}.', dev)
-        return _call(layer, weights[dev], fn, *args)
+    def run(g, fn, *args):
+        """fn(the rank models, *args) with (batch, sequence) rank g's
+        tensor ranks' slices of layer `index` bound."""
+        row = tuple(devs[g])
+        if row not in weights:
+            weights[row] = shards.tree(f'layers.{index}.', row)
+        return _call(shards.rank_models, weights[row], fn, *args)
 
+    # Each row's residual rows on each of its tensor ranks' devices, one
+    # copy a card, for the layer's head and tail alike.
+    spread = [tensor_parallel.on_cards(x, devs[g]) for g, x in enumerate(xs)]
     qkv = []
-    for p, (x, dev) in enumerate(zip(xs, devs)):
-        start = (p % geo.sp) * chunk      # the rank's first position
-        qkv.append(run(dev, DecoderLayer.attn_inputs, x,
-                       torch.arange(start, start + chunk, device=dev),
-                       (b, chunk)))
-    outs = []
+    for g, xr in enumerate(spread):
+        start = (g % geo.sp) * chunk      # the rank's first position
+        pos = tensor_parallel.on_cards(
+            torch.arange(start, start + chunk, device=devs[g][0]), devs[g])
+        qkv.append(run(g, lambda ms, xr, pos: [
+            tuple(t.contiguous() for t in trio) for trio in
+            decode._tp_qkv(rcfg, ms, index, xr, pos, (b, chunk), False)],  # pylint: disable=protected-access
+            xr, pos))
+    attend = (ulysses_attention_shards if cfg.sequence_parallel == 'ulysses'
+              else ring_attention_shards)
+    outs = [[None] * geo.tp for _ in xs]
     for i in range(len(geo.ranks)):
-        span = slice(i * geo.sp, (i + 1) * geo.sp)
-        q, k, v = ([t[j] for t in qkv[span]] for j in range(3))
-        if geo.sp == 1:
-            outs.append(flash_attention(q[0], k[0], v[0], causal=True))
-            continue
-        attend = (ulysses_attention_shards
-                  if cfg.sequence_parallel == 'ulysses'
-                  else ring_attention_shards)
-        outs.extend(attend(q, k, v, devs[span], causal=True,
-                           sm_scale=float(cfg.head_dim) ** -0.5))
+        span = range(i * geo.sp, (i + 1) * geo.sp)
+        for t in range(geo.tp):
+            q, k, v = ([qkv[g][t][j] for g in span] for j in range(3))
+            if geo.sp == 1:
+                got = [flash_attention(q[0], k[0], v[0], causal=True)]
+            else:
+                got = attend(q, k, v, [devs[g][t] for g in span],
+                             causal=True, sm_scale=float(cfg.head_dim) ** -0.5)
+            for g, o in zip(span, got):
+                outs[g][t] = o
     if cfg.n_experts == 0:
         return tuple(
-            run(dev, lambda m, x, o: decode._attn_out_and_mlp(  # pylint: disable=protected-access
-                x, o, m, cfg, capacity=True), x, o)
-            for x, o, dev in zip(xs, outs, devs))
-    mids = [run(dev, lambda m, x, o: decode._attn_out(x, o, m), x, o)  # pylint: disable=protected-access
-            for x, o, dev in zip(xs, outs, devs)]
-    hs = [run(dev, lambda m, x: decode._norm(  # pylint: disable=protected-access
-        x, m.mlp_norm.scale, cfg.norm_eps, cfg.norm_scale_plus_one), x)
-          for x, dev in zip(mids, devs)]
+            run(g, lambda ms, xr, o: decode._tp_out_and_mlp(  # pylint: disable=protected-access
+                rcfg, ms, index, xr, o, False)[0], xr, outs[g])
+            for g, xr in enumerate(spread))
+    flat = [d[0] for d in devs]
+    mids = [run(g, lambda ms, x, o: decode._attn_out(  # pylint: disable=protected-access
+        x, o, ms[0].layers[index]), x, outs[g][0])
+            for g, x in enumerate(xs)]
+    hs = [run(g, lambda ms, x: decode._norm(  # pylint: disable=protected-access
+        x, ms[0].layers[index].mlp_norm.scale, cfg.norm_eps,
+        cfg.norm_scale_plus_one), x) for g, x in enumerate(mids)]
     d = cfg.d_model
     rows = torch.cat([
-        torch.cat([hs[i * geo.sp + r].reshape(b, chunk, d).to(devs[0])
+        torch.cat([hs[i * geo.sp + r].reshape(b, chunk, d).to(flat[0])
                    for r in range(geo.sp)], dim=1)
         for i in range(len(geo.ranks))])
-    y = run(devs[0], lambda m, h: decode._moe_mlp(  # pylint: disable=protected-access
-        h, m.moe_mlp, cfg, capacity=True), rows)
+    y = run(0, lambda ms, h: decode._moe_mlp(  # pylint: disable=protected-access
+        h, ms[0].layers[index].moe_mlp, cfg, capacity=True), rows)
     return tuple(
-        mid + y[(p // geo.sp) * b:(p // geo.sp + 1) * b,
-                (p % geo.sp) * chunk:(p % geo.sp + 1) * chunk
+        mid + y[(g // geo.sp) * b:(g // geo.sp + 1) * b,
+                (g % geo.sp) * chunk:(g % geo.sp + 1) * chunk
                 ].reshape(-1, d).to(dev)
-        for p, (mid, dev) in enumerate(zip(mids, devs)))
+        for g, (mid, dev) in enumerate(zip(mids, flat)))

@@ -193,20 +193,34 @@ def split(x: torch.Tensor, placement: Placement,
 
 
 def gather(blocks: Dict[Block, torch.Tensor], placement: Placement,
-           device: Union[str, torch.device]) -> torch.Tensor:
+           device: Union[str, torch.device],
+           fixed: Optional[Dict[str, int]] = None) -> torch.Tensor:
     """The full tensor on `device`, joined from its blocks
-    (differentiable).  One block is returned as it is when it already
-    lies on `device`."""
+    (differentiable); with `fixed` ({mesh axis: index}), the slice that
+    index holds along a dim that axis splits, the other dims joined
+    whole (a tensor rank's slice: fixed={'tensor': t}).  One block is
+    returned as it is when it already lies on `device`."""
     device = torch.device(device)
     if len(blocks) == 1:
         return next(iter(blocks.values())).to(device)
     ndim = next(iter(blocks.values())).dim()
     parts = placement.parts(ndim)
+    spec = placement.spec + ((),) * (ndim - len(placement.spec))
+    fixed = fixed or {}
+
+    def choices(d: int) -> Sequence[int]:
+        held = [a for a in spec[d] if a in fixed]
+        if not held:
+            return range(parts[d])
+        if len(spec[d]) != 1:
+            raise ValueError(f'dim {d} is split by {spec[d]}; a fixed '
+                             'axis must split a dim alone')
+        return [fixed[held[0]]]
 
     def join(prefix: Block) -> torch.Tensor:
         d = len(prefix)
         if d == ndim:
             return blocks[prefix].to(device, non_blocking=True)
-        pieces = [join(prefix + (i,)) for i in range(parts[d])]
+        pieces = [join(prefix + (i,)) for i in choices(d)]
         return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=d)
     return join(())

@@ -271,7 +271,7 @@ class ContinuousBatchingEngine:
                 raise ValueError(f'the mesh starts at {mesh.devices[0]}, '
                                  f'the engine is on {self.device}')
             want = (tensor_parallel.mesh_layout(mesh)
-                    if tensor_parallel.needs_ranks(mesh, self.device)
+                    if tensor_parallel.needs_ranks(mesh, self.device, cfg)
                     else None)
             if tensor_parallel.layout(model) != want:
                 raise ValueError(

@@ -395,7 +395,7 @@ class ModelServer:
         self._mesh = None
         if mesh is not None:
             self.device = mesh.devices[0]
-            if tensor_parallel.needs_ranks(mesh, self.device):
+            if tensor_parallel.needs_ranks(mesh, self.device, self.cfg):
                 # MoE + tensor names its ROADMAP item (A16c).
                 tensor_parallel.check_degree(
                     self.cfg, int(mesh.shape.get('tensor', 1)))

@@ -173,13 +173,8 @@ class SliceReplicaEngine(batching_engine_lib.ContinuousBatchingEngine):
         if mesh is None:
             mesh = build_slice_mesh(self.num_hosts, cfg, sequence=sequence,
                                     tensor=tensor, device=device)
-        if cfg.n_experts > 0:
-            raise ValueError(
-                'slice replicas serve dense models: the capacity dispatch '
-                'of an MoE prefill couples every prompt token, so it '
-                'cannot split over the sequence axis')
         if (tensor_parallel.layout(model) is None and
-                tensor_parallel.needs_ranks(mesh, model.device)):
+                tensor_parallel.needs_ranks(mesh, model.device, cfg)):
             model = convert.to_tensor_parallel(cfg, model, mesh)
         self._slice_mesh = mesh
         self._sp_degree = int(mesh.shape.get('sequence', 1))
@@ -273,9 +268,12 @@ class SliceReplicaEngine(batching_engine_lib.ContinuousBatchingEngine):
     def _try_sp_prefill(self, prompt_ids: List[int],
                         n_target: int) -> Optional[Dict[str, Any]]:
         """One-shot sequence-parallel prefill of [0, n_target), or None
-        when the prompt takes the chunked path (below the threshold, or
-        the padding does not fit)."""
-        if n_target < self.sp_threshold:
+        when the prompt takes the chunked path (below the threshold, an
+        MoE model, or the padding does not fit).  An MoE prompt takes
+        the base engine's chunked MoE prefill, which followers replay:
+        the capacity dispatch couples every prompt token, so it cannot
+        split over the sequence axis."""
+        if n_target < self.sp_threshold or self.cfg.n_experts > 0:
             return None
         width = self._sp_padded_width(n_target)
         if width is None:
@@ -404,7 +402,17 @@ class FollowerExecutor:
 
     def _replay_prefill(self, prompt: List[int], length: int):
         """Chunked prefill of prompt positions [0, length): the engine's
-        own chunk loop (chunk 0 flash, later chunks masked)."""
+        own chunk loop (chunk 0 flash, later chunks masked).  An MoE
+        model replays rank 0's `_admit_moe`: the whole prompt unpadded,
+        in one piece (chunk boundaries would change which tokens the
+        capacity dispatch drops)."""
+        if self.cfg.n_experts > 0:
+            _, cache = decode.prefill(
+                self.cfg, self.model,
+                batching_engine_lib.tokens_tensor(prompt[:length], length,
+                                                  self.device),
+                max_len=self.max_len)
+            return cache
         cache, consumed = None, 0
         while consumed < length:
             cache, consumed = batching_engine_lib.prefill_piece(
@@ -490,7 +498,7 @@ def _bench_prefill(args) -> None:
                             tensor=args.tensor,
                             devices=[dev] * int(args.num_hosts))
     sp = int(mesh.shape['sequence'])
-    if tensor_parallel.needs_ranks(mesh, dev):
+    if tensor_parallel.needs_ranks(mesh, dev, cfg):
         model = convert.to_tensor_parallel(cfg, model, mesh)
     width = -(-n // sp) * sp
     max_len = width + 16
@@ -584,7 +592,7 @@ def main(argv: Optional[List[str]] = None) -> None:
         mesh = build_slice_mesh(args.num_hosts, cfg, sequence=args.sequence,
                                 tensor=args.tensor,
                                 devices=[dev] * args.num_hosts)
-        if tensor_parallel.needs_ranks(mesh, dev):
+        if tensor_parallel.needs_ranks(mesh, dev, cfg):
             model = convert.to_tensor_parallel(cfg, model, mesh)
         executor = FollowerExecutor(
             cfg, model,

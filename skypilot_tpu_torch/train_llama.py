@@ -8,6 +8,8 @@
     python -m skypilot_tpu_torch.train_llama --model small \
         --mesh-devices cuda:0,cuda:0,cuda:0,cuda:0 --fsdp 2 --sequence 2 \
         --preflight
+    python -m skypilot_tpu_torch.train_llama --model tiny --device cpu \
+        --mesh-devices cpu,cpu,cpu,cpu --sequence 2 --tensor 2
 
 - The mesh, as the reference builds it: `MeshConfig(data=-1, fsdp=,
   sequence=, tensor=)` over the device list (parallel/mesh.py), the
@@ -16,7 +18,10 @@
   `--mesh-devices a,b,...`, which may repeat a device (several mesh
   positions on one card, as the reference's virtual devices).
   `--sp-mode ring|ulysses` picks the sequence-parallel attention for
-  `--sequence` > 1; `--tensor` > 1 raises (ROADMAP A16b).
+  `--sequence` > 1; `--tensor` > 1 splits heads, kv heads, d_ff and
+  vocab over the tensor ranks (column- and row-parallel layers, the
+  vocab-parallel embedding and loss; it must divide all four, and an
+  MoE model takes none above 1, ROADMAP A16c).
   `--preflight` checks the mesh's collectives first
   (parallel/preflight.py).  A gang of several hosts raises (A17f).
 
@@ -116,10 +121,6 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _mesh(args) -> mesh_lib.Mesh:
-    if args.tensor > 1:
-        raise NotImplementedError(
-            f'--tensor {args.tensor}: the tensor axis of training is '
-            'ROADMAP item A16b, a later slice of the port')
     if args.mesh_devices:
         devices = [resolve_device(d.strip())
                    for d in args.mesh_devices.split(',')]

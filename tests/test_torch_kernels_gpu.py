@@ -497,14 +497,17 @@ def test_sp_attention_gradients_on_a_repeated_card(cuda, op, sp):
 @pytest.mark.parametrize('cards', ['one', 'four'])
 @pytest.mark.parametrize('axes,mode', [
     ({'fsdp': 2, 'sequence': 2}, 'ring'),
-    ({'data': 2, 'sequence': 2}, 'ulysses')], ids=['fsdp2-seq2-ring',
-                                                   'data2-seq2-ulysses'])
+    ({'data': 2, 'sequence': 2}, 'ulysses'),
+    ({'sequence': 2, 'tensor': 2}, 'ring')], ids=['fsdp2-seq2-ring',
+                                                  'data2-seq2-ulysses',
+                                                  'seq2-tensor2-ring'])
 def test_sharded_step_matches_unsharded(cuda, axes, mode, cards):
     """Two sharded steps over four mesh positions, all on cuda:0 ('one')
     or one on each of four cards ('four', skipped with fewer), against
     the unsharded step on cuda:0 from the same seed, f32 at llama3-8b
     head shapes cut narrow (d_model 512, 4/2 heads of 128, 2 layers,
-    vocab 1024), batch 4 x 256: loss and grad_norm within rtol 1e-5,
+    vocab 1024; tensor 2 splits them 2/1 a rank), batch 4 x 256: loss
+    and grad_norm within rtol 1e-5,
     every parameter after 2 steps within 2 * lr * steps (Adam's noise
     bound of tests/test_torch_train.py); the kernels launched as
     `chip_smoke.shard_launches` counts them; each block on the card of
@@ -538,8 +541,9 @@ def test_sharded_step_matches_unsharded(cuda, axes, mode, cards):
                                        rtol=1e-5, atol=0)
     ranks = axes.get('data', 1) * axes.get('fsdp', 1)
     hops = 3 if mode == 'ring' else 2
+    tp = axes.get('tensor', 1)
     assert (attention.LAUNCHES['flash_bwd_dkv'] - before['flash_bwd_dkv'] ==
-            2 * (ranks * 2 * hops + 2))
+            2 * (ranks * tp * 2 * hops + 2))
     for name, p in plain.model.named_parameters():
         torch.testing.assert_close(
             sharded.shards.gather(name, cuda), p, rtol=0,

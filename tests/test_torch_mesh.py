@@ -5,9 +5,9 @@ The reference builds its meshes over the conftest's 8 virtual CPU
 devices; the port over as many 'cpu:i' entries, entry i standing for
 the reference's device i.  Mesh shapes, axis order, device order,
 error messages, slice topologies and elastic configs must be equal;
-for every leaf of tiny and tiny-moe, each mesh position's slice must
-equal the reference's `addressable_shards[i].index` for the same
-position; the preflight returns the reference's keys and sizes and
+for every leaf of tiny and tiny-moe (tiny alone on the meshes with a
+'tensor' axis), each mesh position's slice must equal the reference's
+`addressable_shards[i].index` for the same position; the preflight returns the reference's keys and sizes and
 fails on the same "sick" numbers with the same message.
 """
 from __future__ import annotations
@@ -154,10 +154,23 @@ PLACEMENT_MESHES = {'fsdp4': dict(data=1, fsdp=4),
                     'fsdp8': dict(data=1, fsdp=8)}
 
 
+# Tensor meshes: 'heads', 'kv_heads', 'mlp' and 'vocab' on 'tensor' (a
+# dense config only: MoE under the tensor axis is A16c).
+TENSOR_PLACEMENT_MESHES = {'data4-tensor2': dict(data=4, tensor=2),
+                           'fsdp2-seq2-tensor2': dict(data=1, fsdp=2,
+                                                      sequence=2, tensor=2)}
+
+
+@pytest.mark.parametrize('mesh_name', sorted(TENSOR_PLACEMENT_MESHES))
+def test_tensor_placement_equals_reference_shards(mesh_name):
+    test_placement_equals_reference_shards(
+        'tiny', mesh_name, TENSOR_PLACEMENT_MESHES[mesh_name])
+
+
 @pytest.mark.parametrize('mesh_name', sorted(PLACEMENT_MESHES))
 @pytest.mark.parametrize('name', ['tiny', 'tiny-moe'])
-def test_placement_equals_reference_shards(name, mesh_name):
-    axes = PLACEMENT_MESHES[mesh_name]
+def test_placement_equals_reference_shards(name, mesh_name, axes=None):
+    axes = axes or PLACEMENT_MESHES[mesh_name]
     n = int(np.prod(list(axes.values())))
     jmesh = jax_mesh.build_mesh(jax_mesh.MeshConfig(**axes),
                                 devices=jax.devices()[:n])

@@ -12,7 +12,8 @@ CPU (tiny, f32).
   (8 virtual devices, the same mesh), both from the same initial params
   (`--init-from`) over the same token file (`--data`), with
   `--preflight`; a resume through SKYTPU_CHECKPOINT_DIR on the mesh is
-  exactly the uninterrupted run; `--tensor 2` raises naming A16b.
+  exactly the uninterrupted run, at tensor 2 too (fsdp 2 x sequence 2
+  x tensor 2), whose state restores onto tensor 1 and back.
 """
 from __future__ import annotations
 
@@ -277,7 +278,46 @@ def test_cli_resume_on_a_mesh_is_exact(sources, tmp_path, monkeypatch,
     _assert_equal(state_b, state_u)
 
 
-def test_cli_tensor_axis_names_a16b():
-    with pytest.raises(NotImplementedError, match='A16b'):
-        train_llama.main(['--device', 'cpu', '--mesh-devices', 'cpu,cpu',
-                          '--tensor', '2', '--steps', '1'])
+def test_cli_tensor_axis_names_a16b(sources, tmp_path, monkeypatch,
+                                   capsys):
+    """A16b's training half: `--tensor 2` (fsdp 2 x sequence 2 x tensor
+    2 over 8 CPU entries, fused CE and accumulation) resumed through
+    SKYTPU_CHECKPOINT_DIR gives the uninterrupted run's losses and
+    state bit for bit; its final state, saved, restores onto tensor 1
+    and that state, saved again, back onto tensor 2, with the same
+    leaves."""
+    tokens, _, port_init = sources
+    argv = ['--model', 'tiny', '--device', 'cpu', '--mesh-devices', CPUS,
+            '--fsdp', '2', '--sequence', '2', '--tensor', '2',
+            '--batch-size', str(B), '--seq-len', str(S), '--init-from',
+            port_init, '--data', tokens, '--fused-ce', '--vocab-chunk',
+            '96', '--accum-steps', '2']
+    whole, state_u = train_llama.run(argv + ['--steps', str(STEPS)])
+    callbacks.reset()
+    ckpt = str(tmp_path / 'ckpt')
+    monkeypatch.setenv(checkpoints.ENV_CHECKPOINT_DIR, ckpt)
+    first, _ = train_llama.run(argv + ['--steps', '1'])
+    callbacks.reset()
+    rest, state_b = train_llama.run(argv + ['--steps', str(STEPS)])
+    out = capsys.readouterr().out
+    assert 'resuming from step 1' in out and "'tensor': 2" in out
+    assert ([(h['loss'], h['grad_norm']) for h in first + rest] ==
+            [(h['loss'], h['grad_norm']) for h in whole])
+    _assert_equal(state_b, state_u)
+    cfg = configs.get_config('tiny')
+    saved = str(tmp_path / 'tensor2')
+    with checkpoints.AsyncCheckpointManager(saved) as mgr:
+        mgr.save(STEPS, state_b)
+    abstract, shardings = train.abstract_train_state(
+        cfg, mesh=_mesh(data=1, fsdp=2, sequence=2))
+    one, start = checkpoints.restore_sharded(saved, abstract, shardings)
+    assert start == STEPS + 1 and one.shards.rank_cfg == cfg
+    _assert_equal(one, state_b)
+    again = str(tmp_path / 'tensor1')
+    with checkpoints.AsyncCheckpointManager(again) as mgr:
+        mgr.save(STEPS, one)
+    abstract, shardings = train.abstract_train_state(
+        cfg, mesh=_mesh(data=2, tensor=2))
+    two, _ = checkpoints.restore_sharded(again, abstract, shardings)
+    assert two.shards.rank_cfg.n_heads == cfg.n_heads // 2
+    _assert_equal(two, state_b)

@@ -6,7 +6,9 @@ The reference runs its jitted sharded step (`create_train_state(mesh=)`,
 runs `train_step` over a mesh of as many 'cpu' entries.  Both start
 from the reference's initial state on that mesh, carried over as numpy
 (`convert.load_reference_train_state`), and take three steps on the
-same numpy batches.  Tolerances (f32 on both sides, summed in different
+same numpy batches; two meshes have a 'tensor' axis of 2 (heads, kv
+heads, d_ff and vocab split; the reference's GSPMD partitions them),
+and the fused CE runs vocab-parallel over one of them.  Tolerances (f32 on both sides, summed in different
 orders): loss and grad_norm of every step within rtol 1e-5; both AdamW
 moments after step 3 within rtol 1e-5 / atol 1e-6; the params after
 step 3 within rtol 1e-5 / atol PARAM_ATOL = 3e-5, a few times the
@@ -49,6 +51,9 @@ MESHES = {
     'fsdp2-seq2-ring': (dict(data=1, fsdp=2, sequence=2), 'ring'),
     'data2-seq4-ulysses': (dict(data=2, sequence=4), 'ulysses'),
     'data2-fsdp2-seq2': (dict(data=2, fsdp=2, sequence=2), 'ring'),
+    'data4-tensor2': (dict(data=4, tensor=2), 'ring'),
+    'fsdp2-seq2-tensor2-ring': (dict(data=1, fsdp=2, sequence=2, tensor=2),
+                                'ring'),
 }
 
 
@@ -164,6 +169,14 @@ def test_sharded_steps_match_reference(mesh_name):
 
 def test_fused_ce_and_accumulation_on_a_mesh():
     _run_both('tiny', dict(data=2, fsdp=2, sequence=2), 'ring',
+              {'fused_ce': True, 'vocab_chunk': 96, 'accum_steps': 2},
+              masked=True, seed=7)
+
+
+def test_fused_ce_and_accumulation_on_a_tensor_mesh():
+    """The fused CE, vocab-parallel over the tensor ranks' head columns,
+    with accumulation over a masked batch."""
+    _run_both('tiny', dict(data=2, sequence=2, tensor=2), 'ring',
               {'fused_ce': True, 'vocab_chunk': 96, 'accum_steps': 2},
               masked=True, seed=7)
 

@@ -18,8 +18,10 @@ The same seeded inputs go through the reference and the port:
   slice is built, so a single-host replica has none).
 - `SliceReplicaEngine(num_hosts=2, sequence=2)`: greedy tokens equal
   to the reference's slice engine and to the port's single engine,
-  float and int8 pools, two SP prefills; `stats()['slice']` with the
-  reference's keys; a `FollowerExecutor` mirrors the engine's state,
+  float and int8 pools, two SP prefills; an MoE slice at tensor 1
+  (C5), float and int8 pools, spec 0 and 3: the reference's slice
+  engine's tokens, no SP prefill, a follower's state and pool equal to
+  rank 0's; `stats()['slice']` with the reference's keys; a `FollowerExecutor` mirrors the engine's state,
   tables and pool, spec ticks and SP prefills included; a rank that
   raises fails the replica as a unit and /health answers 503 with
   `slice` on both fronts.
@@ -502,6 +504,58 @@ def _greedy(engine, prompts=PROMPTS, n=8):
     return [engine.generate(p, n, timeout=120) for p in prompts]
 
 
+def _moe_setup():
+    """(reference config, params, port config, port model) of tiny-moe
+    from the reference's seeded init."""
+    jcfg = jax_configs.get_config('tiny-moe')
+    params = nn.meta.unbox(JaxTransformer(jcfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))['params'])
+    cfg = configs.get_config('tiny-moe')
+    return jcfg, params, cfg, convert.from_jax_params(
+        cfg, jax.tree.map(np.asarray, params), device='cpu')
+
+
+@pytest.mark.parametrize('spec_tokens', [0, 3], ids=['spec0', 'spec3'])
+@pytest.mark.parametrize('quantize_kv', [False, True],
+                         ids=['float', 'int8'])
+def test_moe_slice_engine_tokens_equal_reference(quantize_kv, spec_tokens):
+    """C5: an MoE slice at tensor 1 takes the base engine's MoE prefill
+    (no SP prefill), a plain model, and a follower that replays it
+    mirrors rank 0's state; greedy tokens equal the reference's slice
+    engine."""
+    jcfg, params, cfg, model = _moe_setup()
+    kw = dict(ENGINE_KW, quantize_kv=quantize_kv, spec_tokens=spec_tokens)
+    ref = jax_slice.SliceReplicaEngine(jcfg, params, num_hosts=2,
+                                       sequence=2, sp_threshold=32, **kw)
+    try:
+        want = _greedy(ref)
+        ref_slice = ref.stats()['slice']
+    finally:
+        ref.stop()
+    follower = slice_replica.FollowerExecutor(cfg, model, device='cpu',
+                                              **kw)
+    eng = slice_replica.SliceReplicaEngine(
+        cfg, model, num_hosts=2, sequence=2, sp_threshold=32,
+        rank_channels=[coordinator.LocalRank(1, follower)], device='cpu',
+        **kw)
+    try:
+        got = _greedy(eng)
+        stats = eng.stats()['slice']
+        assert eng.model is model
+        for k in eng._state:
+            assert torch.equal(eng._state[k], follower._state[k]), k
+        for k, leaf in eng._cache.items():
+            theirs = follower._cache[k]
+            pairs = ([(leaf[j], theirs[j]) for j in leaf]
+                     if isinstance(leaf, dict) else [(leaf, theirs)])
+            assert all(torch.equal(a, b) for a, b in pairs), k
+    finally:
+        eng.stop()
+    assert got == want
+    assert stats['sp_prefills'] == ref_slice['sp_prefills'] == 0
+    assert stats['sp_degree'] == 2 and stats['tensor_degree'] == 1
+
+
 @pytest.mark.parametrize('quantize_kv', [False, True],
                          ids=['float', 'int8'])
 def test_slice_engine_tokens_equal_reference_and_single(setup, quantize_kv):
@@ -785,10 +839,22 @@ def test_tensor_factor_above_one_names_a16b(setup):
     with pytest.raises(ValueError, match='requires --continuous-batching'):
         model_server.ModelServer('tiny', params=model, num_hosts=2,
                                  device='cpu')
-    moe = configs.get_config('tiny-moe')
-    with pytest.raises(ValueError, match='dense models'):
-        slice_replica.SliceReplicaEngine(moe, model, num_hosts=2,
-                                         sequence=2, device='cpu')
+    # An MoE slice at tensor 1 (C5) serves the reference's tokens.
+    jmoe, moe_params, moe, moe_model = _moe_setup()
+    ref = jax_slice.SliceReplicaEngine(jmoe, moe_params, num_hosts=2,
+                                       sequence=2, sp_threshold=32,
+                                       **ENGINE_KW)
+    try:
+        want = _greedy(ref, PROMPTS[:1], 6)
+    finally:
+        ref.stop()
+    eng = slice_replica.SliceReplicaEngine(moe, moe_model, num_hosts=2,
+                                           sequence=2, sp_threshold=32,
+                                           device='cpu', **ENGINE_KW)
+    try:
+        assert _greedy(eng, PROMPTS[:1], 6) == want
+    finally:
+        eng.stop()
 
 
 def test_bench_prefill_prints_the_reference_keys(capsys):

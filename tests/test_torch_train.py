@@ -233,19 +233,80 @@ def test_cli_layers_cuts_depth_and_prints_step_ms(capsys, monkeypatch,
                           '--device', 'cpu'])
 
 
+def _reference_example(argv, monkeypatch):
+    """examples/train_llama.py's main() under the conftest's 8 virtual
+    devices; -> [(loss, grad_norm)] of every step (its jitted step
+    recorded)."""
+    import importlib.util  # pylint: disable=import-outside-toplevel
+    import os  # pylint: disable=import-outside-toplevel
+    import sys  # pylint: disable=import-outside-toplevel
+    import types  # pylint: disable=import-outside-toplevel
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        'ref_train_llama', os.path.join(repo, 'examples', 'train_llama.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    recorded, real = [], jax_train.jit_train_step
+
+    def record(*args, **kwargs):
+        fn = real(*args, **kwargs)
+
+        def step(state, batch):
+            state, m = fn(state, batch)
+            recorded.append((float(m['loss']), float(m['grad_norm'])))
+            return state, m
+        step.lower = lambda *a: types.SimpleNamespace(compile=lambda: step)
+        return step
+
+    monkeypatch.setattr(jax_train, 'jit_train_step', record)
+    monkeypatch.setattr(sys, 'argv', ['train_llama.py'] + argv)
+    module.main()
+    return recorded
+
+
 @pytest.mark.parametrize('flags', [['--fsdp', '2'], ['--tensor', '2'],
                                    ['--sequence', '2'], ['--preflight']])
-def test_cli_refuses_later_slice_flags(flags, monkeypatch, tmp_path):
-    """Of the example's mesh flags only --tensor > 1 is still refused
-    (the tensor axis is ROADMAP A16b); --fsdp, --sequence and
-    --preflight run on a mesh of four CPU entries."""
+def test_cli_refuses_later_slice_flags(flags, monkeypatch, tmp_path,
+                                       capsys):
+    """Every mesh flag of the example runs now: --fsdp, --sequence and
+    --preflight on a mesh of four CPU entries; --tensor 2 (A16b's
+    training half) on the example's eight, with --preflight, held to
+    `examples/train_llama.py --tensor 2`'s losses and grad_norms
+    within rtol 1e-5 from the same initial params (--init-from) over
+    the same token file (--data)."""
+    from skypilot_tpu.data import checkpoints as ref_checkpoints  # pylint: disable=import-outside-toplevel
+    from skypilot_tpu_torch.data import checkpoints  # pylint: disable=import-outside-toplevel
+    from skypilot_tpu_torch.data import loader  # pylint: disable=import-outside-toplevel
     monkeypatch.setenv(callbacks.ENV_LOG_DIR, str(tmp_path))
     monkeypatch.setattr(callbacks, '_instance', None)
     argv = ['--device', 'cpu', '--mesh-devices', 'cpu,cpu,cpu,cpu',
             '--steps', '2', '--batch-size', '4', '--seq-len', '16', *flags]
     if flags[0] == '--tensor':
-        with pytest.raises(NotImplementedError, match='A16b'):
-            train_llama.main(argv)
+        tokens = str(tmp_path / 'tokens.bin')
+        loader.write_token_file(
+            tokens, np.random.default_rng(5).integers(0, 256, 4096))
+        params = _jax_params('tiny')
+        ref_init, port_init = str(tmp_path / 'ref'), str(tmp_path / 'port')
+        with ref_checkpoints.AsyncCheckpointManager(ref_init) as mgr:
+            mgr.save(0, jax_train.TrainState.create(
+                apply_fn=None, params=params,
+                tx=jax_train.make_optimizer(jax_train.TrainConfig())))
+        checkpoints.save_params(port_init, 0, jax.tree.map(
+            lambda a: torch.from_numpy(np.array(a)), params))
+        common = ['--model', 'tiny', '--steps', '3', '--batch-size', '8',
+                  '--seq-len', '16', '--tensor', '2', '--preflight',
+                  '--data', tokens]
+        want = _reference_example(common + ['--init-from', ref_init],
+                                  monkeypatch)
+        history = train_llama.main(common + [
+            '--init-from', port_init, '--device', 'cpu',
+            '--mesh-devices', ','.join(['cpu'] * 8)])
+        got = [(h['loss'], h['grad_norm']) for h in history]
+        assert len(got) == len(want) == 3
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        out = capsys.readouterr().out
+        assert "'tensor': {'size': 2.0" in out   # the preflight's axes
+        assert 'collective preflight: healthy' in out
         return
     history = train_llama.main(argv)
     assert len(history) == 2
@@ -258,9 +319,19 @@ def test_create_train_state_device_and_mesh(monkeypatch):
     state, shardings = train.create_train_state(cfg, device='cpu', mesh=mesh)
     assert state.shards is not None and state.step == 0
     assert shardings['embed.embedding'].spec == (('tensor',), ('fsdp',))
-    with pytest.raises(NotImplementedError, match='A16b'):
+    # The tensor axis (A16b's training half): tensor 2 builds, each
+    # rank's blocks half of every split leaf; tensor 4 does not divide
+    # tiny's 2 kv heads.
+    state, shardings = train.create_train_state(
+        cfg, mesh=mesh_lib.build_mesh(mesh_lib.MeshConfig(tensor=2),
+                                      ['cpu', 'cpu']))
+    assert shardings['layers.0.attn.q_proj.kernel'].spec == (
+        ('fsdp',), ('tensor',), ())
+    assert [tuple(t.shape) for t in state.shards.blocks[
+        'layers.0.attn.k_proj.kernel'].values()] == [(64, 1, 16)] * 2
+    with pytest.raises(ValueError, match='tensor=4 must divide n_kv_heads'):
         train.create_train_state(cfg, mesh=mesh_lib.build_mesh(
-            mesh_lib.MeshConfig(tensor=2), ['cpu', 'cpu']))
+            mesh_lib.MeshConfig(tensor=4), ['cpu'] * 4))
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         train.create_train_state(cfg)
