@@ -204,7 +204,25 @@ Phases (each one that fails makes the script exit non-zero):
    in-memory server on the writer's weights must give the same tokens.
    Then a depth-1 f32 cut served on the GPU (kernels) and the CPU
    (plain versions) from the same weights must give the same greedy
-   tokens for 2 prompts, paged and dense.
+   tokens for 2 prompts, paged and dense.  Before the depth-8 model is
+   freed, its tensor windows (A16c: the expert stacks cut on d_ff, the
+   routing once a card, the ranks' expert partials summed in f32 in
+   rank order): the model cut into tensor 2 on the card repeated;
+   "moe tensor 2", a paged ModelServer('mixtral-8x7b', tensor=2)
+   behind the asyncio front answering 4 concurrent greedy /generate
+   requests of 5, 100, 250 and 700 tokens (32 new tokens each), and
+   "moe tensor 2 (int8 pool)", an engine with an int8 pool on the same
+   prompts; then the model cut into tensor 4 and "moe tensor 4", an
+   engine with a bf16 pool on the same prompts.  Held: launches
+   exactly (B3 L tp a prompt, the window's paged kernel L tp a tick,
+   the other 0), /health's tensor degree,
+   every token at its own context under the tensor model's own forward
+   (the MoE blocks as served), tensor 1's "moe paged" tokens saying
+   where they part.  Printed, not held: the logits' distance from the
+   tensor-1 model's on the same context (a routing flip near a top-2
+   tie moves a logit far past DRIFT_LIMIT), the tp-2 and tp-4 ticks
+   beside the tp-1 one, the weight GiB a rank and each degree's
+   seconds.
 5d. The slice (serve/slice_replica.py, sequence-parallel serving) on
    phase 4's llama3-8b weights at full width and depth, every rank of
    a mesh on the one card (`devices=[cuda:0] * sp`), max_len 8192 (the
@@ -335,22 +353,33 @@ Phases (each one that fails makes the script exit non-zero):
    entries (fsdp 2 x sequence 2) with --preflight and a checkpoint
    directory, launches held; its step 0 restored onto fsdp 4
    (`restore_sharded`) bit-equal to the step's files.
+7d. MoE training ("moe sharded training (tensor)"): mixtral-8x7b
+   width at depth 1, bf16, remat, batch 1 x 2048, 3 steps from seed 0
+   on one batch: the unsharded step, then tensor 2 over two entries of
+   the card (each rank's expert products over its d_ff half, the
+   capacity dispatch over the global batch), the first state (~27 GB:
+   1.71 G f32 parameters, gradients and two moments) freed before the
+   second is built.  Held: losses finite and falling, launches exactly
+   `shard_launches` (B3 2 L tp a step, B4 and B5 L tp), the tensor
+   step-1 loss within 1e-2 of the unsharded one; printed: step ms,
+   peak memory, params + moments a position, the phase's seconds.
 8. A training reference check: depth-1 f32 llama3-8b, one 256-token
    sequence, loss.backward() on the GPU (kernels) and on the CPU (the
    plain versions) from the same weights: the loss and every gradient
    within 1e-3 of the CPU's largest |value| for that leaf.
 
 The line before the last is the `kernels` JSON: each kernel's
-`launches` is its count on the path `path` names ("slice" for B1 and
-B3, "slice (int8 pool)" for B2, "sharded training (tensor)" (phase
-7c's tensor mesh, the newest training path) for B4/B5), and
+`launches` is its count on the path `path` names ("moe tensor 2" for
+B1 and B3, "moe tensor 2 (int8 pool)" for B2, "moe sharded training
+(tensor)" (phase 7d, the newest training path) for B4/B5), and
 `launches_by_path` holds every
 driven path's own count (serving, the two observability windows, the
 five paths of phase 5, "int8 weights" and "checkpoint" of phase 5b,
-the four MoE paths of phase 5c, the three slice paths of phase 5d,
+the six MoE paths of phase 5c, the three slice paths of phase 5d,
 the six tensor paths of phase 5e,
 training, `train_llama small`, "training resume", the five paths of
-phase 7c), each path zeroed just before it and read just after.  B3's
+phase 7c, the two of phase 7d), each path zeroed just before it and
+read just after.  B3's
 entry carries the 512-token chunk under `serving_chunk`, the ring hop
 under `ring_hop_causal` / `ring_hop_full` and mesh B's call under
 `ulysses`, the tensor mesh's hops under `tensor_ring_hop_full` /
@@ -1555,7 +1584,7 @@ DRIFT_LIMIT = 4.0
 
 
 def hold_tokens(what, cfg, model, prompt_ids, got, ref, quantized=False,
-                one=None):
+                one=None, drift_limit=DRIFT_LIMIT):
     """Greedy tokens `got`, each held at its own context (teacher
     forcing): under the logits A of one flash forward of prompt + got,
     every got[j] is A's argmax at its position or within 2 delta of it,
@@ -1567,7 +1596,8 @@ def hold_tokens(what, cfg, model, prompt_ids, got, ref, quantized=False,
     the reference path's tokens, says where the two part.  With `one`
     (the tensor-1 model of a tensor `model`), A is also held to one's
     flash logits A1 on the same context: max |A - A1| at most
-    DRIFT_LIMIT times delta1, one's own max |A1 - B1| (`tensor_drift`).
+    `drift_limit` (DRIFT_LIMIT; None: printed, not held) times delta1,
+    one's own max |A1 - B1| (`tensor_drift`).
     Returns (first j where got and ref part or None, tokens that are
     not A's argmax, the largest gap, delta), with `one` also (drift,
     delta1)."""
@@ -1597,10 +1627,10 @@ def hold_tokens(what, cfg, model, prompt_ids, got, ref, quantized=False,
         return out
     del b
     drift, delta1 = tensor_drift(cfg, one, ids, n, a)
-    if drift > DRIFT_LIMIT * delta1:
+    if drift_limit is not None and drift > drift_limit * delta1:
         raise AssertionError(
             f'{what}: logits {drift:.4f} from the tensor-1 model\'s > '
-            f'{DRIFT_LIMIT:g} x its flash-vs-masked delta {delta1:.3g}')
+            f'{drift_limit:g} x its flash-vs-masked delta {delta1:.3g}')
     return out + (drift, delta1)
 
 
@@ -1614,14 +1644,15 @@ def tensor_drift(cfg, one, ids, n, a):
     return drift, float((a1 - b1).abs().max())
 
 
-def hold_summary(holds) -> str:
+def hold_summary(holds, drift_held=True) -> str:
     equal = sum(1 for h in holds if h[0] is None)
     parted = [h[0] for h in holds if h[0] is not None]
     drift = ''
-    if all(len(h) == 6 for h in holds):  # held against tensor 1
+    if all(len(h) == 6 for h in holds):  # against tensor 1
         drift = (f'; logits vs tensor 1 at most {max_drift(holds):.3g} x '
-                 f'its delta (limit {DRIFT_LIMIT:g}; largest '
-                 f'{max(h[4] for h in holds):.3g})')
+                 f'its delta (' + (f'limit {DRIFT_LIMIT:g}' if drift_held
+                                   else 'printed, not held') +
+                 f'; largest {max(h[4] for h in holds):.3g})')
     return (f'{equal}/{len(holds)} equal to the reference path'
             + (f' (others part at tokens {parted})' if parted else '')
             + f'; all {len(holds)} held token by '
@@ -2596,32 +2627,36 @@ MOE_LENGTHS = (5, 37, 64, 100, 250, 700)
 
 @contextlib.contextmanager
 def moe_as_served(n_prompt, drops=None):
-    """decode._moe_mlp as the engine applies it to a teacher-forced
-    sequence (prompt + generated tokens in one forward): the capacity
-    dispatch over the prompt's rows (its prefill), the dense gather
-    over each generated row (its ticks); `drops` collects each layer's
-    dropped (token, expert) assignments of the prompt."""
+    """decode._tp_moe_mlp (every MoE block, at any tensor degree) as the
+    engine applies it to a teacher-forced sequence (prompt + generated
+    tokens in one forward): the capacity dispatch over the prompt's
+    rows (its prefill), the dense gather over each generated row (its
+    ticks); `drops` collects each layer's dropped (token, expert)
+    assignments of the prompt."""
     import torch
     from skypilot_tpu_torch.models import decode
     from skypilot_tpu_torch.models import moe as moe_lib
-    served = decode._moe_mlp  # pylint: disable=protected-access
+    served = decode._tp_moe_mlp  # pylint: disable=protected-access
 
-    def moe_mlp(x, moe, cfg, capacity=False):
-        b, s, d = x.shape
-        head = served(x[:, :n_prompt], moe, cfg, capacity=capacity)
+    def moe_mlp(cfg, moes, hs, capacity=False):
+        b, s, d = hs[0].shape
+        head = served(cfg, moes, [h[:, :n_prompt] for h in hs],
+                      capacity=capacity)
         if drops is not None:
             drops.append(moe_lib.dropped_tokens(
-                x[0, :n_prompt].float() @ moe.router.kernel.float(), cfg))
+                hs[0][0, :n_prompt].float() @ moes[0].router.kernel.float(),
+                cfg))
         if s == n_prompt:
             return head
-        tail = served(x[:, n_prompt:].reshape(-1, 1, d), moe, cfg)
+        tail = served(cfg, moes, [h[:, n_prompt:].reshape(-1, 1, d)
+                                  for h in hs])
         return torch.cat([head, tail.reshape(b, s - n_prompt, d)], 1)
 
-    decode._moe_mlp = moe_mlp  # pylint: disable=protected-access
+    decode._tp_moe_mlp = moe_mlp  # pylint: disable=protected-access
     try:
         yield
     finally:
-        decode._moe_mlp = served  # pylint: disable=protected-access
+        decode._tp_moe_mlp = served  # pylint: disable=protected-access
 
 
 def moe_window(model, dev, counters, new_tokens, **engine_kw):
@@ -2790,6 +2825,102 @@ def moe_reference_check(dev):
     free_cuda()
 
 
+# The prompts of phase 5c's tensor windows: its 5-, 100-, 250- and
+# 700-token ones (MOE_LENGTHS), so the tensor-1 "moe paged" window's
+# tokens say where the two part.
+MOE_TENSOR_PROMPTS = (0, 3, 4, 5)
+
+
+def moe_tensor_serving(cfg, model, dev, counters, new_tokens, window):
+    """Phase 5c's tensor windows on `model` (MOE_LAYERS deep) cut into
+    tensor 2, then tensor 4, on the card repeated.  "moe tensor 2": a
+    paged ModelServer('mixtral-8x7b', tensor=2) behind the asyncio
+    front, the MOE_TENSOR_PROMPTS as concurrent /generate requests;
+    "moe tensor 2 (int8 pool)": an engine with an int8 pool on the same
+    prompts; "moe tensor 4": an engine at tensor 4, bf16 pool.
+    Launches held exactly (B3 L tp a prompt, the window's paged kernel
+    L tp a tick, the other 0); every greedy token held at its own
+    context under the tensor model's own forward (flash vs masked, the
+    MoE blocks as served), tensor 1's "moe paged" tokens (`window`)
+    saying where they part; the logits' distance from the tensor-1
+    model's on the same context printed, not held (a routing flip near
+    a top-2 tie moves a logit by far more than DRIFT_LIMIT); the tick at
+    each degree printed.  -> (paths, report)."""
+    from skypilot_tpu_torch import profile_decode
+    t0 = time.perf_counter()
+    prompts = [window['prompts'][i] for i in MOE_TENSOR_PROMPTS]
+    ref = [window['tokens'][i] for i in MOE_TENSOR_PROMPTS]
+    paths = {}
+    report = {'rank_gib': {}, 'tick': {}, 'seconds': {}}
+    for tp in (2, 4):
+        t_tp = time.perf_counter()
+        cut = tensor_cut(cfg, model, tensor_mesh(dev, tp))
+        report['rank_gib'][tp] = weight_bytes(cut.ranks[0]) / 2**30
+        windows = {}
+        if tp == 2:
+            launches, tokens, health, _ = tensor_http(
+                cfg, cut, dev, counters, prompts, new_tokens,
+                name='mixtral-8x7b', overrides={'n_layers': cfg.n_layers},
+                tensor=2, tensor_devices=[dev] * 2, **TENSOR_SERVER)
+            if health['engine']['tensor_degree'] != 2:
+                raise AssertionError(
+                    f'moe tensor 2 /health: {health["engine"]}')
+            windows['moe tensor 2'] = (launches, tokens,
+                                       health['engine']['ticks'], False)
+            launches, tokens, stats = engine_window(
+                cfg, cut, dev, counters, prompts, new_tokens,
+                quantize_kv=True)
+            windows['moe tensor 2 (int8 pool)'] = (launches, tokens,
+                                                   stats['ticks'], True)
+        else:
+            launches, tokens, stats = engine_window(
+                cfg, cut, dev, counters, prompts, new_tokens)
+            windows[f'moe tensor {tp}'] = (launches, tokens, stats['ticks'],
+                                           False)
+        for name, (launches, got, ticks, quantized) in windows.items():
+            paths[name] = launches
+            hold_launches(name, launches, tensor_predicted(
+                cfg, tp, len(prompts), ticks,
+                kernel='paged_attention_int8' if quantized
+                else 'paged_attention'))
+            holds = []
+            for p, g, r in zip(prompts, got, ref):
+                with moe_as_served(len(p)):
+                    holds.append(hold_tokens(
+                        f'{name} prompt {len(p)}', cfg, cut, p, g, r,
+                        quantized=quantized, one=model, drift_limit=None))
+            report[name] = dict(ticks=ticks, holds=holds)
+        free_cuda()
+        report['tick'][tp] = profile_decode.profile_tick(
+            cfg, cut, dev, ticks=10, n_prof=1)
+        del cut
+        free_cuda()
+        report['seconds'][tp] = time.perf_counter() - t_tp
+    report['seconds']['all'] = time.perf_counter() - t0
+    return paths, report
+
+
+def log_moe_tensor(report, tick1) -> None:
+    for name in ('moe tensor 2', 'moe tensor 2 (int8 pool)',
+                 'moe tensor 4'):
+        r = report[name]
+        log(f'  {name} ({len(MOE_TENSOR_PROMPTS)} prompts of '
+            f'{[MOE_LENGTHS[i] for i in MOE_TENSOR_PROMPTS]} tokens): '
+            f'{r["ticks"]} ticks; held: '
+            f'{hold_summary(r["holds"], drift_held=False)}')
+    keys = ('tick_ms', 'device_ms_per_tick', 'device_idle_share',
+            'kernels_per_tick')
+    ticks = {1: tick1, **report['tick']}
+    log(f'  MoE paged tick at 8 slots (printed, not held): '
+        + '; '.join(f'tensor {tp} {json.dumps({k: t[k] for k in keys})}'
+                    for tp, t in ticks.items())
+        + '; weights a rank '
+        + ', '.join(f'{g:.2f} GiB at tensor {tp}'
+                    for tp, g in report['rank_gib'].items())
+        + '; seconds ' + json.dumps({str(k): round(v, 1) for k, v in
+                                     report['seconds'].items()}))
+
+
 def moe_serving(dev, counters, new_tokens):
     """Phase 5c; returns {path: launch counts}."""
     import torch
@@ -2825,6 +2956,9 @@ def moe_serving(dev, counters, new_tokens):
         dropped = dropped or drops
     tick = profile_decode.profile_tick(cfg, model, dev)
     cast_ms = moe_expert_cast_ms(model)
+    tensor_paths, tensor_report = moe_tensor_serving(
+        cfg, model, dev, counters, new_tokens, windows['moe paged'])
+    paths.update(tensor_paths)
     del model
     free_cuda()
     paths['moe checkpoint'], ck = moe_checkpoint(dev, counters, new_tokens)
@@ -2849,6 +2983,7 @@ def moe_serving(dev, counters, new_tokens):
         f'(CUDA events; {cast_ms / tick["device_ms_per_tick"]:.1%} of the '
         f'device ms); '
         f'top device ops {json.dumps(top)}')
+    log_moe_tensor(tensor_report, tick)
     log(f'MoE checkpoint (depth 1): HF source {ck["source_gb"]:.2f} GB '
         f'written in {ck["source_s"]:.1f} s, import_weights.convert '
         f'{ck["convert_s"]:.1f} s, --model auto greedy tokens equal to an '
@@ -3517,6 +3652,86 @@ def sharded_training(dev, counters):
     return paths, report
 
 
+MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2048, 3
+MOE_TRAIN_MESH = dict(data=1, tensor=2)
+
+
+def moe_sharded_training(dev, counters):
+    """Phase 7d: mixtral-8x7b width at depth 1, bf16, remat, batch 1 x
+    MOE_TRAIN_SEQ, MOE_TRAIN_STEPS steps from seed 0 on one batch: the
+    unsharded step ("moe training (unsharded)"), then tensor 2 over two
+    entries of the card ("moe sharded training (tensor)"), the first
+    state freed before the second is built (~27 GB each: 1.71 G
+    parameters in f32, their gradients and two moments).  Held: losses
+    finite and falling, launches exactly `shard_launches` (B3 2 L tp a
+    step with remat, B4 and B5 L tp), the mesh's step-1 loss within
+    1e-2 of the unsharded one.  Printed: step ms, peak memory, params +
+    moments a position holds.  -> (paths, report)."""
+    import torch
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import train
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    t0 = time.perf_counter()
+    cfg = configs.get_config('mixtral-8x7b', n_layers=1)
+    gen = torch.Generator().manual_seed(17)
+    batch = {'tokens': torch.randint(0, cfg.vocab_size,
+                                     (1, MOE_TRAIN_SEQ + 1),
+                                     generator=gen).to(dev)}
+    paths, report = {}, {}
+    for label, axes in (('moe training (unsharded)', None),
+                        ('moe sharded training (tensor)', MOE_TRAIN_MESH)):
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats(dev)
+        if axes is None:
+            state, _ = train.create_train_state(cfg, device=dev, seed=0)
+        else:
+            mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(**axes),
+                                       [dev] * 2)
+            state, _ = train.create_train_state(cfg, mesh=mesh, seed=0)
+        want = shard_launches(axes or {}, 'ring', cfg.n_layers,
+                              MOE_TRAIN_STEPS)
+        zero_counts(counters)
+        state, steps = run_steps(dev, cfg, None, batch, MOE_TRAIN_STEPS,
+                                 state)
+        paths[label] = read_counts(counters)
+        got = {k: paths[label][k] for k in want}
+        if got != want:
+            raise AssertionError(f'{label}: launches {got}, predicted {want}')
+        losses = [x[0] for x in steps]
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f'{label}: losses {losses}')
+        params = (state.shards.position_bytes() if state.shards is not None
+                  else [sum(p.numel() * 4 for p in state.model.parameters())])
+        report[label] = dict(
+            losses=losses, step_ms=[x[2] for x in steps],
+            peak_gib=train.peak_memory_bytes(dev) / 2**30,
+            state_gb=[3 * b / 1e9 for b in params], launches=got)
+        del state
+    free_cuda()
+    ref = report['moe training (unsharded)']['losses'][0]
+    first = report['moe sharded training (tensor)']['losses'][0]
+    if not abs(first - ref) <= 1e-2 * abs(ref):
+        raise AssertionError(f'moe sharded training (tensor): step-1 loss '
+                             f'{first} vs unsharded {ref}')
+    report['seconds'] = time.perf_counter() - t0
+    return paths, report
+
+
+def log_moe_training(r) -> None:
+    log(f'MoE training ({card()}; mixtral-8x7b width, depth 1, bf16, '
+        f'remat, batch 1 x {MOE_TRAIN_SEQ}, {MOE_TRAIN_STEPS} steps):')
+    for label in ('moe training (unsharded)',
+                  'moe sharded training (tensor)'):
+        x = r[label]
+        axes = json.dumps(MOE_TRAIN_MESH) if 'tensor' in label else '{}'
+        log(f'  {label} {axes}: losses {" ".join(f"{v:.4f}" for v in x["losses"])}; step ms '
+            f'{" ".join(f"{v:.1f}" for v in x["step_ms"])}; peak '
+            f'{x["peak_gib"]:.2f} GiB; params + moments a position '
+            f'{" ".join(f"{v:.2f}" for v in x["state_gb"])} GB; launches '
+            f'{json.dumps(x["launches"])}')
+    log(f'MoE training phase: {r["seconds"]:.1f} s')
+
+
 def log_sharded(r) -> None:
     log(f'sharded training ({card()}; llama3-8b width, {SHARD_LAYERS} '
         f'layers, bf16, remat, batch {SHARD_BATCH} x {SHARD_SEQ}, every '
@@ -4068,15 +4283,16 @@ def engine_window(cfg, model, dev, counters, prompts, new_tokens, **kw):
     return launches, tokens, stats
 
 
-def tensor_http(cfg, model, dev, counters, prompts, new_tokens, **server_kw):
-    """ModelServer over `model` behind the asyncio front: the prompts as
-    concurrent /generate requests, counts zeroed just before and read
-    once the engine has read its last tick; /health after.  ->
+def tensor_http(cfg, model, dev, counters, prompts, new_tokens,
+                name='llama3-8b', **server_kw):
+    """ModelServer(name) over `model` behind the asyncio front: the
+    prompts as concurrent /generate requests, counts zeroed just before
+    and read once the engine has read its last tick; /health after.  ->
     (launches, tokens, health, the server's weights)."""
     from skypilot_tpu_torch.serve import async_server
     from skypilot_tpu_torch.serve import model_server
     from skypilot_tpu_torch.serve import plane_check
-    server = model_server.ModelServer('llama3-8b', params=model,
+    server = model_server.ModelServer(name, params=model,
                                       continuous_batching=True, device=dev,
                                       **server_kw)
     port, stop = async_server.start_background(server)
@@ -4743,6 +4959,9 @@ def main() -> int:
     shard_paths, shard_report = sharded_training(dev, counters)
     paths.update(shard_paths)
     log_sharded(shard_report)
+    moe_paths, moe_report = moe_sharded_training(dev, counters)
+    paths.update(moe_paths)
+    log_moe_training(moe_report)
     loss, (rel, name) = train_reference_check(dev)
     log(f'train reference: depth-1 f32 llama3-8b loss GPU '
         f'{loss["cuda"]:.6f} CPU {loss["cpu"]:.6f}; largest gradient '
@@ -4760,17 +4979,18 @@ def main() -> int:
                 'flash_fwd': 'skypilot_tpu/ops/attention.py:138',
                 'flash_bwd_dq': 'skypilot_tpu/ops/attention.py:257',
                 'flash_bwd_dkv': 'skypilot_tpu/ops/attention.py:306'}
-    # `launches` counts the run of the path named by `path`: "slice"
-    # (this port's newest serving path: the 4-rank slice engine, bf16
-    # pool) for B1 and B3, "slice (int8 pool)" for B2, "sharded
-    # training (tensor)" (phase 7c's tensor mesh, the newest training
-    # path) for the backward kernels.  `launches_by_path` gives each
-    # driven path's own count; no two runs are added.
-    main_path = {'paged_attention': 'slice',
-                 'paged_attention_int8': 'slice (int8 pool)',
-                 'flash_fwd': 'slice',
-                 'flash_bwd_dq': 'sharded training (tensor)',
-                 'flash_bwd_dkv': 'sharded training (tensor)'}
+    # `launches` counts the run of the path named by `path`: "moe
+    # tensor 2" (this port's newest serving path: Mixtral-width MoE over
+    # two tensor ranks, bf16 pool) for B1 and B3, "moe tensor 2 (int8
+    # pool)" for B2, "moe sharded training (tensor)" (phase 7d, the
+    # newest training path) for the backward kernels.
+    # `launches_by_path` gives each driven path's own count; no two
+    # runs are added.
+    main_path = {'paged_attention': 'moe tensor 2',
+                 'paged_attention_int8': 'moe tensor 2 (int8 pool)',
+                 'flash_fwd': 'moe tensor 2',
+                 'flash_bwd_dq': 'moe sharded training (tensor)',
+                 'flash_bwd_dkv': 'moe sharded training (tensor)'}
     kernels = [dict(name=name, route='cuda', source=sources[name],
                     replaces=replaces[name],
                     launches=paths[main_path[name]][name],

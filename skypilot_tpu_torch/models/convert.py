@@ -24,7 +24,9 @@ mesh's 'tensor' axis (models/tensor_parallel.py): rank t's slice of
 each leaf is the one `parallel/sharding.Placement.index` gives its
 mesh position under the leaf's logical axes (`leaf_axes`), copied bit
 for bit; `tensor_pieces` is the same cut for a restore that reads each
-rank's slice straight from the file (data/checkpoints.py).
+rank's slice straight from the file (data/checkpoints.py), and
+`init_tensor_parallel` the same cut of seeded random weights drawn one
+leaf at a time (no device holds the whole model).
 """
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ from skypilot_tpu_torch.models import tensor_parallel
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.models.transformer import QuantDense
 from skypilot_tpu_torch.models.transformer import Transformer
+from skypilot_tpu_torch.models.transformer import _initial_value
+from skypilot_tpu_torch.models.transformer import _leaves
 from skypilot_tpu_torch.models.transformer import _storage
 from skypilot_tpu_torch.models.transformer import logical_axes
 from skypilot_tpu_torch.parallel import sharding
@@ -187,7 +191,7 @@ def dequantize_model(model: Transformer) -> Transformer:
     """The float Transformer whose kernels are the values an int8 model
     computes with: every layer kernel dequantized to cfg.dtype (what
     each call dequantizes to), the lm_head to the logits matmul dtype,
-    MoE expert stacks to f32 (what `decode._moe_mlp` dequantizes them
+    MoE expert stacks to f32 (what `decode._tp_moe_mlp` dequantizes them
     to; stored in cfg.dtype, so with a bf16 config the decode ticks'
     f32 expert products read them rounded); on the model's device.  Its
     GEMMs see the int8 model's operands."""
@@ -306,6 +310,34 @@ def to_tensor_parallel(cfg: ModelConfig, source: Any,
         rcfg, _rank_tree(tree, (), mesh, mesh.position(tensor=t)),
         device=dev) for t, dev in enumerate(devices)]
     return tensor_parallel.TensorParallel(cfg, ranks, mesh)
+
+
+def init_tensor_parallel(cfg: ModelConfig, mesh, *, seed: int = 0
+                         ) -> tensor_parallel.TensorParallel:
+    """Seeded random weights as a TensorParallel over `mesh`'s 'tensor'
+    axis, bit-equal to `to_tensor_parallel(cfg, init_params(cfg,
+    seed=seed, device=<rank 0's device>), mesh)` without the whole model
+    on one device: each leaf is drawn whole on rank 0's device, in
+    init_params' order and with its generator, and its rank slices are
+    copied into the ranks before the next leaf is drawn."""
+    devices = tensor_parallel.rank_devices(mesh)
+    rcfg = tensor_parallel.rank_config(cfg, len(devices))
+    ranks = [Transformer(rcfg, device=dev) for dev in devices]
+    params = [dict(rank.named_parameters()) for rank in ranks]
+    gen = torch.Generator(device=devices[0])
+    gen.manual_seed(int(seed))
+    with torch.no_grad():
+        for name, module in _leaves(Transformer(cfg, device='meta')):
+            full = _initial_value(name, module, cfg, gen, devices[0])
+            # The module name as the unstacked tree's path.
+            path = tuple(name.replace('layers.', 'layer_', 1).split('.'))
+            placement = sharding.logical_sharding(mesh, *leaf_axes(path))
+            for t, rank_params in enumerate(params):
+                rank_params[name].copy_(sharding.shard_of(
+                    full, placement, mesh.position(tensor=t)))
+            del full
+    return tensor_parallel.TensorParallel(
+        cfg, [rank.eval() for rank in ranks], mesh)
 
 
 def from_rank_trees(cfg: ModelConfig, trees: List[Dict[str, Any]],

@@ -42,8 +42,9 @@ slots and k.  (CPU ticks run the same blocks, unpadded.)  Ticks of at most 64 ro
 before; prefill chunks keep one call per op on their padded rows
 (spec-on and spec-off engines prefill alike).
 
-MoE layers (`_moe_mlp`, the reference's): a prefill or a verify tick
-(s > 1) runs the capacity dispatch (`moe.moe_apply`) over exactly its
+MoE layers (`_tp_moe_mlp`, the reference's _moe_mlp): a prefill or a
+verify tick (s > 1) runs the capacity dispatch (`moe.moe_apply`'s
+parts) over exactly its
 b * s real rows, never the bucket padding (a pad row would change N,
 the capacity and the buffer slots, and zero rows tie in the router); a
 decode tick (s == 1) computes every expert in f32 for its rows,
@@ -53,11 +54,14 @@ other row ops do.
 
 Tensor-parallel models (`models/tensor_parallel.TensorParallel`, the
 reference's 'tensor' axis): every function here that takes a model
-takes one too.  Each rank runs its narrow layer on its own device;
-the attention norm, the MLP norm and the residual adds run once a
-card; the o_proj and down_proj partials are all-reduced
-(`tensor_parallel.all_reduce`), the embedding is vocab-parallel and
-masked, the head vocab-parallel (models/heads.py).  Its caches keep
+takes one too, and one layer body serves both (a plain Transformer
+runs as its one rank, op for op the plain layer).  Each rank runs its
+narrow layer on its own device; the attention norm, the MLP norm and
+the residual adds run once a card; the o_proj and down_proj partials
+are all-reduced (`tensor_parallel.all_reduce`), an MoE block routes
+once a card and sums the ranks' expert partials (`_tp_moe_mlp`), the
+embedding is vocab-parallel and masked, the head vocab-parallel
+(models/heads.py).  Its caches keep
 one leaf per rank, in rank order, where a plain model's keep one
 tensor: {'k': [rank leaves], 'v': [...]} with each rank's kv heads
 [h_kv / tp] on its device, one contiguous pool a rank (so B1/B2 take
@@ -225,39 +229,66 @@ def _mlp(x, mlp, cfg: ModelConfig, weights=None):
     return (act * up @ w_down).reshape(x.shape)
 
 
-def _moe_mlp(x, moe, cfg: ModelConfig, *, capacity: bool = False):
-    """Inference MoE on x [b, s, d] (the reference's decode._moe_mlp);
-    returns [b, s, d] in x's dtype.  The router runs in f32.  For s > 1
+def _tp_moe_mlp(cfg: ModelConfig, moes, hs, *, capacity: bool = False):
+    """Inference MoE (the reference's decode._moe_mlp) over tensor
+    ranks: moes[t] is rank t's block (the router replicated, the stacks
+    [E, d, f / tp] and [E, f / tp, d]), hs[t] the normed rows x
+    [b, s, d] on rank t's device.  Returns [b, s, d] in x's dtype on
+    rank 0's device.  The router runs in f32, once a card.  For s > 1
     (a prefill or a verify tick) and with `capacity` (the training
-    forward, at every s) the capacity dispatch `moe.moe_apply` over the
-    b * s tokens; for s == 1 the dense gather: every expert computed in
-    f32 (the stacks dequantized to f32, as the reference's
-    maybe_dequant(stack, f32)), weighted by [N, E] gates that are zero
-    off the top k."""
-    b, s, d = x.shape
-    tokens = x.reshape(b * s, d)
-    logits = (tokens.to(torch.float32) @
-              moe.router.kernel.to(torch.float32))
-    if s > 1 or capacity:
-        # The reference passes maybe_dequant(stack, f32) on and moe_apply
-        # casts it to cfg.dtype; for a float stack the f32 copy would
-        # round back to the same bits, so it goes in as stored.
-        stacks = [moe.stack(name, torch.float32)
-                  if isinstance(getattr(moe, name), moe_lib.QuantStack)
-                  else getattr(moe, name) for name in moe_lib.STACKS]
-        out, _ = moe_lib.moe_apply(tokens, logits, *stacks, cfg)
-        return out.to(x.dtype).reshape(b, s, d)
-    _, gate_vals, gate_idx = moe_lib.route(logits, cfg.expert_top_k)
-    gates = torch.sum(
-        F.one_hot(gate_idx, cfg.n_experts).to(torch.float32) *
-        gate_vals[..., None], dim=1)                      # [N, E]
-    xt = tokens.to(torch.float32)
-    # [N, d] @ [E, d, f] -> [E, N, f]; one f32 stack alive at a time.
-    h = moe_lib.act_fn(cfg)(xt @ moe.stack('gate_proj', torch.float32))
-    h = h * (xt @ moe.stack('up_proj', torch.float32))
-    out_e = h @ moe.stack('down_proj', torch.float32)     # [E, N, d]
-    out = torch.einsum('ne,end->nd', gates, out_e)
-    return out.to(x.dtype).reshape(b, s, d)
+    forward, at every s) the capacity dispatch (`moe.dispatch`) over
+    the b * s tokens; each rank's expert products over its stacks
+    (`moe.expert_products`), whose partial expert outputs [E, C, d] are
+    summed in f32 in rank order and rounded once to cfg.dtype
+    (`tensor_parallel.reduce_sum`: where the reference forms expert_out
+    in cfg.dtype); then the combine in f32.  For s == 1 the dense
+    gather: every expert computed in f32 (the stacks dequantized to
+    f32, as the reference's maybe_dequant(stack, f32)), each rank's
+    [N, d] partial weighted by [N, E] gates that are zero off the top
+    k, the partials summed in f32 in rank order and rounded once to x's
+    dtype.  One rank runs the reference's _moe_mlp op for op."""
+    b, s, d = hs[0].shape
+    dtype, device = hs[0].dtype, hs[0].device
+    dispatched = s > 1 or capacity
+
+    def route(x, moe):
+        tokens = x.reshape(b * s, d)
+        logits = (tokens.to(torch.float32) @
+                  moe.router.kernel.to(torch.float32))
+        if dispatched:
+            expert_in, combine, _ = moe_lib.dispatch(tokens, logits, cfg)
+            return expert_in, combine
+        _, gate_vals, gate_idx = moe_lib.route(logits, cfg.expert_top_k)
+        gates = torch.sum(
+            F.one_hot(gate_idx, cfg.n_experts).to(torch.float32) *
+            gate_vals[..., None], dim=1)                  # [N, E]
+        return tokens.to(torch.float32), gates
+
+    routed = tensor_parallel.per_card(route, hs, moes)
+    parts = []
+    for (xin, gates), moe in zip(routed, moes):
+        if dispatched:
+            # The reference passes maybe_dequant(stack, f32) on and
+            # moe_apply casts it to cfg.dtype; for a float stack the f32
+            # copy would round back to the same bits, so it goes in as
+            # stored.
+            stacks = [moe.stack(name, torch.float32)
+                      if isinstance(getattr(moe, name), moe_lib.QuantStack)
+                      else getattr(moe, name) for name in moe_lib.STACKS]
+            parts.append(moe_lib.expert_products(xin, *stacks, cfg))
+            continue
+        # [N, d] @ [E, d, f] -> [E, N, f]; one f32 stack alive at a time.
+        h = moe_lib.act_fn(cfg)(xin @ moe.stack('gate_proj', torch.float32))
+        h = h * (xin @ moe.stack('up_proj', torch.float32))
+        out_e = h @ moe.stack('down_proj', torch.float32)     # [E, N, d]
+        parts.append(torch.einsum('ne,end->nd', gates, out_e))
+    if dispatched:
+        out = moe_lib.combine_outputs(
+            routed[0][1], tensor_parallel.reduce_sum(parts, device,
+                                                     cfg.dtype))
+    else:
+        out = tensor_parallel.reduce_sum(parts, device, dtype)
+    return out.to(dtype).reshape(b, s, d)
 
 
 def _masked_attention(q, k_cache, v_cache, positions, cfg: ModelConfig):
@@ -282,20 +313,6 @@ def _attn_norm(x, layer, cfg: ModelConfig, blocked: bool):
                                          cfg.norm_eps,
                                          cfg.norm_scale_plus_one),
                       x, blocked)
-
-
-def _layer_forward(x, layer, cfg: ModelConfig, positions, k_cache, v_cache,
-                   *, use_flash: bool, shape, blocked: bool = False):
-    """One decoder layer against an explicit KV cache slice that already
-    holds this call's k/v.  `x` is the residual stream as rows [M, d]:
-    the b * s tokens of `shape` = (b, s), then any bucket padding.
-    `blocked`: a decode tick (`_by_blocks`).  Returns the layer output
-    in the same layout."""
-    h = _attn_norm(x, layer, cfg, blocked)
-    q = _rope(_attn_proj(h, layer.attn.q_proj, shape, blocked), positions,
-              cfg)
-    out = _attention(q, k_cache, v_cache, positions, cfg, use_flash)
-    return _attn_out_and_mlp(x, out, layer, cfg, blocked)
 
 
 def _attention(q, k_cache, v_cache, positions, cfg: ModelConfig,
@@ -330,41 +347,6 @@ def _o_proj(out, layer, n_rows: int, dtype, blocked: bool = False):
         rows = padded
     w = layer.attn.o_proj.matrix(dtype)
     return _by_blocks(lambda r: r @ w, rows, blocked)
-
-
-def _attn_out(x, out, layer, blocked: bool = False):
-    """o_proj of the attention output [b, h, s, hd] into the residual
-    rows x [M, d]."""
-    return x + _o_proj(out, layer, x.shape[0], x.dtype, blocked)
-
-
-def _attn_out_and_mlp(x, out, layer, cfg: ModelConfig,
-                      blocked: bool = False, capacity: bool = False):
-    """The tail of a layer, shared with the training forward
-    (`DecoderLayer.forward`, which passes `capacity`: `_moe_mlp`):
-    `_attn_out`, then the MLP block; `blocked` for a decode tick
-    (`_by_blocks`)."""
-    b, _, s, _ = out.shape
-    x = _attn_out(x, out, layer, blocked)
-    if cfg.n_experts > 0:
-        # The MoE block sees the b * s real rows only, in one call: a pad
-        # row would join the capacity dispatch (N, the capacity and the
-        # buffer slots are the reference's only over the real tokens).
-        # The norm runs on every row, as every other row op does.
-        h = _by_blocks(lambda r: _norm(r, layer.mlp_norm.scale,
-                                       cfg.norm_eps, cfg.norm_scale_plus_one),
-                       x, blocked)[:b * s]
-        y = _moe_mlp(h.reshape(b, s, -1), layer.moe_mlp, cfg,
-                     capacity=capacity).reshape(b * s, -1)
-        if x.shape[0] != b * s:
-            y = torch.cat([y, y.new_zeros((x.shape[0] - b * s, y.shape[1]))])
-        return x + y
-    weights = _mlp_weights(layer.mlp, x.dtype)
-    return x + _by_blocks(
-        lambda r: _mlp(_norm(r, layer.mlp_norm.scale, cfg.norm_eps,
-                             cfg.norm_scale_plus_one), layer.mlp, cfg,
-                       weights),
-        x, blocked)
 
 
 def _embed(cfg: ModelConfig, model, tokens, shards=None):
@@ -403,126 +385,40 @@ def _scan_layers_and_unembed(cfg: ModelConfig, model, x, positions,
                              use_flash: bool, view_fn=None,
                              all_positions: bool = False,
                              blocked: bool = False):
-    """The shared per-layer loop: project + rope k/v, write them into the
-    cache with `write_fn(layer_leaf, new)` (in place), run the layer,
-    then final-norm + unembed the last position ([b, V]) or, with
-    `all_positions`, every position ([b, s, V]).  `blocked`: a decode
-    tick, whose row-count-following ops run per 64-row block past one
-    bucket (`_by_blocks`).  Returns (logits, cache_k, cache_v), the
-    caches being the (mutated) inputs."""
+    """The shared per-layer loop over a model's tensor ranks (a plain
+    Transformer is its one rank): each rank projects and rotates its
+    q/k/v heads (`_tp_qkv`), writes k/v into its cache leaf with
+    `write_fn(layer_leaf, new)` (in place) and attends there; the tail
+    of the layer is `_tp_out_and_mlp`; then final-norm + unembed, on
+    rank 0's rows, of the last position ([b, V]) or, with
+    `all_positions`, of every position ([b, s, V]).  `blocked`: a
+    decode tick, whose row-count-following ops run per 64-row block
+    past one bucket (`_by_blocks`).  Returns (logits, cache_k,
+    cache_v), the caches being the (mutated) inputs."""
     if view_fn is None:
         view_fn = lambda c: c  # noqa: E731
     if isinstance(model, TensorParallel):
-        return _tp_scan_layers_and_unembed(
-            cfg, model, x, positions, cache_k, cache_v, write_fn,
-            use_flash=use_flash, view_fn=view_fn,
-            all_positions=all_positions, blocked=blocked)
+        shards, rcfg = list(model.ranks), model.rank_cfg
+    else:
+        shards, rcfg = [model], cfg
+    ks, vs = _rank_leaves(cache_k), _rank_leaves(cache_v)
+    devices = [shard.device for shard in shards]
     b, s, d = x.shape
-    x = _pad_rows(x.reshape(b * s, d))
-    for i, layer in enumerate(model.layers):
-        k_leaf = _layer_leaf(cache_k, i)
-        v_leaf = _layer_leaf(cache_v, i)
-        h = _attn_norm(x, layer, cfg, blocked)
-        k = _rope(_attn_proj(h, layer.attn.k_proj, (b, s), blocked),
-                  positions, cfg)
-        v = _attn_proj(h, layer.attn.v_proj, (b, s), blocked)
-        write_fn(k_leaf, k)
-        write_fn(v_leaf, v)
-        x = _layer_forward(x, layer, cfg, positions, view_fn(k_leaf),
-                           view_fn(v_leaf), use_flash=use_flash,
-                           shape=(b, s), blocked=blocked)
-
-    kernel = heads.head_kernel(model, cfg)   # once, before the blocks
-
-    def head(rows):
-        rows = _norm(rows, model.final_norm.scale, cfg.norm_eps,
-                     cfg.norm_scale_plus_one)
-        return heads.unembed(rows, model, cfg, kernel)
-
-    if all_positions:
-        logits = _by_blocks(head, x, blocked)[:b * s]
-        return logits.reshape(b, s, -1), cache_k, cache_v
-    x = _pad_rows(x[:b * s].reshape(b, s, d)[:, -1])
-    return _by_blocks(head, x, blocked)[:b], cache_k, cache_v
-
-
-# ------------------------------------------------------ tensor parallel
-
-
-def _tp_qkv(rcfg: ModelConfig, shards, i: int, xs, positions, shape,
-            blocked: bool):
-    """Layer i's rotated q and k and v [b, heads / tp, s, hd] of each
-    tensor rank (`shards`), from its residual rows xs[t]; the attention
-    norm runs once a card.  positions[t]: on rank t's device."""
-    hs = tensor_parallel.per_card(
-        lambda x, shard: _attn_norm(x, shard.layers[i], rcfg, blocked),
-        xs, shards)
-    out = []
-    for h, shard, pos in zip(hs, shards, positions):
-        attn = shard.layers[i].attn
-        out.append((_rope(_attn_proj(h, attn.q_proj, shape, blocked), pos,
-                          rcfg),
-                    _rope(_attn_proj(h, attn.k_proj, shape, blocked), pos,
-                          rcfg),
-                    _attn_proj(h, attn.v_proj, shape, blocked)))
-    return out
-
-
-def _tp_add(xs, parts):
-    """xs[t] + the all-reduced partials, once a card."""
-    ys = tensor_parallel.all_reduce(parts, xs[0].dtype)
-    return tensor_parallel.per_card(lambda x, y: x + y, xs, ys)
-
-
-def _tp_out_and_mlp(rcfg: ModelConfig, shards, i: int, xs, outs,
-                    blocked: bool):
-    """The tail of layer i over the tensor ranks: each rank's o_proj
-    partial of its heads' output outs[t], all-reduced into the
-    residual; the MLP norm once a card; each rank's MLP partial over
-    its d_ff / tp columns, all-reduced."""
-    dtype = xs[0].dtype
-    xs = _tp_add(xs, [_o_proj(out, shard.layers[i], x.shape[0], dtype,
-                              blocked)
-                      for x, out, shard in zip(xs, outs, shards)])
-    hs = tensor_parallel.per_card(
-        lambda x, shard: _by_blocks(lambda r: _norm(
-            r, shard.layers[i].mlp_norm.scale, rcfg.norm_eps,
-            rcfg.norm_scale_plus_one), x, blocked), xs, shards)
-    parts = []
-    for h, shard in zip(hs, shards):
-        mlp = shard.layers[i].mlp
-        weights = _mlp_weights(mlp, dtype)
-        parts.append(_by_blocks(
-            lambda r, mlp=mlp, weights=weights: _mlp(r, mlp, rcfg, weights),
-            h, blocked))
-    return _tp_add(xs, parts)
-
-
-def _tp_scan_layers_and_unembed(cfg: ModelConfig, model: TensorParallel,
-                                x, positions, cache_k, cache_v, write_fn, *,
-                                use_flash: bool, view_fn,
-                                all_positions: bool, blocked: bool):
-    """`_scan_layers_and_unembed` over a TensorParallel model: rank t
-    writes its k/v into cache_k[t] / cache_v[t] and attends there; the
-    reductions as the module docstring says; the head on rank 0's rows."""
-    shards = list(model.ranks)
-    rcfg = model.rank_cfg
-    b, s, d = x.shape
-    xs = tensor_parallel.on_cards(_pad_rows(x.reshape(b * s, d)),
-                                  model.devices)
+    xs = tensor_parallel.on_cards(_pad_rows(x.reshape(b * s, d)), devices)
     local = _local()
-    pos = [local(positions, dev) for dev in model.devices]
+    pos = [local(positions, dev) for dev in devices]
     for i in range(cfg.n_layers):
+        layers = [shard.layers[i] for shard in shards]
         outs = []
-        for t, (q, k, v) in enumerate(_tp_qkv(rcfg, shards, i, xs, pos,
+        for t, (q, k, v) in enumerate(_tp_qkv(rcfg, layers, xs, pos,
                                               (b, s), blocked)):
-            k_leaf = _layer_leaf(cache_k[t], i)
-            v_leaf = _layer_leaf(cache_v[t], i)
+            k_leaf = _layer_leaf(ks[t], i)
+            v_leaf = _layer_leaf(vs[t], i)
             write_fn(k_leaf, k)
             write_fn(v_leaf, v)
             outs.append(_attention(q, view_fn(k_leaf), view_fn(v_leaf),
                                    pos[t], rcfg, use_flash))
-        xs = _tp_out_and_mlp(rcfg, shards, i, xs, outs, blocked)
+        xs = _tp_out_and_mlp(rcfg, layers, xs, outs, blocked)
 
     kernels = heads.head_kernel(model, cfg)   # once, before the blocks
 
@@ -537,6 +433,82 @@ def _tp_scan_layers_and_unembed(cfg: ModelConfig, model: TensorParallel,
         return logits.reshape(b, s, -1), cache_k, cache_v
     x = _pad_rows(x[:b * s].reshape(b, s, d)[:, -1])
     return _by_blocks(head, x, blocked)[:b], cache_k, cache_v
+
+
+# ------------------------------------------------------ tensor parallel
+
+
+def _tp_qkv(rcfg: ModelConfig, layers, xs, positions, shape,
+            blocked: bool):
+    """The rotated q and k and v [b, heads / tp, s, hd] of each tensor
+    rank's layer layers[t], from its residual rows xs[t]; the attention
+    norm runs once a card.  positions[t]: on rank t's device."""
+    hs = tensor_parallel.per_card(
+        lambda x, layer: _attn_norm(x, layer, rcfg, blocked), xs, layers)
+    out = []
+    for h, layer, pos in zip(hs, layers, positions):
+        attn = layer.attn
+        out.append((_rope(_attn_proj(h, attn.q_proj, shape, blocked), pos,
+                          rcfg),
+                    _rope(_attn_proj(h, attn.k_proj, shape, blocked), pos,
+                          rcfg),
+                    _attn_proj(h, attn.v_proj, shape, blocked)))
+    return out
+
+
+def _tp_add(xs, parts):
+    """xs[t] + the all-reduced partials, once a card."""
+    ys = tensor_parallel.all_reduce(parts, xs[0].dtype)
+    return tensor_parallel.per_card(lambda x, y: x + y, xs, ys)
+
+
+def _tp_attn_out(rcfg: ModelConfig, layers, xs, outs, blocked: bool):
+    """The head of a layer's tail over the tensor ranks: each rank's
+    o_proj partial of its heads' output outs[t], all-reduced into the
+    residual; then the MLP norm once a card.  Returns (the residual
+    rows, the normed rows), one entry a rank."""
+    xs = _tp_add(xs, [_o_proj(out, layer, x.shape[0], xs[0].dtype, blocked)
+                      for x, out, layer in zip(xs, outs, layers)])
+    hs = tensor_parallel.per_card(
+        lambda x, layer: _by_blocks(lambda r: _norm(
+            r, layer.mlp_norm.scale, rcfg.norm_eps,
+            rcfg.norm_scale_plus_one), x, blocked), xs, layers)
+    return xs, hs
+
+
+def _tp_out_and_mlp(rcfg: ModelConfig, layers, xs, outs, blocked: bool,
+                    capacity: bool = False):
+    """The tail of a layer over the tensor ranks (`_tp_attn_out`), then
+    each rank's MLP partial over its d_ff / tp columns, all-reduced; or
+    the MoE block over the ranks (`_tp_moe_mlp`; `capacity`: the
+    training forward's dispatch at every s), whose sum is placed on
+    every rank's device.  `blocked` for a decode tick (`_by_blocks`).
+    One rank is the plain layer's tail, shared with the training
+    forward (`DecoderLayer.forward`)."""
+    xs, hs = _tp_attn_out(rcfg, layers, xs, outs, blocked)
+    if rcfg.n_experts > 0:
+        # The MoE block sees the b * s real rows only, in one call: a pad
+        # row would join the capacity dispatch (N, the capacity and the
+        # buffer slots are the reference's only over the real tokens).
+        # The norm runs on every row, as every other row op does.
+        b, _, s, _ = outs[0].shape
+        y = _tp_moe_mlp(rcfg, [layer.moe_mlp for layer in layers],
+                        [h[:b * s].reshape(b, s, -1) for h in hs],
+                        capacity=capacity).reshape(b * s, -1)
+        n_rows = xs[0].shape[0]
+        if n_rows != b * s:
+            y = torch.cat([y, y.new_zeros((n_rows - b * s, y.shape[1]))])
+        return tensor_parallel.per_card(
+            lambda x, y: x + y, xs,
+            tensor_parallel.on_cards(y, [x.device for x in xs]))
+    parts = []
+    for h, layer in zip(hs, layers):
+        mlp = layer.mlp
+        weights = _mlp_weights(mlp, xs[0].dtype)
+        parts.append(_by_blocks(
+            lambda r, mlp=mlp, weights=weights: _mlp(r, mlp, rcfg, weights),
+            h, blocked))
+    return _tp_add(xs, parts)
 
 
 # ----------------------------------------------------------- dense cache
@@ -699,7 +671,8 @@ def _tp_prefill_sp(cfg: ModelConfig, model: TensorParallel, tokens, mesh,
                     for g in groups[0]] for name in ('k', 'v')}
     with torch.no_grad():
         for i in range(cfg.n_layers):
-            qkv = [_tp_qkv(rcfg, group, i, x, pos, shape, False)
+            qkv = [_tp_qkv(rcfg, [g.layers[i] for g in group], x, pos,
+                           shape, False)
                    for group, x, pos in zip(groups, xs, positions)]
             outs = [[None] * tp for _ in seq]
             for t in range(tp):
@@ -715,7 +688,8 @@ def _tp_prefill_sp(cfg: ModelConfig, model: TensorParallel, tokens, mesh,
                         dst = cache[name][t]
                         dst[i, :, :, sh.start:sh.stop] = new.to(dst.device,
                                                                 cfg.dtype)
-            xs = [_tp_out_and_mlp(rcfg, group, i, x, out, False)
+            xs = [_tp_out_and_mlp(rcfg, [g.layers[i] for g in group], x,
+                                  out, False)
                   for group, x, out in zip(groups, xs, outs)]
     return {'k': cache['k'], 'v': cache['v'], 'index': tokens.shape[1]}
 

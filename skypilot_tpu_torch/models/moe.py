@@ -4,7 +4,7 @@ GShard-style top-k dispatch with a static per-expert capacity: one-hot
 dispatch and combine tensors, tokens past an expert's capacity dropped
 (their residual path still carries them).  `moe_apply` is the routing
 math, shared by the training forward (`DecoderLayer.forward`) and the
-decode path's prefill and verify ticks (`decode._moe_mlp`), so it
+decode path's prefill and verify ticks (`decode._tp_moe_mlp`), so it
 exists once; every step is the reference's, in the same order and
 dtypes:
 
@@ -17,6 +17,10 @@ dtypes:
   cast to cfg.dtype for the three expert products; the combine in f32;
 - the Switch Transformer load-balancing aux loss (returned; the
   reference's trainer never reads it).
+
+Its three parts (`dispatch`, `expert_products`, `combine_outputs`) are
+public, so a tensor-parallel layer routes once and runs the expert
+products once per rank over the rank's d_ff / tp slice of the stacks.
 
 `MoEMLP` holds the reference tree's leaves: router.kernel [d, E] (f32)
 and the raw expert stacks gate_proj / up_proj [E, d, f] and down_proj
@@ -68,12 +72,12 @@ def capacity(cfg: ModelConfig, n_tokens: int) -> int:
                       cfg.expert_top_k / cfg.n_experts))
 
 
-def moe_apply(tokens: torch.Tensor, router_logits: torch.Tensor,
-              w_gate: torch.Tensor, w_up: torch.Tensor,
-              w_down: torch.Tensor, cfg: ModelConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Capacity-dispatched top-k MoE on tokens [N, d] given router
-    logits [N, E]; returns (out [N, d] f32, aux loss scalar)."""
+def dispatch(tokens: torch.Tensor, router_logits: torch.Tensor,
+             cfg: ModelConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The routing half of `moe_apply`: tokens [N, d] and router logits
+    [N, E] -> (expert inputs [E, C, d] in cfg.dtype, combine weights
+    [N, E, C] f32, aux loss scalar)."""
     n_exp, k = cfg.n_experts, cfg.expert_top_k
     n_tokens = tokens.shape[0]
     probs, gate_vals, gate_idx = route(router_logits, k)
@@ -93,23 +97,50 @@ def moe_apply(tokens: torch.Tensor, router_logits: torch.Tensor,
     pos_onehot = (position[..., None] == slots).to(torch.float32)
     chosen = choice * kept
     placed = pos_onehot * kept[..., None]
-    dispatch = torch.einsum('nke,nkec->nec', chosen, placed)
+    dispatched = torch.einsum('nke,nkec->nec', chosen, placed)
     combine = torch.einsum('nk,nke,nkec->nec', gate_vals, chosen, placed)
-
-    expert_in = torch.einsum('nec,nd->ecd', dispatch,
+    expert_in = torch.einsum('nec,nd->ecd', dispatched,
                              tokens.to(torch.float32)).to(cfg.dtype)
-    act = act_fn(cfg)
-    h = act(torch.matmul(expert_in, w_gate.to(cfg.dtype)))
-    h = h * torch.matmul(expert_in, w_up.to(cfg.dtype))
-    expert_out = torch.matmul(h, w_down.to(cfg.dtype))
-    out = torch.einsum('nec,ecd->nd', combine,
-                       expert_out.to(torch.float32))
 
     # Load-balancing auxiliary loss (Switch Transformer eq. 4).
     density = torch.mean(choice[:, 0, :], dim=0)
     density_proxy = torch.mean(probs, dim=0)
     aux = (torch.sum(density * density_proxy) * n_exp *
            cfg.router_aux_loss_coef)
+    return expert_in, combine, aux
+
+
+def expert_products(expert_in: torch.Tensor, w_gate: torch.Tensor,
+                    w_up: torch.Tensor, w_down: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """The three expert products of `moe_apply` in cfg.dtype: expert
+    inputs [E, C, d] -> expert outputs [E, C, d].  Over one tensor
+    rank's stacks ([E, d, f / tp] and [E, f / tp, d]) this is the
+    rank's partial of the row-parallel down product."""
+    act = act_fn(cfg)
+    h = act(torch.matmul(expert_in, w_gate.to(cfg.dtype)))
+    h = h * torch.matmul(expert_in, w_up.to(cfg.dtype))
+    return torch.matmul(h, w_down.to(cfg.dtype))
+
+
+def combine_outputs(combine: torch.Tensor,
+                    expert_out: torch.Tensor) -> torch.Tensor:
+    """The combine of `moe_apply` in f32: [N, E, C] x [E, C, d] ->
+    [N, d]."""
+    return torch.einsum('nec,ecd->nd', combine,
+                        expert_out.to(torch.float32))
+
+
+def moe_apply(tokens: torch.Tensor, router_logits: torch.Tensor,
+              w_gate: torch.Tensor, w_up: torch.Tensor,
+              w_down: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Capacity-dispatched top-k MoE on tokens [N, d] given router
+    logits [N, E]; returns (out [N, d] f32, aux loss scalar):
+    `dispatch`, `expert_products`, `combine_outputs`."""
+    expert_in, combine, aux = dispatch(tokens, router_logits, cfg)
+    out = combine_outputs(
+        combine, expert_products(expert_in, w_gate, w_up, w_down, cfg))
     return out, aux
 
 

@@ -10,6 +10,10 @@ from `rank_config(cfg, tp)`; rank t holds its slice of every leaf as
 - q_proj columns for heads [t h/tp, (t + 1) h/tp), k/v_proj columns
   for the kv heads of the same range, o_proj rows for the same heads;
 - gate/up columns and down rows for d_ff / tp;
+- an MoE layer's expert stacks ('expert', 'embed', 'mlp') and
+  ('expert', 'mlp', 'embed'): rank t holds gate/up [E, d, f / tp]
+  and down [E, f / tp, d], every expert (E is not split); the router
+  [d, E] (f32) replicated;
 - embedding rows and lm_head columns for vocab / tp;
 - norm scales replicated; a q/k/v bias cut with its kernel's heads.
 
@@ -24,7 +28,13 @@ where the reference's collectives sit:
   range, masked, and the lookups are summed the same way (exact: one
   rank contributes per token);
 - the vocab-parallel head: each rank's logits [rows, V / tp]
-  concatenated in rank order on rank 0's device (models/heads.py).
+  concatenated in rank order on rank 0's device (models/heads.py);
+- an MoE block (`decode._tp_moe_mlp`): the routing (router logits in
+  f32, softmax, top-k, the capacity dispatch) once a card from the
+  replicated normed rows; each rank's expert products over its d_ff /
+  tp slice, the down product row-parallel: the ranks' partials (the
+  expert outputs [E, C, d] of a dispatch, the gated [N, d] f32 rows of
+  a one-token tick) summed as `reduce_sum` sums them.
 
 Devices: the ranks are positions of a mesh (parallel/mesh.py) along
 its 'tensor' axis; `ranks[t]` lives on the device of position
@@ -42,9 +52,7 @@ narrow meta model, `reduce_sum` is out of place (autograd hands each
 partial the sum's gradient on its own device), and the loss is
 vocab-parallel (models/losses.py).
 
-MoE configs are refused at tensor > 1: the reference serves them under
-GSPMD with the expert stacks split on 'mlp', which is ROADMAP item
-A16c.  At tensor 1 an MoE model stays plain (`needs_ranks`).
+int8 weights are refused at tensor > 1, as the reference refuses them.
 """
 from __future__ import annotations
 
@@ -64,11 +72,6 @@ def check_degree(cfg: ModelConfig, tp: int) -> None:
     """Refuse a tensor degree the config's shapes or kind do not take."""
     if tp < 1:
         raise ValueError(f'tensor must be >= 1, got {tp}')
-    if tp > 1 and cfg.n_experts > 0:
-        raise NotImplementedError(
-            f'tensor={tp} with an MoE config: expert stacks split over '
-            "the 'tensor' axis are ROADMAP item A16c, a later slice of "
-            'the port')
     for dim in TENSOR_DIMS:
         value = getattr(cfg, dim)
         if value % tp:
@@ -200,9 +203,9 @@ def cards(model) -> List[torch.device]:
 def needs_ranks(mesh, device, cfg: ModelConfig) -> bool:
     """Whether a mesh needs a TensorParallel model: a tensor axis above
     1, or a position on another card than the weights' `device`.  An
-    MoE model stays plain at tensor 1 (the tensor decode loop has no
-    MoE block until A16c; a slice runs no SP prefill for it, so no
-    sequence rank reads its weights on another card)."""
+    MoE model takes ranks for a tensor axis only: a slice runs no SP
+    prefill for it, so no sequence rank reads its weights on another
+    card."""
     if mesh.shape.get('tensor', 1) > 1:
         return True
     return cfg.n_experts == 0 and any(d != torch.device(device)

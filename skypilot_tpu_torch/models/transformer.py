@@ -238,14 +238,8 @@ class DecoderLayer(nn.Module):
         """Residual rows x [b * s, d] (`shape` = (b, s)) -> the rotated
         q and k and v [b, heads, s, hd], contiguous, at `positions`."""
         from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
-        cfg = self.cfg
-        h = decode._norm(x, self.attn_norm.scale, cfg.norm_eps,  # pylint: disable=protected-access
-                         cfg.norm_scale_plus_one)
-        q = _rope(decode._attn_proj(h, self.attn.q_proj, shape),  # pylint: disable=protected-access
-                  positions, cfg)
-        k = _rope(decode._attn_proj(h, self.attn.k_proj, shape),  # pylint: disable=protected-access
-                  positions, cfg)
-        v = decode._attn_proj(h, self.attn.v_proj, shape)  # pylint: disable=protected-access
+        q, k, v = decode._tp_qkv(self.cfg, [self], [x], [positions], shape,  # pylint: disable=protected-access
+                                 False)[0]
         return q.contiguous(), k.contiguous(), v.contiguous()
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
@@ -258,8 +252,8 @@ class DecoderLayer(nn.Module):
         from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
         out = flash_attention(*self.attn_inputs(x, positions, shape),
                               causal=True)
-        return decode._attn_out_and_mlp(x, out, self, self.cfg,  # pylint: disable=protected-access
-                                        capacity=True)
+        return decode._tp_out_and_mlp(self.cfg, [self], [x], [out], False,  # pylint: disable=protected-access
+                                      capacity=True)[0]
 
 
 class Embed(nn.Module):
@@ -510,7 +504,7 @@ def check_mesh(mesh, cfg: ModelConfig) -> None:
     """Refuse the mesh axes the port does not train over yet, and a
     tensor degree that `cfg`'s shapes or kind do not take
     (`tensor_parallel.check_degree`: it must divide heads, kv heads,
-    d_ff and vocab; an MoE config takes none above 1, A16c)."""
+    d_ff and vocab)."""
     from skypilot_tpu_torch.models import tensor_parallel  # pylint: disable=import-outside-toplevel
     later = {'pipeline': 'A17d (parallel/pipeline.py)',
              'expert': 'A17g (the expert axis: experts split over '
@@ -794,10 +788,13 @@ def _mesh_layer(model: Transformer, shards: ShardedParams,
     tensor-parallel layer body (`_tp_qkv`, `_tp_out_and_mlp`; at tensor
     1 the plain layer's ops), each row of tensor ranks' slices gathered
     once (inside the checkpoint that calls this, so autograd keeps none
-    of them).  An MoE block (tensor 1) dispatches the tokens of all
-    positions together, in the global [batch, seq] order, on the first
-    position's device: the reference's capacity dispatch runs over the
-    global batch."""
+    of them).  An MoE block dispatches the tokens of all positions
+    together, in the global [batch, seq] order, once a card of the
+    first (batch, sequence) rank's tensor ranks, and runs over those
+    ranks' slices (`_tp_moe_mlp`): the reference's capacity dispatch
+    runs over the global batch.  The ranks' partials are summed out of
+    place (`tensor_parallel.reduce_sum`), and the sum's rows go back to
+    each (batch, sequence) rank."""
     from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
     from skypilot_tpu_torch.models import tensor_parallel  # pylint: disable=import-outside-toplevel
     from skypilot_tpu_torch.ops.ring_attention import ring_attention_shards  # pylint: disable=import-outside-toplevel
@@ -806,12 +803,14 @@ def _mesh_layer(model: Transformer, shards: ShardedParams,
     weights: Dict[Tuple[torch.device, ...], Dict[str, torch.Tensor]] = {}
 
     def run(g, fn, *args):
-        """fn(the rank models, *args) with (batch, sequence) rank g's
-        tensor ranks' slices of layer `index` bound."""
+        """fn(layer `index` of each tensor rank, *args) with (batch,
+        sequence) rank g's tensor ranks' slices bound."""
         row = tuple(devs[g])
         if row not in weights:
             weights[row] = shards.tree(f'layers.{index}.', row)
-        return _call(shards.rank_models, weights[row], fn, *args)
+        return _call(shards.rank_models, weights[row],
+                     lambda ms, *a: fn([m.layers[index] for m in ms], *a),
+                     *args)
 
     # Each row's residual rows on each of its tensor ranks' devices, one
     # copy a card, for the layer's head and tail alike.
@@ -821,9 +820,9 @@ def _mesh_layer(model: Transformer, shards: ShardedParams,
         start = (g % geo.sp) * chunk      # the rank's first position
         pos = tensor_parallel.on_cards(
             torch.arange(start, start + chunk, device=devs[g][0]), devs[g])
-        qkv.append(run(g, lambda ms, xr, pos: [
+        qkv.append(run(g, lambda layers, xr, pos: [
             tuple(t.contiguous() for t in trio) for trio in
-            decode._tp_qkv(rcfg, ms, index, xr, pos, (b, chunk), False)],  # pylint: disable=protected-access
+            decode._tp_qkv(rcfg, layers, xr, pos, (b, chunk), False)],  # pylint: disable=protected-access
             xr, pos))
     attend = (ulysses_attention_shards if cfg.sequence_parallel == 'ulysses'
               else ring_attention_shards)
@@ -841,25 +840,26 @@ def _mesh_layer(model: Transformer, shards: ShardedParams,
                 outs[g][t] = o
     if cfg.n_experts == 0:
         return tuple(
-            run(g, lambda ms, xr, o: decode._tp_out_and_mlp(  # pylint: disable=protected-access
-                rcfg, ms, index, xr, o, False)[0], xr, outs[g])
+            run(g, lambda layers, xr, o: decode._tp_out_and_mlp(  # pylint: disable=protected-access
+                rcfg, layers, xr, o, False)[0], xr, outs[g])
             for g, xr in enumerate(spread))
-    flat = [d[0] for d in devs]
-    mids = [run(g, lambda ms, x, o: decode._attn_out(  # pylint: disable=protected-access
-        x, o, ms[0].layers[index]), x, outs[g][0])
-            for g, x in enumerate(xs)]
-    hs = [run(g, lambda ms, x: decode._norm(  # pylint: disable=protected-access
-        x, ms[0].layers[index].mlp_norm.scale, cfg.norm_eps,
-        cfg.norm_scale_plus_one), x) for g, x in enumerate(mids)]
+    mids, hs = [], []
+    for g, xr in enumerate(spread):
+        mid, h = run(g, lambda layers, xr, o: decode._tp_attn_out(  # pylint: disable=protected-access
+            rcfg, layers, xr, o, False), xr, outs[g])
+        mids.append(mid[0])
+        hs.append(h[0])
     d = cfg.d_model
+    first = devs[0][0]
     rows = torch.cat([
-        torch.cat([hs[i * geo.sp + r].reshape(b, chunk, d).to(flat[0])
+        torch.cat([hs[i * geo.sp + r].reshape(b, chunk, d).to(first)
                    for r in range(geo.sp)], dim=1)
         for i in range(len(geo.ranks))])
-    y = run(0, lambda ms, h: decode._moe_mlp(  # pylint: disable=protected-access
-        h, ms[0].layers[index].moe_mlp, cfg, capacity=True), rows)
+    y = run(0, lambda layers, hs: decode._tp_moe_mlp(  # pylint: disable=protected-access
+        rcfg, [layer.moe_mlp for layer in layers], hs, capacity=True),
+        tensor_parallel.on_cards(rows, devs[0]))
     return tuple(
         mid + y[(g // geo.sp) * b:(g // geo.sp + 1) * b,
                 (g % geo.sp) * chunk:(g % geo.sp + 1) * chunk
-                ].reshape(-1, d).to(dev)
-        for g, (mid, dev) in enumerate(zip(mids, flat)))
+                ].reshape(-1, d).to(mid.device)
+        for g, mid in enumerate(mids))

@@ -13,7 +13,10 @@ same slots in a dense slot cache (max_len 1024) and
 `decode.engine_step`, the engine's default mode.  With `--tensor N`
 the model is cut into N tensor ranks (models/tensor_parallel.py) over
 `--tensor-devices` (default: `cuda:0` N times), each rank with its own
-pool, and the tick runs every rank.  Reports:
+pool, and the tick runs every rank; the weights are drawn one leaf at a
+time onto the ranks (`convert.init_tensor_parallel`), so a model
+larger than one card (mixtral-8x7b at tensor 4 over four cards) never
+sits on one whole.  Reports:
 
 - tick_ms: host wall time per tick, each tick synchronised;
 - device_ms_per_tick: summed CUDA kernel time per tick from
@@ -166,14 +169,17 @@ def main(argv=None) -> dict:
                      'sharding is not supported')
     dev = resolve_device('cuda')
     cfg = configs.get_config(args.model)
-    model = init_params(cfg, seed=0, device=dev, quantize=args.quantize)
     if args.tensor > 1:
         devices = (args.tensor_devices.split(',') if args.tensor_devices
                    else [dev] * args.tensor)
         mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(tensor=args.tensor),
                                    devices)
-        model = convert.to_tensor_parallel(cfg, model, mesh)
+        # Drawn one leaf at a time onto the ranks: a model too large for
+        # one card never sits on it whole.
+        model = convert.init_tensor_parallel(cfg, mesh, seed=0)
         dev = model.device
+    else:
+        model = init_params(cfg, seed=0, device=dev, quantize=args.quantize)
     result = dict(model=args.model, quantize=args.quantize,
                   **profile_tick(cfg, model, dev, slots=args.slots,
                                  ticks=args.ticks,

@@ -88,8 +88,10 @@ tensor` by `slice_axes` (the reference's default: the largest tensor
 factor the shapes allow; `slice_sequence` / `slice_tensor` pin it),
 over `slice_devices` when given (a list that may repeat one card),
 else the visible devices.  Weights of either restore straight to the
-shards (`checkpoints.restore_params(pieces=)`).  int8 weights, and an
-MoE config (A16c), with a tensor factor above 1 are refused.
+shards (`checkpoints.restore_params(pieces=)`).  An MoE config serves
+at any tensor factor its shapes divide (the expert stacks cut on d_ff,
+the routing replicated: models/tensor_parallel.py); int8 weights with a
+tensor factor above 1 are refused.
 
 Environment (as the reference's `main` and fronts read it):
 SKYTPU_SERVE_KV_PAGES, _PAGE_SIZE, _KV_INT8=1, _SPEC_TOKENS,
@@ -396,9 +398,6 @@ class ModelServer:
         if mesh is not None:
             self.device = mesh.devices[0]
             if tensor_parallel.needs_ranks(mesh, self.device, self.cfg):
-                # MoE + tensor names its ROADMAP item (A16c).
-                tensor_parallel.check_degree(
-                    self.cfg, int(mesh.shape.get('tensor', 1)))
                 self._mesh = mesh
         # The checkpoint's tokenizer when it ships one (converted
         # checkpoints do); the byte-level fallback otherwise.
@@ -435,11 +434,14 @@ class ModelServer:
             else:
                 logger.warning('No --checkpoint-dir given; serving FRESH '
                                'random-init weights.')
-            # Made whole on the first device, then cut: the shards hold
-            # the single model's values (as the reference inits
-            # unsharded, then places).
-            params = self._on_mesh(init_params(
-                self.cfg, seed=seed, device=self.device, quantize=quantize))
+            # The single model's values (as the reference inits
+            # unsharded, then places), cut onto the shards one leaf at a
+            # time when the server has them.
+            params = (convert.init_tensor_parallel(self.cfg, self._mesh,
+                                                   seed=seed)
+                      if self._mesh is not None else
+                      init_params(self.cfg, seed=seed, device=self.device,
+                                  quantize=quantize))
         if quantize:
             report = quantize_lib.quantization_report(
                 convert.param_tree(params))

@@ -588,12 +588,12 @@ def main(argv: Optional[List[str]] = None) -> None:
         # The slice's layout as rank 0 lays it out, its ranks emulated on
         # this rank's device: a tensor factor above 1 replays every
         # tensor rank.
-        model = init_params(cfg, seed=0, device=dev)
         mesh = build_slice_mesh(args.num_hosts, cfg, sequence=args.sequence,
                                 tensor=args.tensor,
                                 devices=[dev] * args.num_hosts)
-        if tensor_parallel.needs_ranks(mesh, dev, cfg):
-            model = convert.to_tensor_parallel(cfg, model, mesh)
+        model = (convert.init_tensor_parallel(cfg, mesh, seed=0)
+                 if tensor_parallel.needs_ranks(mesh, dev, cfg)
+                 else init_params(cfg, seed=0, device=dev))
         executor = FollowerExecutor(
             cfg, model,
             max_len=args.max_len, slots=args.max_batch,

@@ -20,8 +20,8 @@
   `--sp-mode ring|ulysses` picks the sequence-parallel attention for
   `--sequence` > 1; `--tensor` > 1 splits heads, kv heads, d_ff and
   vocab over the tensor ranks (column- and row-parallel layers, the
-  vocab-parallel embedding and loss; it must divide all four, and an
-  MoE model takes none above 1, ROADMAP A16c).
+  vocab-parallel embedding and loss; it must divide all four; an MoE
+  model's expert stacks split on d_ff, the routing replicated).
   `--preflight` checks the mesh's collectives first
   (parallel/preflight.py).  A gang of several hosts raises (A17f).
 

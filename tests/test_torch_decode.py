@@ -409,7 +409,8 @@ def test_moe_builds_and_runs(quantize):
     assert not hasattr(model.layers[0], 'mlp')
     assert moe.router.kernel.dtype == torch.float32
     for s in (1, 3):
-        out = decode._moe_mlp(torch.randn(2, s, cfg.d_model), moe, cfg)  # pylint: disable=protected-access
+        out = decode._tp_moe_mlp(  # pylint: disable=protected-access
+            cfg, [moe], [torch.randn(2, s, cfg.d_model)])
         assert out.shape == (2, s, cfg.d_model)
         assert bool(torch.isfinite(out).all())
     _, new = decode.generate(cfg, model, torch.tensor([[5, 6, 7]]),

@@ -853,3 +853,59 @@ def test_tensor_ranks_on_four_cards_match_one_card(cuda, layout):
         finally:
             engine.stop()
     assert out[4] == out[1]
+
+
+MOE_SMALL = SMALL.replace(n_experts=4, expert_top_k=2)
+
+
+@pytest.mark.parametrize('kv_pages', [24, None], ids=['paged', 'dense'])
+def test_moe_tensor_engine_gpu_matches_cpu(cuda, kv_pages):
+    """An MoE model (head_dim 64: `tiny`'s 16 has no kernel) at tensor
+    2: its ranks on the card (the kernels) and the same ranks on the
+    CPU (the plain versions) give the same greedy tokens, f32."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    gpu_model = init_params(MOE_SMALL, seed=4, device=cuda)
+    cpu_model = convert.from_jax_params(
+        MOE_SMALL, convert.to_jax_params(gpu_model), device='cpu')
+    out = {}
+    for model in (gpu_model, cpu_model):
+        mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(tensor=2),
+                                   [model.device] * 2)
+        tp = convert.to_tensor_parallel(MOE_SMALL, model, mesh)
+        engine = batching_engine.ContinuousBatchingEngine(
+            MOE_SMALL, tp, max_len=64, slots=2, prefill_chunk=16,
+            kv_pages=kv_pages, page_size=16, device=model.device)
+        try:
+            out[model.device.type] = [engine.generate(p, 10)
+                                      for p in PROMPTS]
+        finally:
+            engine.stop()
+    assert out['cuda'] == out['cpu']
+
+
+def test_moe_tensor_ranks_on_four_cards_match_one_card(cuda):
+    """mixtral-8x7b width at depth 8, tensor 4: one rank on each of four
+    cards gives the greedy tokens the same ranks give on one card (the
+    kernels, the routing and their inputs are the same; the copies
+    between cards change no bits), bf16, paged.  The weights are drawn
+    onto the ranks one leaf at a time (`init_tensor_parallel`)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip('needs four NVIDIA GPUs')
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    cfg = configs.get_config('mixtral-8x7b', n_layers=8)
+    prompts = [list(range(1, 40)), [5, 6, 7], list(range(7, 300))]
+    out = {}
+    for cards in ([cuda] * 4,
+                  [torch.device('cuda', i) for i in range(4)]):
+        mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(tensor=4), cards)
+        tp = convert.init_tensor_parallel(cfg, mesh, seed=5)
+        engine = batching_engine.ContinuousBatchingEngine(
+            cfg, tp, max_len=512, slots=2, kv_pages=96, page_size=16,
+            device=cuda)
+        try:
+            out[len(set(cards))] = [engine.generate(p, 12) for p in prompts]
+        finally:
+            engine.stop()
+        del tp, engine
+        torch.cuda.empty_cache()
+    assert out[4] == out[1]

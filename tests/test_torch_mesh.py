@@ -155,7 +155,8 @@ PLACEMENT_MESHES = {'fsdp4': dict(data=1, fsdp=4),
 
 
 # Tensor meshes: 'heads', 'kv_heads', 'mlp' and 'vocab' on 'tensor' (a
-# dense config only: MoE under the tensor axis is A16c).
+# dense config here; an MoE config's tensor placement, its expert stacks'
+# 'mlp' too, is tests/test_torch_moe_tensor.py's).
 TENSOR_PLACEMENT_MESHES = {'data4-tensor2': dict(data=4, tensor=2),
                            'fsdp2-seq2-tensor2': dict(data=1, fsdp=2,
                                                       sequence=2, tensor=2)}

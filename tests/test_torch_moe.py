@@ -4,8 +4,9 @@ Inputs come from numpy seeds; the JAX side runs as its own tests run it
 on the CPU, its paged path pinned to the Pallas kernel in interpret
 mode (SKYTPU_DECODE_KERNEL=pallas).
 
-- `moe.moe_apply` (out and aux), `decode._moe_mlp` at s == 1 (the dense
-  gather) and s > 1 (the capacity dispatch), float and int8 stacks, and
+- `moe.moe_apply` (out and aux), `decode._tp_moe_mlp` over one rank at
+  s == 1 (the dense gather) and s > 1 (the capacity dispatch), float
+  and int8 stacks, and
   `Transformer.forward` within atol 2e-4 / rtol 2e-3 of the JAX
   functions; one moe_apply case where the reference drops tokens past
   an expert's capacity (asserted), one where it drops none.
@@ -163,8 +164,8 @@ def test_moe_mlp_matches_jax(s, quantized):
         np.float32)
     want = jax_decode._moe_mlp(jnp.asarray(x), mp, jcfg)  # pylint: disable=protected-access
     model = _port_model(quantized)
-    got = decode._moe_mlp(torch.from_numpy(x), model.layers[0].moe_mlp,  # pylint: disable=protected-access
-                          model.cfg)
+    got = decode._tp_moe_mlp(  # pylint: disable=protected-access
+        model.cfg, [model.layers[0].moe_mlp], [torch.from_numpy(x)])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 

@@ -19,8 +19,9 @@ through both:
   reference's in every mode: `generate`, paged and dense continuous
   batching, int8 KV, spec k = 2, prefix reuse, a restored checkpoint;
   seeded sampled tokens equal to tensor 1's within the port;
-- the refusals (quantize + tensor, an indivisible degree, MoE, too few
-  devices) and the flags against the reference's `main`.
+- the refusals (quantize + tensor, an MoE model's too, an indivisible
+  degree, too few devices) and the flags against the reference's
+  `main`.  MoE at tensor 2 is tests/test_torch_moe_tensor.py.
 
 Slices, handoff and followers are in tests/test_torch_tensor_serving.py.
 """
@@ -385,8 +386,12 @@ def test_refusals_equal_reference(setup):
         device='cpu')) == 'tensor=2 needs 2 devices; have 1.')
     assert _error(lambda: ref_server.ModelServer(name, tensor=16)) == (
         'tensor=16 needs 16 devices; have 8.')
-    with pytest.raises(NotImplementedError, match='A16c'):
-        model_server.ModelServer('tiny-moe', tensor=2, device='cpu')
+    # MoE serves at tensor 2 (tests/test_torch_moe_tensor.py); with int8
+    # weights it is refused as the reference refuses it.
+    assert (_error(lambda: model_server.ModelServer(
+        'tiny-moe', quantize='int8', tensor=2, device='cpu')) ==
+        _error(lambda: ref_server.ModelServer('tiny-moe', quantize='int8',
+                                              tensor=2)))
     with pytest.raises(ValueError, match='tensor layout'):
         # A plain model on a mesh that needs ranks.
         from skypilot_tpu_torch.serve import batching_engine
@@ -425,5 +430,7 @@ def test_rank_config_and_degree_checks():
     assert tensor_parallel.rank_config(cfg, 1) is cfg
     with pytest.raises(ValueError, match='must divide n_kv_heads'):
         tensor_parallel.rank_config(cfg, 16)
-    with pytest.raises(NotImplementedError, match='A16c'):
-        tensor_parallel.rank_config(configs.get_config('mixtral-8x7b'), 2)
+    # An MoE config: d_ff (each expert's) splits, the experts do not.
+    moe = tensor_parallel.rank_config(configs.get_config('mixtral-8x7b'), 2)
+    assert (moe.n_heads, moe.n_kv_heads, moe.d_ff, moe.n_experts,
+            moe.expert_top_k) == (16, 4, 7168, 8, 2)

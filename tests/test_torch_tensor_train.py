@@ -17,8 +17,9 @@ tensor_parallel.py over a mesh with tensor > 1), on the CPU, tiny, f32.
   unsharded step's loss and grad_norm within rtol 1e-5
   (tests/test_torch_sharded_train.py holds it to the reference's
   sharded step).
-- Refusals: tensor 4 on tiny (its 2 kv heads) with the reference's
-  divisibility message; tensor 2 with an MoE config naming A16c.
+- Refusals: tensor 4 on tiny and tiny-moe (their 2 kv heads) with the
+  reference's divisibility message; tiny-moe takes tensor 2
+  (tests/test_torch_moe_tensor.py trains it).
 """
 from __future__ import annotations
 
@@ -171,8 +172,14 @@ def test_refusals_name_the_divisibility_and_a16c():
         train.create_train_state(tiny, mesh=_mesh(data=1, tensor=4))
     with pytest.raises(ValueError, match='tensor=4 must divide'):
         train.abstract_train_state(tiny, mesh=_mesh(data=1, tensor=4))
+    # An MoE config takes tensor 2 (its stacks split on d_ff) and
+    # refuses tensor 4 with the same divisibility message.
     moe = configs.get_config('tiny-moe')
-    with pytest.raises(NotImplementedError, match='A16c'):
-        train.create_train_state(moe, mesh=_mesh(data=1, tensor=2))
+    state, _ = train.create_train_state(moe, mesh=_mesh(data=1, tensor=2))
+    assert state.shards.rank_cfg.d_ff == moe.d_ff // 2
+    assert state.shards.rank_cfg.n_experts == moe.n_experts
+    with pytest.raises(ValueError, match=r'tensor=4 must divide n_kv_heads '
+                                         r'\(2\)'):
+        train.create_train_state(moe, mesh=_mesh(data=1, tensor=4))
     with pytest.raises(NotImplementedError, match='A17d'):
         train.create_train_state(tiny, mesh=_mesh(data=1, pipeline=2))
