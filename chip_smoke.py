@@ -65,7 +65,10 @@ Phases (each one that fails makes the script exit non-zero):
    does their yardstick, SDPA's backward (the device time of fwd + bwd
    minus fwd's).
 4. The serving path: ModelServer('llama3-8b') with seeded random
-   weights at full width and depth, paged continuous batching,
+   weights at full width, its 32 layers cut to SERVE_LAYERS (8: every
+   serving phase below runs these weights, and a serving window's time
+   is mostly its ticks' host work, which grows with depth), paged
+   continuous batching,
    answering concurrent POST /generate requests over HTTP (greedy, one
    seeded sampled request, then prefix-cache hits); then an int8-KV
    engine with speculative decoding (k = 4) on the same weights, whose
@@ -154,7 +157,7 @@ Phases (each one that fails makes the script exit non-zero):
    - quantize_params over a depth-1 full-width llama3-8b f32 tree on
      the card equals the same call on the CPU, byte for byte.
    - "int8 weights": ModelServer('llama3-8b', quantize='int8') at full
-     width and depth (seeded init quantized on the card leaf by leaf,
+     width and SERVE_LAYERS deep (seeded init quantized on the card leaf by leaf,
      paged, 1024 pages) answers 6 concurrent greedy /generate requests;
      its weights' GiB are printed beside the bf16 model's.  After the
      read, a server on the bf16 model whose kernels are the dequantized
@@ -224,7 +227,7 @@ Phases (each one that fails makes the script exit non-zero):
    beside the tp-1 one, the weight GiB a rank and each degree's
    seconds.
 5d. The slice (serve/slice_replica.py, sequence-parallel serving) on
-   phase 4's llama3-8b weights at full width and depth, every rank of
+   phase 4's llama3-8b weights (full width, SERVE_LAYERS), every rank of
    a mesh on the one card (`devices=[cuda:0] * sp`), max_len 8192 (the
    preset's max_seq_len):
    - ring_attention and ulysses_attention at sp 2 and 4 on [1, 32,
@@ -233,29 +236,29 @@ Phases (each one that fails makes the script exit non-zero):
      (ring) or sp (Ulysses) times; device ms beside one B3 call.
    - prefill_sp at sp 1, 2 and 4 on a 7,936-token prompt: the caches
      against decode.prefill's (sp 1 bit for bit; sp 2 and 4 within 2e-2
-     relative, Frobenius, per leaf), B3 launched 32 sp (sp + 1) / 2
-     times, the first greedy token held at its own context; device ms
+     relative, Frobenius, per leaf), B3 launched L sp (sp + 1) / 2
+     times (L = SERVE_LAYERS), the first greedy token held at its own context; device ms
      and host-clock ms per sp beside the engine's chunked prefill of the
      same prompt (512-token pieces).
    - "slice": SliceReplicaEngine(num_hosts=4, sequence=4), paged bf16
      pool (2048 pages of 16), sp_threshold 1024, 4 slots; prompts of
      3000, 7900 and 100 tokens submitted at once, 32 greedy tokens
      each.  Held: sp_prefills == 2, sync_count > 0, slice_sync_ms on
-     every span, launches equal to PERF.md's prediction (B3 32 x 10
-     per SP prefill and 32 for the short prompt's chunk 0, B1 32 a
+     every span, launches equal to PERF.md's prediction (B3 L x 10
+     per SP prefill and L for the short prompt's chunk 0, B1 L a
      tick, B2 none), and every token at its own context against the
      single paged engine on the same prompts (`hold_tokens`, as in
      phase 5: the masked forward of ~8,000 tokens holds ~17 GB of f32
      scores a layer for a moment).
      "slice (int8 pool)": the same at sequence=2 with an int8 pool
-     (B3 32 x 3 per SP prefill, B2 32 a tick, B1 none).
+     (B3 L x 3 per SP prefill, B2 L a tick, B1 none).
    - "slice http": ModelServer(num_hosts=4, slice_sequence=4,
      slice_devices=[cuda:0] * 4) behind the asyncio front: one greedy
      /generate of the 3000-token prompt equals the slice engine's
-     tokens, /health carries `slice` (one SP prefill); B3 320, B1 32 a
+     tokens, /health carries `slice` (one SP prefill); B3 10 L, B1 L a
      tick.
 5e. Tensor serving (models/tensor_parallel.py) on phase 4's llama3-8b
-   weights at full width and depth, every tensor rank on the one card
+   weights (full width, SERVE_LAYERS), every tensor rank on the one card
    (a device list that repeats `cuda:0`): the weights cut into 2, then 4
    ranks (`convert.to_tensor_parallel`), 4 prompts of 5-700 tokens and
    32 greedy tokens each.  A tensor-1 engine on the same prompts first
@@ -363,6 +366,21 @@ Phases (each one that fails makes the script exit non-zero):
    `shard_launches` (B3 2 L tp a step, B4 and B5 L tp), the tensor
    step-1 loss within 1e-2 of the unsharded one; printed: step ms,
    peak memory, params + moments a position, the phase's seconds.
+7e. Pipeline training ("pipeline training", parallel/pipeline.py):
+   llama3-8b width at depth 4, bf16, remat, batch 4 x 2048, 3 steps
+   from seed 0 on one batch: the unsharded step, then
+   `pipeline_train_step` at pipeline 2 (two layers a stage) over two
+   entries of the card at M = 1, 2 ("pipeline training") and 4
+   microbatches, and at M = 2 pipeline 2 x tensor 2 and pipeline 2 x
+   sequence 2 (ring) over four entries, each state freed before the
+   next is built.  Held: losses finite and falling, launches exactly
+   `pipeline_launches` (`shard_launches` of the other axes times M: B3
+   2 L M a step, B4 and B5 L M, times tp and the ring's hops), step-1
+   loss within 1e-2 of the unsharded step's; printed: step ms, peak
+   memory, params + moments a mesh position.  An f32 cut (depth 2, one
+   layer a stage, 2 x 1024, M = 2) against the unsharded GPU step:
+   loss within rtol 1e-5, every gradient within 1e-3 of max
+   |unsharded|.
 8. A training reference check: depth-1 f32 llama3-8b, one 256-token
    sequence, loss.backward() on the GPU (kernels) and on the CPU (the
    plain versions) from the same weights: the loss and every gradient
@@ -370,16 +388,16 @@ Phases (each one that fails makes the script exit non-zero):
 
 The line before the last is the `kernels` JSON: each kernel's
 `launches` is its count on the path `path` names ("moe tensor 2" for
-B1 and B3, "moe tensor 2 (int8 pool)" for B2, "moe sharded training
-(tensor)" (phase 7d, the newest training path) for B4/B5), and
+B1 and B3, "moe tensor 2 (int8 pool)" for B2, "pipeline training"
+(phase 7e, the newest training path) for B4/B5), and
 `launches_by_path` holds every
 driven path's own count (serving, the two observability windows, the
 five paths of phase 5, "int8 weights" and "checkpoint" of phase 5b,
 the six MoE paths of phase 5c, the three slice paths of phase 5d,
 the six tensor paths of phase 5e,
 training, `train_llama small`, "training resume", the five paths of
-phase 7c, the two of phase 7d), each path zeroed just before it and
-read just after.  B3's
+phase 7c, the two of phase 7d, the six of phase 7e), each path zeroed
+just before it and read just after.  B3's
 entry carries the 512-token chunk under `serving_chunk`, the ring hop
 under `ring_hop_causal` / `ring_hop_full` and mesh B's call under
 `ulysses`, the tensor mesh's hops under `tensor_ring_hop_full` /
@@ -417,6 +435,26 @@ F32_FLOPS = 67e12               # outside the tensor cores
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class Laps:
+    """Seconds by step: `laps(name)` records the seconds since the
+    last call (or since it was made) under `name`."""
+
+    def __init__(self):
+        self.t0 = self.last = time.perf_counter()
+        self.seconds = {}
+
+    def __call__(self, name: str) -> float:
+        now = time.perf_counter()
+        self.seconds[name] = round(now - self.last, 1)
+        self.last = now
+        return self.seconds[name]
+
+    def done(self, name: str) -> None:
+        """A lap that is logged, with the seconds since the start."""
+        s = self(name)
+        log(f'[{self.last - self.t0:.1f} s] {name}: {s:.1f} s')
 
 
 def card() -> str:
@@ -1188,6 +1226,10 @@ def check_sharded_shapes(dev):
 
 # ------------------------------------------------------------ phase 4
 
+# llama3-8b's 32 layers cut to 8 for every serving phase (4-5e): their
+# windows spend most of a tick in host work that grows with depth.
+SERVE_LAYERS = 8
+
 
 def http_call(port, path, rid=None, body=None):
     """(status, echoed X-SkyTPU-Request-Id, body bytes) of a GET, or of
@@ -1468,7 +1510,8 @@ def observability(server, dev, new_tokens, counters):
     int8_server = model_server.ModelServer(
         'llama3-8b', continuous_batching=True, kv_pages=1024,
         page_size=16, max_len=engine.max_len, max_batch=8,
-        quantize_kv=True, device=dev, params=server.params)
+        quantize_kv=True, device=dev, params=server.params,
+        overrides={'n_layers': server.cfg.n_layers})
     try:
         int8_window = route_window(
             int8_server, dev, prompts,
@@ -1675,7 +1718,7 @@ def dense_serving(cfg, model, dev, new_tokens):
     from skypilot_tpu_torch.serve import model_server
     server = model_server.ModelServer(
         'llama3-8b', continuous_batching=True, max_len=1024, max_batch=8,
-        params=model, device=dev)
+        params=model, device=dev, overrides={'n_layers': cfg.n_layers})
     vocab = cfg.vocab_size
     prompts = [prompt(500 + i, n, vocab)
                for i, n in enumerate([5, 37, 64, 100, 250, 700])]
@@ -2009,7 +2052,8 @@ def replica_front(cfg, model, dev, counters, new_tokens):
     from skypilot_tpu_torch.serve import model_server
     vocab = cfg.vocab_size
     kw = dict(continuous_batching=True, kv_pages=1024, page_size=16,
-              max_len=1024, max_batch=8, params=model, device=dev)
+              max_len=1024, max_batch=8, params=model, device=dev,
+              overrides={'n_layers': cfg.n_layers})
     single = prompt(800, 40, vocab)
     streams = [prompt(801 + i, n, vocab)
                for i, n in enumerate(FRONT_STREAMS)]
@@ -2251,8 +2295,8 @@ def quantize_card_vs_cpu(dev):
 
 
 def int8_weights(dev, counters, new_tokens):
-    """The int8-weight server at full width and depth: its weights' bytes
-    beside bf16's, the greedy burst held to the dequantized bf16 model's
+    """The int8-weight server at full width, SERVE_LAYERS deep: its
+    weights' bytes beside bf16's, the greedy burst held to the dequantized bf16 model's
     tokens (computed once, `convert.dequantize_model`), the int8 and
     bf16 ticks timed.  Launches are read around the server's engine work
     alone."""
@@ -2262,9 +2306,10 @@ def int8_weights(dev, counters, new_tokens):
     from skypilot_tpu_torch.models import convert
     from skypilot_tpu_torch.models.transformer import Transformer
     from skypilot_tpu_torch.serve import model_server
-    cfg = configs.get_config('llama3-8b')
+    cfg = configs.get_config('llama3-8b', n_layers=SERVE_LAYERS)
     kw = dict(continuous_batching=True, kv_pages=1024, page_size=16,
-              max_len=1024, max_batch=8, device=dev)
+              max_len=1024, max_batch=8, device=dev,
+              overrides={'n_layers': SERVE_LAYERS})
     bodies = [{'prompt_ids': [prompt(300 + i, n, cfg.vocab_size)],
                'max_new_tokens': new_tokens}
               for i, n in enumerate(REAL_LENGTHS)]
@@ -2860,8 +2905,7 @@ def moe_tensor_serving(cfg, model, dev, counters, new_tokens, window):
         if tp == 2:
             launches, tokens, health, _ = tensor_http(
                 cfg, cut, dev, counters, prompts, new_tokens,
-                name='mixtral-8x7b', overrides={'n_layers': cfg.n_layers},
-                tensor=2, tensor_devices=[dev] * 2, **TENSOR_SERVER)
+                name='mixtral-8x7b', tensor=2, tensor_devices=[dev] * 2, **TENSOR_SERVER)
             if health['engine']['tensor_degree'] != 2:
                 raise AssertionError(
                     f'moe tensor 2 /health: {health["engine"]}')
@@ -3000,18 +3044,20 @@ WARMUP_STEPS, TIMED_STEPS = 2, 5
 TRAIN_KERNELS = ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')
 
 
-def run_steps(dev, cfg, tcfg, batch, n_steps, state=None):
-    """n_steps train_steps (a fresh seed-0 state unless given), each
-    synchronised; -> (state, [(loss, grad_norm, ms)])."""
+def run_steps(dev, cfg, tcfg, batch, n_steps, state=None, step=None):
+    """n_steps train_steps (a fresh seed-0 state unless given; `step`
+    in place of train_step(., ., tcfg) where given), each synchronised;
+    -> (state, [(loss, grad_norm, ms)])."""
     import torch
     from skypilot_tpu_torch.models import train
     if state is None:
         state, _ = train.create_train_state(cfg, tcfg, device=dev, seed=0)
+    step = step or (lambda st, b: train.train_step(st, b, tcfg))
     out = []
     for _ in range(n_steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = train.train_step(state, batch, tcfg)
+        state, m = step(state, batch)
         loss, norm = float(m['loss']), float(m['grad_norm'])
         torch.cuda.synchronize()
         out.append((loss, norm, (time.perf_counter() - t0) * 1e3))
@@ -3760,6 +3806,164 @@ def log_sharded(r) -> None:
     log(f'sharded training phase: {r["seconds"]:.1f} s')
 
 
+# ------------------------------------------------------------ phase 7e
+
+PIPE_LAYERS, PIPE_BATCH, PIPE_SEQ, PIPE_STEPS = 4, 4, 2048, 3
+PIPE_F32_LAYERS, PIPE_F32_BATCH, PIPE_F32_SEQ = 2, 2, 1024
+# label -> (mesh axes over entries of the one card, SP mode,
+# microbatches).
+PIPE_RUNS = {
+    'pipeline training (M=1)': (dict(data=1, pipeline=2), 'ring', 1),
+    'pipeline training': (dict(data=1, pipeline=2), 'ring', 2),
+    'pipeline training (M=4)': (dict(data=1, pipeline=2), 'ring', 4),
+    'pipeline training (tensor)': (dict(data=1, pipeline=2, tensor=2),
+                                   'ring', 2),
+    'pipeline training (sequence)': (dict(data=1, pipeline=2, sequence=2),
+                                     'ring', 2),
+}
+
+
+def pipeline_launches(axes, mode, n_layers, m, n_steps):
+    """B3/B4/B5 launches of n_steps pipelined steps: each layer runs on
+    its one stage once a microbatch, so `shard_launches` of the mesh's
+    other axes times M (B3 2 L M a step, B4 and B5 L M, times tp and
+    the ring's sp (sp + 1) / 2 hops)."""
+    return {k: v * m for k, v in
+            shard_launches(axes, mode, n_layers, n_steps).items()}
+
+
+def pipeline_f32_check(dev):
+    """Depth-2 f32 llama3-8b width (one layer a stage), batch
+    PIPE_F32_BATCH x PIPE_F32_SEQ: pipeline 2 at M = 2 against the
+    unsharded GPU step from the same seed, the loss within rtol 1e-5 and
+    every gradient within 1e-3 of max |unsharded| per leaf.  -> (loss,
+    unsharded loss, (worst, leaf))."""
+    import torch
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import train
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    cfg = configs.get_config('llama3-8b', n_layers=PIPE_F32_LAYERS,
+                             dtype=torch.float32)
+    gen = torch.Generator().manual_seed(23)
+    batch = {'tokens': torch.randint(0, cfg.vocab_size,
+                                     (PIPE_F32_BATCH, PIPE_F32_SEQ + 1),
+                                     generator=gen).to(dev)}
+    state, _ = train.create_train_state(cfg, device=dev, seed=1)
+    ref_loss = float(train.value_and_grad(state, batch).detach())
+    ref = full_grads(state)
+    del state
+    free_cuda()
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(data=1, pipeline=2),
+                               [dev] * 2)
+    state, _ = train.create_train_state(cfg, mesh=mesh, seed=1)
+    loss = float(train.value_and_grad(
+        state, batch, train.TrainConfig(accum_steps=2)).detach())
+    if not abs(loss - ref_loss) <= 1e-5 * abs(ref_loss):
+        raise AssertionError(f'pipeline f32: loss {loss} vs unsharded '
+                             f'{ref_loss}')
+    worst = (0.0, '')
+    for name, g in full_grads(state).items():
+        scale = max(float(ref[name].abs().max()), 1e-30)
+        rel = float((g - ref[name]).abs().max()) / scale
+        if rel > 1e-3:
+            raise AssertionError(f'pipeline f32: {name} gradient {rel:.3g} '
+                                 'of max |unsharded|')
+        worst = max(worst, (rel, name))
+    del state
+    free_cuda()
+    return loss, ref_loss, worst
+
+
+def pipeline_training(dev, counters):
+    """Phase 7e: llama3-8b width at PIPE_LAYERS layers, bf16, remat,
+    batch PIPE_BATCH x PIPE_SEQ, PIPE_STEPS steps from seed 0 on one
+    batch: the unsharded step, then `pipeline.pipeline_train_step` on
+    PIPE_RUNS' meshes over entries of the card (two layers a stage), each
+    state freed before the next is built.  Held: losses finite and
+    falling, launches exactly `pipeline_launches`, step-1 loss within
+    1e-2 of the unsharded step's; then the f32 cut.  Printed: step ms,
+    peak memory, params + moments a mesh position.  -> (paths,
+    report)."""
+    import torch
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import train
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import pipeline
+    t0 = time.perf_counter()
+    cfg = configs.get_config('llama3-8b', n_layers=PIPE_LAYERS)
+    gen = torch.Generator().manual_seed(19)
+    batch = {'tokens': torch.randint(0, cfg.vocab_size,
+                                     (PIPE_BATCH, PIPE_SEQ + 1),
+                                     generator=gen).to(dev)}
+    paths, report = {}, {}
+    runs = {'pipeline training (unsharded)': (None, 'ring', 1)}
+    runs.update(PIPE_RUNS)
+    for label, (axes, mode, m) in runs.items():
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats(dev)
+        c = cfg.replace(sequence_parallel=mode)
+        step = None
+        if axes is None:
+            state, _ = train.create_train_state(c, device=dev, seed=0)
+        else:
+            mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(**axes),
+                                       [dev] * math.prod(axes.values()))
+            state, _ = pipeline.create_pipeline_train_state(
+                c, mesh=mesh, batch_size=PIPE_BATCH, seq_len=PIPE_SEQ,
+                seed=0)
+            step = pipeline.pipeline_train_step(c, mesh, m)
+        want = pipeline_launches(axes or {}, mode, PIPE_LAYERS, m,
+                                 PIPE_STEPS)
+        zero_counts(counters)
+        state, steps = run_steps(dev, c, None, batch, PIPE_STEPS, state,
+                                 step)
+        paths[label] = read_counts(counters)
+        got = {k: paths[label][k] for k in want}
+        if got != want:
+            raise AssertionError(f'{label}: launches {got}, predicted {want}')
+        losses = [x[0] for x in steps]
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f'{label}: losses {losses}')
+        params = (state.shards.position_bytes() if state.shards is not None
+                  else [sum(p.numel() * 4 for p in state.model.parameters())])
+        report[label] = dict(
+            losses=losses, step_ms=[x[2] for x in steps],
+            peak_gib=train.peak_memory_bytes(dev) / 2**30,
+            state_gb=[3 * b / 1e9 for b in params], launches=got)
+        del state, step
+    free_cuda()
+    ref = report['pipeline training (unsharded)']['losses'][0]
+    for label in PIPE_RUNS:
+        first = report[label]['losses'][0]
+        if not abs(first - ref) <= 1e-2 * abs(ref):
+            raise AssertionError(f'{label}: step-1 loss {first} vs '
+                                 f'unsharded {ref}')
+    report['f32'] = pipeline_f32_check(dev)
+    report['seconds'] = time.perf_counter() - t0
+    return paths, report
+
+
+def log_pipeline(r) -> None:
+    log(f'pipeline training ({card()}; llama3-8b width, {PIPE_LAYERS} '
+        f'layers, bf16, remat, batch {PIPE_BATCH} x {PIPE_SEQ}, '
+        f'{PIPE_STEPS} steps, every mesh position on the one card):')
+    for label in ['pipeline training (unsharded)'] + list(PIPE_RUNS):
+        x = r[label]
+        axes, mode, m = PIPE_RUNS.get(label, ({}, '', 1))
+        log(f'  {label} {json.dumps(axes)} {mode} M={m}: losses '
+            f'{" ".join(f"{v:.4f}" for v in x["losses"])}; step ms '
+            f'{" ".join(f"{v:.1f}" for v in x["step_ms"])}; peak '
+            f'{x["peak_gib"]:.2f} GiB; params + moments a position '
+            f'{" ".join(f"{v:.2f}" for v in x["state_gb"])} GB; launches '
+            f'{json.dumps(x["launches"])}')
+    loss, ref, (rel, name) = r['f32']
+    log(f'  pipeline 2 at M = 2, f32 depth {PIPE_F32_LAYERS}, batch '
+        f'{PIPE_F32_BATCH} x {PIPE_F32_SEQ}: loss {loss:.7f} vs unsharded '
+        f'{ref:.7f}; largest gradient difference {rel:.3g} of max '
+        f'|unsharded| ({name})')
+    log(f'pipeline training phase: {r["seconds"]:.1f} s')
+
+
 # ------------------------------------------------------------ phase 8
 
 
@@ -4113,11 +4317,13 @@ def slice_serving(cfg, model, dev, counters, new_tokens):
     from skypilot_tpu_torch.serve import async_server
     from skypilot_tpu_torch.serve import model_server
     from skypilot_tpu_torch.serve import plane_check
-    t_phase = time.perf_counter()
-    report = {'ops': slice_ops(dev)}
+    lap = Laps()
+    report = {'ops': slice_ops(dev), 'laps': lap.seconds}
     free_cuda()
+    lap('ops')
     report['prefill'] = slice_prefill(cfg, model, dev, counters)
     free_cuda()
+    lap('prefill_sp')
     prompts = [prompt(8200 + i, n, cfg.vocab_size)
                for i, n in enumerate(SLICE_LENGTHS)]
     paths = {}
@@ -4133,6 +4339,7 @@ def slice_serving(cfg, model, dev, counters, new_tokens):
         if got != want:
             raise AssertionError(f'{path}: launches {got}, predicted {want} '
                                  f'({stats["ticks"]} ticks)')
+        lap(path)
         sl = stats['slice']
         if sl['sp_prefills'] != 2 or sl['sync_count'] <= 0:
             raise AssertionError(f'{path}: slice stats {sl}')
@@ -4147,13 +4354,15 @@ def slice_serving(cfg, model, dev, counters, new_tokens):
         report[path] = dict(ticks=stats['ticks'], slice=sl, holds=holds,
                             tokens=tokens)
         free_cuda()
+        lap(f'{path} holds')
     # One greedy /generate through ModelServer's slice engine behind the
     # asyncio front: the 3,000-token prompt alone (an SP prefill).
     server = model_server.ModelServer(
         'llama3-8b', params=model, continuous_batching=True,
         max_len=SLICE_MAX_LEN, max_batch=4, prefill_chunk=PREFILL_CHUNK,
         kv_pages=2048, page_size=16, num_hosts=4, slice_sequence=4,
-        slice_devices=[dev] * 4, sp_threshold=SLICE_THRESHOLD, device=dev)
+        slice_devices=[dev] * 4, sp_threshold=SLICE_THRESHOLD, device=dev,
+        overrides={'n_layers': cfg.n_layers})
     port, stop = async_server.start_background(server)
     try:
         zero_counts(counters)
@@ -4177,7 +4386,8 @@ def slice_serving(cfg, model, dev, counters, new_tokens):
     got = {k: paths['slice http'][k] for k in want}
     if got != want:
         raise AssertionError(f'slice http: launches {got}, predicted {want}')
-    report['seconds'] = time.perf_counter() - t_phase
+    lap('slice http')
+    report['seconds'] = time.perf_counter() - lap.t0
     return paths, report
 
 
@@ -4191,8 +4401,8 @@ def log_slice(report) -> None:
             + (f', max_abs_err {r["max_abs_err"]:.3g}'
                if 'max_abs_err' in r else '') for name, r in ops.items()))
     pre = report['prefill']
-    log(f'prefill_sp ({SLICE_PROMPT} tokens, llama3-8b full depth, ranks on '
-        f'one card): ' + '; '.join(
+    log(f'prefill_sp ({SLICE_PROMPT} tokens, llama3-8b at depth '
+        f'{SERVE_LAYERS}, ranks on one card): ' + '; '.join(
             f'sp {sp}: {r["ms"]:.2f} ms device by {r["timed_by"]}, '
             f'{r["host_ms"]:.2f} ms by the host clock, B3 {r["launches"]}, k/v max |diff| '
             f'{r["errs"]["k"][0]:.3g}/{r["errs"]["v"][0]:.3g} (relative '
@@ -4206,7 +4416,8 @@ def log_slice(report) -> None:
         r = report[path]
         log(f'{path}: {r["ticks"]} ticks; slice {json.dumps(r["slice"])}; '
             f'vs the single paged engine: {hold_summary(r["holds"])}')
-    log(f'slice phase: {report["seconds"]:.1f} s')
+    log(f'slice phase: {report["seconds"]:.1f} s (s by step: '
+        f'{json.dumps(report["laps"])})')
 
 
 # ------------------------------------------------------------ phase 5e
@@ -4293,6 +4504,7 @@ def tensor_http(cfg, model, dev, counters, prompts, new_tokens,
     from skypilot_tpu_torch.serve import model_server
     from skypilot_tpu_torch.serve import plane_check
     server = model_server.ModelServer(name, params=model,
+                                      overrides={'n_layers': cfg.n_layers},
                                       continuous_batching=True, device=dev,
                                       **server_kw)
     port, stop = async_server.start_background(server)
@@ -4551,15 +4763,9 @@ def tensor_serving(cfg, model, dev, counters, new_tokens):
     every rank on the one card.  -> ({path: launch counts}, report)."""
     import torch
     from skypilot_tpu_torch.models import tensor_parallel
-    t_phase = time.perf_counter()
+    lap = Laps()
     L = cfg.n_layers
-    report = {'ticks': {}, 'laps': {}}
-    last = [t_phase]
-
-    def lap(name):
-        now = time.perf_counter()
-        report['laps'][name] = round(now - last[0], 1)
-        last[0] = now
+    report = {'ticks': {}, 'laps': lap.seconds}
     prompts = [prompt(8300 + i, n, cfg.vocab_size)
                for i, n in enumerate(TENSOR_LENGTHS)]
     paths = {}
@@ -4725,7 +4931,7 @@ def tensor_serving(cfg, model, dev, counters, new_tokens):
     free_cuda()
     lap('ticks 4')
     report['base'] = dict(launches=base, ticks=base_stats['ticks'])
-    report['seconds'] = time.perf_counter() - t_phase
+    report['seconds'] = time.perf_counter() - lap.t0
     return paths, report
 
 
@@ -4825,11 +5031,13 @@ def main() -> int:
     log(f'torch {torch.__version__} cuda {torch.version.cuda} '
         f'devices {torch.cuda.device_count()}')
 
+    clock = Laps()
     t0 = time.perf_counter()
     built = _build.build_all()
     log(f'build: {time.perf_counter() - t0:.1f}s '
         f'({", ".join(f"{k} {v:.1f}s" for k, v in built.items())})')
     compiled_report(_build)
+    clock.done('build')
 
     log('kernel parity (8B shapes):')
     results = {
@@ -4867,6 +5075,7 @@ def main() -> int:
             f'{kernel_summary(results[name]["serving_tick"])}')
         log(f'  {name} at the full batch (8 slots x 1000): '
             f'{kernel_summary(results[name]["full_batch"])}')
+    clock.done('kernel parity')
     counters = {'paged_attention': paged_attention.LAUNCHES,
                 'paged_attention_int8': paged_attention.LAUNCHES,
                 'flash_fwd': attention.LAUNCHES,
@@ -4880,9 +5089,11 @@ def main() -> int:
     t0 = time.perf_counter()
     server = model_server.ModelServer(
         'llama3-8b', continuous_batching=True, kv_pages=1024,
-        page_size=16, max_len=1024, max_batch=8, seed=0, device=dev)
+        page_size=16, max_len=1024, max_batch=8, seed=0, device=dev,
+        overrides={'n_layers': SERVE_LAYERS})
     torch.cuda.synchronize()
-    log(f'llama3-8b init: {time.perf_counter() - t0:.1f}s, '
+    log(f'llama3-8b init (depth {SERVE_LAYERS}): '
+        f'{time.perf_counter() - t0:.1f}s, '
         f'{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB')
     try:
         tps, wall = serve_over_http(server, server.cfg.vocab_size,
@@ -4924,30 +5135,38 @@ def main() -> int:
     cfg, model = server.cfg, server.params
     del server
     free_cuda()
+    clock.done('serving + observability')
     paths.update(more_serving(cfg, model, dev, counters, new_tokens))
     free_cuda()
+    clock.done('more serving')
     slice_paths, slice_report = slice_serving(cfg, model, dev, counters,
                                               new_tokens)
     paths.update(slice_paths)
     log_slice(slice_report)
     log(f'launches: {json.dumps(slice_paths)}')
     free_cuda()
+    clock.done('slice')
     tensor_paths, tensor_report = tensor_serving(cfg, model, dev, counters,
                                                  new_tokens)
     paths.update(tensor_paths)
     log_tensor(tensor_report, tensor_paths)
     del model
     free_cuda()
+    clock.done('tensor serving')
     paths.update(real_weights(dev, counters, new_tokens))
     free_cuda()
+    clock.done('real weights')
     paths.update(moe_serving(dev, counters, new_tokens))
     free_cuda()
+    clock.done('moe serving')
     err = reference_check(dev)
     log(f'reference: depth-2 f32 llama3-8b GPU == CPU greedy tokens '
         f'(paged and dense engines); prefill logits max_abs_err {err:.3g}')
+    clock.done('serving reference')
 
     paths['training'] = train_main_path(dev, counters)
     paths['train_llama small'] = cli_check(counters)
+    clock.done('training')
     paths['training resume'], resume = training_resume(dev, counters)
     launched = {name: paths['training resume'][name]
                 for name in TRAIN_KERNELS}
@@ -4956,16 +5175,26 @@ def main() -> int:
         raise AssertionError(f'training resume: launches {launched}, '
                              f'expected {want} (10 steps at depth 1)')
     log_training_resume(resume, launched)
+    clock.done('training resume')
     shard_paths, shard_report = sharded_training(dev, counters)
     paths.update(shard_paths)
     log_sharded(shard_report)
+    clock.done('sharded training')
     moe_paths, moe_report = moe_sharded_training(dev, counters)
     paths.update(moe_paths)
     log_moe_training(moe_report)
+    clock.done('moe sharded training')
+    pipe_paths, pipe_report = pipeline_training(dev, counters)
+    paths.update(pipe_paths)
+    log_pipeline(pipe_report)
+    clock.done('pipeline training')
     loss, (rel, name) = train_reference_check(dev)
     log(f'train reference: depth-1 f32 llama3-8b loss GPU '
         f'{loss["cuda"]:.6f} CPU {loss["cpu"]:.6f}; largest gradient '
         f'difference {rel:.3g} of max |CPU| ({name})')
+    clock.done('train reference')
+    log(f'phase seconds: {json.dumps(clock.seconds)}; '
+        f'{clock.last - clock.t0:.1f} s in all')
 
     sources = {'paged_attention': 'skypilot_tpu_torch/csrc/paged_attention.cu',
                'paged_attention_int8':
@@ -4982,15 +5211,15 @@ def main() -> int:
     # `launches` counts the run of the path named by `path`: "moe
     # tensor 2" (this port's newest serving path: Mixtral-width MoE over
     # two tensor ranks, bf16 pool) for B1 and B3, "moe tensor 2 (int8
-    # pool)" for B2, "moe sharded training (tensor)" (phase 7d, the
-    # newest training path) for the backward kernels.
+    # pool)" for B2, "pipeline training" (phase 7e, the newest training
+    # path: pipeline 2 at M = 2) for the backward kernels.
     # `launches_by_path` gives each driven path's own count; no two
     # runs are added.
     main_path = {'paged_attention': 'moe tensor 2',
                  'paged_attention_int8': 'moe tensor 2 (int8 pool)',
                  'flash_fwd': 'moe tensor 2',
-                 'flash_bwd_dq': 'moe sharded training (tensor)',
-                 'flash_bwd_dkv': 'moe sharded training (tensor)'}
+                 'flash_bwd_dq': 'pipeline training',
+                 'flash_bwd_dkv': 'pipeline training'}
     kernels = [dict(name=name, route='cuda', source=sources[name],
                     replaces=replaces[name],
                     launches=paths[main_path[name]][name],

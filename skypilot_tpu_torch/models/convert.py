@@ -2,9 +2,11 @@
 
 `from_jax_params` takes the reference tree (numpy arrays, or torch
 tensors such as a restored checkpoint's, already on the device) and
-returns a `Transformer` on `device`.  It reads both layer layouts of
+returns a `Transformer` on `device`.  It reads every layer layout of
 the reference: scan-stacked `params['layers']['layer']` with a leading
-[L] axis, and unstacked `params['layer_{i}']`.  The kernel layouts are
+[L] axis, stage-split [S, L / S] (parallel/pipeline.py's
+`split_stage_params`, merged by `merge_stage_params`), and unstacked
+`params['layer_{i}']`.  The kernel layouts are
 the flax ones on both sides (q/k/v [d, h, hd], o_proj [h, hd, d], MLP
 [d, f] / [f, d], MoE expert stacks [E, d, f] / [E, f, d] and router
 [d, E], lm_head [d, V]), so leaves copy across unchanged, cast
@@ -57,8 +59,14 @@ def _leaf(x: Any, where: str):
 
 
 def _layer_trees(tree: Dict[str, Any], cfg: ModelConfig):
-    """-> one per-layer subtree per layer, whichever layout `tree` has."""
+    """-> one per-layer subtree per layer, whichever layout `tree` has
+    (a stage-split tree [S, L / S, ...] is merged first)."""
     if 'layers' in tree:
+        scale = _leaf(tree['layers']['layer']['attn_norm']['scale'],
+                      'layers.layer.attn_norm.scale')
+        if scale.ndim == 3:
+            from skypilot_tpu_torch.parallel import pipeline  # pylint: disable=import-outside-toplevel
+            tree = pipeline.merge_stage_params(tree)
         stacked = tree['layers']['layer']
 
         def index(node, i):

@@ -318,12 +318,12 @@ def _rank_rows(x, geo, mesh: Mesh) -> List[torch.Tensor]:
 def _position_cols(xs: List[torch.Tensor], geo, mesh: Mesh
                    ) -> List[torch.Tensor]:
     """Per-rank [b_i, s] blocks -> each (batch, sequence) rank's columns
-    (its sequence rank's chunk), on its tensor rank 0's device, batch
-    rank major: `mesh_forward`'s outputs, one a row of tensor ranks, so
-    each target's NLL counts once."""
+    (its sequence rank's chunk), on the last pipeline stage's tensor
+    rank 0 device, batch rank major: `mesh_forward`'s outputs, one a
+    row of tensor ranks, so each target's NLL counts once."""
     chunk = xs[0].shape[1] // geo.sp
     return [x[:, r * chunk:(r + 1) * chunk].to(mesh.devices[row[0]])
-            for x, rank in zip(xs, geo.ranks)
+            for x, rank in zip(xs, geo.stages[-1])
             for r, row in enumerate(rank)]
 
 
@@ -334,13 +334,43 @@ def _sum_to(parts: List[torch.Tensor], device) -> torch.Tensor:
     return total
 
 
+def mesh_nll(model: Transformer, shards: ShardedParams, part,
+             tcfg: Optional[TrainConfig], num_microbatches: int = 1
+             ) -> torch.Tensor:
+    """Summed NLL of one batch over a mesh ({'inputs', 'targets'[,
+    'mask']}: one row block a batch rank, `_rank_rows`), on the mesh's
+    first device; the fused CE with tcfg.fused_ce.  Over a pipeline the
+    blocks are microbatch major (`pipeline.microbatch_rows`)."""
+    mesh = shards.mesh
+    geo = transformer_lib.mesh_geometry(mesh, model.cfg)
+    targets = _position_cols(part['targets'], geo, mesh)
+    mask = (None if part.get('mask') is None else
+            _position_cols(part['mask'], geo, mesh))
+    fused = tcfg is not None and tcfg.fused_ce
+    outs = model(part['inputs'], return_hidden=fused, shards=shards,
+                 num_microbatches=num_microbatches)
+    sums = []
+    for i, (out, t) in enumerate(zip(outs, targets)):
+        m = None if mask is None else mask[i]
+        if fused:
+            sums.append(losses.fused_linear_cross_entropy(
+                out[0], out[1], t, m, vocab_chunk=tcfg.vocab_chunk,
+                reduction='sum'))
+        else:
+            sums.append(loss_fn(out, t, m, reduction='sum'))
+    return _sum_to(sums, mesh.devices[0])
+
+
 def _mesh_value_and_grad(state: TrainState, batch,
                          tcfg: Optional[TrainConfig]) -> torch.Tensor:
     """`value_and_grad` over a mesh (module docstring): batch arrays are
     global tensors or one row block per batch rank (`prefetch_to_device
     (sharding=)`); accum_steps microbatches are the global batch's
     consecutive row ranges, each split over the batch ranks, as the
-    reference's reshape of the global batch cuts them."""
+    reference's reshape of the global batch cuts them.  Over a pipeline
+    they are the GPipe schedule's microbatches: one forward over all of
+    them and one backward."""
+    from skypilot_tpu_torch.parallel import pipeline  # pylint: disable=import-outside-toplevel
     shards = state.shards
     mesh = shards.mesh
     geo = transformer_lib.mesh_geometry(mesh, state.model.cfg)
@@ -362,29 +392,14 @@ def _mesh_value_and_grad(state: TrainState, batch,
         denom = torch.clamp(_sum_to([m.sum() for m in masks], dev0),
                             min=1).to(torch.float32)
     state.optimizer.zero_grad(set_to_none=True)
-
-    def nll(part) -> torch.Tensor:
-        """Summed NLL of one microbatch ({name: per-rank blocks})."""
-        targets = _position_cols(part['targets'], geo, mesh)
-        mask = (None if 'mask' not in part else
-                _position_cols(part['mask'], geo, mesh))
-        fused = tcfg is not None and tcfg.fused_ce
-        outs = state.model(part['inputs'], return_hidden=fused,
-                           shards=shards)
-        sums = []
-        for i, (out, t) in enumerate(zip(outs, targets)):
-            m = None if mask is None else mask[i]
-            if fused:
-                sums.append(losses.fused_linear_cross_entropy(
-                    out[0], out[1], t, m, vocab_chunk=tcfg.vocab_chunk,
-                    reduction='sum'))
-            else:
-                sums.append(loss_fn(out, t, m, reduction='sum'))
-        return _sum_to(sums, dev0)
-
     accum = 1 if tcfg is None else max(tcfg.accum_steps, 1)
-    if accum <= 1:
-        total = nll(arrays)
+    if accum > 1 and geo.pp > 1:
+        arrays = {k: _rank_rows(pipeline.microbatch_rows(
+            torch.cat([t.to(dev0) for t in v]), len(geo.ranks), accum),
+            geo, mesh) for k, v in arrays.items()}
+    if accum <= 1 or geo.pp > 1:
+        total = mesh_nll(state.model, shards, arrays, tcfg,
+                         accum if geo.pp > 1 else 1)
         loss = total / denom
         if tcfg is None or not tcfg.fused_ce:
             loss.backward()
@@ -403,7 +418,7 @@ def _mesh_value_and_grad(state: TrainState, batch,
         for i in range(accum):
             part = {k: _rank_rows(v[i * mb:(i + 1) * mb], geo, mesh)
                     for k, v in whole.items()}
-            piece = nll(part)
+            piece = mesh_nll(state.model, shards, part, tcfg)
             piece.backward()
             total = total + piece.detach()
         loss = total / denom

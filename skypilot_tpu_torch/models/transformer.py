@@ -45,6 +45,7 @@ functions over these modules; both share its layer math.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
@@ -297,7 +298,8 @@ class Transformer(nn.Module):
         return self.embed.embedding.device
 
     def forward(self, tokens, return_hidden: bool = False, *,
-                shards: Optional['ShardedParams'] = None):
+                shards: Optional['ShardedParams'] = None,
+                num_microbatches: int = 1):
         """tokens [b, s] -> logits [b, s, V] f32; with return_hidden,
         -> (final hidden [b, s, d] in cfg.dtype, lm-head kernel [d, V]
         in the logits matmul dtype) for the fused linear + CE loss
@@ -306,9 +308,11 @@ class Transformer(nn.Module):
         With `shards` (a model over a mesh; this module then only names
         the leaves), `tokens` is one [b / ranks, s] tensor per batch
         rank and the result one logits tensor (or hidden and kernel)
-        per mesh position: `mesh_forward`."""
+        per mesh position: `mesh_forward` (over `num_microbatches`
+        pipeline microbatches)."""
         if shards is not None:
-            return mesh_forward(self, shards, tokens, return_hidden)
+            return mesh_forward(self, shards, tokens, return_hidden,
+                                num_microbatches)
         from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
         from skypilot_tpu_torch.models import heads  # pylint: disable=import-outside-toplevel
         cfg = self.cfg
@@ -501,42 +505,70 @@ def logical_axes(name: str) -> Tuple[Optional[str], ...]:
 
 
 def check_mesh(mesh, cfg: ModelConfig) -> None:
-    """Refuse the mesh axes the port does not train over yet, and a
-    tensor degree that `cfg`'s shapes or kind do not take
+    """Refuse the mesh axes the port does not train over yet, a
+    pipeline that does not cut `cfg`'s layers evenly, and a tensor
+    degree that `cfg`'s shapes or kind do not take
     (`tensor_parallel.check_degree`: it must divide heads, kv heads,
     d_ff and vocab)."""
     from skypilot_tpu_torch.models import tensor_parallel  # pylint: disable=import-outside-toplevel
-    later = {'pipeline': 'A17d (parallel/pipeline.py)',
-             'expert': 'A17g (the expert axis: experts split over '
-                       'devices)'}
-    for axis, item in later.items():
-        if mesh.shape.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f'{axis}={mesh.shape[axis]}: training over the {axis!r} '
-                f'mesh axis is ROADMAP item {item}, a later slice of the '
-                'port')
+    if mesh.shape.get('expert', 1) > 1:
+        raise NotImplementedError(
+            f'expert={mesh.shape["expert"]}: training over the \'expert\' '
+            'mesh axis is ROADMAP item A17g (the expert axis: experts split '
+            'over devices), a later slice of the port')
+    stages = int(mesh.shape.get('pipeline', 1))
+    if cfg.n_layers % stages:
+        raise ValueError(f'n_layers={cfg.n_layers} not divisible by '
+                         f'n_stages={stages} (the \'pipeline\' axis)')
     tensor_parallel.check_degree(cfg, int(mesh.shape.get('tensor', 1)))
 
 
+def layer_stage(cfg: ModelConfig, mesh, index: int) -> int:
+    """The pipeline stage that runs layer `index`: stages take
+    n_layers / S consecutive layers each, as the reference's
+    split_stage_params reshapes [L] into [S, L / S]."""
+    return index // (cfg.n_layers // int(mesh.shape.get('pipeline', 1)))
+
+
 class MeshGeometry(NamedTuple):
-    """Where a mesh runs a training forward: `ranks[i][r][t]` is the
-    mesh position of batch rank i (over 'data' x 'fsdp', data major, as
-    `token_batch_sharding` splits the batch), sequence rank r and
-    tensor rank t.  The tensor ranks of one (i, r) hold the same rows
-    and columns: one (batch, sequence) rank."""
+    """Where a mesh runs a training forward: `stages[p][i][r][t]` is the
+    mesh position of pipeline stage p, batch rank i (over 'data' x
+    'fsdp', data major, as `token_batch_sharding` splits the batch),
+    sequence rank r and tensor rank t; `ranks` is stage 0's.  The
+    tensor ranks of one (p, i, r) hold the same rows and columns: one
+    (batch, sequence) rank of the stage."""
     ranks: List[List[List[int]]]
     sp: int
     tp: int
+    stages: List[List[List[List[int]]]]
+
+    @property
+    def pp(self) -> int:
+        return len(self.stages)
+
+    def stage(self, p: int) -> 'MeshGeometry':
+        """The geometry of stage p alone (its ranks as `ranks`)."""
+        return MeshGeometry(self.stages[p], self.sp, self.tp,
+                            [self.stages[p]])
 
 
 def mesh_geometry(mesh, cfg: ModelConfig) -> MeshGeometry:
     check_mesh(mesh, cfg)
     sp, tp = mesh.shape.get('sequence', 1), mesh.shape.get('tensor', 1)
     data, fsdp = mesh.shape.get('data', 1), mesh.shape.get('fsdp', 1)
-    ranks = [[[mesh.position(data=d, fsdp=f, sequence=r, tensor=t)
-               for t in range(tp)] for r in range(sp)]
-             for d in range(data) for f in range(fsdp)]
-    return MeshGeometry(ranks, sp, tp)
+    stages = [[[[mesh.position(data=d, pipeline=p, fsdp=f, sequence=r,
+                               tensor=t)
+                 for t in range(tp)] for r in range(sp)]
+               for d in range(data) for f in range(fsdp)]
+              for p in range(mesh.shape.get('pipeline', 1))]
+    return MeshGeometry(stages[0], sp, tp, stages)
+
+
+def row_devices(mesh, ranks: List[List[List[int]]]
+                ) -> List[List[torch.device]]:
+    """devs[g][t]: the device of tensor rank t of (batch, sequence)
+    rank g = i * sp + r of `ranks` (one stage's)."""
+    return [[mesh.devices[p] for p in row] for rank in ranks for row in rank]
 
 
 class ShardedParams:
@@ -596,6 +628,19 @@ class ShardedParams:
         return cls(model, mesh, blocks)
 
     @classmethod
+    def from_model(cls, model: Transformer, mesh) -> 'ShardedParams':
+        """A trainable Transformer's values (`convert.from_jax_params(
+        ..., trainable=True)`, say) cut into blocks on their owners,
+        over a meta model of the same config."""
+        meta = Transformer(model.cfg, device='meta', trainable=True)
+        places = placements(meta, mesh)
+        with torch.no_grad():
+            blocks = {name: sharding.split(p.detach(), places[name],
+                                           requires_grad=True)
+                      for name, p in model.named_parameters()}
+        return cls(meta, mesh, blocks)
+
+    @classmethod
     def empty(cls, model: Transformer, mesh,
               device: Optional[Union[str, torch.device]] = None
               ) -> 'ShardedParams':
@@ -649,21 +694,35 @@ class ShardedParams:
 
     def position_bytes(self) -> List[int]:
         """Bytes of the blocks each mesh position holds (a replicated
-        block counts at every position that reads it)."""
+        block counts at every position that reads it; a stage's layer
+        only at its stage's positions)."""
         out = [0] * self.mesh.size
         for name, blocks in self.blocks.items():
             ndim = len(self.shapes[name])
-            for pos in range(self.mesh.size):
-                t = blocks[self.placements[name].block(pos, ndim)]
+            placement = self.placements[name]
+            for pos in filter(placement.holds, range(self.mesh.size)):
+                t = blocks[placement.block(pos, ndim)]
                 out[pos] += t.numel() * t.element_size()
         return out
 
 
 def placements(model: Transformer, mesh) -> Dict[str, object]:
-    """{parameter name: its Placement on `mesh`}, in the model's
-    order."""
-    return {name: sharding.logical_sharding(mesh, *logical_axes(name))
-            for name, _ in model.named_parameters()}
+    """{parameter name: its Placement on `mesh`}, in the model's order.
+    Over a 'pipeline' axis, layer i's leaves are held only by the
+    positions of its stage (`layer_stage`), where they keep the split
+    of their logical axes; the embedding, final norm and head are
+    replicated over 'pipeline', as the reference's
+    stage_param_shardings places them."""
+    check_mesh(mesh, model.cfg)
+    out = {}
+    for name, _ in model.named_parameters():
+        placement = sharding.logical_sharding(mesh, *logical_axes(name))
+        if mesh.shape.get('pipeline', 1) > 1 and name.startswith('layers.'):
+            stage = layer_stage(model.cfg, mesh, int(name.split('.')[1]))
+            placement = dataclasses.replace(placement,
+                                            at=(('pipeline', stage),))
+        out[name] = placement
+    return out
 
 
 class _Bound(nn.Module):
@@ -685,7 +744,8 @@ def _call(module: nn.Module, params: Dict[str, torch.Tensor], fn, *args):
 
 
 def mesh_forward(model: Transformer, shards: ShardedParams,
-                 tokens: Sequence[torch.Tensor], return_hidden: bool):
+                 tokens: Sequence[torch.Tensor], return_hidden: bool,
+                 num_microbatches: int = 1):
     """The reference's forward under a mesh, made explicit.  Activations
     follow ('batch', 'seq', 'embed'): batch rank i's tokens [b_i, s]
     (any device) are cut into `sp` chunks of s / sp columns, and
@@ -699,10 +759,15 @@ def mesh_forward(model: Transformer, shards: ShardedParams,
     heads: `ring_attention_shards` or `ulysses_attention_shards` over
     the sequence ranks of one (batch, tensor) rank (per
     cfg.sequence_parallel) when the sequence axis is above 1, else the
-    flash kernel.  -> one output per (batch, sequence) rank, batch rank
-    major: logits [b_i, s / sp, V] (the tensor ranks' vocab columns
-    joined on tensor rank 0's device), or (hidden, [head kernel [d,
-    V / tp] of each tensor rank, on its device])."""
+    flash kernel.  Over a 'pipeline' axis, or with num_microbatches >
+    1, the layers run under parallel/pipeline.py's GPipe schedule:
+    the embedding on stage 0's ranks, each stage's layers on its own
+    ranks, microbatch m being rows m * b_i / M onwards of every batch
+    rank, and the head on the last stage's ranks.  -> one output per
+    (batch, sequence) rank of the last stage, batch rank major: logits
+    [b_i, s / sp, V] (the tensor ranks' vocab columns joined on tensor
+    rank 0's device), or (hidden, [head kernel [d, V / tp] of each
+    tensor rank, on its device])."""
     from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
     cfg = model.cfg
     if cfg.sequence_parallel not in ('ring', 'ulysses'):
@@ -719,9 +784,8 @@ def mesh_forward(model: Transformer, shards: ShardedParams,
                          f'\'sequence\' axis ({geo.sp})')
     chunk = s // geo.sp
     # devs[g][t]: the device of tensor rank t of (batch, sequence) rank
-    # g = i * sp + r.
-    devs = [[shards.mesh.devices[p] for p in row]
-            for rank in geo.ranks for row in rank]
+    # g = i * sp + r of stage 0.
+    devs = row_devices(shards.mesh, geo.ranks)
     embeds: Dict[Tuple[torch.device, ...], Dict[str, torch.Tensor]] = {}
     xs = []
     for i, toks in enumerate(tokens):
@@ -746,16 +810,22 @@ def mesh_forward(model: Transformer, shards: ShardedParams,
         raise NotImplementedError(
             f'remat_policy {cfg.remat_policy!r} on a mesh: only \'full\' '
             'recomputes there')
-    for index in range(cfg.n_layers):
-        fn = functools.partial(_mesh_layer, model, shards, geo, index,
-                               tokens[0].shape[0], chunk, devs)
-        if cfg.remat:
-            xs = torch_checkpoint.checkpoint(fn, *xs, use_reentrant=True)
-        else:
-            xs = fn(*xs)
+    if geo.pp > 1 or num_microbatches > 1:
+        from skypilot_tpu_torch.parallel import pipeline  # pylint: disable=import-outside-toplevel
+        xs = pipeline.gpipe(model, shards, geo, tokens[0].shape[0], chunk,
+                            num_microbatches, xs)
+    else:
+        for index in range(cfg.n_layers):
+            fn = functools.partial(_mesh_layer, model, shards, geo, index,
+                                   tokens[0].shape[0], chunk, devs)
+            if cfg.remat:
+                xs = torch_checkpoint.checkpoint(fn, *xs, use_reentrant=True)
+            else:
+                xs = fn(*xs)
     head = 'embed.' if cfg.tie_embeddings else 'lm_head.'
     outs, finals = [], {}
-    for x, row in zip(xs, map(tuple, devs)):
+    for x, row in zip(xs, map(tuple, row_devices(shards.mesh,
+                                                 geo.stages[-1]))):
         if row not in finals:
             finals[row] = {**shards.tree('final_norm.', row),
                            **shards.tree(head, row)}
@@ -782,7 +852,8 @@ def _final(ranks: nn.ModuleList, x: torch.Tensor, return_hidden: bool,
 
 def _mesh_layer(model: Transformer, shards: ShardedParams,
                 geo: MeshGeometry, index: int, b: int, chunk: int,
-                devs: List[List[torch.device]], *xs: torch.Tensor):
+                devs: List[List[torch.device]], *xs: torch.Tensor,
+                seq_local: bool = False):
     """Layer `index` over every (batch, sequence) rank's rows xs[g]
     [b * chunk, d] (on its tensor rank 0's device), through decode.py's
     tensor-parallel layer body (`_tp_qkv`, `_tp_out_and_mlp`; at tensor
@@ -792,9 +863,12 @@ def _mesh_layer(model: Transformer, shards: ShardedParams,
     together, in the global [batch, seq] order, once a card of the
     first (batch, sequence) rank's tensor ranks, and runs over those
     ranks' slices (`_tp_moe_mlp`): the reference's capacity dispatch
-    runs over the global batch.  The ranks' partials are summed out of
-    place (`tensor_parallel.reduce_sum`), and the sum's rows go back to
-    each (batch, sequence) rank."""
+    runs over the global batch.  With `seq_local` (the pipeline's stage
+    body, which the reference runs manual over 'sequence'), each
+    sequence rank's chunk of every batch rank dispatches on its own,
+    on that sequence rank's first row.  The ranks' partials are summed
+    out of place (`tensor_parallel.reduce_sum`), and the sum's rows go
+    back to each (batch, sequence) rank."""
     from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
     from skypilot_tpu_torch.models import tensor_parallel  # pylint: disable=import-outside-toplevel
     from skypilot_tpu_torch.ops.ring_attention import ring_attention_shards  # pylint: disable=import-outside-toplevel
@@ -850,16 +924,22 @@ def _mesh_layer(model: Transformer, shards: ShardedParams,
         mids.append(mid[0])
         hs.append(h[0])
     d = cfg.d_model
-    first = devs[0][0]
-    rows = torch.cat([
-        torch.cat([hs[i * geo.sp + r].reshape(b, chunk, d).to(first)
-                   for r in range(geo.sp)], dim=1)
-        for i in range(len(geo.ranks))])
-    y = run(0, lambda layers, hs: decode._tp_moe_mlp(  # pylint: disable=protected-access
-        rcfg, [layer.moe_mlp for layer in layers], hs, capacity=True),
-        tensor_parallel.on_cards(rows, devs[0]))
-    return tuple(
-        mid + y[(g // geo.sp) * b:(g // geo.sp + 1) * b,
-                (g % geo.sp) * chunk:(g % geo.sp + 1) * chunk
-                ].reshape(-1, d).to(mid.device)
-        for g, mid in enumerate(mids))
+    groups = ([[r] for r in range(geo.sp)] if seq_local
+              else [list(range(geo.sp))])
+    out: List[Optional[torch.Tensor]] = [None] * len(xs)
+    for group in groups:
+        lead = group[0]         # (batch rank 0, sequence rank group[0])
+        rows = torch.cat([
+            torch.cat([hs[i * geo.sp + r].reshape(b, chunk, d).to(
+                devs[lead][0]) for r in group], dim=1)
+            for i in range(len(geo.ranks))])
+        y = run(lead, lambda layers, hs: decode._tp_moe_mlp(  # pylint: disable=protected-access
+            rcfg, [layer.moe_mlp for layer in layers], hs, capacity=True),
+            tensor_parallel.on_cards(rows, devs[lead]))
+        for i in range(len(geo.ranks)):
+            for k, r in enumerate(group):
+                g = i * geo.sp + r
+                out[g] = mids[g] + y[i * b:(i + 1) * b,
+                                     k * chunk:(k + 1) * chunk].reshape(
+                                         -1, d).to(mids[g].device)
+    return tuple(out)

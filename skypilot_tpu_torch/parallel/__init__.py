@@ -1,6 +1,8 @@
 """Device layouts of the port: meshes over device lists (`mesh.py`),
 the logical-axis placement rules (`sharding.py`), the gang environment
-(`distributed.py`) and the collective preflight (`preflight.py`)."""
+(`distributed.py`), the collective preflight (`preflight.py`) and the
+GPipe schedule over the 'pipeline' axis (`pipeline.py`, imported from
+its module as in the reference)."""
 from skypilot_tpu_torch.parallel import distributed
 from skypilot_tpu_torch.parallel.distributed import initialize_from_env
 from skypilot_tpu_torch.parallel.mesh import Mesh

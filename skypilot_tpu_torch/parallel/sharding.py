@@ -20,6 +20,12 @@ axes that split it) and moves the shards itself:
   with `.to` and `torch.cat`, so autograd carries the full tensor's
   gradient back to each block as a sum over its readers: the
   reduce-scatter the reference's GSPMD inserts.
+
+A placement may also pin mesh coordinates (`Placement.at`): only the
+positions at those coordinates hold the tensor.  A pipeline stage's
+layer is one such tensor, held by the positions at 'pipeline' = p (the
+reference's leading 'stage' dim of a stacked layer leaf, over
+'pipeline'); within them its dims split as `spec` says.
 """
 from __future__ import annotations
 
@@ -56,9 +62,17 @@ Block = Tuple[int, ...]
 class Placement:
     """The port's NamedSharding: `spec[i]` is the tuple of mesh axes
     that split dim i (empty: replicated), the first axis major, as a
-    PartitionSpec entry.  Dims past len(spec) are replicated."""
+    PartitionSpec entry.  Dims past len(spec) are replicated.  `at`
+    pins ((mesh axis, index), ...): only positions at those coordinates
+    hold the tensor (empty: every position holds a block)."""
     mesh: Mesh
     spec: Tuple[Tuple[str, ...], ...]
+    at: Tuple[Tuple[str, int], ...] = ()
+
+    def holds(self, position: int) -> bool:
+        """Whether mesh position `position` holds a block."""
+        coords = self.mesh.coords(position)
+        return all(coords[axis] == index for axis, index in self.at)
 
     def parts(self, ndim: int) -> Tuple[int, ...]:
         """How many blocks each of ndim dims is cut into."""
@@ -67,7 +81,8 @@ class Placement:
                      for axes in spec[:ndim])
 
     def block(self, position: int, ndim: int) -> Block:
-        """The block index, per dim, that a mesh position holds."""
+        """The block index, per dim, that a mesh position holds (one
+        that `holds` the tensor)."""
         coords = self.mesh.coords(position)
         spec = self.spec + ((),) * (ndim - len(self.spec))
         out = []
@@ -99,11 +114,12 @@ class Placement:
         order."""
         first: Dict[Block, int] = {}
         for pos in range(self.mesh.size):
-            first.setdefault(self.block(pos, ndim), pos)
+            if self.holds(pos):
+                first.setdefault(self.block(pos, ndim), pos)
         return dict(sorted(first.items()))
 
     def is_replicated(self) -> bool:
-        return all(n == 1 for n in self.parts(len(self.spec)))
+        return not self.at and all(n == 1 for n in self.parts(len(self.spec)))
 
 
 def logical_sharding(mesh: Mesh, *logical_axes: Optional[str]) -> Placement:

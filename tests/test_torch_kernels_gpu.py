@@ -909,3 +909,80 @@ def test_moe_tensor_ranks_on_four_cards_match_one_card(cuda):
         del tp, engine
         torch.cuda.empty_cache()
     assert out[4] == out[1]
+
+
+def _narrow_pipeline_cfg(dtype):
+    """llama3-8b head shapes cut narrow: d_model 512, 4/2 heads of 128,
+    2 layers (one a stage at pipeline 2), d_ff 1024, vocab 1024."""
+    return configs.get_config('tiny', d_model=512, n_heads=4, n_kv_heads=2,
+                              d_ff=1024, vocab_size=1024, max_seq_len=512,
+                              remat=True, dtype=dtype)
+
+
+@pytest.mark.parametrize('dtype,m', [(torch.bfloat16, 1),
+                                     (torch.float32, 2)],
+                         ids=['bf16-M1', 'f32-M2'])
+def test_pipeline_step_matches_unsharded(cuda, dtype, m):
+    """A pipeline-2 step over two entries of cuda:0 at M microbatches
+    against the unsharded step from the same seed, batch 4 x 256: the
+    loss within rtol 1e-5 and every gradient within 1e-3 of max
+    |unsharded| (phase 7e's f32 cut).  bf16 runs at M = 1, where each
+    stage's GEMMs take the unsharded step's rows (a microbatch's fewer
+    rows may take another cuBLAS tiling, so bf16 at M > 1 is held only
+    by phase 7e's 1e-2 on the loss).  B3 launches 2 L M (remat), B4
+    and B5 L M."""
+    from skypilot_tpu_torch.models import train
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    cfg = _narrow_pipeline_cfg(dtype)
+    gen = torch.Generator().manual_seed(3)
+    batch = {'tokens': torch.randint(0, 1024, (4, 257), generator=gen
+                                     ).to(cuda)}
+    plain, _ = train.create_train_state(cfg, device=cuda, seed=2)
+    want = train.value_and_grad(plain, batch)
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(data=1, pipeline=2),
+                               [cuda] * 2)
+    piped, placements = train.create_train_state(cfg, mesh=mesh, seed=2)
+    assert placements['layers.1.mlp.up_proj.kernel'].at == (('pipeline', 1),)
+    before = dict(attention.LAUNCHES)
+    got = train.value_and_grad(piped, batch, train.TrainConfig(accum_steps=m))
+    torch.cuda.synchronize()
+    launched = {k: attention.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {'flash_fwd': 2 * 2 * m, 'flash_bwd_dq': 2 * m,
+                        'flash_bwd_dkv': 2 * m}
+    torch.testing.assert_close(got.to(cuda), want, rtol=1e-5, atol=0)
+    for name, p in plain.model.named_parameters():
+        full = torch.empty_like(p.grad)
+        for t, idx in piped.shards.pieces(name):
+            full[idx] = t.grad
+        scale = float(p.grad.abs().max())
+        assert float((full - p.grad).abs().max()) <= 1e-3 * scale, name
+
+
+def test_pipeline_on_four_cards_matches_one_card(cuda):
+    """pipeline 2 x tensor 2 at M = 2 (f32, the narrow shapes above):
+    one mesh position on each of four cards against the same mesh on
+    four entries of cuda:0, two steps' losses within rel 1e-6; each
+    stage's layer blocks on its stage's cards."""
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import pipeline
+    if torch.cuda.device_count() < 4:
+        pytest.skip('needs four NVIDIA GPUs')
+    cfg = _narrow_pipeline_cfg(torch.float32)
+    gen = torch.Generator().manual_seed(3)
+    batch = {'tokens': torch.randint(0, 1024, (4, 257), generator=gen)}
+    losses = []
+    for devices in ([cuda] * 4, [torch.device('cuda', i) for i in range(4)]):
+        mesh = mesh_lib.build_mesh(
+            mesh_lib.MeshConfig(data=1, pipeline=2, tensor=2), devices)
+        state, placements = pipeline.create_pipeline_train_state(
+            cfg, mesh=mesh, batch_size=4, seq_len=256, seed=2)
+        for name, blocks in state.shards.blocks.items():
+            owners = placements[name].owners(len(state.shards.shapes[name]))
+            for blk, t in blocks.items():
+                assert t.device == devices[owners[blk]], name
+        step = pipeline.pipeline_train_step(cfg, mesh, 2)
+        losses.append([float(step(state, batch)[1]['loss'])
+                       for _ in range(2)])
+        del state
+        torch.cuda.empty_cache()
+    assert losses[1] == pytest.approx(losses[0], rel=1e-6)

@@ -181,5 +181,5 @@ def test_refusals_name_the_divisibility_and_a16c():
     with pytest.raises(ValueError, match=r'tensor=4 must divide n_kv_heads '
                                          r'\(2\)'):
         train.create_train_state(moe, mesh=_mesh(data=1, tensor=4))
-    with pytest.raises(NotImplementedError, match='A17d'):
-        train.create_train_state(tiny, mesh=_mesh(data=1, pipeline=2))
+    with pytest.raises(NotImplementedError, match='A17g'):
+        train.create_train_state(moe, mesh=_mesh(data=1, expert=2))
