@@ -381,6 +381,29 @@ Phases (each one that fails makes the script exit non-zero):
    layer a stage, 2 x 1024, M = 2) against the unsharded GPU step:
    loss within rtol 1e-5, every gradient within 1e-3 of max
    |unsharded|.
+7f. Multi-host training ("multihost training", parallel/distributed.py):
+   two host processes of `python -m skypilot_tpu_torch.train_llama`
+   with SKYTPU_NUM_HOSTS=2, SKYTPU_HOST_RANK and
+   SKYTPU_COORDINATOR_ADDRESS=127.0.0.1:<a free port>, set here (no
+   gang supervisor): llama3-8b width at depth 2, bf16, remat, batch 2
+   x 1024 a host, 3 steps from seed 0, both hosts on cuda:0 over gloo
+   (`--dist-backend gloo`: NCCL refuses two ranks on one card; gloo
+   stages the gradients through host memory), against one process
+   over a data-2 mesh of two entries of cuda:0 with the same global
+   batch of 4, run after the hosts have exited.  Held: losses finite
+   and falling, step 1 within rtol 1e-5 of the one process's and steps
+   2-3 within 1e-2, both hosts' digests (sha256 of the parameters and
+   moments) equal, each host's B3 / B4 / B5 launches exactly 2 L / L /
+   L a step (its one-position mesh's).  With two or more cards the
+   same run over NCCL, a card a host (else printed as skipped); with
+   four, two hosts of two cards over NCCL against one process over the
+   four.  Printed: step ms, reduction ms a step (CUDA events), bytes
+   reduced, each host's peak.  An f32 cut (depth 1, 2 x 512 a host,
+   fsdp 2 a host over two entries of cuda:0, one step) against the same
+   global mesh without hosts (data 2 x fsdp 2 over four entries), which
+   host 0 steps in its own process after its hosts' step: loss within
+   rtol 1e-5, every parameter after the step within 1e-3 of max |one
+   process|, digests equal.
 8. A training reference check: depth-1 f32 llama3-8b, one 256-token
    sequence, loss.backward() on the GPU (kernels) and on the CPU (the
    plain versions) from the same weights: the loss and every gradient
@@ -388,16 +411,17 @@ Phases (each one that fails makes the script exit non-zero):
 
 The line before the last is the `kernels` JSON: each kernel's
 `launches` is its count on the path `path` names ("moe tensor 2" for
-B1 and B3, "moe tensor 2 (int8 pool)" for B2, "pipeline training"
-(phase 7e, the newest training path) for B4/B5), and
+B1, "moe tensor 2 (int8 pool)" for B2, "multihost training" (phase 7f,
+the newest training path: host 0's process) for B3-B5), and
 `launches_by_path` holds every
 driven path's own count (serving, the two observability windows, the
 five paths of phase 5, "int8 weights" and "checkpoint" of phase 5b,
 the six MoE paths of phase 5c, the three slice paths of phase 5d,
 the six tensor paths of phase 5e,
 training, `train_llama small`, "training resume", the five paths of
-phase 7c, the two of phase 7d, the six of phase 7e), each path zeroed
-just before it and read just after.  B3's
+phase 7c, the two of phase 7d, the six of phase 7e, the two of phase
+7f), each path zeroed just before it and read just after (a host
+process's count starts at 0 and is read at its end).  B3's
 entry carries the 512-token chunk under `serving_chunk`, the ring hop
 under `ring_hop_causal` / `ring_hop_full` and mesh B's call under
 `ulysses`, the tensor mesh's hops under `tensor_ring_hop_full` /
@@ -3964,6 +3988,302 @@ def log_pipeline(r) -> None:
     log(f'pipeline training phase: {r["seconds"]:.1f} s')
 
 
+# ------------------------------------------------------------ phase 7f
+
+HOSTS = 2
+HOST_MODEL = 'llama3-8b'
+HOST_LAYERS, HOST_BATCH, HOST_SEQ, HOST_STEPS = 2, 2, 1024, 3
+# Two rows a host: fsdp 2 splits the rows over its two batch ranks.
+HOST_F32_BATCH, HOST_F32_SEQ = 2, 512
+HOST_TIMEOUT_S = 300
+# A host of the f32 cut (argv: batch rows and sequence a host, model,
+# device): HOST_MODEL's width at depth 1, f32, global data 2 x fsdp 2,
+# each host's fsdp 2 over two entries of the device; one step on its
+# rows of a seeded global batch.  Host 0 then takes the same step on
+# the same global mesh within its own process (no hosts: data 2 x fsdp
+# 2 over four entries) and compares every parameter after the step.
+# Each host prints one JSON line.
+F32_HOST = '''
+import json, sys, time
+import torch
+from skypilot_tpu_torch.models import configs, train
+from skypilot_tpu_torch.parallel import distributed
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+B, SEQ, dev = int(sys.argv[1]), int(sys.argv[2]), torch.device(sys.argv[4])
+distributed.initialize_from_env(backend='gloo', device=dev)
+hosts, rank = distributed.gang()
+cfg = configs.get_config(sys.argv[3], n_layers=1, dtype=torch.float32)
+tokens = torch.randint(0, cfg.vocab_size, (B * hosts, SEQ + 1),
+                       generator=torch.Generator().manual_seed(29))
+
+
+def step(mesh, rows):
+    state, _ = train.create_train_state(cfg, mesh=mesh, seed=1)
+    state, m = train.train_step(state, {'tokens': rows})
+    return state, float(m['loss'])
+
+
+t0 = time.perf_counter()
+state, loss = step(mesh_lib.build_mesh(mesh_lib.MeshConfig(data=-1, fsdp=2),
+                                       [dev] * 2),
+                   tokens[rank * B:(rank + 1) * B])
+t1 = time.perf_counter()
+out = dict(host=rank, loss=loss, digest=train.state_digest(state),
+           step_s=t1 - t0, digest_s=time.perf_counter() - t1)
+if rank == 0:
+    ref, out['ref_loss'] = step(mesh_lib.build_mesh(
+        mesh_lib.MeshConfig(data=hosts, fsdp=2), [dev] * 4, hosts=1,
+        host_rank=0), tokens)
+    worst = (0.0, '')
+    for name, _ in state.model.named_parameters():
+        got = state.shards.gather(name, dev).detach()
+        want = ref.shards.gather(name, dev).detach()
+        worst = max(worst, (float((got - want).abs().max()) /
+                            max(float(want.abs().max()), 1e-30), name))
+    out['worst'] = worst
+print(json.dumps(out), flush=True)
+distributed.shutdown()
+'''
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def run_hosts(argvs, tmp, tag):
+    """HOSTS processes, one a host of a gang on a free port (argvs[r]
+    after the interpreter), each writing to <tmp>/<tag>.<rank>.log;
+    -> the JSON line each printed last.  A host that fails or outlasts
+    HOST_TIMEOUT_S fails the phase; every host is stopped before this
+    returns."""
+    import os
+    repo = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    procs, logs = [], []
+    try:
+        for rank, argv in enumerate(argvs):
+            env = {**os.environ, 'PYTHONPATH': repo,
+                   'SKYTPU_NUM_HOSTS': str(len(argvs)),
+                   'SKYTPU_HOST_RANK': str(rank),
+                   'SKYTPU_COORDINATOR_ADDRESS': f'127.0.0.1:{port}',
+                   'SKYTPU_BENCHMARK_LOG_DIR': f'{tmp}/{tag}.{rank}.bench'}
+            env.pop('SKYTPU_CHECKPOINT_DIR', None)
+            logs.append(f'{tmp}/{tag}.{rank}.log')
+            with open(logs[-1], 'w', encoding='utf-8') as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable] + argv, env=env, cwd=repo, stdout=out,
+                    stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + HOST_TIMEOUT_S
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = []
+    for rank, (proc, path) in enumerate(zip(procs, logs)):
+        with open(path, encoding='utf-8') as f:
+            text = f.read()
+        if proc.returncode != 0:
+            raise AssertionError(f'{tag}: host {rank} exited '
+                                 f'{proc.returncode}:\n{text[-3000:]}')
+        lines = [l for l in text.splitlines() if l.startswith('{"host"')]
+        if len(lines) != 1:
+            raise AssertionError(f'{tag}: host {rank} printed no summary:'
+                                 f'\n{text[-3000:]}')
+        out.append(json.loads(lines[0]))
+    return out
+
+
+def host_argv(devices, backend):
+    """A host's train_llama for the bf16 run."""
+    return ['-m', 'skypilot_tpu_torch.train_llama', '--model', HOST_MODEL,
+            '--layers', str(HOST_LAYERS), '--batch-size', str(HOST_BATCH),
+            '--seq-len', str(HOST_SEQ), '--steps', str(HOST_STEPS),
+            '--mesh-devices', ','.join(devices), '--dist-backend', backend]
+
+
+def host_launches(n_steps, positions=1):
+    """Each host's B3 / B4 / B5 launches: its local mesh's count, with
+    remat and no sequence or tensor axis 2 L / L / L a step and a data
+    position."""
+    return {'flash_fwd': 2 * HOST_LAYERS * n_steps * positions,
+            'flash_bwd_dq': HOST_LAYERS * n_steps * positions,
+            'flash_bwd_dkv': HOST_LAYERS * n_steps * positions}
+
+
+def one_process(devices, counters):
+    """train_llama in this process over `devices` (data len(devices))
+    with the hosts' global batch; -> {'losses', 'step_ms', 'peak_bytes',
+    'launches'}."""
+    from skypilot_tpu_torch.models import train
+    zero_counts(counters)
+    history, state, printed, _ = resume_run(
+        ['--model', HOST_MODEL, '--layers', str(HOST_LAYERS),
+         '--batch-size', str(HOST_BATCH * HOSTS), '--seq-len',
+         str(HOST_SEQ), '--steps', str(HOST_STEPS), '--mesh-devices',
+         ','.join(devices)])
+    launched = read_counts(counters)
+    step_ms = [float(v) for line in printed.splitlines()
+               if line.startswith('step ms: ') for v in line.split()[2:]]
+    out = dict(losses=[h['loss'] for h in history], step_ms=step_ms,
+               peak_bytes=train.peak_memory_bytes(
+                   state.shards.mesh if state.shards is not None
+                   else state.model.device),
+               launches=launched)
+    del state
+    free_cuda()
+    return out
+
+
+def hold_hosts(label, hosts, ref, positions=1):
+    """The hosts' runs against the one-process run `ref`: finite falling
+    losses, step 1 within rtol 1e-5 and steps 2-3 within 1e-2 of it,
+    equal digests, each host's launches exactly `host_launches`."""
+    want = host_launches(HOST_STEPS, positions)
+    ref_losses = ref['losses']
+    for h in hosts:
+        losses = h['losses']
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f'{label}: host {h["host"]} losses {losses}')
+        if not abs(losses[0] - ref_losses[0]) <= 1e-5 * abs(ref_losses[0]):
+            raise AssertionError(f'{label}: host {h["host"]} step-1 loss '
+                                 f'{losses[0]} vs one process '
+                                 f'{ref_losses[0]}')
+        for got, exp in zip(losses[1:], ref_losses[1:]):
+            if not abs(got - exp) <= 1e-2 * abs(exp):
+                raise AssertionError(f'{label}: host {h["host"]} losses '
+                                     f'{losses} vs one process {ref_losses}')
+        launched = {k: h['launches'][k] for k in want}
+        if launched != want:
+            raise AssertionError(f'{label}: host {h["host"]} launches '
+                                 f'{launched}, predicted {want}')
+    if len({h['digest'] for h in hosts}) != 1:
+        raise AssertionError(f'{label}: the hosts\' digests differ: '
+                             f'{[h["digest"] for h in hosts]}')
+
+
+def multihost_f32_check(dev, tmp):
+    """The f32 cut: F32_HOST on two hosts (gloo, both on `dev`), host 0
+    holding its step against the same global mesh in one process.  ->
+    (host loss, one process's, (worst parameter difference, leaf))."""
+    t0 = time.perf_counter()
+    hosts = run_hosts([['-c', F32_HOST, str(HOST_F32_BATCH),
+                        str(HOST_F32_SEQ), HOST_MODEL, str(dev)]] * HOSTS,
+                      tmp, 'f32')
+    first = hosts[0]
+    log(f'  f32 hosts: {time.perf_counter() - t0:.1f} s; host 0 step '
+        f'{first["step_s"]:.1f} s, digest {first["digest_s"]:.1f} s')
+    if len({h['digest'] for h in hosts}) != 1:
+        raise AssertionError('multihost f32: the hosts\' digests differ')
+    loss, ref_loss = first['loss'], first['ref_loss']
+    if not abs(loss - ref_loss) <= 1e-5 * abs(ref_loss):
+        raise AssertionError(f'multihost f32: loss {loss} vs one process '
+                             f'{ref_loss}')
+    rel, name = first['worst']
+    if rel > 1e-3:
+        raise AssertionError(f'multihost f32: {name} {rel:.3g} of max '
+                             '|one process| after the step')
+    return loss, ref_loss, (rel, name)
+
+
+def multihost_training(dev, counters):
+    """Phase 7f: two host processes of `train_llama` (a gang of
+    SKYTPU_NUM_HOSTS=2 on a free port) at llama3-8b width, HOST_LAYERS
+    layers, bf16, remat, batch HOST_BATCH x HOST_SEQ a host,
+    HOST_STEPS steps from seed 0, both on cuda:0 over gloo (NCCL
+    refuses two ranks on one card; gloo stages the gradients through
+    host memory), against one process over a data-2 mesh of two
+    entries of cuda:0 with the same global batch; with two or more
+    cards also over NCCL, a card a host, and with four two hosts of
+    two cards against one process over the four; then the f32 cut.
+    -> (paths, report)."""
+    import shutil
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix='skytpu_hosts_')
+    paths, report = {}, {}
+    laps = Laps()
+    try:
+        free_cuda()
+        hosts = run_hosts([host_argv([str(dev)], 'gloo')] * HOSTS, tmp,
+                          'gloo')
+        laps('two hosts, gloo')
+        free_cuda()
+        ref = one_process([str(dev)] * HOSTS, counters)
+        laps('one process')
+        paths['multihost training (one process)'] = ref['launches']
+        hold_hosts('multihost training', hosts, ref)
+        # Each host's count is its own run's; the path's is host 0's.
+        paths['multihost training'] = dict(hosts[0]['launches'])
+        report['gloo, one card'] = dict(hosts=hosts, ref=ref)
+        n_cards = torch.cuda.device_count()
+        if n_cards >= 2:
+            hosts = run_hosts([host_argv([f'cuda:{r}'], 'nccl')
+                               for r in range(HOSTS)], tmp, 'nccl')
+            hold_hosts('multihost training (nccl)', hosts, ref)
+            report['nccl, a card a host'] = dict(hosts=hosts, ref=ref)
+            laps('two hosts, nccl')
+        else:
+            report['nccl skipped'] = (f'{n_cards} card: NCCL takes one '
+                                      'card a rank')
+        if n_cards >= 4:
+            hosts = run_hosts(
+                [host_argv([f'cuda:{2 * r}', f'cuda:{2 * r + 1}'], 'nccl')
+                 for r in range(HOSTS)], tmp, 'four')
+            ref4 = one_process([f'cuda:{i}' for i in range(4)], counters)
+            # Global data 4 (a card a row) both ways.
+            hold_hosts('multihost training (four cards)', hosts, ref4, 2)
+            report['nccl, two hosts x two cards'] = dict(hosts=hosts,
+                                                        ref=ref4)
+            laps('four cards')
+        report['f32'] = multihost_f32_check(dev, tmp)
+        laps('f32 cut')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report['seconds'] = time.perf_counter() - t0
+    report['laps'] = laps.seconds
+    return paths, report
+
+
+def fmt(values, digits) -> str:
+    return ' '.join(f'{v:.{digits}f}' for v in values)
+
+
+def log_multihost(r) -> None:
+    log(f'multihost training ({card()}; {HOST_MODEL} width, {HOST_LAYERS} '
+        f'layers, bf16, remat, batch {HOST_BATCH} x {HOST_SEQ} a host, '
+        f'{HOSTS} hosts, {HOST_STEPS} steps):')
+    for label in ('gloo, one card', 'nccl, a card a host',
+                  'nccl, two hosts x two cards'):
+        if label not in r:
+            continue
+        x = r[label]
+        for h in [dict(x['ref'], host='one process', backend='-',
+                       reduce_ms=[], reduce_bytes=0, digest='-')] + x['hosts']:
+            log(f'  {label}: host {h["host"]} ({h["backend"]}) losses '
+                f'{fmt(h["losses"], 6)}; step ms {fmt(h["step_ms"], 1)}; '
+                f'reduction ms a step {fmt(h["reduce_ms"], 1)}; '
+                f'{h["reduce_bytes"]} bytes reduced a step; peak '
+                f'{(h["peak_bytes"] or 0) / 2**30:.2f} GiB; launches '
+                f'{json.dumps(h["launches"])}; digest {h["digest"][:16]} '
+                f'({h.get("digest_s", 0):.1f} s)')
+    if 'nccl skipped' in r:
+        log(f'  nccl skipped: {r["nccl skipped"]}')
+    loss, ref, (rel, name) = r['f32']
+    log(f'  f32 depth 1, batch {HOST_F32_BATCH} x {HOST_F32_SEQ} a host, '
+        f'fsdp 2 a host over two entries of one device (gloo): loss {loss:.7f} vs one process '
+        f'{ref:.7f}; largest parameter difference {rel:.3g} of max |one '
+        f'process| ({name}); digests equal')
+    log(f'multihost training phase: {r["seconds"]:.1f} s '
+        f'({json.dumps(r["laps"])})')
+
+
 # ------------------------------------------------------------ phase 8
 
 
@@ -5188,6 +5508,10 @@ def main() -> int:
     paths.update(pipe_paths)
     log_pipeline(pipe_report)
     clock.done('pipeline training')
+    host_paths, host_report = multihost_training(dev, counters)
+    paths.update(host_paths)
+    log_multihost(host_report)
+    clock.done('multihost training')
     loss, (rel, name) = train_reference_check(dev)
     log(f'train reference: depth-1 f32 llama3-8b loss GPU '
         f'{loss["cuda"]:.6f} CPU {loss["cpu"]:.6f}; largest gradient '
@@ -5210,16 +5534,16 @@ def main() -> int:
                 'flash_bwd_dkv': 'skypilot_tpu/ops/attention.py:306'}
     # `launches` counts the run of the path named by `path`: "moe
     # tensor 2" (this port's newest serving path: Mixtral-width MoE over
-    # two tensor ranks, bf16 pool) for B1 and B3, "moe tensor 2 (int8
-    # pool)" for B2, "pipeline training" (phase 7e, the newest training
-    # path: pipeline 2 at M = 2) for the backward kernels.
-    # `launches_by_path` gives each driven path's own count; no two
-    # runs are added.
+    # two tensor ranks, bf16 pool) for B1, "moe tensor 2 (int8 pool)"
+    # for B2, "multihost training" (phase 7f, the newest training path:
+    # host 0 of two train_llama hosts, its process's own count) for
+    # B3-B5.  `launches_by_path` gives each driven path's own count; no
+    # two runs are added.
     main_path = {'paged_attention': 'moe tensor 2',
                  'paged_attention_int8': 'moe tensor 2 (int8 pool)',
-                 'flash_fwd': 'moe tensor 2',
-                 'flash_bwd_dq': 'pipeline training',
-                 'flash_bwd_dkv': 'pipeline training'}
+                 'flash_fwd': 'multihost training',
+                 'flash_bwd_dq': 'multihost training',
+                 'flash_bwd_dkv': 'multihost training'}
     kernels = [dict(name=name, route='cuda', source=sources[name],
                     replaces=replaces[name],
                     launches=paths[main_path[name]][name],

@@ -43,6 +43,14 @@ The training half (the reference's checkpoint contract):
   reference's contract: bounded saves in flight, retries with backoff
   whose exhaustion is logged and never stops training, wait-on-exit;
   `max_to_keep` prunes older steps of this port's format only.
+- Across hosts (a gang, parallel/distributed.py): every host holds the
+  same bits under 'data', so host 0 alone writes (`save` returns False
+  on the others, taking no snapshot) and `close` ends with a barrier,
+  so that no host exits before host 0's writes are done.  The step to
+  resume is host 0's newest (`restore_or_init`, `restore_sharded`,
+  `AsyncCheckpointManager.latest_step`), broadcast to every host, which
+  then reads that step: a step host 0 has not finished renaming into
+  place is never read by another host.
 """
 from __future__ import annotations
 
@@ -61,6 +69,7 @@ import torch
 
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.observability import metrics as metrics_lib
+from skypilot_tpu_torch.parallel import distributed
 from skypilot_tpu_torch.utils import safetensors_io
 
 logger = logging.getLogger(__name__)
@@ -117,6 +126,23 @@ def latest_step(directory: Optional[str]) -> Optional[int]:
         return None
     step = max(steps)
     _step_file(str(directory), step)
+    return step
+
+
+def _primary_step(directory: Optional[str]) -> Optional[int]:
+    """`latest_step` as host 0 sees it, on every host (without a group,
+    this host's); host 0's CheckpointFormatError raises on every host."""
+    if not distributed.is_primary():
+        step = distributed.broadcast_object(None)
+    else:
+        try:
+            step = latest_step(directory)
+        except CheckpointFormatError as e:
+            distributed.broadcast_object(e)
+            raise
+        step = distributed.broadcast_object(step)
+    if isinstance(step, CheckpointFormatError):
+        raise step
     return step
 
 
@@ -386,7 +412,7 @@ def restore_or_init(state: Any, directory: Optional[str] = None
     convention: a relaunched task calls this and continues where the
     evicted run left off."""
     directory = directory or checkpoint_dir()
-    step = latest_step(directory)
+    step = _primary_step(directory)
     if step is None:
         return state, 0
     _load_step(state, directory, step)
@@ -405,7 +431,7 @@ def restore_sharded(directory: str, abstract_state: Any,
     leaves read on the host, so no device holds a full leaf that it
     does not keep.  (None, 0) when the directory holds no checkpoint."""
     from skypilot_tpu_torch.models import train as train_lib  # pylint: disable=import-outside-toplevel
-    step = latest_step(directory)
+    step = _primary_step(directory)
     if step is None:
         return None, 0
     state = _load_step(train_lib.materialize(abstract_state, shardings),
@@ -498,6 +524,8 @@ class AsyncCheckpointManager:
             raise RuntimeError('AsyncCheckpointManager is closed')
         if step % self.save_interval_steps != 0:
             return False
+        if not distributed.is_primary():
+            return False
         from skypilot_tpu_torch.models import train as train_lib  # pylint: disable=import-outside-toplevel
         snapshot = train_lib.snapshot(state)
         if not self.async_save:
@@ -516,7 +544,8 @@ class AsyncCheckpointManager:
         return True
 
     def latest_step(self) -> Optional[int]:
-        return latest_step(self.directory)
+        """The newest step as host 0 sees it, on every host."""
+        return _primary_step(self.directory)
 
     def restore_or_init(self, state: Any) -> Tuple[Any, int]:
         """The module-level restore_or_init on this manager's
@@ -530,7 +559,8 @@ class AsyncCheckpointManager:
             self._idle.wait()
 
     def close(self) -> None:
-        """Drain and stop the writer (wait-on-exit)."""
+        """Drain and stop the writer (wait-on-exit), then wait for every
+        host (a barrier across a gang)."""
         if self._closed:
             return
         self.wait_until_finished()
@@ -538,6 +568,7 @@ class AsyncCheckpointManager:
         if self._writer is not None:
             self._queue.put(None)
             self._writer.join(timeout=60)
+        distributed.barrier()
 
     def __enter__(self) -> 'AsyncCheckpointManager':
         return self

@@ -43,10 +43,25 @@ finetune from a params-only checkpoint (an import) with fresh moments.
 
 A sharded state reads and writes the same step files (whole leaves,
 gathered to the host): either kind restores onto any mesh.
+
+Across hosts (a mesh with `hosts` > 1, parallel/mesh.py): each host runs
+the step above on its own mesh and rows, over the global denominator
+(the token count or mask sum summed over the hosts before the
+backward), then `state.host_reduce` sums the loss and every gradient
+(every block) over the hosts' process group before the clip, so the
+clip's norm is the global norm and every host steps the same bits.
+Each host sums its own positions first (autograd onto its blocks),
+then the hosts: the reference's GSPMD sums in an order of its own.
+With accum_steps > 1, a host's microbatches are slices of its own rows.
+An MoE model does not train across hosts (A17f-ii: the capacity
+dispatch ranks tokens over the global batch).
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import hashlib
+import os
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
@@ -61,6 +76,7 @@ from skypilot_tpu_torch.models import transformer as transformer_lib
 from skypilot_tpu_torch.models.transformer import ShardedParams
 from skypilot_tpu_torch.models.transformer import Transformer
 from skypilot_tpu_torch.models.transformer import init_params
+from skypilot_tpu_torch.parallel import distributed
 from skypilot_tpu_torch.parallel.mesh import Mesh
 from skypilot_tpu_torch.utils import safetensors_io
 
@@ -91,12 +107,14 @@ class TrainState:
     `train_step`), and the global-norm clip that precedes the optimizer,
     fixed when the state is made as the reference's chain fixes it.
     Over a mesh of several positions, `shards` holds the parameters'
-    blocks (the optimizer's tensors) and `model` lives on 'meta'."""
+    blocks (the optimizer's tensors) and `model` lives on 'meta'.  On a
+    mesh that spans hosts, `host_reduce` sums each step over them."""
     step: int
     model: Transformer
     optimizer: torch.optim.Optimizer
     grad_clip: float
     shards: Optional[ShardedParams] = None
+    host_reduce: Optional[distributed.HostReduction] = None
 
     def parameters(self) -> List[torch.Tensor]:
         """The tensors the optimizer steps: the model's parameters, or
@@ -151,6 +169,21 @@ def loss_fn(logits, targets, mask=None, reduction: str = 'mean'):
     return -ll.sum() / torch.clamp(mask.sum(), min=1)
 
 
+def _host_reduction(mesh: Optional[Mesh], cfg: ModelConfig
+                    ) -> Optional[distributed.HostReduction]:
+    """The cross-host sum of a mesh that spans hosts (None on one);
+    refuses an MoE model there."""
+    if mesh is None or mesh.hosts <= 1:
+        return None
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            f'an MoE model ({cfg.n_experts} experts) on {mesh.hosts} hosts: '
+            'the capacity dispatch ranks tokens over the global batch, '
+            'which needs the experts\' counts exchanged across hosts; '
+            'ROADMAP item A17f-ii, a later slice of the port')
+    return distributed.HostReduction()
+
+
 def create_train_state(cfg: ModelConfig,
                        tcfg: Optional[TrainConfig] = None, *,
                        mesh: Optional[Mesh] = None,
@@ -163,6 +196,7 @@ def create_train_state(cfg: ModelConfig,
     mesh=None state of the same seed on the mesh's first device, and no
     device ever holds more than one full leaf at a time."""
     tcfg = tcfg or TrainConfig()
+    host_reduce = _host_reduction(mesh, cfg)
     if mesh is None or mesh.size == 1:
         dev = resolve_device(device if mesh is None else mesh.devices[0])
         model = init_params(cfg, seed=seed, device=dev, trainable=True)
@@ -170,7 +204,8 @@ def create_train_state(cfg: ModelConfig,
                      transformer_lib.placements(model, mesh))
         return TrainState(step=0, model=model,
                           optimizer=make_optimizer(model.parameters(), tcfg),
-                          grad_clip=tcfg.grad_clip), shardings
+                          grad_clip=tcfg.grad_clip,
+                          host_reduce=host_reduce), shardings
     transformer_lib.check_mesh(mesh, cfg)
     for dev in mesh.distinct_devices():
         resolve_device(dev)
@@ -178,8 +213,8 @@ def create_train_state(cfg: ModelConfig,
     shards = ShardedParams.init(model, mesh, seed)
     return TrainState(step=0, model=model,
                       optimizer=make_optimizer(shards.parameters(), tcfg),
-                      grad_clip=tcfg.grad_clip,
-                      shards=shards), dict(shards.placements)
+                      grad_clip=tcfg.grad_clip, shards=shards,
+                      host_reduce=host_reduce), dict(shards.placements)
 
 
 def abstract_train_state(cfg: ModelConfig,
@@ -191,13 +226,14 @@ def abstract_train_state(cfg: ModelConfig,
     point: `data.checkpoints.restore_sharded` puts a checkpoint onto
     these shardings."""
     tcfg = tcfg or TrainConfig()
+    host_reduce = _host_reduction(mesh, cfg)
     transformer_lib.check_mesh(mesh, cfg)
     model = Transformer(cfg, device='meta', trainable=True)
     shards = ShardedParams.empty(model, mesh, device='meta')
     return TrainState(step=0, model=model,
                       optimizer=make_optimizer(shards.parameters(), tcfg),
-                      grad_clip=tcfg.grad_clip,
-                      shards=shards), dict(shards.placements)
+                      grad_clip=tcfg.grad_clip, shards=shards,
+                      host_reduce=host_reduce), dict(shards.placements)
 
 
 def materialize(abstract: TrainState, shardings: dict) -> TrainState:
@@ -222,7 +258,8 @@ def materialize(abstract: TrainState, shardings: dict) -> TrainState:
                                                'weight_decay')}
     return TrainState(step=0, model=model,
                       optimizer=torch.optim.AdamW(params, **settings),
-                      grad_clip=abstract.grad_clip, shards=shards)
+                      grad_clip=abstract.grad_clip, shards=shards,
+                      host_reduce=_host_reduction(mesh, cfg))
 
 
 def _microbatch_nll(model, inputs, targets, mask, tcfg: TrainConfig):
@@ -256,9 +293,33 @@ def value_and_grad(state: TrainState, batch: Dict[str, torch.Tensor],
                    tcfg: Optional[TrainConfig] = None) -> torch.Tensor:
     """`train_step` without the clip and the update: the step's loss,
     with the gradient of every parameter (over a mesh, every block) left
-    in its `.grad`, zeroed first."""
+    in its `.grad`, zeroed first; across hosts both are the global ones,
+    the same on every host."""
     if state.shards is not None:
-        return _mesh_value_and_grad(state, batch, tcfg)
+        loss = _mesh_value_and_grad(state, batch, tcfg)
+    else:
+        loss = _plain_value_and_grad(state, batch, tcfg)
+    if state.host_reduce is None:
+        return loss
+    loss = loss.detach().clone()
+    state.host_reduce([loss] + [p.grad for p in state.parameters()
+                                if p.grad is not None])
+    return loss
+
+
+def _denominator(state: TrainState, count: torch.Tensor) -> torch.Tensor:
+    """clamp(count, 1) as f32, `count` (the token count or the mask
+    sum) summed over the hosts first where the state spans them."""
+    count = count.to(torch.float32)
+    if state.host_reduce is not None:
+        count = count.clone()
+        state.host_reduce([count])
+    return torch.clamp(count, min=1)
+
+
+def _plain_value_and_grad(state: TrainState, batch,
+                          tcfg: Optional[TrainConfig]) -> torch.Tensor:
+    """`value_and_grad` of an unsharded state."""
     # A one-position mesh's batch: its one shard.
     batch = {k: v[0] if isinstance(v, (list, tuple)) else v
              for k, v in batch.items()}
@@ -271,14 +332,15 @@ def value_and_grad(state: TrainState, batch: Dict[str, torch.Tensor],
     model = state.model
     state.optimizer.zero_grad(set_to_none=True)
 
-    if tcfg is None or (not tcfg.fused_ce and tcfg.accum_steps <= 1):
+    if state.host_reduce is None and (
+            tcfg is None or (not tcfg.fused_ce and tcfg.accum_steps <= 1)):
         loss = loss_fn(model(inputs), targets, mask)
         loss.backward()
     else:
-        if mask is None:
-            denom = torch.tensor(float(targets.numel()), device=inputs.device)
-        else:
-            denom = torch.clamp(mask.sum(), min=1).to(torch.float32)
+        tcfg = tcfg or TrainConfig()
+        denom = _denominator(state, torch.tensor(
+            float(targets.numel()), device=inputs.device)
+            if mask is None else mask.sum())
         accum = max(tcfg.accum_steps, 1)
         b = inputs.shape[0]
         if b % accum:
@@ -385,12 +447,9 @@ def _mesh_value_and_grad(state: TrainState, batch,
     if batch.get('mask') is not None:
         arrays['mask'] = _rank_rows(batch['mask'], geo, mesh)
     masks = arrays.get('mask')
-    if masks is None:
-        denom = torch.tensor(float(sum(t.numel() for t in arrays['targets'])),
-                             device=dev0)
-    else:
-        denom = torch.clamp(_sum_to([m.sum() for m in masks], dev0),
-                            min=1).to(torch.float32)
+    denom = _denominator(state, torch.tensor(
+        float(sum(t.numel() for t in arrays['targets'])), device=dev0)
+        if masks is None else _sum_to([m.sum() for m in masks], dev0))
     state.optimizer.zero_grad(set_to_none=True)
     accum = 1 if tcfg is None else max(tcfg.accum_steps, 1)
     if accum > 1 and geo.pp > 1:
@@ -533,6 +592,47 @@ def snapshot(state: TrainState) -> checkpoints.TrainSnapshot:
     return checkpoints.TrainSnapshot(params=params, mu=mu, nu=nu,
                                      count=counts.pop(),
                                      train_step=state.step)
+
+
+# `state_digest` hashes a state's bytes in pieces of this size, on this
+# many threads at most.
+DIGEST_CHUNK_BYTES = 64 << 20
+DIGEST_THREADS = 8
+
+
+@torch.no_grad()
+def state_digest(state: TrainState) -> str:
+    """A sha256 digest of the state's parameters and both AdamW
+    moments: their bytes leaf by leaf in `param_paths`' order (for each
+    leaf the parameter, exp_avg, exp_avg_sq; each whole, gathered to the
+    host one at a time; a moment the optimizer has not made yet reads
+    as zeros) cut into DIGEST_CHUNK_BYTES pieces, each piece's sha256
+    taken on a thread pool, and the sha256 of those digests in order.
+    Equal digests are equal bits, on any mesh."""
+    out = hashlib.sha256()
+    pending: List[Any] = []
+    threads = max(1, min(DIGEST_THREADS, os.cpu_count() or 1))
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        for _, pieces, shape, dtype in _pieces(state):
+            on_cards = any(t.device.type == 'cuda' for t, _ in pieces)
+            for name in (None, 'exp_avg', 'exp_avg_sq'):
+                # Straight from the cards into pinned memory.
+                host = torch.empty(shape, dtype=dtype, pin_memory=on_cards)
+                for t, idx in pieces:
+                    opt = state.optimizer.state.get(t)
+                    part = t if name is None else (
+                        opt[name] if opt else torch.zeros_like(t))
+                    host[idx].copy_(part.detach())
+                for chunk in host.view(-1).view(torch.uint8).split(
+                        DIGEST_CHUNK_BYTES):
+                    pending.append(pool.submit(
+                        lambda c: hashlib.sha256(c.numpy()).digest(), chunk))
+                # Bound the host copies alive: at most 4 pieces a thread.
+                while len(pending) > 4 * threads:
+                    out.update(pending.pop(0).result())
+        for future in pending:
+            out.update(future.result())
+    return out.hexdigest()
 
 
 @torch.no_grad()

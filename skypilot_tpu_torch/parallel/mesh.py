@@ -13,6 +13,16 @@ and a list of CPU entries is the same on the host.  Where the
 reference lets GSPMD insert collectives over a mesh, the port's
 modules move tensors between the entries themselves
 (parallel/sharding.py).
+
+Across hosts (a gang: the `torch.distributed` group of
+parallel/distributed.py), `build_mesh` lays the axes out over every
+host's devices, host h holding the global positions [h n, (h + 1) n)
+of its n entries, as the reference lays them out over `jax.devices()`,
+and returns the host's own part: the same axes with 'data' divided by
+the number of hosts (`Mesh.hosts`, `Mesh.host_rank`,
+`Mesh.global_shape`).  Only 'data' spans hosts, over the group; the
+other axes lie inside one host, and a layout that puts one of them
+across hosts raises (ROADMAP item A17f-ii).
 """
 from __future__ import annotations
 
@@ -21,6 +31,8 @@ import math
 from typing import Dict, List, Optional, Sequence, Union
 
 import torch
+
+from skypilot_tpu_torch.parallel import distributed
 
 # Standard mesh axis names, outermost first.  'data' and 'pipeline' may
 # span DCN (across slices); 'fsdp', 'sequence', 'tensor', 'expert' stay
@@ -149,8 +161,13 @@ class Mesh:
     fastest)."""
 
     def __init__(self, devices: Sequence[Union[str, torch.device]],
-                 axes: Dict[str, int]) -> None:
+                 axes: Dict[str, int], *, hosts: int = 1,
+                 host_rank: int = 0) -> None:
         self.axis_names = tuple(axes)
+        # The hosts whose meshes make up the global one ('data' times
+        # `hosts` there), and which of them this is.
+        self.hosts = int(hosts)
+        self.host_rank = int(host_rank)
         self.shape = {name: int(size) for name, size in axes.items()}
         self.devices: List[torch.device] = [torch.device(d)
                                             for d in devices]
@@ -165,6 +182,12 @@ class Mesh:
     @property
     def size(self) -> int:
         return len(self.devices)
+
+    @property
+    def global_shape(self) -> Dict[str, int]:
+        """The axes over every host's devices ('data' spans hosts)."""
+        return {name: size * (self.hosts if name == 'data' else 1)
+                for name, size in self.shape.items()}
 
     def coords(self, position: int) -> Dict[str, int]:
         """{axis: index} of a mesh position (an index into devices)."""
@@ -207,20 +230,53 @@ def default_devices(device: Union[str, torch.device, None] = 'cuda'
     return [torch.device('cuda', i) for i in range(torch.cuda.device_count())]
 
 
+def _host_block(sizes: Dict[str, int], hosts: int) -> None:
+    """Refuse a global layout whose hosts do not each hold whole 'data'
+    ranks: hosts that split a data rank put another axis across hosts
+    (A17f-ii); a data size that is neither a multiple nor a divisor of
+    the host count cannot be cut into hosts at all."""
+    data = sizes['data']
+    if data % hosts == 0:
+        return
+    if hosts % data:
+        raise ValueError(f"global 'data' size {data} not divisible by the "
+                         f'{hosts} hosts: each host holds whole data ranks')
+    split, across = hosts // data, []
+    for axis in DCN_AXES[1:] + ICI_AXES:
+        if split > 1 and sizes[axis] > 1:
+            across.append(axis)
+            split //= math.gcd(split, sizes[axis])
+    raise NotImplementedError(
+        f'{hosts} hosts over the global mesh {sizes} put {across} across '
+        "hosts: only 'data' spans hosts; the pipeline and ICI axes across "
+        'hosts are ROADMAP item A17f-ii, a later slice of the port')
+
+
 def build_mesh(config: Optional[MeshConfig] = None,
                devices: Optional[Sequence[Union[str, torch.device]]] = None,
-               *, num_slices: int = 1) -> Mesh:
+               *, num_slices: int = 1, hosts: Optional[int] = None,
+               host_rank: Optional[int] = None) -> Mesh:
     """The mesh of `config` over `devices` (default: every visible CUDA
     device) with the axes in [dcn, ici] order.  With num_slices > 1,
-    consecutive blocks of len(devices) / num_slices entries stand in for
-    slices, as the reference lays out devices that carry no
+    consecutive blocks of (global) devices / num_slices entries stand
+    in for slices, as the reference lays out devices that carry no
     slice_index: the ICI axes are inferred within a slice and the DCN
-    axes across slices."""
+    axes across slices.
+
+    `hosts` / `host_rank` (default: the process group's,
+    `distributed.gang()`, one host without a group): `devices` are
+    this host's, the sizes are inferred over hosts x len(devices), and
+    the mesh returned is this host's part of the global one (module
+    docstring)."""
     config = config or MeshConfig()
     if devices is None:
         devices = default_devices()
     devices = list(devices)
-    n = len(devices)
+    if hosts is None or host_rank is None:
+        group_hosts, group_rank = distributed.gang()
+        hosts = group_hosts if hosts is None else hosts
+        host_rank = group_rank if host_rank is None else host_rank
+    n = len(devices) * hosts
     sizes = config.axis_sizes()
     dcn_sizes = [sizes[a] for a in DCN_AXES]
     ici_sizes = [sizes[a] for a in ICI_AXES]
@@ -231,5 +287,8 @@ def build_mesh(config: Optional[MeshConfig] = None,
         all_sizes = _infer(dcn_sizes + ici_sizes, n, 'mesh axes')
         dcn_sizes = all_sizes[:len(DCN_AXES)]
         ici_sizes = all_sizes[len(DCN_AXES):]
-    return Mesh(devices, dict(zip(DCN_AXES + ICI_AXES,
-                                  dcn_sizes + ici_sizes)))
+    axes = dict(zip(DCN_AXES + ICI_AXES, dcn_sizes + ici_sizes))
+    if hosts > 1:
+        _host_block(axes, hosts)
+        axes['data'] //= hosts
+    return Mesh(devices, axes, hosts=hosts, host_rank=host_rank)

@@ -11,6 +11,11 @@ the bus bandwidth, with the reference's formula 2 (n - 1) / n x payload
 sync.  `check_collectives` turns the numbers into pass/fail against the
 reference's loose floors (a broken link is orders of magnitude off).
 
+Across hosts (`mesh.hosts` > 1) the 'data' axis is the global one: its
+sum adds each host's data positions in-process, then the sums of the
+hosts through their process group (parallel/distributed.py), and its
+`size` is the global size.
+
 On a list that repeats one device (several positions of one card), the
 moves are copies within that device's memory, not a fabric: the log
 line says so.  A mesh of CPU entries is probed on one host thread: its
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from skypilot_tpu_torch import exceptions
+from skypilot_tpu_torch.parallel import distributed
 
 logger = logging.getLogger(__name__)
 
@@ -54,15 +60,18 @@ def _sync(devices) -> None:
             torch.cuda.synchronize(dev)
 
 
-def _all_reduce(mesh, groups, buffers) -> float:
-    """Sum each group's buffers and write the sum back to each; -> a
-    scalar read from the result (the host waits for the device)."""
+def _all_reduce(mesh, groups, buffers, across_hosts: bool = False) -> float:
+    """Sum each group's buffers (and, across_hosts, the hosts' sums)
+    and write the sum back to each; -> a scalar read from the result
+    (the host waits for the device)."""
     check = 0.0
     for group in groups:
         first = mesh.devices[group[0]]
         total = buffers[group[0]].clone()
         for pos in group[1:]:
             total += buffers[pos].to(first, non_blocking=True)
+        if across_hosts:
+            distributed.all_reduce_sum_([total])
         for pos in group:
             buffers[pos].copy_(total, non_blocking=True)
         check += float(buffers[group[-1]][:8].sum())
@@ -95,15 +104,16 @@ def probe_collectives(mesh, *, bandwidth_mb: float = 64.0,
 def _probe(mesh, bandwidth_mb: float,
            repeats: int) -> Dict[str, Dict[str, float]]:
     results: Dict[str, Dict[str, float]] = {}
-    for axis in [a for a in mesh.axis_names if mesh.shape[a] > 1]:
-        n = mesh.shape[axis]
+    for axis in [a for a in mesh.axis_names if mesh.global_shape[a] > 1]:
+        n = mesh.global_shape[axis]
+        across = n > mesh.shape[axis]
         groups = _groups(mesh, axis)
         elems = max(8, int(bandwidth_mb * 1e6 / 4))
         tiny = [torch.ones(8, device=d) for d in mesh.devices]
         big = [torch.ones(elems, device=d) for d in mesh.devices]
         # Warm up outside the timed region.
-        _all_reduce(mesh, groups, tiny)
-        _all_reduce(mesh, groups, big)
+        _all_reduce(mesh, groups, tiny, across)
+        _all_reduce(mesh, groups, big, across)
 
         def timed(buffers) -> List[float]:
             out = []
@@ -112,7 +122,7 @@ def _probe(mesh, bandwidth_mb: float,
                     b.fill_(1.0)
                 _sync(mesh.distinct_devices())
                 t0 = time.perf_counter()
-                _all_reduce(mesh, groups, buffers)
+                _all_reduce(mesh, groups, buffers, across)
                 out.append(time.perf_counter() - t0)
             return out
         lat, bw = timed(tiny), timed(big)
@@ -124,8 +134,8 @@ def _probe(mesh, bandwidth_mb: float,
             'psum_latency_ms': round(float(np.median(lat)) * 1e3, 3),
             'psum_gbps': round(busbw, 3),
         }
-        one_device = all(len({mesh.devices[p] for p in g}) == 1
-                         for g in groups)
+        one_device = not across and all(
+            len({mesh.devices[p] for p in g}) == 1 for g in groups)
         logger.info('preflight[%s]: %s%s', axis, results[axis],
                     ' (every group repeats one device: the numbers are '
                     'copies within its memory, not a fabric)'

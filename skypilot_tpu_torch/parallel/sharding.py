@@ -236,7 +236,10 @@ def gather(blocks: Dict[Block, torch.Tensor], placement: Placement,
     def join(prefix: Block) -> torch.Tensor:
         d = len(prefix)
         if d == ndim:
-            return blocks[prefix].to(device, non_blocking=True)
+            # A copy into host memory is waited for: the join below
+            # reads it on the host.
+            return blocks[prefix].to(device,
+                                     non_blocking=device.type != 'cpu')
         pieces = [join(prefix + (i,)) for i in choices(d)]
         return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=d)
     return join(())

@@ -10,6 +10,9 @@
         --preflight
     python -m skypilot_tpu_torch.train_llama --model tiny --device cpu \
         --mesh-devices cpu,cpu,cpu,cpu --sequence 2 --tensor 2
+    SKYTPU_NUM_HOSTS=2 SKYTPU_HOST_RANK=<0|1> \
+        SKYTPU_COORDINATOR_ADDRESS=<host 0>:<port> \
+        python -m skypilot_tpu_torch.train_llama --model small
 
 - The mesh, as the reference builds it: `MeshConfig(data=-1, fsdp=,
   sequence=, tensor=)` over the device list (parallel/mesh.py), the
@@ -23,7 +26,20 @@
   vocab-parallel embedding and loss; it must divide all four; an MoE
   model's expert stacks split on d_ff, the routing replicated).
   `--preflight` checks the mesh's collectives first
-  (parallel/preflight.py).  A gang of several hosts raises (A17f).
+  (parallel/preflight.py).
+
+- A gang (SKYTPU_NUM_HOSTS > 1 with SKYTPU_COORDINATOR_ADDRESS and
+  SKYTPU_HOST_RANK, as the gang-exec layer exports them): the hosts
+  join one `torch.distributed` group (parallel/distributed.py;
+  `--dist-backend`, default nccl on cards and gloo on the CPU; gloo
+  on cards only when named, as two hosts on one card need), and the
+  mesh is laid out over every host's devices with 'data' across the
+  hosts: each host keeps its own part (the other axes inside it), takes
+  its rows of the global batch of `--batch-size` x hosts, and the
+  hosts sum each step's loss and gradients through the group, so
+  every host steps the same bits.  'pipeline' or an ICI axis across
+  hosts, and an MoE model on several hosts, raise (A17f-ii).  Host 0
+  alone writes checkpoints; every host resumes from host 0's step.
 
 - `--model auto` reads the shape from `--init-from`'s model_config.json
   (models/import_weights.py writes it).
@@ -35,10 +51,12 @@
   over `--init-from` once there is one.  The directory also gets the
   model_config.json, so `--model auto --checkpoint-dir` serves it.
 - `--data`: a SKYTOK1 token file (data/loader.py), batch `step` =
-  `HostShardedBatches.batch_at(step)`, so a resumed run sees the batches
-  an uninterrupted one would, copied to the device ahead of the step
-  (data/prefetch.py).  Without it: one batch of random tokens seeded by
-  the start step, repeated every step as the example does.
+  `HostShardedBatches.batch_at(step)` (this host's rows of the global
+  batch), so a resumed run sees the batches an uninterrupted one would,
+  copied to the device ahead of the step (data/prefetch.py).  Without
+  it: one global batch of random tokens seeded by the start step (the
+  same on every host, which takes its rows), repeated every step as the
+  example does.
 - `--layers N` keeps the preset's widths at N layers (a depth cut).
 - Step telemetry through `callbacks` (summary.json in
   SKYTPU_BENCHMARK_LOG_DIR); after the first step, the peak memory of
@@ -46,12 +64,19 @@
 
 Prints `step N: loss=... grad_norm=...` every 10 steps and at the last,
 and at the end each step's ms on the host clock (every card of the mesh
-synchronized before and after the step).
+synchronized before and after the step).  In a gang, every host prints
+these, then one JSON line: {"host", "hosts", "backend", "losses",
+"grad_norms", "step_ms", "reduce_ms" (the cross-host sums of each step,
+CUDA events on a card), "reduce_bytes" (a step), "peak_bytes" (the
+largest card's, null on the CPU), "launches" (every kernel's count,
+ops/attention.py and ops/paged_attention.py), "digest" (`train.state_digest`: sha256 of the
+parameters and moments) and "digest_s" (its seconds)}.
 """
 from __future__ import annotations
 
 import argparse
 import itertools
+import json
 import time
 from typing import List, Optional, Tuple
 
@@ -64,6 +89,8 @@ from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import configs
 from skypilot_tpu_torch.models import import_weights
 from skypilot_tpu_torch.models import train
+from skypilot_tpu_torch.ops import attention
+from skypilot_tpu_torch.ops import paged_attention
 from skypilot_tpu_torch.parallel import distributed
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.parallel import preflight
@@ -117,19 +144,46 @@ def _parser() -> argparse.ArgumentParser:
                         help='comma-separated devices of the mesh, in '
                              'position order; may repeat one (several '
                              'positions on one card)')
+    parser.add_argument('--dist-backend', default=None,
+                        choices=distributed.BACKENDS,
+                        help='backend of the hosts\' group in a gang '
+                             '(default nccl on cards, gloo on the CPU)')
     return parser
 
 
-def _mesh(args) -> mesh_lib.Mesh:
+def _devices(args) -> List[torch.device]:
     if args.mesh_devices:
-        devices = [resolve_device(d.strip())
-                   for d in args.mesh_devices.split(',')]
-    else:
-        devices = mesh_lib.default_devices(args.device)
+        return [resolve_device(d.strip())
+                for d in args.mesh_devices.split(',')]
+    return mesh_lib.default_devices(args.device)
+
+
+def _mesh(args, devices) -> mesh_lib.Mesh:
     return mesh_lib.build_mesh(
         mesh_lib.MeshConfig(data=-1, fsdp=args.fsdp, sequence=args.sequence,
                             tensor=args.tensor),
         devices, num_slices=distributed.num_slices())
+
+
+def host_batches(args, dataset: loader.TokenDataset
+                 ) -> loader.HostShardedBatches:
+    """This host's rows of the global batch of --batch-size x hosts,
+    as `examples/train_llama.py` cuts them."""
+    hosts, rank = distributed.gang()
+    return loader.HostShardedBatches(
+        dataset, global_batch=args.batch_size * hosts,
+        seq_len=args.seq_len, host_rank=rank, num_hosts=hosts)
+
+
+def random_batch(args, vocab_size: int, start_step: int) -> torch.Tensor:
+    """This host's rows of one global batch of random tokens seeded by
+    the start step (every host draws the same)."""
+    hosts, rank = distributed.gang()
+    gen = torch.Generator().manual_seed(start_step)
+    tokens = torch.randint(0, vocab_size,
+                           (args.batch_size * hosts, args.seq_len + 1),
+                           generator=gen, dtype=torch.int64)
+    return tokens[rank * args.batch_size:(rank + 1) * args.batch_size]
 
 
 def _model_config(args) -> configs.ModelConfig:
@@ -158,11 +212,20 @@ def run(argv: Optional[List[str]] = None
     """Runs the steps; -> (one {'step', 'loss', 'grad_norm'} per step
     run, the final TrainState)."""
     args = _parser().parse_args(argv)
-    distributed.initialize_from_env()
-    mesh = _mesh(args)
+    devices = _devices(args)
+    distributed.initialize_from_env(backend=args.dist_backend,
+                                    device=devices[0])
+    mesh = _mesh(args, devices)
     device = mesh.devices[0]
-    print(f'mesh: {mesh.shape} over {len(mesh.distinct_devices())} '
-          f'device(s) ({mesh.size} positions)', flush=True)
+    if mesh.hosts > 1:
+        print(f'mesh: {mesh.global_shape} over {mesh.hosts * mesh.size} '
+              f'devices ({mesh.hosts} hosts over '
+              f'{distributed.group_backend()}; host {mesh.host_rank}: '
+              f'{mesh.shape} over {len(mesh.distinct_devices())} '
+              'device(s))', flush=True)
+    else:
+        print(f'mesh: {mesh.shape} over {len(mesh.distinct_devices())} '
+              f'device(s) ({mesh.size} positions)', flush=True)
     if args.preflight:
         probe = preflight.probe_collectives(mesh)
         print(f'collective preflight: {probe}', flush=True)
@@ -183,7 +246,8 @@ def run(argv: Optional[List[str]] = None
             save_interval_steps=SAVE_INTERVAL_STEPS)
         state, start_step = mgr.restore_or_init(state)
         print(f'resuming from step {start_step}', flush=True)
-        if import_weights.load_model_config(mgr.directory) is None:
+        if (distributed.is_primary() and
+                import_weights.load_model_config(mgr.directory) is None):
             import_weights.save_model_config(mgr.directory, cfg)
     if start_step == 0 and args.init_from:
         # A real-weights finetune start; a resume above takes
@@ -198,21 +262,17 @@ def run(argv: Optional[List[str]] = None
         # Batch `step` is a pure function of the step: a resume
         # continues at start_step with the batches an uninterrupted run
         # would see.  Step N+1's copy overlaps step N's compute.
-        batches = loader.HostShardedBatches(
-            loader.TokenDataset(args.data), global_batch=args.batch_size,
-            seq_len=args.seq_len)
+        batches = host_batches(args, loader.TokenDataset(args.data))
         prefetcher = loader.prefetch_to_device(
             batches.batches(start_step=start_step),
             sharding=sharding.token_batch_sharding(mesh))
         batch_iter = prefetcher
     else:
-        gen = torch.Generator().manual_seed(start_step)
-        tokens = torch.randint(0, cfg.vocab_size,
-                               (args.batch_size, args.seq_len + 1),
-                               generator=gen, dtype=torch.int64).to(device)
+        tokens = random_batch(args, cfg.vocab_size, start_step).to(device)
         batch_iter = itertools.repeat({'tokens': tokens})
 
-    history, step_ms = [], []
+    history, step_ms, reduce_ms = [], [], []
+    reduce_bytes = 0
     cards = [d for d in mesh.distinct_devices() if d.type == 'cuda']
     for dev in cards:
         # The printed peak is this run's, not the process's so far.
@@ -229,6 +289,9 @@ def run(argv: Optional[List[str]] = None
                 grad_norm = float(metrics['grad_norm'])
             _sync(cards)
             step_ms.append((time.perf_counter() - t_step) * 1e3)
+            if state.host_reduce is not None:
+                seconds, reduce_bytes = state.host_reduce.take()
+                reduce_ms.append(seconds * 1e3)
             history.append({'step': step, 'loss': loss,
                             'grad_norm': grad_norm})
             if step == start_step:
@@ -253,6 +316,20 @@ def run(argv: Optional[List[str]] = None
     print(f'done: {len(history)} steps in {time.perf_counter() - t0:.1f}s '
           f'on {device}', flush=True)
     print('step ms: ' + ' '.join(f'{ms:.1f}' for ms in step_ms), flush=True)
+    if mesh.hosts > 1:
+        t_digest = time.perf_counter()
+        digest = train.state_digest(state)
+        print(json.dumps({
+            'host': mesh.host_rank, 'hosts': mesh.hosts,
+            'backend': distributed.group_backend(),
+            'losses': [h['loss'] for h in history],
+            'grad_norms': [h['grad_norm'] for h in history],
+            'step_ms': step_ms, 'reduce_ms': reduce_ms,
+            'reduce_bytes': reduce_bytes,
+            'peak_bytes': train.peak_memory_bytes(mesh),
+            'launches': {**attention.LAUNCHES, **paged_attention.LAUNCHES},
+            'digest': digest,
+            'digest_s': time.perf_counter() - t_digest}), flush=True)
     return history, state
 
 
@@ -263,4 +340,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
 
 
 if __name__ == '__main__':
-    main()
+    try:
+        main()
+    finally:
+        distributed.shutdown()

@@ -986,3 +986,128 @@ def test_pipeline_on_four_cards_matches_one_card(cuda):
         del state
         torch.cuda.empty_cache()
     assert losses[1] == pytest.approx(losses[0], rel=1e-6)
+
+
+def _two_hosts(host_devices, backend, tmp_path, extra=()):
+    """Two `train_llama` hosts of a gang (a free coordinator port) at
+    `small`'s width, 2 layers, bf16, remat, batch 2 x 256 a host, 3
+    steps, host r over host_devices[r] (`extra` flags); -> each host's
+    JSON line."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = []
+    try:
+        for rank, devices in enumerate(host_devices):
+            env = {**os.environ, 'PYTHONPATH': repo,
+                   'SKYTPU_NUM_HOSTS': str(len(host_devices)),
+                   'SKYTPU_HOST_RANK': str(rank),
+                   'SKYTPU_COORDINATOR_ADDRESS': f'127.0.0.1:{port}',
+                   'SKYTPU_BENCHMARK_LOG_DIR': str(tmp_path / f'bench{rank}')}
+            env.pop('SKYTPU_CHECKPOINT_DIR', None)
+            with open(tmp_path / f'host{rank}.log', 'w',
+                      encoding='utf-8') as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, '-m', 'skypilot_tpu_torch.train_llama',
+                     '--model', 'small', '--layers', '2', '--batch-size', '2',
+                     '--seq-len', '256', '--steps', '3', '--mesh-devices',
+                     ','.join(devices), '--dist-backend', backend,
+                     *extra],
+                    env=env, stdout=out, stderr=subprocess.STDOUT))
+        for proc in procs:
+            proc.wait(timeout=300)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out = []
+    for rank, proc in enumerate(procs):
+        text = (tmp_path / f'host{rank}.log').read_text()
+        assert proc.returncode == 0, text[-3000:]
+        out.append(json.loads([l for l in text.splitlines()
+                               if l.startswith('{"host"')][0]))
+    return out
+
+
+def _one_process(devices, tmp_path, monkeypatch, extra=()):
+    """The same run in this process over one mesh of `devices` (data
+    len(devices)) with the hosts' global batch of 4; -> (losses,
+    launches)."""
+    from skypilot_tpu_torch import train_llama
+    from skypilot_tpu_torch.callbacks import base as callbacks
+    monkeypatch.setenv(callbacks.ENV_LOG_DIR, str(tmp_path / 'bench'))
+    monkeypatch.delenv('SKYTPU_CHECKPOINT_DIR', raising=False)
+    monkeypatch.setattr(callbacks, '_instance', None)
+    before = dict(attention.LAUNCHES)
+    history, state = train_llama.run(
+        ['--model', 'small', '--layers', '2', '--batch-size', '4',
+         '--seq-len', '256', '--steps', '3', '--mesh-devices',
+         ','.join(devices), *extra])
+    launched = {k: attention.LAUNCHES[k] - before[k] for k in before}
+    del state
+    torch.cuda.empty_cache()
+    return [h['loss'] for h in history], launched
+
+
+def _hold_hosts(hosts, losses, positions):
+    for h in hosts:
+        assert h['losses'][0] == pytest.approx(losses[0], rel=1e-5)
+        assert h['losses'][1:] == pytest.approx(losses[1:], rel=1e-2)
+        assert h['losses'][-1] < h['losses'][0]
+        # Remat, no sequence or tensor axis: 2 L / L / L a step and a
+        # data position of the host's mesh.
+        assert h['launches'] == {'flash_fwd': 12 * positions,
+                                 'flash_bwd_dq': 6 * positions,
+                                 'flash_bwd_dkv': 6 * positions,
+                                 'paged_attention': 0,
+                                 'paged_attention_int8': 0}
+        assert h['reduce_bytes'] > 0 and len(h['reduce_ms']) == 3
+    assert len({h['digest'] for h in hosts}) == 1
+
+
+@pytest.mark.parametrize('backend', ['gloo-one-card', 'nccl'])
+def test_two_hosts_match_one_process(cuda, backend, tmp_path, monkeypatch):
+    """Two hosts of one card position each ('gloo-one-card': both on
+    cuda:0 over gloo, which stages the gradients through host memory;
+    'nccl': cuda:0 and cuda:1, skipped with one card) against one
+    process over a data-2 mesh of two entries of cuda:0 with the same
+    global batch of 4: step-1 loss within rtol 1e-5 (the same
+    parameters, summed in another order), steps 2-3 within 1e-2, equal
+    digests, each host's launches its one-position mesh's."""
+    del cuda
+    if backend == 'nccl' and torch.cuda.device_count() < 2:
+        pytest.skip('needs two NVIDIA GPUs: NCCL takes one card a rank')
+    host_devices = ([['cuda:0'], ['cuda:0']] if backend == 'gloo-one-card'
+                    else [['cuda:0'], ['cuda:1']])
+    hosts = _two_hosts(host_devices, backend.split('-')[0], tmp_path)
+    assert [h['backend'] for h in hosts] == [backend.split('-')[0]] * 2
+    losses, launched = _one_process(['cuda:0', 'cuda:0'], tmp_path,
+                                    monkeypatch)
+    assert launched['flash_fwd'] == 2 * 12
+    _hold_hosts(hosts, losses, positions=1)
+
+
+def test_two_hosts_on_four_cards_match_one_process(cuda, tmp_path,
+                                                   monkeypatch):
+    """Two hosts of two cards each over NCCL against one process over
+    the four cards, the same holds as above: global data 4 (a host's
+    blocks on its first card), then data 2 x fsdp 2 (a host's blocks on
+    both its cards: the group stages the second card's buckets through
+    the first)."""
+    del cuda
+    if torch.cuda.device_count() < 4:
+        pytest.skip('needs four NVIDIA GPUs')
+    for n, extra in enumerate(((), ('--fsdp', '2'))):
+        run = tmp_path / str(n)
+        run.mkdir()
+        hosts = _two_hosts([['cuda:0', 'cuda:1'], ['cuda:2', 'cuda:3']],
+                           'nccl', run, extra)
+        losses, _ = _one_process([f'cuda:{i}' for i in range(4)], run,
+                                 monkeypatch, extra)
+        _hold_hosts(hosts, losses, positions=2)

@@ -259,8 +259,18 @@ def test_gang_environment(monkeypatch):
     monkeypatch.setenv('SKYTPU_NUM_HOSTS', '2')
     monkeypatch.setenv('SKYTPU_COORDINATOR_ADDRESS', '127.0.0.1:1')
     assert distributed.num_hosts() == ref_distributed.num_hosts() == 2
-    with pytest.raises(NotImplementedError, match='A17f'):
-        distributed.initialize_from_env()
+    # A gang no longer raises NotImplementedError (A17f): the host joins
+    # the hosts' group.  A rank outside the gang is refused, and a host
+    # that cannot reach the coordinator raises once its timeout passed;
+    # neither leaves a group behind, and no mesh spans hosts then.
+    with pytest.raises(ValueError, match='outside 0..1'):
+        distributed.initialize_from_env(device='cpu')
+    monkeypatch.setenv('SKYTPU_HOST_RANK', '1')
+    with pytest.raises(RuntimeError, match='timed out'):
+        distributed.initialize_from_env(device='cpu', timeout=1)
+    assert not torch.distributed.is_initialized()
+    assert distributed.gang() == (1, 0)
+    assert mesh_lib.build_mesh(mesh_lib.MeshConfig(), ['cpu']).hosts == 1
 
 
 @pytest.mark.parametrize('axes', [dict(data=2, fsdp=2, sequence=2),
