@@ -350,7 +350,14 @@ Phases (each one that fails makes the script exit non-zero):
    Ulysses: ranks x L x sp calls; each times tp, the tensor degree;
    B3 twice for the layer checkpoint);
    printed: step ms, peak memory, params + moments a mesh position
-   holds.  An f32 cut (depth 1, 2 x 1024): the three meshes against the
+   holds and those stored on each distinct device (`device_bytes`: one
+   copy a block over entries of one card).  With four cards, mesh B
+   also runs over cuda:0 ... cuda:3 ("sharded training (ulysses, four
+   cards)"), a copy of each replicated block on each card: launches,
+   losses and step 1 held as above, every copy bit-equal to its owner
+   after the steps (`train.check_copies`), the same bytes stored on
+   each card; printed: step ms, each card's peak and stored bytes.
+   With fewer cards it is printed as skipped.  An f32 cut (depth 1, 2 x 1024): the three meshes against the
    unsharded GPU step, loss within rtol 1e-5, every gradient within
    1e-3 of max |unsharded|.  `train_llama --model small` over four
    entries (fsdp 2 x sequence 2) with --preflight and a checkpoint
@@ -377,7 +384,8 @@ Phases (each one that fails makes the script exit non-zero):
    `pipeline_launches` (`shard_launches` of the other axes times M: B3
    2 L M a step, B4 and B5 L M, times tp and the ring's hops), step-1
    loss within 1e-2 of the unsharded step's; printed: step ms, peak
-   memory, params + moments a mesh position.  An f32 cut (depth 2, one
+   memory, params + moments a mesh position and stored a device.  An
+   f32 cut (depth 2, one
    layer a stage, 2 x 1024, M = 2) against the unsharded GPU step:
    loss within rtol 1e-5, every gradient within 1e-3 of max
    |unsharded|.
@@ -3068,22 +3076,29 @@ WARMUP_STEPS, TIMED_STEPS = 2, 5
 TRAIN_KERNELS = ('flash_fwd', 'flash_bwd_dq', 'flash_bwd_dkv')
 
 
-def run_steps(dev, cfg, tcfg, batch, n_steps, state=None, step=None):
+def run_steps(dev, cfg, tcfg, batch, n_steps, state=None, step=None,
+              cards=None):
     """n_steps train_steps (a fresh seed-0 state unless given; `step`
-    in place of train_step(., ., tcfg) where given), each synchronised;
+    in place of train_step(., ., tcfg) where given), each synchronised
+    on every card of `cards` (default: the current one);
     -> (state, [(loss, grad_norm, ms)])."""
     import torch
     from skypilot_tpu_torch.models import train
     if state is None:
         state, _ = train.create_train_state(cfg, tcfg, device=dev, seed=0)
     step = step or (lambda st, b: train.train_step(st, b, tcfg))
+    cards = cards or [None]
+
+    def sync():
+        for card_dev in cards:
+            torch.cuda.synchronize(card_dev)
     out = []
     for _ in range(n_steps):
-        torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
         state, m = step(state, batch)
         loss, norm = float(m['loss']), float(m['grad_norm'])
-        torch.cuda.synchronize()
+        sync()
         out.append((loss, norm, (time.perf_counter() - t0) * 1e3))
     return state, out
 
@@ -3700,13 +3715,13 @@ def sharded_training(dev, counters):
         losses = [x[0] for x in steps]
         if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f'{label}: losses {losses}')
-        params = (state.shards.position_bytes() if state.shards is not None
-                  else [sum(p.numel() * 4 for p in state.model.parameters())])
+        params, stored = state_bytes(state)
         report[label] = dict(
             losses=losses, grad_norms=[x[1] for x in steps],
             step_ms=[x[2] for x in steps],
             peak_gib=train.peak_memory_bytes(dev) / 2**30,
-            state_gb=[3 * b / 1e9 for b in params], launches=got)
+            state_gb=[3 * b / 1e9 for b in params],
+            stored_gb=[3 * b / 1e9 for b in stored], launches=got)
         del state
     ref = report['sharded training (unsharded)']['losses'][0]
     for label in SHARD_MESHES:
@@ -3715,11 +3730,79 @@ def sharded_training(dev, counters):
             raise AssertionError(f'{label}: step-1 loss {first} vs '
                                  f'unsharded {ref}')
     free_cuda()
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 4:
+        paths[SHARD_FOUR], report['four cards'] = four_card_mesh_b(
+            cfg, batch, counters, ref)
+    else:
+        report['four cards skipped'] = (
+            f'{n_cards} card: mesh B over four distinct cards needs four')
     report['f32'] = sharded_f32_check(dev)
     paths['train_llama small mesh'], report['cli'] = sharded_cli(
         dev, counters)
     report['seconds'] = time.perf_counter() - t_phase
     return paths, report
+
+
+def state_bytes(state):
+    """(params a mesh position, params stored on each distinct device):
+    `ShardedParams.position_bytes` and `device_bytes`, or the whole
+    model's f32 bytes once for an unsharded state."""
+    if state.shards is not None:
+        return state.shards.position_bytes(), state.shards.device_bytes()
+    whole = [sum(p.numel() * 4 for p in state.model.parameters())]
+    return whole, whole
+
+
+SHARD_FOUR = 'sharded training (ulysses, four cards)'
+
+
+def four_card_mesh_b(cfg, batch, counters, ref):
+    """Phase 7c on four cards: mesh B (data 2 x sequence 2, Ulysses) over
+    cuda:0 ... cuda:3, SHARD_STEPS steps from seed 0 on the phase's
+    batch.  Held: launches `shard_launches`, losses finite and falling,
+    step 1 within 1e-2 of the unsharded step's `ref`, every copy
+    bit-equal to its owner after the steps (`train.check_copies`), the
+    same state bytes stored on each card.  -> (launches, report)."""
+    import torch
+    from skypilot_tpu_torch.models import train
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    axes, mode = SHARD_MESHES['sharded training (ulysses)']
+    cards = [torch.device('cuda', i) for i in range(4)]
+    for card_dev in cards:
+        torch.cuda.reset_peak_memory_stats(card_dev)
+    c = cfg.replace(sequence_parallel=mode)
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(**axes), cards)
+    state, _ = train.create_train_state(c, mesh=mesh, seed=0)
+    want = shard_launches(axes, mode, SHARD_LAYERS, SHARD_STEPS)
+    zero_counts(counters)
+    state, steps = run_steps(cards[0], c, None, batch, SHARD_STEPS, state,
+                             cards=cards)
+    launches = read_counts(counters)
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f'{SHARD_FOUR}: launches {got}, predicted '
+                             f'{want}')
+    losses = [x[0] for x in steps]
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f'{SHARD_FOUR}: losses {losses}')
+    if not abs(losses[0] - ref) <= 1e-2 * abs(ref):
+        raise AssertionError(f'{SHARD_FOUR}: step-1 loss {losses[0]} vs '
+                             f'unsharded {ref}')
+    copies = train.check_copies(state)
+    stored = state.shards.device_bytes()
+    if copies == 0 or len(set(stored)) != 1:
+        raise AssertionError(f'{SHARD_FOUR}: {copies} copies, bytes a '
+                             f'card {stored}')
+    report = dict(
+        losses=losses, grad_norms=[x[1] for x in steps],
+        step_ms=[x[2] for x in steps], copies=copies,
+        peak_gib=[torch.cuda.max_memory_allocated(d) / 2**30 for d in cards],
+        state_gb=[3 * b / 1e9 for b in state.shards.position_bytes()],
+        stored_gb=[3 * b / 1e9 for b in stored], launches=got)
+    del state
+    free_cuda()
+    return launches, report
 
 
 MOE_TRAIN_SEQ, MOE_TRAIN_STEPS = 2048, 3
@@ -3770,12 +3853,12 @@ def moe_sharded_training(dev, counters):
         losses = [x[0] for x in steps]
         if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f'{label}: losses {losses}')
-        params = (state.shards.position_bytes() if state.shards is not None
-                  else [sum(p.numel() * 4 for p in state.model.parameters())])
+        params, stored = state_bytes(state)
         report[label] = dict(
             losses=losses, step_ms=[x[2] for x in steps],
             peak_gib=train.peak_memory_bytes(dev) / 2**30,
-            state_gb=[3 * b / 1e9 for b in params], launches=got)
+            state_gb=[3 * b / 1e9 for b in params],
+            stored_gb=[3 * b / 1e9 for b in stored], launches=got)
         del state
     free_cuda()
     ref = report['moe training (unsharded)']['losses'][0]
@@ -3797,8 +3880,9 @@ def log_moe_training(r) -> None:
         log(f'  {label} {axes}: losses {" ".join(f"{v:.4f}" for v in x["losses"])}; step ms '
             f'{" ".join(f"{v:.1f}" for v in x["step_ms"])}; peak '
             f'{x["peak_gib"]:.2f} GiB; params + moments a position '
-            f'{" ".join(f"{v:.2f}" for v in x["state_gb"])} GB; launches '
-            f'{json.dumps(x["launches"])}')
+            f'{" ".join(f"{v:.2f}" for v in x["state_gb"])} GB, stored a '
+            f'device {" ".join(f"{v:.2f}" for v in x["stored_gb"])} GB; '
+            f'launches {json.dumps(x["launches"])}')
     log(f'MoE training phase: {r["seconds"]:.1f} s')
 
 
@@ -3814,8 +3898,19 @@ def log_sharded(r) -> None:
             f'{" ".join(f"{v:.3f}" for v in x["grad_norms"])}; step ms '
             f'{" ".join(f"{v:.1f}" for v in x["step_ms"])}; peak '
             f'{x["peak_gib"]:.2f} GiB; params + moments a position '
-            f'{" ".join(f"{v:.2f}" for v in x["state_gb"])} GB; launches '
+            f'{" ".join(f"{v:.2f}" for v in x["state_gb"])} GB, stored a '
+            f'device {" ".join(f"{v:.2f}" for v in x["stored_gb"])} GB; '
+            f'launches {json.dumps(x["launches"])}')
+    if 'four cards' in r:
+        x = r['four cards']
+        log(f'  {SHARD_FOUR} (cuda:0-3): losses {fmt(x["losses"], 4)}; '
+            f'grad_norms {fmt(x["grad_norms"], 3)}; step ms '
+            f'{fmt(x["step_ms"], 1)}; peak a card {fmt(x["peak_gib"], 2)} '
+            f'GiB; params + moments stored a card {fmt(x["stored_gb"], 2)} '
+            f'GB; {x["copies"]} copies bit-equal to their owners; launches '
             f'{json.dumps(x["launches"])}')
+    else:
+        log(f'  four cards skipped: {r["four cards skipped"]}')
     for label, (loss, ref, (rel, name)) in r['f32'].items():
         log(f'  {label} f32 depth 1, batch {SHARD_BATCH} x '
             f'{SHARD_F32_SEQ}: loss {loss:.7f} vs unsharded {ref:.7f}; '
@@ -3948,12 +4043,12 @@ def pipeline_training(dev, counters):
         losses = [x[0] for x in steps]
         if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f'{label}: losses {losses}')
-        params = (state.shards.position_bytes() if state.shards is not None
-                  else [sum(p.numel() * 4 for p in state.model.parameters())])
+        params, stored = state_bytes(state)
         report[label] = dict(
             losses=losses, step_ms=[x[2] for x in steps],
             peak_gib=train.peak_memory_bytes(dev) / 2**30,
-            state_gb=[3 * b / 1e9 for b in params], launches=got)
+            state_gb=[3 * b / 1e9 for b in params],
+            stored_gb=[3 * b / 1e9 for b in stored], launches=got)
         del state, step
     free_cuda()
     ref = report['pipeline training (unsharded)']['losses'][0]
@@ -3978,8 +4073,9 @@ def log_pipeline(r) -> None:
             f'{" ".join(f"{v:.4f}" for v in x["losses"])}; step ms '
             f'{" ".join(f"{v:.1f}" for v in x["step_ms"])}; peak '
             f'{x["peak_gib"]:.2f} GiB; params + moments a position '
-            f'{" ".join(f"{v:.2f}" for v in x["state_gb"])} GB; launches '
-            f'{json.dumps(x["launches"])}')
+            f'{" ".join(f"{v:.2f}" for v in x["state_gb"])} GB, stored a '
+            f'device {" ".join(f"{v:.2f}" for v in x["stored_gb"])} GB; '
+            f'launches {json.dumps(x["launches"])}')
     loss, ref, (rel, name) = r['f32']
     log(f'  pipeline 2 at M = 2, f32 depth {PIPE_F32_LAYERS}, batch '
         f'{PIPE_F32_BATCH} x {PIPE_F32_SEQ}: loss {loss:.7f} vs unsharded '

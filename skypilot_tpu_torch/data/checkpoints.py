@@ -427,9 +427,11 @@ def restore_sharded(directory: str, abstract_state: Any,
     larger) than the one that saved it (the counterpart of the
     reference's orbax restore onto NamedShardings).  `abstract_state`
     and `shardings` come from `train.abstract_train_state`; the state is
-    materialised with that layout and each block filled from the whole
-    leaves read on the host, so no device holds a full leaf that it
-    does not keep.  (None, 0) when the directory holds no checkpoint."""
+    materialised with that layout (every copy of every block) and each
+    block's owner filled from the whole leaves read on the host, then
+    its other copies from the owner (`train.fill_copies`), so no device
+    holds a full leaf that it does not keep.  (None, 0) when the
+    directory holds no checkpoint."""
     from skypilot_tpu_torch.models import train as train_lib  # pylint: disable=import-outside-toplevel
     step = _primary_step(directory)
     if step is None:

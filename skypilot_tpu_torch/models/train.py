@@ -13,9 +13,12 @@ Meshes (`create_train_state(mesh=)`, parallel/mesh.py): every leaf and
 both AdamW moments are split over the mesh axes that the reference's
 logical-axis rules give its dims (`transformer.ShardedParams`: 'embed'
 over 'fsdp'; 'heads', 'kv_heads', 'mlp' and 'vocab' over 'tensor';
-replicated over 'data' and 'sequence').  Each distinct block is stored
-once, on the device of the first mesh position that holds it, and
-positions that hold it replicated read that copy.  The step
+replicated over 'data' and 'sequence').  Each distinct block has a copy
+on every distinct device entry of the mesh that holds it
+(`sharding.Placement.holders`: a list that repeats one card keeps one
+copy, four cards keep four), and each position reads its own entry's
+copies, or the owner's (the first holder's) where its entry holds
+none.  The step
 (`make_train_step`, the counterpart of `jit_train_step`) runs each
 batch rank's rows on its own devices (`transformer.mesh_forward`; a
 tensor rank gathers only its slice of each leaf and the row-parallel
@@ -23,10 +26,14 @@ partials are summed across the tensor ranks), sums the NLL of every
 (batch, sequence) rank once over the global denominator (the fused CE
 vocab-parallel over the tensor ranks' head columns) and backpropagates
 once: autograd turns each layer's weight gather into a sum of the
-gradient slices into each block's `.grad` (the reduce-scatter, and
-over 'data' the all-reduce, that GSPMD inserts).
-The clip takes the global norm over the blocks (each element once) and
-AdamW steps each block elementwise.  A mesh of one position is the
+gradient slices into each copy's `.grad`, and the step sums each
+block's copies into the owner's, in f32 in holder order (the
+reduce-scatter, and over 'data' the all-reduce, that GSPMD inserts).
+The clip takes the global norm over the owners (each element once),
+the clipped gradient is copied back to the other copies, and AdamW
+steps every copy elementwise: every copy holds the same bits after the
+step, as every device holds the same bits in the reference, with no
+broadcast of the parameters (`check_copies`).  A mesh of one position is the
 unsharded state on its device.  `abstract_train_state` builds the same
 layout on the 'meta' device, for `data.checkpoints.restore_sharded`.
 
@@ -42,13 +49,15 @@ puts a saved step back in place, and `load_pretrained_params` starts a
 finetune from a params-only checkpoint (an import) with fresh moments.
 
 A sharded state reads and writes the same step files (whole leaves,
-gathered to the host): either kind restores onto any mesh.
+gathered to the host from the owners): either kind restores onto any
+mesh, and a restore fills every copy (`fill_copies`).
 
 Across hosts (a mesh with `hosts` > 1, parallel/mesh.py): each host runs
 the step above on its own mesh and rows, over the global denominator
 (the token count or mask sum summed over the hosts before the
 backward), then `state.host_reduce` sums the loss and every gradient
-(every block) over the hosts' process group before the clip, so the
+(each block's owner, after the copies' sum) over the hosts' process
+group before the clip, so the
 clip's norm is the global norm and every host steps the same bits.
 Each host sums its own positions first (autograd onto its blocks),
 then the hosts: the reference's GSPMD sums in an order of its own.
@@ -107,8 +116,9 @@ class TrainState:
     `train_step`), and the global-norm clip that precedes the optimizer,
     fixed when the state is made as the reference's chain fixes it.
     Over a mesh of several positions, `shards` holds the parameters'
-    blocks (the optimizer's tensors) and `model` lives on 'meta'.  On a
-    mesh that spans hosts, `host_reduce` sums each step over them."""
+    blocks (every copy is an optimizer tensor) and `model` lives on
+    'meta'.  On a mesh that spans hosts, `host_reduce` sums each step
+    over them."""
     step: int
     model: Transformer
     optimizer: torch.optim.Optimizer
@@ -118,9 +128,16 @@ class TrainState:
 
     def parameters(self) -> List[torch.Tensor]:
         """The tensors the optimizer steps: the model's parameters, or
-        every block over a mesh."""
+        every copy of every block over a mesh."""
         if self.shards is not None:
             return self.shards.parameters()
+        return list(self.model.parameters())
+
+    def owners(self) -> List[torch.Tensor]:
+        """The tensors that hold each element once: the model's
+        parameters, or each block's owner copy over a mesh."""
+        if self.shards is not None:
+            return self.shards.owner_parameters()
         return list(self.model.parameters())
 
 
@@ -240,7 +257,7 @@ def materialize(abstract: TrainState, shardings: dict) -> TrainState:
     """An uninitialised state with the layout of `shardings` (from
     `abstract_train_state` or `create_train_state`), with `abstract`'s
     config and optimizer settings: the whole model on the device of a
-    one-position mesh, else blocks on their owners."""
+    one-position mesh, else every block's copies on their holders."""
     mesh = next(iter(shardings.values())).mesh
     cfg = abstract.model.cfg
     opt = abstract.optimizer
@@ -282,8 +299,10 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     the full batch's denominator.  Metrics: 'loss' and 'grad_norm'
     (before clipping), 0-dim tensors on the device."""
     loss = value_and_grad(state, batch, tcfg)
-    grads = [p.grad for p in state.parameters() if p.grad is not None]
+    grads = [p.grad for p in state.owners() if p.grad is not None]
     grad_norm = clip_by_global_norm_(grads, state.grad_clip)
+    if state.shards is not None:
+        state.shards.copy_owner_grads()
     state.optimizer.step()
     state.step += 1
     return state, {'loss': loss.detach(), 'grad_norm': grad_norm}
@@ -292,9 +311,10 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
 def value_and_grad(state: TrainState, batch: Dict[str, torch.Tensor],
                    tcfg: Optional[TrainConfig] = None) -> torch.Tensor:
     """`train_step` without the clip and the update: the step's loss,
-    with the gradient of every parameter (over a mesh, every block) left
-    in its `.grad`, zeroed first; across hosts both are the global ones,
-    the same on every host."""
+    with the gradient of every parameter (over a mesh, of every block,
+    summed over its copies into the owner's; the other copies' dropped)
+    left in its `.grad`, zeroed first; across hosts both are the global
+    ones, the same on every host."""
     if state.shards is not None:
         loss = _mesh_value_and_grad(state, batch, tcfg)
     else:
@@ -302,7 +322,7 @@ def value_and_grad(state: TrainState, batch: Dict[str, torch.Tensor],
     if state.host_reduce is None:
         return loss
     loss = loss.detach().clone()
-    state.host_reduce([loss] + [p.grad for p in state.parameters()
+    state.host_reduce([loss] + [p.grad for p in state.owners()
                                 if p.grad is not None])
     return loss
 
@@ -462,8 +482,10 @@ def _mesh_value_and_grad(state: TrainState, batch,
         loss = total / denom
         if tcfg is None or not tcfg.fused_ce:
             loss.backward()
+            shards.sum_copy_grads()
         else:
             total.backward()
+            shards.sum_copy_grads()
             _divide_grads(state, denom)
     else:
         whole = {k: torch.cat([t.to(dev0) for t in v])
@@ -481,13 +503,14 @@ def _mesh_value_and_grad(state: TrainState, batch,
             piece.backward()
             total = total + piece.detach()
         loss = total / denom
+        shards.sum_copy_grads()
         _divide_grads(state, denom)
     return loss
 
 
 @torch.no_grad()
 def _divide_grads(state: TrainState, denom: torch.Tensor) -> None:
-    for p in state.parameters():
+    for p in state.owners():
         if p.grad is not None:
             p.grad.div_(denom.to(p.grad.device, p.grad.dtype))
 
@@ -546,7 +569,7 @@ def _pieces(state: TrainState) -> List[Tuple[Tuple[str, ...], List[Tuple[
         torch.Tensor, Tuple[slice, ...]]], torch.Size, torch.dtype]]:
     """(tree path, [(tensor, its slice of the full leaf)], full shape,
     dtype) of every leaf, in `param_paths`' order: a parameter as one
-    piece, or over a mesh its blocks."""
+    piece, or over a mesh its blocks' owners (each element once)."""
     names = {id(p): name for name, p in state.model.named_parameters()}
     out = []
     for path, p in param_paths(state.model):
@@ -641,7 +664,8 @@ def load_train_step(state: TrainState, params, moments, *, count: int,
     """Put a saved training step back into `state` in place: every
     parameter, AdamW's exp_avg / exp_avg_sq and its step count (exactly:
     the bias correction of the next step reads it), and state.step;
-    over a mesh each block gets its slice of the whole leaves.
+    over a mesh each block's owner gets its slice of the whole leaves,
+    and the other copies the owner's bits (`fill_copies`).
     `params` / `moments` are the step's open safetensors readers; every
     name, dtype and shape is checked before anything is written."""
     leaves = _pieces(state)
@@ -675,8 +699,55 @@ def load_train_step(state: TrainState, params, moments, *, count: int,
                 'exp_avg': mu[idx].to(t.device, copy=True).contiguous(),
                 'exp_avg_sq': nu[idx].to(t.device, copy=True).contiguous(),
             }
+    fill_copies(state)
     state.step = train_step
     return state
+
+
+@torch.no_grad()
+def fill_copies(state: TrainState) -> None:
+    """Every block's other copies given its owner's bits: the parameter
+    and, where the optimizer holds state for the owner, both moments
+    and the step count (a copy's moments on its own entry, the count on
+    the host as AdamW keeps it)."""
+    if state.shards is None:
+        return
+    opt = state.optimizer.state
+    for owner, *rest in state.shards.replicas():
+        for t in rest:
+            t.copy_(owner)
+            if owner in opt:
+                opt[t] = {k: v.clone() if k == 'step' else
+                          v.to(t.device, copy=True)
+                          for k, v in opt[owner].items()}
+            else:
+                opt.pop(t, None)
+
+
+@torch.no_grad()
+def check_copies(state: TrainState) -> int:
+    """Raise ValueError unless every copy of every block equals its
+    owner bit for bit: the parameter, both AdamW moments and the step
+    count (a copy with no optimizer state only where the owner has
+    none).  -> the number of copies besides the owners."""
+    if state.shards is None:
+        return 0
+    opt = state.optimizer.state
+    checked = 0
+    for name, blocks in state.shards.copies.items():
+        for held in blocks.values():
+            owner, *rest = held.values()
+            theirs = opt.get(owner, {})
+            for t in rest:
+                mine = opt.get(t, {})
+                if not (torch.equal(t.to(owner.device), owner) and
+                        mine.keys() == theirs.keys() and all(
+                            torch.equal(mine[k].to(v.device), v)
+                            for k, v in theirs.items())):
+                    raise ValueError(f'{name}: a copy differs from its '
+                                     'owner')
+                checked += 1
+    return checked
 
 
 @torch.no_grad()
@@ -685,7 +756,8 @@ def load_pretrained_params(state: TrainState, directory: str) -> TrainState:
     any params-bearing step of this port's format: each leaf of the
     newest step streams through `restore_params`' leaf_fn straight into
     the existing f32 master parameter (cast to its dtype; over a mesh,
-    its slices into the blocks, the leaf read on the host), so no second
+    its slices into the owners' blocks, the leaf read on the host, then
+    `fill_copies`), so no second
     tree exists on the device.  The optimizer's moments stay fresh:
     this is init, not resume.  Either layer layout is read (stacked
     `layers/layer/...` or `layer_{i}`); the leaf count and every shape
@@ -741,4 +813,5 @@ def load_pretrained_params(state: TrainState, directory: str) -> TrainState:
     device = 'cpu' if state.shards is not None else state.model.device
     checkpoints.restore_params(directory, device=device, leaf_fn=copy_in,
                                step=step)
+    fill_copies(state)
     return state

@@ -459,9 +459,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 #
 # A trainable model over a mesh (parallel/mesh.py) keeps every leaf as
 # the distinct blocks that the reference's logical-axis rules give it
-# (parallel/sharding.py), each stored once on the device of the first
-# mesh position that holds it; positions that hold a block replicated
-# read that one copy.  `Transformer` itself then lives on the 'meta'
+# (parallel/sharding.py), each with a copy on every distinct device
+# entry that holds it (one on a list that repeats one card); a position
+# reads its own entry's copies, or the owner's where its entry holds
+# none.  `Transformer` itself then lives on the 'meta'
 # device and only names the leaves: `mesh_forward` runs each mesh
 # position's rows on its own device, with each layer's weights gathered
 # there inside the layer's checkpoint.  Over a 'tensor' axis a position
@@ -573,28 +574,44 @@ def row_devices(mesh, ranks: List[List[List[int]]]
 
 class ShardedParams:
     """The blocks of every parameter of `model` (a 'meta' Transformer
-    naming the leaves) over `mesh`: `blocks[name]` is {block index:
-    tensor}, each a leaf with requires_grad on its owner's device, and
-    `placements[name]` its `sharding.Placement`.  `rank_models[t]` is
-    tensor rank t's narrow meta Transformer (`rank_cfg`), which `tree`
-    binds to the rank's slices."""
+    naming the leaves) over `mesh`: `copies[name]` is {block index:
+    {holder entry: its copy}}, a copy on each distinct device entry
+    that holds the block (`sharding.Placement.holders`, the owner
+    first), each a leaf with requires_grad; `blocks[name]` is {block
+    index: the owner's copy}, and `placements[name]` the leaf's
+    `sharding.Placement`.  `rank_models[t]` is tensor rank t's narrow
+    meta Transformer (`rank_cfg`), which `tree` binds to the rank's
+    slices."""
 
     def __init__(self, model: Transformer, mesh,
-                 blocks: Dict[str, Dict[Tuple[int, ...], torch.Tensor]]
+                 copies: Dict[str, Dict[Tuple[int, ...],
+                                        Dict[torch.device, torch.Tensor]]]
                  ) -> None:
         self.model = model
         self.mesh = mesh
         self.placements = placements(model, mesh)
         self.shapes = {name: p.shape for name, p in model.named_parameters()}
-        if list(blocks) != list(self.placements):
+        if list(copies) != list(self.placements):
             raise ValueError('blocks do not name the model\'s parameters '
                              'in order')
         for name, placement in self.placements.items():
-            want = list(placement.owners(len(self.shapes[name])))
-            if list(blocks[name]) != want:
-                raise ValueError(f'{name}: blocks {list(blocks[name])}, '
-                                 f'the placement has {want}')
-        self.blocks = blocks
+            want = {blk: [mesh.devices[pos] for pos in positions]
+                    for blk, positions in placement.holders(
+                        len(self.shapes[name])).items()}
+            got = {blk: list(held) for blk, held in copies[name].items()}
+            if got != want:
+                raise ValueError(f'{name}: copies {got}, the placement '
+                                 f'holds {want}')
+            for blk, held in copies[name].items():
+                owner, *rest = held.values()
+                if any(t.shape != owner.shape or t.dtype != owner.dtype
+                       for t in rest):
+                    raise ValueError(f'{name} block {blk}: copies differ '
+                                     'in shape or dtype')
+        self.copies = copies
+        self.blocks = {name: {blk: next(iter(held.values()))
+                              for blk, held in blocks.items()}
+                       for name, blocks in copies.items()}
         # One meta model a tensor rank, of the rank's narrow config
         # (distinct modules, so `_call` binds every rank's slices at
         # once); the model itself at tensor 1.
@@ -611,63 +628,104 @@ class ShardedParams:
         """Seeded initial values, bit-equal to `init_params(cfg, seed=,
         trainable=True)` on the mesh's first device: each leaf is drawn
         whole there, in init_params' order and with its generator, cut
-        into blocks and freed before the next (one full leaf at a
-        time)."""
+        into blocks whose copies all take the same bits, and freed
+        before the next (one full leaf at a time)."""
         dev = mesh.devices[0]
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
         places = placements(model, mesh)
         dtype = model.cfg.param_dtype
-        blocks = {}
+        copies = {}
         with torch.no_grad():
             for name, module in _leaves(model):
                 full = _initial_value(name, module, model.cfg, gen, dev)
-                blocks[name] = sharding.split(full.to(dtype), places[name],
+                copies[name] = sharding.split(full.to(dtype), places[name],
                                               requires_grad=True)
                 del full
-        return cls(model, mesh, blocks)
+        return cls(model, mesh, copies)
 
     @classmethod
     def from_model(cls, model: Transformer, mesh) -> 'ShardedParams':
         """A trainable Transformer's values (`convert.from_jax_params(
-        ..., trainable=True)`, say) cut into blocks on their owners,
+        ..., trainable=True)`, say) cut into blocks on their holders,
         over a meta model of the same config."""
         meta = Transformer(model.cfg, device='meta', trainable=True)
         places = placements(meta, mesh)
         with torch.no_grad():
-            blocks = {name: sharding.split(p.detach(), places[name],
+            copies = {name: sharding.split(p.detach(), places[name],
                                            requires_grad=True)
                       for name, p in model.named_parameters()}
-        return cls(meta, mesh, blocks)
+        return cls(meta, mesh, copies)
 
     @classmethod
     def empty(cls, model: Transformer, mesh,
               device: Optional[Union[str, torch.device]] = None
               ) -> 'ShardedParams':
-        """Uninitialised blocks on their owners (on `device` instead, as
-        'meta' for an abstract state)."""
-        blocks = {}
+        """Uninitialised copies on their holders (on `device` instead,
+        as 'meta' for an abstract state, keyed by the same entries)."""
+        copies = {}
         params = dict(model.named_parameters())
         for name, placement in placements(model, mesh).items():
             p = params[name]
-            blocks[name] = {}
-            for blk, pos in placement.owners(p.dim()).items():
+            copies[name] = {}
+            for blk, positions in placement.holders(p.dim()).items():
                 shape = [len(range(*s.indices(n))) for s, n in zip(
-                    placement.index(pos, p.shape), p.shape)]
-                blocks[name][blk] = torch.empty(
-                    shape, dtype=p.dtype,
-                    device=device or mesh.devices[pos]).requires_grad_()
-        return cls(model, mesh, blocks)
+                    placement.index(positions[0], p.shape), p.shape)]
+                copies[name][blk] = {
+                    mesh.devices[pos]: torch.empty(
+                        shape, dtype=p.dtype,
+                        device=device or mesh.devices[pos]
+                    ).requires_grad_() for pos in positions}
+        return cls(model, mesh, copies)
 
     def parameters(self) -> List[torch.Tensor]:
-        """Every block, leaf by leaf in the model's order."""
+        """Every copy of every block, leaf by leaf in the model's order
+        (the optimizer's tensors: AdamW keeps moments for each)."""
+        return [t for blocks in self.copies.values()
+                for held in blocks.values() for t in held.values()]
+
+    def owner_parameters(self) -> List[torch.Tensor]:
+        """Each block's owner copy, leaf by leaf: every element once."""
         return [t for blocks in self.blocks.values()
                 for t in blocks.values()]
 
+    def replicas(self) -> List[List[torch.Tensor]]:
+        """[owner, other copies...] of every block that has more than
+        one copy, in holder order."""
+        return [list(held.values()) for blocks in self.copies.values()
+                for held in blocks.values() if len(held) > 1]
+
+    @torch.no_grad()
+    def sum_copy_grads(self) -> None:
+        """After a backward: each block's gradient summed over its
+        copies (each copy's holds what its entry read) into the owner's
+        `.grad`, in f32 in holder order, and the other copies' `.grad`
+        dropped; `copy_owner_grads` hands the owner's back out."""
+        for held in self.replicas():
+            grads = [t.grad for t in held if t.grad is not None]
+            if not grads:
+                continue
+            owner = held[0]
+            total = grads[0].to(owner.device, torch.float32)
+            for g in grads[1:]:
+                total = total + g.to(owner.device, torch.float32)
+            owner.grad = total.to(owner.dtype)
+            for t in held[1:]:
+                t.grad = None
+
+    @torch.no_grad()
+    def copy_owner_grads(self) -> None:
+        """Each owner's `.grad` copied to the block's other copies, so
+        one optimizer step gives every copy the same bits."""
+        for owner, *rest in self.replicas():
+            for t in rest:
+                t.grad = (None if owner.grad is None else
+                          owner.grad.to(t.device, copy=True))
+
     def pieces(self, name: str) -> List[Tuple[torch.Tensor,
                                               Tuple[slice, ...]]]:
-        """(block, its slice of the full leaf) for each block of
-        `name`."""
+        """(the owner's copy, its slice of the full leaf) for each block
+        of `name`: every element once."""
         placement = self.placements[name]
         full = self.shapes[name]
         owners = placement.owners(len(full))
@@ -676,11 +734,12 @@ class ShardedParams:
 
     def gather(self, name: str, device,
                tensor: Optional[int] = None) -> torch.Tensor:
-        """The full leaf `name` on `device`; with `tensor`, tensor rank
-        `tensor`'s slice of it (the dims 'tensor' splits cut to the
-        rank's block, the other axes' blocks joined)."""
+        """The full leaf `name` on `device` (a mesh entry), from the
+        copies that entry holds; with `tensor`, tensor rank `tensor`'s
+        slice of it (the dims 'tensor' splits cut to the rank's block,
+        the other axes' blocks joined)."""
         fixed = None if tensor is None else {'tensor': tensor}
-        return sharding.gather(self.blocks[name], self.placements[name],
+        return sharding.gather(self.copies[name], self.placements[name],
                                device, fixed)
 
     def tree(self, prefix: str, devices: Sequence[torch.device]
@@ -704,6 +763,16 @@ class ShardedParams:
                 t = blocks[placement.block(pos, ndim)]
                 out[pos] += t.numel() * t.element_size()
         return out
+
+    def device_bytes(self) -> List[int]:
+        """Bytes of the copies stored on each of `mesh.distinct_devices()`
+        (parameters only: AdamW adds two moments of each)."""
+        out = dict.fromkeys(self.mesh.distinct_devices(), 0)
+        for blocks in self.copies.values():
+            for held in blocks.values():
+                for dev, t in held.items():
+                    out[dev] += t.numel() * t.element_size()
+        return list(out.values())
 
 
 def placements(model: Transformer, mesh) -> Dict[str, object]:

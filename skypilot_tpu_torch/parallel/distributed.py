@@ -222,7 +222,8 @@ def all_reduce_sum_(tensors: Sequence[torch.Tensor]) -> int:
 class HostReduction:
     """The cross-host sum of a training step (the DCN 'data' axis), with
     what it cost: `models.train` calls it once for the denominator and
-    once for the loss and every gradient; `take()` gives the seconds
+    once for the loss and every gradient (each block's owner copy, so
+    the bytes do not grow with the copies); `take()` gives the seconds
     and bytes since the last take.  On CUDA the time is CUDA events
     around the collectives on the current stream (read by `take`, after
     the caller synchronised), on the CPU the host clock."""

@@ -9,7 +9,12 @@ axes, DCN axes first ('data', 'pipeline'), then the ICI axes ('fsdp',
 Entries may repeat one device: a list that names `cuda:0` four times
 is four emulated devices on one card, the counterpart of the
 reference's `xla_force_host_platform_device_count` virtual devices,
-and a list of CPU entries is the same on the host.  Where the
+and a list of CPU entries is the same on the host.  Entries are
+distinct by `torch.device` equality (`distinct_devices`): a sharded
+state keeps one copy of a replicated block on each distinct entry that
+holds it (parallel/sharding.py), so `['cpu'] * 4` keeps one, while the
+indexed CPU entries `cpu:0 ... cpu:3` keep four in host memory, the
+CPU's stand-in for four cards.  Where the
 reference lets GSPMD insert collectives over a mesh, the port's
 modules move tensors between the entries themselves
 (parallel/sharding.py).

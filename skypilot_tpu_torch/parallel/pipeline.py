@@ -9,7 +9,10 @@ down.  The port keeps per-layer leaves and places them by stage
 'pipeline' = i // (L / S), split within the stage as the logical-axis
 rules say (heads, kv heads, d_ff and vocab over 'tensor', embed over
 'fsdp'); the embedding, final norm and head are replicated over
-'pipeline'.  Every block is stored once, on its first holder.
+'pipeline'.  Every block has a copy on each distinct device entry that
+holds it (parallel/sharding.py): on distinct cards, a stage's layer
+blocks on its own cards, and the embedding, final norm and head on
+every stage's, the last stage's included.
 
 - `gpipe` launches the schedule from one host thread: at tick t, stage p
   runs microbatch t - p over its own ranks (transformer._mesh_layer,
@@ -34,7 +37,10 @@ rules say (heads, kv heads, d_ff and vocab over 'tensor', embed over
   body (manual over 'sequence') does.
 - The embedding (and Gemma's sqrt(d) scale) runs on stage 0's ranks;
   the final norm and the unembed, tied or not, on the last stage's,
-  which read the head's blocks from their owners.
+  each reading its own entries' copies (on a list that repeats one
+  card, the one copy).  A tied embedding's gradient is the sum of the
+  two stages' copies, which the step's copy sum forms
+  (`ShardedParams.sum_copy_grads`).
 
 Correctness contract (tests/test_torch_pipeline.py): the pipelined
 loss and gradients equal the reference's `pipeline_loss_fn` on the same
@@ -236,7 +242,9 @@ def pipeline_loss_fn(cfg, params, tokens: torch.Tensor, *, mesh,
                      num_microbatches: int) -> torch.Tensor:
     """Next-token CE (`train.loss_fn`'s f32 log-softmax) on a pipelined
     forward; tokens [b, s + 1] -> the mean over b * s targets, a 0-dim
-    tensor on the mesh's first device (differentiable)."""
+    tensor on the mesh's first device (differentiable).  After its
+    backward, `params.sum_copy_grads()` sums each block's copies into
+    its owner's gradient."""
     _check_params(cfg, params, mesh)
     geo = transformer.mesh_geometry(mesh, cfg)
     blocks = train._rank_rows(  # pylint: disable=protected-access

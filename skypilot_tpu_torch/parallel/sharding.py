@@ -11,15 +11,23 @@ axes that split it) and moves the shards itself:
 - `Placement.index(position, shape)` is the slice of the full tensor
   that a mesh position holds, in the form of the reference's
   `addressable_shards[i].index`;
-- `split(tensor, placement)` cuts a tensor into its distinct blocks,
-  each stored ONCE, on the device of the first mesh position that
-  holds it (its owner).  Positions that hold a block replicated (the
-  'data' and 'sequence' axes of a parameter, say) read it from that
-  owner: on a list that repeats one card, the read moves nothing.
-- `gather(blocks, placement, device)` joins the blocks on `device`
-  with `.to` and `torch.cat`, so autograd carries the full tensor's
-  gradient back to each block as a sum over its readers: the
-  reduce-scatter the reference's GSPMD inserts.
+- `split(tensor, placement)` cuts a tensor into its distinct blocks
+  and gives each block a copy on every distinct device entry of the
+  mesh that holds it (`Placement.holders`), as the reference's GSPMD
+  keeps a shard on every device that holds it.  Entries are distinct
+  by `torch.device` equality: a list that repeats one card (or 'cpu')
+  keeps one copy a block, and `cuda:0 ... cuda:3` (or the indexed CPU
+  entries `cpu:0 ... cpu:3`, the CPU tests' stand-in for cards) keep
+  one a card.  Copies are keyed by the entry that holds them, never by
+  `tensor.device` (every CPU tensor reports `cpu`); the first is the
+  owner's (`Placement.owners`), and whatever needs one copy a block
+  reads that one.
+- `gather(copies, placement, device)` joins the blocks on `device`
+  with `.to` and `torch.cat`, each from the copy that entry holds, or
+  from the owner's where it holds none; autograd carries the full
+  tensor's gradient back to each copy as a sum over its readers: the
+  reduce-scatter the reference's GSPMD inserts.  The step then sums
+  each block's copies into the owner's gradient (models/train.py).
 
 A placement may also pin mesh coordinates (`Placement.at`): only the
 positions at those coordinates hold the tensor.  A pipeline stage's
@@ -31,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -109,14 +117,22 @@ class Placement:
                 out.append(slice(blk * dim // n, (blk + 1) * dim // n, None))
         return tuple(out)
 
+    def holders(self, ndim: int) -> Dict[Block, List[int]]:
+        """{block: the positions that keep a copy of it}, in block
+        order: of the positions holding the block, the first at each
+        distinct device entry (`torch.device` equality), in position
+        order, so the owner comes first."""
+        first: Dict[Block, Dict[torch.device, int]] = {}
+        for pos in filter(self.holds, range(self.mesh.size)):
+            first.setdefault(self.block(pos, ndim), {}).setdefault(
+                self.mesh.devices[pos], pos)
+        return {blk: list(held.values())
+                for blk, held in sorted(first.items())}
+
     def owners(self, ndim: int) -> Dict[Block, int]:
         """{block: the first mesh position holding it}, in block
         order."""
-        first: Dict[Block, int] = {}
-        for pos in range(self.mesh.size):
-            if self.holds(pos):
-                first.setdefault(self.block(pos, ndim), pos)
-        return dict(sorted(first.items()))
+        return {blk: pos[0] for blk, pos in self.holders(ndim).items()}
 
     def is_replicated(self) -> bool:
         return not self.at and all(n == 1 for n in self.parts(len(self.spec)))
@@ -197,29 +213,45 @@ def shard_of(x, placement: Placement, position: int):
 
 
 def split(x: torch.Tensor, placement: Placement,
-          requires_grad: bool = False) -> Dict[Block, torch.Tensor]:
-    """x cut into its distinct blocks, each a new contiguous tensor on
-    its owner's device (a leaf with `requires_grad` when asked)."""
+          requires_grad: bool = False
+          ) -> Dict[Block, Dict[torch.device, torch.Tensor]]:
+    """x cut into its distinct blocks, each as {holder entry: its copy}
+    (`Placement.holders`, the owner first): new contiguous tensors of
+    the same bits on each entry (leaves with `requires_grad` when
+    asked)."""
+    devices = placement.mesh.devices
     out = {}
-    for blk, pos in placement.owners(x.dim()).items():
-        piece = x[placement.index(pos, x.shape)]
-        piece = piece.to(placement.mesh.devices[pos], copy=True)
-        out[blk] = piece.contiguous().requires_grad_(requires_grad)
+    for blk, positions in placement.holders(x.dim()).items():
+        piece = x[placement.index(positions[0], x.shape)]
+        out[blk] = {
+            devices[pos]: piece.to(devices[pos], copy=True).contiguous(
+            ).requires_grad_(requires_grad) for pos in positions}
     return out
 
 
-def gather(blocks: Dict[Block, torch.Tensor], placement: Placement,
-           device: Union[str, torch.device],
+def gather(copies: Dict[Block, Dict[torch.device, torch.Tensor]],
+           placement: Placement, device: Union[str, torch.device],
            fixed: Optional[Dict[str, int]] = None) -> torch.Tensor:
     """The full tensor on `device`, joined from its blocks
-    (differentiable); with `fixed` ({mesh axis: index}), the slice that
-    index holds along a dim that axis splits, the other dims joined
-    whole (a tensor rank's slice: fixed={'tensor': t}).  One block is
-    returned as it is when it already lies on `device`."""
+    (differentiable): each block from the copy that entry `device`
+    holds, else from the owner's (the first); with `fixed` ({mesh axis:
+    index}), the slice that index holds along a dim that axis splits,
+    the other dims joined whole (a tensor rank's slice: fixed={'tensor':
+    t}).  One block is returned as it is when `device` holds it."""
     device = torch.device(device)
-    if len(blocks) == 1:
-        return next(iter(blocks.values())).to(device)
-    ndim = next(iter(blocks.values())).dim()
+
+    def read(blk: Block) -> torch.Tensor:
+        held = copies[blk]
+        if device in held:
+            return held[device]
+        # A copy into host memory is waited for: the join below reads
+        # it on the host.
+        return next(iter(held.values())).to(
+            device, non_blocking=device.type != 'cpu')
+
+    if len(copies) == 1:
+        return read(next(iter(copies)))
+    ndim = next(iter(next(iter(copies.values())).values())).dim()
     parts = placement.parts(ndim)
     spec = placement.spec + ((),) * (ndim - len(placement.spec))
     fixed = fixed or {}
@@ -236,10 +268,7 @@ def gather(blocks: Dict[Block, torch.Tensor], placement: Placement,
     def join(prefix: Block) -> torch.Tensor:
         d = len(prefix)
         if d == ndim:
-            # A copy into host memory is waited for: the join below
-            # reads it on the host.
-            return blocks[prefix].to(device,
-                                     non_blocking=device.type != 'cpu')
+            return read(prefix)
         pieces = [join(prefix + (i,)) for i in choices(d)]
         return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=d)
     return join(())

@@ -23,8 +23,11 @@ GPipe leaves a stage idle for a share (S - 1) / (M + S - 1) of the
 schedule, so the model of a pipelined step is T_0 + (L / S) t (M + S -
 1) / M.  The measured bubble is 1 - (L / S) t / (T_M - T_0).  Each
 pipelined step also reports its host ms (until the step returns,
-before the synchronise) and, with `--profile`, one profiled step's
-busy ms on each card.  Prints one
+before the synchronise), the params + moments stored on each distinct
+device (`stored_bytes`: a copy of the embedding, final norm and head on
+every stage's card, a stage's layers on its own), each card's peak
+(`peak_bytes`, empty on CPU entries) and, with `--profile`, one
+profiled step's busy ms on each card.  Prints one
 JSON line (written to `--out` too) with the card's name and power
 limit; a run on CPU entries says so in `device` and is not a device
 measurement.
@@ -143,12 +146,17 @@ def profile(model: str, layers: int, batch: int, seq: int,
     mesh = mesh_lib.build_mesh(
         mesh_lib.MeshConfig(data=1, pipeline=n_stages), devices)
     runs = {}
+    cards = [d for d in mesh.distinct_devices() if d.type == 'cuda']
     for m in microbatches:
+        for d in cards:
+            torch.cuda.reset_peak_memory_stats(d)
         state, _ = pipeline.create_pipeline_train_state(
             cfg, mesh=mesh, batch_size=batch, seq_len=seq, seed=0)
+        stored = [3 * b for b in state.shards.device_bytes()]
         step = pipeline.pipeline_train_step(cfg, mesh, m)
         ms, host = _step_ms(state, step, {'tokens': tokens}, steps,
                             devices)
+        peak = [torch.cuda.max_memory_allocated(d) for d in cards]
         busy = (_busy_ms(state, step, {'tokens': tokens}, devices)
                 if profile_steps else None)
         del state
@@ -157,6 +165,7 @@ def profile(model: str, layers: int, batch: int, seq: int,
         stage = layers // n_stages * t_layer
         runs[m] = dict(
             step_ms=ms, median_ms=t_m, host_ms=host, busy_ms=busy,
+            stored_bytes=stored, peak_bytes=peak,
             model_ms=t_rest + stage * (m + n_stages - 1) / m,
             bubble_gpipe=(n_stages - 1) / (m + n_stages - 1),
             bubble_measured=1 - stage / (t_m - t_rest),

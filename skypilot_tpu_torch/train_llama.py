@@ -60,7 +60,9 @@
 - `--layers N` keeps the preset's widths at N layers (a depth cut).
 - Step telemetry through `callbacks` (summary.json in
   SKYTPU_BENCHMARK_LOG_DIR); after the first step, the peak memory of
-  each of the mesh's cards is printed.
+  each of the mesh's cards is printed, and on a mesh the params +
+  moments stored on each distinct device (`ShardedParams.device_bytes`:
+  a copy of each replicated block on every card that holds it).
 
 Prints `step N: loss=... grad_norm=...` every 10 steps and at the last,
 and at the end each step's ms on the host clock (every card of the mesh
@@ -301,6 +303,13 @@ def run(argv: Optional[List[str]] = None
                         f'{d} {torch.cuda.max_memory_allocated(d) / 1e9:.2f}'
                         for d in cards)
                     print(f'step peak memory: {peak / 1e9:.2f} GB ({each})',
+                          flush=True)
+                if state.shards is not None:
+                    stored = ', '.join(
+                        f'{d} {3 * b / 1e9:.2f}' for d, b in zip(
+                            mesh.distinct_devices(),
+                            state.shards.device_bytes()))
+                    print(f'params + moments stored a device: {stored} GB',
                           flush=True)
             if step % 10 == 0 or step == args.steps - 1:
                 print(f'step {step}: loss={loss:.4f} '

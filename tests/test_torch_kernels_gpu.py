@@ -106,6 +106,20 @@ def _bwd_inputs(dev, dtype, h, h_kv, d, q_len, k_len, causal, seed):
     return q, k, v, out, lse, g, g_lse
 
 
+def _assert_copies_on_their_cards(state, placements, devices):
+    """Each block has one copy on each distinct card among the mesh
+    positions that hold it, first holder first: one copy a block on a
+    list that repeats one card."""
+    for name, copies in state.shards.copies.items():
+        holders = placements[name].holders(len(state.shards.shapes[name]))
+        for blk, held in copies.items():
+            want = list(dict.fromkeys(devices[p] for p in holders[blk]))
+            assert list(held) == want, name
+            assert [t.device for t in held.values()] == want, name
+            if len(set(devices)) == 1:
+                assert len(held) == 1, name
+
+
 def _assert_rel_close(got, ref, tol, what):
     scale = ref.float().abs().max().clamp(min=1e-30)
     err = (got.float() - ref.float()).abs().max() / scale
@@ -510,8 +524,10 @@ def test_sharded_step_matches_unsharded(cuda, axes, mode, cards):
     and grad_norm within rtol 1e-5,
     every parameter after 2 steps within 2 * lr * steps (Adam's noise
     bound of tests/test_torch_train.py); the kernels launched as
-    `chip_smoke.shard_launches` counts them; each block on the card of
-    the first position that holds it."""
+    `chip_smoke.shard_launches` counts them; a copy of each block on
+    every distinct card that holds it (one on cuda:0 for 'one'), all
+    bit-equal after the steps, and on four cards the same state bytes
+    on each card."""
     from skypilot_tpu_torch.models import train
     from skypilot_tpu_torch.parallel import mesh as mesh_lib
     if cards == 'four' and torch.cuda.device_count() < 4:
@@ -527,10 +543,7 @@ def test_sharded_step_matches_unsharded(cuda, axes, mode, cards):
                                      ).to(cuda)}
     mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(**axes), devices)
     sharded, placements = train.create_train_state(cfg, mesh=mesh, seed=2)
-    for name, blocks in sharded.shards.blocks.items():
-        owners = placements[name].owners(len(sharded.shards.shapes[name]))
-        for blk, t in blocks.items():
-            assert t.device == devices[owners[blk]], name
+    _assert_copies_on_their_cards(sharded, placements, devices)
     plain, _ = train.create_train_state(cfg, device=cuda, seed=2)
     before = dict(attention.LAUNCHES)
     for _ in range(2):
@@ -548,6 +561,12 @@ def test_sharded_step_matches_unsharded(cuda, axes, mode, cards):
         torch.testing.assert_close(
             sharded.shards.gather(name, cuda), p, rtol=0,
             atol=2 * train.TrainConfig().learning_rate * 2, msg=name)
+    copies = train.check_copies(sharded)
+    if cards == 'one':
+        assert copies == 0
+    else:
+        assert copies > 0
+        assert len(set(sharded.shards.device_bytes())) == 1
 
 
 def test_prefill_sp_on_the_card_matches_prefill(cuda):
@@ -962,7 +981,10 @@ def test_pipeline_on_four_cards_matches_one_card(cuda):
     """pipeline 2 x tensor 2 at M = 2 (f32, the narrow shapes above):
     one mesh position on each of four cards against the same mesh on
     four entries of cuda:0, two steps' losses within rel 1e-6; each
-    stage's layer blocks on its stage's cards."""
+    stage's layer blocks on its stage's cards, the embedding, final
+    norm and head on both stages' cards, the copies bit-equal after the
+    steps."""
+    from skypilot_tpu_torch.models import train
     from skypilot_tpu_torch.parallel import mesh as mesh_lib
     from skypilot_tpu_torch.parallel import pipeline
     if torch.cuda.device_count() < 4:
@@ -976,13 +998,11 @@ def test_pipeline_on_four_cards_matches_one_card(cuda):
             mesh_lib.MeshConfig(data=1, pipeline=2, tensor=2), devices)
         state, placements = pipeline.create_pipeline_train_state(
             cfg, mesh=mesh, batch_size=4, seq_len=256, seed=2)
-        for name, blocks in state.shards.blocks.items():
-            owners = placements[name].owners(len(state.shards.shapes[name]))
-            for blk, t in blocks.items():
-                assert t.device == devices[owners[blk]], name
+        _assert_copies_on_their_cards(state, placements, devices)
         step = pipeline.pipeline_train_step(cfg, mesh, 2)
         losses.append([float(step(state, batch)[1]['loss'])
                        for _ in range(2)])
+        assert (train.check_copies(state) > 0) == (len(set(devices)) > 1)
         del state
         torch.cuda.empty_cache()
     assert losses[1] == pytest.approx(losses[0], rel=1e-6)

@@ -62,6 +62,7 @@ from skypilot_tpu.models import configs as jax_configs
 from skypilot_tpu.models import train as jax_train
 from skypilot_tpu.models.transformer import Transformer as JaxTransformer
 from skypilot_tpu.parallel import mesh as jax_mesh
+from skypilot_tpu.parallel import pipeline as jax_pipeline
 from skypilot_tpu.parallel.sharding import token_batch_sharding
 from skypilot_tpu_torch import train_llama
 from skypilot_tpu_torch.callbacks import base as callbacks
@@ -90,7 +91,15 @@ CASES = {
     'fused-ce-accum2-masked': (dict(data=2, fsdp=2), 2, 'ring',
                                {'fused_ce': True, 'vocab_chunk': 96,
                                 'accum_steps': 2}, True),
+    # Pipeline 2 inside each host, 'data' across them, at two
+    # microbatches, on indexed CPU entries (`COPIES`): the embedding,
+    # final norm and head have a copy on each stage's entry.
+    'pipeline2-data2-copies': (dict(data=2, pipeline=2), 2, 'ring',
+                               {'accum_steps': 2}, False),
 }
+# The cases whose hosts run on indexed CPU entries (cpu:0, cpu:1, ...),
+# distinct entries that keep a copy of each replicated block apiece.
+COPIES = {'pipeline2-data2-copies'}
 
 # A host of the reference cases, one after another in one group: each
 # job (a pickle this test writes while the hosts start, renamed into
@@ -111,20 +120,21 @@ _CASE_HOST = textwrap.dedent("""
         with open(path, 'rb') as f:
             job = pickle.load(f)
         mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(**job['axes']),
-                                   ['cpu'] * job['local'])
+                                   job['devices'])
         cfg = configs.get_config('tiny', sequence_parallel=job['sp'])
         tcfg = train.TrainConfig(**job['tc'])
         state, _ = train.create_train_state(cfg, tcfg, mesh=mesh, seed=1)
         params, mu, nu, count, step = job['init']
         convert.load_reference_train_state(state, params, mu, nu,
                                            count=count, step=step)
-        metrics = []
+        metrics, reduced = [], []
         for batch in job['batches']:
             rows = next(iter(batch.values())).shape[0] // hosts
             mine = {k: torch.tensor(v[rank * rows:(rank + 1) * rows])
                     for k, v in batch.items()}
             state, m = train.train_step(state, mine, tcfg)
             metrics.append((float(m['loss']), float(m['grad_norm'])))
+            reduced.append(state.host_reduce.take()[1])
         snap = train.snapshot(state)
         flat = {}
         for prefix, leaves in (('', snap.params), ('mu/', snap.mu),
@@ -134,7 +144,11 @@ _CASE_HOST = textwrap.dedent("""
         with open(f'{path}.{rank}', 'wb') as f:
             pickle.dump(dict(metrics=metrics, flat=flat, count=snap.count,
                              step=state.step, local=dict(mesh.shape),
-                             digest=train.state_digest(state)), f)
+                             digest=train.state_digest(state),
+                             reduced=reduced,
+                             copies=train.check_copies(state),
+                             params=sum(p.numel() for p in
+                                        state.model.parameters())), f)
 
 
     assert distributed.initialize_from_env(device='cpu', timeout=60)
@@ -255,23 +269,33 @@ def _flat(cfg, params, mu, nu):
 
 def _reference(axes, sp_mode, tc, masked, seed):
     """(job for the hosts, [(loss, grad_norm)], flat final leaves) of
-    the reference's jitted step on the global mesh."""
+    the reference's jitted step on the global mesh (over a pipeline,
+    its `pipeline_train_step` at tc's accum_steps microbatches)."""
     jcfg = jax_configs.get_config('tiny', sequence_parallel=sp_mode)
     n = int(np.prod(list(axes.values())))
     jmesh = jax_mesh.build_mesh(jax_mesh.MeshConfig(**axes),
                                 devices=jax.devices()[:n])
-    jtcfg = jax_train.TrainConfig(**tc)
-    jstate, shardings = jax_train.create_train_state(
-        jcfg, jtcfg, mesh=jmesh, batch_size=B, seq_len=S)
+    if axes.get('pipeline', 1) > 1:
+        jstate, shardings = jax_pipeline.create_pipeline_train_state(
+            jcfg, jax_train.TrainConfig(), mesh=jmesh, batch_size=B,
+            seq_len=S)
+        jstep = jax.jit(jax_pipeline.pipeline_train_step(
+            jcfg, jmesh, tc['accum_steps']), in_shardings=(shardings, None),
+            out_shardings=(shardings, None))
+    else:
+        jtcfg = jax_train.TrainConfig(**tc)
+        jstate, shardings = jax_train.create_train_state(
+            jcfg, jtcfg, mesh=jmesh, batch_size=B, seq_len=S)
+        jstep = jax_train.jit_train_step(
+            shardings, token_batch_sharding(jmesh), jtcfg)
     batches = _batches(seed, masked)
     job = dict(axes=axes, sp=sp_mode, tc=tc, batches=batches,
                init=_reference_state(jstate))
-    jstep = jax_train.jit_train_step(shardings, token_batch_sharding(jmesh),
-                                     jtcfg)
     metrics = []
-    for batch in batches:
-        jstate, jm = jstep(jstate, batch)
-        metrics.append((float(jm['loss']), float(jm['grad_norm'])))
+    with jmesh:
+        for batch in batches:
+            jstate, jm = jstep(jstate, batch)
+            metrics.append((float(jm['loss']), float(jm['grad_norm'])))
     cfg = configs.get_config('tiny', sequence_parallel=sp_mode)
     return job, metrics, _flat(cfg, *_reference_state(jstate)[:3])
 
@@ -291,7 +315,8 @@ def case_runs(tmp_path_factory):
             axes, local, sp, tc, masked = CASES[name]
             job, metrics, leaves = _reference(axes, sp, tc, masked,
                                               seed=11 + i)
-            job['local'] = local
+            job['devices'] = ([f'cpu:{i}' for i in range(local)]
+                              if name in COPIES else ['cpu'] * local)
             with open(path + '.tmp', 'wb') as f:
                 pickle.dump(job, f)
             os.replace(path + '.tmp', path)
@@ -334,6 +359,17 @@ def test_two_hosts_match_the_reference_on_the_global_mesh(case_runs, name):
     assert hosts[0]['digest'] == hosts[1]['digest']
     assert all(np.array_equal(hosts[0]['flat'][k], hosts[1]['flat'][k])
                for k in want)
+
+
+def test_copies_across_hosts_reduce_the_one_copy_bytes(case_runs):
+    """Pipeline 2 inside each host on two indexed entries: the ends'
+    copies are bit-equal to their owners after the steps, and a step
+    reduces across hosts the bytes of one copy a block (every f32
+    gradient element once, the loss and the denominator), not of
+    every copy."""
+    for got in case_runs['pipeline2-data2-copies'][2]:
+        assert got['copies'] == 3          # embedding, final norm, head
+        assert got['reduced'] == [4 * got['params'] + 8] * STEPS
 
 
 # ------------------------------------------------------------- layouts
