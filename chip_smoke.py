@@ -70,7 +70,12 @@ Phases (each one that fails makes the script exit non-zero):
    is mostly its ticks' host work, which grows with depth), paged
    continuous batching,
    answering concurrent POST /generate requests over HTTP (greedy, one
-   seeded sampled request, then prefix-cache hits); then an int8-KV
+   seeded sampled request, then prefix-cache hits).  Its pool journals
+   its pages (SKYTPU_SERVE_PAGE_EVENTS set while it is made, under the
+   run's own SKYTPU_HOME): once every slot is released, the
+   `kv_pages_alloc` / `kv_pages_free` records of serve.jsonl, replayed
+   as the reference's `page_pool_balance` defines it, free no page that
+   is not held and leave held exactly the prefix cache's pages.  Then an int8-KV
    engine with speculative decoding (k = 4) on the same weights, whose
    greedy tokens must equal the same int8 engine's with speculation
    off.  Launch counts are zeroed just before and read just after:
@@ -412,6 +417,27 @@ Phases (each one that fails makes the script exit non-zero):
    host 0 steps in its own process after its hosts' step: loss within
    rtol 1e-5, every parameter after the step within 1e-3 of max |one
    process|, digests equal.
+7g. Elastic training ("elastic training", models/elastic.py): an
+   `ElasticTrainer` at llama3-8b width, depth 1, bf16, remat, fused CE,
+   batch 4 x 2048, saves every 2 steps, under a SKYTPU_HOME of its own
+   in a temporary directory: fsdp 4 over four entries of the card
+   (cuda:0-3 with four cards) takes steps 0-3 (saves 0 and 2, 15.2 GB
+   each), `resize` to two entries (cuda:0-1) resumes at step 3 and
+   takes steps 3-4 (saves 4), `resize` back to four resumes at step 5
+   and takes step 5.  Held: each resize resumes after the newest save,
+   the restored state's `train.state_digest` equal to the one taken
+   when that step was saved, the recomputed step 3 within 1e-2 of its
+   first run, the journal (training.jsonl) exactly train_resume
+   (restored false) -> save start/end pairs of steps 0 and 2 with
+   status ok -> gang_resize 4 -> 2 -> train_resume (step 3, restored)
+   -> the pair of step 4 -> gang_resize 2 -> 4 -> train_resume (step
+   5), and B3 / B4 / B5 launches exactly `shard_launches` of each size
+   (48 / 24 / 24).  Printed: each size's step ms (a save step includes
+   its snapshot), the save drain and resize (restore + setup) seconds,
+   the digest seconds, params + moments stored on each card, each
+   card's peak, each save's seconds, the phase's seconds.  Its
+   temporary directory is deleted on a thread of its own, joined
+   before the script exits.
 8. A training reference check: depth-1 f32 llama3-8b, one 256-token
    sequence, loss.backward() on the GPU (kernels) and on the CPU (the
    plain versions) from the same weights: the loss and every gradient
@@ -419,8 +445,8 @@ Phases (each one that fails makes the script exit non-zero):
 
 The line before the last is the `kernels` JSON: each kernel's
 `launches` is its count on the path `path` names ("moe tensor 2" for
-B1, "moe tensor 2 (int8 pool)" for B2, "multihost training" (phase 7f,
-the newest training path: host 0's process) for B3-B5), and
+B1, "moe tensor 2 (int8 pool)" for B2, "elastic training" (phase 7g,
+the newest training path) for B3-B5), and
 `launches_by_path` holds every
 driven path's own count (serving, the two observability windows, the
 five paths of phase 5, "int8 weights" and "checkpoint" of phase 5b,
@@ -428,7 +454,7 @@ the six MoE paths of phase 5c, the three slice paths of phase 5d,
 the six tensor paths of phase 5e,
 training, `train_llama small`, "training resume", the five paths of
 phase 7c, the two of phase 7d, the six of phase 7e, the two of phase
-7f), each path zeroed just before it and read just after (a host
+7f, "elastic training" of phase 7g), each path zeroed just before it and read just after (a host
 process's count starts at 0 and is read at its end).  B3's
 entry carries the 512-token chunk under `serving_chunk`, the ring hop
 under `ring_hop_causal` / `ring_hop_full` and mesh B's call under
@@ -452,10 +478,13 @@ import contextlib
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -1518,6 +1547,35 @@ def route_window(server, dev, prompts, ids, new_tokens, counters):
             raise AssertionError(f'/profile: mem_bytes {rec["mem_bytes"]} '
                                  f'against the peak {peak}')
     return {'launches': launches, 'profile': prof}
+
+
+def page_balance(engine):
+    """Phase 4's page journal (SKYTPU_SERVE_PAGE_EVENTS was set when the
+    engine was made), replayed as the reference's `page_pool_balance`
+    defines it: each `kv_pages_alloc` holds its pages until a
+    `kv_pages_free` returns them, and no page is freed that is not held.
+    Once every slot is released the pages still held must be the prefix
+    cache's own.  -> (alloc records, free records, pages held)."""
+    from skypilot_tpu_torch.observability import profiling
+    wait_until(lambda: pages_in_slots(engine.stats()) == 0, 60,
+               'slots released')
+    held, counts = {}, {'kv_pages_alloc': 0, 'kv_pages_free': 0}
+    for e in profiling.serve_journal().read():
+        if e['event'] not in counts:
+            continue
+        counts[e['event']] += 1
+        for p in e['pages']:
+            n = held.get(p, 0) + (1 if e['event'] == 'kv_pages_alloc' else -1)
+            if n < 0:
+                raise AssertionError(f'page {p} freed without an alloc')
+            held[p] = n
+    held = sorted(p for p, n in held.items() if n > 0)
+    cached = engine._kv.prefix.hot_entries(len(engine._kv.prefix))  # pylint: disable=protected-access
+    if held != sorted(page for _, page in cached) or not counts[
+            'kv_pages_free']:
+        raise AssertionError(f'page journal: {counts}, held {held}, prefix '
+                             f'cache {sorted(p for _, p in cached)}')
+    return counts['kv_pages_alloc'], counts['kv_pages_free'], len(held)
 
 
 def observability(server, dev, new_tokens, counters):
@@ -4380,6 +4438,248 @@ def log_multihost(r) -> None:
         f'({json.dumps(r["laps"])})')
 
 
+# ------------------------------------------------------------ phase 7g
+
+ELASTIC_LABEL = 'elastic training'
+ELASTIC_BATCH, ELASTIC_SEQ, ELASTIC_SAVE_EVERY = 4, 2048, 2
+# (mesh entries, steps) of each size: the first size runs one step past
+# its newest save (step 2), so that the shrink computes step 3 again.
+ELASTIC_SCHEDULE = ((4, 4), (2, 2), (4, 1))
+ELASTIC_DISK_GB = 50.0           # three 15.2 GB steps (max_to_keep 3)
+
+
+# Directories deleted on threads of their own (joined before `main`
+# returns): deleting phase 7g's three 15.2 GB steps takes ~15 s of disk
+# work that no later phase waits for.
+REMOVALS = []
+
+
+def remove_in_background(path: str) -> None:
+    thread = threading.Thread(target=shutil.rmtree, args=(path, True),
+                              name=f'remove {path}')
+    thread.start()
+    REMOVALS.append(thread)
+
+
+def elastic_devices(dev, n):
+    """n entries: cuda:0 ... cuda:n-1 with four cards, else n entries of
+    the one card (one copy a block)."""
+    import torch
+    if torch.cuda.device_count() >= 4:
+        return [torch.device('cuda', i) for i in range(n)]
+    return [dev] * n
+
+
+def elastic_steps(trainer, n, cards):
+    """n train_steps, each timed on the host clock between synchronises
+    of every card (a save step includes its snapshot) ->
+    [(step, loss, ms)]."""
+    import torch
+    out = []
+    for _ in range(n):
+        for c in cards:
+            torch.cuda.synchronize(c)
+        t0 = time.perf_counter()
+        [(step, loss)] = trainer.train_steps(1)
+        for c in cards:
+            torch.cuda.synchronize(c)
+        out.append((step, loss, (time.perf_counter() - t0) * 1e3))
+    return out
+
+
+def elastic_expected_journal():
+    """The journal's (event, step, from, to, restored, status) sequence
+    ELASTIC_SCHEDULE must leave."""
+    out, step = [], 0
+    sizes = [n for n, _ in ELASTIC_SCHEDULE]
+    for i, (n, steps) in enumerate(ELASTIC_SCHEDULE):
+        if i:
+            out.append(('gang_resize', None, sizes[i - 1], n, None, None))
+            step = max(s for s in range(step) if
+                       s % ELASTIC_SAVE_EVERY == 0) + 1
+        out.append(('train_resume', step, None, None, bool(i), None))
+        for s in range(step, step + steps):
+            if s % ELASTIC_SAVE_EVERY == 0:
+                out += [('checkpoint_save_start', s, None, None, None, None),
+                        ('checkpoint_save_end', s, None, None, None, 'ok')]
+        step += steps
+    return out
+
+
+def elastic_resize(trainer, devices, digests, reason):
+    """Drain the saves, resize to `devices` and hold the restore: the
+    step after the newest save, and its state digest equal to the one
+    taken when that step was saved.  -> the numbers to print."""
+    from skypilot_tpu_torch.models import train
+    out = {}
+    t0 = time.perf_counter()
+    trainer.checkpointer.wait_until_finished()
+    out['drain_s'] = time.perf_counter() - t0
+    saved = max(s for s in digests if s < trainer.step)
+    trainer.state = None   # freed before the new state is made
+    free_cuda()
+    t0 = time.perf_counter()
+    trainer.resize(devices, reason=reason)
+    out['resize_s'] = time.perf_counter() - t0
+    if (trainer.step, trainer.resumed_from_checkpoint) != (saved + 1, True):
+        raise AssertionError(f'resize to {len(devices)}: step {trainer.step}, '
+                             f'restored {trainer.resumed_from_checkpoint}; '
+                             f'want step {saved + 1}')
+    t0 = time.perf_counter()
+    if train.state_digest(trainer.state) != digests[saved]:
+        raise AssertionError(f'resize to {len(devices)}: the restored state '
+                             f'differs from step {saved}\'s')
+    out['digest_s'] = time.perf_counter() - t0
+    out['resumed'] = trainer.step
+    return out
+
+
+def elastic_training(dev, counters):
+    """Phase 7g: an ElasticTrainer at llama3-8b width, depth 1, through
+    ELASTIC_SCHEDULE (fsdp 4 -> 2 -> 4) under a SKYTPU_HOME of its own;
+    launches held to `shard_launches` of each size; the restored states
+    held to the saved ones by `train.state_digest`, the recomputed step
+    to its first run, the journal to `elastic_expected_journal`.
+    -> (launches, report)."""
+    import torch
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import train
+    from skypilot_tpu_torch.models.elastic import ElasticTrainer
+    from skypilot_tpu_torch.observability import events
+    t_phase = time.perf_counter()
+    cfg = configs.get_config('llama3-8b', n_layers=1)
+    tcfg = train.TrainConfig(fused_ce=True)
+    root = tempfile.mkdtemp(prefix='skytpu_elastic_')
+    report = {'free_gb': shutil.disk_usage(root).free / 1e9, 'sizes': [],
+              'four_cards': torch.cuda.device_count() >= 4}
+    home = os.environ.get('SKYTPU_HOME')
+    os.environ['SKYTPU_HOME'] = f'{root}/home'
+    try:
+        if report['free_gb'] < ELASTIC_DISK_GB:
+            raise AssertionError(f'elastic training needs ~{ELASTIC_DISK_GB} '
+                                 f'GB free under {root}: '
+                                 f'{report["free_gb"]:.1f} GB')
+        free_cuda()
+        want = {k: 0 for k in TRAIN_KERNELS}
+        for n, steps in ELASTIC_SCHEDULE:
+            for k, v in shard_launches({'fsdp': n}, 'ring', 1, steps).items():
+                want[k] += v
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        n0 = ELASTIC_SCHEDULE[0][0]
+        trainer = ElasticTrainer(
+            cfg, tcfg, checkpoint_dir=f'{root}/ckpt',
+            batch_size=ELASTIC_BATCH, seq_len=ELASTIC_SEQ,
+            devices=elastic_devices(dev, n0),
+            save_interval_steps=ELASTIC_SAVE_EVERY)
+        report['init_s'] = time.perf_counter() - t0
+        digests, first, report['recomputed'] = {}, {}, {}
+        try:
+            for i, (n, steps) in enumerate(ELASTIC_SCHEDULE):
+                devices = elastic_devices(dev, n)
+                cards = list(dict.fromkeys(devices))
+                size = {'n': n}
+                if i:
+                    size.update(elastic_resize(trainer, devices, digests,
+                                               f'{ELASTIC_LABEL} {i}'))
+                if trainer.mesh.shape['fsdp'] != n:
+                    raise AssertionError(f'{n} entries: mesh '
+                                         f'{trainer.mesh.shape}')
+                size['stored_gb'] = [
+                    3 * b / 1e9 for b in trainer.state.shards.device_bytes()]
+                for c in cards:
+                    torch.cuda.reset_peak_memory_stats(c)
+                # The newest save before the next resize: its state is the
+                # one the resize must restore.
+                start = trainer.step
+                last_save = max((s for s in range(start, start + steps)
+                                 if s % ELASTIC_SAVE_EVERY == 0), default=None)
+                size['steps'] = []
+                for _ in range(steps):
+                    size['steps'] += elastic_steps(trainer, 1, cards)
+                    if (trainer.step - 1 == last_save and
+                            i + 1 < len(ELASTIC_SCHEDULE)):
+                        t0 = time.perf_counter()
+                        digests[last_save] = train.state_digest(trainer.state)
+                        size['saved_digest_s'] = time.perf_counter() - t0
+                size['peak_gib'] = [train.peak_memory_bytes(c) / 2**30
+                                    for c in cards]
+                report['sizes'].append(size)
+                for step, loss, _ in size['steps']:
+                    if not math.isfinite(loss):
+                        raise AssertionError(f'step {step}: loss {loss}')
+                    if step not in first:
+                        first[step] = loss
+                        continue
+                    report['recomputed'][step] = (first[step], loss)
+                    if not abs(loss - first[step]) <= 1e-2 * abs(first[step]):
+                        raise AssertionError(
+                            f'recomputed step {step}: loss {loss} vs its '
+                            f'first run {first[step]}')
+        finally:
+            trainer.close()
+        launches = read_counts(counters)
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f'{ELASTIC_LABEL}: launches {got}, '
+                                 f'predicted {want}')
+        if sorted(report['recomputed']) != [3]:
+            raise AssertionError(f'recomputed steps '
+                                 f'{sorted(report["recomputed"])}')
+        records = events.training_journal().read()
+        seq = [(e['event'], e.get('step'), e.get('from'), e.get('to'),
+                e.get('restored'), e.get('status')) for e in records]
+        if seq != elastic_expected_journal():
+            raise AssertionError(f'journal {seq}, expected '
+                                 f'{elastic_expected_journal()}')
+        report['saves_s'] = [e['duration_s'] for e in records
+                             if e['event'] == 'checkpoint_save_end']
+        report['journal'] = len(records)
+        report['launches'] = got
+        del trainer
+    finally:
+        t0 = time.perf_counter()
+        if home is None:
+            os.environ.pop('SKYTPU_HOME', None)
+        else:
+            os.environ['SKYTPU_HOME'] = home
+        remove_in_background(root)
+        free_cuda()
+        report['cleanup_s'] = time.perf_counter() - t0
+    report['seconds'] = time.perf_counter() - t_phase
+    return {ELASTIC_LABEL: launches}, report
+
+
+def log_elastic(r) -> None:
+    where = ('cuda:0-3 / cuda:0-1' if r['four_cards'] else
+             'entries of cuda:0')
+    log(f'{ELASTIC_LABEL} ({card()}; llama3-8b width, depth 1, bf16, '
+        f'remat, fused CE, batch {ELASTIC_BATCH} x {ELASTIC_SEQ}, saves '
+        f'every {ELASTIC_SAVE_EVERY} steps, fsdp '
+        f'{" -> ".join(str(n) for n, _ in ELASTIC_SCHEDULE)} over {where}): '
+        f'init {r["init_s"]:.2f} s')
+    for x in r['sizes']:
+        resized = (f'; drained saves {x["drain_s"]:.2f} s, resize '
+                   f'(restore + setup) {x["resize_s"]:.2f} s, resumed at '
+                   f'step {x["resumed"]}, state digest equal to the saved '
+                   f'step\'s ({x["digest_s"]:.2f} s)' if 'resize_s' in x
+                   else '')
+        saved = (f'; the saved step\'s digest {x["saved_digest_s"]:.2f} s'
+                 if 'saved_digest_s' in x else '')
+        log(f'  fsdp {x["n"]}{resized}; steps '
+            f'{" ".join(f"{s}: {l:.6f} ({ms:.1f} ms)" for s, l, ms in x["steps"])}'
+            f'{saved}; params + moments stored a card '
+            f'{fmt(x["stored_gb"], 2)} GB; peak a card '
+            f'{fmt(x["peak_gib"], 2)} GiB')
+    for step, (a, b) in r['recomputed'].items():
+        log(f'  recomputed step {step}: {b:.6f} vs its first run {a:.6f} '
+            f'(relative {abs(b - a) / abs(a):.3g})')
+    log(f'  journal: {r["journal"]} records as expected; saves '
+        f'{fmt(r["saves_s"], 2)} s; launches {json.dumps(r["launches"])}; '
+        f'free disk before {r["free_gb"]:.1f} GB; clean-up '
+        f'{r["cleanup_s"]:.2f} s; the phase {r["seconds"]:.1f} s')
+
+
 # ------------------------------------------------------------ phase 8
 
 
@@ -5433,6 +5733,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
+    # The flight recorder's journals (observability/events.py) go to a
+    # SKYTPU_HOME of the run's own, deleted at its end.
+    home = tempfile.mkdtemp(prefix='skytpu_home_')
+    os.environ['SKYTPU_HOME'] = home
+    try:
+        return run()
+    finally:
+        for thread in REMOVALS:
+            thread.join()
+        shutil.rmtree(home, ignore_errors=True)
+
+
+def run() -> int:
+    """Every phase of the module docstring, in order."""
+    import torch
     try:
         from skypilot_tpu_torch.ops import _build
         from skypilot_tpu_torch.ops import attention
@@ -5503,10 +5818,16 @@ def main() -> int:
     zero_counts(counters)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    server = model_server.ModelServer(
-        'llama3-8b', continuous_batching=True, kv_pages=1024,
-        page_size=16, max_len=1024, max_batch=8, seed=0, device=dev,
-        overrides={'n_layers': SERVE_LAYERS})
+    # The serving engine's pool journals its pages (held below); the
+    # engines of later phases are made without the variable.
+    os.environ['SKYTPU_SERVE_PAGE_EVENTS'] = '1'
+    try:
+        server = model_server.ModelServer(
+            'llama3-8b', continuous_batching=True, kv_pages=1024,
+            page_size=16, max_len=1024, max_batch=8, seed=0, device=dev,
+            overrides={'n_layers': SERVE_LAYERS})
+    finally:
+        del os.environ['SKYTPU_SERVE_PAGE_EVENTS']
     torch.cuda.synchronize()
     log(f'llama3-8b init (depth {SERVE_LAYERS}): '
         f'{time.perf_counter() - t0:.1f}s, '
@@ -5522,6 +5843,10 @@ def main() -> int:
             f'({wall:.2f}s); TTFT (100-token prompt, idle engine) '
             f'{req.ttft_s * 1e3:.1f} ms; prefix hits '
             f'{stats["prefix_cache_hits"]} pages; ticks {stats["ticks"]}')
+        allocs, frees, held = page_balance(server.engine)
+        log(f'page journal (serve.jsonl): {allocs} kv_pages_alloc, {frees} '
+            f'kv_pages_free; the {held} pages still held are the prefix '
+            f'cache\'s')
         spec_stats = int8_spec_parity(server.cfg, server.params, dev,
                                       new_tokens)
         log(f'int8 + spec(4): greedy equal to spec-off; accept len '
@@ -5608,6 +5933,10 @@ def main() -> int:
     paths.update(host_paths)
     log_multihost(host_report)
     clock.done('multihost training')
+    elastic_paths, elastic_report = elastic_training(dev, counters)
+    paths.update(elastic_paths)
+    log_elastic(elastic_report)
+    clock.done(ELASTIC_LABEL)
     loss, (rel, name) = train_reference_check(dev)
     log(f'train reference: depth-1 f32 llama3-8b loss GPU '
         f'{loss["cuda"]:.6f} CPU {loss["cpu"]:.6f}; largest gradient '
@@ -5631,15 +5960,15 @@ def main() -> int:
     # `launches` counts the run of the path named by `path`: "moe
     # tensor 2" (this port's newest serving path: Mixtral-width MoE over
     # two tensor ranks, bf16 pool) for B1, "moe tensor 2 (int8 pool)"
-    # for B2, "multihost training" (phase 7f, the newest training path:
-    # host 0 of two train_llama hosts, its process's own count) for
-    # B3-B5.  `launches_by_path` gives each driven path's own count; no
-    # two runs are added.
+    # for B2, "elastic training" (phase 7g, the newest training path:
+    # fsdp 4 -> 2 -> 4 through two resizes) for B3-B5.
+    # `launches_by_path` gives each driven path's own count; no two runs
+    # are added.
     main_path = {'paged_attention': 'moe tensor 2',
                  'paged_attention_int8': 'moe tensor 2 (int8 pool)',
-                 'flash_fwd': 'multihost training',
-                 'flash_bwd_dq': 'multihost training',
-                 'flash_bwd_dkv': 'multihost training'}
+                 'flash_fwd': ELASTIC_LABEL,
+                 'flash_bwd_dq': ELASTIC_LABEL,
+                 'flash_bwd_dkv': ELASTIC_LABEL}
     kernels = [dict(name=name, route='cuda', source=sources[name],
                     replaces=replaces[name],
                     launches=paths[main_path[name]][name],

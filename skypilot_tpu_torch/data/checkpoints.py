@@ -67,8 +67,9 @@ from typing import (Any, Callable, Dict, Iterable, List, Optional, Sequence,
 
 import torch
 
+from skypilot_tpu_torch.chaos import injector as chaos_injector
 from skypilot_tpu_torch.device import resolve_device
-from skypilot_tpu_torch.observability import metrics as metrics_lib
+from skypilot_tpu_torch.observability import events as events_lib
 from skypilot_tpu_torch.parallel import distributed
 from skypilot_tpu_torch.utils import safetensors_io
 
@@ -82,8 +83,10 @@ OPTIMIZER_FORMAT = 'skypilot_tpu_torch.optimizer'
 # variable the job contract exports (skypilot_tpu/skylet/constants.py).
 CHECKPOINT_PATH = '/checkpoint'
 ENV_CHECKPOINT_DIR = 'SKYTPU_CHECKPOINT_DIR'
-CHECKPOINT_SAVE_BUCKETS = (0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
-                           10.0, 30.0, 60.0, 120.0)
+# The save instruments live with the flight recorder's.
+CHECKPOINT_SAVE_BUCKETS = events_lib.CHECKPOINT_SAVE_BUCKETS
+checkpoint_save_hist = events_lib.checkpoint_save_hist
+checkpoint_blocked_counter = events_lib.checkpoint_blocked_counter
 _SEP = '/'
 _REIMPORT = ('re-import its HF source with `python -m '
              'skypilot_tpu_torch.models.import_weights --src <hf dir> '
@@ -283,22 +286,6 @@ def checkpoint_dir() -> Optional[str]:
     return os.environ.get(ENV_CHECKPOINT_DIR)
 
 
-def checkpoint_save_hist() -> metrics_lib.Histogram:
-    return metrics_lib.histogram(
-        'skytpu_checkpoint_save_seconds',
-        'Checkpoint save wall time (write + retries; off the step '
-        'critical path for async saves)',
-        buckets=CHECKPOINT_SAVE_BUCKETS)
-
-
-def checkpoint_blocked_counter() -> metrics_lib.Counter:
-    return metrics_lib.counter(
-        'skytpu_checkpoint_blocked_seconds_total',
-        'Seconds train steps spent blocked waiting on the bounded '
-        'in-flight checkpoint save slot (nonzero means saves are '
-        'slower than the save interval)')
-
-
 Leaves = List[Tuple[Tuple[str, ...], torch.Tensor]]
 
 
@@ -465,9 +452,11 @@ class AsyncCheckpointManager:
     - **Wait-on-exit**: :meth:`wait_until_finished` / :meth:`close`
       drain every queued save.
     - Every save is timed into ``skytpu_checkpoint_save_seconds``, and
-      reported as ``checkpoint_save_start`` / ``_end`` events (status,
-      attempts, duration_s) to `journal.append(kind, **fields)` when a
-      journal is given: the port has no event journal of its own yet.
+      journaled as ``checkpoint_save_start`` / ``_end`` (status,
+      attempts, duration_s) to `journal`, by default the training
+      journal (`events.training_journal()`, the flight recorder).  A
+      write attempt is the ``checkpoint.save`` chaos site: an injected
+      raise is a write flake that the retry loop retries.
 
     `async_save=False` writes on the caller's thread with the same
     retry semantics.
@@ -496,7 +485,8 @@ class AsyncCheckpointManager:
         self.max_retries = max(0, int(max_retries))
         self.retry_backoff_s = retry_backoff_s
         self.async_save = async_save
-        self._journal = journal
+        self._journal = (journal if journal is not None
+                         else events_lib.training_journal())
         self._slots = threading.Semaphore(self.max_in_flight)
         # (step, snapshot, blocked seconds), or None to stop the writer.
         self._queue: queue.Queue = queue.Queue()
@@ -581,10 +571,6 @@ class AsyncCheckpointManager:
 
     # ------------------------------------------------------------ internal
 
-    def _event(self, kind: str, **fields: Any) -> None:
-        if self._journal is not None:
-            self._journal.append(kind, **fields)
-
     def _writer_loop(self) -> None:
         while True:
             item = self._queue.get()
@@ -603,9 +589,9 @@ class AsyncCheckpointManager:
 
     def _write(self, step: int, snapshot: TrainSnapshot, *,
                blocked_s: float) -> None:
-        self._event('checkpoint_save_start', step=step,
-                    directory=self.directory,
-                    blocked_s=round(blocked_s, 6))
+        self._journal.append('checkpoint_save_start', step=step,
+                             directory=self.directory,
+                             blocked_s=round(blocked_s, 6))
         t0 = time.monotonic()
         attempts = 0
         backoff = self.retry_backoff_s
@@ -616,6 +602,9 @@ class AsyncCheckpointManager:
             while True:
                 attempts += 1
                 try:
+                    chaos_injector.inject('checkpoint.save', step=step,
+                                          attempt=attempts,
+                                          directory=self.directory)
                     save_train_step(self.directory, step, snapshot)
                     prune_steps(self.directory, self.max_to_keep)
                     self.saves_ok += 1
@@ -635,5 +624,6 @@ class AsyncCheckpointManager:
         finally:
             duration = time.monotonic() - t0
             checkpoint_save_hist().observe(duration)
-            self._event('checkpoint_save_end', step=step, status=status,
-                        attempts=attempts, duration_s=round(duration, 6))
+            self._journal.append('checkpoint_save_end', step=step,
+                                 status=status, attempts=attempts,
+                                 duration_s=round(duration, 6))

@@ -33,9 +33,10 @@ Two always-on, low-overhead instruments:
   step has one signature and the sentinel does not see row buckets.
   New signatures during warm-up are expected; one after `steady_after` quiet calls bumps
   `skytpu_engine_recompiles_total{fn}` (the reference's name, which the
-  fleet reads).  The reference also journals it
-  (`recompile_detected`); the port has no event journal yet, so the
-  journal factory returns None.
+  fleet reads) and journals `recompile_detected` to the serving
+  journal (`serve_journal`, `<journal_root>/serve.jsonl`), where the
+  engine's `tick_profile_start` / `_end` pair, one a worker's run, lands
+  too.
 
 Knobs: `SKYTPU_PROFILE_RING_TICKS` (ring capacity, default 512),
 `SKYTPU_PROFILE_DISABLE` (=1 turns both instruments into no-ops).
@@ -50,6 +51,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from skypilot_tpu_torch.observability import events as events_lib
 from skypilot_tpu_torch.observability import metrics as metrics_lib
 
 # The complete tick-phase vocabulary.  A tick records only the phases
@@ -97,10 +99,12 @@ def ring_ticks_default() -> int:
     return max(1, n)
 
 
-def serve_journal():
-    """The serving flight recorder: the port has no event journal yet
-    (it comes with the chaos hooks), so there is nothing to record to."""
-    return None
+def serve_journal() -> events_lib.EventJournal:
+    """The serving flight recorder (`<journal_root>/serve.jsonl`):
+    recompile detections and the tick_profile lifecycle land next to the
+    page alloc/free, request and weight-swap events."""
+    return events_lib.get_journal(
+        os.path.join(events_lib.journal_root(), 'serve.jsonl'))
 
 
 def _no_memory() -> Optional[int]:

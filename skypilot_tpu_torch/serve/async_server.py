@@ -254,6 +254,9 @@ class AsyncModelServer:
                 raise model_server_lib.ClientDisconnected(
                     'client disconnected mid-generation')
         tokens = await gen
+        model_server_lib._maybe_journal_request(  # pylint: disable=protected-access
+            'serve_request_done', request_id=rid, status='ok',
+            tokens=sum(len(t) for t in tokens))
         if qos_class == qos_lib.BATCH:
             model_server_lib._M_BATCH_ROWS.inc(len(tokens))  # pylint: disable=protected-access
         return {'tokens': tokens,

@@ -101,11 +101,20 @@ every tick of all three loops into the reference's phases, and a
 `RecompileSentinel` over the step entries (`profile()`, `GET /profile`).
 None of it touches the device: the tick's one host sync stays where it
 is, and the lap after it carries the wait for the device.
+
+The flight recorder (observability/events.py, as the reference wires
+it): each pipelined worker's run is a `tick_profile_start` / `_end`
+pair in the serving journal (`profiling.serve_journal`); page
+alloc/free events go there only while someone watches (the
+`serve.page_pool` chaos site armed, or SKYTPU_SERVE_PAGE_EVENTS set),
+so a tick does no I/O otherwise; `import_pages` is the
+`serve.kv_handoff` chaos site (a deny raises `HandoffRejected`).
 """
 from __future__ import annotations
 
 import collections
 import logging
+import os
 import threading
 import time
 from typing import Any, Deque, Dict, List, Optional, Tuple, Union
@@ -113,6 +122,7 @@ from typing import Any, Deque, Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from skypilot_tpu_torch.chaos import injector as chaos_injector
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import decode
 from skypilot_tpu_torch.models import tensor_parallel
@@ -239,6 +249,16 @@ _M_KERNEL_PALLAS = metrics_lib.gauge(
     '(1) or the plain fallback (0); dense engines set 0.')
 
 
+def _maybe_page_journal():
+    """The serving journal while someone watches page alloc/free (the
+    `serve.page_pool` chaos site armed, or SKYTPU_SERVE_PAGE_EVENTS
+    set), else None: admissions stay free of I/O."""
+    if not (os.environ.get('SKYTPU_SERVE_PAGE_EVENTS') or
+            chaos_injector.site_armed('serve.page_pool')):
+        return None
+    return profiling.serve_journal()
+
+
 class ContinuousBatchingEngine:
     """Submit() from any thread; one worker thread owns the device."""
 
@@ -317,7 +337,8 @@ class ContinuousBatchingEngine:
                     'pages into the pool)')
             self._kv = cache_manager.PagedKVManager(
                 int(kv_pages), int(page_size),
-                prefix_caching=prefix_caching)
+                prefix_caching=prefix_caching,
+                journal=_maybe_page_journal())
             self._cache = decode.init_paged_cache(
                 cfg, int(kv_pages), int(page_size), slots,
                 max_len // int(page_size), quantize_kv=quantize_kv,
@@ -662,6 +683,13 @@ class ContinuousBatchingEngine:
             if tuple(arr.shape) != geometry:
                 raise HandoffError(f'{name} pages {tuple(arr.shape)} do '
                                    f'not fit this pool: {geometry}')
+        # Chaos: deny -> this replica refuses the pages (the router falls
+        # back to a local prefill); delay -> handoff latency on the
+        # caller's thread, never the ticks'.
+        if chaos_injector.inject('serve.kv_handoff',
+                                 pages=len(hashes)) is chaos_injector.DENY:
+            _M_HANDOFF_IMPORTS.labels(result='denied').inc()
+            raise HandoffRejected('chaos: KV handoff import denied')
 
         def tensor(arr, cached: int) -> torch.Tensor:
             return torch.from_numpy(np.array(arr[:, cached:]))
@@ -1135,6 +1163,18 @@ class ContinuousBatchingEngine:
         self._record_tick()
 
     def _run(self) -> None:
+        # One tick_profile start/end pair brackets a pipelined worker's
+        # run, so a journal replay can attribute the ring's ticks to an
+        # engine incarnation and see whether it failed or drained.
+        journal = None
+        if self.pipelined:
+            try:
+                journal = profiling.serve_journal()
+                journal.append('tick_profile_start',
+                               ring_ticks=self._profiler.ring_ticks,
+                               enabled=not self._profiler.disabled)
+            except Exception:  # pylint: disable=broad-except
+                journal = None
         try:
             if self.device.type == 'cuda':
                 torch.cuda.set_device(self.device)
@@ -1148,6 +1188,12 @@ class ContinuousBatchingEngine:
             # refuse new submits, and exit the worker.
             logger.exception('batching engine tick failed')
             self._fail_everything(e)
+        finally:
+            if journal is not None:
+                journal.append(
+                    'tick_profile_end',
+                    status='error' if self._failed is not None else 'ok',
+                    ticks=self._profiler.ticks)
 
     def _idle_wait(self) -> None:
         """Sleep until a submit, a host op or stop (at most 50 ms)."""

@@ -1,12 +1,15 @@
 """Paged KV-cache management for the batching engine, host side
 (mirrors `skypilot_tpu/serve/cache_manager.py`, with its page-pool and
-prefix-cache instruments; without the journal and chaos hooks).
+prefix-cache instruments, its journal and its chaos site).
 
 - `PagePool`: free list + per-page refcounts + pins; page 0 is the
   reserved NULL page (freed slots' block tables point at it, so a
   stale device write after a slot is recycled lands in garbage).
   Exhaustion raises `PagesExhausted`, which the engine turns into
-  admission backpressure, never an engine failure.
+  admission backpressure, never an engine failure.  Given a journal,
+  the pool records `kv_pages_alloc` / `kv_pages_free {pages, n}` (the
+  engine passes one only while someone watches), and `alloc` is the
+  `serve.page_pool` chaos site: a deny raises `PagesExhausted`.
 - `PrefixCache`: every FULL page of a prompt's prefilled region is
   registered under a chain hash, so requests sharing a prefix adopt
   the cached pages instead of re-prefilling them; LRU-evicted under
@@ -21,8 +24,9 @@ from __future__ import annotations
 import collections
 import dataclasses
 import threading
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from skypilot_tpu_torch.chaos import injector as chaos_injector
 from skypilot_tpu_torch.observability import metrics as metrics_lib
 
 NULL_PAGE = 0
@@ -64,7 +68,8 @@ class PagePool:
     Thread-safe: submit() threads probe headroom while the worker
     allocates and frees."""
 
-    def __init__(self, n_pages: int, page_size: int) -> None:
+    def __init__(self, n_pages: int, page_size: int,
+                 journal: Optional[Any] = None) -> None:
         if n_pages < 2:
             raise ValueError(f'page pool needs >= 2 pages (one is the '
                              f'reserved null page), got {n_pages}')
@@ -77,6 +82,8 @@ class PagePool:
             range(1, n_pages))
         self._ref = [0] * n_pages
         self._pin = [0] * n_pages
+        # None unless someone watches: no I/O on the admission path.
+        self._journal = journal
 
     @property
     def capacity(self) -> int:
@@ -103,6 +110,10 @@ class PagePool:
 
     def alloc(self, n: int) -> List[int]:
         """Allocate n fresh pages (ref 1 each), all or nothing."""
+        if chaos_injector.inject('serve.page_pool', need=n,
+                                 free=self.free_count) is chaos_injector.DENY:
+            raise PagesExhausted(
+                f'chaos: page pool denied allocation of {n} page(s)')
         with self._lock:
             if n > len(self._free):
                 raise PagesExhausted(
@@ -111,6 +122,7 @@ class PagePool:
             pages = [self._free.popleft() for _ in range(n)]
             for p in pages:
                 self._ref[p] = 1
+        self._record('kv_pages_alloc', pages)
         return pages
 
     def incref(self, pages: Sequence[int]) -> None:
@@ -123,6 +135,7 @@ class PagePool:
     def decref(self, pages: Sequence[int]) -> None:
         """Drop one reference per page; pages with no refs and no pins
         return to the free list."""
+        freed: List[int] = []
         with self._lock:
             for p in pages:
                 if self._ref[p] <= 0:
@@ -131,6 +144,9 @@ class PagePool:
                 self._ref[p] -= 1
                 if self._ref[p] == 0 and self._pin[p] == 0:
                     self._free.append(p)
+                    freed.append(p)
+        if freed:
+            self._record('kv_pages_free', freed)
 
     def pin(self, page: int) -> None:
         """Prefix-cache hold: keeps the page resident at ref 0."""
@@ -140,12 +156,16 @@ class PagePool:
             self._pin[page] += 1
 
     def unpin(self, page: int) -> None:
+        freed = False
         with self._lock:
             if self._pin[page] <= 0:
                 raise ValueError(f'unpin of unpinned page {page}')
             self._pin[page] -= 1
             if self._pin[page] == 0 and self._ref[page] == 0:
                 self._free.append(page)
+                freed = True
+        if freed:
+            self._record('kv_pages_free', [page])
 
     def cow(self, page: int) -> Tuple[int, bool]:
         """Copy-on-write: (writable_page, needs_copy).  A private page
@@ -157,6 +177,14 @@ class PagePool:
         fresh = self.alloc(1)[0]
         self.decref([page])
         return fresh, True
+
+    def _record(self, event: str, pages: List[int]) -> None:
+        if self._journal is None:
+            return
+        try:
+            self._journal.append(event, pages=list(pages), n=len(pages))
+        except Exception:  # pylint: disable=broad-except
+            pass  # recording must never break the admission path
 
 
 class PrefixCache:
@@ -253,8 +281,9 @@ class PagedKVManager:
     """Pool + prefix cache + slot -> pages ownership for one engine."""
 
     def __init__(self, n_pages: int, page_size: int,
-                 prefix_caching: bool = True) -> None:
-        self.pool = PagePool(n_pages, page_size)
+                 prefix_caching: bool = True,
+                 journal: Optional[Any] = None) -> None:
+        self.pool = PagePool(n_pages, page_size, journal=journal)
         self.page_size = page_size
         self.prefix_caching = prefix_caching
         self.prefix = PrefixCache(self.pool)

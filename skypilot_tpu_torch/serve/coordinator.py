@@ -28,9 +28,10 @@ Failure semantics: a slice fails AS A UNIT.  A follower that raises,
 disconnects or misses the ack deadline is DEAD; the next broadcast on
 rank 0 raises :class:`RankDead`, the engine fails everything in flight
 and `/health` turns 503 with `slice.degraded`, and the controller
-replaces the replica.  The reference's `serve.rank_exec` chaos site
-(a raise injected where a rank executes) is not in the port yet: the
-chaos injector comes with A18.
+replaces the replica.  Every rank's execution of a command, rank 0's
+included (inline, before the followers'), is the `serve.rank_exec`
+chaos site (chaos/injector.py): an injected raise is that rank's host
+dying mid-command, and `where: {rank: 0}` kills the head.
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
+from skypilot_tpu_torch.chaos import injector as chaos_injector
 from skypilot_tpu_torch.observability import logs as logs_lib
 from skypilot_tpu_torch.observability import metrics as metrics_lib
 
@@ -107,11 +109,11 @@ class Command:
 
 def _execute(rank: int, cmd: Command,
              executor: Optional[Callable[[Command], None]]) -> None:
-    """One follower-side command execution: the boundary where a rank's
-    host process dies mid-command (the reference's `serve.rank_exec`
-    chaos site sits here; an executor that raises is the same death).
-    An ADMIT replay carries its request id, bound into the rank's log
-    records."""
+    """One rank's execution of a command: the boundary where a rank's
+    host process dies mid-command, the `serve.rank_exec` chaos site (an
+    executor that raises is the same death).  An ADMIT replay carries
+    its request id, bound into the rank's log records."""
+    chaos_injector.inject('serve.rank_exec', rank=rank, command=cmd.kind)
     if executor is not None:
         rid = cmd.payload.get('request_id') if cmd.payload else None
         if rid is not None:
@@ -403,8 +405,8 @@ class SliceCoordinator:
     # --------------------------------------------------------- broadcast
 
     def broadcast(self, kind: str, **payload: Any) -> float:
-        """Send one command to every follower and wait for all acks
-        (rank 0 dispatches after this returns).  Returns the sync wall
+        """Execute one command on rank 0, send it to every follower and
+        wait for all acks (rank 0 dispatches after this returns).  Returns the sync wall
         time (seconds).  Raises RankDead on the FIRST command after any
         rank died: the caller (the engine tick wrapper) fails the
         replica as a unit."""
@@ -415,7 +417,14 @@ class SliceCoordinator:
             self._seq += 1
             cmd = Command(kind=kind, seq=self._seq, payload=payload)
         t0 = time.perf_counter()
-        # Rank 0's own work is the caller's dispatch after this returns.
+        # Rank 0 executes inline first (its device work is the caller's
+        # dispatch after this returns; its chaos site fires here like
+        # any other rank's).
+        try:
+            _execute(0, cmd, None)
+        except Exception as e:  # pylint: disable=broad-except
+            self._mark_dead(0, f'{type(e).__name__}: {e}')
+            raise RankDead(0, f'{type(e).__name__}: {e}') from e
         for channel in self._channels:
             channel.send(cmd)
         for channel in self._channels:

@@ -100,6 +100,15 @@ SKYTPU_SLICE_SP_THRESHOLD give `main`'s flag defaults (`build_parser`);
 SKYTPU_SERVE_DEFAULT_DEADLINE_MS is the deadline of a request without
 X-SkyTPU-Deadline-Ms (both fronts); SKYTPU_MODEL_FLOPS_PER_TOKEN
 overrides the FLOPs estimate behind skytpu_engine_model_flops_per_token.
+
+The flight recorder (observability/events.py): while someone watches,
+the serving journal (`profiling.serve_journal`) gets a
+`serve_request_done` per completed /generate, /generate_text and
+/generate_stream (SKYTPU_SERVE_HANDOFF_EVENTS, or the
+`serve.kv_handoff`, `serve.rank_exec` or `serve.controller_tick` chaos
+site armed) and `weight_swap_start` / `_end` around /weights_swap
+(SKYTPU_BATCH_EVENTS, or `batch.shard_write` armed); otherwise nothing
+is written.  A recording error never reaches the request.
 """
 from __future__ import annotations
 
@@ -117,6 +126,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from skypilot_tpu_torch.chaos import injector as chaos_injector
 from skypilot_tpu_torch.device import device_scope
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.data import checkpoints
@@ -130,6 +140,7 @@ from skypilot_tpu_torch.models import tokenizer as tokenizer_lib
 from skypilot_tpu_torch.models.transformer import init_params
 from skypilot_tpu_torch.observability import logs as logs_lib
 from skypilot_tpu_torch.observability import metrics as metrics_lib
+from skypilot_tpu_torch.observability import profiling
 from skypilot_tpu_torch.observability import tracing
 from skypilot_tpu_torch.parallel import mesh as mesh_lib
 from skypilot_tpu_torch.serve import batching_engine as batching_engine_lib
@@ -183,6 +194,35 @@ _M_FLOPS_PER_TOKEN = metrics_lib.gauge(
 class ClientDisconnected(RuntimeError):
     """The client hung up while its request was in flight: the engine
     slots were cancelled (the worker frees them); no response is owed."""
+
+
+def _maybe_journal(watching: bool, event: str, **fields) -> None:
+    if not watching:
+        return
+    try:
+        profiling.serve_journal().append(event, **fields)
+    except Exception:  # pylint: disable=broad-except
+        pass  # recording must never break the serving path
+
+
+def _maybe_journal_request(event: str, **fields) -> None:
+    """Journal a request's completion only while someone watches
+    (SKYTPU_SERVE_HANDOFF_EVENTS, or a handoff, rank or controller
+    chaos site armed): the reference's `handoff_consistency` invariant
+    replays these to show that no request is lost or run twice."""
+    _maybe_journal(bool(os.environ.get('SKYTPU_SERVE_HANDOFF_EVENTS')) or
+                   any(chaos_injector.site_armed(site) for site in (
+                       'serve.kv_handoff', 'serve.rank_exec',
+                       'serve.controller_tick')), event, **fields)
+
+
+def _maybe_journal_batch(event: str, **fields) -> None:
+    """Journal the weight-swap lifecycle only while someone watches
+    (SKYTPU_BATCH_EVENTS, or the `batch.shard_write` chaos site
+    armed)."""
+    _maybe_journal(bool(os.environ.get('SKYTPU_BATCH_EVENTS')) or
+                   chaos_injector.site_armed('batch.shard_write'),
+                   event, **fields)
 
 
 def parse_attempt(raw: Optional[str]) -> Optional[int]:
@@ -549,6 +589,9 @@ class ModelServer:
         step = checkpoints.latest_step(checkpoint_dir)
         if step is None:
             raise ValueError(f'no checkpoint under {checkpoint_dir}')
+        _maybe_journal_batch('weight_swap_start',
+                             replica_id=self.replica_id,
+                             checkpoint_dir=checkpoint_dir, step=step)
         t0 = time.perf_counter()
         status = 'error'
         epoch: Optional[int] = None
@@ -562,6 +605,9 @@ class ModelServer:
             _M_WEIGHT_SWAPS.labels(status=status).inc()
             if epoch is not None:
                 _M_WEIGHT_EPOCH.set(epoch)
+            _maybe_journal_batch('weight_swap_end',
+                                 replica_id=self.replica_id,
+                                 status=status, weight_epoch=epoch)
         return {'weight_version': epoch, 'step': step,
                 'restore_ms': round((time.perf_counter() - t0) * 1e3, 1)}
 
@@ -940,16 +986,18 @@ def _make_handler(server: ModelServer):
                              b'\r\n')
             self.wfile.flush()
 
-        def _sse_stream(self, request, events) -> None:
+        def _sse_stream(self, request, events) -> bool:
             """Answer with the SSE frames `events` yields from the
             request's token stream, then [DONE]; a client that goes
-            away, or any other failure, cancels the request."""
+            away, or any other failure, cancels the request.  -> whether
+            the stream reached [DONE]."""
             self._start_sse()
             try:
                 for data in events:
                     self._sse_chunk(data)
                 self._sse_chunk('[DONE]')
                 self.wfile.write(b'0\r\n\r\n')
+                return True
             except (BrokenPipeError, ConnectionResetError):
                 request.cancel()
             except Exception as e:  # pylint: disable=broad-except
@@ -960,6 +1008,7 @@ def _make_handler(server: ModelServer):
                     self.wfile.write(b'0\r\n\r\n')
                 except (BrokenPipeError, ConnectionResetError, OSError):
                     pass
+            return False
 
         def _generate(self):
             if self._reject_if_draining():
@@ -978,6 +1027,9 @@ def _make_handler(server: ModelServer):
                     disconnect_probe=self._disconnect_probe())
                 if qos == qos_lib.BATCH:
                     _M_BATCH_ROWS.inc(len(tokens))
+                _maybe_journal_request(
+                    'serve_request_done', request_id=self._rid,
+                    status='ok', tokens=sum(len(t) for t in tokens))
                 self._reply(200, {
                     'tokens': tokens,
                     'weight_version': server.weight_version,
@@ -1033,9 +1085,12 @@ def _make_handler(server: ModelServer):
                 if not self._reply_backpressure(e):
                     self._reply(503, {'error': f'{type(e).__name__}: {e}'})
                 return
-            self._sse_stream(request, (
-                json.dumps({'token': token})
-                for token in request.stream(timeout=600)))
+            if self._sse_stream(request, (
+                    json.dumps({'token': token})
+                    for token in request.stream(timeout=600))):
+                _maybe_journal_request('serve_request_done',
+                                       request_id=self._rid, status='ok',
+                                       tokens=len(request.tokens))
 
         def _generate_text(self):
             """Text in, text out through the server's tokenizer; with
@@ -1084,6 +1139,9 @@ def _make_handler(server: ModelServer):
                     deadline_ms=parse_deadline_ms(self.headers),
                     qos_class=parse_qos_class(self.headers),
                     disconnect_probe=self._disconnect_probe())[0]
+                _maybe_journal_request('serve_request_done',
+                                       request_id=self._rid, status='ok',
+                                       tokens=len(tokens))
                 stops = [i for i, t in enumerate(tokens)
                          if t in tok.eos_ids]
                 if stops:

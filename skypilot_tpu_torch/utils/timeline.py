@@ -6,9 +6,11 @@ so a path set after import still counts) or after `start(path)`; the
 events are dumped as Chrome trace-event JSON at exit.  The serving
 request spans (observability/tracing.py) emit their finished phases here
 through `add_complete_event`, so one chrome://tracing load shows every
-request's queue/prefill/decode bars.  The reference's control-plane
-spans (`Event`, `@event`, FileLock spans) and the journal export have no
-caller in the port and are not copied.
+request's queue/prefill/decode bars, and the flight recorder's
+`ControlSpan`s (observability/events.py) theirs under cat 'control'.
+`write_trace` writes a standalone trace (the journal's Chrome export).
+The reference's control-plane spans (`Event`, `@event`, FileLock spans)
+have no caller in the port and are not copied.
 """
 from __future__ import annotations
 
@@ -74,6 +76,15 @@ def add_complete_event(name: str, start_s: float, duration_s: float,
         evt['args'] = args
     with _events_lock:
         _events.append(evt)
+
+
+def write_trace(path: str, trace_events: List[dict]) -> None:
+    """Write a list of Chrome trace events as a standalone trace file
+    (the journal export of observability/events.py), apart from the
+    live-recording buffer above."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, 'w', encoding='utf-8') as f:
+        json.dump({'traceEvents': list(trace_events)}, f)
 
 
 def save_timeline() -> None:

@@ -1131,3 +1131,65 @@ def test_two_hosts_on_four_cards_match_one_process(cuda, tmp_path,
         losses, _ = _one_process([f'cuda:{i}' for i in range(4)], run,
                                  monkeypatch, extra)
         _hold_hosts(hosts, losses, positions=2)
+
+
+def test_elastic_shrink_expand_on_cards(cuda, tmp_path):
+    """An ElasticTrainer with data 2 (fsdp inferred) over cuda:0-3
+    (data 2 x fsdp 2) takes steps 0-3 saving every 2, shrinks to
+    cuda:0-1 (data 2 x fsdp 1; resumes at step 3) and takes steps 3-4,
+    then expands back to the four cards (resumes at step 5) and takes
+    step 5; f32 at llama3-8b head shapes cut narrow, batch 4 x 256.
+    After each restore every block has a copy on each card that holds
+    it (the data ranks' replicas), bit-equal to its owner
+    (`train.check_copies`), and each card stores the same bytes; the
+    recomputed step 3 within rtol 1e-5 of its first run; the journal
+    train_resume -> saves 0, 2 -> gang_resize 4 -> 2 -> train_resume 3
+    -> save 4 -> gang_resize 2 -> 4 -> train_resume 5; B3 launched
+    2 x (data x fsdp) a step at depth 2."""
+    from skypilot_tpu_torch.models import train
+    from skypilot_tpu_torch.models.elastic import ElasticTrainer
+    from skypilot_tpu_torch.observability import events
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    del cuda
+    if torch.cuda.device_count() < 4:
+        pytest.skip('needs four NVIDIA GPUs')
+    cards = [torch.device('cuda', i) for i in range(4)]
+    cfg = configs.get_config('tiny', d_model=512, n_heads=4, n_kv_heads=2,
+                             d_ff=1024, vocab_size=1024, max_seq_len=512,
+                             remat=True)
+    journal = events.EventJournal(str(tmp_path / 'training.jsonl'))
+    trainer = ElasticTrainer(cfg, checkpoint_dir=str(tmp_path / 'ckpt'),
+                             mesh_config=mesh_lib.MeshConfig(data=2,
+                                                             fsdp=-1),
+                             batch_size=4, seq_len=256, devices=cards,
+                             save_interval_steps=2, journal=journal)
+    before = attention.LAUNCHES['flash_fwd']
+    try:
+        first = dict(trainer.train_steps(4))
+        for n, steps, resumed in ((2, 2, 3), (4, 1, 5)):
+            trainer.resize(cards[:n])
+            assert (trainer.step, trainer.resumed_from_checkpoint) == (
+                resumed, True)
+            _assert_copies_on_their_cards(trainer.state, trainer.shardings,
+                                          cards[:n])
+            assert train.check_copies(trainer.state) > 0
+            assert len(set(trainer.state.shards.device_bytes())) == 1
+            got = dict(trainer.train_steps(steps))
+            for step in set(got) & set(first):
+                torch.testing.assert_close(got[step], first[step],
+                                           rtol=1e-5, atol=0)
+            first.update({s: v for s, v in got.items() if s not in first})
+    finally:
+        trainer.close()
+    assert sorted(first) == list(range(6))
+    assert (attention.LAUNCHES['flash_fwd'] - before ==
+            2 * 2 * (4 * 4 + 2 * 2 + 4 * 1))
+    seq = [(e['event'], e.get('step'), e.get('from'), e.get('to'))
+           for e in journal.read()]
+    saves = lambda s: [('checkpoint_save_start', s, None, None),
+                       ('checkpoint_save_end', s, None, None)]
+    assert seq == ([('train_resume', 0, None, None)] + saves(0) + saves(2) +
+                   [('gang_resize', None, 4, 2), ('train_resume', 3, None,
+                                                  None)] + saves(4) +
+                   [('gang_resize', None, 2, 4),
+                    ('train_resume', 5, None, None)])

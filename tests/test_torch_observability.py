@@ -7,7 +7,8 @@
   equal the reference's.
 - The port's metric families and labels are a superset of the
   reference's engine, scheduler, page-pool, profiler, log and server
-  families, but for an explicit list of families still to port.
+  families, the flight recorder's (observability/events.py) and the
+  chaos injector's, but for an explicit list of families still to port.
 - The reference's own readers take the port's HTTP payloads:
   `parse_exposition` reads /metrics, `traces.collect` / `assemble` /
   `format_waterfall` read /spans, `collapsed_stacks` / `chrome_trace`
@@ -34,8 +35,10 @@ import numpy as np
 import pytest
 import torch
 
+from skypilot_tpu.chaos import injector as ref_injector
 from skypilot_tpu.models import configs as jax_configs
 from skypilot_tpu.models.transformer import Transformer as JaxTransformer
+from skypilot_tpu.observability import events as ref_events
 from skypilot_tpu.observability import logs as ref_logs
 from skypilot_tpu.observability import metrics as ref_metrics
 from skypilot_tpu.observability import profiling as ref_profiling
@@ -45,8 +48,10 @@ from skypilot_tpu.serve import batching_engine as jax_engine
 from skypilot_tpu.serve import cache_manager as ref_cache_manager
 from skypilot_tpu.serve import model_server as ref_model_server
 from skypilot_tpu.serve import scheduler as ref_scheduler
+from skypilot_tpu_torch.chaos import injector
 from skypilot_tpu_torch.models import configs
 from skypilot_tpu_torch.models import convert
+from skypilot_tpu_torch.observability import events
 from skypilot_tpu_torch.observability import logs
 from skypilot_tpu_torch.observability import metrics
 from skypilot_tpu_torch.observability import profiling
@@ -179,9 +184,25 @@ def _instruments(module, base):
             if isinstance(v, base)}
 
 
+def _accessed(module, base):
+    """The instruments of `module`'s get-or-create accessors (the
+    zero-argument functions that return one), created by the call."""
+    out = {}
+    for fn in vars(module).values():
+        if (callable(fn) and not isinstance(fn, type) and
+                getattr(fn, '__module__', None) == module.__name__ and
+                fn.__code__.co_argcount == 0 and
+                fn.__annotations__.get('return') is not None):
+            inst = fn()
+            if isinstance(inst, base):
+                out[inst.name] = inst
+    return out
+
+
 def test_metric_families_cover_the_reference():
-    """Every reference family of the replica's layers exists in the port
-    with the same kind and label names, but for MISSING."""
+    """Every reference family of the replica's layers, the flight
+    recorder's and the chaos injector's exists in the port with the
+    same kind and label names, but for MISSING."""
     ref_logs._records_counter()   # lazily created families
     ref_logs._http_counter()
     ref = {}
@@ -190,8 +211,15 @@ def test_metric_families_cover_the_reference():
         ref.update(_instruments(module, ref_metrics._Instrument))
     for name in ('skytpu_log_records_total', 'skytpu_http_requests_total'):
         ref[name] = ref_metrics.REGISTRY.get(name)
+    flight = _accessed(ref_events, ref_metrics._Instrument)
+    assert 'skytpu_gang_resizes_total' in flight and len(flight) == 13
+    ref.update(flight)
+    chaos = ref_injector.chaos_faults_total()
+    ref[chaos.name] = chaos
     logs._records_counter()
     logs._http_counter()
+    assert set(_accessed(events, metrics._Instrument)) == set(flight)
+    injector.chaos_faults_total()
     assert set(MISSING) <= set(ref)
     for name, inst in sorted(ref.items()):
         ours = metrics.REGISTRY.get(name)
