@@ -399,13 +399,13 @@ Phases (each one that fails makes the script exit non-zero):
    with SKYTPU_NUM_HOSTS=2, SKYTPU_HOST_RANK and
    SKYTPU_COORDINATOR_ADDRESS=127.0.0.1:<a free port>, set here (no
    gang supervisor): llama3-8b width at depth 2, bf16, remat, batch 2
-   x 1024 a host, 3 steps from seed 0, both hosts on cuda:0 over gloo
+   x 1024 a host, 2 steps from seed 0, both hosts on cuda:0 over gloo
    (`--dist-backend gloo`: NCCL refuses two ranks on one card; gloo
    stages the gradients through host memory), against one process
    over a data-2 mesh of two entries of cuda:0 with the same global
    batch of 4, run after the hosts have exited.  Held: losses finite
-   and falling, step 1 within rtol 1e-5 of the one process's and steps
-   2-3 within 1e-2, both hosts' digests (sha256 of the parameters and
+   and falling, step 1 within rtol 1e-5 of the one process's and step
+   2 within 1e-2, both hosts' digests (sha256 of the parameters and
    moments) equal, each host's B3 / B4 / B5 launches exactly 2 L / L /
    L a step (its one-position mesh's).  With two or more cards the
    same run over NCCL, a card a host (else printed as skipped); with
@@ -417,6 +417,37 @@ Phases (each one that fails makes the script exit non-zero):
    host 0 steps in its own process after its hosts' step: loss within
    rtol 1e-5, every parameter after the step within 1e-3 of max |one
    process|, digests equal.
+   "multihost pipeline": two host processes of `python -m
+   skypilot_tpu_torch.profile_pipeline --devices cuda:0
+   --dist-backend gloo` (a stage a host: llama3-8b width at depth 2,
+   bf16, remat, the global batch 2 x 1024 of which each host passes
+   its row, M = 2, a warm-up and one timed step from seed 0; each
+   stage's output sent to the other host, the backward driven host by
+   host), against pipeline 2 over two entries of cuda:0 in this process
+   (phase 7e's path) on the same batch, run after the hosts have
+   exited.  Held: step 1 within rtol 1e-5 of the one process's, step 2
+   within 1e-2, both hosts' digests equal (`train.state_digest`: each
+   host hashes every leaf it holds, the end blocks on both, and takes
+   the other's stage from it), each host's launches
+   exactly its stage's share (2 L_h M / L_h M / L_h M a step: 8 / 4 / 4
+   in all).  With two or more cards the same over NCCL, a card a host
+   (else printed as skipped).  Printed: the timed step's ms, the
+   boundary's bytes and ms and the bytes and ms reduced in the timed
+   step (the warm-up left out), each host's peak.
+   "multihost moe": two hosts of `MOE_HOST` (`train.create_train_state`
+   and one `train.train_step`: mixtral-8x7b width at depth 1, bf16,
+   remat, capacity factor 0.5, so that about half the assignments are
+   dropped and the prefix of the other host's counts decides which; a
+   row of 1024 tokens a host) on cuda:0 over gloo, against a data-2
+   mesh of two entries of cuda:0 in this process on the same global
+   batch.  Held: the loss within rtol 1e-5, the grad norm within
+   1e-2, digests equal, launches 2 / 1 / 1 a host.  Printed: step ms,
+   bytes and ms reduced, each host's peak.  Then one MoE layer at that
+   width with random stacks on 2 x 1024 random rows
+   (`compact_buffer_check`): the hosts' compact expert buffers (each
+   its kept slots, [E, W, d]) give the whole [E, C, d] buffer's
+   outputs within 1e-4 of their max, and a zero prefix on host 1
+   leaves that bound.
 7g. Elastic training ("elastic training", models/elastic.py): an
    `ElasticTrainer` at llama3-8b width, depth 1, bf16, remat, fused CE,
    batch 4 x 2048, saves every 2 steps, under a SKYTPU_HOME of its own
@@ -453,8 +484,9 @@ five paths of phase 5, "int8 weights" and "checkpoint" of phase 5b,
 the six MoE paths of phase 5c, the three slice paths of phase 5d,
 the six tensor paths of phase 5e,
 training, `train_llama small`, "training resume", the five paths of
-phase 7c, the two of phase 7d, the six of phase 7e, the two of phase
-7f, "elastic training" of phase 7g), each path zeroed just before it and read just after (a host
+phase 7c, the two of phase 7d, the six of phase 7e, the six of phase
+7f: "multihost training", "multihost pipeline" and "multihost moe",
+each with its "(one process)", "elastic training" of phase 7g), each path zeroed just before it and read just after (a host
 process's count starts at 0 and is read at its end).  B3's
 entry carries the 512-token chunk under `serving_chunk`, the ring hop
 under `ring_hop_causal` / `ring_hop_full` and mesh B's call under
@@ -2773,10 +2805,10 @@ def moe_as_served(n_prompt, drops=None):
     from skypilot_tpu_torch.models import moe as moe_lib
     served = decode._tp_moe_mlp  # pylint: disable=protected-access
 
-    def moe_mlp(cfg, moes, hs, capacity=False):
+    def moe_mlp(cfg, moes, hs, capacity=False, key=None):
         b, s, d = hs[0].shape
         head = served(cfg, moes, [h[:, :n_prompt] for h in hs],
-                      capacity=capacity)
+                      capacity=capacity, key=key)
         if drops is not None:
             drops.append(moe_lib.dropped_tokens(
                 hs[0][0, :n_prompt].float() @ moes[0].router.kernel.float(),
@@ -4146,7 +4178,7 @@ def log_pipeline(r) -> None:
 
 HOSTS = 2
 HOST_MODEL = 'llama3-8b'
-HOST_LAYERS, HOST_BATCH, HOST_SEQ, HOST_STEPS = 2, 2, 1024, 3
+HOST_LAYERS, HOST_BATCH, HOST_SEQ, HOST_STEPS = 2, 2, 1024, 2
 # Two rows a host: fsdp 2 splits the rows over its two batch ranks.
 HOST_F32_BATCH, HOST_F32_SEQ = 2, 512
 HOST_TIMEOUT_S = 300
@@ -4294,15 +4326,16 @@ def one_process(devices, counters):
     return out
 
 
-def hold_hosts(label, hosts, ref, positions=1):
-    """The hosts' runs against the one-process run `ref`: finite falling
-    losses, step 1 within rtol 1e-5 and steps 2-3 within 1e-2 of it,
-    equal digests, each host's launches exactly `host_launches`."""
-    want = host_launches(HOST_STEPS, positions)
+def hold_hosts(label, hosts, ref, want):
+    """The hosts' runs against the one-process run `ref`: finite losses
+    (falling over several steps), step 1 within rtol 1e-5 of it and
+    later steps within 1e-2, equal digests, each host's launches exactly
+    `want`."""
     ref_losses = ref['losses']
     for h in hosts:
         losses = h['losses']
-        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        if not all(map(math.isfinite, losses)) or (
+                len(losses) > 1 and not losses[-1] < losses[0]):
             raise AssertionError(f'{label}: host {h["host"]} losses {losses}')
         if not abs(losses[0] - ref_losses[0]) <= 1e-5 * abs(ref_losses[0]):
             raise AssertionError(f'{label}: host {h["host"]} step-1 loss '
@@ -4354,8 +4387,9 @@ def multihost_training(dev, counters):
     host memory), against one process over a data-2 mesh of two
     entries of cuda:0 with the same global batch; with two or more
     cards also over NCCL, a card a host, and with four two hosts of
-    two cards against one process over the four; then the f32 cut.
-    -> (paths, report)."""
+    two cards against one process over the four; then the f32 cut,
+    then the "multihost pipeline" and "multihost moe" gangs
+    (`pipeline_and_moe_hosts`).  -> (paths, report)."""
     import shutil
     import tempfile
     import torch
@@ -4372,7 +4406,8 @@ def multihost_training(dev, counters):
         ref = one_process([str(dev)] * HOSTS, counters)
         laps('one process')
         paths['multihost training (one process)'] = ref['launches']
-        hold_hosts('multihost training', hosts, ref)
+        hold_hosts('multihost training', hosts, ref,
+                   host_launches(HOST_STEPS))
         # Each host's count is its own run's; the path's is host 0's.
         paths['multihost training'] = dict(hosts[0]['launches'])
         report['gloo, one card'] = dict(hosts=hosts, ref=ref)
@@ -4380,7 +4415,8 @@ def multihost_training(dev, counters):
         if n_cards >= 2:
             hosts = run_hosts([host_argv([f'cuda:{r}'], 'nccl')
                                for r in range(HOSTS)], tmp, 'nccl')
-            hold_hosts('multihost training (nccl)', hosts, ref)
+            hold_hosts('multihost training (nccl)', hosts, ref,
+                       host_launches(HOST_STEPS))
             report['nccl, a card a host'] = dict(hosts=hosts, ref=ref)
             laps('two hosts, nccl')
         else:
@@ -4392,17 +4428,333 @@ def multihost_training(dev, counters):
                  for r in range(HOSTS)], tmp, 'four')
             ref4 = one_process([f'cuda:{i}' for i in range(4)], counters)
             # Global data 4 (a card a row) both ways.
-            hold_hosts('multihost training (four cards)', hosts, ref4, 2)
+            hold_hosts('multihost training (four cards)', hosts, ref4,
+                       host_launches(HOST_STEPS, 2))
             report['nccl, two hosts x two cards'] = dict(hosts=hosts,
                                                         ref=ref4)
             laps('four cards')
         report['f32'] = multihost_f32_check(dev, tmp)
         laps('f32 cut')
+        more_paths, report['pipeline and moe'] = pipeline_and_moe_hosts(
+            dev, counters, tmp, laps)
+        paths.update(more_paths)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     report['seconds'] = time.perf_counter() - t0
     report['laps'] = laps.seconds
     return paths, report
+
+
+# "multihost pipeline": profile_pipeline as a gang, one stage a host;
+# the global batch of PIPE_HOST_BATCH rows (one a host) x HOST_SEQ,
+# M = PIPE_HOST_M, 1 + PIPE_HOST_TIMED steps (profile_pipeline's warm-up
+# and its timed steps) from seed 0.
+PIPE_HOST_LAYERS, PIPE_HOST_BATCH, PIPE_HOST_M, PIPE_HOST_TIMED = 2, 2, 2, 1
+# "multihost moe": the MoE width at depth 1, a row of HOST_SEQ tokens a
+# host, one step, the capacity factor lowered so that about half of the
+# assignments are dropped and the hosts' prefix decides which.
+MOE_HOST_MODEL, MOE_HOST_CAPACITY = 'mixtral-8x7b', 0.5
+# A host of the MoE run (argv: device, backend, model, seq, capacity):
+# `train.create_train_state` and one `train.train_step` on its row of a
+# seeded global batch (one row a host), data over the hosts, one entry
+# a host.  Prints one JSON line.
+MOE_HOST = '''
+import json, sys, time
+import torch
+from skypilot_tpu_torch.models import configs, train
+from skypilot_tpu_torch.ops import attention
+from skypilot_tpu_torch.parallel import distributed
+from skypilot_tpu_torch.parallel import mesh as mesh_lib
+dev, backend = torch.device(sys.argv[1]), sys.argv[2]
+seq, cap = int(sys.argv[4]), float(sys.argv[5])
+distributed.initialize_from_env(backend=backend, device=dev)
+hosts, rank = distributed.gang()
+cfg = configs.get_config(sys.argv[3], n_layers=1, remat=True,
+                         expert_capacity_factor=cap)
+tokens = torch.randint(0, cfg.vocab_size, (hosts, seq + 1),
+                       generator=torch.Generator().manual_seed(37))
+cuda = dev.type == 'cuda'
+state, _ = train.create_train_state(
+    cfg, mesh=mesh_lib.build_mesh(mesh_lib.MeshConfig(data=-1), [dev]),
+    seed=0)
+if cuda:
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize(dev)
+before = dict(attention.LAUNCHES)
+t0 = time.perf_counter()
+state, m = train.train_step(state, {'tokens': tokens[rank:rank + 1].to(dev)})
+loss, norm = float(m['loss']), float(m['grad_norm'])
+if cuda:
+    torch.cuda.synchronize(dev)
+step_ms = (time.perf_counter() - t0) * 1e3
+reduce_s, reduce_bytes = state.host_reduce.take()
+t1 = time.perf_counter()
+digest = train.state_digest(state)
+print(json.dumps(dict(
+    host=rank, backend=distributed.group_backend(), losses=[loss],
+    grad_norms=[norm], step_ms=[step_ms], reduce_ms=[reduce_s * 1e3],
+    reduce_bytes=reduce_bytes,
+    peak_bytes=train.peak_memory_bytes(dev) if cuda else None,
+    launches={k: attention.LAUNCHES[k] - before[k] for k in before},
+    digest=digest, digest_s=time.perf_counter() - t1)), flush=True)
+distributed.shutdown()
+'''
+
+
+def pipeline_host_argv(devices, backend):
+    """A host's profile_pipeline for the "multihost pipeline" run."""
+    return ['-m', 'skypilot_tpu_torch.profile_pipeline', '--devices',
+            ','.join(devices), '--model', HOST_MODEL, '--layers',
+            str(PIPE_HOST_LAYERS), '--batch', str(PIPE_HOST_BATCH),
+            '--seq', str(HOST_SEQ), '--microbatches', str(PIPE_HOST_M),
+            '--steps', str(PIPE_HOST_TIMED), '--dist-backend', backend]
+
+
+def pipeline_host_summary(h):
+    """A profile_pipeline host's JSON line in `hold_hosts`' form."""
+    run = h['pipeline'][str(PIPE_HOST_M)]
+    return dict(host=h['host'], backend=h['backend'], losses=run['losses'],
+                step_ms=run['step_ms'], reduce_ms=[run['reduce_ms']],
+                reduce_bytes=run['reduce_bytes'],
+                boundary_ms=run['boundary_ms'],
+                boundary_bytes=run['boundary_bytes'],
+                peak_bytes=max(run['peak_bytes'] or [0]),
+                launches=run['launches'], digest=h['digest'],
+                digest_s=h['digest_s'])
+
+
+def pipeline_one_process(dev, counters):
+    """The "multihost pipeline" run in this process: pipeline 2 over two
+    entries of `dev` (phase 7e's path) on the same global batch and
+    seed; -> {'losses', 'step_ms', 'peak_bytes', 'launches'}."""
+    import torch
+    from skypilot_tpu_torch import profile_pipeline
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import train
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    from skypilot_tpu_torch.parallel import pipeline
+    cfg = configs.get_config(HOST_MODEL, n_layers=PIPE_HOST_LAYERS,
+                             remat=True)
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(data=1, pipeline=HOSTS),
+                               [dev] * HOSTS)
+    state, _ = pipeline.create_pipeline_train_state(
+        cfg, mesh=mesh, batch_size=PIPE_HOST_BATCH, seq_len=HOST_SEQ,
+        seed=0)
+    batch = {'tokens': profile_pipeline.batch_tokens(
+        cfg.vocab_size, PIPE_HOST_BATCH, HOST_SEQ).to(dev)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(counters)
+    state, steps = run_steps(dev, cfg, None, batch, 1 + PIPE_HOST_TIMED,
+                             state, pipeline.pipeline_train_step(
+                                 cfg, mesh, PIPE_HOST_M))
+    out = dict(losses=[x[0] for x in steps], step_ms=[x[2] for x in steps],
+               peak_bytes=train.peak_memory_bytes(dev),
+               launches=read_counts(counters))
+    del state
+    free_cuda()
+    return out
+
+
+def moe_one_process(dev, counters):
+    """The "multihost moe" run in this process: a data-2 mesh of two
+    entries of `dev` on the hosts' global batch and seed; -> {'losses',
+    'step_ms', 'peak_bytes', 'launches'}."""
+    import torch
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import train
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    cfg = configs.get_config(MOE_HOST_MODEL, n_layers=1, remat=True,
+                             expert_capacity_factor=MOE_HOST_CAPACITY)
+    tokens = torch.randint(0, cfg.vocab_size, (HOSTS, HOST_SEQ + 1),
+                           generator=torch.Generator().manual_seed(37))
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(data=HOSTS),
+                               [dev] * HOSTS, hosts=1, host_rank=0)
+    state, _ = train.create_train_state(cfg, mesh=mesh, seed=0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts(counters)
+    state, steps = run_steps(dev, cfg, None, {'tokens': tokens.to(dev)}, 1,
+                             state)
+    out = dict(losses=[x[0] for x in steps], grad_norms=[x[1] for x in steps],
+               step_ms=[x[2] for x in steps],
+               peak_bytes=train.peak_memory_bytes(dev),
+               launches=read_counts(counters))
+    del state
+    free_cuda()
+    return out
+
+
+def pipeline_host_launches(n_steps):
+    """Each pipeline host's B3 / B4 / B5 launches: its stage's share,
+    2 L_h M / L_h M / L_h M a step (L_h its layers, remat)."""
+    per = PIPE_HOST_LAYERS // HOSTS * PIPE_HOST_M * n_steps
+    return {'flash_fwd': 2 * per, 'flash_bwd_dq': per, 'flash_bwd_dkv': per}
+
+
+def compact_buffer_check(dev):
+    """A host's compacted expert buffer against the full one: one MoE
+    layer at MOE_HOST_MODEL width with random bf16 stacks on HOSTS x
+    HOST_SEQ random rows, dispatched whole ([E, C, d]) and as HOSTS
+    hosts' rows, each given the earlier hosts' counts as its prefix
+    (`moe.dispatch(prefix=, n_global=)`: [E, W, d], its kept slots).
+    Held: the hosts' combined outputs within 1e-4 of max |whole|; a
+    zero prefix on the last host leaves that bound.  -> (widths, whole
+    width, max abs difference, max |whole|, the fault's difference)."""
+    import torch
+    from skypilot_tpu_torch.models import configs
+    from skypilot_tpu_torch.models import moe
+    cfg = configs.get_config(MOE_HOST_MODEL, n_layers=1,
+                             expert_capacity_factor=MOE_HOST_CAPACITY)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n, e = HOSTS * HOST_SEQ, cfg.n_experts
+    tokens = torch.randn(n, cfg.d_model, generator=gen, device=dev,
+                         dtype=cfg.dtype)
+    logits = torch.randn(n, e, generator=gen, device=dev)
+    stacks = [torch.randn(shape, generator=gen, device=dev,
+                          dtype=cfg.dtype) * 0.02
+              for shape in ((e, cfg.d_model, cfg.d_ff),
+                            (e, cfg.d_model, cfg.d_ff),
+                            (e, cfg.d_ff, cfg.d_model))]
+
+    def products(rows, prefix):
+        x, combine, _ = moe.dispatch(tokens[rows], logits[rows], cfg,
+                                     prefix=prefix, n_global=n)
+        return x.shape[1], moe.combine_outputs(
+            combine, moe.expert_products(x, *stacks, cfg))
+    whole_w, whole = products(slice(0, n), None)
+    widths, parts, fault = [], [], None
+    prefix = torch.zeros(e, dtype=torch.int64, device=dev)
+    for h in range(HOSTS):
+        rows = slice(h * HOST_SEQ, (h + 1) * HOST_SEQ)
+        w, out = products(rows, prefix)
+        widths.append(w)
+        parts.append(out)
+        if h == HOSTS - 1:
+            fault = products(rows, torch.zeros_like(prefix))[1]
+        _, _, gate_idx = moe.route(logits[rows], cfg.expert_top_k)
+        prefix = prefix + moe.expert_counts(gate_idx, e)
+    top = float(whole.abs().max())
+    diff = float((torch.cat(parts) - whole).abs().max())
+    planted = float((torch.cat(parts[:-1] + [fault]) - whole).abs().max())
+    del stacks
+    if not diff <= 1e-4 * top:
+        raise AssertionError(f'multihost moe: the hosts\' compact buffers '
+                             f'are {diff:.3e} off the whole buffer\'s '
+                             f'outputs (max {top:.3e})')
+    if not planted > 1e-4 * top:
+        raise AssertionError(f'multihost moe: a zero prefix is only '
+                             f'{planted:.3e} off (max {top:.3e})')
+    return widths, whole_w, diff, top, planted
+
+
+def moe_host_launches():
+    """Each MoE host's B3 / B4 / B5 launches: depth 1, one step, remat,
+    one position: 2 / 1 / 1."""
+    return {'flash_fwd': 2, 'flash_bwd_dq': 1, 'flash_bwd_dkv': 1}
+
+
+def pipeline_and_moe_hosts(dev, counters, tmp, laps):
+    """Phase 7f's "multihost pipeline" and "multihost moe" runs (module
+    docstring); -> (paths, report)."""
+    import torch
+    paths, report = {}, {}
+    free_cuda()
+    hosts = [pipeline_host_summary(h) for h in run_hosts(
+        [pipeline_host_argv([str(dev)], 'gloo')] * HOSTS, tmp, 'pipe')]
+    laps('pipeline hosts, gloo')
+    free_cuda()
+    ref = pipeline_one_process(dev, counters)
+    laps('pipeline one process')
+    paths['multihost pipeline (one process)'] = ref['launches']
+    hold_hosts('multihost pipeline', hosts, ref,
+                   pipeline_host_launches(1 + PIPE_HOST_TIMED))
+    paths['multihost pipeline'] = {k: hosts[0]['launches'].get(k, 0)
+                                   for k in counters}
+    report['pipeline, gloo, one card'] = dict(hosts=hosts, ref=ref)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        nccl = [pipeline_host_summary(h) for h in run_hosts(
+            [pipeline_host_argv([f'cuda:{r}'], 'nccl')
+             for r in range(HOSTS)], tmp, 'pipe-nccl')]
+        hold_hosts('multihost pipeline (nccl)', nccl, ref,
+                       pipeline_host_launches(1 + PIPE_HOST_TIMED))
+        report['pipeline, nccl, a card a host'] = dict(hosts=nccl, ref=ref)
+        laps('pipeline hosts, nccl')
+    else:
+        report['pipeline nccl skipped'] = (f'{n_cards} card: NCCL takes '
+                                           'one card a rank')
+    free_cuda()
+    hosts = run_hosts([['-c', MOE_HOST, str(dev), 'gloo', MOE_HOST_MODEL,
+                        str(HOST_SEQ), str(MOE_HOST_CAPACITY)]] * HOSTS,
+                      tmp, 'moe')
+    laps('moe hosts, gloo')
+    free_cuda()
+    ref = moe_one_process(dev, counters)
+    laps('moe one process')
+    paths['multihost moe (one process)'] = ref['launches']
+    hold_hosts('multihost moe', hosts, ref, moe_host_launches())
+    report['moe compact buffer'] = compact_buffer_check(dev)
+    free_cuda()
+    # After the backward: the clip's norm over every gradient.
+    for h in hosts:
+        if not abs(h['grad_norms'][0] - ref['grad_norms'][0]) <= (
+                1e-2 * ref['grad_norms'][0]):
+            raise AssertionError(f'multihost moe: host {h["host"]} grad '
+                                 f'norm {h["grad_norms"]} vs one process '
+                                 f'{ref["grad_norms"]}')
+    paths['multihost moe'] = {k: hosts[0]['launches'].get(k, 0)
+                              for k in counters}
+    report['moe, gloo, one card'] = dict(hosts=hosts, ref=ref)
+    return paths, report
+
+
+def log_pipeline_and_moe_hosts(r) -> None:
+    log(f'multihost pipeline ({card()}; {HOST_MODEL} width, '
+        f'{PIPE_HOST_LAYERS} layers (one a stage, a stage a host), bf16, '
+        f'remat, global batch {PIPE_HOST_BATCH} x {HOST_SEQ} (a row a '
+        f'host), M = {PIPE_HOST_M}, {1 + PIPE_HOST_TIMED} steps; '
+        'profile_pipeline hosts):')
+    for label in ('pipeline, gloo, one card', 'pipeline, nccl, a card a host'):
+        if label not in r:
+            continue
+        x = r[label]
+        ref = x['ref']
+        log(f'  {label}: one process (pipeline 2 over two entries) losses '
+            f'{fmt(ref["losses"], 6)}; step ms {fmt(ref["step_ms"], 1)}; '
+            f'peak {(ref["peak_bytes"] or 0) / 2**30:.2f} GiB; launches '
+            f'{json.dumps(ref["launches"])}')
+        for h in x['hosts']:
+            log(f'  {label}: host {h["host"]} ({h["backend"]}) losses '
+                f'{fmt(h["losses"], 6)}; timed step ms '
+                f'{fmt(h["step_ms"], 1)}; boundary {h["boundary_bytes"]:.0f} '
+                f'bytes and {h["boundary_ms"]:.1f} ms a timed step; '
+                f'{h["reduce_bytes"]:.0f} bytes reduced a timed step in '
+                f'{h["reduce_ms"][0]:.1f} ms; peak '
+                f'{(h["peak_bytes"] or 0) / 2**30:.2f} GiB; launches '
+                f'{json.dumps(h["launches"])}; digest {h["digest"][:16]} '
+                f'({h["digest_s"]:.1f} s)')
+    if 'pipeline nccl skipped' in r:
+        log(f'  pipeline nccl skipped: {r["pipeline nccl skipped"]}')
+    x = r['moe, gloo, one card']
+    ref = x['ref']
+    log(f'multihost moe ({card()}; {MOE_HOST_MODEL} width, 1 layer, bf16, '
+        f'remat, capacity factor {MOE_HOST_CAPACITY}, 1 x {HOST_SEQ} a '
+        f'host, one step): one process (data 2 over two entries) loss '
+        f'{fmt(ref["losses"], 6)}; grad norm {fmt(ref["grad_norms"], 6)}; '
+        f'step ms {fmt(ref["step_ms"], 1)}; peak '
+        f'{(ref["peak_bytes"] or 0) / 2**30:.2f} GiB')
+    widths, whole_w, diff, top, planted = r['moe compact buffer']
+    log(f'  moe compact buffer: the hosts\' widths {widths} of C = '
+        f'{whole_w}; their outputs {diff:.3e} off the whole buffer\'s '
+        f'(max {top:.3e}, bound 1e-4 of it); a zero prefix on the last '
+        f'host {planted:.3e} off')
+    for h in x['hosts']:
+        log(f'  moe: host {h["host"]} ({h["backend"]}) loss '
+            f'{fmt(h["losses"], 6)}; grad norm {fmt(h["grad_norms"], 6)}; '
+            f'step ms {fmt(h["step_ms"], 1)}; '
+            f'{h["reduce_bytes"]} bytes reduced in {h["reduce_ms"][0]:.1f} '
+            f'ms; peak {(h["peak_bytes"] or 0) / 2**30:.2f} GiB; launches '
+            f'{json.dumps(h["launches"])}; digest {h["digest"][:16]} '
+            f'({h["digest_s"]:.1f} s)')
 
 
 def fmt(values, digits) -> str:
@@ -4434,6 +4786,7 @@ def log_multihost(r) -> None:
         f'fsdp 2 a host over two entries of one device (gloo): loss {loss:.7f} vs one process '
         f'{ref:.7f}; largest parameter difference {rel:.3g} of max |one '
         f'process| ({name}); digests equal')
+    log_pipeline_and_moe_hosts(r['pipeline and moe'])
     log(f'multihost training phase: {r["seconds"]:.1f} s '
         f'({json.dumps(r["laps"])})')
 

@@ -45,12 +45,18 @@ The training half (the reference's checkpoint contract):
   `max_to_keep` prunes older steps of this port's format only.
 - Across hosts (a gang, parallel/distributed.py): every host holds the
   same bits under 'data', so host 0 alone writes (`save` returns False
-  on the others, taking no snapshot) and `close` ends with a barrier,
+  on the others, taking no snapshot; where a pipeline's stages span
+  hosts, every host takes part in host 0's snapshot, sending the
+  leaves of its stages, and host 0 still writes the one step of whole
+  leaves) and `close` ends with a barrier,
   so that no host exits before host 0's writes are done.  The step to
   resume is host 0's newest (`restore_or_init`, `restore_sharded`,
   `AsyncCheckpointManager.latest_step`), broadcast to every host, which
   then reads that step: a step host 0 has not finished renaming into
-  place is never read by another host.
+  place is never read by another host.  A host of a pipeline across
+  hosts reads the leaves of its own stages and the end blocks only
+  (`train.load_train_step`), so such a step restores onto the same
+  layout, onto any other mesh, and onto one process without hosts.
 """
 from __future__ import annotations
 
@@ -516,10 +522,10 @@ class AsyncCheckpointManager:
             raise RuntimeError('AsyncCheckpointManager is closed')
         if step % self.save_interval_steps != 0:
             return False
-        if not distributed.is_primary():
-            return False
         from skypilot_tpu_torch.models import train as train_lib  # pylint: disable=import-outside-toplevel
-        snapshot = train_lib.snapshot(state)
+        snapshot = train_lib.save_snapshot(state)
+        if snapshot is None:    # another host's: host 0 writes
+            return False
         if not self.async_save:
             self._write(step, snapshot, blocked_s=0.0)
             return True

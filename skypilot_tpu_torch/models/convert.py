@@ -425,7 +425,9 @@ def load_reference_train_state(state, params: Dict[str, Any],
     params-shaped trees of numpy arrays (`np.asarray` of the global jax
     arrays, partitioning boxes removed), the optimizer's `count` and
     the TrainState's `step`; through `train.load_train_step`, as a
-    saved step is restored."""
+    saved step is restored.  On a host of a pipeline across hosts only
+    the leaves it holds are filled: its stages' layers and the
+    embedding, final norm and head."""
     from skypilot_tpu_torch.models import train as train_lib  # pylint: disable=import-outside-toplevel
     cfg = state.model.cfg
     moments = {f'mu/{k}': v for k, v in _flat_port_leaves(cfg, mu).items()}

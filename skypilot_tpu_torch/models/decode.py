@@ -229,7 +229,8 @@ def _mlp(x, mlp, cfg: ModelConfig, weights=None):
     return (act * up @ w_down).reshape(x.shape)
 
 
-def _tp_moe_mlp(cfg: ModelConfig, moes, hs, *, capacity: bool = False):
+def _tp_moe_mlp(cfg: ModelConfig, moes, hs, *, capacity: bool = False,
+                key=None):
     """Inference MoE (the reference's decode._moe_mlp) over tensor
     ranks: moes[t] is rank t's block (the router replicated, the stacks
     [E, d, f / tp] and [E, f / tp, d]), hs[t] the normed rows x
@@ -246,17 +247,28 @@ def _tp_moe_mlp(cfg: ModelConfig, moes, hs, *, capacity: bool = False):
     f32, as the reference's maybe_dequant(stack, f32)), each rank's
     [N, d] partial weighted by [N, E] gates that are zero off the top
     k, the partials summed in f32 in rank order and rounded once to x's
-    dtype.  One rank runs the reference's _moe_mlp op for op."""
+    dtype.  One rank runs the reference's _moe_mlp op for op.  In a
+    training step across hosts (`moe.host_dispatch`) the capacity
+    dispatch takes these rows' place in the global batch from the
+    exchange, under (this block, `key`)."""
     b, s, d = hs[0].shape
     dtype, device = hs[0].dtype, hs[0].device
     dispatched = s > 1 or capacity
+    exchange = moe_lib.active_host_dispatch() if capacity else None
 
     def route(x, moe):
         tokens = x.reshape(b * s, d)
         logits = (tokens.to(torch.float32) @
                   moe.router.kernel.to(torch.float32))
         if dispatched:
-            expert_in, combine, _ = moe_lib.dispatch(tokens, logits, cfg)
+            placed = {}
+            if exchange is not None:
+                _, _, gate_idx = moe_lib.route(logits, cfg.expert_top_k)
+                prefix, n_global = exchange.place((moes[0], key), gate_idx,
+                                                  cfg.n_experts)
+                placed = dict(prefix=prefix, n_global=n_global)
+            expert_in, combine, _ = moe_lib.dispatch(tokens, logits, cfg,
+                                                     **placed)
             return expert_in, combine
         _, gate_vals, gate_idx = moe_lib.route(logits, cfg.expert_top_k)
         gates = torch.sum(
@@ -477,12 +489,13 @@ def _tp_attn_out(rcfg: ModelConfig, layers, xs, outs, blocked: bool):
 
 
 def _tp_out_and_mlp(rcfg: ModelConfig, layers, xs, outs, blocked: bool,
-                    capacity: bool = False):
+                    capacity: bool = False, key=None):
     """The tail of a layer over the tensor ranks (`_tp_attn_out`), then
     each rank's MLP partial over its d_ff / tp columns, all-reduced; or
     the MoE block over the ranks (`_tp_moe_mlp`; `capacity`: the
-    training forward's dispatch at every s), whose sum is placed on
-    every rank's device.  `blocked` for a decode tick (`_by_blocks`).
+    training forward's dispatch at every s, under `key` across hosts),
+    whose sum is placed on every rank's device.  `blocked` for a decode
+    tick (`_by_blocks`).
     One rank is the plain layer's tail, shared with the training
     forward (`DecoderLayer.forward`)."""
     xs, hs = _tp_attn_out(rcfg, layers, xs, outs, blocked)
@@ -494,7 +507,7 @@ def _tp_out_and_mlp(rcfg: ModelConfig, layers, xs, outs, blocked: bool,
         b, _, s, _ = outs[0].shape
         y = _tp_moe_mlp(rcfg, [layer.moe_mlp for layer in layers],
                         [h[:b * s].reshape(b, s, -1) for h in hs],
-                        capacity=capacity).reshape(b * s, -1)
+                        capacity=capacity, key=key).reshape(b * s, -1)
         n_rows = xs[0].shape[0]
         if n_rows != b * s:
             y = torch.cat([y, y.new_zeros((n_rows - b * s, y.shape[1]))])

@@ -16,7 +16,24 @@ dtypes:
 - dispatch / combine [N, E, C] in f32; the expert inputs and stacks
   cast to cfg.dtype for the three expert products; the combine in f32;
 - the Switch Transformer load-balancing aux loss (returned; the
-  reference's trainer never reads it).
+  reference's trainer never reads it, so over a host's rows it keeps
+  its local form).
+
+Across hosts the dispatch runs over the global batch from a host's
+rows: `dispatch(prefix=, n_global=)` offsets each row's local buffer
+position by the assignments the earlier hosts' rows made to its
+expert (`prefix`, the exclusive sum of their `expert_counts`) and
+takes the capacity of the `n_global` tokens of every host, so each
+row keeps or drops its assignment as the reference's cumsum over the
+global batch decides.  The expert products are row-independent, so a
+host's buffer holds its own kept slots alone: expert e's global slots
+[prefix_e, prefix_e + kept_e) sit at [0, kept_e) of an [E, W, d]
+buffer, W the largest kept_e (at most C), and the host combines its
+own rows from it; the other hosts' slots are neither stored nor
+multiplied here.  `HostDispatch` is the exchange behind it in a
+training step (models/train.py): one all-gather of the counts over
+the data group of hosts per MoE block and microbatch, kept for the
+remat recompute, which must not gather them again.
 
 Its three parts (`dispatch`, `expert_products`, `combine_outputs`) are
 public, so a tensor-parallel layer routes once and runs the expert
@@ -29,7 +46,8 @@ per-output-channel scales, models/quantize.py).
 """
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -72,28 +90,48 @@ def capacity(cfg: ModelConfig, n_tokens: int) -> int:
                       cfg.expert_top_k / cfg.n_experts))
 
 
+def expert_counts(gate_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """[E] int64: how many (token, slot) assignments chose each expert
+    (gate_idx [N, k], `route`'s expert ids)."""
+    return torch.bincount(gate_idx.reshape(-1), minlength=n_experts)
+
+
 def dispatch(tokens: torch.Tensor, router_logits: torch.Tensor,
-             cfg: ModelConfig
+             cfg: ModelConfig, *, prefix: Optional[torch.Tensor] = None,
+             n_global: Optional[int] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The routing half of `moe_apply`: tokens [N, d] and router logits
     [N, E] -> (expert inputs [E, C, d] in cfg.dtype, combine weights
-    [N, E, C] f32, aux loss scalar)."""
+    [N, E, C] f32, aux loss scalar).  These rows as a part of a larger
+    batch (module docstring): `prefix` [E], the assignments of the rows
+    before them, and `n_global`, the whole batch's token count, which
+    sets C; with `prefix` the buffer holds these rows' kept slots only
+    ([E, W, d] and [N, E, W], expert e's slot j being its global slot
+    prefix_e + j)."""
     n_exp, k = cfg.n_experts, cfg.expert_top_k
     n_tokens = tokens.shape[0]
     probs, gate_vals, gate_idx = route(router_logits, k)
-    cap = capacity(cfg, n_tokens)
+    cap = capacity(cfg, n_tokens if n_global is None else n_global)
 
     # One-hot expert choice per (token, slot) [N, k, E]; each token's
     # buffer position within its expert, over the token-major order.
     choice = F.one_hot(gate_idx, n_exp).to(torch.float32)
     flat = choice.reshape(n_tokens * k, n_exp)
     position = torch.cumsum(flat, dim=0) * flat - 1.0
-    in_cap = (position >= 0) & (position < cap)
+    if prefix is None:
+        in_cap = (position >= 0) & (position < cap)
+        width = cap
+    else:
+        # Global position prefix_e + local < C: the slots left to these
+        # rows, which fill them from their buffer's slot 0.
+        room = cap - prefix.to(position.device, torch.float32)
+        in_cap = (position >= 0) & (position < room)
+        width = max(1, int(in_cap.sum(dim=0).max()))
     position = position.reshape(n_tokens, k, n_exp)
     kept = in_cap.reshape(n_tokens, k, n_exp).to(torch.float32)
 
     # jax.nn.one_hot of a float position: zeros for -1 and past C.
-    slots = torch.arange(cap, dtype=torch.float32, device=tokens.device)
+    slots = torch.arange(width, dtype=torch.float32, device=tokens.device)
     pos_onehot = (position[..., None] == slots).to(torch.float32)
     chosen = choice * kept
     placed = pos_onehot * kept[..., None]
@@ -133,12 +171,16 @@ def combine_outputs(combine: torch.Tensor,
 
 def moe_apply(tokens: torch.Tensor, router_logits: torch.Tensor,
               w_gate: torch.Tensor, w_up: torch.Tensor,
-              w_down: torch.Tensor, cfg: ModelConfig
+              w_down: torch.Tensor, cfg: ModelConfig, *,
+              prefix: Optional[torch.Tensor] = None,
+              n_global: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-dispatched top-k MoE on tokens [N, d] given router
     logits [N, E]; returns (out [N, d] f32, aux loss scalar):
-    `dispatch`, `expert_products`, `combine_outputs`."""
-    expert_in, combine, aux = dispatch(tokens, router_logits, cfg)
+    `dispatch` (with its `prefix` and `n_global`), `expert_products`,
+    `combine_outputs`."""
+    expert_in, combine, aux = dispatch(tokens, router_logits, cfg,
+                                       prefix=prefix, n_global=n_global)
     out = combine_outputs(
         combine, expert_products(expert_in, w_gate, w_up, w_down, cfg))
     return out, aux
@@ -151,6 +193,60 @@ def dropped_tokens(router_logits: torch.Tensor, cfg: ModelConfig) -> int:
     counts = torch.bincount(gate_idx.reshape(-1), minlength=cfg.n_experts)
     cap = capacity(cfg, router_logits.shape[0])
     return int(torch.clamp(counts - cap, min=0).sum())
+
+
+class HostDispatch:
+    """Where a host's rows sit in the global token order of each MoE
+    dispatch of one training step (module docstring): `place(key,
+    gate_idx)` -> (prefix [E], n_global), `key` naming the dispatch
+    (its block and microbatch, and its sequence group).  The first call
+    for a key all-gathers this host's [E] counts and token count over
+    `group` (the hosts that hold the block, in the order of their rows:
+    data coordinate major); a second call for the key (the remat
+    recompute inside the backward, which autograd may run on a thread
+    of its own a device) reuses the first's answer, so the hosts meet
+    their collectives in the forward's order alone.  `gathers` counts
+    the collectives."""
+
+    def __init__(self, group, host_index: int) -> None:
+        self.group = group
+        self.host_index = int(host_index)
+        self.gathers = 0
+        self._placed: Dict[Any, Tuple[torch.Tensor, int]] = {}
+
+    def place(self, key, gate_idx: torch.Tensor, n_experts: int
+              ) -> Tuple[torch.Tensor, int]:
+        if key not in self._placed:
+            from skypilot_tpu_torch.parallel import distributed  # pylint: disable=import-outside-toplevel
+            counts = torch.cat([
+                expert_counts(gate_idx, n_experts),
+                torch.tensor([gate_idx.shape[0]], device=gate_idx.device)])
+            every = distributed.all_gather(counts, self.group).cpu()
+            self.gathers += 1
+            prefix = every[:self.host_index, :-1].sum(dim=0)
+            self._placed[key] = (prefix.to(gate_idx.device),
+                                 int(every[:, -1].sum()))
+        return self._placed[key]
+
+
+_HOST_DISPATCH: Optional[HostDispatch] = None
+
+
+@contextlib.contextmanager
+def host_dispatch(exchange: Optional[HostDispatch]):
+    """Run the block's capacity dispatches inside (a training step's
+    forward and backward) over the global batch through `exchange`
+    (None: each over the rows it is given)."""
+    global _HOST_DISPATCH  # pylint: disable=global-statement
+    before, _HOST_DISPATCH = _HOST_DISPATCH, exchange
+    try:
+        yield exchange
+    finally:
+        _HOST_DISPATCH = before
+
+
+def active_host_dispatch() -> Optional[HostDispatch]:
+    return _HOST_DISPATCH
 
 
 class QuantStack(nn.Module):

@@ -52,18 +52,28 @@ A sharded state reads and writes the same step files (whole leaves,
 gathered to the host from the owners): either kind restores onto any
 mesh, and a restore fills every copy (`fill_copies`).
 
-Across hosts (a mesh with `hosts` > 1, parallel/mesh.py): each host runs
-the step above on its own mesh and rows, over the global denominator
-(the token count or mask sum summed over the hosts before the
-backward), then `state.host_reduce` sums the loss and every gradient
-(each block's owner, after the copies' sum) over the hosts' process
-group before the clip, so the
-clip's norm is the global norm and every host steps the same bits.
-Each host sums its own positions first (autograd onto its blocks),
-then the hosts: the reference's GSPMD sums in an order of its own.
-With accum_steps > 1, a host's microbatches are slices of its own rows.
-An MoE model does not train across hosts (A17f-ii: the capacity
-dispatch ranks tokens over the global batch).
+Across hosts (a mesh with `hosts` > 1, parallel/mesh.py): each host
+passes its stripe of the global batch, in host-rank order, and the step
+all-gathers the stripes (token ids and the mask) and takes the rows
+its positions hold in the reference's order, microbatch major
+(`pipeline.microbatch_rows` over every host's batch ranks), so the
+accumulation microbatches are the reference's global row ranges.  The
+denominator (the token count or mask sum of each stripe) is summed
+over every host before the backward.  Each host runs the step above on
+its own mesh: its stages of a pipeline across hosts (parallel/
+pipeline.py: the boundaries sent host to host, the backward driven
+host by host), and an MoE block dispatches over the global batch
+(`moe.HostDispatch`: one all-gather of the expert counts over the data
+group of hosts per block and microbatch).  Then `state.host_reduce`
+sums, before the clip, each layer's gradient (its owner, after the
+copies' sum) over the data group (the hosts that hold its stage), and
+the loss (the last stage's) and the embedding's, final norm's and
+head's gradients over every host, where a tied embedding's two stages
+meet.  The clip's norm adds each host's layers' squares over its
+pipeline group and the end blocks once, so every host steps the same
+bits.  Each host sums its own positions first (autograd onto its
+blocks), then the hosts: the reference's GSPMD sums in an order of its
+own.
 """
 from __future__ import annotations
 
@@ -80,6 +90,7 @@ from skypilot_tpu_torch.data import checkpoints
 from skypilot_tpu_torch.device import resolve_device
 from skypilot_tpu_torch.models import convert
 from skypilot_tpu_torch.models import losses
+from skypilot_tpu_torch.models import moe as moe_lib
 from skypilot_tpu_torch.models.configs import ModelConfig
 from skypilot_tpu_torch.models import transformer as transformer_lib
 from skypilot_tpu_torch.models.transformer import ShardedParams
@@ -142,17 +153,20 @@ class TrainState:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         g_norm: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """optax.clip_by_global_norm, in place: g_norm is the square root of
-    the sum of squares over every element (optax's global_norm), and
-    every gradient is scaled by max_norm / g_norm when g_norm >=
-    max_norm (no epsilon, unlike torch's clip_grad_norm_).  Returns the
-    pre-clip g_norm, a 0-dim f32 tensor on the device (no host sync)."""
+    the sum of squares over every element (optax's global_norm; given,
+    where the gradients lie on several hosts), and every gradient is
+    scaled by max_norm / g_norm when g_norm >= max_norm (no epsilon,
+    unlike torch's clip_grad_norm_).  Returns the pre-clip g_norm, a
+    0-dim f32 tensor on the device (no host sync)."""
     dev = grads[0].device
-    g_norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g.to(torch.float32)).to(dev)
-         for g in grads]))
+    if g_norm is None:
+        g_norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.to(torch.float32)).to(dev)
+             for g in grads]))
     scale = torch.where(g_norm < max_norm, 1.0, max_norm / g_norm)
     for g in grads:
         g.mul_(scale.to(g.device, g.dtype))
@@ -186,19 +200,23 @@ def loss_fn(logits, targets, mask=None, reduction: str = 'mean'):
     return -ll.sum() / torch.clamp(mask.sum(), min=1)
 
 
-def _host_reduction(mesh: Optional[Mesh], cfg: ModelConfig
+def _host_reduction(mesh: Optional[Mesh]
                     ) -> Optional[distributed.HostReduction]:
-    """The cross-host sum of a mesh that spans hosts (None on one);
-    refuses an MoE model there."""
+    """The cross-host sums of a mesh that spans hosts (None on one)."""
     if mesh is None or mesh.hosts <= 1:
         return None
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            f'an MoE model ({cfg.n_experts} experts) on {mesh.hosts} hosts: '
-            'the capacity dispatch ranks tokens over the global batch, '
-            'which needs the experts\' counts exchanged across hosts; '
-            'ROADMAP item A17f-ii, a later slice of the port')
-    return distributed.HostReduction()
+    return distributed.HostReduction(mesh.host_grid, mesh.host_rank)
+
+
+def _one_position(mesh: Mesh) -> bool:
+    """A mesh whose state is the unsharded model on its one device: one
+    position, which holds every layer."""
+    return mesh.size == 1 and transformer_lib.global_stages(mesh) == 1
+
+
+def _stages_span_hosts(state: TrainState) -> bool:
+    return (state.host_reduce is not None and
+            state.host_reduce.grid[1] > 1)
 
 
 def create_train_state(cfg: ModelConfig,
@@ -213,8 +231,8 @@ def create_train_state(cfg: ModelConfig,
     mesh=None state of the same seed on the mesh's first device, and no
     device ever holds more than one full leaf at a time."""
     tcfg = tcfg or TrainConfig()
-    host_reduce = _host_reduction(mesh, cfg)
-    if mesh is None or mesh.size == 1:
+    host_reduce = _host_reduction(mesh)
+    if mesh is None or _one_position(mesh):
         dev = resolve_device(device if mesh is None else mesh.devices[0])
         model = init_params(cfg, seed=seed, device=dev, trainable=True)
         shardings = (None if mesh is None else
@@ -243,7 +261,7 @@ def abstract_train_state(cfg: ModelConfig,
     point: `data.checkpoints.restore_sharded` puts a checkpoint onto
     these shardings."""
     tcfg = tcfg or TrainConfig()
-    host_reduce = _host_reduction(mesh, cfg)
+    host_reduce = _host_reduction(mesh)
     transformer_lib.check_mesh(mesh, cfg)
     model = Transformer(cfg, device='meta', trainable=True)
     shards = ShardedParams.empty(model, mesh, device='meta')
@@ -261,7 +279,7 @@ def materialize(abstract: TrainState, shardings: dict) -> TrainState:
     mesh = next(iter(shardings.values())).mesh
     cfg = abstract.model.cfg
     opt = abstract.optimizer
-    if mesh.size == 1:
+    if _one_position(mesh):
         model = Transformer(cfg, device=resolve_device(mesh.devices[0]),
                             trainable=True)
         params, shards = list(model.parameters()), None
@@ -276,17 +294,21 @@ def materialize(abstract: TrainState, shardings: dict) -> TrainState:
     return TrainState(step=0, model=model,
                       optimizer=torch.optim.AdamW(params, **settings),
                       grad_clip=abstract.grad_clip, shards=shards,
-                      host_reduce=_host_reduction(mesh, cfg))
+                      host_reduce=_host_reduction(mesh))
 
 
-def _microbatch_nll(model, inputs, targets, mask, tcfg: TrainConfig):
-    """Summed (unnormalised) NLL of one microbatch."""
+def _microbatch_nll(model, inputs, targets, mask, tcfg: TrainConfig,
+                    microbatch: int = 0):
+    """Summed (unnormalised) NLL of accumulation microbatch
+    `microbatch`."""
     if tcfg.fused_ce:
-        hidden, kernel = model(inputs, return_hidden=True)
+        hidden, kernel = model(inputs, return_hidden=True,
+                               microbatch=microbatch)
         return losses.fused_linear_cross_entropy(
             hidden, kernel, targets, mask, vocab_chunk=tcfg.vocab_chunk,
             reduction='sum')
-    return loss_fn(model(inputs), targets, mask, reduction='sum')
+    return loss_fn(model(inputs, microbatch=microbatch), targets, mask,
+                   reduction='sum')
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -300,7 +322,8 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     (before clipping), 0-dim tensors on the device."""
     loss = value_and_grad(state, batch, tcfg)
     grads = [p.grad for p in state.owners() if p.grad is not None]
-    grad_norm = clip_by_global_norm_(grads, state.grad_clip)
+    grad_norm = clip_by_global_norm_(grads, state.grad_clip,
+                                     _host_norm(state, grads[0].device))
     if state.shards is not None:
         state.shards.copy_owner_grads()
     state.optimizer.step()
@@ -322,9 +345,70 @@ def value_and_grad(state: TrainState, batch: Dict[str, torch.Tensor],
     if state.host_reduce is None:
         return loss
     loss = loss.detach().clone()
-    state.host_reduce([loss] + [p.grad for p in state.owners()
-                                if p.grad is not None])
+    _host_sums(state, loss)
     return loss
+
+
+def _owner_groups(state: TrainState
+                  ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """(the layers' owner blocks, the embedding's, final norm's and
+    head's) of a sharded state."""
+    layers, ends = [], []
+    for name, blocks in state.shards.blocks.items():
+        (layers if name.startswith('layers.') else ends).extend(
+            blocks.values())
+    return layers, ends
+
+
+@torch.no_grad()
+def _host_sums(state: TrainState, loss: torch.Tensor) -> None:
+    """The step's sums across hosts (module docstring): without a
+    pipeline across hosts the loss and every gradient over every host;
+    with one, the layers' over the data group, the loss and the end
+    blocks' (zeros where this host's stages made none) over every
+    host."""
+    reduce = state.host_reduce
+    if not _stages_span_hosts(state):
+        reduce([loss] + [p.grad for p in state.owners()
+                         if p.grad is not None])
+        return
+    layers, ends = _owner_groups(state)
+    for p in ends:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    reduce([p.grad for p in layers if p.grad is not None], over='data')
+    reduce([loss] + [p.grad for p in ends])
+
+
+@torch.no_grad()
+def _host_norm(state: TrainState, dev) -> Optional[torch.Tensor]:
+    """The global gradient norm where a pipeline spans hosts (None
+    elsewhere): the squares of this host's layers summed over its
+    pipeline group, plus the end blocks' once."""
+    if not _stages_span_hosts(state):
+        return None
+
+    def squares(params) -> torch.Tensor:
+        total = torch.zeros(1, device=dev)
+        for p in params:
+            if p.grad is not None:
+                total += torch.linalg.vector_norm(
+                    p.grad.to(torch.float32)).to(dev) ** 2
+        return total
+    layers, ends = _owner_groups(state)
+    layer_sq = squares(layers)
+    state.host_reduce([layer_sq], over='pipeline')
+    return torch.sqrt(layer_sq + squares(ends))[0]
+
+
+def _host_dispatch(state: TrainState) -> Optional[moe_lib.HostDispatch]:
+    """A step's MoE exchange over the data group (None on one host or
+    for a dense model)."""
+    reduce = state.host_reduce
+    if reduce is None or state.model.cfg.n_experts == 0:
+        return None
+    return moe_lib.HostDispatch(reduce.group('data'),
+                                reduce.host // reduce.grid[1])
 
 
 def _denominator(state: TrainState, count: torch.Tensor) -> torch.Tensor:
@@ -335,6 +419,41 @@ def _denominator(state: TrainState, count: torch.Tensor) -> torch.Tensor:
         count = count.clone()
         state.host_reduce([count])
     return torch.clamp(count, min=1)
+
+
+def _joined(x) -> torch.Tensor:
+    """A batch array given as row blocks (one a batch rank), joined."""
+    if isinstance(x, (list, tuple)):
+        return x[0] if len(x) == 1 else torch.cat(
+            [t.to(x[0].device) for t in x])
+    return x
+
+
+def _global_batch(state: TrainState, batch
+                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """({'inputs', 'targets'[, 'mask']} of the global batch, the
+    denominator): this host's stripe (its row blocks joined), every
+    host's stripe all-gathered in host order across hosts; the
+    denominator is the stripes' token count or mask sum, summed over
+    the hosts."""
+    if 'tokens' in batch:
+        arrays = {'tokens': _joined(batch['tokens'])}
+        targets = arrays['tokens'][:, 1:]
+    else:
+        arrays = {k: _joined(batch[k]) for k in ('inputs', 'targets')}
+        targets = arrays['targets']
+    if batch.get('mask') is not None:
+        arrays['mask'] = _joined(batch['mask'])
+    denom = _denominator(state, torch.tensor(
+        float(targets.numel()), device=targets.device)
+        if 'mask' not in arrays else arrays['mask'].sum())
+    if state.host_reduce is not None:
+        arrays = {k: distributed.all_gather(v).reshape(-1, *v.shape[1:])
+                  for k, v in arrays.items()}
+    if 'tokens' in arrays:
+        toks = arrays.pop('tokens')
+        arrays['inputs'], arrays['targets'] = toks[:, :-1], toks[:, 1:]
+    return arrays, denom
 
 
 def _plain_value_and_grad(state: TrainState, batch,
@@ -356,27 +475,31 @@ def _plain_value_and_grad(state: TrainState, batch,
             tcfg is None or (not tcfg.fused_ce and tcfg.accum_steps <= 1)):
         loss = loss_fn(model(inputs), targets, mask)
         loss.backward()
-    else:
-        tcfg = tcfg or TrainConfig()
-        denom = _denominator(state, torch.tensor(
-            float(targets.numel()), device=inputs.device)
-            if mask is None else mask.sum())
-        accum = max(tcfg.accum_steps, 1)
-        b = inputs.shape[0]
-        if b % accum:
-            raise ValueError(f'batch size {b} not divisible by accum_steps '
-                             f'{accum}')
-        mb = b // accum
-        nll = torch.zeros((), device=inputs.device)
+        return loss
+    from skypilot_tpu_torch.parallel import pipeline  # pylint: disable=import-outside-toplevel
+    tcfg = tcfg or TrainConfig()
+    accum = max(tcfg.accum_steps, 1)
+    whole, denom = _global_batch(state, batch)
+    reduce = state.host_reduce
+    if reduce is not None:
+        # This host's rows of each global microbatch, microbatch major.
+        whole = {k: pipeline.microbatch_rows(v, reduce.grid[0], accum)[
+            reduce.host] for k, v in whole.items()}
+    b = whole['inputs'].shape[0]
+    if b % accum:
+        raise ValueError(f'batch size {b} not divisible by accum_steps '
+                         f'{accum}')
+    mb = b // accum
+    nll = torch.zeros((), device=whole['inputs'].device)
+    with moe_lib.host_dispatch(_host_dispatch(state)):
         for i in range(accum):
-            rows = slice(i * mb, (i + 1) * mb)
-            part = _microbatch_nll(model, inputs[rows], targets[rows],
-                                   None if mask is None else mask[rows],
-                                   tcfg)
+            rows = {k: v[i * mb:(i + 1) * mb] for k, v in whole.items()}
+            part = _microbatch_nll(model, rows['inputs'], rows['targets'],
+                                   rows.get('mask'), tcfg, i)
             part.backward()
             nll = nll + part.detach()
-        loss = nll / denom
-        _divide_grads(state, denom)
+    loss = nll / denom.to(nll.device)
+    _divide_grads(state, denom)
     return loss
 
 
@@ -417,12 +540,15 @@ def _sum_to(parts: List[torch.Tensor], device) -> torch.Tensor:
 
 
 def mesh_nll(model: Transformer, shards: ShardedParams, part,
-             tcfg: Optional[TrainConfig], num_microbatches: int = 1
-             ) -> torch.Tensor:
+             tcfg: Optional[TrainConfig], num_microbatches: int = 1,
+             microbatch: int = 0) -> torch.Tensor:
     """Summed NLL of one batch over a mesh ({'inputs', 'targets'[,
     'mask']}: one row block a batch rank, `_rank_rows`), on the mesh's
     first device; the fused CE with tcfg.fused_ce.  Over a pipeline the
-    blocks are microbatch major (`pipeline.microbatch_rows`)."""
+    blocks are microbatch major (`pipeline.microbatch_rows`); None on a
+    host of a pipeline across hosts that does not hold its last
+    stage.  `microbatch`: which accumulation microbatch the rows are
+    (`Transformer.forward`)."""
     mesh = shards.mesh
     geo = transformer_lib.mesh_geometry(mesh, model.cfg)
     targets = _position_cols(part['targets'], geo, mesh)
@@ -430,7 +556,9 @@ def mesh_nll(model: Transformer, shards: ShardedParams, part,
             _position_cols(part['mask'], geo, mesh))
     fused = tcfg is not None and tcfg.fused_ce
     outs = model(part['inputs'], return_hidden=fused, shards=shards,
-                 num_microbatches=num_microbatches)
+                 num_microbatches=num_microbatches, microbatch=microbatch)
+    if outs is None:    # the last stage is another host's
+        return None
     sums = []
     for i, (out, t) in enumerate(zip(outs, targets)):
         m = None if mask is None else mask[i]
@@ -443,6 +571,19 @@ def mesh_nll(model: Transformer, shards: ShardedParams, part,
     return _sum_to(sums, mesh.devices[0])
 
 
+def _host_blocks(x: torch.Tensor, mesh: Mesh, n_ranks: int,
+                 num_microbatches: int) -> List[torch.Tensor]:
+    """This host's `n_ranks` batch ranks' rows of the global batch x,
+    microbatch major: `pipeline.microbatch_rows` over every host's
+    batch ranks ('data' x 'fsdp', data major)."""
+    from skypilot_tpu_torch.parallel import pipeline  # pylint: disable=import-outside-toplevel
+    fsdp = mesh.shape.get('fsdp', 1)
+    first = mesh.offsets['data'] * fsdp
+    every = pipeline.microbatch_rows(
+        x, mesh.global_shape.get('data', 1) * fsdp, num_microbatches)
+    return every[first:first + n_ranks]
+
+
 def _mesh_value_and_grad(state: TrainState, batch,
                          tcfg: Optional[TrainConfig]) -> torch.Tensor:
     """`value_and_grad` over a mesh (module docstring): batch arrays are
@@ -451,59 +592,49 @@ def _mesh_value_and_grad(state: TrainState, batch,
     consecutive row ranges, each split over the batch ranks, as the
     reference's reshape of the global batch cuts them.  Over a pipeline
     they are the GPipe schedule's microbatches: one forward over all of
-    them and one backward."""
+    them and one backward (across hosts, driven host by host)."""
     from skypilot_tpu_torch.parallel import pipeline  # pylint: disable=import-outside-toplevel
     shards = state.shards
     mesh = shards.mesh
     geo = transformer_lib.mesh_geometry(mesh, state.model.cfg)
     dev0 = mesh.devices[0]
-    if 'tokens' in batch:
-        toks = _rank_rows(batch['tokens'], geo, mesh)
-        arrays = {'inputs': [t[:, :-1] for t in toks],
-                  'targets': [t[:, 1:] for t in toks]}
-    else:
-        arrays = {k: _rank_rows(batch[k], geo, mesh)
-                  for k in ('inputs', 'targets')}
-    if batch.get('mask') is not None:
-        arrays['mask'] = _rank_rows(batch['mask'], geo, mesh)
-    masks = arrays.get('mask')
-    denom = _denominator(state, torch.tensor(
-        float(sum(t.numel() for t in arrays['targets'])), device=dev0)
-        if masks is None else _sum_to([m.sum() for m in masks], dev0))
+    whole, denom = _global_batch(state, batch)
+    denom = denom.to(dev0)
     state.optimizer.zero_grad(set_to_none=True)
     accum = 1 if tcfg is None else max(tcfg.accum_steps, 1)
-    if accum > 1 and geo.pp > 1:
-        arrays = {k: _rank_rows(pipeline.microbatch_rows(
-            torch.cat([t.to(dev0) for t in v]), len(geo.ranks), accum),
-            geo, mesh) for k, v in arrays.items()}
-    if accum <= 1 or geo.pp > 1:
-        total = mesh_nll(state.model, shards, arrays, tcfg,
-                         accum if geo.pp > 1 else 1)
-        loss = total / denom
-        if tcfg is None or not tcfg.fused_ce:
-            loss.backward()
-            shards.sum_copy_grads()
+    staged = transformer_lib.global_stages(mesh) > 1
+    fused = tcfg is not None and tcfg.fused_ce
+    blocks = {k: _host_blocks(v, mesh, len(geo.ranks), accum)
+              for k, v in whole.items()}
+    with moe_lib.host_dispatch(_host_dispatch(state)), \
+            pipeline.host_link(mesh) as link:
+        if accum <= 1 or staged:
+            part = {k: _rank_rows(v, geo, mesh) for k, v in blocks.items()}
+            total = mesh_nll(state.model, shards, part, tcfg,
+                             accum if staged else 1)
+            # Where another host holds the last stage: no loss here.
+            objective = (None if total is None else
+                         total if fused else total / denom)
+            if link is None:
+                objective.backward()
+            else:
+                link.backward(objective)
+            loss = (torch.zeros((), device=dev0) if total is None
+                    else total.detach() / denom)
         else:
-            total.backward()
-            shards.sum_copy_grads()
-            _divide_grads(state, denom)
-    else:
-        whole = {k: torch.cat([t.to(dev0) for t in v])
-                 for k, v in arrays.items()}
-        b = whole['inputs'].shape[0]
-        if b % accum:
-            raise ValueError(f'batch size {b} not divisible by accum_steps '
-                             f'{accum}')
-        mb = b // accum
-        total = torch.zeros((), device=dev0)
-        for i in range(accum):
-            part = {k: _rank_rows(v[i * mb:(i + 1) * mb], geo, mesh)
-                    for k, v in whole.items()}
-            piece = mesh_nll(state.model, shards, part, tcfg)
-            piece.backward()
-            total = total + piece.detach()
-        loss = total / denom
-        shards.sum_copy_grads()
+            q = blocks['inputs'][0].shape[0] // accum
+            total = torch.zeros((), device=dev0)
+            for i in range(accum):
+                part = {k: _rank_rows([blk[i * q:(i + 1) * q] for blk in v],
+                                      geo, mesh)
+                        for k, v in blocks.items()}
+                piece = mesh_nll(state.model, shards, part, tcfg,
+                                 microbatch=i)
+                piece.backward()
+                total = total + piece.detach()
+            loss = total / denom
+    shards.sum_copy_grads()
+    if fused or (accum > 1 and not staged):
         _divide_grads(state, denom)
     return loss
 
@@ -569,7 +700,8 @@ def _pieces(state: TrainState) -> List[Tuple[Tuple[str, ...], List[Tuple[
         torch.Tensor, Tuple[slice, ...]]], torch.Size, torch.dtype]]:
     """(tree path, [(tensor, its slice of the full leaf)], full shape,
     dtype) of every leaf, in `param_paths`' order: a parameter as one
-    piece, or over a mesh its blocks' owners (each element once)."""
+    piece, or over a mesh its blocks' owners (each element once; none
+    for a layer of a stage another host holds)."""
     names = {id(p): name for name, p in state.model.named_parameters()}
     out = []
     for path, p in param_paths(state.model):
@@ -581,6 +713,30 @@ def _pieces(state: TrainState) -> List[Tuple[Tuple[str, ...], List[Tuple[
     return out
 
 
+def _holders(state: TrainState) -> List[List[int]]:
+    """The hosts that hold each leaf (in `param_paths`' order), on a
+    mesh that spans hosts: a layer's stage's data group, or every host
+    for the embedding, final norm and head."""
+    reduce = state.host_reduce
+    data_hosts, pipe_hosts = reduce.grid
+    every = list(range(data_hosts * pipe_hosts))
+    if state.shards is None or pipe_hosts == 1:
+        return [every for _ in param_paths(state.model)]
+    mesh, cfg = state.shards.mesh, state.model.cfg
+    names = {id(p): name for name, p in state.model.named_parameters()}
+    out = []
+    for _, p in param_paths(state.model):
+        name = names[id(p)]
+        if not name.startswith('layers.'):
+            out.append(every)
+            continue
+        stage = transformer_lib.layer_stage(cfg, mesh,
+                                            int(name.split('.')[1]))
+        p_host = stage // mesh.shape.get('pipeline', 1)
+        out.append([d * pipe_hosts + p_host for d in range(data_hosts)])
+    return out
+
+
 def _whole(pieces, shape, dtype, fn) -> torch.Tensor:
     """A full leaf on the host from fn(piece tensor) of every piece."""
     full = torch.empty(shape, dtype=dtype)
@@ -589,32 +745,70 @@ def _whole(pieces, shape, dtype, fn) -> torch.Tensor:
     return full
 
 
+def _leaf_tensors(state: TrainState, pieces, shape, dtype,
+                  counts: set) -> List[torch.Tensor]:
+    """[param, exp_avg, exp_avg_sq] of one leaf, whole on the host."""
+    out = [_whole(pieces, shape, dtype, lambda t: t)]
+    for name in ('exp_avg', 'exp_avg_sq'):
+        def moment(t, name=name):
+            st = state.optimizer.state.get(t)
+            counts.add(int(st['step']) if st else 0)
+            return st[name] if st else torch.zeros_like(t)
+        out.append(_whole(pieces, shape, dtype, moment))
+    return out
+
+
 @torch.no_grad()
-def snapshot(state: TrainState) -> checkpoints.TrainSnapshot:
+def snapshot(state: TrainState) -> Optional[checkpoints.TrainSnapshot]:
     """Host copies of the state's leaves, all taken before this returns
     (`train_step` updates the state in place, so a snapshot that
     aliased it would change under a writer thread); over a mesh each
     leaf is gathered whole, so a sharded and an unsharded run of the
     same state write the same bytes.  A parameter the optimizer has not
-    stepped yet has zero moments, as AdamW's lazy state starts."""
-    params, mu, nu, counts = [], [], [], set()
-    for path, pieces, shape, dtype in _pieces(state):
-        params.append((path, _whole(pieces, shape, dtype, lambda t: t)))
-        moments = []
-        for name in ('exp_avg', 'exp_avg_sq'):
-            def moment(t, name=name):
-                st = state.optimizer.state.get(t)
-                counts.add(int(st['step']) if st else 0)
-                return st[name] if st else torch.zeros_like(t)
-            moments.append(_whole(pieces, shape, dtype, moment))
-        mu.append((path, moments[0]))
-        nu.append((path, moments[1]))
+    stepped yet has zero moments, as AdamW's lazy state starts.  Where
+    the stages span hosts every host takes part: each leaf's first
+    holder (`_holders`) sends the leaves host 0 does not hold, and host
+    0 alone gets the snapshot (None on the others); elsewhere each host
+    snapshots its own state."""
+    spans = _stages_span_hosts(state)
+    leaves = _pieces(state)
+    sources = [held[0] for held in _holders(state)] if spans else None
+    rank = state.host_reduce.host if spans else 0
+    counts: set = set()
+    whole: Dict[int, List[torch.Tensor]] = {}
+    transfer = distributed.Transfer()
+    for i, (_, pieces, shape, dtype) in enumerate(leaves):
+        source = 0 if sources is None else sources[i]
+        if rank == 0 and source == 0:
+            whole[i] = _leaf_tensors(state, pieces, shape, dtype, counts)
+        elif rank == 0:
+            whole[i] = [transfer.recv(torch.empty(shape, dtype=dtype),
+                                      source) for _ in range(3)]
+        elif rank == source:
+            for t in _leaf_tensors(state, pieces, shape, dtype, counts):
+                transfer.send(t, 0)
+    transfer.wait()
+    if rank != 0:
+        return None
     if len(counts) != 1:
         raise ValueError(f'optimizer step counts differ across '
                          f'parameters: {sorted(counts)}')
-    return checkpoints.TrainSnapshot(params=params, mu=mu, nu=nu,
-                                     count=counts.pop(),
-                                     train_step=state.step)
+    return checkpoints.TrainSnapshot(
+        params=[(path, whole[i][0]) for i, (path, *_) in enumerate(leaves)],
+        mu=[(path, whole[i][1]) for i, (path, *_) in enumerate(leaves)],
+        nu=[(path, whole[i][2]) for i, (path, *_) in enumerate(leaves)],
+        count=counts.pop(), train_step=state.step)
+
+
+def save_snapshot(state: TrainState
+                  ) -> Optional[checkpoints.TrainSnapshot]:
+    """The snapshot a checkpoint save writes, on host 0 of the gang;
+    None on another host, which takes part only where the stages span
+    hosts (it sends host 0 the leaves of its stages) and takes no
+    snapshot where every host holds the same bits."""
+    if _stages_span_hosts(state) or distributed.is_primary():
+        return snapshot(state)
+    return None
 
 
 # `state_digest` hashes a state's bytes in pieces of this size, on this
@@ -631,12 +825,28 @@ def state_digest(state: TrainState) -> str:
     host one at a time; a moment the optimizer has not made yet reads
     as zeros) cut into DIGEST_CHUNK_BYTES pieces, each piece's sha256
     taken on a thread pool, and the sha256 of those digests in order.
-    Equal digests are equal bits, on any mesh."""
-    out = hashlib.sha256()
+    Equal digests are equal bits, on any mesh.  Every host hashes each
+    leaf it holds; where the stages span hosts (a host holds only some
+    leaves) every host calls this, and a leaf the host does not hold
+    takes the piece digests of its first holder (`_holders`).  So two
+    hosts' digests are equal exactly when the holders of every leaf
+    agree, and then equal to one process's digest of the same state."""
+    leaves = _pieces(state)
+    holders = _holders(state) if _stages_span_hosts(state) else None
+    rank = 0 if holders is None else state.host_reduce.host
+    digests: Dict[int, List[bytes]] = {}
     pending: List[Any] = []
     threads = max(1, min(DIGEST_THREADS, os.cpu_count() or 1))
+
+    def settle(limit: int) -> None:
+        while len(pending) > limit:
+            i, future = pending.pop(0)
+            digests.setdefault(i, []).append(future.result())
     with concurrent.futures.ThreadPoolExecutor(threads) as pool:
-        for _, pieces, shape, dtype in _pieces(state):
+        for i, (_, pieces, shape, dtype) in enumerate(leaves):
+            if holders is not None and rank not in holders[i]:
+                continue
+            digests[i] = []
             on_cards = any(t.device.type == 'cuda' for t, _ in pieces)
             for name in (None, 'exp_avg', 'exp_avg_sq'):
                 # Straight from the cards into pinned memory.
@@ -648,13 +858,23 @@ def state_digest(state: TrainState) -> str:
                     host[idx].copy_(part.detach())
                 for chunk in host.view(-1).view(torch.uint8).split(
                         DIGEST_CHUNK_BYTES):
-                    pending.append(pool.submit(
-                        lambda c: hashlib.sha256(c.numpy()).digest(), chunk))
+                    pending.append((i, pool.submit(
+                        lambda c: hashlib.sha256(c.numpy()).digest(),
+                        chunk)))
                 # Bound the host copies alive: at most 4 pieces a thread.
-                while len(pending) > 4 * threads:
-                    out.update(pending.pop(0).result())
-        for future in pending:
-            out.update(future.result())
+                settle(4 * threads)
+        settle(0)
+    if holders is not None:
+        every: List[Any] = [None] * (state.host_reduce.grid[0] *
+                                     state.host_reduce.grid[1])
+        torch.distributed.all_gather_object(every, digests)
+        for i, held in enumerate(holders):
+            if i not in digests:
+                digests[i] = every[held[0]][i]
+    out = hashlib.sha256()
+    for i in range(len(leaves)):
+        for d in digests[i]:
+            out.update(d)
     return out.hexdigest()
 
 
@@ -685,6 +905,8 @@ def load_train_step(state: TrainState, params, moments, *, count: int,
         raise ValueError(f'training step does not match this model '
                          f'(wrong model_config?): {diff[:4]}')
     for path, pieces, _, _ in leaves:
+        if not pieces:      # a stage another host holds
+            continue
         name = '/'.join(path)
         full = params.get_tensor(name)
         mu = moments.get_tensor(f'mu/{name}')

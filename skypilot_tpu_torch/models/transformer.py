@@ -244,17 +244,18 @@ class DecoderLayer(nn.Module):
         return q.contiguous(), k.contiguous(), v.contiguous()
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                shape) -> torch.Tensor:
+                shape, microbatch: int = 0) -> torch.Tensor:
         """The training forward of one layer: residual rows x [b * s, d]
         (`shape` = (b, s)) -> the same, attention through the
         differentiable `flash_attention` on the whole sequence; an MoE
         block takes the capacity dispatch at every s, as flax's MoEMLP
-        does."""
+        does (across hosts keyed by `microbatch`, the rows' accumulation
+        microbatch)."""
         from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
         out = flash_attention(*self.attn_inputs(x, positions, shape),
                               causal=True)
         return decode._tp_out_and_mlp(self.cfg, [self], [x], [out], False,  # pylint: disable=protected-access
-                                      capacity=True)[0]
+                                      capacity=True, key=(microbatch, 0))[0]
 
 
 class Embed(nn.Module):
@@ -299,7 +300,7 @@ class Transformer(nn.Module):
 
     def forward(self, tokens, return_hidden: bool = False, *,
                 shards: Optional['ShardedParams'] = None,
-                num_microbatches: int = 1):
+                num_microbatches: int = 1, microbatch: int = 0):
         """tokens [b, s] -> logits [b, s, V] f32; with return_hidden,
         -> (final hidden [b, s, d] in cfg.dtype, lm-head kernel [d, V]
         in the logits matmul dtype) for the fused linear + CE loss
@@ -309,10 +310,13 @@ class Transformer(nn.Module):
         the leaves), `tokens` is one [b / ranks, s] tensor per batch
         rank and the result one logits tensor (or hidden and kernel)
         per mesh position: `mesh_forward` (over `num_microbatches`
-        pipeline microbatches)."""
+        pipeline microbatches).  `microbatch`: which accumulation
+        microbatch of a training step these rows are, the key of their
+        MoE dispatches in the step's exchange across hosts
+        (`moe.host_dispatch`)."""
         if shards is not None:
             return mesh_forward(self, shards, tokens, return_hidden,
-                                num_microbatches)
+                                num_microbatches, microbatch)
         from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
         from skypilot_tpu_torch.models import heads  # pylint: disable=import-outside-toplevel
         cfg = self.cfg
@@ -322,11 +326,11 @@ class Transformer(nn.Module):
         context_fn = _remat_context(cfg) if cfg.remat else None
         for layer in self.layers:
             if context_fn is None:
-                x = layer(x, positions, (b, s))
+                x = layer(x, positions, (b, s), microbatch)
             else:
                 x = torch_checkpoint.checkpoint(
-                    layer, x, positions, (b, s), use_reentrant=False,
-                    context_fn=context_fn)
+                    layer, x, positions, (b, s), microbatch,
+                    use_reentrant=False, context_fn=context_fn)
         x = decode._norm(x, self.final_norm.scale, cfg.norm_eps,  # pylint: disable=protected-access
                          cfg.norm_scale_plus_one).reshape(b, s, -1)
         if return_hidden:
@@ -517,18 +521,25 @@ def check_mesh(mesh, cfg: ModelConfig) -> None:
             f'expert={mesh.shape["expert"]}: training over the \'expert\' '
             'mesh axis is ROADMAP item A17g (the expert axis: experts split '
             'over devices), a later slice of the port')
-    stages = int(mesh.shape.get('pipeline', 1))
+    stages = global_stages(mesh)
     if cfg.n_layers % stages:
         raise ValueError(f'n_layers={cfg.n_layers} not divisible by '
                          f'n_stages={stages} (the \'pipeline\' axis)')
     tensor_parallel.check_degree(cfg, int(mesh.shape.get('tensor', 1)))
 
 
+def global_stages(mesh) -> int:
+    """The pipeline's stage count over every host (`mesh.shape` holds
+    this host's part)."""
+    return int(mesh.global_shape.get('pipeline', 1))
+
+
 def layer_stage(cfg: ModelConfig, mesh, index: int) -> int:
-    """The pipeline stage that runs layer `index`: stages take
+    """The global pipeline stage that runs layer `index`: stages take
     n_layers / S consecutive layers each, as the reference's
-    split_stage_params reshapes [L] into [S, L / S]."""
-    return index // (cfg.n_layers // int(mesh.shape.get('pipeline', 1)))
+    split_stage_params reshapes [L] into [S, L / S]; this host holds
+    stages mesh.global_stage onwards."""
+    return index // (cfg.n_layers // global_stages(mesh))
 
 
 class MeshGeometry(NamedTuple):
@@ -779,17 +790,18 @@ def placements(model: Transformer, mesh) -> Dict[str, object]:
     """{parameter name: its Placement on `mesh`}, in the model's order.
     Over a 'pipeline' axis, layer i's leaves are held only by the
     positions of its stage (`layer_stage`), where they keep the split
-    of their logical axes; the embedding, final norm and head are
-    replicated over 'pipeline', as the reference's
-    stage_param_shardings places them."""
+    of their logical axes (a stage on another host: by none of this
+    host's); the embedding, final norm and head are replicated over
+    'pipeline', as the reference's stage_param_shardings places
+    them."""
     check_mesh(mesh, model.cfg)
     out = {}
     for name, _ in model.named_parameters():
         placement = sharding.logical_sharding(mesh, *logical_axes(name))
-        if mesh.shape.get('pipeline', 1) > 1 and name.startswith('layers.'):
+        if global_stages(mesh) > 1 and name.startswith('layers.'):
             stage = layer_stage(model.cfg, mesh, int(name.split('.')[1]))
-            placement = dataclasses.replace(placement,
-                                            at=(('pipeline', stage),))
+            placement = dataclasses.replace(
+                placement, at=(('pipeline', stage - mesh.global_stage),))
         out[name] = placement
     return out
 
@@ -814,7 +826,7 @@ def _call(module: nn.Module, params: Dict[str, torch.Tensor], fn, *args):
 
 def mesh_forward(model: Transformer, shards: ShardedParams,
                  tokens: Sequence[torch.Tensor], return_hidden: bool,
-                 num_microbatches: int = 1):
+                 num_microbatches: int = 1, microbatch: int = 0):
     """The reference's forward under a mesh, made explicit.  Activations
     follow ('batch', 'seq', 'embed'): batch rank i's tokens [b_i, s]
     (any device) are cut into `sp` chunks of s / sp columns, and
@@ -832,7 +844,9 @@ def mesh_forward(model: Transformer, shards: ShardedParams,
     1, the layers run under parallel/pipeline.py's GPipe schedule:
     the embedding on stage 0's ranks, each stage's layers on its own
     ranks, microbatch m being rows m * b_i / M onwards of every batch
-    rank, and the head on the last stage's ranks.  -> one output per
+    rank, and the head on the last stage's ranks; across hosts each
+    host runs its own stages, the embedding only where it holds stage
+    0, and returns None where another host holds the last.  -> one output per
     (batch, sequence) rank of the last stage, batch rank major: logits
     [b_i, s / sp, V] (the tensor ranks' vocab columns joined on tensor
     rank 0's device), or (hidden, [head kernel [d, V / tp] of each
@@ -855,9 +869,12 @@ def mesh_forward(model: Transformer, shards: ShardedParams,
     # devs[g][t]: the device of tensor rank t of (batch, sequence) rank
     # g = i * sp + r of stage 0.
     devs = row_devices(shards.mesh, geo.ranks)
+    mesh = shards.mesh
+    n_stages = global_stages(mesh)
     embeds: Dict[Tuple[torch.device, ...], Dict[str, torch.Tensor]] = {}
-    xs = []
-    for i, toks in enumerate(tokens):
+    # A host of a pipeline across hosts embeds only if it holds stage 0.
+    xs = [] if mesh.global_stage == 0 else None
+    for i, toks in enumerate(tokens if xs is not None else ()):
         for r in range(geo.sp):
             row = tuple(devs[i * geo.sp + r])
             if row not in embeds:
@@ -879,14 +896,17 @@ def mesh_forward(model: Transformer, shards: ShardedParams,
         raise NotImplementedError(
             f'remat_policy {cfg.remat_policy!r} on a mesh: only \'full\' '
             'recomputes there')
-    if geo.pp > 1 or num_microbatches > 1:
+    if n_stages > 1 or num_microbatches > 1:
         from skypilot_tpu_torch.parallel import pipeline  # pylint: disable=import-outside-toplevel
         xs = pipeline.gpipe(model, shards, geo, tokens[0].shape[0], chunk,
                             num_microbatches, xs)
+        if xs is None:      # the last stage is another host's
+            return None
     else:
         for index in range(cfg.n_layers):
             fn = functools.partial(_mesh_layer, model, shards, geo, index,
-                                   tokens[0].shape[0], chunk, devs)
+                                   tokens[0].shape[0], chunk, devs,
+                                   microbatch=microbatch)
             if cfg.remat:
                 xs = torch_checkpoint.checkpoint(fn, *xs, use_reentrant=True)
             else:
@@ -922,7 +942,7 @@ def _final(ranks: nn.ModuleList, x: torch.Tensor, return_hidden: bool,
 def _mesh_layer(model: Transformer, shards: ShardedParams,
                 geo: MeshGeometry, index: int, b: int, chunk: int,
                 devs: List[List[torch.device]], *xs: torch.Tensor,
-                seq_local: bool = False):
+                seq_local: bool = False, microbatch: int = 0):
     """Layer `index` over every (batch, sequence) rank's rows xs[g]
     [b * chunk, d] (on its tensor rank 0's device), through decode.py's
     tensor-parallel layer body (`_tp_qkv`, `_tp_out_and_mlp`; at tensor
@@ -935,9 +955,12 @@ def _mesh_layer(model: Transformer, shards: ShardedParams,
     runs over the global batch.  With `seq_local` (the pipeline's stage
     body, which the reference runs manual over 'sequence'), each
     sequence rank's chunk of every batch rank dispatches on its own,
-    on that sequence rank's first row.  The ranks' partials are summed
-    out of place (`tensor_parallel.reduce_sum`), and the sum's rows go
-    back to each (batch, sequence) rank."""
+    on that sequence rank's first row.  Across hosts each dispatch
+    takes its rows' place in the global batch from the step's exchange
+    (`moe.host_dispatch`), keyed by (`microbatch`, the dispatch's
+    sequence group).  The ranks' partials are summed out of place
+    (`tensor_parallel.reduce_sum`), and the sum's rows go back to each
+    (batch, sequence) rank."""
     from skypilot_tpu_torch.models import decode  # pylint: disable=import-outside-toplevel
     from skypilot_tpu_torch.models import tensor_parallel  # pylint: disable=import-outside-toplevel
     from skypilot_tpu_torch.ops.ring_attention import ring_attention_shards  # pylint: disable=import-outside-toplevel
@@ -1003,7 +1026,8 @@ def _mesh_layer(model: Transformer, shards: ShardedParams,
                 devs[lead][0]) for r in group], dim=1)
             for i in range(len(geo.ranks))])
         y = run(lead, lambda layers, hs: decode._tp_moe_mlp(  # pylint: disable=protected-access
-            rcfg, [layer.moe_mlp for layer in layers], hs, capacity=True),
+            rcfg, [layer.moe_mlp for layer in layers], hs, capacity=True,
+            key=(microbatch, lead)),
             tensor_parallel.on_cards(rows, devs[lead]))
         for i in range(len(geo.ranks)):
             for k, r in enumerate(group):

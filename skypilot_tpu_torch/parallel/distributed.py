@@ -8,9 +8,12 @@ keeps its own copy).  The reference brings up `jax.distributed` from
 them; `initialize_from_env` brings up a `torch.distributed` process
 group instead: one rank a host, SKYTPU_NUM_HOSTS ranks, its store at
 the coordinator's address (host 0 listens there).  The group carries
-the DCN 'data' axis only: each host runs its own device mesh
-(parallel/mesh.py) and the hosts sum their gradients through the group
-(`HostReduction`, models/train.py).
+the DCN axes, 'data' and 'pipeline': each host runs its own device mesh
+(parallel/mesh.py), the hosts at one pipeline coordinate sum their
+gradients over their data group and the hosts of one data coordinate
+pass a pipeline's boundary activations and their gradients from host
+to host (`HostGroups`, `Transfer`; models/train.py and
+parallel/pipeline.py).
 
 The backend is chosen, never fallen back to: 'nccl' for CUDA devices,
 'gloo' for CPU entries, and 'gloo' on CUDA tensors only when the caller
@@ -91,6 +94,7 @@ def initialize_from_env(*, force: bool = False,
 
 def shutdown() -> None:
     """Leave the group, if this process joined one."""
+    _GROUPS.clear()
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
 
@@ -148,7 +152,7 @@ class _Bucket:
     under NCCL for a buffer off the current card, the copy staged
     there (ProcessGroupNCCL takes one card a process)."""
 
-    def __init__(self, pieces: List[torch.Tensor]) -> None:
+    def __init__(self, pieces: List[torch.Tensor], group=None) -> None:
         self.pieces = pieces
         self.flat = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
         self.staged = None
@@ -158,7 +162,7 @@ class _Bucket:
                 self.staged = self.flat.to(card)
         self.work = torch.distributed.all_reduce(
             self.flat if self.staged is None else self.staged,
-            async_op=True)
+            group=group, async_op=True)
 
     def finish(self) -> None:
         """Wait for the sum (under NCCL, the current stream waits) and
@@ -189,15 +193,20 @@ def _buckets(tensors: Sequence[torch.Tensor], cap: int):
         yield bucket
 
 
-def all_reduce_sum_(tensors: Sequence[torch.Tensor]) -> int:
-    """Sum `tensors` over the hosts in place; -> the bytes reduced (0
-    without a group).  Buckets by (device, dtype) of at most
-    BUCKET_BYTES: pieces of one bucket are packed into one buffer,
-    reduced and copied back; a bucket of one piece is reduced where it
-    lies; up to IN_FLIGHT buckets are reduced at once.  No host sync is
-    added (under NCCL the collectives are queued on the card; gloo's
-    host transfers are waited for)."""
-    if not torch.distributed.is_initialized():
+def _size(group) -> int:
+    return torch.distributed.get_world_size(group)
+
+
+def all_reduce_sum_(tensors: Sequence[torch.Tensor], group=None) -> int:
+    """Sum `tensors` over the hosts of `group` (default: every host) in
+    place; -> the bytes reduced (0 without a group, or over a group of
+    one host).  Buckets by (device, dtype) of at most BUCKET_BYTES:
+    pieces of one bucket are packed into one buffer, reduced and copied
+    back; a bucket of one piece is reduced where it lies; up to
+    IN_FLIGHT buckets are reduced at once.  No host sync is added
+    (under NCCL the collectives are queued on the card; gloo's host
+    transfers are waited for)."""
+    if not torch.distributed.is_initialized() or group is SOLO:
         return 0
     groups: Dict[Tuple[torch.device, torch.dtype], List[torch.Tensor]] = {}
     for t in tensors:
@@ -210,7 +219,7 @@ def all_reduce_sum_(tensors: Sequence[torch.Tensor]) -> int:
     for ts in groups.values():
         size = ts[0].element_size()
         for pieces in _buckets(ts, max(1, BUCKET_BYTES // size)):
-            pending.append(_Bucket(pieces))
+            pending.append(_Bucket(pieces, group))
             total += sum(p.numel() for p in pieces) * size
             if len(pending) >= IN_FLIGHT:
                 pending.pop(0).finish()
@@ -219,33 +228,194 @@ def all_reduce_sum_(tensors: Sequence[torch.Tensor]) -> int:
     return total
 
 
-class HostReduction:
-    """The cross-host sum of a training step (the DCN 'data' axis), with
-    what it cost: `models.train` calls it once for the denominator and
-    once for the loss and every gradient (each block's owner copy, so
-    the bytes do not grow with the copies); `take()` gives the seconds
-    and bytes since the last take.  On CUDA the time is CUDA events
-    around the collectives on the current stream (read by `take`, after
-    the caller synchronised), on the CPU the host clock."""
+def _wire_device() -> torch.device:
+    """Where a collective moves a tensor: host memory under gloo (which
+    does no point-to-point or gather on CUDA tensors), the current card
+    under NCCL."""
+    if group_backend() == 'nccl':
+        return torch.device('cuda', torch.cuda.current_device())
+    return torch.device('cpu')
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    return t.to(_wire_device())
+
+
+def all_gather(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """[n, *tensor.shape]: every host's `tensor` of `group` (default:
+    every host) in rank order, on tensor's device (tensor[None] without
+    a group, or over a group of one host).  For small tensors: the batch
+    stripes and an MoE block's expert counts."""
+    if not torch.distributed.is_initialized() or group is SOLO:
+        return tensor[None]
+    src = _wire(tensor.contiguous())
+    out = [torch.empty_like(src) for _ in range(_size(group))]
+    torch.distributed.all_gather(out, src, group=group)
+    return torch.stack(out).to(tensor.device)
+
+
+class Transfer:
+    """Point-to-point sends and receives between hosts, each started at
+    once and waited for together (`wait`), with the bytes moved and the
+    seconds spent in them.  Under gloo a CUDA tensor is staged through
+    host memory (gloo sends host buffers only); under NCCL each
+    operation goes through `batch_isend_irecv`, so two hosts that send
+    to each other cannot both block in a send."""
 
     def __init__(self) -> None:
+        self._works: List[Any] = []
+        self._landings: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self._keep: List[torch.Tensor] = []
+        self.bytes = 0
+        self.seconds = 0.0
+
+    def _start(self, op, tensor: torch.Tensor, peer: int) -> None:
+        if group_backend() == 'nccl':
+            self._works += torch.distributed.batch_isend_irecv(
+                [torch.distributed.P2POp(op, tensor, peer)])
+        else:
+            self._works.append(op(tensor, peer))
+        self.bytes += tensor.numel() * tensor.element_size()
+
+    def send(self, tensor: torch.Tensor, dst: int) -> None:
+        """Start sending `tensor` to host `dst` (a CUDA tensor staged
+        through host memory waits for its stream first, outside the
+        transfer's seconds)."""
+        if tensor.device.type == 'cuda' and _wire_device() != tensor.device:
+            torch.cuda.current_stream(tensor.device).synchronize()
+        t0 = time.perf_counter()
+        wire = _wire(tensor.detach().contiguous())
+        self._keep.append(wire)
+        self._start(torch.distributed.isend, wire, dst)
+        self.seconds += time.perf_counter() - t0
+
+    def recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
+        """Start receiving a tensor of `like`'s shape and dtype from
+        host `src`; -> the tensor on like's device, filled by `wait`."""
+        t0 = time.perf_counter()
+        out = torch.empty_like(like)
+        dev = _wire_device()
+        wire = out if out.device == dev else torch.empty_like(out, device=dev)
+        self._start(torch.distributed.irecv, wire, src)
+        if wire is not out:
+            self._landings.append((wire, out))
+        self.seconds += time.perf_counter() - t0
+        return out
+
+    def wait(self) -> None:
+        """Wait for every operation started so far."""
+        t0 = time.perf_counter()
+        for work in self._works:
+            work.wait()
+        for wire, out in self._landings:
+            out.copy_(wire)
+        self._works, self._landings, self._keep = [], [], []
+        self.seconds += time.perf_counter() - t0
+
+
+# A group of one host: nothing to reduce or gather.
+SOLO = 'solo'
+
+
+class HostGroups:
+    """The two families of sub-groups of a gang laid out over a grid of
+    (data, pipeline) hosts (`Mesh.host_grid`; host h at divmod(h,
+    pipeline hosts)): the data group of each pipeline coordinate (the
+    hosts that hold the same stages) and the pipeline group of each
+    data coordinate.  Every host creates every group, in the same order
+    (`torch.distributed.new_group` needs every rank, members or not);
+    a family that spans every host is the default group (None), a group
+    of one host `SOLO`."""
+
+    def __init__(self, data_hosts: int, pipeline_hosts: int) -> None:
+        self.grid = (int(data_hosts), int(pipeline_hosts))
+        n = data_hosts * pipeline_hosts
+        if torch.distributed.is_initialized() and _size(None) != n:
+            raise ValueError(f'a grid of {data_hosts} x {pipeline_hosts} '
+                             f'hosts in a group of {_size(None)}')
+        self.data_ranks = [[d * pipeline_hosts + p for d in range(data_hosts)]
+                           for p in range(pipeline_hosts)]
+        self.pipeline_ranks = [[d * pipeline_hosts + p
+                                for p in range(pipeline_hosts)]
+                               for d in range(data_hosts)]
+        self._data = [self._group(r, n) for r in self.data_ranks]
+        self._pipeline = [self._group(r, n) for r in self.pipeline_ranks]
+
+    @staticmethod
+    def _group(ranks: List[int], n: int):
+        if len(ranks) == 1:
+            return SOLO
+        if len(ranks) == n or not torch.distributed.is_initialized():
+            return None
+        return torch.distributed.new_group(ranks)
+
+    def data(self, host: int):
+        """The data group of host `host` (the hosts at its stages)."""
+        return self._data[host % self.grid[1]]
+
+    def pipeline(self, host: int):
+        """The pipeline group of host `host` (its data coordinate)."""
+        return self._pipeline[host // self.grid[1]]
+
+
+_GROUPS: Dict[Tuple[int, int], HostGroups] = {}
+
+
+def host_groups(data_hosts: int, pipeline_hosts: int) -> HostGroups:
+    """The `HostGroups` of this grid, made once a process (every host
+    makes them at the same point: its first step on the grid)."""
+    key = (int(data_hosts), int(pipeline_hosts))
+    if key not in _GROUPS:
+        _GROUPS[key] = HostGroups(*key)
+    return _GROUPS[key]
+
+
+class HostReduction:
+    """The cross-host sums of a training step, with what they cost:
+    `models.train` calls it for the denominator, the loss and the
+    gradients (each block's owner copy, so the bytes do not grow with
+    the copies), over every host or over one of this host's sub-groups
+    of the (data, pipeline) host grid (`HostGroups`, made at the first
+    sum); `take()` gives the seconds and bytes since the last take,
+    summed over every group.  On CUDA the time is CUDA events around the
+    collectives on the current stream (read by `take`, after the caller
+    synchronised), on the CPU the host clock."""
+
+    def __init__(self, grid: Tuple[int, int], host: int) -> None:
+        self.grid = tuple(grid)
+        self.host = int(host)
         self._bytes = 0
         self._seconds = 0.0
         self._events: List[Tuple[Any, Any]] = []
 
-    def __call__(self, tensors: Sequence[torch.Tensor]) -> None:
+    @property
+    def groups(self) -> HostGroups:
+        return host_groups(*self.grid)
+
+    def group(self, over: str):
+        """The group of `over`: 'hosts' (every host), 'data' or
+        'pipeline' (this host's)."""
+        if over == 'hosts':
+            return None
+        return getattr(self.groups, over)(self.host)
+
+    def __call__(self, tensors: Sequence[torch.Tensor],
+                 over: str = 'hosts') -> None:
         tensors = list(tensors)
+        if not tensors:
+            return
+        group = self.group(over)
         dev = tensors[0].device
         if dev.type == 'cuda':
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record(torch.cuda.current_stream(dev))
-            self._bytes += all_reduce_sum_(tensors)
+            self._bytes += all_reduce_sum_(tensors, group)
             end.record(torch.cuda.current_stream(dev))
             self._events.append((start, end))
             return
         t0 = time.perf_counter()
-        self._bytes += all_reduce_sum_(tensors)
+        self._bytes += all_reduce_sum_(tensors, group)
         self._seconds += time.perf_counter() - t0
 
     def take(self) -> Tuple[float, int]:

@@ -22,18 +22,22 @@ modules move tensors between the entries themselves
 Across hosts (a gang: the `torch.distributed` group of
 parallel/distributed.py), `build_mesh` lays the axes out over every
 host's devices, host h holding the global positions [h n, (h + 1) n)
-of its n entries, as the reference lays them out over `jax.devices()`,
-and returns the host's own part: the same axes with 'data' divided by
-the number of hosts (`Mesh.hosts`, `Mesh.host_rank`,
-`Mesh.global_shape`).  Only 'data' spans hosts, over the group; the
-other axes lie inside one host, and a layout that puts one of them
-across hosts raises (ROADMAP item A17f-ii).
+of its n entries, row-major over (data, pipeline, fsdp, sequence,
+tensor, expert), as the reference lays them out over `jax.devices()`,
+and returns the host's own part: every ICI axis whole, and a block of
+the DCN axes' coordinates, either whole stages of some data
+coordinates ('data' cut by the hosts) or some consecutive stages of
+one data coordinate ('pipeline' cut as well).  `Mesh.hosts`,
+`Mesh.host_rank`, `Mesh.global_shape`, the host's `offsets` along
+'data' and 'pipeline' and `host_grid` (the hosts along each) say which
+part.  A layout that splits an ICI axis over hosts raises (ROADMAP
+item A17f-iii).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -167,10 +171,12 @@ class Mesh:
 
     def __init__(self, devices: Sequence[Union[str, torch.device]],
                  axes: Dict[str, int], *, hosts: int = 1,
-                 host_rank: int = 0) -> None:
+                 host_rank: int = 0,
+                 global_axes: Optional[Dict[str, int]] = None,
+                 offsets: Optional[Dict[str, int]] = None) -> None:
         self.axis_names = tuple(axes)
-        # The hosts whose meshes make up the global one ('data' times
-        # `hosts` there), and which of them this is.
+        # The hosts whose meshes make up the global one, and which of
+        # them this is.
         self.hosts = int(hosts)
         self.host_rank = int(host_rank)
         self.shape = {name: int(size) for name, size in axes.items()}
@@ -183,6 +189,17 @@ class Mesh:
                 f'mesh axes {self.shape} multiply to '
                 f'{math.prod(self.shape.values())}, but there are '
                 f'{len(self.devices)} devices')
+        if global_axes is None:
+            # 'data' alone spans the hosts.
+            global_axes = {name: size * (self.hosts if name == 'data' else 1)
+                           for name, size in self.shape.items()}
+        self._global = {name: int(global_axes.get(name, size))
+                        for name, size in self.shape.items()}
+        self.offsets = {axis: int((offsets or {}).get(axis, 0))
+                        for axis in DCN_AXES}
+        if math.prod(self._global.values()) != self.hosts * self.size:
+            raise ValueError(f'global axes {self._global} over {self.hosts} '
+                             f'hosts of {self.size} positions')
 
     @property
     def size(self) -> int:
@@ -190,9 +207,20 @@ class Mesh:
 
     @property
     def global_shape(self) -> Dict[str, int]:
-        """The axes over every host's devices ('data' spans hosts)."""
-        return {name: size * (self.hosts if name == 'data' else 1)
-                for name, size in self.shape.items()}
+        """The axes over every host's devices."""
+        return dict(self._global)
+
+    @property
+    def host_grid(self) -> Tuple[int, int]:
+        """(hosts along 'data', hosts along 'pipeline'): host h sits at
+        divmod(h, hosts along 'pipeline') of that grid."""
+        return tuple(self._global.get(a, 1) // self.shape.get(a, 1)
+                     for a in DCN_AXES)
+
+    @property
+    def global_stage(self) -> int:
+        """The global index of this host's first pipeline stage."""
+        return self.offsets['pipeline']
 
     def coords(self, position: int) -> Dict[str, int]:
         """{axis: index} of a mesh position (an index into devices)."""
@@ -235,26 +263,48 @@ def default_devices(device: Union[str, torch.device, None] = 'cuda'
     return [torch.device('cuda', i) for i in range(torch.cuda.device_count())]
 
 
-def _host_block(sizes: Dict[str, int], hosts: int) -> None:
-    """Refuse a global layout whose hosts do not each hold whole 'data'
-    ranks: hosts that split a data rank put another axis across hosts
-    (A17f-ii); a data size that is neither a multiple nor a divisor of
-    the host count cannot be cut into hosts at all."""
-    data = sizes['data']
-    if data % hosts == 0:
-        return
-    if hosts % data:
-        raise ValueError(f"global 'data' size {data} not divisible by the "
-                         f'{hosts} hosts: each host holds whole data ranks')
-    split, across = hosts // data, []
-    for axis in DCN_AXES[1:] + ICI_AXES:
-        if split > 1 and sizes[axis] > 1:
-            across.append(axis)
-            split //= math.gcd(split, sizes[axis])
-    raise NotImplementedError(
-        f'{hosts} hosts over the global mesh {sizes} put {across} across '
-        "hosts: only 'data' spans hosts; the pipeline and ICI axes across "
-        'hosts are ROADMAP item A17f-ii, a later slice of the port')
+def _host_block(sizes: Dict[str, int], hosts: int, host_rank: int
+                ) -> Tuple[Dict[str, int], Dict[str, int]]:
+    """-> (the host's axes, its offsets along 'data' and 'pipeline') of
+    the global layout `sizes` over `hosts` hosts.  Host h holds global
+    positions [h n, (h + 1) n): every ICI axis whole and k = n / ICI
+    consecutive (data, pipeline) coordinates, which must be whole
+    stages of k / pipeline data coordinates, or k consecutive stages of
+    one.  Hosts that split an ICI axis raise (A17f-iii); a DCN grid the
+    hosts do not divide into such blocks raises ValueError."""
+    data, stages = sizes['data'], sizes['pipeline']
+    dcn = data * stages
+    if dcn % hosts:
+        if hosts % dcn:
+            raise ValueError(
+                f"global 'data' x 'pipeline' size {dcn} ({data} x {stages}) "
+                f'not divisible by the {hosts} hosts: each host holds whole '
+                '(data, pipeline) coordinates')
+        split, across = hosts // dcn, []
+        for axis in ICI_AXES:
+            if split > 1 and sizes[axis] > 1:
+                across.append(axis)
+                split //= math.gcd(split, sizes[axis])
+        raise NotImplementedError(
+            f'{hosts} hosts over the global mesh {sizes} put {across} across '
+            "hosts: only 'data' and 'pipeline' span hosts; an ICI axis "
+            'across hosts is ROADMAP item A17f-iii, a later slice of the '
+            'port')
+    k = dcn // hosts
+    local = dict(sizes)
+    if k % stages == 0:
+        local['data'] = k // stages
+        offsets = {'data': host_rank * local['data'], 'pipeline': 0}
+    elif stages % k == 0:
+        local['data'], local['pipeline'] = 1, k
+        d, p = divmod(host_rank * k, stages)
+        offsets = {'data': d, 'pipeline': p}
+    else:
+        raise ValueError(
+            f'{hosts} hosts of {k} (data, pipeline) coordinates each over '
+            f"{data} x {stages}: a host holds whole stages of some data "
+            'coordinates or consecutive stages of one')
+    return local, offsets
 
 
 def build_mesh(config: Optional[MeshConfig] = None,
@@ -293,7 +343,8 @@ def build_mesh(config: Optional[MeshConfig] = None,
         dcn_sizes = all_sizes[:len(DCN_AXES)]
         ici_sizes = all_sizes[len(DCN_AXES):]
     axes = dict(zip(DCN_AXES + ICI_AXES, dcn_sizes + ici_sizes))
-    if hosts > 1:
-        _host_block(axes, hosts)
-        axes['data'] //= hosts
-    return Mesh(devices, axes, hosts=hosts, host_rank=host_rank)
+    if hosts <= 1:
+        return Mesh(devices, axes)
+    local, offsets = _host_block(axes, hosts, host_rank)
+    return Mesh(devices, local, hosts=hosts, host_rank=host_rank,
+                global_axes=axes, offsets=offsets)

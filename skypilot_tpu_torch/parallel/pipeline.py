@@ -42,6 +42,18 @@ every stage's, the last stage's included.
   two stages' copies, which the step's copy sum forms
   (`ShardedParams.sum_copy_grads`).
 
+Across hosts (a mesh whose 'pipeline' axis spans hosts, parallel/
+mesh.py) each host runs the ticks of its own stages.  At a boundary
+between hosts the stage's output is sent to the next host in tick
+order (`distributed.Transfer`), where it is received into a leaf that
+requires grad (`HostLink`, which a training step opens around its
+forward and backward).  The backward is driven host by host, and no
+collective runs inside autograd: the last host runs its backward,
+sends each received leaf's gradient back, and the host before it runs
+`torch.autograd.backward` on what it sent with those gradients, and so
+on down to stage 0.  Inside a host the hops between its own stages and
+its one backward over them are the ones above.
+
 Correctness contract (tests/test_torch_pipeline.py): the pipelined
 loss and gradients equal the reference's `pipeline_loss_fn` on the same
 parameters, on pipeline, pipeline x data / fsdp / tensor / sequence
@@ -49,6 +61,7 @@ meshes, and a `pipeline_train_step` equals the reference's step.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -59,6 +72,7 @@ from torch.utils import checkpoint as torch_checkpoint
 
 from skypilot_tpu_torch.models import train
 from skypilot_tpu_torch.models import transformer
+from skypilot_tpu_torch.parallel import distributed
 from skypilot_tpu_torch.parallel import sharding
 
 
@@ -123,9 +137,9 @@ def stage_param_shardings(cfg, mesh, n_stages: int
     its stage's positions ('pipeline' = i // (L / S)), split within
     the stage by its logical axes; the embedding, final norm and head
     replicated over 'pipeline' (`transformer.placements`)."""
-    if n_stages != mesh.shape.get('pipeline', 1):
+    if n_stages != transformer.global_stages(mesh):
         raise ValueError(f'n_stages={n_stages} != pipeline axis size '
-                         f'{mesh.shape.get("pipeline", 1)}')
+                         f'{transformer.global_stages(mesh)}')
     return transformer.placements(
         transformer.Transformer(cfg, device='meta', trainable=True), mesh)
 
@@ -141,8 +155,8 @@ def pipeline_param_shardings(model, mesh) -> Dict[str, sharding.Placement]:
         if name.startswith('layers.'):
             stage = transformer.layer_stage(cfg, mesh,
                                             int(name.split('.')[1]))
-            out[name] = sharding.Placement(mesh, (), at=(('pipeline',
-                                                          stage),))
+            out[name] = sharding.Placement(
+                mesh, (), at=(('pipeline', stage - mesh.global_stage),))
         else:
             out[name] = sharding.replicated(mesh)
     return out
@@ -168,42 +182,157 @@ def microbatch_rows(x: torch.Tensor, n_ranks: int,
 
 
 def _stage(model, shards, geo, layers: Sequence[int], b: int, chunk: int,
-           devs, *xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+           devs, *xs: torch.Tensor, microbatch: int = 0
+           ) -> Tuple[torch.Tensor, ...]:
     """One stage's layers over one microbatch's rows (the reference's
     stage_fn)."""
     for index in layers:
         xs = transformer._mesh_layer(model, shards, geo, index, b, chunk,  # pylint: disable=protected-access
-                                     devs, *xs, seq_local=True)
+                                     devs, *xs, seq_local=True,
+                                     microbatch=microbatch)
     return xs
 
 
+class HostLink:
+    """A training step's pipeline boundaries between hosts (module
+    docstring): this host's outputs sent to the next host and the
+    leaves received from the one before, one a microbatch (every
+    (batch, sequence) rank's rows packed into one tensor); the bytes
+    moved and the seconds spent go to `BOUNDARY`."""
+
+    def __init__(self, mesh) -> None:
+        n_stages = transformer.global_stages(mesh)
+        last = mesh.global_stage + mesh.shape.get('pipeline', 1)
+        self.prev = mesh.host_rank - 1 if mesh.global_stage > 0 else None
+        self.next = mesh.host_rank + 1 if last < n_stages else None
+        self.sent: List[torch.Tensor] = []
+        self.received: List[torch.Tensor] = []
+        self._sends = distributed.Transfer()
+
+    @staticmethod
+    def _account(transfer: distributed.Transfer) -> None:
+        BOUNDARY['bytes'] += transfer.bytes
+        BOUNDARY['seconds'] += transfer.seconds
+        transfer.bytes, transfer.seconds = 0, 0.0
+
+    def receive(self, like: torch.Tensor) -> torch.Tensor:
+        """The next microbatch's rows from the host before (a leaf that
+        requires grad, of `like`'s shape, dtype and device)."""
+        transfer = distributed.Transfer()
+        out = transfer.recv(like, self.prev)
+        transfer.wait()
+        self._account(transfer)
+        self.received.append(out.requires_grad_())
+        return out
+
+    def send(self, rows: torch.Tensor) -> None:
+        """Start sending a microbatch's rows to the next host."""
+        self._sends.send(rows, self.next)
+        self.sent.append(rows)
+
+    def finish_forward(self) -> None:
+        self._sends.wait()
+        self._account(self._sends)
+
+    def backward(self, objective: Optional[torch.Tensor]) -> None:
+        """The host-driven backward: `objective`'s backward where this
+        host holds the last stage, else the sent outputs' with the
+        gradients the next host sends back; then the received leaves'
+        gradients to the host before."""
+        if self.next is None:
+            objective.backward()
+        else:
+            transfer = distributed.Transfer()
+            grads = [transfer.recv(out, self.next) for out in self.sent]
+            transfer.wait()
+            self._account(transfer)
+            torch.autograd.backward(self.sent, grads)
+        if self.prev is not None:
+            transfer = distributed.Transfer()
+            for leaf in self.received:
+                transfer.send(leaf.grad, self.prev)
+            transfer.wait()
+            self._account(transfer)
+        self.sent, self.received = [], []
+
+
+_LINK: Optional[HostLink] = None
+# Every HostLink's bytes sent and received and seconds spent in its
+# transfers (waits for the other host included), since `take_boundary`.
+BOUNDARY = {'bytes': 0, 'seconds': 0.0}
+
+
+def take_boundary() -> Tuple[float, int]:
+    """(seconds, bytes) of the pipeline's host boundaries since the last
+    take."""
+    out = (BOUNDARY['seconds'], BOUNDARY['bytes'])
+    BOUNDARY.update(bytes=0, seconds=0.0)
+    return out
+
+
+@contextlib.contextmanager
+def host_link(mesh):
+    """A `HostLink` for a step's forward and backward over `mesh` where
+    its pipeline spans hosts (None where it does not)."""
+    global _LINK  # pylint: disable=global-statement
+    spans = transformer.global_stages(mesh) > mesh.shape.get('pipeline', 1)
+    before, _LINK = _LINK, (HostLink(mesh) if spans else None)
+    try:
+        yield _LINK
+    finally:
+        _LINK = before
+
+
 def gpipe(model, shards, geo: transformer.MeshGeometry, b: int, chunk: int,
-          num_microbatches: int, xs: Sequence[torch.Tensor]
-          ) -> List[torch.Tensor]:
+          num_microbatches: int, xs: Optional[Sequence[torch.Tensor]]
+          ) -> Optional[List[torch.Tensor]]:
     """The GPipe schedule (module docstring): xs[g] [b * chunk, d],
     each (batch, sequence) rank's embedded rows on stage 0's devices ->
-    the same rows after every layer, on the last stage's devices."""
+    the same rows after every layer, on the last stage's devices.
+    Across hosts this host runs its own stages: xs is None where stage
+    0 is another host's, and None is returned where the last is."""
     cfg = model.cfg
-    m_count, n_stages = num_microbatches, geo.pp
+    mesh = shards.mesh
+    m_count, n_stages = num_microbatches, transformer.global_stages(mesh)
+    first, local = mesh.global_stage, geo.pp
+    link = _LINK
+    if local < n_stages and link is None:
+        raise RuntimeError('a pipeline across hosts runs inside a training '
+                           'step (pipeline.host_link over its mesh)')
     if b % m_count:
         raise ValueError(f'{b} rows a batch rank not divisible by '
                          f'num_microbatches {m_count}')
     q = b // m_count
     per = cfg.n_layers // n_stages
-    stages = [geo.stage(p) for p in range(n_stages)]
-    devs = [transformer.row_devices(shards.mesh, s.ranks) for s in stages]
-    acts = [list(rows) for rows in zip(*(x.split(q * chunk) for x in xs))]
+    stages = [geo.stage(p) for p in range(local)]
+    devs = [transformer.row_devices(mesh, s.ranks) for s in stages]
+    if xs is not None:
+        acts: List[Any] = [list(rows) for rows in zip(
+            *(x.split(q * chunk) for x in xs))]
+    else:       # received from the host before, every rank's rows packed
+        acts = [None] * m_count
+        like = torch.empty((len(devs[0]) * q * chunk, cfg.d_model),
+                           dtype=cfg.dtype, device=devs[0][0][0])
     for tick in range(m_count + n_stages - 1):
-        for p in range(max(0, tick - m_count + 1), min(n_stages, tick + 1)):
-            m = tick - p
+        for p in range(max(first, tick - m_count + 1),
+                       min(first + local, tick + 1)):
+            m, lp = tick - p, p - first
+            if acts[m] is None:
+                acts[m] = link.receive(like).split(q * chunk)
             ins = [x.to(row[0], non_blocking=True)
-                   for x, row in zip(acts[m], devs[p])]
-            fn = functools.partial(_stage, model, shards, stages[p],
+                   for x, row in zip(acts[m], devs[lp])]
+            fn = functools.partial(_stage, model, shards, stages[lp],
                                    range(p * per, (p + 1) * per), q, chunk,
-                                   devs[p])
+                                   devs[lp], microbatch=m)
             acts[m] = (torch_checkpoint.checkpoint(fn, *ins,
                                                    use_reentrant=True)
                        if cfg.remat else fn(*ins))
+            if lp == local - 1 and link is not None and link.next is not None:
+                link.send(torch.cat([x.to(acts[m][0].device)
+                                     for x in acts[m]]))
+    if link is not None and link.next is not None:
+        link.finish_forward()
+        return None
     return [torch.cat(rows) if len(rows) > 1 else rows[0]
             for rows in zip(*acts)]
 

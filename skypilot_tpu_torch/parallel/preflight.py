@@ -11,10 +11,11 @@ the bus bandwidth, with the reference's formula 2 (n - 1) / n x payload
 sync.  `check_collectives` turns the numbers into pass/fail against the
 reference's loose floors (a broken link is orders of magnitude off).
 
-Across hosts (`mesh.hosts` > 1) the 'data' axis is the global one: its
-sum adds each host's data positions in-process, then the sums of the
-hosts through their process group (parallel/distributed.py), and its
-`size` is the global size.
+Across hosts (`mesh.hosts` > 1) the 'data' and 'pipeline' axes are
+the global ones: a sum adds each host's positions along the axis
+in-process, then the sums of the hosts of this host's data or
+pipeline group (parallel/distributed.py), and its `size` is the global
+size.
 
 On a list that repeats one device (several positions of one card), the
 moves are copies within that device's memory, not a fabric: the log
@@ -60,18 +61,17 @@ def _sync(devices) -> None:
             torch.cuda.synchronize(dev)
 
 
-def _all_reduce(mesh, groups, buffers, across_hosts: bool = False) -> float:
-    """Sum each group's buffers (and, across_hosts, the hosts' sums)
-    and write the sum back to each; -> a scalar read from the result
-    (the host waits for the device)."""
+def _all_reduce(mesh, groups, buffers, hosts=distributed.SOLO) -> float:
+    """Sum each group's buffers (and the sums of the `hosts` group of
+    hosts, none by default) and write the sum back to each; -> a scalar
+    read from the result (the host waits for the device)."""
     check = 0.0
     for group in groups:
         first = mesh.devices[group[0]]
         total = buffers[group[0]].clone()
         for pos in group[1:]:
             total += buffers[pos].to(first, non_blocking=True)
-        if across_hosts:
-            distributed.all_reduce_sum_([total])
+        distributed.all_reduce_sum_([total], hosts)
         for pos in group:
             buffers[pos].copy_(total, non_blocking=True)
         check += float(buffers[group[-1]][:8].sum())
@@ -107,13 +107,16 @@ def _probe(mesh, bandwidth_mb: float,
     for axis in [a for a in mesh.axis_names if mesh.global_shape[a] > 1]:
         n = mesh.global_shape[axis]
         across = n > mesh.shape[axis]
+        # Across hosts: this host's data or pipeline group of hosts.
+        hosts = (getattr(distributed.host_groups(*mesh.host_grid), axis)(
+            mesh.host_rank) if across else distributed.SOLO)
         groups = _groups(mesh, axis)
         elems = max(8, int(bandwidth_mb * 1e6 / 4))
         tiny = [torch.ones(8, device=d) for d in mesh.devices]
         big = [torch.ones(elems, device=d) for d in mesh.devices]
         # Warm up outside the timed region.
-        _all_reduce(mesh, groups, tiny, across)
-        _all_reduce(mesh, groups, big, across)
+        _all_reduce(mesh, groups, tiny, hosts)
+        _all_reduce(mesh, groups, big, hosts)
 
         def timed(buffers) -> List[float]:
             out = []
@@ -122,7 +125,7 @@ def _probe(mesh, bandwidth_mb: float,
                     b.fill_(1.0)
                 _sync(mesh.distinct_devices())
                 t0 = time.perf_counter()
-                _all_reduce(mesh, groups, buffers, across)
+                _all_reduce(mesh, groups, buffers, hosts)
                 out.append(time.perf_counter() - t0)
             return out
         lat, bw = timed(tiny), timed(big)

@@ -34,12 +34,18 @@
   `--dist-backend`, default nccl on cards and gloo on the CPU; gloo
   on cards only when named, as two hosts on one card need), and the
   mesh is laid out over every host's devices with 'data' across the
-  hosts: each host keeps its own part (the other axes inside it), takes
-  its rows of the global batch of `--batch-size` x hosts, and the
+  hosts: each host keeps its own part (the other axes inside it),
+  passes its rows of the global batch of `--batch-size` x hosts, which
+  the step all-gathers to take the reference's microbatches, and the
   hosts sum each step's loss and gradients through the group, so
-  every host steps the same bits.  'pipeline' or an ICI axis across
-  hosts, and an MoE model on several hosts, raise (A17f-ii).  Host 0
-  alone writes checkpoints; every host resumes from host 0's step.
+  every host steps the same bits.  An MoE model trains on several
+  hosts with the reference's capacity dispatch over the global batch
+  (each block's expert counts exchanged between the hosts).  The
+  library's meshes also put 'pipeline' across hosts
+  (models/train.py, parallel/pipeline.py); this command has no
+  pipeline flag, as the reference's example has none.  An ICI axis
+  across hosts raises (A17f-iii).  Host 0 alone writes checkpoints;
+  every host resumes from host 0's step.
 
 - `--model auto` reads the shape from `--init-from`'s model_config.json
   (models/import_weights.py writes it).

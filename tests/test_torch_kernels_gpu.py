@@ -1133,6 +1133,81 @@ def test_two_hosts_on_four_cards_match_one_process(cuda, tmp_path,
         _hold_hosts(hosts, losses, positions=2)
 
 
+def test_pipeline_hosts_over_nccl_match_one_process(cuda, tmp_path):
+    """Pipeline 2 across two hosts over NCCL, a card a host
+    (`profile_pipeline` as a gang: each host runs its stage and sends
+    the boundary to the other), against one process's pipeline 2 over
+    the same two cards on the same global batch and seed: step-1 loss
+    within rtol 1e-5, step 2 within 1e-2, equal digests, each host's
+    launches its stage's share (2 L_h M / L_h M / L_h M a step)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from skypilot_tpu_torch import profile_pipeline
+    from skypilot_tpu_torch.parallel import pipeline
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    del cuda
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two NVIDIA GPUs: NCCL takes one card a rank')
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = []
+    try:
+        for rank in range(2):
+            env = {**os.environ, 'PYTHONPATH': repo,
+                   'SKYTPU_NUM_HOSTS': '2', 'SKYTPU_HOST_RANK': str(rank),
+                   'SKYTPU_COORDINATOR_ADDRESS': f'127.0.0.1:{port}'}
+            with open(tmp_path / f'host{rank}.log', 'w',
+                      encoding='utf-8') as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, '-m',
+                     'skypilot_tpu_torch.profile_pipeline', '--devices',
+                     f'cuda:{rank}', '--model', 'small', '--layers', '2',
+                     '--batch', '2', '--seq', '256', '--microbatches', '2',
+                     '--steps', '1', '--dist-backend', 'nccl'],
+                    env=env, stdout=out, stderr=subprocess.STDOUT))
+        for proc in procs:
+            proc.wait(timeout=300)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    hosts = []
+    for rank, proc in enumerate(procs):
+        text = (tmp_path / f'host{rank}.log').read_text()
+        assert proc.returncode == 0, text[-3000:]
+        hosts.append(json.loads([l for l in text.splitlines()
+                                 if l.startswith('{"host"')][0]))
+    cfg = configs.get_config('small', n_layers=2, remat=True)
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(data=1, pipeline=2),
+                               ['cuda:0', 'cuda:1'])
+    state, _ = pipeline.create_pipeline_train_state(
+        cfg, mesh=mesh, batch_size=2, seq_len=256, seed=0)
+    step = pipeline.pipeline_train_step(cfg, mesh, 2)
+    batch = {'tokens': profile_pipeline.batch_tokens(cfg.vocab_size, 2,
+                                                     256)}
+    losses = []
+    for _ in range(2):
+        state, m = step(state, batch)
+        losses.append(float(m['loss']))
+    del state
+    torch.cuda.empty_cache()
+    for h in hosts:
+        run = h['pipeline']['2']
+        assert h['backend'] == 'nccl'
+        assert run['losses'][0] == pytest.approx(losses[0], rel=1e-5)
+        assert run['losses'][1] == pytest.approx(losses[1], rel=1e-2)
+        # One layer a stage, M = 2, two steps, remat.
+        assert run['launches'] == {'flash_fwd': 8, 'flash_bwd_dq': 4,
+                                   'flash_bwd_dkv': 4}
+        assert run['boundary_bytes'] > 0 and run['reduce_bytes'] > 0
+    assert hosts[0]['digest'] == hosts[1]['digest']
+
+
 def test_elastic_shrink_expand_on_cards(cuda, tmp_path):
     """An ElasticTrainer with data 2 (fsdp inferred) over cuda:0-3
     (data 2 x fsdp 2) takes steps 0-3 saving every 2, shrinks to

@@ -24,9 +24,10 @@ the reference `examples/train_llama.py`'s losses over the global batch
 in a two-host run resumes in two new hosts with the losses and the
 digest of an uninterrupted run.  `sky.launch` of a 2-node task on the
 local cloud trains with the port (the twin of
-tests/unit/test_gang_distributed_e2e.py).  A layout that puts an axis
-other than 'data' across hosts, and an MoE model on hosts, raise
-naming A17f-ii.
+tests/unit/test_gang_distributed_e2e.py).  A layout that puts an ICI
+axis across hosts raises naming A17f-iii; 'pipeline' across hosts
+(tests/test_torch_multihost_pipeline.py) and an MoE model on hosts
+(tests/test_torch_multihost_moe.py) build.
 
 Every host process runs under a timeout of its own and is killed when
 a test fails; one pair of hosts runs the reference cases in turn
@@ -375,40 +376,49 @@ def test_copies_across_hosts_reduce_the_one_copy_bytes(case_runs):
 # ------------------------------------------------------------- layouts
 
 
-@pytest.mark.parametrize('axes,local,slices,want', [
-    (dict(data=-1), 1, 1, dict(data=1)),
-    (dict(data=-1, fsdp=2), 4, 1, dict(data=2, fsdp=2)),
+@pytest.mark.parametrize('axes,local,slices,want,hosts', [
+    (dict(data=-1), 1, 1, dict(data=1), HOSTS),
+    (dict(data=-1, fsdp=2), 4, 1, dict(data=2, fsdp=2), HOSTS),
     (dict(data=-1, sequence=2, tensor=2), 4, 1, dict(data=1, sequence=2,
-                                                   tensor=2)),
-    (dict(data=-1, pipeline=2), 2, 1, dict(data=1, pipeline=2)),
-    (dict(data=-1, fsdp=2), 2, 2, dict(data=1, fsdp=2)),
-    (dict(data=-1, fsdp=2), 4, 4, dict(data=2, fsdp=2)),
+                                                   tensor=2), HOSTS),
+    (dict(data=-1, pipeline=2), 2, 1, dict(data=1, pipeline=2), HOSTS),
+    (dict(data=-1, fsdp=2), 2, 2, dict(data=1, fsdp=2), HOSTS),
+    (dict(data=-1, fsdp=2), 4, 4, dict(data=2, fsdp=2), HOSTS),
+    # 'pipeline' across hosts: a stage a host, two stages a host, and
+    # data 2 x pipeline 2 over four hosts.
+    (dict(data=1, pipeline=2), 1, 1, dict(data=1, pipeline=1), HOSTS),
+    (dict(data=1, pipeline=4), 2, 1, dict(data=1, pipeline=2), HOSTS),
+    (dict(data=2, pipeline=2), 1, 1, dict(data=1, pipeline=1), 4),
 ])
-def test_a_host_keeps_its_part_of_the_global_mesh(axes, local, slices, want):
+def test_a_host_keeps_its_part_of_the_global_mesh(axes, local, slices, want,
+                                                  hosts):
     """The global sizes are the reference's over hosts x local devices
-    (its slices made of whole hosts); each host keeps 'data' / hosts
-    and every other axis whole."""
-    n = HOSTS * local
+    (its slices made of whole hosts); each host keeps every ICI axis
+    whole and its block of the DCN axes: 'data' / hosts, or over a
+    pipeline across hosts its stages of one data coordinate."""
+    n = hosts * local
     jmesh = jax_mesh.build_mesh(jax_mesh.MeshConfig(**axes),
                                 devices=jax.devices()[:n], num_slices=slices)
-    for rank in range(HOSTS):
+    for rank in range(hosts):
         mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(**axes),
                                    ['cpu'] * local, num_slices=slices,
-                                   hosts=HOSTS, host_rank=rank)
+                                   hosts=hosts, host_rank=rank)
         assert mesh.global_shape == dict(jmesh.shape)
         assert {k: v for k, v in mesh.shape.items() if v > 1} == {
             k: v for k, v in want.items() if v > 1}
-        assert (mesh.hosts, mesh.host_rank, mesh.size) == (HOSTS, rank,
+        assert (mesh.hosts, mesh.host_rank, mesh.size) == (hosts, rank,
                                                            local)
 
 
 @pytest.mark.parametrize('axes,local,across', [
     (dict(data=-1, sequence=2), 1, 'sequence'),
-    (dict(data=1, pipeline=2), 1, 'pipeline'),
+    (dict(data=1, tensor=2), 1, 'tensor'),
     (dict(data=1, fsdp=2, tensor=2), 2, 'fsdp'),
 ])
 def test_an_axis_across_hosts_names_a17f_ii(axes, local, across):
-    with pytest.raises(NotImplementedError, match='A17f-ii') as err:
+    """An ICI axis across hosts is the queue's next item: the raise
+    names A17f-iii and the axis."""
+    with pytest.raises(NotImplementedError, match='A17f-iii') as err:
         mesh_lib.build_mesh(mesh_lib.MeshConfig(**axes), ['cpu'] * local,
                             hosts=HOSTS, host_rank=0)
     assert repr(across) in str(err.value)
@@ -421,13 +431,22 @@ def test_global_data_the_hosts_do_not_divide_raises():
 
 
 def test_moe_on_hosts_names_a17f_ii():
+    """An MoE model builds its state on a host of a gang, materialised
+    and abstract, with the host's cross-host sums."""
     cfg = configs.get_config('tiny-moe')
     mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(), ['cpu'], hosts=HOSTS,
                                host_rank=1)
-    with pytest.raises(NotImplementedError, match='A17f-ii'):
-        train.create_train_state(cfg, mesh=mesh)
-    with pytest.raises(NotImplementedError, match='A17f-ii'):
-        train.abstract_train_state(cfg, mesh=mesh)
+    state, _ = train.create_train_state(cfg, mesh=mesh)
+    assert state.host_reduce is not None and state.shards is None
+    assert state.host_reduce.grid == (HOSTS, 1)
+    assert sum(p.numel() for p in state.model.parameters()) == sum(
+        p.numel() for p in train.create_train_state(
+            cfg, device='cpu')[0].model.parameters())
+    abstract, shardings = train.abstract_train_state(cfg, mesh=mesh)
+    assert abstract.host_reduce is not None
+    assert all(t.device.type == 'meta' for t in abstract.parameters())
+    assert set(shardings) == {n for n, _ in
+                              abstract.model.named_parameters()}
 
 
 def test_buckets_cover_every_element_once_in_order():
